@@ -1,94 +1,63 @@
-// Ragged paged attention for Hopper (sm_90a), hand-written CUDA C++.
+// Ragged paged attention for Hopper (sm_90a), hand-written CUDA C++:
+// the mixed-shape kernel for float32 pools.
 //
 // Replaces the Pallas TPU kernel `_ragged_kernel`
-// (dynamo_exp_tpu/ops/ragged_attention.py:123, launched at :345) and
-// computes what it computes: causal GQA attention of a flat query
-// stream q[N, H, D] against a paged KV pool [P, ps, Hkv*D]. A token at
-// position p attends to its row's kv positions <= p; online softmax
-// with float32 accumulators; a fully empty tile (every position -1)
-// writes exact zeros. Padding slots inside a live tile write zeros too
-// (the TPU kernel leaves them unspecified; callers ignore them).
+// (dynamo_exp_tpu/ops/ragged_attention.py:123, launched at :345) for
+// `ragged_paged_attention` with float32 pools, and computes what it
+// computes: causal GQA attention of a flat query stream q[N, H, D]
+// against a paged KV pool [P, ps, Hkv*D]. A token at position p attends
+// to its row's kv positions <= p; online softmax with float32
+// accumulators; a fully empty tile (every position -1) writes exact
+// zeros. Padding slots inside a live tile write zeros too (the TPU
+// kernel leaves them unspecified; callers ignore them). bf16 pools go
+// to the tensor-core kernel (ragged_mixed_tc.cu) and the decode shape
+// to the split-KV kernel (ragged_decode_split.cu). Float32 pools are
+// the configurations the CPU tests compare exactly; the main path never
+// runs them on the card, and TF32 tensor cores would not hold their
+// 1e-4 tolerance, so this kernel stays on CUDA cores.
 //
-// Design (not the TPU's blocks carried over):
+// Design:
 // - One block per (query tile, kv head); grid = (N / q_tile, Hkv). The
 //   block reads its own row (row_of[first token]) and kv bound (max
 //   position in the tile + 1): no scalar prefetch.
 // - The block keeps the qpk*q_tile query rows of its kv head in
-//   (group, query) order in shared memory as float32, and walks the
-//   row's live pages in chunks of 32 tokens staged in shared memory,
-//   each thread issuing all of its 16-byte K/V loads for a chunk before
-//   using any (the pools must be 16-byte aligned). Page indices past
-//   the table are clamped and their tokens masked, as the TPU kernel
-//   does.
+//   (group, query) order in shared memory, and walks the row's live
+//   pages in chunks of 32 tokens staged in shared memory, each thread
+//   issuing all of its 16-byte K/V loads for a chunk before using any
+//   (the pools must be 16-byte aligned). Page indices past the table
+//   are clamped and their tokens masked, as the TPU kernel does.
 // - Each warp owns rows (warp, warp+4, ...). For a chunk, lane j scores
-//   token j of the chunk (the full D-long dot product, K padded to
-//   D+1 floats a row so the 32 lanes hit 32 banks), the warp reduces
-//   the chunk max and sum, and the PV product broadcasts each lane's
+//   token j of the chunk (the full D-long dot product, K padded to D+1
+//   floats a row so the 32 lanes hit 32 banks), the warp reduces the
+//   chunk max and sum, and the PV product broadcasts each lane's
 //   probability with a shuffle while every lane accumulates D/32
 //   output dims in registers.
 //
 // Numerics follow the TPU kernel, not the plain reference: q and k are
-// taken to float32 for QK (the reference rounds q to the pool dtype
-// first), and the unnormalised probabilities are rounded to the pool
-// dtype before PV, with the softmax sum kept from the unrounded ones.
+// taken to float32 for QK, and the unnormalised probabilities are
+// rounded to the pool dtype before PV (a no-op here), with the softmax
+// sum kept from the unrounded ones.
 //
-// What bounds it on this card: the bytes of K/V it reads. A row's
-// context is Hkv*D*2 values a token; every query tile of the row reads
-// it again (from L2 when it is warm). Staging a chunk once per block
-// lets all qpk*q_tile queries of a kv head (32 at q_tile=8 for
-// llama-8b) reuse each K/V element from shared memory, which is what
-// keeps the mixed shape from reading K/V once per query head. What
-// this first version does not do (later work): split-KV for decode
-// (the decode grid is only rows*Hkv blocks), cp.async/TMA double
-// buffering of the chunks, and tensor-core (wgmma) products.
+// What bounds it on this card: the operations, run in float32 on CUDA
+// cores (67 TFLOP/s peak). Each K/V element staged in shared memory
+// serves all qpk*q_tile query rows of its kv head.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3; bound with
+// ctypes (plain C interface below).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using dx::from_f32;
+using dx::to_f32;
+using dx::warp_max;
+using dx::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 32;  // kv tokens per staged chunk: one per lane
 constexpr int kMaxQTile = 8;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Stage kv tokens [c0, c0 + kChunk) of kv head `kvh` into shared
 // memory as float32 (zeros past kvlen). Each thread issues all of its
@@ -284,14 +253,13 @@ cudaError_t by_rows(int rpw, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
-// Shapes are checked by the Python wrapper; this re-checks only what
-// would index out of the instantiations.
+// Float32 pools only. Shapes are checked by the Python wrapper; this
+// re-checks only what would index out of the instantiations.
 extern "C" int dx_ragged_attention(const void* q, const void* k, const void* v,
                                    const void* page_table, const void* row_of,
                                    const void* positions, void* out,
                                    int n_tokens, int H, int Hkv, int D, int ps,
-                                   int pmax, int q_tile, float scale,
-                                   int is_bf16, void* stream) {
+                                   int pmax, int q_tile, float scale, void* stream) {
   if (q_tile < 1 || q_tile > kMaxQTile || n_tokens % q_tile != 0 ||
       Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
@@ -299,21 +267,10 @@ extern "C" int dx_ragged_attention(const void* q, const void* k, const void* v,
   const int n_tiles = n_tokens / q_tile;
   const int rpw = ((H / Hkv) * q_tile + kWarps - 1) / kWarps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    err = D == 64 ? by_rows<__nv_bfloat16, 64>(rpw, q, k, v, page_table, row_of,
-                                               positions, out, n_tiles, H, Hkv,
-                                               ps, pmax, q_tile, scale, s)
-                  : by_rows<__nv_bfloat16, 128>(rpw, q, k, v, page_table,
-                                                row_of, positions, out, n_tiles,
-                                                H, Hkv, ps, pmax, q_tile, scale, s);
-  } else {
-    err = D == 64 ? by_rows<float, 64>(rpw, q, k, v, page_table, row_of,
-                                       positions, out, n_tiles, H, Hkv, ps,
-                                       pmax, q_tile, scale, s)
-                  : by_rows<float, 128>(rpw, q, k, v, page_table, row_of,
-                                        positions, out, n_tiles, H, Hkv, ps,
-                                        pmax, q_tile, scale, s);
-  }
+  cudaError_t err =
+      D == 64 ? by_rows<float, 64>(rpw, q, k, v, page_table, row_of, positions, out,
+                                   n_tiles, H, Hkv, ps, pmax, q_tile, scale, s)
+              : by_rows<float, 128>(rpw, q, k, v, page_table, row_of, positions, out,
+                                    n_tiles, H, Hkv, ps, pmax, q_tile, scale, s);
   return (int)err;
 }

@@ -1,4 +1,4 @@
-"""Ragged paged attention: one kernel for mixed prefill + decode.
+"""Ragged paged attention: mixed prefill + decode, and pure decode.
 
 Counterpart of ``dynamo_exp_tpu/ops/ragged_attention.py``. Queries come
 as a flat token stream ``q[N, H, D]`` with per-token ``positions[N]``
@@ -10,11 +10,15 @@ its row's kv positions ``<= p``.
 - :func:`ragged_paged_attention_ref` is the plain PyTorch version: each
   flat token becomes a T=1 row of :func:`ops.attention.paged_attention`.
 - :func:`ragged_paged_attention` and :func:`ragged_decode_attention`
-  are the kernel wrappers. On a CUDA tensor they launch the hand-written
-  Hopper kernel in ``csrc/ragged_attention.cu`` (built with ``nvcc`` for
-  ``sm_90a`` into ``_build/`` at first use, loaded with ``ctypes``) or
-  raise; on a CPU tensor they compute the plain version. There is no
-  fallback from one to the other.
+  are the kernel wrappers. On a CUDA tensor they launch a hand-written
+  Hopper kernel from ``csrc/`` (all sources built with ``nvcc`` for
+  ``sm_90a`` into one library in ``_build/`` at first use, loaded with
+  ``ctypes``) or raise; on a CPU tensor they compute the plain version.
+  There is no fallback from one to the other. The kernel is chosen by
+  the pool dtype: the mixed shape runs the tensor-core kernel
+  (``ragged_mixed_tc.cu``) on bf16 pools and the CUDA-core kernel
+  (``ragged_attention.cu``) on float32 pools; the decode shape runs the
+  split-KV pair (``ragged_decode_split.cu``) on both.
 
 Every padding token (position -1) comes back as zeros from both
 versions: the kernel writes zeros for a query with nothing to attend,
@@ -35,30 +39,43 @@ import torch
 from .attention import paged_attention
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG, "csrc", "ragged_attention.cu")
+_CSRC = os.path.join(_PKG, "csrc")
+KERNEL_SOURCES = tuple(
+    os.path.join(_CSRC, f)
+    for f in ("ragged_attention.cu", "ragged_decode_split.cu", "ragged_mixed_tc.cu")
+)
+_HEADERS = (os.path.join(_CSRC, "common.cuh"),)
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libragged_attention.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-# The kernel's instantiations (csrc/ragged_attention.cu).
+# The kernels' instantiations (csrc/).
 SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_Q_TILES = (1, 8)
-MAX_ROWS_PER_BLOCK = 64  # qpk * q_tile: 4 warps x 16 rows
+MAX_ROWS_PER_BLOCK = 64  # qpk * q_tile of one tile
+# kv tokens per block of the split-KV decode kernel: on an H100 64 ran
+# faster than 128 and 256 in each of five interleaved rounds of
+# tools/torch_kernel_probe.py at the smoke's decode rows.
+DECODE_SPLIT = 64
 
-# Kernel launches per entry point: +1 where each wrapper launches the
-# CUDA kernel, nowhere else (the CPU path does not count).
+# Launches: +1 where a wrapper launches its kernel, nowhere else (the
+# CPU path does not count). LAUNCHES counts calls of each entry point,
+# KERNEL_LAUNCHES which design served them.
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_decode_attention": 0}
+KERNEL_LAUNCHES = {"mixed_tc_bf16": 0, "mixed_f32": 0, "decode_split": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
+_build_log = ""
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -74,36 +91,79 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build_kernel(force: bool = False) -> str:
-    """Compile ``csrc/ragged_attention.cu`` into ``_build/`` unless an
-    up-to-date library is there. Builds into a temporary file and
-    renames it, so concurrent builds never load a half-written
-    library. Returns the library path; raises on a compile error with
-    nvcc's output."""
-    if (
-        not force
-        and os.path.exists(_LIB_PATH)
-        and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(KERNEL_SOURCE)
-    ):
-        return _LIB_PATH
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
+def build_log() -> str:
+    """What nvcc and ptxas printed in the last build (registers, shared
+    memory and spills of every kernel)."""
+    return _build_log
+
+
+def build_kernel(
+    force: bool = False, sources: tuple[str, ...] | None = None, lib_path: str | None = None
+) -> str:
+    """Compile ``sources`` (default ``KERNEL_SOURCES``) into one library
+    at ``lib_path`` (default ``_build/libragged_attention.so``) unless a
+    library newer than every source and header is there. Sources find
+    ``csrc/`` headers wherever they lie. One ``nvcc`` per source, all
+    started together, then one link. Builds into a temporary directory
+    and renames the library into place, so concurrent builds never load
+    a half-written one. Returns the library path; raises on a compile
+    error with nvcc's output."""
+    global _build_log
+    sources = sources or KERNEL_SOURCES
+    lib_path = lib_path or _LIB_PATH
+    newest = max(os.path.getmtime(f) for f in sources + _HEADERS)
+    if not force and os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
+        return lib_path
+    out_dir = os.path.dirname(lib_path)
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-Xptxas=-v", "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        _build_log = "".join(logs)
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {os.path.basename(src)} ({proc.returncode}):\n{log}"
+                )
+        lib = os.path.join(tmp, "lib.so")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
-            capture_output=True,
-            text=True,
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+            capture_output=True, text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
-        os.replace(tmp, _LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _LIB_PATH
+        os.replace(lib, lib_path)
+    return lib_path
+
+
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Each exported launcher's arguments (csrc/); every one returns a cudaError_t.
+_SIGNATURES = {
+    "dx_ragged_attention": [_PTR] * 7 + [_I32] * 7 + [_F32, _PTR],
+    "dx_ragged_mixed_tc": [_PTR] * 7 + [_I32] * 7 + [_F32, _PTR],
+    "dx_ragged_decode_split": [_PTR] * 8 + [_I32] * 7 + [_F32, _I32, _PTR],
+}
+
+
+def open_library(path: str, names: tuple[str, ...] = tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Load a library built by :func:`build_kernel` and declare the
+    launchers ``names`` (all of them by default)."""
+    lib = ctypes.CDLL(path)
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load_kernel():
@@ -111,15 +171,7 @@ def load_kernel():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_kernel())
-            fn = lib.dx_ragged_attention
-            fn.restype = ctypes.c_int
-            fn.argtypes = (
-                [ctypes.c_void_p] * 7
-                + [ctypes.c_int] * 7
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            )
-            _lib = lib
+            _lib = open_library(build_kernel())
         return _lib
 
 
@@ -180,25 +232,19 @@ def ragged_paged_attention_ref(
 
 
 # ------------------------------------------------------------------ kernel
-def _launch(
-    q, k_cache, v_cache, page_table, row_of, positions, num_kv_heads, q_tile,
-    sm_scale,
-) -> torch.Tensor:
-    """Check the inputs, launch the kernel on the current stream, and
-    raise if the launch failed."""
-    tensors = {
-        "q": q, "k_cache": k_cache, "v_cache": v_cache,
-        "page_table": page_table, "row_of": row_of, "positions": positions,
-    }
+def _check(q, k_cache, v_cache, tensors, num_kv_heads, q_tile):
+    """Check what every kernel needs of its inputs; returns (N, H, D,
+    ps, Hkv)."""
+    tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache, **tensors}
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("page_table", "row_of", "positions"):
+    for name in tensors.keys() - {"q", "k_cache", "v_cache"}:
         if tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
-    for name in ("k_cache", "v_cache"):  # read with 16-byte loads
+    for name in ("q", "k_cache", "v_cache"):  # read with 16-byte loads
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if not (q.dtype == k_cache.dtype == v_cache.dtype):
@@ -217,23 +263,12 @@ def _launch(
             f"unsupported layout for the ragged kernel: D={D}, H={H}, "
             f"Hkv={Hkv}, q_tile={q_tile}, dtype={k_cache.dtype}"
         )
-    if N % q_tile or row_of.shape != (N,) or positions.shape != (N,):
-        raise ValueError(f"flat stream of {N} tokens is not q_tile={q_tile} aligned")
-    out = torch.empty_like(q)
-    if N == 0:
-        return out
-    scale = sm_scale if sm_scale is not None else D**-0.5
-    lib = load_kernel()
-    err = lib.dx_ragged_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        page_table.data_ptr(), row_of.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), N, H, Hkv, D, ps, page_table.shape[1], q_tile,
-        float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    return N, H, D, ps, Hkv
+
+
+def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"ragged attention kernel launch failed: cudaError {err}")
-    return out
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
 def ragged_paged_attention(
@@ -256,11 +291,29 @@ def ragged_paged_attention(
             q, k_cache, v_cache, page_table, row_of, positions,
             num_kv_heads=num_kv_heads, sm_scale=sm_scale,
         )
-    out = _launch(
-        q, k_cache, v_cache, page_table, row_of, positions, num_kv_heads,
-        q_tile, sm_scale,
+    N, H, D, ps, Hkv = _check(
+        q, k_cache, v_cache,
+        {"page_table": page_table, "row_of": row_of, "positions": positions},
+        num_kv_heads, q_tile,
     )
+    if N % q_tile or row_of.shape != (N,) or positions.shape != (N,):
+        raise ValueError(f"flat stream of {N} tokens is not q_tile={q_tile} aligned")
+    out = torch.empty_like(q)
+    if N == 0:
+        return out
+    scale = sm_scale if sm_scale is not None else D**-0.5
+    lib = load_kernel()
+    tc = q.dtype == torch.bfloat16
+    fn = lib.dx_ragged_mixed_tc if tc else lib.dx_ragged_attention
+    err = fn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        page_table.data_ptr(), row_of.data_ptr(), positions.data_ptr(),
+        out.data_ptr(), N, H, Hkv, D, ps, page_table.shape[1], q_tile,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "ragged mixed attention")
     LAUNCHES["ragged_paged_attention"] += 1
+    KERNEL_LAUNCHES["mixed_tc_bf16" if tc else "mixed_f32"] += 1
     return out
 
 
@@ -271,21 +324,43 @@ def ragged_decode_attention(
     page_table: torch.Tensor,  # [B, Pmax] int32
     lengths: torch.Tensor,  # [B] int32 tokens to attend over (0 = inactive)
     num_kv_heads: int | None = None,
+    split: int = DECODE_SPLIT,
 ) -> torch.Tensor:
-    """The pure-decode shape: one query per row at ``q_tile=1``; row b
-    attends its own ``lengths[b]`` tokens, rows with length 0 return
-    zeros."""
-    B = q.shape[0]
-    row_of = torch.arange(B, dtype=torch.int32, device=q.device)
-    positions = (lengths - 1).to(torch.int32)
+    """The pure-decode shape: one query per row; row b attends its own
+    ``lengths[b]`` tokens, rows with length 0 return zeros. On the card
+    each row's context is cut into blocks of ``split`` tokens (a
+    multiple of 32) whose partial softmaxes a second pass combines."""
     if q.device.type == "cpu":
+        B = q.shape[0]
         return ragged_paged_attention_ref(
-            q, k_cache, v_cache, page_table, row_of, positions,
+            q, k_cache, v_cache, page_table,
+            torch.arange(B, dtype=torch.int32), (lengths - 1).to(torch.int32),
             num_kv_heads=num_kv_heads,
         )
-    out = _launch(
-        q, k_cache, v_cache, page_table, row_of, positions, num_kv_heads, 1,
-        None,
+    B, H, D, ps, Hkv = _check(
+        q, k_cache, v_cache, {"page_table": page_table, "lengths": lengths},
+        num_kv_heads, 1,
     )
+    if lengths.shape != (B,) or page_table.shape[0] != B:
+        raise ValueError(f"lengths {tuple(lengths.shape)} / page table rows "
+                         f"{page_table.shape[0]} do not match {B} queries")
+    if split < 32 or split % 32:
+        raise ValueError(f"split must be a positive multiple of 32, got {split}")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    pmax = page_table.shape[1]
+    n_splits = -(-(pmax * ps) // split)
+    part_ml = torch.empty(B * H * n_splits * 2, dtype=torch.float32, device=q.device)
+    part_acc = torch.empty(B * H * n_splits * D, dtype=torch.float32, device=q.device)
+    err = load_kernel().dx_ragged_decode_split(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
+        part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, D, ps, pmax, split,
+        float(D**-0.5), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "ragged decode attention")
     LAUNCHES["ragged_decode_attention"] += 1
+    KERNEL_LAUNCHES["decode_split"] += 1
     return out

@@ -4,14 +4,15 @@ Counterpart of ``dynamo_exp_tpu/ops/sampling.py``. Sampling parameters
 are per-row vectors, so one batch serves a heterogeneous continuous
 batch. Seeded draws are counter-based per row: a row's draw depends on
 ``(seed, position)`` and its own logits only, never on the batch it
-rides in. The random bits come from a ``torch.Generator`` keyed by
-(seed, position) and are not ``jax.random``'s threefry bits, so a
-seeded stream differs from the JAX package's (a known difference).
+rides in. The random bits are ``jax.random``'s own (threefry, in
+:mod:`.prng`), so a seeded stream equals the JAX package's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import prng
 
 
 def _mask_logits(
@@ -45,21 +46,6 @@ def _mask_logits(
     return torch.where(scaled < min_kept, neg_inf, masked)
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def _draw_key(seed: int, position: int) -> int:
-    """Generator seed of one draw: the row's seed and the absolute
-    position of the fed token packed into 64 bits, then mixed
-    (splitmix64's finaliser). The mixing matters: the CPU generator
-    keeps only the low 32 bits of its seed, which unmixed would be the
-    position alone."""
-    z = ((int(seed) & 0xFFFFFFFF) << 32) | (max(int(position), 0) & 0xFFFFFFFF)
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
-
-
 def sample_tokens_seeded(
     logits: torch.Tensor,  # [B, V] float32
     seeds: torch.Tensor,  # [B] int per-row sampling seed
@@ -68,30 +54,17 @@ def sample_tokens_seeded(
     top_k: torch.Tensor,  # [B] int; <=0 disables
     top_p: torch.Tensor,  # [B] float32; >=1 disables
 ) -> torch.Tensor:
-    """Counter-based per-row sampling: row ``r``'s draw is a Gumbel-max
-    over its masked logits with noise from a ``torch.Generator`` seeded
-    by ``(seeds[r], positions[r])`` — independent of batch composition
-    and of which dispatch shape carried the row. Rows with temperature
-    <= 0 take the argmax. Returns [B] int32."""
-    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    temps = temperature.tolist()
-    if not any(t > 0.0 for t in temps):
-        return greedy
+    """Counter-based per-row sampling, as the JAX package's: row ``r``
+    draws ``categorical(fold_in(PRNGKey(seeds[r]), positions[r]),
+    masked logits)``, independent of batch composition and of which
+    dispatch shape carried the row. Inactive rows (position -1) draw at
+    position 0; rows with temperature <= 0 take the argmax. Whole-batch
+    tensor code, no host sync. Returns [B] int32."""
+    greedy = torch.argmax(logits, dim=-1)
     masked = _mask_logits(logits, temperature, top_k, top_p)
-    out = greedy.clone()
-    V = logits.shape[1]
-    tiny = torch.finfo(torch.float32).tiny
-    for r, (t, seed, pos) in enumerate(
-        zip(temps, seeds.tolist(), positions.tolist())
-    ):
-        if t <= 0.0:
-            continue
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(_draw_key(seed, pos))
-        u = torch.rand(V, generator=gen, device=logits.device, dtype=torch.float32)
-        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-        out[r] = torch.argmax(masked[r] + gumbel).to(torch.int32)
-    return out
+    key = prng.fold_in(prng.prng_key(seeds), torch.clamp(positions, min=0))
+    sampled = prng.categorical(key, masked)
+    return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
 
 
 def apply_penalties(

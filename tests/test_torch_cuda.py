@@ -1,12 +1,19 @@
-"""The port's CUDA kernel on the card (skips without an NVIDIA GPU).
+"""The port's CUDA kernels on the card (skips without an NVIDIA GPU).
 
 Imports neither JAX nor the JAX package, so it runs where only the port
 is installed: ``python -m pytest tests/test_torch_cuda.py`` on a machine
-with an H100. The ragged kernel is held against its plain PyTorch
+with an H100. The ragged kernels are held against their plain PyTorch
 version on the same inputs: float32 at atol=1e-4 (float32 sums in
 another order and chunking of the online softmax), bf16 at atol=2e-2
 (the kernel rounds unnormalised probabilities to bf16 before PV, the
 plain version the normalised ones, and both round the output to bf16).
+That bf16 tolerance would pass a kernel that drops a 32-token chunk of a long
+row, so bf16 outputs are also held against the plain version on float32
+copies of the same inputs, within what bf16 rounding of the probabilities
+and the output can move them (``_assert_within_bf16_rounding``).
+Long cases make the mixed kernel take multi-tile runs (a 512-query span
+at context 1,024) and the decode kernel cross several splits (a row of
+2,064 tokens). Seeded draws on the card equal those on the CPU.
 """
 
 import asyncio
@@ -57,33 +64,142 @@ def _flat_batch(seed, spans, H, Hkv, D, P, ps, pmax, q_tile, dtype, device):
     return f(q), f(k), f(v), i(table), i(row_of), i(positions)
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 128), (8, 4, 64), (28, 4, 128)])
-def test_mixed_shape_matches_plain(cuda, dtype, atol, H, Hkv, D):
-    spans = [(1, 17), (40, 40), (9, 200), (1, 1), (16, 32)]
-    args = _flat_batch(0, spans, H, Hkv, D, 128, 16, 16, 8, dtype, cuda)
+def _assert_within_bf16_rounding(got, plain, q, k, v):
+    """``got`` (a bf16 kernel's output) against ``plain`` on float32
+    copies of q, k, v: the kernel rounds each unnormalised probability
+    and the output to bf16 (relative error at most 2^-8 each), the rest
+    is below 2^-12, so |got - want| <= 2^-8 |want| + (2^-8 + 2^-12) P|v|
+    element by element, where P|v| is the plain version with |v|."""
+    f32 = (q.float(), k.float(), v.float())
+    want = plain(*f32)
+    reach = plain(f32[0], f32[1], f32[2].abs())
+    limit = 2.0**-8 * want.abs() + (2.0**-8 + 2.0**-12) * reach
+    excess = float(((got.float() - want).abs() - limit).max())
+    assert excess <= 0, f"beyond bf16 rounding of the float32 plain version by {excess}"
+
+
+LAYOUTS = [(32, 8, 128), (8, 4, 64), (28, 4, 128)]
+TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+# (spans, pool pages, table width): short rows, then a 512-query prefill
+# chunk at context 1,024 next to decode tokens.
+MIXED = {
+    "short": ([(1, 17), (40, 40), (9, 200), (1, 1), (16, 32)], 128, 16),
+    "long": ([(512, 1024), (1, 17), (64, 64), (1, 2049), (24, 300)], 512, 129),
+}
+
+
+@pytest.mark.parametrize("spans", sorted(MIXED))
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("H,Hkv,D", LAYOUTS)
+def test_mixed_shape_matches_plain(cuda, dtype, atol, H, Hkv, D, spans):
+    rows, P, pmax = MIXED[spans]
+    args = _flat_batch(0, rows, H, Hkv, D, P, 16, pmax, 8, dtype, cuda)
+    tra.reset_launches()
     got = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8)
     want = tra.ragged_paged_attention_ref(*args, num_kv_heads=Hkv)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     assert (got[-8:] == 0).all()  # the empty tile
+    if dtype == torch.bfloat16:
+        _assert_within_bf16_rounding(
+            got, lambda q, k, v: tra.ragged_paged_attention_ref(
+                q, k, v, *args[3:], num_kv_heads=Hkv), *args[:3])
+    # bf16 pools go through the tensor-core kernel, float32 pools not.
+    design = "mixed_tc_bf16" if dtype == torch.bfloat16 else "mixed_f32"
+    assert tra.KERNEL_LAUNCHES[design] == 1, tra.KERNEL_LAUNCHES
+    assert sum(tra.KERNEL_LAUNCHES.values()) == 1
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_decode_shape_matches_plain_and_zeroes_inactive(cuda, dtype, atol):
-    lengths = [1, 17, 0, 300, 16, 0, 33, 2]
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("q_tile,ps", [(1, 16), (8, 12)])
+def test_mixed_shape_other_tiles_and_page_sizes(cuda, dtype, atol, q_tile, ps):
+    """q_tile=1 (runs of 8 one-token tiles) and a page size that is not
+    a power of two (the kernels' division path for page lookups)."""
+    rows = [(1, 17), (40, 40), (9, 200), (1, 1), (300, 333)]
+    args = _flat_batch(3, rows, 32, 8, 128, 256, ps, -(-333 // ps), q_tile, dtype, cuda)
+    got = tra.ragged_paged_attention(*args, num_kv_heads=8, q_tile=q_tile)
+    want = tra.ragged_paged_attention_ref(*args, num_kv_heads=8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[-q_tile:] == 0).all()  # the empty tile
+    if dtype == torch.bfloat16:
+        _assert_within_bf16_rounding(
+            got, lambda q, k, v: tra.ragged_paged_attention_ref(
+                q, k, v, *args[3:], num_kv_heads=8), *args[:3])
+    lens = torch.tensor([17, 0, 333, 1], dtype=torch.int32, device=cuda)
+    q, k, v, table = args[0][:4].contiguous(), args[1], args[2], args[3][[0, 1, 4, 3]]
+    got = tra.ragged_decode_attention(q, k, v, table.contiguous(), lens, num_kv_heads=8)
+    want = tra.ragged_paged_attention_ref(
+        q, k, v, table.contiguous(), torch.arange(4, dtype=torch.int32, device=cuda),
+        lens - 1, num_kv_heads=8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[1] == 0).all()
+
+
+DECODE = {
+    "short": [1, 17, 0, 300, 16, 0, 33, 2],
+    "long": [2064, 1, 0, 257, 1040, 31, 2049, 512],
+}
+
+
+@pytest.mark.parametrize("lengths", sorted(DECODE))
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("H,Hkv,D", LAYOUTS)
+@pytest.mark.parametrize("split", [32, 256])
+def test_decode_shape_matches_plain_and_zeroes_inactive(
+    cuda, dtype, atol, H, Hkv, D, split, lengths
+):
+    lengths = DECODE[lengths]
     spans = [(1, max(n, 1)) for n in lengths]
-    q, k, v, table, _, _ = _flat_batch(1, spans, 32, 8, 128, 256, 16, 32, 1, dtype, cuda)
+    pmax = -(-max(lengths) // 16) + 1
+    P = sum(-(-max(n, 1) // 16) for n in lengths) + 4
+    q, k, v, table, _, _ = _flat_batch(1, spans, H, Hkv, D, P, 16, pmax, 1, dtype, cuda)
     table = table[: len(lengths)].contiguous()
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    got = tra.ragged_decode_attention(q[: len(lengths)].contiguous(), k, v, table, lens)
+    tra.reset_launches()
+    got = tra.ragged_decode_attention(
+        q[: len(lengths)].contiguous(), k, v, table, lens, num_kv_heads=Hkv, split=split
+    )
     want = tra.ragged_paged_attention_ref(
         q[: len(lengths)], k, v, table,
         torch.arange(len(lengths), dtype=torch.int32, device=cuda), lens - 1,
+        num_kv_heads=Hkv,
     )
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     assert (got[lens == 0] == 0).all()
+    if dtype == torch.bfloat16:
+        rows = torch.arange(len(lengths), dtype=torch.int32, device=cuda)
+        _assert_within_bf16_rounding(
+            got, lambda q, k, v: tra.ragged_paged_attention_ref(
+                q, k, v, table, rows, lens - 1, num_kv_heads=Hkv),
+            q[: len(lengths)], k, v)
+    assert tra.KERNEL_LAUNCHES["decode_split"] == 1 and tra.LAUNCHES[
+        "ragged_decode_attention"] == 1
+
+
+def test_seeded_draws_on_the_card_equal_the_cpu(cuda):
+    """The threefry bits are equal bit for bit; over a flat distribution
+    the token is the argmax of the noise alone, so it is equal too."""
+    from dynamo_exp_tpu_torch.ops import prng, sampling
+
+    seeds = torch.tensor([0, 1, 1234, 2**31 - 1] * 4)
+    pos = torch.tensor([p for p in (0, 1, 4095, 2**31 - 1) for _ in range(4)])
+
+    def bits(dev):
+        key = prng.fold_in(prng.prng_key(seeds.to(dev)), pos.to(dev))
+        return prng.random_bits(key, 4099).cpu()
+
+    assert torch.equal(bits(cuda), bits("cpu"))
+    B, V = len(seeds), 128256
+    args = (
+        torch.zeros(B, V), seeds, pos, torch.full((B,), 0.8),
+        torch.zeros(B, dtype=torch.int32), torch.ones(B),
+    )
+    want = sampling.sample_tokens_seeded(*args)
+    got = sampling.sample_tokens_seeded(*(a.to(cuda) for a in args))
+    assert torch.equal(got.cpu(), want)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -138,4 +254,5 @@ def test_engine_kernel_matches_reference_greedy(cuda):
     tra.reset_launches()
     got = run("kernel")
     assert min(tra.LAUNCHES.values()) > 0, tra.LAUNCHES
+    assert tra.KERNEL_LAUNCHES["mixed_f32"] > 0 and tra.KERNEL_LAUNCHES["decode_split"] > 0
     assert got == run("reference")

@@ -2,9 +2,11 @@
 
 - ``TorchEngine(device="cpu")`` and the JAX package's ``TPUEngine``
   (attention_impl="xla"), both float32 TINY with the same weights
-  (through ``params_from_jax``), emit identical greedy tokens for
-  staggered concurrent requests: one prompt longer than
-  ``prefill_chunk``, one request joining late.
+  (through ``params_from_jax``), emit identical tokens for staggered
+  concurrent requests (one prompt longer than ``prefill_chunk``, one
+  request joining late): greedy, and seeded at temperature 0.8 with
+  top-k/top-p on two of the requests (the port draws ``jax.random``'s
+  threefry bits).
 - The port's mixed and windowed dispatch shapes agree: a request decodes
   the same tokens alone (windowed decode) as next to a late joiner
   (decode steps inside mixed dispatches).
@@ -50,11 +52,12 @@ def _torch_engine(np_params, **kw):
     return TorchEngine(cfg, model=params_from_jax(np_params, CFG, device="cpu"), device="cpu")
 
 
-async def _collect(engine, prompt, max_tokens):
+async def _collect(engine, prompt, max_tokens, sampling=None):
     stream = await engine.generate(
         {
             "token_ids": list(prompt),
             "stop_conditions": {"max_tokens": max_tokens, "ignore_eos": True},
+            "sampling_options": dict(sampling or {}),
         }
     )
     toks, finish = [], None
@@ -75,21 +78,33 @@ def _prompts():
     return [list(rs.randint(3, 250, size=n)) for n in (5, 23, 9, 12)]
 
 
-async def _staggered(engine, prompts, max_tokens=10):
+async def _staggered(engine, prompts, max_tokens=10, sampling=None):
     """The first three arrive 20 ms apart; the last joins once the first
     request has streamed tokens (its chunk rides a mixed dispatch next
-    to decode rows)."""
+    to decode rows). ``sampling`` holds each request's options."""
+    sampling = sampling or [None] * len(prompts)
     jobs = []
-    for p in prompts[:3]:
-        jobs.append(asyncio.create_task(_collect(engine, p, max_tokens)))
+    for p, so in zip(prompts[:3], sampling):
+        jobs.append(asyncio.create_task(_collect(engine, p, max_tokens, so)))
         await asyncio.sleep(0.02)
     while engine.steps < 3:
         await asyncio.sleep(0.005)
-    jobs.append(asyncio.create_task(_collect(engine, prompts[3], max_tokens)))
+    jobs.append(
+        asyncio.create_task(_collect(engine, prompts[3], max_tokens, sampling[3]))
+    )
     return await asyncio.wait_for(asyncio.gather(*jobs), timeout=300)
 
 
-def test_greedy_tokens_identical_to_tpu_engine():
+# Every request seeded at temperature 0.8; two also cut by top-k/top-p.
+SEEDED = [
+    {"temperature": 0.8, "seed": 11},
+    {"temperature": 0.8, "seed": 12, "top_k": 20},
+    {"temperature": 0.8, "seed": 13},
+    {"temperature": 0.8, "seed": 2**31 - 1, "top_p": 0.9},
+]
+
+
+def _identical_to_tpu_engine(sampling):
     np_params = _np_params()
     prompts = _prompts()
     jeng = TPUEngine(
@@ -98,19 +113,28 @@ def test_greedy_tokens_identical_to_tpu_engine():
         mesh=single_device_mesh(),
     )
     try:
-        want = _run(_staggered(jeng, prompts))
+        want = _run(_staggered(jeng, prompts, sampling=sampling))
     finally:
         jeng.stop()
     for impl in ("reference", "kernel"):
         teng = _torch_engine(np_params, attention_impl=impl)
         try:
-            got = _run(_staggered(teng, prompts))
+            got = _run(_staggered(teng, prompts, sampling=sampling))
         finally:
             teng.stop()
         for (g, gf), (w, wf) in zip(got, want):
             assert len(g) == 10 and gf == "length"
             assert g == w, (impl, g, w)
         assert teng.dispatches["mixed"] > 0 and teng.dispatches["windowed"] > 0
+    return want
+
+
+def test_greedy_tokens_identical_to_tpu_engine():
+    _identical_to_tpu_engine(None)
+
+
+def test_seeded_tokens_identical_to_tpu_engine():
+    _identical_to_tpu_engine(SEEDED)
 
 
 def test_mixed_and_windowed_shapes_agree():

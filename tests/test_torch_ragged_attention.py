@@ -18,6 +18,8 @@ tolerance). The CUDA kernel itself is held against the plain version
 on the card by ``tests/test_torch_cuda.py``.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,3 +156,36 @@ def test_ragged_supported_gate():
     assert not tra.ragged_supported(16, 8, 128, torch.bfloat16, 32, 4)  # q_tile
     assert not tra.ragged_supported(16, 1, 128, torch.bfloat16, 16, 8)  # 128 rows
 
+
+
+def test_kernel_library_is_rebuilt_when_any_source_is_newer(tmp_path, monkeypatch):
+    """The library holds every ``csrc/*.cu``; a library newer than every
+    source and header is reused without ``nvcc``, and one older than any
+    of them (a header included) is rebuilt, which here, without nvcc,
+    raises instead of loading a stale library."""
+    names = {os.path.basename(f) for f in tra.KERNEL_SOURCES}
+    assert {"ragged_attention.cu", "ragged_mixed_tc.cu", "ragged_decode_split.cu"} <= names
+    lib = tmp_path / "lib.so"
+    lib.write_bytes(b"")
+    monkeypatch.setattr(tra, "_LIB_PATH", str(lib))
+    monkeypatch.setattr(tra, "_BUILD_DIR", str(tmp_path))
+    newest = max(os.path.getmtime(f) for f in tra.KERNEL_SOURCES + tra._HEADERS)
+    os.utime(lib, (newest + 10, newest + 10))
+    assert tra.build_kernel() == str(lib)
+    # Another set of sources into another library, by the same rule.
+    other = tmp_path / "other.so"
+    other.write_bytes(b"")
+    os.utime(other, (newest + 10, newest + 10))
+    assert tra.build_kernel(sources=tra.KERNEL_SOURCES[:1], lib_path=str(other)) == str(other)
+    # A header newer than the library: rebuilt, though no .cu changed.
+    header = tmp_path / "touched.cuh"
+    header.write_text("")
+    os.utime(header, (newest + 20, newest + 20))
+    monkeypatch.setattr(tra, "_HEADERS", tra._HEADERS + (str(header),))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tra, "_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tra.build_kernel()

@@ -5,12 +5,13 @@
   ``_mask_logits`` compares the kept set exactly and the kept logits at
   atol=rtol=1e-6 (one float32 division each); penalties are elementwise
   float32 and compare at the same bound.
-- seeded draws: the port keys a ``torch.Generator`` by (seed, position),
-  not ``jax.random``'s threefry, so its bits differ from JAX's (a known
-  difference, ROADMAP Queue 3). What must hold is the contract: a row's
-  draw depends only on its seed, its position and its own logits, never
-  on the batch it rides in; it stays inside the top-k/top-p set; and
-  temperature 0 is the argmax.
+- seeded draws equal the JAX package's ``sample_tokens_seeded`` on the
+  same numpy logits, token for token, over a batch that mixes greedy,
+  temperature, top-k and top-p rows (the threefry bits themselves are
+  held to ``jax.random`` in ``test_torch_prng.py``). The contract holds
+  too: a row's draw depends only on its seed, its position and its own
+  logits, never on the batch it rides in; it stays inside the
+  top-k/top-p set; and temperature 0 is the argmax.
 """
 
 import jax.numpy as jnp
@@ -132,3 +133,30 @@ def test_seeded_draw_respects_masks_and_greedy_rows():
         assert toks[1] in top5
         assert toks[2] == int(lg[2].argmax())  # top_k = 1
         assert toks[3] == int(lg[3].argmax())  # top_p = 0 keeps the top token
+
+
+def test_seeded_draws_equal_the_jax_sampler():
+    """240 (seed, position) pairs in batches of 8 that mix greedy,
+    temperature, top-k and top-p rows: every token equals the JAX
+    package's draw on the same numpy inputs."""
+    rs = np.random.RandomState(5)
+    B, V = 8, 97
+    temp = np.array([0.8, 0.0, 1.0, 0.7, 1.3, 0.0, 0.5, 1.0], np.float32)
+    top_k = np.array([0, 0, 5, 0, 20, 3, 0, 1], np.int32)
+    top_p = np.array([1.0, 1.0, 1.0, 0.9, 0.8, 1.0, 0.95, 1.0], np.float32)
+    n_sampled = 0
+    for _ in range(30):
+        lg = (rs.standard_normal((B, V)) * 2).astype(np.float32)
+        seeds = rs.randint(0, 2**31 - 1, size=B).astype(np.int32)
+        positions = rs.randint(-1, 1 << 20, size=B).astype(np.int32)
+        want = np.asarray(
+            js.sample_tokens_seeded(
+                *(jnp.asarray(a) for a in (lg, seeds, positions, temp, top_k, top_p))
+            )
+        )
+        got = ts.sample_tokens_seeded(
+            *(torch.from_numpy(a) for a in (lg, seeds, positions, temp, top_k, top_p))
+        )
+        np.testing.assert_array_equal(got.numpy(), want)
+        n_sampled += int((temp > 0).sum())
+    assert n_sampled >= 180 and 30 * B >= 200
