@@ -32,7 +32,25 @@ Phases, each fatal on failure (nothing is caught):
    and 32 tokens, both entry points' launch counters rose during the
    run, the bf16 mixed dispatches went through the tensor-core kernel
    and the decode steps through the split-KV kernel, and a rerun of the
-   same requests gives the same tokens.
+   same requests gives the same tokens; the model is then freed;
+6. the entry point a user calls: ``run.main_async(in=http out=cuda)``
+   in this process serves a model directory written here (the
+   llama-8b preset's config.json, read back equal to the preset; a
+   Llama-3-layout byte-level BPE tokenizer.json of 128,256 entries
+   with merges learned from README.md; a Llama-3-style chat template;
+   EOS 128009) with the same seeded random weights. A stdlib client
+   sends (a) phase 5's requests as 8 streaming ``/v1/completions``,
+   admitted together, and again after the prefix cache is dropped;
+   (b) 2 streaming chats; (c) a unary completion; (d) (c) again with a
+   stop string cut from (c)'s text; and a lone greedy request, also
+   served straight by a ``TorchEngine`` on the same weights. Every
+   stream ends with ``[DONE]``; finish reasons and usage are checked,
+   the rerun's text is identical, (d)'s text is (c)'s up to the stop
+   string, the lone request's HTTP text equals its direct tokens
+   decoded, and every attention launch of the phase went through the
+   tensor-core mixed and the split-KV decode kernels. Printed: TTFT at
+   the edge (p50, max), the mean gap between content frames, tokens/s
+   and wall time of (a) beside phase 5's, and the host's encode time.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and the result line
@@ -43,6 +61,8 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import gc
 import json
 import os
 import re
@@ -61,6 +81,7 @@ H, HKV, D, PS = 32, 8, 128, 16
 PROMPT_LENS = (64, 160, 320, 512, 768, 1024, 1536, 2048)
 MAX_TOKENS = 32
 SEEDED = 5  # index of the request sampled at temperature 0.8
+SEEDED_OPTIONS = {"temperature": 0.8, "seed": 1234}
 # Mixed dispatch spans (q_len, kv_len): prefill chunks of 512 at several
 # offsets, a short prompt, decode tokens at page boundaries and mid-page.
 MIXED_SPANS = [
@@ -444,6 +465,13 @@ def profile(torch, engine, requests):
         out, wall = run_engine(engine, requests)
         torch.cuda.synchronize()
     assert all(f == "length" for _, f, _ in out)
+    report_profile(prof, wall, "[profile]")
+
+
+def report_profile(prof, wall: float, tag: str, top: int = 15) -> None:
+    """Print a trace's device busy / idle share (the union of kernel
+    intervals over the span from the first to the last kernel) and its
+    device time by kernel."""
     spans = sorted(
         (e.time_range.start, e.time_range.end)
         for e in prof.events()
@@ -467,15 +495,21 @@ def profile(torch, engine, requests):
             d[0] += e.time_range.end - e.time_range.start
             d[1] += 1
     total = sum(v[0] for v in by_name.values())
-    log(f"[profile] wall {wall:.3f} s traced; device busy {busy / 1e6:.3f} s of "
+    log(f"{tag} wall {wall:.3f} s traced; device busy {busy / 1e6:.3f} s of "
         f"{span / 1e6:.3f} s kernel span ({100 * busy / max(span, 1):.1f} %), idle "
         f"{100 * (1 - busy / max(span, 1)):.1f} %; kernel time {total / 1e6:.3f} s")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        log(f"[profile] {100 * us / max(total, 1):5.1f} % {us / 1e3:10.3f} ms "
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"{tag} {100 * us / max(total, 1):5.1f} % {us / 1e3:10.3f} ms "
             f"{n:6d} x  {name[:110]}")
 
 
 # ------------------------------------------------------------ phase 5
+def phase5_prompts(np, vocab: int, lens) -> list[list[int]]:
+    """The main path's prompts: seeded random token ids."""
+    rs = np.random.RandomState(7)
+    return [[int(t) for t in rs.randint(3, vocab, size=n)] for n in lens]
+
+
 def main_path(torch, np, pkg, tra):
     mcfg = pkg.models.LLAMA_8B
     dev = torch.device("cuda", 0)
@@ -492,15 +526,14 @@ def main_path(torch, np, pkg, tra):
 
     check_full_logits(torch, np, pkg, model, mcfg)
 
-    rs = np.random.RandomState(7)
-    requests = []
-    for i, n in enumerate(PROMPT_LENS):
-        so = {"temperature": 0.8, "seed": 1234} if i == SEEDED else {}
-        requests.append({
-            "token_ids": [int(t) for t in rs.randint(3, mcfg.vocab_size, size=n)],
+    requests = [
+        {
+            "token_ids": ids,
             "stop_conditions": {"max_tokens": MAX_TOKENS, "ignore_eos": True},
-            "sampling_options": so,
-        })
+            "sampling_options": SEEDED_OPTIONS if i == SEEDED else {},
+        }
+        for i, ids in enumerate(phase5_prompts(np, mcfg.vocab_size, PROMPT_LENS))
+    ]
     max_len = max(PROMPT_LENS) + MAX_TOKENS + PS
     ecfg = pkg.engine.EngineConfig(
         model=mcfg, max_decode_slots=8, page_size=PS, max_model_len=max_len,
@@ -548,13 +581,536 @@ def main_path(torch, np, pkg, tra):
     log("[engine] rerun of the same requests: identical tokens (greedy and seeded)")
     if "--profile" in sys.argv:
         profile(torch, engine(), requests)
+    rerun_ttfts = sorted(t for _, _, t in rerun)
     stats = dict(
         wall_s=wall, rerun_wall_s=wall2, completion_tokens=total,
         tokens_per_s=total / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
-        ttft_max_s=ttfts[-1], launches=launches,
+        ttft_max_s=ttfts[-1], rerun_tokens_per_s=total / wall2,
+        rerun_ttft_p50_s=rerun_ttfts[len(rerun_ttfts) // 2],
+        rerun_ttft_max_s=rerun_ttfts[-1], launches=launches,
         mixed_dispatches=disp["mixed"], windowed_dispatches=disp["windowed"],
+        tokens=[t for t, _, _ in out],
     )
+    # Phase 6 builds its own llama-8b behind the HTTP server.
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return stats
+
+
+# ------------------------------------------------------------ phase 6
+LLAMA3_PATTERN = (
+    r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+    r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
+)
+# Llama-3.1's 256 special tokens: these 11 names, then reserved ones.
+LLAMA3_SPECIALS = [
+    "<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+    "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+    "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+    "<|eom_id|>", "<|eot_id|>", "<|python_tag|>",
+]
+N_SPECIAL = 256
+EOT_OFFSET = 9  # <|eot_id|>: 128009 for llama-8b
+CHAT_TEMPLATE = (
+    "{{- bos_token }}"
+    "{%- for message in messages %}"
+    "{{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'"
+    " + message['content'] | trim + '<|eot_id|>' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}"
+    "{{- '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
+    "{%- endif %}"
+)
+CHATS = [
+    [{"role": "system", "content": "You are a terse assistant."},
+     {"role": "user", "content": "Name three uses of paged attention."}],
+    [{"role": "user", "content": "Ünïcödé, 日本語 and emoji ☃ in one prompt."}],
+]
+UNARY_PROMPT = "The quick brown fox"
+LONE_PROMPT_LEN = 300
+
+
+def learn_merges(word_counts: dict[str, int], n_merges: int) -> list[tuple[str, str]]:
+    """Byte-level BPE training, deterministic: merge the most frequent
+    pair (the smallest pair among equal counts) until ``n_merges`` or
+    no pair occurs twice. ``word_counts`` maps byte-level words to
+    counts; pair counts are updated only in the words a merge touches."""
+    import heapq
+    from collections import defaultdict
+
+    words = [list(w) for w in word_counts]
+    counts = list(word_counts.values())
+    pairs: dict[tuple[str, str], int] = defaultdict(int)
+    where: dict[tuple[str, str], set[int]] = defaultdict(set)
+    for i, syms in enumerate(words):
+        for p in zip(syms, syms[1:]):
+            pairs[p] += counts[i]
+            where[p].add(i)
+    heap = [(-c, p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+    merges: list[tuple[str, str]] = []
+    while heap and len(merges) < n_merges:
+        negc, pair = heapq.heappop(heap)
+        if pairs.get(pair, 0) != -negc:
+            continue  # stale entry
+        if -negc < 2:
+            break
+        merges.append(pair)
+        a, b = pair
+        touched = set()
+        for i in where.pop(pair, ()):
+            syms, c = words[i], counts[i]
+            for p in zip(syms, syms[1:]):
+                pairs[p] -= c
+                touched.add(p)
+            new, j = [], 0
+            while j < len(syms):
+                if j + 1 < len(syms) and syms[j] == a and syms[j + 1] == b:
+                    new.append(a + b)
+                    j += 2
+                else:
+                    new.append(syms[j])
+                    j += 1
+            words[i] = new
+            for p in zip(new, new[1:]):
+                pairs[p] += c
+                where[p].add(i)
+                touched.add(p)
+        pairs.pop(pair, None)
+        for p in touched:
+            if pairs.get(p, 0) > 0:
+                heapq.heappush(heap, (-pairs[p], p))
+    return merges
+
+
+def tokenizer_spec(tokmod, vocab_size: int, text: str, n_merges: int = 1500) -> dict:
+    """A Llama-3-layout byte-level BPE ``tokenizer.json`` of exactly
+    ``vocab_size`` entries: the 256 byte symbols; merges learned from
+    ``text``; deterministic filler entries (whole and split CJK
+    characters, so random ids decode to partial UTF-8 too, then words
+    of learned pieces) up to ``vocab_size - 256``; Llama-3's special
+    tokens in the last 256 ids."""
+    import random
+    import re as _re
+
+    enc = tokmod.BYTE_ENCODER
+    n_regular = vocab_size - N_SPECIAL
+    pat = _re.compile(tokmod.translate_pattern(LLAMA3_PATTERN))
+    word_counts: dict[str, int] = {}
+    for w in pat.findall(text):
+        bw = "".join(enc[b] for b in w.encode("utf-8"))
+        word_counts[bw] = word_counts.get(bw, 0) + 1
+    merges = learn_merges(word_counts, min(n_merges, (n_regular - 256) // 2))
+    vocab: dict[str, int] = {}
+
+    def add(tok: str) -> None:
+        if tok not in vocab and len(vocab) < n_regular:
+            vocab[tok] = len(vocab)
+
+    for b in range(256):
+        add(enc[b])
+    for a, b in merges:
+        add(a + b)
+    n_cjk = min(2000, (n_regular - len(vocab)) // 8)
+    for k in range(n_cjk):
+        raw = chr(0x4E00 + 7 * k).encode("utf-8")
+        for piece in (raw, raw[:2], b" " + raw):
+            add("".join(enc[x] for x in piece))
+    pieces = [a + b for a, b in merges] or [enc[b] for b in range(ord("a"), ord("z") + 1)]
+    rng = random.Random(0)
+    while len(vocab) < n_regular:
+        word = "".join(rng.choice(pieces) for _ in range(rng.randint(1, 3)))
+        add(("Ġ" if rng.random() < 0.6 else "") + word)
+    specials = LLAMA3_SPECIALS + [
+        f"<|reserved_special_token_{i}|>" for i in range(3, 3 + N_SPECIAL - len(LLAMA3_SPECIALS))
+    ]
+    added = [
+        {"id": n_regular + i, "content": name, "single_word": False, "lstrip": False,
+         "rstrip": False, "normalized": False, "special": True}
+        for i, name in enumerate(specials)
+    ]
+    bos = specials[0]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False},
+        ]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+             "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [n_regular], "tokens": [bos]}}},
+        ]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [list(m) for m in merges]},
+    }
+
+
+def write_model_dir(path: str, tokmod, mcfg, text: str) -> str:
+    """config.json of ``mcfg`` (read back equal to it), the tokenizer
+    of ``tokenizer_spec``, a Llama-3-style chat template and EOS
+    ``<|eot_id|>`` in generation_config.json. No weights: the server
+    runs with --random-weights."""
+    os.makedirs(path, exist_ok=True)
+    bos = mcfg.vocab_size - N_SPECIAL
+    cfg = {
+        "architectures": ["LlamaForCausalLM"], "model_type": mcfg.model_type,
+        "vocab_size": mcfg.vocab_size, "hidden_size": mcfg.hidden_size,
+        "intermediate_size": mcfg.intermediate_size,
+        "num_hidden_layers": mcfg.num_layers, "num_attention_heads": mcfg.num_heads,
+        "num_key_value_heads": mcfg.num_kv_heads, "rope_theta": mcfg.rope_theta,
+        "rms_norm_eps": mcfg.rms_norm_eps,
+        "max_position_embeddings": mcfg.max_position_embeddings,
+        "tie_word_embeddings": mcfg.tie_word_embeddings,
+        "attention_bias": mcfg.attention_bias, "torch_dtype": mcfg.dtype,
+        "bos_token_id": bos,
+        # The preset's MoE routing default (unused by a dense model), so
+        # that the file reads back equal to the preset.
+        "norm_topk_prob": mcfg.norm_topk_prob,
+    }
+    if mcfg.head_dim:
+        cfg["head_dim"] = mcfg.head_dim
+    files = {
+        "config.json": cfg,
+        "generation_config.json": {"bos_token_id": bos, "eos_token_id": bos + EOT_OFFSET},
+        "tokenizer_config.json": {"bos_token": LLAMA3_SPECIALS[0],
+                                  "eos_token": "<|eot_id|>",
+                                  "chat_template": CHAT_TEMPLATE},
+        "tokenizer.json": tokenizer_spec(tokmod, mcfg.vocab_size, text),
+    }
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    return path
+
+
+async def sse_request(client, url: str, body: dict) -> dict:
+    """One streaming request: its text, finish reason, usage, the time
+    it was sent, the arrival time of every content frame, and whether
+    it ended with [DONE]."""
+    sent = time.perf_counter()
+    text, frames, finish, usage, done = [], [], None, None, False
+    async for f in client.sse_frames(url, body):
+        assert f.event != "error", f"stream error: {f.comment}"
+        if f.data == "[DONE]":
+            done = True
+            break
+        usage = f.data.get("usage") or usage
+        for c in f.data["choices"]:
+            piece = c["text"] if "text" in c else (c.get("delta") or {}).get("content")
+            if piece:
+                text.append(piece)
+                frames.append(time.perf_counter())
+            finish = c.get("finish_reason") or finish
+    return dict(text="".join(text), frames=frames, sent=sent, finish=finish,
+                usage=usage, done=done)
+
+
+async def burst(client, eng, url: str, bodies: list[dict], reset_cache: bool) -> tuple:
+    """Send ``bodies`` at once with the engine's admission held until
+    every one is queued, so the batch's schedule is phase 5's (all
+    admitted together); ``reset_cache`` first drops the prefix cache a
+    previous burst left. Returns (results, wall seconds, CPU seconds of
+    this thread, where the server and the client run, and of the
+    engine's loop thread)."""
+    cpu0 = time.thread_time()
+    with eng.hold_admission():
+        if reset_cache:
+            eng.reset_prefix_cache()
+        tasks = [asyncio.ensure_future(sse_request(client, url, b)) for b in bodies]
+        while eng.queued() < len(bodies) and not any(t.done() for t in tasks):
+            await asyncio.sleep(0.001)
+    out = await asyncio.gather(*tasks)
+    wall = time.perf_counter() - min(r["sent"] for r in out)
+    return out, wall, time.thread_time() - cpu0, eng.loop_cpu_seconds()
+
+
+async def direct_burst(eng, requests: list[dict]) -> tuple:
+    """``burst``'s requests straight into the same engine (no HTTP, no
+    tokenizer): each result holds its tokens and the arrival times of
+    the engine's outputs that carried tokens."""
+
+    async def collect(stream, sent):
+        tokens, frames = [], []
+        async for item in stream:
+            if item.get("token_ids"):
+                tokens += item["token_ids"]
+                frames.append(time.perf_counter())
+        return dict(tokens=tokens, frames=frames, sent=sent,
+                    usage={"completion_tokens": len(tokens)})
+
+    cpu0 = time.thread_time()
+    with eng.hold_admission():
+        eng.reset_prefix_cache()
+        sent = time.perf_counter()
+        streams = [eng.submit(r) for r in requests]
+    out = await asyncio.gather(*(collect(s, sent) for s in streams))
+    return out, time.perf_counter() - sent, time.thread_time() - cpu0, eng.loop_cpu_seconds()
+
+
+def edge_stats(results: list[dict], wall: float, edge_cpu: float, loop_cpu: float) -> dict:
+    ttft = sorted(r["frames"][0] - r["sent"] for r in results)
+    gaps = [b - a for r in results for a, b in zip(r["frames"], r["frames"][1:])]
+    tokens = sum(r["usage"]["completion_tokens"] for r in results)
+    return dict(ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+                frame_gap_mean_s=sum(gaps) / max(len(gaps), 1), frames=sum(
+                    len(r["frames"]) for r in results), completion_tokens=tokens,
+                tokens_per_s=tokens / wall, wall_s=wall, edge_cpu_s=edge_cpu,
+                loop_cpu_s=loop_cpu)
+
+
+def streamed_text(tok, ids: list[int]) -> str:
+    """What the backend emits for ``ids``: the DecodeStream pieces (a
+    partial UTF-8 character at the very end is never emitted)."""
+    ds = tok.decode_stream()
+    return "".join(p for p in (ds.step(i) for i in ids) if p)
+
+
+def http_path(torch, np, pkg, tra, phase5_tokens, *, device="cuda", mcfg=None,
+              prompt_lens=PROMPT_LENS, max_tokens=MAX_TOKENS, seeded=SEEDED) -> dict:
+    """Phase 6: the port's real entry point. ``run.main_async(in=http
+    out=cuda)`` serves a model directory written here (llama-8b's
+    config, a 128,256-entry tokenizer, a chat template) with seeded
+    random weights, in this process; a stdlib client sends (a) phase
+    5's requests as streaming completions, twice, (b) two streaming
+    chats, (c) a unary completion, (d) (c) again with a stop string cut
+    from (c)'s text, and a lone greedy request; the kernels' launch
+    counts are read there, so they hold only what HTTP requests ran.
+    Then the lone request is served straight by a ``TorchEngine`` on the
+    same weights, and (a) goes in turns straight into the engine and
+    over HTTP."""
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model_dir = write_model_dir(os.path.join(tmp, "llama-8b"), tokmod, mcfg, text)
+        t_write = time.perf_counter() - t0
+        assert pkg.models.ModelConfig.from_pretrained(model_dir) == mcfg
+        t0 = time.perf_counter()
+        tok = tokmod.Tokenizer.from_pretrained(model_dir)
+        t_load = time.perf_counter() - t0
+        assert tok.vocab_size == mcfg.vocab_size
+        eot = mcfg.vocab_size - N_SPECIAL + EOT_OFFSET
+        assert tok.eos_token_ids == [eot], tok.eos_token_ids
+        log(f"[http] model dir: config.json of the preset, tokenizer.json of "
+            f"{tok.vocab_size} entries (written in {t_write:.2f} s, loaded in "
+            f"{t_load:.2f} s), EOS {eot}")
+        max_len = max(prompt_lens) + max_tokens + PS
+        argv = [
+            "in=http", "out=cuda", "--device", device, "--model-path", model_dir,
+            "--model-name", "llama-8b", "--random-weights", "--http-host", "127.0.0.1",
+            "--http-port", "0", "--max-decode-slots", "8", "--page-size", str(PS),
+            "--max-model-len", str(max_len), "--num-pages", str(8 * -(-max_len // PS)),
+            "--kv-dtype", "bfloat16", "--max-tokens", str(max_tokens),
+        ]
+        stats = asyncio.run(asyncio.wait_for(
+            _drive_http(torch, np, pkg, tra, tok, run.parse_args(argv), client,
+                        phase5_tokens, device, mcfg, prompt_lens, max_tokens, seeded),
+            timeout=900))
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return stats
+
+
+async def _drive_http(torch, np, pkg, tra, tok, opts, client, phase5_tokens, device,
+                      mcfg, prompt_lens, max_tokens, seeded) -> dict:
+    from dynamo_exp_tpu_torch import run
+
+    t0 = time.perf_counter()
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({server, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if server.done():
+        server.result()  # startup failed: raise its error
+    served = ready.result()
+    base = f"http://127.0.0.1:{served.port}"
+    models = (await client.request(base + "/v1/models")).json()
+    assert [m["id"] for m in models["data"]] == ["llama-8b"], models
+    eng = served.torch_engine
+    log(f"[http] run.main_async(in=http out=cuda --device {device}) listening on "
+        f"{base} in {time.perf_counter() - t0:.1f} s; engine {eng.attn_impl} attention, "
+        f"{eng.cfg.num_pages} pages")
+    try:
+        return await _traffic(torch, np, pkg, tra, tok, client, base, eng, opts.model_path,
+                              phase5_tokens, device, mcfg, prompt_lens, max_tokens,
+                              seeded)
+    finally:
+        server.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await server
+
+
+async def _traffic(torch, np, pkg, tra, tok, client, base, eng, model_dir, phase5_tokens,
+                   device, mcfg, prompt_lens, max_tokens, seeded) -> dict:
+    from dynamo_exp_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_exp_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_exp_tpu_torch.protocols.openai import ChatCompletionRequest
+
+    cmpl, chat = base + "/v1/completions", base + "/v1/chat/completions"
+    prompts = phase5_prompts(np, mcfg.vocab_size, prompt_lens)
+    bodies = [
+        {"model": "llama-8b", "prompt": ids, "max_tokens": max_tokens, "stream": True,
+         "stream_options": {"include_usage": True}, "nvext": {"ignore_eos": True},
+         **(SEEDED_OPTIONS if i == seeded else {})}
+        for i, ids in enumerate(prompts)
+    ]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    tra.reset_launches()
+    # Only HTTP requests from here to the read of the launch counts.
+    # (a), twice.
+    a_out, *a_times = await burst(client, eng, cmpl, bodies, reset_cache=False)
+    per_burst = dict(tra.LAUNCHES)
+    for i, (r, ids) in enumerate(zip(a_out, prompts)):
+        assert r["done"], f"(a) request {i} did not end with [DONE]"
+        assert r["finish"] == "length", f"(a) request {i} finished {r['finish']!r}"
+        assert r["usage"] == {"prompt_tokens": len(ids), "completion_tokens": max_tokens,
+                              "total_tokens": len(ids) + max_tokens}, r["usage"]
+        assert r["text"], f"(a) request {i} gave no text"
+    rerun, *rerun_times = await burst(client, eng, cmpl, bodies, reset_cache=True)
+    assert [r["text"] for r in rerun] == [r["text"] for r in a_out], "(a) rerun differs"
+    assert {k: v - per_burst[k] for k, v in tra.LAUNCHES.items()} == per_burst, (
+        "(a) and its rerun launched the kernels a different number of times")
+    after_bursts = dict(tra.LAUNCHES)
+    same_as_phase5 = [
+        r["text"] == streamed_text(tok, t) for r, t in zip(a_out, phase5_tokens or [])
+    ]
+    # (b) two streaming chats through the template.
+    pre = OpenAIPreprocessor(ModelDeploymentCard.from_local_path(model_dir, "llama-8b"), tok)
+    t0 = time.perf_counter()
+    chat_ids = [
+        pre.preprocess_chat(
+            ChatCompletionRequest.from_dict({"model": "llama-8b", "messages": m})
+        ).token_ids
+        for m in CHATS
+    ]
+    t_chat_pre = time.perf_counter() - t0
+    b_out = await asyncio.gather(*(
+        sse_request(client, chat, {"model": "llama-8b", "messages": m,
+                                   "max_tokens": max_tokens, "stream": True,
+                                   "stream_options": {"include_usage": True}})
+        for m in CHATS))
+    for r, ids in zip(b_out, chat_ids):
+        assert r["done"] and r["finish"] in ("length", "stop"), r
+        n = r["usage"]["completion_tokens"]
+        assert r["usage"]["prompt_tokens"] == len(ids) and 0 < n <= max_tokens, r["usage"]
+        assert n == max_tokens or r["finish"] == "stop", r
+    # (c) unary, then (d) with a stop string cut from its text.
+    c = await client.request(cmpl, "POST", {"model": "llama-8b", "prompt": UNARY_PROMPT,
+                                            "max_tokens": max_tokens})
+    assert c.status == 200, c.body
+    c_choice = c.json()["choices"][0]
+    c_text = c_choice["text"]
+    assert c_choice["finish_reason"] in ("length", "stop") and c_text, c_choice
+    stop = next(
+        (c_text[i : i + 4] for i in range(len(c_text) // 3, len(c_text) - 4)
+         if c_text[i : i + 4].strip() and "�" not in c_text[i : i + 4]),
+        None)
+    assert stop, f"no stop string in {c_text!r}"
+    d = await sse_request(client, cmpl, {"model": "llama-8b", "prompt": UNARY_PROMPT,
+                                         "max_tokens": max_tokens, "stop": [stop],
+                                         "stream": True,
+                                         "stream_options": {"include_usage": True}})
+    assert d["done"] and d["finish"] == "stop", d
+    assert d["text"] == c_text[: c_text.find(stop)], (d["text"], c_text, stop)
+    # A lone greedy request, through HTTP.
+    rs = np.random.RandomState(11)
+    lone_len = min(LONE_PROMPT_LEN, max(prompt_lens))
+    lone_ids = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=lone_len)]
+    lone = await sse_request(client, cmpl, {
+        "model": "llama-8b", "prompt": lone_ids, "max_tokens": max_tokens, "stream": True,
+        "nvext": {"ignore_eos": True}})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches, designs = dict(tra.LAUNCHES), dict(tra.KERNEL_LAUNCHES)
+    rest = {k: v - after_bursts[k] for k, v in launches.items()}
+    if device == "cuda":
+        # Each burst, and the requests after them, reached both kernels.
+        for counts in (per_burst, rest):
+            assert counts["ragged_paged_attention"] > 0, counts
+            assert counts["ragged_decode_attention"] > 0, counts
+        assert designs["mixed_tc_bf16"] == launches["ragged_paged_attention"], designs
+        assert designs["mixed_f32"] == 0, designs
+        assert designs["decode_split"] == launches["ragged_decode_attention"], designs
+    # ... and straight to a TorchEngine on the same weights.
+    eng2 = pkg.engine.TorchEngine(eng.cfg, model=eng.model, device=device)
+    try:
+        stream = eng2.submit({"token_ids": lone_ids,
+                              "stop_conditions": {"max_tokens": max_tokens,
+                                                  "ignore_eos": True}})
+        eng2.start()
+        direct = [t async for item in stream for t in item.get("token_ids", [])]
+    finally:
+        eng2.stop()
+    del eng2
+    full = tok.decode(direct)
+    assert len(direct) == max_tokens
+    assert lone["text"] == streamed_text(tok, direct), (lone["text"], full)
+    assert lone["text"] == full or (full.endswith("�") and full.startswith(lone["text"]))
+    # What the edge costs: the same burst straight into the same engine
+    # and over HTTP, in turns; the schedule (and the tokens) are equal.
+    direct_requests = [
+        {"token_ids": ids, "stop_conditions": {"max_tokens": max_tokens, "ignore_eos": True},
+         "sampling_options": SEEDED_OPTIONS if i == seeded else {}}
+        for i, ids in enumerate(prompts)
+    ]
+    turns = [("http", edge_stats(rerun, *rerun_times))]
+    for kind in ("direct", "http", "direct"):
+        if kind == "http":
+            res, *times = await burst(client, eng, cmpl, bodies, reset_cache=True)
+            assert [r["text"] for r in res] == [r["text"] for r in a_out]
+        else:
+            res, *times = await direct_burst(eng, direct_requests)
+            assert [streamed_text(tok, r["tokens"]) for r in res] == [
+                r["text"] for r in a_out], "HTTP text is not the engine's tokens decoded"
+        turns.append((kind, edge_stats(res, *times)))
+    if "--profile" in sys.argv and device == "cuda":
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced, wall, _, _ = await burst(client, eng, cmpl, bodies, reset_cache=True)
+            torch.cuda.synchronize()
+        assert [r["text"] for r in traced] == [r["text"] for r in a_out]
+        report_profile(prof, wall, "[profile http]", top=8)
+    # Host cost of the edge's text work, on this run's prompts.
+    texts = [tok.decode(ids) for ids in prompts]
+    t0 = time.perf_counter()
+    encoded = [tok.encode(t, add_special_tokens=False).ids for t in texts]
+    t_encode = time.perf_counter() - t0
+    return dict(
+        a=edge_stats(a_out, *a_times), a_rerun=edge_stats(rerun, *rerun_times), turns=turns,
+        launches=launches, designs=designs, per_burst=per_burst, rest=rest,
+        same_as_phase5=same_as_phase5,
+        chat_preprocess_s=t_chat_pre, chat_prompt_tokens=[len(i) for i in chat_ids],
+        encode_s=t_encode, encode_chars=sum(len(t) for t in texts),
+        encode_tokens=sum(len(e) for e in encoded), lone_text=lone["text"],
+        stop=stop, b_finish=[r["finish"] for r in b_out],
+    )
 
 
 def main() -> int:
@@ -593,6 +1149,41 @@ def main() -> int:
         f"{stats['rerun_wall_s']:.3f} s), {stats['completion_tokens']} tokens, "
         f"{stats['tokens_per_s']:.2f} tokens/s, TTFT p50 {stats['ttft_p50_s']:.3f} s "
         f"max {stats['ttft_max_s']:.3f} s")
+    h = http_path(torch, np, pkg, tra, stats["tokens"])
+    a, r = h["a"], h["a_rerun"]
+    log(f"[http] {name} ({smi}): (a) 8 streaming completions over HTTP: wall "
+        f"{a['wall_s']:.3f} s (rerun {r['wall_s']:.3f} s), {a['completion_tokens']} "
+        f"tokens, {a['tokens_per_s']:.2f} tokens/s, edge TTFT p50 {a['ttft_p50_s']:.3f} s "
+        f"max {a['ttft_max_s']:.3f} s, mean gap between content frames "
+        f"{a['frame_gap_mean_s'] * 1e3:.2f} ms over {a['frames']} frames (rerun: "
+        f"{r['tokens_per_s']:.2f} tokens/s, TTFT p50 {r['ttft_p50_s']:.3f} s max "
+        f"{r['ttft_max_s']:.3f} s, gap {r['frame_gap_mean_s'] * 1e3:.2f} ms); host CPU "
+        f"seconds, server and client thread / engine loop thread: {a['edge_cpu_s']:.3f} / "
+        f"{a['loop_cpu_s']:.3f} (rerun {r['edge_cpu_s']:.3f} / {r['loop_cpu_s']:.3f}); phase 5 in "
+        f"this call, first run (cold) and rerun: wall {stats['wall_s']:.3f} / "
+        f"{stats['rerun_wall_s']:.3f} s, {stats['tokens_per_s']:.2f} / "
+        f"{stats['rerun_tokens_per_s']:.2f} tokens/s, TTFT p50 {stats['ttft_p50_s']:.3f} / "
+        f"{stats['rerun_ttft_p50_s']:.3f} s, max {stats['ttft_max_s']:.3f} / "
+        f"{stats['rerun_ttft_max_s']:.3f} s")
+    log("[http] the edge against the engine alone, same engine, same burst, in turns: " +
+        "; ".join(
+            f"{kind} wall {t['wall_s']:.3f} s, {t['tokens_per_s']:.2f} tokens/s, TTFT p50 "
+            f"{t['ttft_p50_s']:.3f} s max {t['ttft_max_s']:.3f} s, gap "
+            f"{t['frame_gap_mean_s'] * 1e3:.2f} ms, CPU s asyncio / loop thread "
+            f"{t['edge_cpu_s']:.3f} / {t['loop_cpu_s']:.3f}"
+            for kind, t in h["turns"]))
+    log(f"[http] every stream ended with [DONE]; (a) finished 'length' with "
+        f"{MAX_TOKENS} tokens and exact usage, a rerun gave identical text, and "
+        f"{sum(h['same_as_phase5'])}/8 texts equal phase 5's tokens decoded; (b) chat "
+        f"finishes {h['b_finish']}; (d) stopped at {h['stop']!r} with (c)'s text before it; "
+        f"the lone greedy request's HTTP text equals its direct-engine tokens decoded")
+    log(f"[http] launches of the HTTP requests alone {h['launches']}, by kernel "
+        f"{h['designs']}: {h['per_burst']} in each (a) burst, {h['rest']} in (b), (c), "
+        f"(d) and the lone request")
+    log(f"[http] host text work: 2 chat requests templated and encoded in "
+        f"{h['chat_preprocess_s'] * 1e3:.2f} ms ({h['chat_prompt_tokens']} tokens); "
+        f"(a)'s prompts as text, {h['encode_chars']} chars -> {h['encode_tokens']} tokens, "
+        f"encoded in {h['encode_s']:.3f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -605,7 +1196,8 @@ def main() -> int:
         k = kern[entry]
         kernels.append({
             "name": entry, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": stats["launches"][entry], "max_abs_err": k["max_abs_err"],
+            "launches": stats["launches"][entry],
+            "launches_http": h["launches"][entry], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })

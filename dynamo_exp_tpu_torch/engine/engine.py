@@ -30,6 +30,7 @@ recorder.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import queue
 import random
@@ -138,6 +139,7 @@ class TorchEngine(AsyncEngine):
         self._submit_q: queue.Queue[Sequence] = queue.Queue()
         self._wake = threading.Event()
         self._running = False
+        self._held = False
         self._thread: threading.Thread | None = None
         self.steps = 0  # forward steps dispatched
         self.wasted_steps = 0  # window steps computed past a row's stop
@@ -145,7 +147,7 @@ class TorchEngine(AsyncEngine):
 
     # -------------------------------------------------------------- lifecycle
     def start(self) -> None:
-        if self._running:
+        if self._running or self._held:
             return
         self._running = True
         self._thread = threading.Thread(
@@ -162,6 +164,43 @@ class TorchEngine(AsyncEngine):
                 log.error("engine loop did not exit within 60s")
                 return
             self._thread = None
+
+    @contextlib.contextmanager
+    def hold_admission(self):
+        """Pause the loop thread and queue what arrives meanwhile; on
+        exit the loop's first iteration admits it together, as
+        :meth:`submit` before :meth:`start` does, so a burst's schedule
+        does not depend on its arrival times. Rows in flight pause too."""
+        self.stop()
+        if self._thread is not None:
+            raise RuntimeError("engine loop did not pause; not holding admission")
+        self._held = True
+        try:
+            yield
+        finally:
+            self._held = False
+            self.start()
+
+    def loop_cpu_seconds(self) -> float:
+        """CPU seconds the current loop thread has used since it
+        started (0 when it is not running)."""
+        t = self._thread
+        if t is None or t.ident is None:
+            return 0.0
+        return time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+
+    def queued(self) -> int:
+        """Requests submitted and not yet taken by the loop."""
+        return self._submit_q.qsize()
+
+    def reset_prefix_cache(self) -> int:
+        """Drop the reusable pages of finished requests, so that a
+        repeated prompt is prefilled again (call while the loop is not
+        running, e.g. inside :meth:`hold_admission`). Returns the number
+        of pages dropped."""
+        if self._running:
+            raise RuntimeError("reset_prefix_cache needs the loop paused")
+        return self.kv.reset_prefix_cache()
 
     async def generate(
         self, request, context: AsyncEngineContext | None = None
@@ -187,9 +226,16 @@ class TorchEngine(AsyncEngine):
         )
         loop = asyncio.get_running_loop()
         out_q: asyncio.Queue = asyncio.Queue()
+        orphaned = threading.Event()
 
         def emit(tokens: list[int], reason: FinishReason | None) -> None:
-            loop.call_soon_threadsafe(out_q.put_nowait, (tokens, reason))
+            try:
+                loop.call_soon_threadsafe(out_q.put_nowait, (tokens, reason))
+            except RuntimeError:
+                # The caller's event loop has closed: nobody reads this
+                # stream any more. The loop thread lives on and cancels
+                # the row on its next pass, freeing its slot and pages.
+                orphaned.set()
 
         seed = binput.sampling_options.seed
         seq = Sequence(
@@ -197,7 +243,7 @@ class TorchEngine(AsyncEngine):
             prompt=list(binput.token_ids),
             stop=binput,
             emit=emit,
-            is_cancelled=lambda: ctx.is_stopped,
+            is_cancelled=lambda: ctx.is_stopped or orphaned.is_set(),
             submitted_at=time.time(),
             sample_seed=int(seed) if seed is not None else self._seed_rng.getrandbits(31),
         )

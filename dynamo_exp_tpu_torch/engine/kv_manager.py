@@ -191,6 +191,17 @@ class KvPageManager:
                 else:
                     self._free.append(pid)
 
+    def reset_prefix_cache(self) -> int:
+        """Forget every parked (zero-ref) registered page and return it
+        to the free list; pages live sequences hold stay. Returns the
+        number of pages dropped."""
+        dropped = list(self._reclaimable)
+        self._reclaimable.clear()
+        for pid in dropped:
+            self._unregister(pid)
+            self._free.append(pid)
+        return len(dropped)
+
     # -------------------------------------------------------------- internal
     def _ref_page(self, pid: int) -> None:
         rec = self._records[pid]

@@ -1,0 +1,447 @@
+"""OpenAI-compatible HTTP ingress on ``asyncio`` streams.
+
+Counterpart of ``dynamo_exp_tpu/http/service.py``. The JAX package
+serves through aiohttp; the port keeps to the standard library, with a
+small HTTP/1.1 reader and writer of its own: request bodies by
+``Content-Length`` (``Expect: 100-continue`` answered), keep-alive, and
+SSE as ``text/event-stream`` in chunked transfer encoding, ending with
+``data: [DONE]``.
+
+Routes: ``POST /v1/chat/completions``, ``POST /v1/completions`` (a list
+of prompts fans out into one sub-request each, with re-indexed
+choices), ``GET /v1/models``, ``/health`` and ``/live``. The service
+always streams from the engine and folds ``stream=false`` responses.
+Errors as the JAX service sends them: 400 for bad JSON, a bad shape or
+too long a prompt, 404 for an unknown model, 500 for an engine error
+(mid-stream: an SSE ``event: error`` frame). A client that disconnects
+before its response is complete kills the request's context, which
+frees its slot and pages in the engine.
+
+Left out (ROADMAP Queue 1 item 9): ``/metrics`` (a), admission control,
+SLO attribution and ``timeout_s`` deadlines (b), request templates (c),
+the resumable ``seq_index`` dedupe and model discovery (e).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import json
+import logging
+from dataclasses import dataclass, field
+from typing import Any
+
+from ..preprocessor.preprocessor import InvalidRequestError, PromptTooLongError
+from ..protocols.aggregator import aggregate_chat_stream, aggregate_completion_stream
+from ..protocols.openai import (
+    ChatCompletionChunk,
+    ChatCompletionRequest,
+    CompletionChunk,
+    CompletionRequest,
+    ModelInfo,
+    ModelList,
+)
+from ..protocols.sse import encode_done, encode_frame
+from ..runtime.annotated import Annotated
+from ..runtime.engine import AsyncEngine, AsyncEngineContext
+
+logger = logging.getLogger(__name__)
+
+MAX_HEAD_BYTES = 64 << 10
+MAX_BODY_BYTES = 32 << 20
+_REASONS = {
+    100: "Continue", 200: "OK", 400: "Bad Request", 404: "Not Found",
+    405: "Method Not Allowed", 413: "Payload Too Large", 500: "Internal Server Error",
+    501: "Not Implemented",
+}
+
+
+class ModelManager:
+    """Per-model engine registry."""
+
+    def __init__(self):
+        self._chat: dict[str, AsyncEngine] = {}
+        self._completion: dict[str, AsyncEngine] = {}
+
+    def add_chat_model(self, name: str, engine: AsyncEngine) -> None:
+        self._chat[name] = engine
+
+    def add_completion_model(self, name: str, engine: AsyncEngine) -> None:
+        self._completion[name] = engine
+
+    def chat_engine(self, name: str) -> AsyncEngine | None:
+        return self._chat.get(name)
+
+    def completion_engine(self, name: str) -> AsyncEngine | None:
+        return self._completion.get(name)
+
+    def model_names(self) -> list[str]:
+        return sorted(set(self._chat) | set(self._completion))
+
+
+class _BadRequest(Exception):
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+
+
+@dataclass
+class _Request:
+    method: str
+    path: str
+    version: str
+    headers: dict[str, str] = field(default_factory=dict)
+    body: bytes = b""
+
+    @property
+    def keep_alive(self) -> bool:
+        conn = self.headers.get("connection", "").lower()
+        if self.version == "HTTP/1.0":
+            return conn == "keep-alive"
+        return conn != "close"
+
+
+@dataclass
+class _Response:
+    status: int
+    body: bytes = b""
+    content_type: str = "application/json; charset=utf-8"
+
+
+def _json_response(obj: Any, status: int = 200) -> _Response:
+    return _Response(status, json.dumps(obj).encode())
+
+
+def _error_response(
+    status: int, message: str, err_type: str = "invalid_request_error"
+) -> _Response:
+    return _json_response(
+        {"error": {"message": message, "type": err_type, "code": status}}, status
+    )
+
+
+class _Connection:
+    """One client connection: request reading with a push-back buffer
+    (the disconnect watch may read ahead of the next request)."""
+
+    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        self.reader = reader
+        self.writer = writer
+        self.buf = bytearray()
+
+    async def _fill(self) -> bool:
+        data = await self.reader.read(65536)
+        self.buf += data
+        return bool(data)
+
+    async def read_head(self) -> bytes | None:
+        while b"\r\n\r\n" not in self.buf:
+            if len(self.buf) > MAX_HEAD_BYTES:
+                raise _BadRequest(400, "request head too large")
+            if not await self._fill():
+                if self.buf.strip():
+                    raise _BadRequest(400, "connection closed inside a request head")
+                return None
+        head, _, rest = bytes(self.buf).partition(b"\r\n\r\n")
+        self.buf = bytearray(rest)
+        return head
+
+    async def read_body(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            if not await self._fill():
+                raise ConnectionResetError("connection closed inside a request body")
+        body, self.buf = bytes(self.buf[:n]), self.buf[n:]
+        return body
+
+    async def read_request(self) -> _Request | None:
+        head = await self.read_head()
+        if head is None:
+            return None
+        try:
+            lines = head.decode("latin-1").split("\r\n")
+            method, target, version = lines[0].split(" ")
+        except ValueError:
+            raise _BadRequest(400, "malformed request line") from None
+        if not version.startswith("HTTP/1."):
+            raise _BadRequest(400, f"unsupported protocol {version!r}")
+        headers: dict[str, str] = {}
+        for line in lines[1:]:
+            name, sep, value = line.partition(":")
+            if not sep:
+                raise _BadRequest(400, "malformed header line")
+            headers[name.strip().lower()] = value.strip()
+        req = _Request(method, target.split("?", 1)[0], version, headers)
+        if "transfer-encoding" in headers:
+            raise _BadRequest(501, "request bodies must carry Content-Length")
+        try:
+            length = int(headers.get("content-length", "0"))
+        except ValueError:
+            raise _BadRequest(400, "bad Content-Length") from None
+        if length < 0 or length > MAX_BODY_BYTES:
+            raise _BadRequest(413, f"body of {length} bytes")
+        if length and headers.get("expect", "").lower() == "100-continue":
+            self.writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+            await self.writer.drain()
+        req.body = await self.read_body(length)
+        return req
+
+    async def watch_disconnect(self) -> None:
+        """Return when the client closes its end (reads ahead into
+        ``buf`` if it sends another request meanwhile)."""
+        while await self._fill():
+            pass
+
+    def write_head(self, status: int, headers: dict[str, str]) -> None:
+        lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}"]
+        lines += [f"{k}: {v}" for k, v in headers.items()]
+        self.writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+
+    async def send(self, resp: _Response, keep_alive: bool) -> None:
+        self.write_head(
+            resp.status,
+            {
+                "Content-Type": resp.content_type,
+                "Content-Length": str(len(resp.body)),
+                "Connection": "keep-alive" if keep_alive else "close",
+            },
+        )
+        self.writer.write(resp.body)
+        await self.writer.drain()
+
+    async def send_chunk(self, data: bytes) -> None:
+        self.writer.write(b"%x\r\n%s\r\n" % (len(data), data))
+        await self.writer.drain()
+
+
+class HttpService:
+    def __init__(
+        self,
+        manager: ModelManager | None = None,
+        host: str = "0.0.0.0",
+        port: int = 8080,
+    ):
+        self.manager = manager or ModelManager()
+        self.host = host
+        self.port = port
+        self._server: asyncio.Server | None = None
+        self._conns: set[asyncio.Task] = set()
+        self._routes = {
+            ("POST", "/v1/chat/completions"): self._chat,
+            ("POST", "/v1/completions"): self._completions,
+            ("GET", "/v1/models"): self._models,
+            ("GET", "/health"): self._health,
+            ("GET", "/live"): self._health,
+        }
+
+    # --- lifecycle ----------------------------------------------------
+    async def start(self) -> int:
+        """Start serving; returns the bound port."""
+        self._server = await asyncio.start_server(self._serve_conn, self.host, self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+        logger.info("HTTP service listening on %s:%d", self.host, self.port)
+        return self.port
+
+    async def stop(self) -> None:
+        if self._server is None:
+            return
+        self._server.close()
+        for t in list(self._conns):
+            t.cancel()
+        await asyncio.gather(*self._conns, return_exceptions=True)
+        await self._server.wait_closed()
+        self._server = None
+
+    # --- connections ----------------------------------------------------
+    async def _serve_conn(self, reader, writer) -> None:
+        task = asyncio.current_task()
+        self._conns.add(task)
+        conn = _Connection(reader, writer)
+        try:
+            while True:
+                try:
+                    req = await conn.read_request()
+                except _BadRequest as e:
+                    await conn.send(_error_response(e.status, str(e)), keep_alive=False)
+                    return
+                if req is None:
+                    return
+                handler = self._routes.get((req.method, req.path))
+                if handler is None:
+                    known = any(p == req.path for _, p in self._routes)
+                    status = 405 if known else 404
+                    resp = _error_response(status, f"{req.method} {req.path}: no such route")
+                    await conn.send(resp, req.keep_alive)
+                elif not await handler(req, conn):
+                    return
+                if not req.keep_alive:
+                    return
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+        finally:
+            self._conns.discard(task)
+            writer.close()
+            with contextlib.suppress(ConnectionError, asyncio.CancelledError):
+                await writer.wait_closed()
+
+    # --- handlers -------------------------------------------------------
+    # Each returns False when the connection must close.
+    async def _health(self, req: _Request, conn: _Connection) -> bool:
+        body = {"status": "healthy", "models": self.manager.model_names()}
+        await conn.send(_json_response(body), req.keep_alive)
+        return True
+
+    async def _models(self, req: _Request, conn: _Connection) -> bool:
+        listing = ModelList(data=[ModelInfo(id=n) for n in self.manager.model_names()])
+        await conn.send(_json_response(listing.to_dict()), req.keep_alive)
+        return True
+
+    async def _chat(self, req: _Request, conn: _Connection) -> bool:
+        return await self._serve_llm(
+            req, conn,
+            parse=ChatCompletionRequest.from_dict,
+            lookup=self.manager.chat_engine,
+            chunk_type=ChatCompletionChunk,
+            aggregate=aggregate_chat_stream,
+        )
+
+    async def _completions(self, req: _Request, conn: _Connection) -> bool:
+        return await self._serve_llm(
+            req, conn,
+            parse=CompletionRequest.from_dict,
+            lookup=self.manager.completion_engine,
+            chunk_type=CompletionChunk,
+            aggregate=aggregate_completion_stream,
+            expand_batch=_expand_completion_batch,
+        )
+
+    async def _serve_llm(
+        self, req: _Request, conn: _Connection, parse, lookup, chunk_type, aggregate,
+        expand_batch=None,
+    ) -> bool:
+        try:
+            payload = json.loads(req.body)
+            oreq = parse(payload)
+        except ValueError as e:  # JSONDecodeError, UnicodeDecodeError too
+            await conn.send(_error_response(400, f"invalid request: {e}"), req.keep_alive)
+            return True
+        engine = lookup(oreq.model)
+        if engine is None:
+            resp = _error_response(404, f"model {oreq.model!r} not found", "model_not_found")
+            await conn.send(resp, req.keep_alive)
+            return True
+        sub_payloads = expand_batch(payload) if expand_batch else [payload]
+        # One context per sub-request: a finished sub-stream must not stop
+        # its batch siblings; a disconnect kills them all.
+        ctxs = [AsyncEngineContext() for _ in sub_payloads]
+        ctx = _FanoutContext(ctxs)
+        try:
+            streams = [await engine.generate(p, c) for p, c in zip(sub_payloads, ctxs)]
+        except PromptTooLongError as e:
+            resp = _error_response(400, str(e), "context_length_exceeded")
+        except InvalidRequestError as e:
+            resp = _error_response(400, str(e), "invalid_request_error")
+        except Exception as e:
+            logger.exception("engine rejected request")
+            resp = _error_response(500, str(e))
+        else:
+            resp = None
+        if resp is not None:
+            ctx.kill()
+            await conn.send(resp, req.keep_alive)
+            return True
+
+        async def typed_chunks():
+            for idx, stream in enumerate(streams):
+                async for item in stream:
+                    chunk = chunk_type.from_dict(item) if isinstance(item, dict) else item
+                    if idx:
+                        for choice in chunk.choices:
+                            choice.index = idx
+                    yield chunk
+
+        respond = (
+            self._stream_response(conn, typed_chunks(), ctx)
+            if oreq.stream
+            else self._unary_response(conn, aggregate(typed_chunks()), ctx, req.keep_alive)
+        )
+        serve = asyncio.ensure_future(respond)
+        watch = asyncio.ensure_future(conn.watch_disconnect())
+        try:
+            await asyncio.wait({serve, watch}, return_when=asyncio.FIRST_COMPLETED)
+        finally:
+            if not serve.done():
+                # Client went away (or the service is stopping): kill
+                # generation now so the engine frees the slot.
+                logger.info("client disconnected; killing request %s", ctx.id)
+                ctx.kill()
+                serve.cancel()
+            watch.cancel()
+            await asyncio.gather(serve, watch, return_exceptions=True)
+        if serve.cancelled() or serve.exception() is not None:
+            return False
+        return not oreq.stream and req.keep_alive
+
+    async def _unary_response(self, conn: _Connection, full, ctx, keep_alive: bool) -> None:
+        try:
+            resp = _json_response((await full).to_dict())
+        except Exception as e:
+            logger.exception("request failed")
+            ctx.kill()
+            resp = _error_response(500, str(e))
+        await conn.send(resp, keep_alive)
+
+    async def _stream_response(self, conn: _Connection, chunks, ctx) -> None:
+        """SSE in chunked encoding; the connection closes after it."""
+        conn.write_head(
+            200,
+            {
+                "Content-Type": "text/event-stream",
+                "Cache-Control": "no-cache",
+                "Transfer-Encoding": "chunked",
+                "Connection": "close",
+            },
+        )
+        try:
+            async for chunk in chunks:
+                frame = encode_frame(Annotated.from_data(chunk.to_dict()))
+                await conn.send_chunk(frame.encode())
+            await conn.send_chunk(encode_done().encode())
+        except (ConnectionError, asyncio.CancelledError):
+            ctx.kill()
+            raise
+        except Exception as e:
+            logger.exception("stream failed mid-flight")
+            ctx.kill()
+            await conn.send_chunk(encode_frame(Annotated.from_error(str(e))).encode())
+        await conn.send_chunk(b"")
+
+
+class _FanoutContext:
+    """Kill fan-out over a batch's per-sub-request contexts."""
+
+    def __init__(self, ctxs: list[AsyncEngineContext]):
+        self._ctxs = ctxs
+        self.id = ctxs[0].id if ctxs else ""
+
+    def kill(self) -> None:
+        for c in self._ctxs:
+            c.kill()
+
+
+def _expand_completion_batch(payload: dict) -> list[dict]:
+    """Split a multi-prompt completion payload into per-prompt payloads."""
+    prompt = payload.get("prompt")
+    if isinstance(prompt, list) and prompt and not isinstance(prompt[0], int):
+        return [{**payload, "prompt": p} for p in prompt]
+    return [payload]
+
+
+def build_pipeline_engine(mdc, core_engine) -> AsyncEngine:
+    """preprocessor -> backend -> core engine, as one OpenAI-level engine."""
+    from ..backend import Backend
+    from ..preprocessor.preprocessor import OpenAIPreprocessor
+    from ..runtime.pipeline import build_pipeline
+
+    pre = OpenAIPreprocessor(mdc)
+    backend = Backend(core_engine, pre.tokenizer)
+    return build_pipeline([pre], backend)

@@ -13,6 +13,32 @@ import enum
 from dataclasses import asdict, dataclass, field, fields
 
 
+PRIORITY_LOW = 0
+PRIORITY_NORMAL = 1
+PRIORITY_HIGH = 2
+
+_PRIORITY_NAMES = {"low": PRIORITY_LOW, "normal": PRIORITY_NORMAL, "high": PRIORITY_HIGH}
+
+
+def parse_priority(raw) -> int:
+    """A request's priority class as 0/1/2 (low/normal/high): the class
+    names (any case) or their integers; ``None`` is ``normal``; anything
+    else raises ``ValueError`` (a 400 at the HTTP edge)."""
+    if raw is None:
+        return PRIORITY_NORMAL
+    if isinstance(raw, bool):  # bool is an int subclass; reject explicitly
+        raise ValueError(f"invalid priority: {raw!r}")
+    if isinstance(raw, int) and raw in _PRIORITY_NAMES.values():
+        return raw
+    if isinstance(raw, str):
+        name = raw.strip().lower()
+        if name in _PRIORITY_NAMES:
+            return _PRIORITY_NAMES[name]
+        if name.lstrip("-").isdigit():
+            return parse_priority(int(name))
+    raise ValueError(f"invalid priority: {raw!r} (expected 0..2 or low/normal/high)")
+
+
 class FinishReason(str, enum.Enum):
     EOS = "eos"
     STOP = "stop"
@@ -50,6 +76,10 @@ class StopConditions:
     stop_token_ids: list[int] = field(default_factory=list)
     min_tokens: int | None = None
     ignore_eos: bool = False
+
+    def apply_defaults(self, max_tokens_default: int | None) -> None:
+        if self.max_tokens is None:
+            self.max_tokens = max_tokens_default
 
     @classmethod
     def from_dict(cls, d: dict) -> "StopConditions":

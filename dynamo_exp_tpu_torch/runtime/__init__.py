@@ -1,3 +1,12 @@
+from .annotated import Annotated
 from .engine import AsyncEngine, AsyncEngineContext, ResponseStream
+from .pipeline import Operator, build_pipeline
 
-__all__ = ["AsyncEngine", "AsyncEngineContext", "ResponseStream"]
+__all__ = [
+    "Annotated",
+    "AsyncEngine",
+    "AsyncEngineContext",
+    "Operator",
+    "ResponseStream",
+    "build_pipeline",
+]

@@ -256,3 +256,52 @@ def test_engine_kernel_matches_reference_greedy(cuda):
     assert min(tra.LAUNCHES.values()) > 0, tra.LAUNCHES
     assert tra.KERNEL_LAUNCHES["mixed_f32"] > 0 and tra.KERNEL_LAUNCHES["decode_split"] > 0
     assert got == run("reference")
+
+
+def test_http_entry_point_serves_on_the_card(cuda, tmp_path):
+    """``run.main_async(in=http out=cuda)`` on the card: a streaming
+    completion through the OpenAI service ends with [DONE], finishes
+    ``length`` with exact usage, and its attention ran in the bf16
+    tensor-core mixed kernel and the split-KV decode kernel."""
+    import chip_smoke
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+
+    mcfg = replace(TINY, vocab_size=2048, hidden_size=512, num_heads=8, num_kv_heads=4,
+                   head_dim=64, max_position_embeddings=512)
+    model_dir = chip_smoke.write_model_dir(
+        str(tmp_path / "m"), tokmod, mcfg, "the quick brown fox jumps over the lazy dog " * 50)
+    opts = run.parse_args([
+        "in=http", "out=cuda", "--model-path", model_dir, "--model-name", "m",
+        "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
+        "--max-decode-slots", "4", "--page-size", "16", "--max-model-len", "256",
+        "--max-tokens", "12",
+    ])
+
+    async def go():
+        ready = asyncio.get_running_loop().create_future()
+        server = asyncio.ensure_future(run.main_async(opts, ready))
+        served = await asyncio.wait_for(ready, 300)
+        try:
+            tra.reset_launches()
+            body = {"model": "m", "prompt": list(range(3, 103)), "max_tokens": 12,
+                    "stream": True,
+                    "stream_options": {"include_usage": True},
+                    "nvext": {"ignore_eos": True}}
+            frames = [f async for f in client.sse_frames(
+                f"http://127.0.0.1:{served.port}/v1/completions", body)]
+            torch.cuda.synchronize()
+            return frames, dict(tra.KERNEL_LAUNCHES)
+        finally:
+            server.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await server
+
+    frames, designs = asyncio.run(asyncio.wait_for(go(), timeout=600))
+    assert frames[-1].data == "[DONE]"
+    usage = frames[-2].data["usage"]
+    assert usage == {"prompt_tokens": 100, "completion_tokens": 12, "total_tokens": 112}
+    assert any(c.get("finish_reason") == "length" for f in frames[:-1] for c in f.data["choices"])
+    assert designs["mixed_tc_bf16"] > 0 and designs["decode_split"] > 0, designs
+    assert designs["mixed_f32"] == 0

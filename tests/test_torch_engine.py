@@ -11,9 +11,11 @@
   the same tokens alone (windowed decode) as next to a late joiner
   (decode steps inside mixed dispatches).
 - Prefix reuse hits, and block hashes equal ``dynamo_exp_tpu.tokens``'.
+- A stream whose caller's event loop has closed is cancelled.
 """
 
 import asyncio
+import time
 from dataclasses import replace
 
 import jax
@@ -28,6 +30,7 @@ from dynamo_exp_tpu.models import llama as jllama
 from dynamo_exp_tpu.parallel import single_device_mesh
 from dynamo_exp_tpu_torch import tokens as ttokens
 from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
+from dynamo_exp_tpu_torch.engine.scheduler import SeqState
 from dynamo_exp_tpu_torch.models import params_from_jax
 
 CFG = replace(TINY, dtype="float32")
@@ -202,6 +205,42 @@ def test_prefix_reuse_hits_and_block_hashes_match():
         assert _run(_collect(fresh, p2, 6))[0] == second
     finally:
         fresh.stop()
+
+
+def test_stream_of_a_closed_event_loop_is_cancelled():
+    """A caller's event loop that closes mid-stream does not leave its
+    row decoding to max_tokens: the engine cancels it and frees its slot
+    and pages on its next passes."""
+    eng = _torch_engine(_np_params(3))
+    loop = asyncio.new_event_loop()
+
+    async def first_tokens():
+        stream = await eng.generate({
+            "token_ids": _prompts()[0],
+            "stop_conditions": {"max_tokens": 100, "ignore_eos": True},
+        })
+        async for item in stream:
+            if item.get("token_ids"):
+                return stream
+
+    try:
+        loop.run_until_complete(asyncio.wait_for(first_tokens(), timeout=300))
+        with eng.hold_admission():
+            (seq,) = [s for s in eng.sched.slots if s is not None]
+            at_close = seq.generated
+            loop.run_until_complete(loop.shutdown_asyncgens())
+            loop.close()
+        deadline = time.monotonic() + 60
+        while seq.state is not SeqState.FINISHED and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        eng.stop()
+    assert seq.state is SeqState.FINISHED
+    # One more window was dispatched (its emit found the loop closed),
+    # then the row was cancelled.
+    assert seq.generated <= at_close + ENGINE_KW["decode_window"] < 100
+    assert eng.sched.slots == [None] * ENGINE_KW["max_decode_slots"]
+    assert eng.kv.active_pages == 0
 
 
 def test_cuda_requested_without_a_card_raises():

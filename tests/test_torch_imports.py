@@ -1,9 +1,13 @@
-"""Import hygiene of the port: it never imports JAX or the JAX package.
+"""Import hygiene of the port: it never imports JAX or the JAX package,
+nor a package the card's machine lacks.
 
 Every module of ``dynamo_exp_tpu_torch`` is imported in a fresh
 interpreter, which must then hold neither ``jax`` nor any
-``dynamo_exp_tpu`` module in ``sys.modules``. The parity tests are the
-only other place where the two packages meet.
+``dynamo_exp_tpu`` module in ``sys.modules``, nor any of the packages
+the JAX package's ingress rests on and the H100 machine does not have
+(``aiohttp``, ``pydantic``, ``tokenizers``, ``transformers``,
+``prometheus_client``). The parity tests are the only other place where
+the two packages meet.
 """
 
 import json
@@ -16,19 +20,21 @@ import dynamo_exp_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+FORBIDDEN = (
+    "jax", "jaxlib", "dynamo_exp_tpu", "aiohttp", "pydantic", "pydantic_core",
+    "tokenizers", "transformers", "prometheus_client",
+)
+
 _PROBE = """
 import importlib, json, pkgutil, sys
 import dynamo_exp_tpu_torch as pkg
 names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."))
 for name in names:
     importlib.import_module(name)
-bad = sorted(
-    m for m in sys.modules
-    if m == "jax" or m.startswith(("jax.", "jaxlib"))
-    or m == "dynamo_exp_tpu" or m.startswith("dynamo_exp_tpu.")
-)
+forbidden = %r
+bad = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
 print(json.dumps({"modules": names, "bad": bad}))
-"""
+""" % (FORBIDDEN,)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -49,13 +55,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         )
     }
     assert set(result["modules"]) == expected
-    for name in ("ops.ragged_attention", "models.llama", "engine.engine", "tokens"):
+    for name in (
+        "ops.ragged_attention", "models.llama", "engine.engine", "tokens",
+        "protocols.openai", "protocols.delta", "protocols.aggregator",
+        "protocols.sse", "runtime.annotated", "runtime.pipeline", "tokenizer",
+        "model_card", "preprocessor.prompt", "preprocessor.preprocessor",
+        "backend", "engines.echo", "http.service", "http.client", "run",
+    ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 
 
 def test_port_sources_name_no_jax_module():
-    """The same rule read from the sources: no ``import jax`` and no
-    import from the JAX package anywhere in the port."""
+    """The same rule read from the sources: no ``import jax``, no import
+    from the JAX package and none of ``FORBIDDEN`` anywhere in the port."""
     pkg_dir = os.path.dirname(dynamo_exp_tpu_torch.__file__)
     offenders = []
     for dirpath, _, files in os.walk(pkg_dir):
@@ -69,6 +81,6 @@ def test_port_sources_name_no_jax_module():
                     if not s.startswith(("import ", "from ")):
                         continue
                     top = s.split()[1].split(".")[0]
-                    if top in ("jax", "jaxlib", "dynamo_exp_tpu"):
+                    if top in FORBIDDEN:
                         offenders.append(f"{path}:{i}: {s}")
     assert offenders == []
