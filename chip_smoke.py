@@ -50,7 +50,28 @@ Phases, each fatal on failure (nothing is caught):
    decoded, and every attention launch of the phase went through the
    tensor-core mixed and the split-KV decode kernels. Printed: TTFT at
    the edge (p50, max), the mean gap between content frames, tokens/s
-   and wall time of (a) beside phase 5's, and the host's encode time.
+   and wall time of (a) beside phase 5's, and the host's encode time;
+7. KV pressure, with a G2 host tier of 1024 pages (pinned memory) fed by
+   the copy stream's side CUDA streams. (a) phase 5's 8 requests at 128
+   tokens each (466 pages of 16 at their end) on a 416-page pool,
+   llama-8b at full width and depth, bf16: all finish ``length`` with
+   128 tokens, rows were swapped out or preempted, the page audit is
+   clean with no page held, both bf16 kernels ran; printed: wall,
+   tokens/s, swaps, preemptions and the copy streams' pages, bytes and
+   GB/s each way (CUDA events). (b) the 2048-token prompt three times:
+   cold, a G1 hit, then, after 4 other 2048-token prompts evicted its
+   pages to the host tier, a G2 hit: the host tier's bytes and the
+   injected pages' bytes equal (on the card) what the pages held when
+   they were evicted, and the G1 and G2 hits give the same tokens. (c)
+   llama-8b's width at 4 layers with float32 weights and pools: the
+   pressured burst of (a) gives each request's tokens run alone on the
+   same engine, through the float32 mixed kernel and the split-KV
+   decode kernel.
+
+The kernels' line has one entry per kernel design (the bf16 mixed,
+split-KV decode and float32 mixed kernels), with its launches in the
+main path of its dtype (phase 5; phase 7 (c) for float32), over HTTP
+(phase 6) and under KV pressure (phase 7 (a), (c)).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and the result line
@@ -69,12 +90,14 @@ import re
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 
 # llama-8b attention shapes.
 H, HKV, D, PS = 32, 8, 128, 16
@@ -93,6 +116,13 @@ DECODE_LENGTHS = [n + 16 for n in PROMPT_LENS]
 DECODE_LENGTHS[1] = DECODE_LENGTHS[6] = 0
 # Tolerances (atol, rtol) by pool dtype: see check_kernels.
 TOL = {"bfloat16": (2e-2, 2.0**-7), "float32": (1e-4, 0.0)}
+# Phase 7: phase 5's prompts at 128 tokens each need 466 pages of 16 at
+# the burst's end; the pool holds about 0.89 of that, the host tier 1024
+# pages (2 GiB pinned at llama-8b's 2 MiB a page).
+PRESSURE_TOKENS = 128
+PRESSURE_PAGES = 416
+HOST_PAGES = 1024
+F32_LAYERS = 4  # phase 7 (c): llama-8b's width, 4 layers, float32
 
 
 def log(msg: str) -> None:
@@ -190,13 +220,14 @@ def timed(torch, fn, reps, flush):
     return total / reps
 
 
-def bound(torch, q, k, table, row_of, positions):
+def bound(torch, q, k, table, row_of, positions, peak=BF16_FLOP_PER_S):
     """Least time for the attention function on these inputs: each
     input byte it needs read once (q, the live K/V tokens of every row,
     the live page-table entries and the per-token indices), the output
     written once, against the flops of QK and PV over the live context,
-    at the card's bf16 rates. Returns (ms, "bytes" | "operations",
-    bytes, flops)."""
+    at the card's rate ``peak`` for the inputs' type (bf16 tensor cores;
+    float32 outside them). Returns (ms, "bytes" | "operations", bytes,
+    flops)."""
     pos = positions.long().cpu()
     rows = row_of.long().cpu()
     live = pos >= 0
@@ -212,7 +243,7 @@ def bound(torch, q, k, table, row_of, positions):
         + pages * 4 + 2 * rows.numel() * 4
     )
     flops = 4 * H * D * int((pos[live] + 1).sum())  # QK and PV
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
 
@@ -366,17 +397,39 @@ def check_kernels(torch, np, tra, flush) -> dict:
             (decode_case, 1, f"decode q_tile=1 lengths={DECODE_LENGTHS}"),
     }
     results = {}
-    for entry, (case, q_tile, what) in cases.items():
-        err32 = case(torch, np, tra, torch.float32)[0]
-        err, (err_f32, ratio), (q, k, v, table), call, plain, (rows, pos) = case(
-            torch, np, tra, torch.bfloat16)
-        reps = 20 if q_tile == 8 else 50
+
+    def measure(inputs, call, plain, rows, pos, reps, plain_reps, peak):
+        """(kernel ms, plain ms, SDPA ms, bound ms, bound_by, bytes, flops)."""
+        q, k, v, table = inputs
         qd, kd, vd, mask = sdpa_inputs(torch, q, k, v, table, rows, pos)
         ms = timed(torch, call, reps, flush)
-        plain_ms = timed(torch, plain, 3 if q_tile == 8 else 5, flush)
+        plain_ms = timed(torch, plain, plain_reps, flush)
         lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask, enable_gqa=True), reps, flush)
-        b_ms, b_by, nbytes, flops = bound(torch, q, k, table, rows, pos)
+        return (ms, plain_ms, lib_ms) + bound(torch, q, k, table, rows, pos, peak)
+
+    for entry, (case, q_tile, what) in cases.items():
+        err32, _, inputs32, call32, plain32, (rows32, pos32) = case(
+            torch, np, tra, torch.float32)
+        if q_tile == 8:
+            # The float32 mixed design (csrc/ragged_attention.cu), timed
+            # on its own inputs at float32 rates.
+            ms, plain_ms, lib_ms, b_ms, b_by, nbytes, flops = measure(
+                inputs32, call32, plain32, rows32, pos32, 10, 3, F32_FLOP_PER_S)
+            log(f"[kernel] {what} float32 (mixed_f32) N={inputs32[0].shape[0]}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop at float32 rates)")
+            results[entry + "_f32"] = dict(
+                max_abs_err=err32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by,
+            )
+        del inputs32, call32, plain32
+        err, (err_f32, ratio), inputs, call, plain, (rows, pos) = case(
+            torch, np, tra, torch.bfloat16)
+        q = inputs[0]
+        ms, plain_ms, lib_ms, b_ms, b_by, nbytes, flops = measure(
+            inputs, call, plain, rows, pos, 20 if q_tile == 8 else 50,
+            3 if q_tile == 8 else 5, BF16_FLOP_PER_S)
         log(f"[kernel] {what} N={q.shape[0]}: max_abs_err float32 {err32:.3e} "
             f"(atol, rtol {TOL['float32']}), bf16 {err:.3e} (atol, rtol "
             f"{TOL['bfloat16']}; against float32 plain {err_f32:.3e}, {ratio:.3f} of "
@@ -1112,6 +1165,272 @@ async def _traffic(torch, np, pkg, tra, tok, client, base, eng, model_dir, phase
         stop=stop, b_finish=[r["finish"] for r in b_out],
     )
 
+# ------------------------------------------------------------ phase 7
+@dataclass
+class Pressure:
+    """Phase 7's sizes: the card's by default; the CPU tests rehearse it
+    smaller (``device="cpu"``)."""
+
+    device: str = "cuda"
+    prompt_lens: tuple = PROMPT_LENS
+    max_tokens: int = PRESSURE_TOKENS
+    num_pages: int = PRESSURE_PAGES
+    host_pages: int = HOST_PAGES
+    hit_tokens: int = MAX_TOKENS  # (b)'s requests
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def pages_needed(prompt_lens, max_tokens: int) -> int:
+    """Pages of PS the burst holds at its end (the last sampled token
+    has no KV)."""
+    return sum(-(-(n + max_tokens - 1) // PS) for n in prompt_lens)
+
+
+def pressure_requests(np, vocab: int, sh: Pressure) -> list[dict]:
+    return [
+        {"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens, "ignore_eos": True},
+         "sampling_options": SEEDED_OPTIONS if i == min(SEEDED, len(sh.prompt_lens) - 1) else {}}
+        for i, ids in enumerate(phase5_prompts(np, vocab, sh.prompt_lens))
+    ]
+
+
+def pressure_engine(pkg, mcfg, model, kv_dtype: str, sh: Pressure):
+    ecfg = pkg.engine.EngineConfig(
+        model=mcfg, max_decode_slots=8, page_size=PS, num_pages=sh.num_pages,
+        max_model_len=max(sh.prompt_lens) + sh.max_tokens + PS, kv_dtype=kv_dtype,
+        host_cache_pages=sh.host_pages,
+    )
+    return pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+
+
+def seeded_model(torch, pkg, mcfg, device: str):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return pkg.models.init_params(mcfg, gen, torch.device(device))
+
+
+def check_drained(eng, what: str) -> dict:
+    """The engine is stopped: the page audit is clean and no page is
+    held. Returns the audit's counts."""
+    audit = eng.kv_audit()
+    assert audit["ok"], f"{what}: page audit {audit['violations'][:5]}"
+    assert audit["counts"]["active"] == 0, f"{what}: pages still held {audit['counts']}"
+    return audit["counts"]
+
+
+def copy_rates(c: dict) -> str:
+    def rate(b, s):
+        return f"{b / s / 1e9:.2f} GB/s" if s else "no timed copy"
+    return (f"device->host {c.get('d2h_pages', 0)} pages, {c.get('d2h_bytes', 0)} B in "
+            f"{c.get('d2h_s', 0) * 1e3:.3f} ms of copy = {rate(c.get('d2h_bytes', 0), c.get('d2h_s', 0))}; "
+            f"host->device {c.get('h2d_pages', 0)} pages, {c.get('h2d_bytes', 0)} B in "
+            f"{c.get('h2d_s', 0) * 1e3:.3f} ms = {rate(c.get('h2d_bytes', 0), c.get('h2d_s', 0))} "
+            f"(host enqueue {c.get('h2d_host_s', 0) * 1e3:.3f} ms, uploads from pageable "
+            f"memory {c.get('h2d_pageable', 0)})")
+
+
+def copy_probe(torch, pkg, mcfg, counts=(42, 128), reps=3) -> dict:
+    """The copy stream's two legs alone, at llama-8b bf16 pages (2 MiB a
+    page, K and V) in batches of ``counts`` pages: device -> host
+    through ``offload_batch`` and host (pinned) -> device through
+    ``upload``. A spin kernel ahead of each leg's events holds its stream
+    until the host has enqueued the copies, so the events time the
+    transfer alone, not host gaps between the enqueues (the in-run
+    readings of phase 7 include those). Returns {pages: (d2h GB/s, h2d
+    GB/s)}, each the mean over ``reps``."""
+    from dynamo_exp_tpu_torch.engine.offload import CopyStream, HostKvPool, pinned_empty
+
+    dev = torch.device("cuda", 0)
+    page = (mcfg.num_layers, PS, mcfg.num_kv_heads * mcfg.head_dim_)
+    pool = HostKvPool(max(counts), page, torch.bfloat16, pin_memory=True)
+    cs = CopyStream(pool, device=dev)
+    out = {}
+    try:
+        for n in counts:
+            k_b = torch.randn((page[0], n) + page[1:], device=dev).to(torch.bfloat16)
+            v_b = -k_b
+            k_h, v_h = (pinned_empty(k_b.shape, k_b.dtype, dev) for _ in range(2))
+            k_h.copy_(k_b)
+            v_h.copy_(v_b)
+            d2h = h2d = 0.0
+            for _ in range(reps):
+                s0 = cs.stats()
+                torch.cuda._sleep(20_000_000)
+                ready = torch.cuda.Event()
+                ready.record()
+                assert cs.offload_batch(list(range(n)), k_b, v_b, ready=ready)
+                cs.drain(timeout=60)
+                assert cs.error is None and cs.pending == 0
+                with torch.cuda.stream(cs.h2d):
+                    torch.cuda._sleep(20_000_000)
+                k_d, v_d = cs.upload(k_h, v_h)
+                torch.cuda.synchronize()
+                assert torch.equal(k_d, k_b) and torch.equal(v_d, v_b)
+                s1 = cs.stats()
+                d2h += (s1["d2h_bytes"] - s0["d2h_bytes"]) / (s1["d2h_s"] - s0["d2h_s"]) / 1e9
+                h2d += (s1["h2d_bytes"] - s0["h2d_bytes"]) / (s1["h2d_s"] - s0["h2d_s"]) / 1e9
+            assert all(torch.equal(pool.fetch(j)[0], k_h[:, j]) for j in range(n))
+            out[n] = (d2h / reps, h2d / reps)
+            del k_b, v_b, k_d, v_d
+    finally:
+        cs.stop()
+    return out
+
+
+def pressure_burst(torch, np, pkg, tra, smi: str, mcfg=None, sh: Pressure = Pressure()) -> dict:
+    """Phase 7 (a) and (b): llama-8b at full width and depth, bf16."""
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    cuda = sh.device == "cuda"
+    model = seeded_model(torch, pkg, mcfg, sh.device)
+    need = pages_needed(sh.prompt_lens, sh.max_tokens)
+    requests = pressure_requests(np, mcfg.vocab_size, sh)
+
+    # (a) the burst under a pool smaller than its need.
+    eng = pressure_engine(pkg, mcfg, model, "bfloat16", sh)
+    sync(torch, sh.device)
+    tra.reset_launches()
+    out, wall = run_engine(eng, requests)
+    sync(torch, sh.device)
+    launches, designs = dict(tra.LAUNCHES), dict(tra.KERNEL_LAUNCHES)
+    m, copies = eng.metrics(), eng.copy_stats()
+    for i, (toks, finish, _) in enumerate(out):
+        assert finish == "length", f"(a) request {i} finished {finish!r}"
+        assert len(toks) == sh.max_tokens, f"(a) request {i} gave {len(toks)} tokens"
+    assert m["swapped_out"] > 0 or m["preempted"] > 0, f"(a) no pressure: {m}"
+    counts = check_drained(eng, "(a)")
+    if cuda:
+        assert designs["mixed_tc_bf16"] > 0 and designs["decode_split"] > 0, designs
+        assert designs["mixed_tc_bf16"] == launches["ragged_paged_attention"], designs
+    total = sum(len(t) for t, _, _ in out)
+    log(f"[pressure] (a) {smi}: {len(out)} requests (prompts {list(sh.prompt_lens)}, "
+        f"{sh.max_tokens} tokens each) need {need} pages of {PS} at their end; pool "
+        f"{sh.num_pages} pages ({sh.num_pages / need:.3f} of need), host tier "
+        f"{sh.host_pages} pages: all finished 'length' with {sh.max_tokens} tokens in "
+        f"{wall:.3f} s, {total / wall:.2f} tokens/s; swapped out {m['swapped_out']}, "
+        f"swapped in {m['swapped_in']}, preempted {m['preempted']}, prefetched pages "
+        f"{m['prefetched_pages']}, offload hits {m['offload_hits']}; pages moved: "
+        f"{copy_rates(copies)}")
+    log(f"[pressure] (a) launches {launches}, by kernel {designs}; dispatches "
+        f"{m['dispatches']}; audit clean, pages {counts}")
+    a = dict(wall_s=wall, tokens_per_s=total / wall, launches=launches, designs=designs,
+             copies=copies, swapped_out=m["swapped_out"], swapped_in=m["swapped_in"],
+             preempted=m["preempted"], need=need)
+    del eng
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the longest prompt: cold, a G1 hit, then a G2 hit after other
+    # traffic has evicted its pages to the host tier.
+    eng = pressure_engine(pkg, mcfg, model, "bfloat16", sh)
+    dev = eng.device
+    prompt = requests[int(np.argmax(sh.prompt_lens))]["token_ids"]
+    req = {"token_ids": prompt,
+           "stop_conditions": {"max_tokens": sh.hit_tokens, "ignore_eos": True}}
+    hashes = pkg.tokens.compute_block_hashes_for_seq(prompt, PS)
+    run_engine(eng, [req])
+    (g1, _, _), = run_engine(eng, [req])[0]
+    pids = eng.kv.match_resident_hashes(hashes)
+    assert len(pids) == len(hashes), "(b) the G1 run did not hit every prompt page"
+    saved = {h: (eng.k_cache[:, p].clone(), eng.v_cache[:, p].clone())
+             for h, p in zip(hashes, pids)}
+    # Other prompts as long as it, enough to fill the pool once more.
+    evictors = -(-sh.num_pages // pages_needed([len(prompt)], 4)) + 1
+    rs = np.random.RandomState(13)
+    for _ in range(evictors):
+        other = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=len(prompt))]
+        run_engine(eng, [{"token_ids": other,
+                          "stop_conditions": {"max_tokens": 4, "ignore_eos": True}}])
+    assert eng.kv.match_resident_hashes(hashes) == [], "(b) the prompt's pages stayed resident"
+    assert eng.host_pool.match_chain(hashes) == hashes, "(b) the host tier lost pages"
+    for h in hashes:
+        k_h, v_h = eng.host_pool.fetch(h)
+        assert torch.equal(k_h.to(dev), saved[h][0]) and torch.equal(v_h.to(dev), saved[h][1]), (
+            "(b) host-tier bytes differ from the device's at eviction")
+    injected = {}
+    apply_uploads = eng._apply_uploads
+
+    def spy(seq):
+        """The injected pages' bytes, read on the device right after the
+        inject, before any forward."""
+        ups = [(pid, h) for pid, h, _, _ in seq.pending_uploads]
+        apply_uploads(seq)
+        for pid, h in ups:
+            injected[h] = (eng.k_cache[:, pid].clone(), eng.v_cache[:, pid].clone())
+
+    eng._apply_uploads = spy
+    hits0 = eng.kv.offload_hits
+    (g2, _, _), = run_engine(eng, [req])[0]
+    hits = eng.kv.offload_hits - hits0
+    assert hits == len(hashes) and sorted(injected) == sorted(hashes), (hits, len(injected))
+    for h in hashes:
+        assert torch.equal(injected[h][0], saved[h][0]) and torch.equal(injected[h][1], saved[h][1]), (
+            "(b) injected bytes differ from the bytes gathered at eviction")
+    assert g2 == g1, "(b) the G2 hit gave other tokens than the G1 hit"
+    check_drained(eng, "(b)")
+    copies_b = eng.copy_stats()
+    log(f"[pressure] (b) {smi}: {len(prompt)}-token prompt, G1 hit then G2 hit after "
+        f"{evictors} other {len(prompt)}-token prompts: {hits} pages restored from the "
+        f"host tier, bytes after injection equal the bytes gathered at eviction (and the "
+        f"host tier's), {sh.hit_tokens} tokens equal between the G1 and G2 hits; pages "
+        f"moved: {copy_rates(copies_b)}")
+    del eng, model, saved, injected
+    gc.collect()
+    rates = {}
+    if cuda:
+        torch.cuda.empty_cache()
+        rates = copy_probe(torch, pkg, mcfg)
+        log(f"[pressure] copy stream alone, {smi}, llama-8b bf16 pages of 2 MiB (K+V), "
+            f"events gated behind a spin kernel: " + "; ".join(
+                f"{n} pages device->host {d:.2f} GB/s, host->device {h:.2f} GB/s"
+                for n, (d, h) in rates.items())
+            + " (host link nominal: PCIe Gen5 x16, 64 GB/s each way)")
+    return dict(a=a, b_hits=hits, b_copies=copies_b, rates=rates)
+
+
+def pressure_identity_f32(torch, np, pkg, tra, smi: str, mcfg=None,
+                          sh: Pressure = Pressure()) -> dict:
+    """Phase 7 (c): the pressured burst at float32 (llama-8b's width,
+    F32_LAYERS layers, float32 weights and pools) gives each request's
+    tokens run alone on the same engine."""
+    from dataclasses import replace
+
+    mcfg = mcfg or replace(pkg.models.LLAMA_8B, num_layers=F32_LAYERS, dtype="float32")
+    cuda = sh.device == "cuda"
+    model = seeded_model(torch, pkg, mcfg, sh.device)
+    requests = pressure_requests(np, mcfg.vocab_size, sh)
+    eng = pressure_engine(pkg, mcfg, model, "float32", sh)
+    sync(torch, sh.device)
+    tra.reset_launches()
+    out, wall = run_engine(eng, requests)
+    sync(torch, sh.device)
+    launches, designs = dict(tra.LAUNCHES), dict(tra.KERNEL_LAUNCHES)
+    m, copies = eng.metrics(), eng.copy_stats()
+    assert m["swapped_out"] > 0 or m["preempted"] > 0, f"(c) no pressure: {m}"
+    if cuda:
+        assert designs["mixed_f32"] > 0 and designs["decode_split"] > 0, designs
+        assert designs["mixed_tc_bf16"] == 0, designs
+    check_drained(eng, "(c) burst")
+    solo = [run_engine(eng, [r])[0][0][0] for r in requests]
+    for i, ((toks, finish, _), want) in enumerate(zip(out, solo)):
+        assert finish == "length" and len(toks) == sh.max_tokens, (i, finish, len(toks))
+        assert toks == want, f"(c) request {i}: pressured tokens differ from its solo run"
+    check_drained(eng, "(c) solo")
+    log(f"[pressure] (c) {smi}: width {mcfg.hidden_size}, {mcfg.num_layers} layers, float32 "
+        f"weights and pools; the pressured burst ({sh.num_pages} pages, host "
+        f"{sh.host_pages}; swapped out {m['swapped_out']}, in {m['swapped_in']}, preempted "
+        f"{m['preempted']}) in {wall:.3f} s gives each request's solo tokens; launches "
+        f"{launches}, by kernel {designs}; pages moved: {copy_rates(copies)}")
+    del eng, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(launches=launches, designs=designs, wall_s=wall, copies=copies,
+                swapped_out=m["swapped_out"], preempted=m["preempted"])
+
 
 def main() -> int:
     import torch
@@ -1184,20 +1503,35 @@ def main() -> int:
         f"{h['chat_preprocess_s'] * 1e3:.2f} ms ({h['chat_prompt_tokens']} tokens); "
         f"(a)'s prompts as text, {h['encode_chars']} chars -> {h['encode_tokens']} tokens, "
         f"encoded in {h['encode_s']:.3f} s")
+    t7 = time.perf_counter()
+    p7 = pressure_burst(torch, np, pkg, tra, smi)
+    p7c = pressure_identity_f32(torch, np, pkg, tra, smi)
+    log(f"[pressure] phase 7 in {time.perf_counter() - t7:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
-    sources = {
-        "ragged_paged_attention": "dynamo_exp_tpu_torch/csrc/ragged_mixed_tc.cu",
-        "ragged_decode_attention": "dynamo_exp_tpu_torch/csrc/ragged_decode_split.cu",
-    }
+    # (kernels-line name, kernel result, source, where its launches are
+    # counted: the main path of its dtype, then the other paths).
+    rows = [
+        ("ragged_paged_attention", "ragged_paged_attention",
+         "dynamo_exp_tpu_torch/csrc/ragged_mixed_tc.cu", "mixed_tc_bf16", stats["launches"]),
+        ("ragged_decode_attention", "ragged_decode_attention",
+         "dynamo_exp_tpu_torch/csrc/ragged_decode_split.cu", "decode_split", stats["launches"]),
+        ("ragged_paged_attention_f32", "ragged_paged_attention_f32",
+         "dynamo_exp_tpu_torch/csrc/ragged_attention.cu", "mixed_f32", None),
+    ]
     kernels = []
-    for entry, source in sources.items():
-        k = kern[entry]
+    for name, key, source, design, main_launches in rows:
+        k = kern[key]
+        entry = key.removesuffix("_f32")
         kernels.append({
-            "name": entry, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": stats["launches"][entry],
-            "launches_http": h["launches"][entry], "max_abs_err": k["max_abs_err"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": (main_launches[entry] if main_launches is not None
+                         else p7c["designs"][design]),
+            "launches_http": h["designs"][design],
+            "launches_kv_pressure": p7["a"]["designs"][design],
+            "launches_kv_pressure_f32": p7c["designs"][design],
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })

@@ -1,6 +1,7 @@
 from .config import EngineConfig
 from .engine import TorchEngine, resolve_attn_impl
 from .kv_manager import KvEvent, KvPageManager
+from .offload import CopyStream, HostKvPool
 from .scheduler import Scheduler, Sequence
 
 __all__ = [
@@ -9,6 +10,8 @@ __all__ = [
     "resolve_attn_impl",
     "KvEvent",
     "KvPageManager",
+    "HostKvPool",
+    "CopyStream",
     "Scheduler",
     "Sequence",
 ]

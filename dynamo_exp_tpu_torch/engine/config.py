@@ -1,7 +1,8 @@
 """Engine configuration.
 
 Counterpart of ``dynamo_exp_tpu/engine/config.py``, trimmed to the
-fields this slice reads.
+fields the port reads (the KV-pressure and tiering knobs keep the JAX
+package's defaults).
 """
 
 from __future__ import annotations
@@ -42,6 +43,37 @@ class EngineConfig:
     # PyTorch attention; "auto": the kernel on CUDA, the plain version
     # on the CPU.
     attention_impl: str = "auto"
+    # G2 host-memory KV tier: number of host pages (0 disables offload).
+    # Device-evicted pages spill here (pinned memory on a CUDA engine)
+    # and are injected back on a prefix match instead of recomputed.
+    host_cache_pages: int = 0
+    # KV-pressure preemption: once an ACTIVE row has been hard-stalled
+    # (cannot feed its next token: the pool is dry) this long, the
+    # lowest-priority / youngest ACTIVE sequence releases its pages and
+    # requeues as a deterministic continuation. Negative disables it.
+    preempt_stall_grace_s: float = 0.5
+    # A sequence preempted this many times is exempt from further
+    # preemption (no re-prefill live-lock).
+    max_preemptions_per_seq: int = 2
+    # Footprint-packed admission: admit the first waiting sequence whose
+    # lifetime KV forecast (prompt + max_tokens, minus its resident
+    # prefix) fits the free pages; never refuses what first-fit would
+    # admit (engine/tiering.select_packed_index).
+    kv_packing: bool = True
+    packing_scan_limit: int = 16  # waiting-queue prefix scanned per pass
+    packing_max_defers: int = 64  # bypasses before a seq becomes a barrier
+    # G2 -> G1 prefetch of waiting prompts' host-resident prefixes ahead
+    # of admission (needs host_cache_pages > 0).
+    kv_prefetch: bool = True
+    prefetch_depth: int = 4  # waiting sequences scanned per pass
+    # Free + parked pages prefetch never consumes (decode growth wins).
+    prefetch_reserve_pages: int = 4
+    # Proactive cold-tail offload: once a row has been hard-stalled this
+    # long, swap the coldest eligible row's pages out to the host tier
+    # instead of preempting (bytes kept, resume token-identical).
+    # Negative disables; needs a host tier; must be below
+    # preempt_stall_grace_s to fire first.
+    proactive_offload_grace_s: float = 0.0
 
     def __post_init__(self):
         if self.kv_dtype not in ("bfloat16", "float32"):

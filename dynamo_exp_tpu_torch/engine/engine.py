@@ -21,10 +21,22 @@ penalty/top-k/top-p sampler), in one of two shapes:
   max_tokens budget, or reaches its page capacity. The host syncs once
   per window.
 
-Every dispatch is consumed in the iteration that issued it. Left out of
-this slice (ROADMAP): chained windows, speculation, logprobs, KV
-offload/prefetch/persistence, leases, reclaim, telemetry and the flight
-recorder.
+Every dispatch is consumed in the iteration that issued it.
+
+KV pressure (the JAX loop's order): a row that cannot feed its next
+token hard-stalls; admission pauses while any row is stalled. With a
+host tier (``host_cache_pages``) the engine first swaps a cold row's
+pages out to pinned host memory (``_swap_out``) and back in when the
+pool can hold them (``_try_swap_in``); once a stall outlasts
+``preempt_stall_grace_s`` it preempts (``Scheduler.preempt``): the
+victim requeues as a deterministic continuation. Evicted registered
+pages are written back to the host tier and injected again on a prefix
+match (``_apply_uploads``) or ahead of admission (``_plan_prefetch``).
+Device <-> host copies run on side CUDA streams (``offload.py``).
+
+Left out (ROADMAP): chained windows, speculation, logprobs, the
+persistent KV tier, partial-tail copy-on-write, leases, reclaim,
+telemetry and the flight recorder.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import queue
 import random
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import AsyncIterator, Callable
 
@@ -56,9 +69,12 @@ from ..ops.ragged_attention import ragged_supported
 from ..ops.sampling import apply_penalties, sample_tokens_seeded, stop_token_hit
 from ..protocols.common import BackendInput, FinishReason, LLMEngineOutput
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, ResponseStream
+from ..tokens import compute_block_hashes_for_seq
 from .config import EngineConfig
 from .kv_manager import KvEvent, KvPageManager
+from .offload import CopyStream, HostKvPool, pinned_empty
 from .scheduler import Scheduler, Sequence, SeqState
+from .tiering import SwapRecord, plan_swap_entries
 
 log = logging.getLogger(__name__)
 
@@ -122,11 +138,40 @@ class TorchEngine(AsyncEngine):
         self.k_cache, self.v_cache = init_kv_cache(
             mcfg, cfg.num_pages, cfg.page_size, cfg.kv_torch_dtype, self.device
         )
+        # G2 host tier: the pool lives here; the CopyStream (a thread and
+        # two side streams) is made by start() and torn down by stop().
+        self.host_pool: HostKvPool | None = None
+        self.copy_stream: CopyStream | None = None
+        # Evictions buffered until the next compute dispatch, then
+        # gathered as one batch: (page_id, seq_hash).
+        self._pending_offloads: list[tuple[int, int]] = []
+        on_evict = None
+        if cfg.host_cache_pages > 0:
+            self.host_pool = HostKvPool(
+                cfg.host_cache_pages,
+                (mcfg.num_layers, cfg.page_size, mcfg.num_kv_heads * mcfg.head_dim_),
+                cfg.kv_torch_dtype,
+                pin_memory=self.device.type == "cuda",
+            )
+
+            def on_evict(pid: int, seq_hash: int) -> None:
+                self._pending_offloads.append((pid, seq_hash))
+
         self.kv = KvPageManager(
             cfg.num_pages, cfg.page_size, event_cb=kv_event_cb,
-            sharing=cfg.prefix_sharing,
+            sharing=cfg.prefix_sharing, host_pool=self.host_pool, on_evict=on_evict,
         )
         self.sched = Scheduler(cfg, self.kv)
+        # Prefetch jobs by request id (their target pages are held by the
+        # job until injected), completed restores for hit attribution,
+        # and the copy thread's results for the loop.
+        self._prefetch_inflight: dict[str, dict] = {}
+        self._prefetch_served: OrderedDict[str, set] = OrderedDict()
+        self._prefetch_done_q: queue.Queue = queue.Queue()
+        self._last_prefetch_scan = 0.0
+        # Copy-stream counters of streams already stopped (start() makes
+        # a new stream after every stop()).
+        self._copy_totals: dict[str, float] = {}
         # Penalty counts by slot; row B is the scratch row padding rows
         # gather from and scatter to.
         self._counts = torch.zeros(
@@ -144,11 +189,18 @@ class TorchEngine(AsyncEngine):
         self.steps = 0  # forward steps dispatched
         self.wasted_steps = 0  # window steps computed past a row's stop
         self.dispatches = {"mixed": 0, "windowed": 0}
+        self.preempted = 0  # preemptions (KV pressure and swap misses)
+        self.swapped_out = 0  # rows swapped out to the host tier
+        self.swapped_in = 0  # rows restored from it
+        self.prefetched_pages = 0  # pages restored ahead of admission
+        self.prefetch_hits = 0  # of those, pages an admission attached
 
     # -------------------------------------------------------------- lifecycle
     def start(self) -> None:
         if self._running or self._held:
             return
+        if self.host_pool is not None and self.copy_stream is None:
+            self.copy_stream = CopyStream(self.host_pool, device=self.device)
         self._running = True
         self._thread = threading.Thread(
             target=self._loop, name="torch-engine-loop", daemon=True
@@ -164,6 +216,18 @@ class TorchEngine(AsyncEngine):
                 log.error("engine loop did not exit within 60s")
                 return
             self._thread = None
+        if self.copy_stream is not None:
+            # Write back what the loop buffered, let every queued copy
+            # commit (swap records need theirs), then stop the stream.
+            self._flush_offloads()
+            self.copy_stream.drain()
+            self.copy_stream.stop()
+            for k, v in self.copy_stream.stats().items():
+                self._copy_totals[k] = self._copy_totals.get(k, 0) + v
+            error, self.copy_stream = self.copy_stream.error, None
+            self._return_prefetches()
+            if error is not None:
+                raise RuntimeError("the KV copy stream failed") from error
 
     @contextlib.contextmanager
     def hold_admission(self):
@@ -180,6 +244,27 @@ class TorchEngine(AsyncEngine):
         finally:
             self._held = False
             self.start()
+
+    def copy_stats(self) -> dict:
+        """Pages, bytes and device seconds (CUDA events) moved each way
+        by the copy streams since the engine was made."""
+        out = dict(self._copy_totals)
+        if self.copy_stream is not None:
+            for k, v in self.copy_stream.stats().items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def kv_audit(self) -> dict:
+        """The page manager's conservation audit with every holder the
+        engine knows: bound sequences (``seq:<id>``) and prefetch jobs
+        (``prefetch:<id>``). Call with the loop paused."""
+        holders: dict[str, list[int]] = {}
+        for s in self.sched.slots:
+            if s is not None and s.page_ids:
+                holders[f"seq:{s.request_id}"] = list(s.page_ids)
+        for rid, job in self._prefetch_inflight.items():
+            holders[f"prefetch:{rid}"] = list(job["pids"])
+        return self.kv.audit(holders)
 
     def loop_cpu_seconds(self) -> float:
         """CPU seconds the current loop thread has used since it
@@ -246,6 +331,7 @@ class TorchEngine(AsyncEngine):
             is_cancelled=lambda: ctx.is_stopped or orphaned.is_set(),
             submitted_at=time.time(),
             sample_seed=int(seed) if seed is not None else self._seed_rng.getrandbits(31),
+            priority=binput.priority,
         )
         self._submit_q.put(seq)
         self._wake.set()
@@ -273,6 +359,17 @@ class TorchEngine(AsyncEngine):
         m["decode_steps"] = self.steps
         m["decode_wasted_steps"] = self.wasted_steps
         m["dispatches"] = dict(self.dispatches)
+        m["preempted"] = self.preempted
+        m["swapped_out"] = self.swapped_out
+        m["swapped_in"] = self.swapped_in
+        m["prefetched_pages"] = self.prefetched_pages
+        m["prefetch_hits"] = self.prefetch_hits
+        if self.host_pool is not None:
+            m["host_cache_resident"] = self.host_pool.resident
+            m["host_cache_hits"] = self.host_pool.hits
+            m["host_cache_stores"] = self.host_pool.stores
+            m["offload_hits"] = self.kv.offload_hits
+            m["offload_misses"] = self.kv.offload_misses
         return m
 
     # ------------------------------------------------------------------- loop
@@ -281,20 +378,39 @@ class TorchEngine(AsyncEngine):
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             while self._running:
+                if self.copy_stream is not None:
+                    if self.copy_stream.error is not None:
+                        raise RuntimeError("the KV copy stream failed") from self.copy_stream.error
+                    self.copy_stream.poll()
                 while True:
                     try:
                         self.sched.submit(self._submit_q.get_nowait())
                     except queue.Empty:
                         break
                 if not self.sched.has_work():
+                    # Idle: completed prefetches still inject, buffered
+                    # evictions still reach the host tier.
+                    self._apply_prefetches()
+                    self._flush_offloads()
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
                 for seq in list(self.sched.slots):
                     if seq is not None and seq.is_cancelled():
                         self.sched.finish(seq, FinishReason.CANCELLED)
-                while self.sched.admit_next() is not None:
-                    pass
+                # KV pressure: swap a cold row out first, preempt once a
+                # stall outlasts its grace; completed prefetches inject
+                # and swapped rows rejoin before admission, which pauses
+                # while any row is stalled or swapped out.
+                self._maybe_proactive_offload()
+                self._maybe_preempt()
+                self._apply_prefetches()
+                self._try_swap_in()
+                if not self._kv_pressure() and not self._swapped_rows():
+                    while (admitted := self.sched.admit_next()) is not None:
+                        self._on_admitted(admitted)
+                # Restore host-resident prefixes of what is still waiting.
+                self._plan_prefetch()
                 prefilling = [
                     s for s in self.sched.slots
                     if s is not None and s.state is SeqState.PREFILL
@@ -314,6 +430,371 @@ class TorchEngine(AsyncEngine):
                     seq.emit([], FinishReason.ERROR)
             raise
 
+    def _on_admitted(self, seq: Sequence) -> None:
+        """Inject the admission's G2 pages (before any forward that can
+        read them) and count the prefetched pages it attached."""
+        self._apply_uploads(seq)
+        served = self._prefetch_served.pop(seq.request_id, None)
+        if served:
+            self.prefetch_hits += sum(
+                1 for h in seq.prompt_hashes[: seq.hashed_pages] if h in served
+            )
+
+    # ------------------------------------------------------- KV pressure
+    def _kv_pressure(self) -> bool:
+        """True while any bound row is hard-stalled. Admission pauses: a
+        newcomer would take the very pages the stalled rows wait for."""
+        return any(s is not None and s.stalled_since for s in self.sched.slots)
+
+    def _swapped_rows(self) -> bool:
+        """True while any row's cold pages live in the host tier."""
+        return any(s is not None and s.swap is not None for s in self.sched.slots)
+
+    def _stalled_past(self, grace: float) -> bool:
+        now = time.time()
+        return any(
+            s is not None and s.stalled_since and now - s.stalled_since >= grace
+            for s in self.sched.slots
+        )
+
+    def _maybe_preempt(self) -> None:
+        """Once a row has been hard-stalled past ``preempt_stall_grace_s``,
+        preempt the lowest-priority / youngest ACTIVE sequence (bounded
+        per request by ``max_preemptions_per_seq``)."""
+        grace = self.cfg.preempt_stall_grace_s
+        if grace < 0 or not self._stalled_past(grace):
+            return
+        if self.sched.active_count <= 1 and not self.sched.waiting:
+            return  # nothing to yield the freed pages to
+        victim = self.sched.preemption_victim(self.cfg.max_preemptions_per_seq)
+        if victim is None:
+            return
+        freed, generated = len(victim.page_ids), victim.generated
+        self.sched.preempt(victim)
+        self.preempted += 1
+        log.warning(
+            "KV pressure: preempted request %s (priority=%d, %d tokens generated, "
+            "%d pages freed, preemption %d/%d); resuming as a deterministic "
+            "continuation", victim.request_id, victim.priority, generated, freed,
+            victim.preemptions, self.cfg.max_preemptions_per_seq,
+        )
+
+    def _maybe_proactive_offload(self) -> None:
+        """Once a row has been hard-stalled past
+        ``proactive_offload_grace_s``, swap the coldest eligible row out
+        to the host tier (bytes kept; preemption stays the fallback). A
+        stalled row is eligible only when several rows starve (freeing
+        the one starving row feeds nobody). One victim per iteration."""
+        grace = self.cfg.proactive_offload_grace_s
+        if grace < 0 or self.copy_stream is None or not self._stalled_past(grace):
+            return
+        n_stalled = sum(1 for s in self.sched.slots if s is not None and s.stalled_since)
+        cands = [
+            s for s in self.sched.slots
+            if s is not None
+            and s.state is SeqState.ACTIVE
+            and s.swap is None
+            and (n_stalled >= 2 or not s.stalled_since)
+        ]
+        now = time.time()
+        for victim in sorted(cands, key=lambda s: (s.priority, -s.submitted_at)):
+            swapped = self._swap_out(victim)
+            if swapped:
+                # Relief landed: restart the stalled rows' grace clocks,
+                # so preemption fires only if the freed pages do not do.
+                for s in self.sched.slots:
+                    if s is not None and s.stalled_since:
+                        s.stalled_since = now
+                return
+            if swapped is None:
+                return  # copy stream saturated: stop this pass
+
+    def _swap_out(self, victim: Sequence) -> bool | None:
+        """Swap one row's cold pages to the host tier: unregistered
+        refcount-1 pages are gathered and written back under their key,
+        registered ones park in the LRU (eviction writes them back),
+        shared ones stay held, unwritten ones drop. The row keeps its
+        slot; its page table shrinks to the kept pages and the
+        :class:`SwapRecord` is the restore ledger. False when nothing was
+        freeable; None when the copy stream shed the write-back (the
+        bytes are not recomputable, so the pages stay)."""
+        entries, off_pids, off_keys, park_pids, drop_pids = plan_swap_entries(
+            victim.page_ids, victim.tokens, self.cfg.page_size,
+            self.kv.page_ref, self.kv.page_hash,
+        )
+        if not (off_pids or park_pids or drop_pids):
+            return False
+        record = SwapRecord(entries=entries, committed=not off_pids)
+        if off_pids:
+            k_b, v_b, ready = self._gather_page_batch(off_pids)
+
+            def committed(rec=record):
+                rec.committed = True  # copy thread, after the store
+
+            if not self.copy_stream.offload_batch(
+                off_keys, k_b, v_b, on_stored=committed, ready=ready
+            ):
+                return None
+        # The gather is on the compute stream ahead of whatever reuses
+        # the freed pages next.
+        self.kv.release_sequence(off_pids + park_pids + drop_pids)
+        victim.page_ids = [pid for kind, pid in entries if kind == "kept"]
+        victim.swap = record
+        victim.swapped_since = time.time()
+        victim.stalled = False
+        victim.stalled_since = 0.0
+        self.swapped_out += 1
+        log.info(
+            "KV pressure: swapped out %d page(s) of request %s to the host tier "
+            "(%d kept)", len(off_pids) + len(park_pids) + len(drop_pids),
+            victim.request_id, len(victim.page_ids),
+        )
+        return True
+
+    def _try_swap_in(self) -> None:
+        """Restore swapped rows, oldest swap first, once the pool can
+        hold their pages: re-attach blocks still resident, fetch the rest
+        from the host tier into pinned staging, inject them in one batch.
+        A host-tier miss falls back to preemption (the continuation
+        re-prefills, token-identically)."""
+        swapped = [
+            s for s in self.sched.slots
+            if s is not None and s.swap is not None and s.state is SeqState.ACTIVE
+        ]
+        if not swapped or self._kv_pressure():
+            # Under pressure the freed pages feed the stalled rows first.
+            return
+        # Buffered evictions would read as misses: hand them over first.
+        self._flush_offloads()
+        for seq in sorted(swapped, key=lambda s: s.swapped_since):
+            rec = seq.swap
+            if not rec.committed:
+                continue  # write-back still on the copy thread
+            attach: dict[int, int] = {}
+            fetch_plan: list[tuple[int, int]] = []
+            for i, (kind, val) in enumerate(rec.entries):
+                if kind == "hash" and (pid := self.kv.resident_page(val)) is not None:
+                    attach[i] = pid
+                elif kind != "kept":
+                    fetch_plan.append((i, val))
+            parked = sum(1 for pid in attach.values() if self.kv.page_ref(pid) == 0)
+            if len(fetch_plan) + parked > self.kv.free_pages:
+                continue  # not enough room yet
+            # Fetch before any mutation: a miss preempts instead.
+            k_st, v_st = self._staging(len(fetch_plan))
+            miss = any(
+                self.host_pool.fetch(key, out=(k_st[:, j], v_st[:, j])) is None
+                for j, (_, key) in enumerate(fetch_plan)
+            )
+            if miss:
+                if self.copy_stream.pending:
+                    continue  # an eviction write-back may still be in flight
+                self._preempt_swapped(seq)
+                continue
+            for pid in attach.values():
+                self.kv.attach_page(pid)
+            new_ids: list[int] = []
+            inj: list[int] = []
+            for i, (kind, val) in enumerate(rec.entries):
+                if kind == "kept":
+                    new_ids.append(val)
+                elif i in attach:
+                    new_ids.append(attach[i])
+                else:
+                    pid = self.kv.allocate_page()  # room checked above
+                    new_ids.append(pid)
+                    inj.append(pid)
+            if inj:
+                self._inject_page_batch(inj, k_st, v_st)
+            seq.page_ids = new_ids
+            seq.swap = None
+            seq.swapped_since = 0.0
+            self.swapped_in += 1
+
+    def _preempt_swapped(self, seq: Sequence) -> None:
+        """Swap-in fallback: the host tier lost a swapped page."""
+        self.sched.preempt(seq)
+        self.preempted += 1
+        log.warning(
+            "request %s: swapped KV could not be restored (host-tier miss); "
+            "falling back to preemption", seq.request_id,
+        )
+
+    # --------------------------------------------------------- G2 -> G1
+    def _plan_prefetch(self) -> None:
+        """Restore the host-resident prefixes of the waiting queue's head
+        ahead of admission: target pages come out of free + parked pages
+        beyond ``prefetch_reserve_pages`` (a parked page evicted here is
+        written back first, so nothing is lost), are held by the job
+        while the copy thread fetches the bytes, and are registered and
+        injected by :meth:`_apply_prefetches` before a later dispatch; the
+        admission then finds them as a plain G1 prefix hit."""
+        cfg = self.cfg
+        if (
+            not cfg.kv_prefetch
+            or self.copy_stream is None
+            or not self.kv.sharing
+            or not self.sched.waiting
+        ):
+            return
+        now = time.monotonic()
+        if now - self._last_prefetch_scan < 0.01:
+            return
+        self._last_prefetch_scan = now
+        budget = self.kv.free_pages - cfg.prefetch_reserve_pages
+        ps = cfg.page_size
+        for seq in list(self.sched.waiting)[: cfg.prefetch_depth]:
+            if budget <= 0:
+                return
+            rid = seq.request_id
+            if rid in self._prefetch_inflight or rid in self._prefetch_served:
+                continue
+            if seq.forecast_hashes is None:
+                seq.forecast_hashes = compute_block_hashes_for_seq(seq.prompt, ps)
+            hashes = seq.forecast_hashes
+            start = len(self.kv.match_resident_hashes(hashes))
+            g2 = self.host_pool.match_chain(hashes[start:])[:budget]
+            if not g2:
+                continue
+            pids: list[int] = []
+            for _ in g2:
+                pid = self.kv.allocate_page()
+                if pid is None:
+                    break
+                pids.append(pid)
+            if not pids:
+                return
+            g2 = g2[: len(pids)]
+            budget -= len(pids)
+            job = {
+                "req": rid,
+                "pids": pids,
+                "parent": hashes[start - 1] if start else None,
+                "blocks": [
+                    list(seq.prompt[(start + j) * ps : (start + j + 1) * ps])
+                    for j in range(len(g2))
+                ],
+            }
+            if not self.copy_stream.fetch_batch(g2, job, self._on_prefetched):
+                self.kv.release_sequence(pids)  # saturated: retry later
+                return
+            self._prefetch_inflight[rid] = job
+
+    def _on_prefetched(self, job: dict, fetched: list) -> None:
+        """Copy-thread callback: queue the result for the loop thread
+        (the page manager's single writer) and wake it."""
+        self._prefetch_done_q.put((job, fetched))
+        self._wake.set()
+
+    def _apply_prefetches(self) -> None:
+        """Register and inject fetched prefetch pages (ahead of this
+        iteration's dispatch), then drop the job's hold: registered
+        pages park matchable, the rest return to the free list. A block
+        whose content became resident meanwhile is skipped."""
+        while True:
+            try:
+                job, fetched = self._prefetch_done_q.get_nowait()
+            except queue.Empty:
+                return
+            if self._prefetch_inflight.pop(job["req"], None) is None:
+                continue  # returned by stop() already
+            inj: list[tuple[int, torch.Tensor, torch.Tensor]] = []
+            served: set[int] = set()
+            parent = job["parent"]
+            for j, (h, k_pg, v_pg) in enumerate(fetched):
+                served.add(h)
+                if self.kv.resident_page(h) is None:
+                    pid = job["pids"][j]
+                    self.kv.register_full_page(
+                        pid, h, parent_hash=parent, tokens=job["blocks"][j]
+                    )
+                    inj.append((pid, k_pg, v_pg))
+                parent = h
+            if inj:
+                self._inject_page_batch(
+                    [pid for pid, _, _ in inj], *self._stage([(k, v) for _, k, v in inj])
+                )
+                self.prefetched_pages += len(inj)
+            if served:
+                self._prefetch_served[job["req"]] = served
+                while len(self._prefetch_served) > 256:
+                    self._prefetch_served.popitem(last=False)
+            self.kv.release_sequence(job["pids"])
+
+    def _return_prefetches(self) -> None:
+        """Release the pages of every prefetch job (the loop is stopped;
+        nothing will inject them)."""
+        while not self._prefetch_done_q.empty():
+            self._prefetch_done_q.get_nowait()
+        for job in self._prefetch_inflight.values():
+            self.kv.release_sequence(job["pids"])
+        self._prefetch_inflight.clear()
+
+    # ---------------------------------------------------- batched page moves
+    def _staging(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Host batches [L, n, ps, Hkv*D] for K and V, pinned on a card."""
+        m = self.cfg.model
+        shape = (m.num_layers, n, self.cfg.page_size, m.num_kv_heads * m.head_dim_)
+        return (pinned_empty(shape, self.cfg.kv_torch_dtype, self.device),
+                pinned_empty(shape, self.cfg.kv_torch_dtype, self.device))
+
+    def _stage(self, pages: list) -> tuple[torch.Tensor, torch.Tensor]:
+        """Host pages (k, v) [L, ps, Hkv*D] copied into one staging batch."""
+        k_st, v_st = self._staging(len(pages))
+        for j, (k_pg, v_pg) in enumerate(pages):
+            k_st[:, j].copy_(k_pg)
+            v_st[:, j].copy_(v_pg)
+        return k_st, v_st
+
+    def _gather_page_batch(self, pids: list[int]):
+        """One gather of ``pids`` into contiguous device batches
+        ``[L, n, ps, Hkv*D]`` on the compute stream, and (CUDA) the event
+        recorded after it, which the copy stream waits on."""
+        idx = torch.tensor(pids, dtype=torch.long, device=self.device)
+        k_b = self.k_cache.index_select(1, idx)
+        v_b = self.v_cache.index_select(1, idx)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return k_b, v_b, ready
+
+    def _inject_page_batch(self, pids: list[int], k_host: torch.Tensor, v_host: torch.Tensor):
+        """Inject host batches ``[L, n, ps, Hkv*D]`` into device pages
+        ``pids``: host -> device on the copy stream's side stream, then a
+        scatter on the compute stream after it, ahead of every later
+        forward. Buffered evictions are gathered first, so a page being
+        overwritten reached the host tier's gather before this lands."""
+        self._flush_offloads()
+        k_dev, v_dev = self.copy_stream.upload(k_host, v_host)
+        idx = torch.tensor(pids, dtype=torch.long, device=self.device)
+        self.k_cache.index_copy_(1, idx, k_dev)
+        self.v_cache.index_copy_(1, idx, v_dev)
+
+    def _flush_offloads(self) -> None:
+        """Gather every eviction buffered since the last dispatch and
+        hand the batch to the copy stream. Runs right before anything
+        that could overwrite the evicted pages (forwards, injects) and on
+        the idle path: the gather then reads the old content."""
+        if not self._pending_offloads:
+            return
+        moved, self._pending_offloads = self._pending_offloads, []
+        if self.copy_stream is None:
+            return
+        k_b, v_b, ready = self._gather_page_batch([pid for pid, _ in moved])
+        self.copy_stream.offload_batch([h for _, h in moved], k_b, v_b, ready=ready)
+
+    def _apply_uploads(self, seq: Sequence) -> None:
+        """Inject an admission's G2 pages into their fresh device pages,
+        in one batch, before any forward that reads them."""
+        if not seq.pending_uploads:
+            return
+        ups = seq.pending_uploads
+        self._inject_page_batch(
+            [pid for pid, _, _, _ in ups], *self._stage([(k, v) for _, _, k, v in ups])
+        )
+        seq.pending_uploads = []
+
     def _dispatch_ragged(self, prefill_rows: list[Sequence]) -> bool:
         """Run this iteration's ragged batches, one per sampler
         partition: windowed when the partition is pure decode, mixed
@@ -324,6 +805,8 @@ class TorchEngine(AsyncEngine):
         for seq in self.sched.slots:
             if seq is None or seq.state is not SeqState.ACTIVE:
                 continue
+            if seq.swap is not None:
+                continue  # swapped out: sits out until _try_swap_in
             wpos = len(seq.tokens) - 1  # position of the token being fed
             self.sched.ensure_pages_until(seq, wpos + K - 1)
             cap = min(cfg.max_model_len, len(seq.page_ids) * ps) - 1
@@ -332,11 +815,21 @@ class TorchEngine(AsyncEngine):
                     # The row's context exceeds the whole pool: no wait
                     # can ever feed its next token here.
                     self.sched.finish(seq, FinishReason.LENGTH)
+                    continue
+                # Hard stall: start (or keep) the grace clock.
+                seq.stalled = True
+                if not seq.stalled_since:
+                    seq.stalled_since = time.time()
                 continue  # pool dry: the row sits this iteration out
+            seq.stalled = len(seq.page_ids) * ps < min(wpos + K, cfg.max_model_len)
+            seq.stalled_since = 0.0  # progressing (even if window-capped)
             parts[self._needs_sampler(seq)].append((seq, wpos, cap))
         pf_parts: dict[bool, list[Sequence]] = {False: [], True: []}
         for seq in prefill_rows:
             pf_parts[self._needs_sampler(seq)].append(seq)
+        # Evictions of this iteration's allocations reach their gather
+        # before any forward can overwrite the pages.
+        self._flush_offloads()
         progressed = False
         for fs in (False, True):
             dec, pf = parts[fs], pf_parts[fs]
@@ -612,6 +1105,18 @@ class TorchEngine(AsyncEngine):
         seq.state = SeqState.ACTIVE
         self._counts[seq.slot] = 0
         self._counts[seq.slot, token] += 1
+        resumed = seq.stop.resume_offset or 0
+        if resumed and self._needs_sampler(seq):
+            # A continuation with penalties: the re-prefilled tail of the
+            # prompt is journaled completion, so the counts rebuild over
+            # it and every later draw sees the uninterrupted run's
+            # counts. (The splice token itself was drawn by the prefill
+            # from the raw distribution, the JAX engine's caveat.)
+            V = self.cfg.model.vocab_size
+            tail = torch.tensor(seq.prompt[-resumed:], dtype=torch.long).clamp_(0, V - 1)
+            self._counts[seq.slot] += torch.bincount(tail, minlength=V).to(
+                self._counts.device, torch.int32
+            )
         seq.tokens.append(token)
         seq.generated = 1
         self.sched.register_full_pages(seq)

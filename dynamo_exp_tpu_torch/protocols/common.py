@@ -114,6 +114,11 @@ class BackendInput:
     stop_conditions: StopConditions = field(default_factory=StopConditions)
     sampling_options: SamplingOptions = field(default_factory=SamplingOptions)
     annotations: list[str] = field(default_factory=list)
+    # A continuation (failover replay or KV-pressure preemption): the
+    # last ``resume_offset`` entries of ``token_ids`` are journaled
+    # completion tokens being re-prefilled, not prompt; a penalized
+    # request rebuilds its penalty counts over them.
+    resume_offset: int | None = None
     priority: int = 1
 
     def to_dict(self) -> dict:
@@ -132,6 +137,9 @@ class BackendInput:
                 d.get("sampling_options") or {}
             ),
             annotations=list(d.get("annotations") or []),
+            resume_offset=(
+                int(d["resume_offset"]) if d.get("resume_offset") is not None else None
+            ),
             priority=int(d.get("priority", 1)),
         )
 

@@ -53,7 +53,6 @@ NOT_PORTED_FLAGS = {
     "--dist-leader": "ROADMAP Queue 1 item 7",
     "--dist-port": "ROADMAP Queue 1 item 7",
     "--deployment": "ROADMAP Queue 1 item 7",
-    "--host-cache-pages": "ROADMAP Queue 1 item 4",
     "--spec": "ROADMAP Queue 1 item 3",
     "--spec-draft-len": "ROADMAP Queue 1 item 3",
     "--spec-max-draft": "ROADMAP Queue 1 item 3",
@@ -102,6 +101,8 @@ def parse_args(argv: list[str]):
     p.add_argument("--num-pages", type=int, default=0, help="0 = auto")
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--host-cache-pages", type=int, default=0,
+                   help="G2 host KV tier in pages (pinned memory; 0 = off)")
     p.add_argument("--max-tokens", type=int, default=256,
                    help="completion cap of in=batch requests that set none (an HTTP "
                    "request without max_tokens gets the rest of the context, as in "
@@ -162,6 +163,7 @@ def build_cuda_engine(opts):
         eos_token_ids=list(mdc.eos_token_ids) if mdc else [],
         kv_dtype=opts.kv_dtype,
         default_max_tokens=opts.max_tokens,
+        host_cache_pages=opts.host_cache_pages,
     )
     return TorchEngine(ecfg, device=opts.device), mdc
 

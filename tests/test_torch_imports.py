@@ -56,7 +56,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     }
     assert set(result["modules"]) == expected
     for name in (
-        "ops.ragged_attention", "models.llama", "engine.engine", "tokens",
+        "ops.ragged_attention", "models.llama", "engine.engine", "engine.offload",
+        "engine.tiering", "tokens",
         "protocols.openai", "protocols.delta", "protocols.aggregator",
         "protocols.sse", "runtime.annotated", "runtime.pipeline", "tokenizer",
         "model_card", "preprocessor.prompt", "preprocessor.preprocessor",

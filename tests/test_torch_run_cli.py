@@ -64,6 +64,19 @@ def test_unported_inputs_outputs_and_flags_are_refused(argv, item):
     assert item in str(err.value)
 
 
+def test_host_cache_pages_reaches_the_engine_config(tiny_model_dir):
+    """``--host-cache-pages`` (the G2 host KV tier) is no longer refused:
+    it parses as the JAX CLI parses it and sizes the engine's host pool."""
+    argv = ["in=http", "out=cuda", "--model-path", tiny_model_dir, "--random-weights",
+            *SMALL, "--host-cache-pages", "24"]
+    opts = run.parse_args(argv + ["--device", "cpu"])
+    assert opts.host_cache_pages == jrun.parse_args(argv).host_cache_pages == 24
+    engine, _ = run.build_cuda_engine(opts)
+    assert engine.cfg.host_cache_pages == 24 and engine.host_pool.num_pages == 24
+    default, _ = run.build_cuda_engine(run.parse_args(argv[:-2] + ["--device", "cpu"]))
+    assert default.cfg.host_cache_pages == 0 and default.host_pool is None
+
+
 def test_real_weights_are_never_served_random(tiny_model_dir, tmp_path):
     base = ["in=http", "out=cuda", "--device", "cpu", "--model-path"]
     with pytest.raises(SystemExit, match="--random-weights"):
