@@ -68,10 +68,42 @@ Phases, each fatal on failure (nothing is caught):
    same engine, through the float32 mixed kernel and the split-KV
    decode kernel.
 
-The kernels' line has one entry per kernel design (the bf16 mixed,
-split-KV decode and float32 mixed kernels), with its launches in the
-main path of its dtype (phase 5; phase 7 (c) for float32), over HTTP
-(phase 6) and under KV pressure (phase 7 (a), (c)).
+8. chaining, speculation and logprobs. (a) phase 5's prompts, all
+   greedy, at 128 tokens, llama-8b bf16 full depth, 1096 pages (no
+   pressure): ``chained_decode`` off, on, on, off; every row finishes
+   with 128 tokens, equal in all four runs, the chained runs chained,
+   every chained dispatch of the first chained run ran under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the engine instance's
+   dispatch wrapped from outside), the page audit is clean; printed per
+   run: wall, tokens/s, chained / windowed / mixed dispatches, loop CPU
+   seconds, wasted steps (``--profile``: the device idle share of a
+   chained and an unchained run). (b) (a)'s burst with speculation, a
+   drafter proposing each row's (a) continuation (verify spans of 9
+   tokens, mostly accepted), then ``ngram`` on a prompt built to
+   repeat: verify rows were accepted through the tensor-core mixed
+   kernel; printed: proposed / accepted / emitted, tokens equal to
+   (a)'s and, at the first divergence, the logit gap (not asserted at
+   bf16). (c) llama-8b's width at 4 layers, float32: a greedy and a
+   seeded burst with logprobs; chained, unchained, speculation (ngram
+   and continuation drafts) and each request alone give equal tokens
+   (the last three score positions in other batch shapes, so a row may
+   part at a float32 tie: two greedy candidates within 1e-4 in
+   logprob; it is compared up to there), chained and unchained equal
+   logprobs (atol 1e-5), through the float32 mixed and split-KV kernels. (d) over HTTP (``run.main_async``):
+   a streaming chat with ``top_logprobs: 5`` and a streaming legacy
+   completion with ``logprobs: 5``: one entry per token in every
+   content frame, chosen logprobs <= 0 and the top-1 (greedy), and the
+   completion's logprobs within 4x phase 4's logit error of
+   log_softmax of the plain path's logits at the same positions.
+
+Phase 3 also holds the mixed kernels on phase 8's verify spans (9
+queries a row: two q tiles, the second mostly padding) and times the
+bf16 one there. The kernels' line has one entry per kernel design (the
+bf16 mixed, split-KV decode and float32 mixed kernels), with its
+launches in the main path of its dtype (phase 5; phase 7 (c) for
+float32), over HTTP (phase 6), under KV pressure (phase 7 (a), (c)) and
+in phase 8 (a)-(d); the bf16 mixed entry also carries the verify
+spans' timing (``verify_*``).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and the result line
@@ -111,6 +143,10 @@ MIXED_SPANS = [
     (512, 512), (512, 1024), (512, 2048), (64, 64), (1, 17), (1, 1),
     (16, 32), (1, 2049), (1, 1536),
 ]
+# Verify spans of phase 8 (b): every row of phase 5 feeding its last
+# token and 8 drafts (9 queries: two q tiles, the second 7/8 padding)
+# at its 64th generated token.
+VERIFY_SPANS = [(9, n + 64 + 8) for n in PROMPT_LENS]
 # Decode rows: the main path's lengths at its 16th token, two inactive.
 DECODE_LENGTHS = [n + 16 for n in PROMPT_LENS]
 DECODE_LENGTHS[1] = DECODE_LENGTHS[6] = 0
@@ -330,13 +366,13 @@ def check_case(torch, call, plain, q, k, v, zeros, what) -> tuple:
     return err, tight
 
 
-def mixed_case(torch, np, tra, dt) -> tuple:
+def mixed_case(torch, np, tra, dt, spans=MIXED_SPANS, what="mixed") -> tuple:
     """The mixed shape, q_tile = 8, one empty tile at the end, against
     the plain version with ``dt`` pools. Returns (max abs err, the
     float32 reading, the inputs, the call, the plain call, the (row_of,
     positions) the plain call reads)."""
     dev = torch.device("cuda", 0)
-    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, MIXED_SPANS, 8, dt, dev)
+    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, spans, 8, dt, dev)
 
     def call():
         return tra.ragged_paged_attention(
@@ -346,8 +382,8 @@ def mixed_case(torch, np, tra, dt) -> tuple:
         return tra.ragged_paged_attention_ref(
             q, k, v, table, row_of, pos, num_kv_heads=HKV)
 
-    zeros = slice(-8, None)  # the empty tile
-    err, tight = check_case(torch, call, plain, q, k, v, zeros, f"mixed {dt}")
+    zeros = pos < 0  # padding slots and the empty tile
+    err, tight = check_case(torch, call, plain, q, k, v, zeros, f"{what} {dt}")
     return err, tight, (q, k, v, table), call, plain, (row_of, pos)
 
 
@@ -390,11 +426,17 @@ def check_kernels(torch, np, tra, flush) -> dict:
     the kernel's own rounding, so the bf16 kernels are also held against
     the plain version on float32 copies (``close_to_f32``)."""
     F = torch.nn.functional
+    def verify_case(torch, np, tra, dt):
+        return mixed_case(torch, np, tra, dt, VERIFY_SPANS, "verify")
+
     cases = {
         "ragged_paged_attention":
             (mixed_case, 8, f"mixed q_tile=8 rows={len(MIXED_SPANS)}"),
         "ragged_decode_attention":
             (decode_case, 1, f"decode q_tile=1 lengths={DECODE_LENGTHS}"),
+        # Phase 8's verify spans through the same mixed kernels.
+        "ragged_paged_attention_verify":
+            (verify_case, 8, f"verify spans (9 queries, 2 q tiles) q_tile=8 {VERIFY_SPANS}"),
     }
     results = {}
 
@@ -411,7 +453,7 @@ def check_kernels(torch, np, tra, flush) -> dict:
     for entry, (case, q_tile, what) in cases.items():
         err32, _, inputs32, call32, plain32, (rows32, pos32) = case(
             torch, np, tra, torch.float32)
-        if q_tile == 8:
+        if entry == "ragged_paged_attention":
             # The float32 mixed design (csrc/ragged_attention.cu), timed
             # on its own inputs at float32 rates.
             ms, plain_ms, lib_ms, b_ms, b_by, nbytes, flops = measure(
@@ -504,6 +546,7 @@ def check_full_logits(torch, np, pkg, model, mcfg):
     # bf16 activations through 32 layers: the two attention numerics
     # (see check_kernels) differ by bf16 ulps per layer.
     assert err <= 0.05 * scale, f"full logits differ: {err} > 5% of {scale}"
+    return err, scale
 
 
 def profile(torch, engine, requests):
@@ -577,7 +620,7 @@ def main_path(torch, np, pkg, tra):
         f"{mcfg.intermediate_size}, vocab {mcfg.vocab_size}, {n_params / 1e9:.3f} B "
         f"params bf16, random from seed 0 in {time.perf_counter() - t0:.1f} s")
 
-    check_full_logits(torch, np, pkg, model, mcfg)
+    logit_err, logit_scale = check_full_logits(torch, np, pkg, model, mcfg)
 
     requests = [
         {
@@ -642,7 +685,7 @@ def main_path(torch, np, pkg, tra):
         rerun_ttft_p50_s=rerun_ttfts[len(rerun_ttfts) // 2],
         rerun_ttft_max_s=rerun_ttfts[-1], launches=launches,
         mixed_dispatches=disp["mixed"], windowed_dispatches=disp["windowed"],
-        tokens=[t for t, _, _ in out],
+        tokens=[t for t, _, _ in out], logit_err=logit_err, logit_scale=logit_scale,
     )
     # Phase 6 builds its own llama-8b behind the HTTP server.
     del engine, model
@@ -1432,6 +1475,541 @@ def pressure_identity_f32(torch, np, pkg, tra, smi: str, mcfg=None,
                 swapped_out=m["swapped_out"], preempted=m["preempted"])
 
 
+# ------------------------------------------------------------ phase 8
+CHAIN_TOKENS = 128  # (a), (b): phase 7's length, without pressure
+F32_TOKENS = 48  # (c)
+LP_TOP = 5  # (d): the largest top_logprobs served
+
+
+@dataclass
+class Phase8:
+    """Phase 8's sizes: the card's by default; the CPU tests rehearse it
+    smaller (``device="cpu"``)."""
+
+    device: str = "cuda"
+    prompt_lens: tuple = PROMPT_LENS
+    max_tokens: int = CHAIN_TOKENS
+    f32_tokens: int = F32_TOKENS
+    repeat_block: int = 64  # (b)'s ngram prompt: a block of random ids ...
+    repeat_times: int = 8  # ... repeated
+    http_tokens: int = MAX_TOKENS  # (d)
+    lp_prompt_len: int = 512  # (d)'s completion prompt
+
+
+def p8_engine(pkg, mcfg, model, kv_dtype: str, sh: Phase8, **kw):
+    """Phase 5's engine shape (8 slots, a pool that holds every row's
+    whole context: no pressure) with ``kw`` on top."""
+    max_len = (max(*sh.prompt_lens, sh.repeat_block * sh.repeat_times)
+               + max(sh.max_tokens, sh.f32_tokens) + PS)
+    ecfg = pkg.engine.EngineConfig(
+        model=mcfg, max_decode_slots=8, page_size=PS, max_model_len=max_len,
+        num_pages=8 * -(-max_len // PS), kv_dtype=kv_dtype, **kw,
+    )
+    return pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+
+
+def p8_burst(torch, eng, requests, device: str) -> dict:
+    """Admit ``requests`` together and collect each stream's tokens and
+    logprob packs; wall time, the loop thread's CPU seconds (read before
+    the engine stops) and the engine's metrics."""
+
+    async def collect(stream):
+        r = dict(tokens=[], lps=[], tops=[], finish=None)
+        async for item in stream:
+            ids = item.get("token_ids", [])
+            r["tokens"] += ids
+            if item.get("logprobs"):
+                r["lps"] += item["logprobs"]
+                r["tops"] += item.get("top_logprobs") or [None] * len(ids)
+            r["finish"] = item.get("finish_reason", r["finish"])
+        return r
+
+    async def go():
+        streams = [eng.submit(r) for r in requests]
+        t0 = time.perf_counter()
+        eng.start()
+        out = await asyncio.wait_for(asyncio.gather(*(collect(s) for s in streams)), 600)
+        sync(torch, device)
+        return out, time.perf_counter() - t0, eng.loop_cpu_seconds()
+
+    try:
+        out, wall, cpu = asyncio.run(go())
+    finally:
+        eng.stop()
+    m = eng.metrics()
+    n = sum(len(r["tokens"]) for r in out)
+    return dict(out=out, tokens=[r["tokens"] for r in out], wall_s=wall, tokens_per_s=n / wall,
+                loop_cpu_s=cpu, metrics=m, dispatches=dict(m["dispatches"]),
+                wasted=m["decode_wasted_steps"])
+
+
+def guard_chained_syncs(torch, eng, device: str) -> dict:
+    """Wrap the engine instance's chained dispatch from outside: on the
+    card each runs under ``torch.cuda.set_sync_debug_mode("error")``, so
+    any host sync in it (a blocking copy, ``.item()``, ``nonzero``)
+    raises and fails the run. Returns the tally of guarded dispatches."""
+    tally = {"guarded": 0, "errors": []}
+    dispatch = eng._dispatch_chained
+
+    def guarded(pending):
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            nxt = dispatch(pending)
+        except Exception as e:
+            tally["errors"].append(repr(e))
+            raise
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        tally["guarded"] += nxt is not None
+        return nxt
+
+    eng._dispatch_chained = guarded
+    return tally
+
+
+def greedy_requests(np, vocab: int, sh: Phase8, max_tokens: int, **so) -> list[dict]:
+    return [
+        {"token_ids": ids, "stop_conditions": {"max_tokens": max_tokens, "ignore_eos": True},
+         "sampling_options": dict(so)}
+        for ids in phase5_prompts(np, vocab, sh.prompt_lens)
+    ]
+
+
+def p8_line(r: dict) -> str:
+    d = r["dispatches"]
+    return (f"wall {r['wall_s']:.3f} s, {r['tokens_per_s']:.2f} tokens/s, dispatches "
+            f"chained {d['chained']} / windowed {d['windowed']} / mixed {d['mixed']}, loop "
+            f"CPU {r['loop_cpu_s']:.3f} s, wasted steps {r['wasted']}")
+
+
+def chain_turns(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8) -> dict:
+    """(a) phase 5's prompts, all greedy (a seeded row would put the
+    batch in two sampler partitions, which never chain, as in the JAX
+    engine), at ``max_tokens`` each: unchained, chained, chained,
+    unchained. Every run finishes every row with ``max_tokens`` tokens,
+    equal across the four; the chained runs chain; every chained
+    dispatch of the first chained run runs under sync debug mode
+    "error"; the page audit is clean."""
+    requests = greedy_requests(np, mcfg.vocab_size, sh, sh.max_tokens)
+    runs, guard = [], None
+    for chained in (False, True, True, False):
+        eng = p8_engine(pkg, mcfg, model, "bfloat16", sh, chained_decode=chained)
+        if chained and guard is None:
+            guard = guard_chained_syncs(torch, eng, sh.device)
+        sync(torch, sh.device)
+        tra.reset_launches()
+        r = p8_burst(torch, eng, requests, sh.device)
+        r["designs"], r["chained_decode"] = dict(tra.KERNEL_LAUNCHES), chained
+        for i, o in enumerate(r["out"]):
+            assert o["finish"] == "length" and len(o["tokens"]) == sh.max_tokens, (
+                f"(a) chained={chained} request {i}: {o['finish']}, {len(o['tokens'])} tokens")
+        assert (r["dispatches"]["chained"] > 0) == chained, r["dispatches"]
+        check_drained(eng, f"(a) chained={chained}")
+        log(f"[chain] (a) {smi} chained_decode={chained}: {p8_line(r)}; launches by kernel "
+            f"{r['designs']}")
+        runs.append(r)
+        del eng
+    assert not guard["errors"] and guard["guarded"] > 0, guard
+    for r in runs[1:]:
+        assert r["tokens"] == runs[0]["tokens"], "(a) chained and unchained tokens differ"
+    log(f"[chain] (a) tokens equal in all four runs; {guard['guarded']} chained dispatches ran "
+        f"under torch.cuda.set_sync_debug_mode('error') without raising; audit clean")
+    if "--profile" in sys.argv and sh.device == "cuda":
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        for chained in (False, True):
+            eng = p8_engine(pkg, mcfg, model, "bfloat16", sh, chained_decode=chained)
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                r = p8_burst(torch, eng, requests, sh.device)
+            assert r["tokens"] == runs[0]["tokens"]
+            report_profile(prof, r["wall_s"], f"[profile chain={chained}]", top=6)
+            del eng
+    return dict(runs=runs, guard=guard, tokens=runs[0]["tokens"], designs=runs[1]["designs"])
+
+
+def continuation_drafter(pkg, prompts, streams):
+    """A drafter that proposes each row's own continuation from an
+    earlier run (``streams`` after ``prompts``) while the row still
+    agrees with that run (after a divergence it has nothing to offer),
+    registered under "smoke-continuation" so ``spec_mode`` reaches it."""
+    from dynamo_exp_tpu_torch.spec import Drafter, register_drafter
+
+    table = [(list(p), list(s)) for p, s in zip(prompts, streams)]
+
+    class Continuation(Drafter):
+        name = "smoke-continuation"
+
+        def propose(self, tokens, max_len):
+            for p, s in table:
+                if len(tokens) >= len(p) and tokens[:16] == p[:16] and tokens[: len(p)] == p:
+                    i = len(tokens) - len(p)
+                    return s[i : i + max_len] if tokens[len(p) :] == s[:i] else []
+            return []
+
+    register_drafter("smoke-continuation", lambda cfg: Continuation())
+    return "smoke-continuation"
+
+
+def logit_gap(torch, pkg, model, mcfg, prompt, want, got, device: str):
+    """At the first position where ``got`` leaves ``want``: the context
+    (prompt and ``want``'s common prefix) through one kernel forward;
+    returns (index, logit of want's token minus got's, top-2 margin)."""
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    ctx = list(prompt) + list(want[:j])
+    n, pad = len(ctx), (-len(ctx)) % 8
+    pages = -(-n // PS)
+    llama = pkg.models.llama
+    kc, vc = llama.init_kv_cache(mcfg, pages, PS, model.embed.dtype, device)
+    toks = torch.tensor(ctx + [0] * pad, device=device)
+    pos = torch.tensor(list(range(n)) + [-1] * pad, dtype=torch.int32, device=device)
+    rows = torch.zeros(n + pad, dtype=torch.int32, device=device)
+    table = torch.arange(pages, dtype=torch.int32, device=device)[None]
+    lg, _, _ = llama.forward_ragged(model, mcfg, toks, pos, rows, table, kc, vc,
+                                    torch.tensor([n - 1], device=device), q_tile=8)
+    top2 = torch.topk(lg[0], 2).values
+    return j, float(lg[0, want[j]] - lg[0, got[j]]), float(top2[0] - top2[1])
+
+
+def spec_path(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8, base) -> dict:
+    """(b) speculation at full width: (a)'s burst with a drafter that
+    proposes each row's (a) continuation (long verify spans, mostly
+    accepted), then ngram on a prompt built to repeat. Verify spans run
+    and are accepted through the tensor-core mixed kernel; tokens equal
+    to (a)'s are counted, not asserted (bf16: a verify pass scores a
+    position in another batch shape than a window step)."""
+    requests = greedy_requests(np, mcfg.vocab_size, sh, sh.max_tokens)
+    prompts = [r["token_ids"] for r in requests]
+    mode = continuation_drafter(pkg, prompts, base)
+    sync(torch, sh.device)
+    tra.reset_launches()
+    eng = p8_engine(pkg, mcfg, model, "bfloat16", sh, spec_mode=mode,
+                    spec_draft_len=8, spec_max_draft=8)
+    st = p8_burst(torch, eng, requests, sh.device)
+    del eng
+    rs = np.random.RandomState(17)
+    block = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=sh.repeat_block)]
+    ngram_req = [{"token_ids": block * sh.repeat_times,
+                  "stop_conditions": {"max_tokens": sh.max_tokens, "ignore_eos": True}}]
+    eng = p8_engine(pkg, mcfg, model, "bfloat16", sh, spec_mode="ngram")
+    ng = p8_burst(torch, eng, ngram_req, sh.device)
+    del eng
+    sync(torch, sh.device)
+    designs = dict(tra.KERNEL_LAUNCHES)
+    for r in (st, ng):
+        for o in r["out"]:
+            assert o["finish"] == "length" and len(o["tokens"]) == sh.max_tokens, o["finish"]
+    m, mn = st["metrics"], ng["metrics"]
+    assert m["spec_row_dispatches"] > 0 and m["spec_accepted_tokens"] > 0, m
+    assert mn["spec_row_dispatches"] > 0, mn
+    if sh.device == "cuda":
+        assert designs["mixed_tc_bf16"] > 0, designs
+    equal = [sum(a == b for a, b in zip(t, w)) for t, w in zip(st["tokens"], base)]
+    prefix = [next((i for i, (a, b) in enumerate(zip(t, w)) if a != b), len(t))
+              for t, w in zip(st["tokens"], base)]
+    gap = None
+    first = next((i for i, p in enumerate(prefix) if p < sh.max_tokens), None)
+    if first is not None:
+        gap = logit_gap(torch, pkg, model, mcfg, prompts[first], base[first],
+                        st["tokens"][first], sh.device)
+
+    def spec_line(mm):
+        return (f"verify rows {mm['spec_row_dispatches']} in {mm['spec_dispatches']} dispatches, "
+                f"proposed {mm['spec_draft_tokens']} / accepted {mm['spec_accepted_tokens']} / "
+                f"emitted {mm['spec_emitted_tokens']}")
+
+    log(f"[spec] (b) {smi} drafts = each row's (a) continuation: {p8_line(st)}; "
+        f"{spec_line(m)}; tokens equal to (a) {sum(equal)}/{sum(len(t) for t in base)}, "
+        f"common prefix per row {prefix}"
+        + (f"; first divergence row {first} at token {gap[0]}: logit of (a)'s token minus "
+           f"the verify pass's {gap[1]:.4f} (top-2 margin there {gap[2]:.4f})"
+           if gap else "; no divergence"))
+    log(f"[spec] (b) {smi} ngram on a {sh.repeat_block}-token block repeated "
+        f"{sh.repeat_times} times: {p8_line(ng)}; {spec_line(mn)}")
+    log(f"[spec] (b) launches by kernel {designs}")
+    return dict(static=st, ngram=ng, designs=designs, equal=equal, prefix=prefix, gap=gap)
+
+
+# (c): two greedy candidates whose logprobs lie this close are a tie at
+# float32. The same token's logprob moves by a few 1e-6 between the
+# GEMM kernels of a batch of 8 and of 1 row at llama-8b's width (2.9e-6
+# on an NVIDIA H100 80GB HBM3 at 700 W), so the order of two candidates
+# closer than that is the GEMM's, not the model's.
+F32_TIE = 1e-4
+
+
+def divergences(want: list[dict], got: list[dict], tie: float = 0.0) -> tuple[list, list]:
+    """Rows whose tokens differ, as (faults, ties): the first index, both
+    tokens, both runs' logprobs of their own token and ``want``'s top-2
+    margin there. A divergence is a tie when ``got``'s token is among
+    ``want``'s top candidates there with a logprob within ``tie`` of
+    ``want``'s token (the rows are compared no further: their contexts
+    differ from there on)."""
+    faults, ties = [], []
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w["tokens"] == g["tokens"]:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(w["tokens"], g["tokens"])) if a != b)
+        tops = w["tops"][j] if w["tops"] else None
+        top = sorted((tops or {}).values(), reverse=True)
+        desc = (f"row {i} at {j}: {w['tokens'][j]} (lp {w['lps'][j] if w['lps'] else None}) vs "
+                f"{g['tokens'][j]} (lp {g['lps'][j] if g['lps'] else None}), top-2 margin "
+                f"{top[0] - top[1] if len(top) > 1 else None}")
+        tied = (tops is not None and g["tokens"][j] in tops
+                and abs(w["lps"][j] - tops[g["tokens"][j]]) <= tie)
+        (ties if tied else faults).append(desc)
+    return faults, ties
+
+
+def f32_identity(torch, np, pkg, tra, smi: str, sh: Phase8, mcfg=None) -> dict:
+    """(c) llama-8b's width at 4 layers, float32 weights and pools: a
+    greedy burst and a seeded burst (one sampler partition each, so
+    they chain; two rows penalized), with logprobs (top 5). Chained,
+    unchained, speculation by ngram and by each row's own continuation,
+    and each request alone give equal tokens, up to a float32 tie
+    (``divergences``); chained and unchained give equal tokens and
+    logprobs (atol 1e-5)."""
+    from dataclasses import replace
+
+    mcfg = mcfg or replace(pkg.models.LLAMA_8B, num_layers=F32_LAYERS, dtype="float32")
+    model = seeded_model(torch, pkg, mcfg, sh.device)
+    prompts = phase5_prompts(np, mcfg.vocab_size, sh.prompt_lens)
+    bursts = {
+        "greedy": [{} for _ in prompts],
+        "seeded": [{"temperature": 0.8, "seed": 100 + i,
+                    **({"presence_penalty": 0.5, "frequency_penalty": 0.3} if i % 3 == 0 else {})}
+                   for i in range(len(prompts))],
+    }
+    sync(torch, sh.device)
+    tra.reset_launches()
+    out = {}
+    for name, sos in bursts.items():
+        reqs = [{"token_ids": p, "stop_conditions": {"max_tokens": sh.f32_tokens,
+                                                     "ignore_eos": True},
+                 "sampling_options": {**so, "logprobs": LP_TOP}} for p, so in zip(prompts, sos)]
+
+        def run(**kw):
+            return p8_burst(torch, p8_engine(pkg, mcfg, model, "float32", sh, **kw), reqs,
+                            sh.device)
+
+        chained = run()
+        unchained = run(chained_decode=False)
+        ngram = run(spec_mode="ngram")
+        static = run(spec_mode=continuation_drafter(pkg, prompts, chained["tokens"]),
+                     spec_draft_len=8)
+        eng = p8_engine(pkg, mcfg, model, "float32", sh)
+        solo = [p8_burst(torch, eng, [r], sh.device)["out"][0] for r in reqs]
+        check_drained(eng, f"(c) {name}")
+        del eng
+        assert chained["dispatches"]["chained"] > 0, chained["dispatches"]
+        assert static["metrics"]["spec_accepted_tokens"] > 0, static["metrics"]
+        # Chained and unchained run the same batch shapes: equal tokens.
+        # The others score positions in other shapes (verify spans, one
+        # row): equal tokens up to a float32 tie, if one comes.
+        ties = {}
+        for what, r in (("unchained", unchained["out"]), ("ngram", ngram["out"]),
+                        ("static", static["out"]), ("solo", solo)):
+            faults, ties[what] = divergences(
+                chained["out"], r, 0.0 if what == "unchained" else F32_TIE)
+            assert not faults, f"(c) {name}: {what} tokens differ from chained: {faults}"
+        tie_note = "; ".join(f"{k}: {v}" for k, v in ties.items() if v) or "none"
+        lp_err = 0.0
+        for a, b in zip(chained["out"], unchained["out"]):
+            assert len(a["lps"]) == len(a["tokens"]) == sh.f32_tokens
+            lp_err = max(lp_err, max(abs(x - y) for x, y in zip(a["lps"], b["lps"])))
+            for ta, tb in zip(a["tops"], b["tops"]):
+                assert list(ta) == list(tb), "(c) top-5 ids differ"
+                lp_err = max(lp_err, max(abs(x - y) for x, y in zip(ta.values(), tb.values())))
+        assert lp_err <= 1e-5, f"(c) {name}: chained and unchained logprobs differ by {lp_err}"
+        log(f"[f32] (c) {smi} {name} burst, width {mcfg.hidden_size}, {mcfg.num_layers} layers, "
+            f"float32: chained ({p8_line(chained)}), unchained, ngram (verify rows "
+            f"{ngram['metrics']['spec_row_dispatches']}, accepted "
+            f"{ngram['metrics']['spec_accepted_tokens']}), continuation drafts (verify rows "
+            f"{static['metrics']['spec_row_dispatches']}, accepted "
+            f"{static['metrics']['spec_accepted_tokens']}) and each request alone give equal "
+            f"tokens (float32 ties within {F32_TIE} in logprob, rows compared up to them: "
+            f"{tie_note}); chained vs unchained logprobs max abs diff {lp_err:.3e} (atol 1e-5)")
+        out[name] = dict(chained=chained, lp_err=lp_err, ties=ties)
+    sync(torch, sh.device)
+    designs = dict(tra.KERNEL_LAUNCHES)
+    if sh.device == "cuda":
+        assert designs["mixed_f32"] > 0 and designs["decode_split"] > 0, designs
+        assert designs["mixed_tc_bf16"] == 0, designs
+    log(f"[f32] (c) launches by kernel {designs}")
+    del model
+    gc.collect()
+    if sh.device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(bursts=out, designs=designs)
+
+
+def logprob_http(torch, np, pkg, tra, smi: str, logit_err: float, sh: Phase8,
+                 mcfg=None) -> dict:
+    """(d) logprobs over HTTP: ``run.main_async(in=http out=cuda)`` on
+    phase 6's model directory; one streaming chat with ``logprobs:
+    true, top_logprobs: 5`` and one streaming legacy completion with
+    ``logprobs: 5``, both greedy."""
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama-8b"), tokmod, mcfg, text)
+        max_len = sh.lp_prompt_len + sh.http_tokens + 4 * PS
+        argv = [
+            "in=http", "out=cuda", "--device", sh.device, "--model-path", model_dir,
+            "--model-name", "llama-8b", "--random-weights", "--http-host", "127.0.0.1",
+            "--http-port", "0", "--max-decode-slots", "8", "--page-size", str(PS),
+            "--max-model-len", str(max_len), "--kv-dtype", "bfloat16",
+        ]
+        res = asyncio.run(asyncio.wait_for(
+            _logprob_traffic(torch, np, pkg, tra, run, client, run.parse_args(argv), mcfg,
+                             sh), timeout=900))
+    # The tolerance: log_softmax moves by at most twice the largest
+    # logit error (the token's own and the normaliser's); phase 4 reads
+    # that error for a 64-token prefill; a decode row at a longer
+    # context through other batch shapes gets twice that room.
+    tol = 4 * logit_err
+    assert res["plain_err"] <= tol, (
+        f"(d) logprobs differ from log_softmax of the plain path by {res['plain_err']} > {tol}")
+    log(f"[logprobs] (d) {smi}: streaming chat (top_logprobs 5) and streaming completion "
+        f"(logprobs 5): one entry per token in every content frame ({res['frames']} frames, "
+        f"{res['entries']} entries), chosen logprobs <= 0, the chosen token is the top-1 "
+        f"(ties at bf16 logits allowed); the completion's logprobs equal the engine's own "
+        f"packs and lie within {res['plain_err']:.4f} of log_softmax of the plain path's "
+        f"full logits at the same {sh.http_tokens} positions (tolerance 4 x phase 4's logit "
+        f"error {logit_err:.4f} = {tol:.4f}); launches by kernel {res['designs']}")
+    gc.collect()
+    if sh.device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(res, tol=tol)
+
+
+async def _logprob_traffic(torch, np, pkg, tra, run, client, opts, mcfg, sh: Phase8) -> dict:
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({server, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if server.done():
+        server.result()
+    served = ready.result()
+    base = f"http://127.0.0.1:{served.port}"
+    eng = served.torch_engine
+    rs = np.random.RandomState(23)
+    ids = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=sh.lp_prompt_len)]
+    try:
+        sync(torch, sh.device)
+        tra.reset_launches()
+        frames = {}
+        for kind, path, body in (
+            ("chat", "/v1/chat/completions",
+             {"messages": CHATS[0], "logprobs": True, "top_logprobs": LP_TOP}),
+            ("completion", "/v1/completions", {"prompt": ids, "logprobs": LP_TOP}),
+        ):
+            body = {"model": "llama-8b", "max_tokens": sh.http_tokens, "stream": True,
+                    "stream_options": {"include_usage": True}, "nvext": {"ignore_eos": True},
+                    **body}
+            frames[kind] = [f.data async for f in client.sse_frames(base + path, body)]
+        sync(torch, sh.device)
+        designs = dict(tra.KERNEL_LAUNCHES)
+        # The completion straight into the engine (its prefix cache
+        # dropped, so the prompt prefills as it did over HTTP): its ids
+        # and packs.
+        with eng.hold_admission():
+            eng.reset_prefix_cache()
+            stream = eng.submit({"token_ids": ids, "stop_conditions": {
+                "max_tokens": sh.http_tokens, "ignore_eos": True},
+                "sampling_options": {"logprobs": LP_TOP}})
+        direct = dict(tokens=[], lps=[], tops=[])
+        async for item in stream:
+            if item.get("token_ids"):
+                direct["tokens"] += item["token_ids"]
+                direct["lps"] += item["logprobs"]
+                direct["tops"] += item["top_logprobs"]
+    finally:
+        server.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await server
+    n_frames = n_entries = 0
+    lp_http = []
+    for kind, fs in frames.items():
+        assert fs[-1] == "[DONE]", kind
+        prev, total, usage = 0, 0, None
+        for data in fs[:-1]:
+            usage = data.get("usage") or usage
+            for c in data["choices"]:
+                lp = c.get("logprobs")
+                if not lp:
+                    continue
+                entries = lp["content"] if kind == "chat" else lp["token_logprobs"]
+                if data.get("seq_index") is not None:
+                    # One entry per token the frame carries.
+                    assert len(entries) == data["seq_index"] - prev, (kind, data)
+                    prev = data["seq_index"]
+                total += len(entries)
+                n_frames += 1
+                if kind == "chat":
+                    for e in entries:
+                        top = e["top_logprobs"]
+                        assert len(top) == LP_TOP and e["logprob"] <= 0, e
+                        assert e["logprob"] == top[0]["logprob"], e  # greedy: the top-1
+                        assert e["token"] in [t["token"] for t in top
+                                              if t["logprob"] == top[0]["logprob"]], e
+                else:
+                    for tok_text, x, tops in zip(lp["tokens"], lp["token_logprobs"],
+                                                 lp["top_logprobs"]):
+                        assert x <= 0 and x == max(tops.values()), (tok_text, x, tops)
+                    lp_http += lp["token_logprobs"]
+        assert total == usage["completion_tokens"] == sh.http_tokens, (kind, total, usage)
+        n_entries += total
+    n = sh.http_tokens
+    assert len(direct["tokens"]) == n and max(abs(a - b) for a, b in zip(lp_http, direct["lps"])) <= 1e-6
+    for t, x, top in zip(direct["tokens"], direct["lps"], direct["tops"]):
+        first = next(iter(top.values()))
+        assert x == first and t in [i for i, v in top.items() if v == first], (t, x, top)
+    # log_softmax of the plain path's full logits at the same positions.
+    llama = pkg.models.llama
+    seq = ids + direct["tokens"][:-1]
+    P = len(ids)
+    pages = -(-len(seq) // PS)
+    dev = eng.device
+    kc, vc = llama.init_kv_cache(mcfg, pages, PS, torch.bfloat16, dev)
+    lg, _, _ = llama.forward_ragged(
+        eng.model, mcfg, torch.tensor(seq, device=dev),
+        torch.arange(len(seq), dtype=torch.int32, device=dev),
+        torch.zeros(len(seq), dtype=torch.int32, device=dev),
+        torch.arange(pages, dtype=torch.int32, device=dev)[None], kc, vc,
+        torch.arange(P - 1, P - 1 + n, device=dev), attn_impl="reference")
+    want = torch.log_softmax(lg, dim=-1)[torch.arange(n, device=dev),
+                                         torch.tensor(direct["tokens"], device=dev)]
+    plain_err = float((want.cpu() - torch.tensor(direct["lps"])).abs().max())
+    del kc, vc, lg
+    return dict(frames=n_frames, entries=n_entries, plain_err=plain_err, designs=designs,
+                http_lps=lp_http)
+
+
+def phase8(torch, np, pkg, tra, smi: str, logit_err: float, sh: Phase8 = Phase8(),
+           mcfg=None, f32_mcfg=None) -> dict:
+    """Phase 8: chaining, speculation and logprobs."""
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    model = seeded_model(torch, pkg, mcfg, sh.device)
+    a = chain_turns(torch, np, pkg, tra, smi, model, mcfg, sh)
+    b = spec_path(torch, np, pkg, tra, smi, model, mcfg, sh, a["tokens"])
+    del model
+    gc.collect()
+    if sh.device == "cuda":
+        torch.cuda.empty_cache()
+    c = f32_identity(torch, np, pkg, tra, smi, sh, f32_mcfg)
+    d = logprob_http(torch, np, pkg, tra, smi, logit_err, sh, mcfg)
+    return dict(a=a, b=b, c=c, d=d)
+
+
 def main() -> int:
     import torch
 
@@ -1507,6 +2085,9 @@ def main() -> int:
     p7 = pressure_burst(torch, np, pkg, tra, smi)
     p7c = pressure_identity_f32(torch, np, pkg, tra, smi)
     log(f"[pressure] phase 7 in {time.perf_counter() - t7:.1f} s")
+    t8 = time.perf_counter()
+    p8 = phase8(torch, np, pkg, tra, smi, stats["logit_err"])
+    log(f"[phase8] in {time.perf_counter() - t8:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -1531,10 +2112,19 @@ def main() -> int:
             "launches_http": h["designs"][design],
             "launches_kv_pressure": p7["a"]["designs"][design],
             "launches_kv_pressure_f32": p7c["designs"][design],
+            "launches_chained": p8["a"]["designs"][design],
+            "launches_spec": p8["b"]["designs"][design],
+            "launches_identity_f32": p8["c"]["designs"][design],
+            "launches_http_logprobs": p8["d"]["designs"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
+        if name == "ragged_paged_attention":
+            # Phase 8 (b)'s verify spans (9 queries, two q tiles a row).
+            v = kern["ragged_paged_attention_verify"]
+            kernels[-1].update({f"verify_{key}": v[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

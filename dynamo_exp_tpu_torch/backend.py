@@ -122,6 +122,8 @@ class Backend:
                         finish_reason=finished,
                         prompt_tokens=prompt_tokens if finished else None,
                         completion_tokens=emitted if finished else None,
+                        logprobs=out.logprobs,
+                        top_logprobs=out.top_logprobs,
                     ).to_dict()
                 if finished is not None:
                     ctx.stop_generating()

@@ -1,8 +1,9 @@
 """Engine configuration.
 
 Counterpart of ``dynamo_exp_tpu/engine/config.py``, trimmed to the
-fields the port reads (the KV-pressure and tiering knobs keep the JAX
-package's defaults).
+fields the port reads (the KV-pressure, tiering, chaining and
+speculation knobs keep the JAX package's defaults; the ``DYN_*``
+environment overrides are not ported, ROADMAP Queue 1 item 4(d)).
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ class EngineConfig:
     # Decode steps per pure-decode dispatch: the host syncs once per
     # window (a row may overshoot its stop by up to window-1 discards).
     decode_window: int = 8
+    # Keep one decode window in flight: dispatch window N+1 straight from
+    # window N's carry on the device (tokens, positions) while the host
+    # still consumes window N. False forces dispatch -> sync -> consume.
+    chained_decode: bool = True
     # Flat-stream alignment of each row's query span for the ragged
     # kernel's mixed shape: every q_tile slice belongs to one row.
     ragged_q_tile: int = 8
@@ -74,6 +79,23 @@ class EngineConfig:
     # Negative disables; needs a host tier; must be below
     # preempt_stall_grace_s to fire first.
     proactive_offload_grace_s: float = 0.0
+    # Speculative decoding: "off", or a drafter name from the spec/
+    # registry ("ngram" = prompt lookup, no second model).
+    spec_mode: str = "off"
+    # Initial per-row draft length; the adaptive controller moves it
+    # within [spec_min_draft, spec_max_draft] from the rolling
+    # acceptance rate (spec_adaptive=False pins it).
+    spec_draft_len: int = 4
+    spec_min_draft: int = 1
+    spec_max_draft: int = 8
+    spec_adaptive: bool = True
+    # Prompt-lookup drafter: trailing n-gram widths tried, longest first.
+    spec_ngram: int = 3
+    spec_ngram_min: int = 1
+    # Miss backoff: after this many empty proposals in a row the row is
+    # not probed until its context grows by spec_retry_tokens.
+    spec_miss_limit: int = 4
+    spec_retry_tokens: int = 32
 
     def __post_init__(self):
         if self.kv_dtype not in ("bfloat16", "float32"):
@@ -83,6 +105,14 @@ class EngineConfig:
                 f"attention_impl must be one of {ATTENTION_IMPLS}, "
                 f"got {self.attention_impl!r}"
             )
+        if self.spec_max_draft < self.spec_min_draft or self.spec_min_draft < 1:
+            raise ValueError(
+                f"bad spec draft bounds [{self.spec_min_draft}, "
+                f"{self.spec_max_draft}]"
+            )
+        self.spec_draft_len = min(
+            max(self.spec_draft_len, self.spec_min_draft), self.spec_max_draft
+        )
 
     @property
     def kv_torch_dtype(self) -> torch.dtype:

@@ -9,19 +9,39 @@ One loop iteration admits what it can, then dispatches one ragged batch
 per sampler partition (greedy rows apart from rows that need the full
 penalty/top-k/top-p sampler), in one of two shapes:
 
-- **mixed**: prefill chunks and single decode steps in one flat token
-  stream through ``models.llama.forward_ragged``; each row samples at
-  its last fed position, and a prompt completing its last chunk samples
-  its first token in the same dispatch. With the kernel, every row's
-  span is aligned to ``ragged_q_tile`` slots.
+- **mixed**: prefill chunks, single decode steps and speculative verify
+  spans in one flat token stream through ``models.llama.forward_ragged``;
+  each row samples at its last fed position, a prompt completing its
+  last chunk samples its first token in the same dispatch, and a verify
+  span (the row's last token and its drafts at consecutive positions)
+  is scored at every position and accepted on the device
+  (``spec_accept_length`` greedy, ``spec_verify_tokens`` with the full
+  sampler). With the kernel, every row's span is aligned to
+  ``ragged_q_tile`` slots.
 - **windowed**: pure decode, a Python loop of ``decode_window`` steps
   of ``models.llama.forward`` at T=1 (the kernel's decode shape). The
   next tokens and positions stay on the device between steps; a row
   parks at position -1 when it samples a stop token, spends its
   max_tokens budget, or reaches its page capacity. The host syncs once
-  per window.
+  per window, when it consumes the window's tokens.
 
-Every dispatch is consumed in the iteration that issued it.
+Chaining (``chained_decode``, the JAX loop's order): a window that is
+its iteration's only dispatch stays in flight; in steady state (no
+arrivals, no prefill, no cancellation, the same rows, no capacity cap,
+no speculating row) the next window launches from its carry on the
+device before the host consumes it, so the host's consume overlaps the
+next window. A stop found while a successor is in flight defers the
+finish (and the page release) until the successor is consumed. Host
+arrays reach the card through pinned staging with ``non_blocking``
+copies and dropped K/V writes go to a scratch page past the pool, so
+nothing between a window's dispatch and its consume waits on the card.
+Swap, preemption, rewind and page release run only when no window is
+in flight.
+
+Logprobs (``sampling_options.logprobs``) are the model distribution's
+(``ops.sampling.token_logprobs``), computed only in dispatches that
+carry a row asking for them, for every emitted token of both shapes and
+of verify spans.
 
 KV pressure (the JAX loop's order): a row that cannot feed its next
 token hard-stalls; admission pauses while any row is stalled. With a
@@ -34,9 +54,8 @@ pages are written back to the host tier and injected again on a prefix
 match (``_apply_uploads``) or ahead of admission (``_plan_prefetch``).
 Device <-> host copies run on side CUDA streams (``offload.py``).
 
-Left out (ROADMAP): chained windows, speculation, logprobs, the
-persistent KV tier, partial-tail copy-on-write, leases, reclaim,
-telemetry and the flight recorder.
+Left out (ROADMAP): the persistent KV tier, partial-tail copy-on-write,
+leases, reclaim, request deadlines, telemetry and the flight recorder.
 """
 
 from __future__ import annotations
@@ -48,7 +67,7 @@ import queue
 import random
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import AsyncIterator, Callable
 
@@ -66,9 +85,17 @@ from ..models.llama import (
     resolve_attn,
 )
 from ..ops.ragged_attention import ragged_supported
-from ..ops.sampling import apply_penalties, sample_tokens_seeded, stop_token_hit
+from ..ops.sampling import (
+    apply_penalties,
+    sample_tokens_seeded,
+    spec_accept_length,
+    spec_verify_tokens,
+    stop_token_hit,
+    token_logprobs,
+)
 from ..protocols.common import BackendInput, FinishReason, LLMEngineOutput
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, ResponseStream
+from ..spec import SpecManager
 from ..tokens import compute_block_hashes_for_seq
 from .config import EngineConfig
 from .kv_manager import KvEvent, KvPageManager
@@ -80,6 +107,13 @@ log = logging.getLogger(__name__)
 
 # Width of the per-row stop-token set a decode window checks on the device.
 STOP_WIDTH = 8
+
+_TORCH_DTYPES = {
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.bool_): torch.bool,
+}
 
 
 def resolve_attn_impl(cfg: EngineConfig, device: torch.device) -> str:
@@ -104,13 +138,47 @@ def resolve_attn_impl(cfg: EngineConfig, device: torch.device) -> str:
 
 @dataclass
 class _RaggedRow:
-    """One row of a dispatch: a prefill chunk or a decode step/window."""
+    """One row of a dispatch: a prefill chunk, a decode step/window or a
+    speculative verify span."""
 
     seq: Sequence
-    kind: str  # "decode" | "prefill"
+    kind: str  # "decode" | "prefill" | "spec"
     row: int  # per-row array index in the dispatch
     n_valid: int = 0  # decode: window steps the host may keep
     completing: bool = False  # prefill: the prompt finishes this chunk
+    n_drafts: int = 0  # spec: drafts fed for verification
+
+
+@dataclass
+class _PendingRagged:
+    """One dispatched ragged batch the host has not consumed yet (the
+    JAX engine's ``_PendingRagged``).
+
+    ``ys`` are the outputs' host copies, queued behind the dispatch on
+    the compute stream (pinned, ``non_blocking``); ``ready`` is the event
+    recorded after them (None on the CPU), and consuming waits on it:
+    the dispatch's one sync. A windowed batch keeps its final carry
+    (``tokens_dev``/``positions_dev``: the next window's inputs over the
+    same rows) and the device arrays a chained successor reuses."""
+
+    ys: tuple  # windowed: toks [K, nb] (+lp); mixed: tok0 [B1] (+spec) (+lp)
+    ready: object
+    rows: list  # [_RaggedRow]
+    windowed: bool
+    full_sampler: bool
+    want_lp: bool
+    solo: bool  # the iteration's only dispatch: chainable
+    with_spec: bool = False  # mixed: carried verify spans
+    nb: int = 0  # windowed: rows in the batch
+    tokens_dev: torch.Tensor | None = None
+    positions_dev: torch.Tensor | None = None
+    # Some row could reach its page/model-length cap inside the window:
+    # its carry parks at -1 but the host resumes it after allocating
+    # pages, so a chained window would feed a dead carry. No chaining.
+    capacity_capped: bool = False
+    stop_dev: torch.Tensor | None = None  # [nb, STOP_WIDTH], reused by a chain
+    slot_dev: torch.Tensor | None = None  # [nb] counts rows (full sampler)
+    sampler_dev: tuple | None = None  # (seeds, temp, top_k, top_p, f, p, r)
 
 
 class TorchEngine(AsyncEngine):
@@ -135,8 +203,12 @@ class TorchEngine(AsyncEngine):
             model = init_params(mcfg, gen, self.device)
         self.model = model
         # KV pools [L, P, ps, Hkv*D], written in place by every forward.
+        # One scratch page past the pool (never handed out, in no page
+        # table) takes the K/V writes of padding and parked rows, so a
+        # forward drops them without selecting rows on the host.
+        self._drop_page = cfg.num_pages
         self.k_cache, self.v_cache = init_kv_cache(
-            mcfg, cfg.num_pages, cfg.page_size, cfg.kv_torch_dtype, self.device
+            mcfg, cfg.num_pages + 1, cfg.page_size, cfg.kv_torch_dtype, self.device
         )
         # G2 host tier: the pool lives here; the CopyStream (a thread and
         # two side streams) is made by start() and torn down by stop().
@@ -186,9 +258,21 @@ class TorchEngine(AsyncEngine):
         self._running = False
         self._held = False
         self._thread: threading.Thread | None = None
+        # Speculation: the drafter and per-row controller (None = off).
+        self._spec = SpecManager(cfg) if cfg.spec_mode != "off" else None
+        # The unconsumed solo window (chaining), and pinned staging
+        # buffers kept until the event after their upload completes.
+        self._inflight: _PendingRagged | None = None
+        self._staged: deque = deque()
         self.steps = 0  # forward steps dispatched
         self.wasted_steps = 0  # window steps computed past a row's stop
-        self.dispatches = {"mixed": 0, "windowed": 0}
+        # Dispatches by shape; "chained" windows are also "windowed".
+        self.dispatches = {"mixed": 0, "windowed": 0, "chained": 0}
+        self.spec_dispatches = 0  # mixed dispatches carrying verify spans
+        self.spec_row_dispatches = 0  # verify spans (rows) consumed
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_emitted_tokens = 0
         self.preempted = 0  # preemptions (KV pressure and swap misses)
         self.swapped_out = 0  # rows swapped out to the host tier
         self.swapped_in = 0  # rows restored from it
@@ -313,9 +397,10 @@ class TorchEngine(AsyncEngine):
         out_q: asyncio.Queue = asyncio.Queue()
         orphaned = threading.Event()
 
-        def emit(tokens: list[int], reason: FinishReason | None) -> None:
+        def emit(tokens: list[int], reason: FinishReason | None, logprobs=None) -> None:
+            # logprobs: (chosen lps, [{token id: lp}] or None) per token.
             try:
-                loop.call_soon_threadsafe(out_q.put_nowait, (tokens, reason))
+                loop.call_soon_threadsafe(out_q.put_nowait, (tokens, reason, logprobs))
             except RuntimeError:
                 # The caller's event loop has closed: nobody reads this
                 # stream any more. The loop thread lives on and cancels
@@ -340,10 +425,14 @@ class TorchEngine(AsyncEngine):
         async def _gen() -> AsyncIterator[dict]:
             completion = 0
             while True:
-                tokens, reason = await out_q.get()
+                tokens, reason, logprobs = await out_q.get()
                 if tokens:
                     completion += len(tokens)
-                    yield LLMEngineOutput(token_ids=tokens).to_dict()
+                    yield LLMEngineOutput(
+                        token_ids=tokens,
+                        logprobs=logprobs[0] if logprobs else None,
+                        top_logprobs=logprobs[1] if logprobs else None,
+                    ).to_dict()
                 if reason is not None:
                     yield LLMEngineOutput(
                         finish_reason=reason,
@@ -364,6 +453,13 @@ class TorchEngine(AsyncEngine):
         m["swapped_in"] = self.swapped_in
         m["prefetched_pages"] = self.prefetched_pages
         m["prefetch_hits"] = self.prefetch_hits
+        # Speculation: acceptance = accepted / draft, tokens per verify
+        # row = emitted / row dispatches.
+        m["spec_dispatches"] = self.spec_dispatches
+        m["spec_row_dispatches"] = self.spec_row_dispatches
+        m["spec_draft_tokens"] = self.spec_draft_tokens
+        m["spec_accepted_tokens"] = self.spec_accepted_tokens
+        m["spec_emitted_tokens"] = self.spec_emitted_tokens
         if self.host_pool is not None:
             m["host_cache_resident"] = self.host_pool.resident
             m["host_cache_hits"] = self.host_pool.hits
@@ -382,6 +478,18 @@ class TorchEngine(AsyncEngine):
                     if self.copy_stream.error is not None:
                         raise RuntimeError("the KV copy stream failed") from self.copy_stream.error
                     self.copy_stream.poll()
+                self._poll_staged()
+                if self._inflight is not None:
+                    # Steady state: launch the next window from the
+                    # in-flight one's device carry, then consume the
+                    # in-flight one while the next runs.
+                    nxt = self._dispatch_chained(self._inflight) if self._can_chain() else None
+                    prev, self._inflight = self._inflight, nxt
+                    self._consume_ragged(prev)
+                    if self._inflight is not None:
+                        continue
+                    # Chain broken (arrivals, prefill, a stop, a dry
+                    # pool): the full scheduling path follows.
                 while True:
                     try:
                         self.sched.submit(self._submit_q.get_nowait())
@@ -398,10 +506,12 @@ class TorchEngine(AsyncEngine):
                 for seq in list(self.sched.slots):
                     if seq is not None and seq.is_cancelled():
                         self.sched.finish(seq, FinishReason.CANCELLED)
-                # KV pressure: swap a cold row out first, preempt once a
-                # stall outlasts its grace; completed prefetches inject
-                # and swapped rows rejoin before admission, which pauses
-                # while any row is stalled or swapped out.
+                # KV pressure (no window is in flight here, so no device
+                # write can race a release): swap a cold row out first,
+                # preempt once a stall outlasts its grace; completed
+                # prefetches inject and swapped rows rejoin before
+                # admission, which pauses while any row is stalled or
+                # swapped out.
                 self._maybe_proactive_offload()
                 self._maybe_preempt()
                 self._apply_prefetches()
@@ -415,13 +525,28 @@ class TorchEngine(AsyncEngine):
                     s for s in self.sched.slots
                     if s is not None and s.state is SeqState.PREFILL
                 ]
-                if not self._dispatch_ragged(prefilling[: self.cfg.prefill_batch]):
+                pendings = self._dispatch_ragged(prefilling[: self.cfg.prefill_batch])
+                if len(pendings) == 1 and pendings[0].solo and self.cfg.chained_decode:
+                    self._inflight = pendings[0]  # consumed next iteration
+                else:
+                    # Mixed batches consume in the same iteration: the
+                    # next chunks and drafts are planned from the tokens
+                    # they just confirmed.
+                    for p in pendings:
+                        self._consume_ragged(p)
+                if not pendings:
                     # Pool dry / everything stalled: yield briefly.
                     self._wake.wait(timeout=0.001)
                     self._wake.clear()
+            if self._inflight is not None:
+                # Paused (stop / hold_admission): the window's tokens
+                # belong to the host state the next loop builds from.
+                prev, self._inflight = self._inflight, None
+                self._consume_ragged(prev)
         except Exception:  # engine death must not hang clients
             log.exception("engine loop crashed; failing in-flight requests")
             self._running = False
+            self._inflight = None
             pending = list(self.sched.slots) + list(self.sched.waiting)
             while not self._submit_q.empty():
                 pending.append(self._submit_q.get_nowait())
@@ -750,7 +875,7 @@ class TorchEngine(AsyncEngine):
         """One gather of ``pids`` into contiguous device batches
         ``[L, n, ps, Hkv*D]`` on the compute stream, and (CUDA) the event
         recorded after it, which the copy stream waits on."""
-        idx = torch.tensor(pids, dtype=torch.long, device=self.device)
+        (idx,) = self._upload(np.asarray(pids, np.int64))
         k_b = self.k_cache.index_select(1, idx)
         v_b = self.v_cache.index_select(1, idx)
         ready = None
@@ -767,7 +892,7 @@ class TorchEngine(AsyncEngine):
         overwritten reached the host tier's gather before this lands."""
         self._flush_offloads()
         k_dev, v_dev = self.copy_stream.upload(k_host, v_host)
-        idx = torch.tensor(pids, dtype=torch.long, device=self.device)
+        (idx,) = self._upload(np.asarray(pids, np.int64))
         self.k_cache.index_copy_(1, idx, k_dev)
         self.v_cache.index_copy_(1, idx, v_dev)
 
@@ -795,10 +920,12 @@ class TorchEngine(AsyncEngine):
         )
         seq.pending_uploads = []
 
-    def _dispatch_ragged(self, prefill_rows: list[Sequence]) -> bool:
-        """Run this iteration's ragged batches, one per sampler
-        partition: windowed when the partition is pure decode, mixed
-        otherwise. Returns False when nothing could step."""
+    def _dispatch_ragged(self, prefill_rows: list[Sequence]) -> list[_PendingRagged]:
+        """Assemble and dispatch this iteration's ragged batches, one per
+        sampler partition: windowed when the partition is pure decode
+        (no prefill chunk, no verify span), mixed otherwise. Nothing
+        waits on the card. Returns the pending dispatches; [] when
+        nothing could step."""
         cfg = self.cfg
         ps, K = cfg.page_size, cfg.decode_window
         parts: dict[bool, list] = {False: [], True: []}
@@ -824,21 +951,30 @@ class TorchEngine(AsyncEngine):
             seq.stalled = len(seq.page_ids) * ps < min(wpos + K, cfg.max_model_len)
             seq.stalled_since = 0.0  # progressing (even if window-capped)
             parts[self._needs_sampler(seq)].append((seq, wpos, cap))
+        spec_parts: dict[bool, list] = {False: [], True: []}
+        if self._spec is not None:
+            for fs in (False, True):
+                parts[fs], spec_parts[fs] = self._extract_spec_rows(parts[fs])
+            if len(self._spec) > 4 * cfg.max_decode_slots:
+                self._spec.retain(s.request_id for s in self.sched.slots if s is not None)
         pf_parts: dict[bool, list[Sequence]] = {False: [], True: []}
         for seq in prefill_rows:
             pf_parts[self._needs_sampler(seq)].append(seq)
+        batches = []
+        for fs in (False, True):
+            dec, spec, pf = parts[fs], spec_parts[fs], pf_parts[fs]
+            if dec or spec or pf:
+                batches.append((fs, dec, spec, pf, bool(dec) and not spec and not pf))
+        # A window is chainable only as the iteration's one dispatch.
+        solo = len(batches) == 1 and batches[0][4]
         # Evictions of this iteration's allocations reach their gather
         # before any forward can overwrite the pages.
         self._flush_offloads()
-        progressed = False
-        for fs in (False, True):
-            dec, pf = parts[fs], pf_parts[fs]
-            if pf:
-                self._run_mixed(dec, pf, fs)
-            elif dec:
-                self._run_windowed(dec, fs)
-            progressed = progressed or bool(dec or pf)
-        return progressed
+        return [
+            self._build_windowed(dec, fs, solo) if windowed
+            else self._build_mixed(dec, spec, pf, fs)
+            for fs, dec, spec, pf, windowed in batches
+        ]
 
     # ------------------------------------------------------------ row helpers
     @staticmethod
@@ -889,14 +1025,112 @@ class TorchEngine(AsyncEngine):
         pres[r] = so.presence_penalty or 0.0
         rep[r] = so.repetition_penalty or 1.0
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    # ------------------------------------------------------ host <-> device
+    def _upload(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """Host arrays on the device. On a card: one pinned staging
+        buffer, one ``non_blocking`` copy (no host sync), the buffer kept
+        until the event after the copy has completed; on the CPU the
+        arrays themselves."""
+        if self.device.type != "cuda":
+            return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        offs, total = [], 0
+        for a in arrays:
+            offs.append(total)
+            total += -(-a.nbytes // 16) * 16
+        host = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=True)
+        buf = host.numpy()
+        for a, o in zip(arrays, offs):
+            buf[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        dev = host.to(self.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._staged.append((done, host))
+        return [
+            dev[o : o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
+            for a, o in zip(arrays, offs)
+        ]
+
+    def _poll_staged(self) -> None:
+        """Drop the staging buffers whose uploads have completed."""
+        while self._staged and self._staged[0][0].query():
+            self._staged.popleft()
+
+    def _fetch(self, ys: tuple) -> tuple[tuple, object]:
+        """Queue host copies of a dispatch's outputs right behind it: on
+        a card into pinned buffers, ``non_blocking``, with an event after
+        them that consume waits on."""
+        if self.device.type != "cuda":
+            return ys, None
+        hosts = tuple(torch.empty(y.shape, dtype=y.dtype, pin_memory=True) for y in ys)
+        for h, y in zip(hosts, ys):
+            h.copy_(y, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return hosts, ready
+
+    @staticmethod
+    def _host(pending: _PendingRagged) -> list[np.ndarray]:
+        """A dispatch's outputs on the host: its one sync."""
+        if pending.ready is not None:
+            pending.ready.synchronize()
+        return [y.numpy() for y in pending.ys]
+
+    # ------------------------------------------------------------ speculation
+    def _extract_spec_rows(self, part: list) -> tuple[list, list]:
+        """Split one decode partition into (plain rows, speculative
+        rows): a row speculates when the controller wants to probe it
+        and the drafter proposes at least one token that fits its
+        page/model-length capacity. The drafts' pages are provisioned
+        here (best effort: a dry pool shortens the draft; a verify span
+        always emits at least one token)."""
+        ps = self.cfg.page_size
+        plain, spec = [], []
+        for seq, wpos, cap in part:
+            drafts = self._spec.propose(seq) if self._spec.wants_draft(seq) else []
+            if drafts:
+                self.sched.ensure_pages_until(seq, wpos + len(drafts))
+                cap = min(self.cfg.max_model_len, len(seq.page_ids) * ps) - 1
+                g = min(len(drafts), cap - wpos, self.cfg.spec_max_draft)
+                if g >= 1:
+                    spec.append((seq, wpos, cap, drafts[:g]))
+                    continue
+            plain.append((seq, wpos, cap))
+        return plain, spec
+
+    def _rewind_spec_pages(self, seq: Sequence) -> None:
+        """After a rejection, pages provisioned for draft positions past
+        the accepted prefix go back to the pool. Only unregistered tail
+        pages can trail (registration stops at the last full page below
+        the confirmed head), so the reuse index is untouched; slots
+        inside the kept tail page are overwritten as decode advances."""
+        keep = (len(seq.tokens) - 1) // self.cfg.page_size + 1
+        if len(seq.page_ids) > keep:
+            extra = seq.page_ids[keep:]
+            del seq.page_ids[keep:]
+            self.kv.release_sequence(extra)
+
+    # --------------------------------------------------------------- logprobs
+    @staticmethod
+    def _wants_logprobs(seq: Sequence) -> int | None:
+        """The request's top_logprobs count (0 = chosen only), or None."""
+        return seq.stop.sampling_options.logprobs
+
+    @staticmethod
+    def _lp_pack(n_top: int, lps, top_ids, top_lps) -> tuple:
+        """Emit payload: each token's chosen logprob and, when asked, its
+        top ``n_top`` alternatives as {token id: logprob}."""
+        tops = None
+        if n_top > 0:
+            tops = [
+                {int(t): float(lp) for t, lp in zip(tid[:n_top], tlp[:n_top])}
+                for tid, tlp in zip(top_ids, top_lps)
+            ]
+        return [float(x) for x in lps], tops
 
     # ---------------------------------------------------------------- windowed
-    def _run_windowed(self, part: list, full_sampler: bool) -> None:
-        """``decode_window`` decode steps over the rows, feeding each
-        step's tokens back on the device; one host sync at the end."""
-        cfg, mcfg = self.cfg, self.cfg.model
+    def _build_windowed(self, part: list, full_sampler: bool, solo: bool) -> _PendingRagged:
+        """Dispatch one pure-decode window over the rows (no host sync)."""
+        cfg = self.cfg
         ps, K = cfg.page_size, cfg.decode_window
         nb = len(part)
         tokens = np.zeros(nb, np.int64)
@@ -910,7 +1144,9 @@ class TorchEngine(AsyncEngine):
         arrs = self._sampler_arrays(nb)
         rows: list[_RaggedRow] = []
         max_pages = 1
+        capped = False
         for r, (seq, wpos, cap) in enumerate(part):
+            capped = capped or cap < wpos + K
             tokens[r] = seq.last_token()
             positions[r] = wpos
             max_pos[r] = cap
@@ -922,53 +1158,164 @@ class TorchEngine(AsyncEngine):
             eos_gate[r], budget_gate[r] = self._stop_gates(seq, seq.generated)
             self._row_sampler_args(seq, r, arrs)
             rows.append(_RaggedRow(seq, "decode", r, n_valid=min(K, cap - wpos + 1)))
+        tok_d, pos_d, max_d, table_d, stop_d, eos_d, budget_d, slot_d, *samp = self._upload(
+            tokens, positions, max_pos, table, stop_set, eos_gate, budget_gate, slot_map, *arrs
+        )
+        return self._launch_window(
+            rows, nb, full_sampler, solo, capped, max_pages, tok_d, pos_d,
+            max_d, table_d, eos_d, budget_d, stop_d, slot_d, tuple(samp),
+        )
 
-        tok_d, pos_d, max_d = self._dev(tokens), self._dev(positions), self._dev(max_pos)
-        table_d, stop_d = self._dev(table), self._dev(stop_set)
-        eos_d, budget_d = self._dev(eos_gate), self._dev(budget_gate)
-        seeds, temp, top_k, top_p, freq, pres, rep = (self._dev(a) for a in arrs)
-        slot_d = self._dev(slot_map)
-        ar = torch.arange(nb, device=self.device)
+    def _launch_window(
+        self, rows, nb, full_sampler, solo, capped, max_pages, tok_d, pos_d,
+        max_d, table_d, eos_d, budget_d, stop_d, slot_d, samp,
+    ) -> _PendingRagged:
+        """``decode_window`` decode steps, each step's tokens fed back on
+        the device, and the outputs' host copies queued behind them: the
+        windowed shape, first or chained."""
+        mcfg, K = self.cfg.model, self.cfg.decode_window
+        want_lp = any(self._wants_logprobs(e.seq) is not None for e in rows)
+        seeds, temp, top_k, top_p, freq, pres, rep = samp
         counts = self._counts[slot_d] if full_sampler else None
-        sampled = []
+        sampled, lps = [], []
         for t in range(K):
             logits, _, _ = forward(
                 self.model, mcfg, tok_d[:, None], pos_d[:, None], table_d,
                 self.k_cache, self.v_cache, attn_pages=max_pages,
-                attn_impl=self.attn_impl,
+                attn_impl=self.attn_impl, drop_page=self._drop_page,
             )
             logits = logits[:, 0]
             active = pos_d >= 0
             if full_sampler:
                 shaped = apply_penalties(logits, counts, freq, pres, rep)
-                nxt = sample_tokens_seeded(shaped, seeds, pos_d, temp, top_k, top_p)
-                counts.index_put_((ar, nxt.long()), active.to(torch.int32), accumulate=True)
+                nxt = sample_tokens_seeded(shaped, seeds, pos_d, temp, top_k, top_p).long()
+                counts.scatter_add_(1, nxt[:, None], active.to(torch.int32)[:, None])
             else:
-                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            tok_d = torch.where(active, nxt.long(), tok_d)
+                nxt = torch.argmax(logits, dim=-1)
+            if want_lp:
+                lps.append(token_logprobs(logits, nxt))
+            tok_d = torch.where(active, nxt, tok_d)
             # A row leaves the window (position -1, writes dropped) at a
             # stop token past its min-tokens gate, at its max_tokens
             # budget, or at its page/model-length capacity.
-            done = (stop_token_hit(nxt.long(), stop_d) & (t >= eos_d)) | (t >= budget_d)
+            done = (stop_token_hit(nxt, stop_d) & (t >= eos_d)) | (t >= budget_d)
             pos_d = torch.where(active & ~done & (pos_d < max_d), pos_d + 1, -1)
             sampled.append(nxt)
         if full_sampler:
             self._counts[slot_d] = counts
+        ys = (torch.stack(sampled),)
+        if want_lp:
+            ys += tuple(torch.stack(y) for y in zip(*lps))
+        ys, ready = self._fetch(ys)
         self.steps += K
         self.dispatches["windowed"] += 1
-        self._consume_windowed(rows, torch.stack(sampled).cpu().numpy())
+        return _PendingRagged(
+            ys=ys, ready=ready, rows=rows, windowed=True, full_sampler=full_sampler,
+            want_lp=want_lp, solo=solo, nb=nb, tokens_dev=tok_d, positions_dev=pos_d,
+            capacity_capped=capped, stop_dev=stop_d, slot_dev=slot_d, sampler_dev=samp,
+        )
 
-    def _consume_windowed(self, rows: list[_RaggedRow], sampled: np.ndarray) -> None:
+    # ---------------------------------------------------------------- chaining
+    def _can_chain(self) -> bool:
+        """Whether the next window may launch from the in-flight one's
+        carry before the host consumes it: nothing arrived or waits, no
+        row prefills, is cancelled, joined or sat out since the chain
+        began, no row was capacity-capped or wants a draft, and some row
+        outlives the in-flight window (else the chained window computes
+        only discards)."""
+        p = self._inflight
+        if p is None or not p.solo or not self.cfg.chained_decode or p.capacity_capped:
+            return False
+        if not self._submit_q.empty() or self.sched.waiting:
+            return False
+        if self._spec is not None and any(
+            e.seq.state is SeqState.ACTIVE and self._spec.wants_draft(e.seq) for e in p.rows
+        ):
+            # A verify span would cover these positions in one dispatch,
+            # and drafts are planned from freshly consumed tokens.
+            return False
+        stepped = {id(e.seq) for e in p.rows}
+        for s in self.sched.slots:
+            if s is None:
+                continue
+            if s.state is SeqState.PREFILL or s.is_cancelled():
+                return False
+            if s.state is SeqState.ACTIVE and id(s) not in stepped:
+                return False  # joined or sat out: rebuild the window
+        K = self.cfg.decode_window
+        for e in p.rows:
+            sc = e.seq.stop.stop_conditions
+            max_tokens = sc.max_tokens or self.cfg.default_max_tokens
+            if e.n_valid >= K and max_tokens - e.seq.generated > K:
+                return True
+        return False
+
+    def _dispatch_chained(self, pending: _PendingRagged) -> _PendingRagged | None:
+        """Window N+1 over window N's rows from N's carry on the device.
+        The host's view of these rows lags one window, so every
+        surviving row's position is its host position plus
+        ``decode_window`` (a row the device parked carries -1 and
+        computes discards). Pages are provisioned one window further;
+        None (chain break) when the pool cannot cover a row."""
+        cfg = self.cfg
+        ps, K = cfg.page_size, cfg.decode_window
+        nb = pending.nb
+        max_pos = np.full(nb, -1, np.int64)
+        table = np.zeros((nb, cfg.max_pages_per_seq), np.int32)
+        eos_gate = np.zeros(nb, np.int64)
+        budget_gate = np.full(nb, K, np.int64)
+        rows: list[_RaggedRow] = []
+        max_pages = 1
+        capped = False
+        for e in pending.rows:
+            seq, r = e.seq, e.row
+            wpos = len(seq.tokens) - 1 + K  # host view + the in-flight window
+            self.sched.ensure_pages_until(seq, wpos + K - 1)
+            cap = min(cfg.max_model_len, len(seq.page_ids) * ps) - 1
+            if cap < wpos:
+                return None  # pool dry: consume and rebuild instead
+            capped = capped or cap < wpos + K
+            max_pos[r] = cap
+            table[r, : len(seq.page_ids)] = seq.page_ids
+            max_pages = max(max_pages, (min(wpos + K, cap + 1) + ps - 1) // ps)
+            eos_gate[r], budget_gate[r] = self._stop_gates(seq, seq.generated + K)
+            rows.append(_RaggedRow(seq, "decode", r, n_valid=min(K, cap - wpos + 1)))
+        self._flush_offloads()
+        max_d, table_d, eos_d, budget_d = self._upload(max_pos, table, eos_gate, budget_gate)
+        nxt = self._launch_window(
+            rows, nb, pending.full_sampler, True, capped, max_pages,
+            pending.tokens_dev, pending.positions_dev, max_d, table_d, eos_d,
+            budget_d, pending.stop_dev, pending.slot_dev, pending.sampler_dev,
+        )
+        self.dispatches["chained"] += 1
+        return nxt
+
+    # ----------------------------------------------------------------- consume
+    def _consume_ragged(self, pending: _PendingRagged) -> None:
+        if pending.windowed:
+            self._consume_windowed(pending)
+        else:
+            self._consume_mixed(pending)
+
+    def _consume_windowed(self, pending: _PendingRagged) -> None:
         """Emit each row's kept tokens; the host's check_stop is
-        authoritative (a row may have computed past its stop)."""
-        for e in rows:
-            seq = e.seq
-            if seq.state is not SeqState.ACTIVE:
+        authoritative (a row may have computed past its stop). A stop
+        found while a chained successor is in flight defers the finish
+        (the page release) until the successor is consumed: the device
+        already parked the row, so the successor writes nothing for it."""
+        host = self._host(pending)
+        sampled = host[0]
+        if pending.want_lp:
+            lps, top_ids, top_lps = host[1:4]
+        finishes: list[Sequence] = []
+        for e in pending.rows:
+            seq, row = e.seq, e.row
+            if seq.state is not SeqState.ACTIVE or seq.pending_finish is not None:
                 self.wasted_steps += e.n_valid
                 continue
             kept: list[int] = []
             reason = None
-            for token in sampled[: e.n_valid, e.row]:
+            for token in sampled[: e.n_valid, row]:
                 token = int(token)
                 kept.append(token)
                 seq.tokens.append(token)
@@ -978,8 +1325,23 @@ class TorchEngine(AsyncEngine):
                     break
             self.wasted_steps += e.n_valid - len(kept)
             self.sched.register_full_pages(seq)
-            seq.emit(kept, None)
+            n_top = self._wants_logprobs(seq)
+            pack = None
+            if n_top is not None and kept:
+                n = len(kept)
+                pack = self._lp_pack(n_top, lps[:n, row], top_ids[:n, row], top_lps[:n, row])
+            seq.emit(kept, None, pack)
             if reason is not None:
+                seq.pending_finish = reason
+                finishes.append(seq)
+        if finishes:
+            # No window may be in flight over pages about to be
+            # released: consume the successor first.
+            succ, self._inflight = self._inflight, None
+            if succ is not None:
+                self._consume_ragged(succ)
+            for seq in finishes:
+                reason, seq.pending_finish = seq.pending_finish, None
                 self.sched.finish(seq, reason)
 
     # ------------------------------------------------------------------ mixed
@@ -989,14 +1351,20 @@ class TorchEngine(AsyncEngine):
         packs tight."""
         return self.cfg.ragged_q_tile if self.attn_impl == "kernel" else 1
 
-    def _run_mixed(self, dec: list, pf: list[Sequence], full_sampler: bool) -> None:
-        """One flat stream carrying each prefill row's next chunk and
-        each decode row's fed token; every row samples at its last fed
-        position (a prompt's first token from the raw distribution,
-        decode tokens through their penalty counts)."""
+    def _build_mixed(
+        self, dec: list, spec: list, pf: list[Sequence], full_sampler: bool
+    ) -> _PendingRagged:
+        """Dispatch one flat stream carrying each prefill row's next
+        chunk, each decode row's fed token and each speculative row's
+        last token + drafts (no host sync). Every row samples at its
+        last fed position (a prompt's first token from the raw
+        distribution, decode tokens through their penalty counts); a
+        verify span is scored at every position, one vocab projection
+        with the last positions, and accepted on the device."""
         cfg, mcfg = self.cfg, self.cfg.model
         ps = cfg.page_size
         B1 = cfg.max_decode_slots + 1
+        T_s = cfg.spec_max_draft + 1
         align = self._ragged_align()
         flat_tokens: list[int] = []
         flat_pos: list[int] = []
@@ -1006,9 +1374,13 @@ class TorchEngine(AsyncEngine):
         pos0 = np.full(B1, -1, np.int64)
         is_decode = np.zeros(B1, np.bool_)
         slot_map = np.full(B1, cfg.max_decode_slots, np.int64)
+        spec_idx = np.zeros((B1, T_s), np.int64)
+        spec_pos = np.full((B1, T_s), -1, np.int64)
+        spec_drafts = np.full((B1, T_s - 1), -1, np.int64)
+        n_drafts = np.zeros(B1, np.int64)
         arrs = self._sampler_arrays(B1)
 
-        def add_span(toks: list[int], poss: list[int], r: int) -> int:
+        def add_span(toks: list[int], poss, r: int) -> int:
             """Append one row's span, padded to ``align`` with position
             -1 (writes dropped, scores masked, output zeros)."""
             start = len(flat_tokens)
@@ -1048,59 +1420,162 @@ class TorchEngine(AsyncEngine):
             self._row_sampler_args(seq, r, arrs)
             rows.append(_RaggedRow(seq, "decode", r, n_valid=1))
             r += 1
+        for seq, wpos, _cap, drafts in spec:
+            # [last token] + drafts at consecutive positions.
+            g = len(drafts)
+            qs = add_span([seq.last_token()] + list(drafts), range(wpos, wpos + g + 1), r)
+            table[r, : len(seq.page_ids)] = seq.page_ids
+            q_last[r] = qs + g
+            slot_map[r] = seq.slot
+            spec_idx[r, : g + 1] = qs + np.arange(g + 1)
+            spec_pos[r, : g + 1] = np.arange(wpos, wpos + g + 1)
+            spec_drafts[r, :g] = drafts
+            n_drafts[r] = g
+            max_pages = max(max_pages, (wpos + g) // ps + 1)
+            self._row_sampler_args(seq, r, arrs)
+            rows.append(_RaggedRow(seq, "spec", r, n_drafts=g))
+            r += 1
 
+        with_spec = bool(spec)
+        out_idx = np.concatenate([q_last, spec_idx.reshape(-1)]) if with_spec else q_last
         # Flat padding goes to the scratch row B1 - 1 (at most
         # max_decode_slots rows hold slots).
-        tokens = torch.tensor(flat_tokens, dtype=torch.int64, device=self.device)
-        positions = torch.tensor(flat_pos, dtype=torch.int32, device=self.device)
-        row_of = torch.tensor(flat_row, dtype=torch.int32, device=self.device)
-        logits0, _, _ = forward_ragged(
-            self.model, mcfg, tokens, positions, row_of, self._dev(table),
-            self.k_cache, self.v_cache, self._dev(q_last),
-            attn_pages=max_pages, attn_impl=self.attn_impl, q_tile=align,
+        (tokens, positions, row_of, table_d, out_d, pos0_d, dec_d, slot_d,
+         spos_d, drafts_d, ndraft_d, *samp) = self._upload(
+            np.asarray(flat_tokens, np.int64), np.asarray(flat_pos, np.int32),
+            np.asarray(flat_row, np.int32), table, out_idx, pos0, is_decode,
+            slot_map, spec_pos, spec_drafts, n_drafts, *arrs,
         )
+        seeds, temp, top_k, top_p, freq, pres, rep = samp
+        logits_all, _, _ = forward_ragged(
+            self.model, mcfg, tokens, positions, row_of, table_d,
+            self.k_cache, self.v_cache, out_d, attn_pages=max_pages,
+            attn_impl=self.attn_impl, q_tile=align, drop_page=self._drop_page,
+        )
+        logits0 = logits_all[:B1]
         if full_sampler:
-            seeds, temp, top_k, top_p, freq, pres, rep = (self._dev(a) for a in arrs)
-            slot_d, dec_d = self._dev(slot_map), self._dev(is_decode)
             counts = self._counts[slot_d]
             shaped = apply_penalties(logits0, counts, freq, pres, rep)
             tok0 = sample_tokens_seeded(
-                torch.where(dec_d[:, None], shaped, logits0),
-                seeds, self._dev(pos0), temp, top_k, top_p,
-            )
-            counts.index_put_(
-                (torch.arange(B1, device=self.device), tok0.long()),
-                dec_d.to(torch.int32), accumulate=True,
-            )
-            self._counts[slot_d] = counts
+                torch.where(dec_d[:, None], shaped, logits0), seeds, pos0_d, temp, top_k, top_p
+            ).long()
+            counts.scatter_add_(1, tok0[:, None], dec_d.to(torch.int32)[:, None])
         else:
             tok0 = torch.argmax(logits0, dim=-1)
+        ys = (tok0,)
+        if with_spec:
+            spec_logits = logits_all[B1:].reshape(B1, T_s, -1)
+            if full_sampler:
+                # Penalty counts thread past rejections (a rejected
+                # draft leaves no trace).
+                targets, n_emit, counts = spec_verify_tokens(
+                    spec_logits, drafts_d, ndraft_d, seeds, spos_d, temp, top_k,
+                    top_p, counts, freq, pres, rep,
+                )
+            else:
+                targets = torch.argmax(spec_logits, dim=-1)
+                n_emit = spec_accept_length(targets, drafts_d, ndraft_d)
+            ys += (targets, n_emit)
+        if full_sampler:
+            self._counts[slot_d] = counts
+        want_lp = any(self._wants_logprobs(e.seq) is not None for e in rows)
+        if want_lp:
+            ys += token_logprobs(logits0, tok0)
+            if with_spec:
+                lp, tid, tlp = token_logprobs(
+                    spec_logits.reshape(B1 * T_s, -1), targets.reshape(-1)
+                )
+                ys += (lp.reshape(B1, T_s), tid.reshape(B1, T_s, -1), tlp.reshape(B1, T_s, -1))
+        ys, ready = self._fetch(ys)
         self.steps += 1
         self.dispatches["mixed"] += 1
-        self._consume_mixed(rows, tok0.cpu().numpy())
+        self.spec_dispatches += with_spec
+        return _PendingRagged(
+            ys=ys, ready=ready, rows=rows, windowed=False, full_sampler=full_sampler,
+            want_lp=want_lp, solo=False, with_spec=with_spec,
+        )
 
-    def _consume_mixed(self, rows: list[_RaggedRow], tok0: np.ndarray) -> None:
-        for e in rows:
-            seq = e.seq
+    def _consume_mixed(self, pending: _PendingRagged) -> None:
+        """Decode rows emit their one token, prompts completing their
+        last chunk emit their first, speculative rows emit the accepted
+        prefix and the correction the device computed (then rewind past
+        the rejections), prompts mid-chunk emit nothing. The host's
+        check_stop gates every token. Mixed batches are never chained
+        over, so finishes release their pages at once."""
+        host = self._host(pending)
+        tok0, i = host[0], 1
+        if pending.with_spec:
+            targets, n_emits = host[1], host[2]
+            i = 3
+        if pending.want_lp:
+            lp0, tid0, tlp0 = host[i : i + 3]
+            if pending.with_spec:
+                s_lps, s_tids, s_tlps = host[i + 3 : i + 6]
+
+        def pack0(seq, r):
+            n_top = self._wants_logprobs(seq)
+            if not pending.want_lp or n_top is None:
+                return None
+            return self._lp_pack(n_top, lp0[r : r + 1], tid0[r : r + 1], tlp0[r : r + 1])
+
+        for e in pending.rows:
+            seq, r = e.seq, e.row
             if e.kind == "prefill":
                 if e.completing:
-                    self._finish_first_token(seq, int(tok0[e.row]))
+                    self._finish_first_token(seq, int(tok0[r]), pack0(seq, r))
                 continue
-            if seq.state is not SeqState.ACTIVE:
+            if seq.state is not SeqState.ACTIVE or seq.pending_finish is not None:
                 self.wasted_steps += 1
                 continue
-            token = int(tok0[e.row])
-            seq.tokens.append(token)
-            seq.generated += 1
-            reason = self.sched.check_stop(seq, token)
+            if e.kind == "decode":
+                token = int(tok0[r])
+                seq.tokens.append(token)
+                seq.generated += 1
+                reason = self.sched.check_stop(seq, token)
+                self.sched.register_full_pages(seq)
+                seq.emit([token], None, pack0(seq, r))
+                if reason is not None:
+                    self.sched.finish(seq, reason)
+                continue
+            # Speculative row: the accepted drafts and the first
+            # correction (the rule that also gated the penalty counts).
+            g, n_emit = e.n_drafts, int(n_emits[r])
+            accepted = n_emit - 1
+            kept: list[int] = []
+            reason = None
+            for j in range(n_emit):
+                token = int(targets[r, j])
+                kept.append(token)
+                seq.tokens.append(token)
+                seq.generated += 1
+                reason = self.sched.check_stop(seq, token)
+                if reason is not None:
+                    break
+            self.wasted_steps += n_emit - len(kept)  # past a host-found stop
+            seq.spec_dispatches += 1
+            seq.spec_draft_tokens += g
+            seq.spec_accepted_tokens += accepted
+            seq.spec_emitted_tokens += len(kept)
+            self.spec_row_dispatches += 1
+            self.spec_draft_tokens += g
+            self.spec_accepted_tokens += accepted
+            self.spec_emitted_tokens += len(kept)
+            self._spec.record(seq, proposed=g, accepted=accepted)
             self.sched.register_full_pages(seq)
-            seq.emit([token], None)
+            n_top = self._wants_logprobs(seq)
+            pack = None
+            if pending.want_lp and n_top is not None and kept:
+                n = len(kept)
+                pack = self._lp_pack(n_top, s_lps[r, :n], s_tids[r, :n], s_tlps[r, :n])
+            seq.emit(kept, None, pack)
             if reason is not None:
                 self.sched.finish(seq, reason)
+            else:
+                self._rewind_spec_pages(seq)
 
-    def _finish_first_token(self, seq: Sequence, token: int) -> None:
+    def _finish_first_token(self, seq: Sequence, token: int, lp_pack=None) -> None:
         """The prompt's first sampled token: start its penalty counts,
-        promote the sequence to decode, and emit."""
+        promote the sequence to decode, and emit (with its logprobs)."""
         seq.first_token_at = time.time()
         seq.state = SeqState.ACTIVE
         self._counts[seq.slot] = 0
@@ -1113,14 +1588,13 @@ class TorchEngine(AsyncEngine):
             # counts. (The splice token itself was drawn by the prefill
             # from the raw distribution, the JAX engine's caveat.)
             V = self.cfg.model.vocab_size
-            tail = torch.tensor(seq.prompt[-resumed:], dtype=torch.long).clamp_(0, V - 1)
-            self._counts[seq.slot] += torch.bincount(tail, minlength=V).to(
-                self._counts.device, torch.int32
-            )
+            tail = np.clip(np.asarray(seq.prompt[-resumed:], np.int64), 0, V - 1)
+            (tail_d,) = self._upload(np.bincount(tail, minlength=V).astype(np.int32))
+            self._counts[seq.slot] += tail_d
         seq.tokens.append(token)
         seq.generated = 1
         self.sched.register_full_pages(seq)
         reason = self.sched.check_stop(seq, token)
-        seq.emit([token], None)
+        seq.emit([token], None, lp_pack)
         if reason is not None:
             self.sched.finish(seq, reason)

@@ -84,6 +84,16 @@ class Sequence:
     # host tier (None = resident), and when the swap began.
     swap: SwapRecord | None = None
     swapped_since: float = 0.0
+    # A stop found while a chained successor window is still in flight:
+    # the finish (and its page release) waits until that successor is
+    # consumed.
+    pending_finish: FinishReason | None = None
+    # Speculation counters of this request: verify dispatches it rode,
+    # drafts proposed, drafts accepted, tokens emitted by them.
+    spec_dispatches: int = 0
+    spec_draft_tokens: int = 0
+    spec_accepted_tokens: int = 0
+    spec_emitted_tokens: int = 0
 
     @property
     def pos(self) -> int:
@@ -97,15 +107,16 @@ class Sequence:
 def select_preemption_victim(candidates, max_preemptions: int):
     """KV-pressure victim policy: lowest priority first, youngest
     (latest submitted) on ties: the least sunk cost and the weakest
-    claim. Sequences at their preemption bound are exempt. Returns None
-    when nothing qualifies (``dynamo_exp_tpu/engine/scheduler.py``'s
-    function without the disaggregation and chained-window exemptions,
-    which the port does not have)."""
+    claim. Sequences at their preemption bound are exempt, as are rows
+    with a deferred finish in flight. Returns None when nothing
+    qualifies (``dynamo_exp_tpu/engine/scheduler.py``'s function without
+    the disaggregation exemption, which the port does not have)."""
     eligible = [
         s
         for s in candidates
         if s is not None
         and s.state is SeqState.ACTIVE
+        and s.pending_finish is None
         and s.preemptions < max_preemptions
     ]
     if not eligible:
@@ -316,6 +327,7 @@ class Scheduler:
         seq.cached_len = 0
         seq.stalled = False
         seq.stalled_since = 0.0
+        seq.pending_finish = None
         seq.pending_uploads = []
         seq.prompt_hashes = []
         seq.hashed_pages = 0

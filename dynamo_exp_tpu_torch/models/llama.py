@@ -235,16 +235,21 @@ def _final_logits(model: Llama, cfg, x, eps) -> torch.Tensor:
     return logits
 
 
-def _write_coords(positions, rows_of, page_table, ps):
+def _write_coords(positions, rows_of, page_table, ps, drop_page=None):
     """Page-write coordinates of a flat token list: (page ids, offsets,
-    indices of the valid tokens). Padding (-1) and positions past the
-    table are dropped, never clamped into another row's pages."""
+    rows to write). Padding (-1) and positions past the table are
+    dropped, never clamped into another row's pages: with ``drop_page``
+    (a scratch page past the pool's live pages that no table holds)
+    they write there and every row is written, with no host sync;
+    without it the valid rows are selected by index (one sync)."""
     safe = torch.clamp(positions, min=0).long()
     page_in_seq = safe // ps
     pmax = page_table.shape[1]
     valid = (positions >= 0) & (page_in_seq < pmax)
-    page_ids = page_table[rows_of.long(), torch.clamp(page_in_seq, max=pmax - 1)]
-    return page_ids.long(), safe % ps, valid.nonzero().squeeze(1)
+    page_ids = page_table[rows_of.long(), torch.clamp(page_in_seq, max=pmax - 1)].long()
+    if drop_page is not None:
+        return torch.where(valid, page_ids, drop_page), safe % ps, None
+    return page_ids, safe % ps, valid.nonzero().squeeze(1)
 
 
 @torch.no_grad()
@@ -259,6 +264,7 @@ def forward(
     *,
     attn_pages: int | None = None,
     attn_impl: str = "auto",
+    drop_page: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward step; returns (logits [B, T, V] float32, k, v).
 
@@ -268,7 +274,7 @@ def forward(
     ragged kernel, one query per row, reading each row's true length);
     a longer step raises: send it through :func:`forward_ragged`. The
     plain version is ``paged_attention`` over the first ``attn_pages``
-    table columns, at any T."""
+    table columns, at any T. ``drop_page``: see :func:`_write_coords`."""
     B, T = tokens.shape
     use_kernel = resolve_attn(attn_impl, tokens.device) == "kernel"
     if use_kernel and T != 1:
@@ -278,9 +284,9 @@ def forward(
         )
     hd, ps, eps = cfg.head_dim_, k_cache.shape[2], cfg.rms_norm_eps
     inv_freq = rope_frequencies(hd, cfg.rope_theta, cfg.rope_scaling, tokens.device)
-    rows_of = torch.arange(B, device=tokens.device).repeat_interleave(T)
+    rows_of = torch.arange(B * T, device=tokens.device) // T
     page_ids, offsets, valid = _write_coords(
-        positions.reshape(-1), rows_of, page_table, ps
+        positions.reshape(-1), rows_of, page_table, ps, drop_page
     )
     x = model.embed[tokens.long()]
     rope_pos = torch.clamp(positions, min=0)
@@ -325,6 +331,7 @@ def forward_ragged(
     attn_pages: int | None = None,
     attn_impl: str = "auto",
     q_tile: int = 8,
+    drop_page: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward over a flat mixed batch (prefill chunks and decode
     steps in one token stream); returns (logits [M, V] float32, k, v).
@@ -334,12 +341,14 @@ def forward_ragged(
     (``attn_impl="kernel"``, or ``"auto"`` on CUDA; the caller aligned
     each row's span to ``q_tile``) or the plain reference over the
     first ``attn_pages`` table columns. Only ``out_idx`` positions reach
-    the vocab head."""
+    the vocab head (the engine's verify spans ride there beside each
+    row's last position, one projection for all). ``drop_page``: see
+    :func:`_write_coords`."""
     attn_impl = resolve_attn(attn_impl, tokens.device)
     N = tokens.shape[0]
     hd, ps, eps = cfg.head_dim_, k_cache.shape[2], cfg.rms_norm_eps
     inv_freq = rope_frequencies(hd, cfg.rope_theta, cfg.rope_scaling, tokens.device)
-    page_ids, offsets, valid = _write_coords(positions, row_of, page_table, ps)
+    page_ids, offsets, valid = _write_coords(positions, row_of, page_table, ps, drop_page)
     x = model.embed[tokens.long()][None]  # [1, N, D]
     rope_pos = torch.clamp(positions, min=0)[None]
     fused = cfg.num_kv_heads * hd

@@ -26,18 +26,22 @@ def write_kv_pages(
     v_new: torch.Tensor,
     page_ids: torch.Tensor,  # [N] int global page id per new token
     offsets: torch.Tensor,  # [N] int in-page offset per new token
-    valid: torch.Tensor,  # [N] bool, or int64 indices of the valid rows
+    valid: torch.Tensor | None,  # [N] bool, int64 indices of the valid rows, or None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter new K/V rows into the page pool, in place (JAX donates
     the pools to the same effect). Invalid rows are DROPPED, not
-    clamped: only the valid rows reach ``index_put_``, as JAX's
-    ``mode="drop"`` scatter writes nothing for an out-of-range page.
-    ``valid`` may be the precomputed index vector of the valid rows, so
-    a forward over many layers selects them (one host sync) once."""
-    rows = valid.nonzero().squeeze(1) if valid.dtype == torch.bool else valid
-    pids, offs = page_ids[rows], offsets[rows]
-    k_cache.index_put_((pids, offs), k_new[rows].to(k_cache.dtype))
-    v_cache.index_put_((pids, offs), v_new[rows].to(v_cache.dtype))
+    clamped, as JAX's ``mode="drop"`` scatter writes nothing for an
+    out-of-range page: either only the valid rows reach ``index_put_``
+    (``valid`` a mask, or the precomputed index vector of the valid
+    rows, so a forward over many layers selects them, one host sync,
+    once), or ``valid`` is None and the caller already routed invalid
+    rows to a scratch page no page table holds (no host sync)."""
+    if valid is not None:
+        rows = valid.nonzero().squeeze(1) if valid.dtype == torch.bool else valid
+        page_ids, offsets = page_ids[rows], offsets[rows]
+        k_new, v_new = k_new[rows], v_new[rows]
+    k_cache.index_put_((page_ids, offsets), k_new.to(k_cache.dtype))
+    v_cache.index_put_((page_ids, offsets), v_new.to(v_cache.dtype))
     return k_cache, v_cache
 
 

@@ -88,7 +88,7 @@ def uniform(
     bits = random_bits(key, n)
     f = ((bits >> (32 - _F32_MANTISSA)) | _F32_ONE_BITS).to(torch.int32)
     f = f.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=f.device)
     return torch.maximum(lo, f * (1.0 - lo) + lo)
 
 

@@ -96,3 +96,108 @@ def stop_token_hit(
     """Per-row stop detection: True where the sampled token is in the
     row's (padded) stop set."""
     return (tokens[:, None] == stop_sets).any(dim=-1)
+
+
+def sample_tokens_seeded_multi(
+    logits: torch.Tensor,  # [B, T, V] float32
+    seeds: torch.Tensor,  # [B] int per-row sampling seed
+    positions: torch.Tensor,  # [B, T] int absolute position of each fed token
+    temperature: torch.Tensor,  # [B] float32; <=0 means greedy
+    top_k: torch.Tensor,  # [B] int; <=0 disables
+    top_p: torch.Tensor,  # [B] float32; >=1 disables
+) -> torch.Tensor:
+    """One draw per (row, offset) of a T-wide dispatch, each keyed by
+    ``(seeds[b], positions[b, t])`` exactly as :func:`sample_tokens_seeded`
+    keys a decode step feeding that position, so a verify pass draws
+    what the step-by-step window would. Returns [B, T] int32."""
+    B, T, V = logits.shape
+
+    def rep(x):
+        return x.repeat_interleave(T)
+
+    toks = sample_tokens_seeded(
+        logits.reshape(B * T, V), rep(seeds), positions.reshape(-1),
+        rep(temperature), rep(top_k), rep(top_p),
+    )
+    return toks.reshape(B, T)
+
+
+def spec_accept_length(
+    targets: torch.Tensor,  # [B, T] target-model tokens per position
+    drafts: torch.Tensor,  # [B, T-1] draft tokens (-1 padded)
+    n_drafts: torch.Tensor,  # [B] int true draft count per row
+) -> torch.Tensor:
+    """Tokens one verify dispatch emits per row: the longest prefix where
+    the target's token equals the draft fed at the next position, plus
+    the first correction (or bonus) token, so always >= 1. Returns [B]
+    int32."""
+    K = drafts.shape[1]
+    idx = torch.arange(K, device=targets.device)[None, :]
+    match = (targets[:, :K] == drafts) & (idx < n_drafts[:, None])
+    accepted = torch.cumprod(match.to(torch.int32), dim=-1).sum(dim=-1)
+    return (accepted + 1).to(torch.int32)
+
+
+def spec_verify_tokens(
+    logits: torch.Tensor,  # [B, T, V] float32 target logits per fed position
+    drafts: torch.Tensor,  # [B, T-1] draft tokens fed at offsets 1..T-1
+    n_drafts: torch.Tensor,  # [B] int true draft count per row
+    seeds: torch.Tensor,  # [B] int
+    positions: torch.Tensor,  # [B, T] int absolute fed positions (-1 pad)
+    temperature: torch.Tensor,  # [B] float32; <=0 greedy
+    top_k: torch.Tensor,  # [B] int
+    top_p: torch.Tensor,  # [B] float32
+    counts: torch.Tensor,  # [B, V] int32 penalty counts at dispatch
+    frequency_penalty: torch.Tensor,  # [B]
+    presence_penalty: torch.Tensor,  # [B]
+    repetition_penalty: torch.Tensor,  # [B]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The full sampler's verify pass: a target token for every position
+    of a speculative span, with the penalty counts threaded as the
+    decode window threads them: each step's logits are shaped by the
+    counts of every token emitted before it, and a step's token counts
+    only while the row is alive (all earlier drafts accepted), so a
+    rejected draft leaves no trace in the counts. Greedy, seeded and
+    penalized rows share the path. Returns (targets [B, T], n_emit [B],
+    new counts [B, V]); targets at offsets >= n_emit are teacher-forced
+    garbage the caller discards. A Python loop where JAX scans."""
+    B, T, V = logits.shape
+    drafts_pad = torch.cat(
+        [drafts.to(torch.int64), torch.full((B, 1), -1, dtype=torch.int64, device=drafts.device)],
+        dim=1,
+    )
+    rows = torch.arange(B, device=logits.device)
+    counts = counts.clone()
+    alive = positions[:, 0] >= 0  # pad rows never emit or count
+    tgts, emits = [], []
+    for i in range(T):
+        shaped = apply_penalties(
+            logits[:, i], counts, frequency_penalty, presence_penalty, repetition_penalty
+        )
+        tgt = sample_tokens_seeded(shaped, seeds, positions[:, i], temperature, top_k, top_p)
+        counts.index_put_((rows, tgt.long()), alive.to(torch.int32), accumulate=True)
+        emits.append(alive)
+        alive = alive & (i < n_drafts) & (tgt.long() == drafts_pad[:, i])
+        tgts.append(tgt)
+    n_emit = torch.stack(emits, dim=1).to(torch.int32).sum(dim=1)
+    return torch.stack(tgts, dim=1), n_emit.to(torch.int32), counts
+
+
+# Top-N alternatives reported beside every chosen token's logprob; the
+# host slices each request's top_logprobs out of them (the JAX
+# package's static width).
+TOP_LOGPROBS = 5
+
+
+def token_logprobs(
+    logits: torch.Tensor,  # [B, V] raw model logits
+    chosen: torch.Tensor,  # [B] int sampled token ids
+    top_n: int = TOP_LOGPROBS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(chosen logprob [B], top-N ids [B, N] int32, top-N logprobs
+    [B, N]) of the model distribution (before penalties and
+    temperature), OpenAI's logprobs semantics."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    chosen_lp = torch.gather(lp, 1, chosen.long()[:, None])[:, 0]
+    top_lp, top_ids = torch.topk(lp, top_n, dim=-1)
+    return chosen_lp, top_ids.to(torch.int32), top_lp

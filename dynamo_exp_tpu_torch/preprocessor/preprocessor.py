@@ -5,10 +5,11 @@ Counterpart of ``dynamo_exp_tpu/preprocessor/preprocessor.py`` without
 telemetry spans: apply model-card defaults, render the chat template,
 tokenize, extract stop conditions / sampling options / annotations; as
 a pipeline Operator it also turns the backend's text stream into
-OpenAI deltas. Requests the port cannot serve yet are refused with a
-400 naming their ROADMAP item, never served without what they asked
-for: logprobs (Queue 1 item 3) and non-text content parts (Queue 1
-item 9(h)).
+OpenAI deltas, with the chat ``logprobs.content`` entries or the legacy
+completions entries (``top_logprobs`` keyed by decoded text). Requests
+the port cannot serve yet are refused with a 400 naming their ROADMAP
+item, never served without what they asked for: non-text content
+parts (Queue 1 item 9(h)).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Any, AsyncIterator
 
 from ..model_card import ModelDeploymentCard
+from ..ops.sampling import TOP_LOGPROBS
 from ..protocols.common import (
     BackendInput,
     FinishReason,
@@ -36,12 +38,6 @@ class InvalidRequestError(ValueError):
 
 class PromptTooLongError(ValueError):
     """Prompt exceeds the model's context window (HTTP layer maps to 400)."""
-
-
-def _wants_logprobs(request) -> bool:
-    if isinstance(request, ChatCompletionRequest):
-        return bool(request.logprobs) or request.top_logprobs is not None
-    return request.logprobs is not None
 
 
 class OpenAIPreprocessor(Operator):
@@ -93,9 +89,13 @@ class OpenAIPreprocessor(Operator):
                 f"prompt is {len(token_ids)} tokens but the model's context "
                 f"length is {self.mdc.context_length}"
             )
-        if _wants_logprobs(request):
+        sampling = request.extract_sampling_options()
+        if sampling.logprobs is not None and sampling.logprobs > TOP_LOGPROBS:
+            # The device computes a static top-N per step: refuse rather
+            # than silently truncate the client's ask.
             raise InvalidRequestError(
-                "logprobs are not served by the port yet (ROADMAP Queue 1 item 3)"
+                f"top_logprobs={sampling.logprobs} exceeds the "
+                f"supported maximum of {TOP_LOGPROBS}"
             )
         stop = request.extract_stop_conditions()
         if not stop.stop_token_ids:
@@ -111,10 +111,21 @@ class OpenAIPreprocessor(Operator):
         return BackendInput(
             token_ids=token_ids,
             stop_conditions=stop,
-            sampling_options=request.extract_sampling_options(),
+            sampling_options=sampling,
             annotations=request.annotations(),
             priority=priority,
         )
+
+    def _top_map(self, tops: dict | None) -> dict[str, float]:
+        """A legacy completions top_logprobs entry, keyed by decoded text.
+        Distinct ids can decode to the same string (partial-UTF-8 byte
+        tokens all render U+FFFD): keep the best logprob per string."""
+        out: dict[str, float] = {}
+        for tid, lp in (tops or {}).items():
+            text = self.tokenizer.decode([tid])
+            if text not in out or lp > out[text]:
+                out[text] = lp
+        return out
 
     # --- pipeline operator --------------------------------------------
     async def generate(
@@ -142,19 +153,58 @@ class OpenAIPreprocessor(Operator):
             else CompletionDeltaGenerator(request.model, context.id)
         )
         prompt_tokens = len(backend_input.token_ids)
+        want_logprobs = backend_input.sampling_options.logprobs is not None
+
+        def _token_entry(tid: int, lp: float, tops: dict | None) -> dict:
+            text = self.tokenizer.decode([tid])
+            entry: dict = {"token": text, "logprob": lp, "bytes": list(text.encode("utf-8"))}
+            if is_chat:
+                entry["top_logprobs"] = [
+                    {
+                        "token": (t := self.tokenizer.decode([a])),
+                        "logprob": alp,
+                        "bytes": list(t.encode("utf-8")),
+                    }
+                    for a, alp in (tops or {}).items()
+                ]
+            return entry
+
+        def _shape(raw: list) -> dict | None:
+            """(token id, logprob, tops) tuples -> the OpenAI logprobs object."""
+            if not raw:
+                return None
+            entries = [_token_entry(tid, lp, tp) for tid, lp, tp in raw]
+            if is_chat:
+                return {"content": entries}
+            has_tops = any(tp for _, _, tp in raw)  # legacy completions shape
+            return {
+                "tokens": [e["token"] for e in entries],
+                "token_logprobs": [e["logprob"] for e in entries],
+                "top_logprobs": [self._top_map(tp) for _, _, tp in raw] if has_tops else None,
+            }
 
         async def _chunks() -> AsyncIterator[Any]:
             completion_tokens = 0
             finish: FinishReason | None = None
+            # Logprob entries wait for text: a frame's text may be held
+            # back (partial UTF-8, a possible stop-string prefix) while
+            # its tokens already have logprobs; they ride the next chunk.
+            pending: list = []
             async for item in stream:
                 out = LLMEngineOutput.from_dict(item) if isinstance(item, dict) else item
                 completion_tokens += len(out.token_ids)
+                if want_logprobs and out.logprobs:
+                    tops = out.top_logprobs or [None] * len(out.logprobs)
+                    pending += list(zip(out.token_ids, out.logprobs, tops))
                 if out.text:
-                    chunk = gen.text_chunk(out.text)
+                    chunk = gen.text_chunk(out.text, _shape(pending))
                     chunk.seq_index = completion_tokens
                     yield chunk
+                    pending = []
                 if out.finish_reason is not None:
                     finish = FinishReason(out.finish_reason)
+            if pending:  # logprobs whose text never flushed (e.g. a stop)
+                yield gen.text_chunk("", _shape(pending))
             yield gen.finish_chunk(finish or FinishReason.EOS)
             if want_usage:
                 yield gen.usage_chunk(prompt_tokens, completion_tokens)

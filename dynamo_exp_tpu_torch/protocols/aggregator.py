@@ -2,8 +2,7 @@
 
 Counterpart of ``dynamo_exp_tpu/protocols/aggregator.py``: the service
 always streams internally and folds unary responses from the chunk
-stream. Without logprobs (ROADMAP Queue 1 item 3) there are none to
-merge.
+stream, merging each choice's logprobs.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ async def aggregate_chat_stream(
     roles: dict[int, str] = {}
     usage: Usage | None = None
     meta: ChatCompletionChunk | None = None
+    lp_content: dict[int, list] = {}
     async for chunk in chunks:
         meta = meta or chunk
         if chunk.usage is not None:
@@ -40,6 +40,8 @@ async def aggregate_chat_stream(
                 roles[idx] = choice.delta.role
             if choice.delta.content:
                 pieces.setdefault(idx, []).append(choice.delta.content)
+            if choice.logprobs and choice.logprobs.get("content"):
+                lp_content.setdefault(idx, []).extend(choice.logprobs["content"])
             if choice.finish_reason is not None:
                 finish[idx] = choice.finish_reason
     if meta is None:
@@ -52,6 +54,7 @@ async def aggregate_chat_stream(
                 role=roles.get(i, "assistant"), content="".join(pieces.get(i, []))
             ),
             finish_reason=finish.get(i),
+            logprobs={"content": lp_content[i]} if i in lp_content else None,
         )
         for i in indices
     ]
@@ -67,6 +70,7 @@ async def aggregate_completion_stream(
     finish: dict[int, str | None] = {}
     usage: Usage | None = None
     meta: CompletionChunk | None = None
+    lp_merge: dict[int, dict] = {}
     async for chunk in chunks:
         meta = meta or chunk
         if chunk.usage is not None:
@@ -74,13 +78,25 @@ async def aggregate_completion_stream(
         for choice in chunk.choices:
             if choice.text:
                 pieces.setdefault(choice.index, []).append(choice.text)
+            if choice.logprobs:
+                agg = lp_merge.setdefault(
+                    choice.index, {"tokens": [], "token_logprobs": [], "top_logprobs": []}
+                )
+                for key in agg:
+                    agg[key] += choice.logprobs.get(key) or []
             if choice.finish_reason is not None:
                 finish[choice.index] = choice.finish_reason
     if meta is None:
         raise ValueError("empty response stream")
     indices = sorted(set(pieces) | set(finish)) or [0]
+    for agg in lp_merge.values():
+        if not agg["top_logprobs"]:  # logprobs=0: null, not [] (OpenAI)
+            agg["top_logprobs"] = None
     choices = [
-        CompletionChoice(index=i, text="".join(pieces.get(i, [])), finish_reason=finish.get(i))
+        CompletionChoice(
+            index=i, text="".join(pieces.get(i, [])), finish_reason=finish.get(i),
+            logprobs=lp_merge.get(i),
+        )
         for i in indices
     ]
     return CompletionResponse(

@@ -154,6 +154,11 @@ class LLMEngineOutput:
     # Usage accounting, set on the final frame.
     prompt_tokens: int | None = None
     completion_tokens: int | None = None
+    # Per-token logprobs aligned with token_ids (only when the request
+    # asked): the chosen token's, and the top-N alternatives as
+    # {token id: logprob} (N = the request's top_logprobs).
+    logprobs: list[float] | None = None
+    top_logprobs: list[dict[int, float]] | None = None
 
     def to_dict(self) -> dict:
         return _drop_none(asdict(self))

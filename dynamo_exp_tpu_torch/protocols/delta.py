@@ -1,8 +1,7 @@
 """Delta generators: backend step outputs -> OpenAI stream chunks.
 
-Counterpart of ``dynamo_exp_tpu/protocols/delta.py``. The port's
-sampler computes no logprobs yet (ROADMAP Queue 1 item 3), so chunks
-carry none.
+Counterpart of ``dynamo_exp_tpu/protocols/delta.py``: text chunks
+carry the OpenAI logprobs object the preprocessor shaped for them.
 """
 
 from __future__ import annotations
@@ -44,12 +43,14 @@ class ChatDeltaGenerator:
             choices=choices, usage=usage,
         )
 
-    def text_chunk(self, text: str) -> ChatCompletionChunk:
+    def text_chunk(self, text: str, logprobs=None) -> ChatCompletionChunk:
         delta = ChatChoiceDelta(content=text)
         if not self._sent_role:
             delta.role = "assistant"
             self._sent_role = True
-        return self._chunk([ChatStreamChoice(index=self.index, delta=delta)])
+        return self._chunk(
+            [ChatStreamChoice(index=self.index, delta=delta, logprobs=logprobs)]
+        )
 
     def finish_chunk(self, reason: FinishReason) -> ChatCompletionChunk:
         return self._chunk(
@@ -81,8 +82,10 @@ class CompletionDeltaGenerator:
             choices=choices, usage=usage,
         )
 
-    def text_chunk(self, text: str) -> CompletionChunk:
-        return self._chunk([CompletionChoice(index=self.index, text=text)])
+    def text_chunk(self, text: str, logprobs=None) -> CompletionChunk:
+        return self._chunk(
+            [CompletionChoice(index=self.index, text=text, logprobs=logprobs)]
+        )
 
     def finish_chunk(self, reason: FinishReason) -> CompletionChunk:
         return self._chunk(

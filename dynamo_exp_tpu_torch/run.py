@@ -14,6 +14,8 @@ OUTPUT: cuda | echo_core | echo_full
   port's way of asking for the CPU).
 - ``in=batch:<file>``: every JSONL line's ``text`` (or ``prompt``) as a
   concurrent streaming chat request; prints one JSON stats line.
+- ``--spec ngram`` (``--spec-draft-len``, ``--spec-max-draft``,
+  ``--spec-ngram``): speculative decoding, as in the JAX CLI.
 
 The JAX CLI's other inputs, outputs and flags are refused with the
 ROADMAP item that brings them, never silently ignored.
@@ -53,10 +55,6 @@ NOT_PORTED_FLAGS = {
     "--dist-leader": "ROADMAP Queue 1 item 7",
     "--dist-port": "ROADMAP Queue 1 item 7",
     "--deployment": "ROADMAP Queue 1 item 7",
-    "--spec": "ROADMAP Queue 1 item 3",
-    "--spec-draft-len": "ROADMAP Queue 1 item 3",
-    "--spec-max-draft": "ROADMAP Queue 1 item 3",
-    "--spec-ngram": "ROADMAP Queue 1 item 3",
     "--prewarm": "ROADMAP Queue 1 item 6",
     "--compile-cache-dir": "ROADMAP Queue 1 item 6",
     "--request-template": f"{_ITEM9}(c)",
@@ -103,6 +101,18 @@ def parse_args(argv: list[str]):
     p.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--host-cache-pages", type=int, default=0,
                    help="G2 host KV tier in pages (pinned memory; 0 = off)")
+    # Speculative decoding: a deterministic draft/verify pass; streams
+    # stay token-identical to the run without it.
+    p.add_argument("--spec", default="off",
+                   help="speculative decoding drafter: off | ngram (prompt lookup, "
+                   "no second model) | any registered drafter name")
+    p.add_argument("--spec-draft-len", type=int, default=4,
+                   help="initial draft length per row (adapted per row from the "
+                   "rolling acceptance rate)")
+    p.add_argument("--spec-max-draft", type=int, default=8,
+                   help="upper bound the adaptive controller may grow a draft to")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="widest trailing n-gram the prompt-lookup drafter matches")
     p.add_argument("--max-tokens", type=int, default=256,
                    help="completion cap of in=batch requests that set none (an HTTP "
                    "request without max_tokens gets the rest of the context, as in "
@@ -164,6 +174,10 @@ def build_cuda_engine(opts):
         kv_dtype=opts.kv_dtype,
         default_max_tokens=opts.max_tokens,
         host_cache_pages=opts.host_cache_pages,
+        spec_mode=opts.spec,
+        spec_draft_len=opts.spec_draft_len,
+        spec_max_draft=opts.spec_max_draft,
+        spec_ngram=opts.spec_ngram,
     )
     return TorchEngine(ecfg, device=opts.device), mdc
 

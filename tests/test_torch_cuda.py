@@ -258,6 +258,62 @@ def test_engine_kernel_matches_reference_greedy(cuda):
     assert got == run("reference")
 
 
+@pytest.mark.parametrize("kw", [{"chained_decode": False}, {}, {"spec_mode": "ngram"}],
+                         ids=["unchained", "chained", "spec"])
+def test_engine_chaining_and_spec_on_the_card(cuda, kw):
+    """float32 TINY widths on the card: unchained, chained (every chained
+    dispatch under sync debug mode "error") and speculative (verify
+    spans of up to 9 tokens, two q tiles, through the float32 mixed
+    kernel) engines emit the plain path's greedy tokens."""
+    cfg_m = replace(TINY, dtype="float32", head_dim=64, num_heads=4, num_kv_heads=2,
+                    hidden_size=256)
+    rs = np.random.RandomState(0)
+    block = list(map(int, rs.randint(3, 250, size=6)))
+    prompts = [block * 4, list(map(int, rs.randint(3, 250, size=40)))]
+
+    def run(impl, **extra):
+        cfg = EngineConfig(
+            model=cfg_m, max_decode_slots=4, page_size=16, num_pages=64,
+            max_model_len=256, prefill_chunk=32, decode_window=4,
+            kv_dtype="float32", attention_impl=impl, **extra,
+        )
+        eng = TorchEngine(cfg, device=cuda, seed=3)
+        dispatch = eng._dispatch_chained
+
+        def guarded(p):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(p)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        eng._dispatch_chained = guarded
+
+        async def go():
+            streams = [eng.submit({"token_ids": p, "stop_conditions": {
+                "max_tokens": 40, "ignore_eos": True}}) for p in prompts]
+            eng.start()
+
+            async def collect(s):
+                return [t async for item in s for t in item.get("token_ids", [])]
+
+            return await asyncio.gather(*(collect(s) for s in streams))
+
+        try:
+            return asyncio.run(asyncio.wait_for(go(), timeout=300)), eng.metrics()
+        finally:
+            eng.stop()
+
+    want, _ = run("reference", chained_decode=False)
+    tra.reset_launches()
+    got, m = run("kernel", **kw)
+    assert got == want and all(len(t) == 40 for t in got)
+    if kw.get("spec_mode"):
+        assert m["spec_row_dispatches"] > 0 and tra.KERNEL_LAUNCHES["mixed_f32"] > 0
+    else:
+        assert (m["dispatches"]["chained"] > 0) == kw.get("chained_decode", True)
+
+
 def test_http_entry_point_serves_on_the_card(cuda, tmp_path):
     """``run.main_async(in=http out=cuda)`` on the card: a streaming
     completion through the OpenAI service ends with [DONE], finishes

@@ -62,6 +62,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "protocols.sse", "runtime.annotated", "runtime.pipeline", "tokenizer",
         "model_card", "preprocessor.prompt", "preprocessor.preprocessor",
         "backend", "engines.echo", "http.service", "http.client", "run",
+        "spec", "spec.drafter", "spec.controller",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

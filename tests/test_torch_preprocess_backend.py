@@ -3,8 +3,10 @@ package's, on the CPU, on the fixture model directory.
 
 - ``OpenAIPreprocessor``: the same rendered prompt text, token ids,
   stop conditions and sampling options (chat template, string and
-  token-id completions), and the same ``PromptTooLongError``; requests
-  the port cannot serve yet (logprobs, image parts) are refused.
+  token-id completions), and the same ``PromptTooLongError``; logprob
+  requests carry the same ``logprobs`` option as the JAX package's, and
+  ``top_logprobs`` above 5 gets its 400 message; requests the port
+  cannot serve yet (image parts) are refused.
 - ``Backend`` over the echo core engine: the same text, token ids,
   finish reasons and usage with the stop-string jail, ``max_tokens``,
   EOS, ``min_tokens`` and ``ignore_eos``.
@@ -98,23 +100,54 @@ def test_fallback_prompt_without_template(pre_pair):
     assert tp.formatter._fallback(msgs) == jp.formatter._fallback(msgs)
 
 
+def _preprocess(pre, body, jax_side=False):
+    if "messages" in body:
+        if jax_side:
+            return pre.preprocess_chat(jopenai.ChatCompletionRequest.model_validate(body))
+        return pre.preprocess_chat(openai.ChatCompletionRequest.from_dict(body))
+    if jax_side:
+        return pre.preprocess_completion(jopenai.CompletionRequest.model_validate(body))
+    return pre.preprocess_completion(openai.CompletionRequest.from_dict(body))
+
+
 @pytest.mark.parametrize(
     "body,match",
     [
-        ({"model": "tiny", "prompt": "x", "logprobs": 2}, "Queue 1 item 3"),
+        ({"model": "tiny", "prompt": "x", "logprobs": 6}, "top_logprobs=6 exceeds"),
         ({"model": "tiny", "messages": [{"role": "user", "content": "x"}],
-          "logprobs": True}, "Queue 1 item 3"),
+          "logprobs": True, "top_logprobs": 6}, "top_logprobs=6 exceeds"),
         ({"model": "tiny", "messages": [{"role": "user", "content": [
             {"type": "image_url", "image_url": {"url": "data:,"}}]}]}, "item 9\\(h\\)"),
     ],
 )
 def test_unserved_requests_refused(pre_pair, body, match):
-    _, tp = pre_pair
-    with pytest.raises(tpre.InvalidRequestError, match=match):
-        if "messages" in body:
-            tp.preprocess_chat(openai.ChatCompletionRequest.from_dict(body))
-        else:
-            tp.preprocess_completion(openai.CompletionRequest.from_dict(body))
+    """Image parts are not served yet; ``top_logprobs`` above the static
+    5 gets the JAX package's 400 (the same message from both)."""
+    jp, tp = pre_pair
+    with pytest.raises(tpre.InvalidRequestError, match=match) as err:
+        _preprocess(tp, body)
+    if "image_url" not in str(body):
+        with pytest.raises(jpre.InvalidRequestError) as jerr:
+            _preprocess(jp, body, jax_side=True)
+        assert str(err.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize(
+    "body",
+    [
+        {"model": "tiny", "prompt": "x", "logprobs": 2},
+        {"model": "tiny", "messages": [{"role": "user", "content": "x"}], "logprobs": True},
+    ],
+    ids=["completion", "chat"],
+)
+def test_logprob_requests_accepted(pre_pair, body):
+    """The two logprob requests the port refused before it served them
+    now pass preprocessing with the JAX package's ``logprobs`` option
+    (2 for the legacy field, 0 for chat's ``logprobs: true``)."""
+    jp, tp = pre_pair
+    got = _preprocess(tp, body).sampling_options.logprobs
+    assert got == _preprocess(jp, body, jax_side=True).sampling_options.logprobs
+    assert got == (2 if "prompt" in body else 0)
 
 
 @pytest.mark.parametrize(

@@ -51,7 +51,7 @@ def test_parse_args_keeps_the_jax_cli_form():
         (["--coordinator", "h:1"], "item 9(e)"),
         (["--max-inflight=4"], "item 9(b)"),
         (["--request-template", "t.json"], "item 9(c)"),
-        (["--spec", "ngram"], "item 3"),
+        (["--compile-cache-dir", "/tmp/cc"], "item 6"),
         (["--tp", "2"], "item 7"),
         (["--prewarm"], "item 6"),
         (["--echo-token-delay-ms", "20"], "item 9(i)"),
@@ -62,6 +62,26 @@ def test_unported_inputs_outputs_and_flags_are_refused(argv, item):
     with pytest.raises(SystemExit, match="not ported") as err:
         run.parse_args(argv)
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--spec", "ngram"], ["--spec", "ngram", "--spec-draft-len", "2", "--spec-max-draft", "5",
+                           "--spec-ngram", "2"]],
+    ids=["spec", "spec-knobs"],
+)
+def test_spec_flags_reach_the_engine_config(tiny_model_dir, flags):
+    """``--spec*`` are no longer refused: they parse as the JAX CLI
+    parses them and reach ``EngineConfig`` (the JAX ``run.py`` fields)."""
+    argv = ["in=http", "out=cuda", "--model-path", tiny_model_dir, "--random-weights",
+            *SMALL, *flags]
+    opts, jopts = run.parse_args(argv + ["--device", "cpu"]), jrun.parse_args(argv)
+    engine, _ = run.build_cuda_engine(opts)
+    for name in ("spec", "spec_draft_len", "spec_max_draft", "spec_ngram"):
+        assert getattr(opts, name) == getattr(jopts, name), name
+        field = "spec_mode" if name == "spec" else name
+        assert getattr(engine.cfg, field) == getattr(jopts, name), name
+    assert engine._spec is not None and engine._spec.drafter.name == "ngram"
 
 
 def test_host_cache_pages_reaches_the_engine_config(tiny_model_dir):
