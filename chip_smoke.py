@@ -96,14 +96,43 @@ Phases, each fatal on failure (nothing is caught):
    completion's logprobs within 4x phase 4's logit error of
    log_softmax of the plain path's logits at the same positions.
 
+9. real checkpoints and warm boot. (a) seeded random weights at
+   llama-8b's width and 4 layers (bf16, about 3.9 GB) written as two
+   safetensors shards (``models.loader.save_safetensors``) beside phase
+   6's config.json and tokenizer, served through ``run.main_async(in=http
+   out=cuda --model-path <dir>)`` without ``--random-weights``: the
+   weights on the card are bit-equal to the in-memory ones, phase 5's
+   burst over HTTP gives the in-memory weights' tokens (HTTP text and
+   the loaded engine's tokens against an in-memory engine's, same batch
+   shape); printed: write and load seconds, GB/s read; the directory is
+   deleted. (b) ``run.build_cuda_engine(--preset llama-8b --prewarm
+   --compile-cache-dir <tmp>)`` at full width and depth: every window
+   variant captured as a CUDA graph before traffic (printed: variants,
+   graphs, seconds, the graph pool's bytes, one kernel build into the
+   cache directory); then phase 8 (a)'s greedy burst and phase 5's
+   burst through it and through an eager engine on the same weights
+   (``cuda_graphs=False``), in turns (graphed, eager, eager, graphed):
+   tokens bit-equal, launch counts equal, no graph captured after the
+   prewarm; printed: wall, tokens/s, loop-thread CPU seconds and graph
+   replays of each run (``--profile``: the device idle share, graphed
+   and eager). (c) a new process boots ``--preset llama-1b --prewarm``
+   against the same cache directory: ``builds: 0`` (no nvcc).
+
+Phases 5-9 run with CUDA graphs of the decode window (the engine's
+default on a card): each window key is captured at its first dispatch
+(or by phase 9's prewarm) and replayed after; the launch counters add a
+graph's recorded launches at each replay, so they count what an eager
+run counts, launch for launch (phase 9 (b) checks that).
+
 Phase 3 also holds the mixed kernels on phase 8's verify spans (9
 queries a row: two q tiles, the second mostly padding) and times the
 bf16 one there. The kernels' line has one entry per kernel design (the
 bf16 mixed, split-KV decode and float32 mixed kernels), with its
 launches in the main path of its dtype (phase 5; phase 7 (c) for
-float32), over HTTP (phase 6), under KV pressure (phase 7 (a), (c)) and
-in phase 8 (a)-(d); the bf16 mixed entry also carries the verify
-spans' timing (``verify_*``).
+float32), over HTTP (phase 6), under KV pressure (phase 7 (a), (c)),
+in phase 8 (a)-(d) and phase 9 (a) (the loaded checkpoint) and (b) (a
+graphed phase 8 (a) burst after the warm boot); the bf16 mixed entry
+also carries the verify spans' timing (``verify_*``).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and the result line
@@ -668,7 +697,9 @@ def main_path(torch, np, pkg, tra):
     log(f"[engine] 8 requests (prompts {list(PROMPT_LENS)}, {MAX_TOKENS} tokens each, "
         f"request {SEEDED} seeded at T=0.8): all finished 'length' with {MAX_TOKENS} tokens")
     log(f"[engine] launches {launches}, by kernel {designs}; dispatches {disp}; decode steps "
-        f"{metrics['decode_steps']} (wasted {metrics['decode_wasted_steps']}); "
+        f"{metrics['decode_steps']} (wasted {metrics['decode_wasted_steps']}); graphs "
+        f"captured at first use {metrics['graphs_captured']} in "
+        f"{metrics['graph_capture_seconds']:.3f} s of the wall; "
         f"per mixed dispatch {launches['ragged_paged_attention'] / max(disp['mixed'], 1):.1f}, "
         f"per windowed step {launches['ragged_decode_attention'] / max(disp['windowed'] * ecfg.decode_window, 1):.1f}")
 
@@ -1581,7 +1612,8 @@ def p8_line(r: dict) -> str:
     d = r["dispatches"]
     return (f"wall {r['wall_s']:.3f} s, {r['tokens_per_s']:.2f} tokens/s, dispatches "
             f"chained {d['chained']} / windowed {d['windowed']} / mixed {d['mixed']}, loop "
-            f"CPU {r['loop_cpu_s']:.3f} s, wasted steps {r['wasted']}")
+            f"CPU {r['loop_cpu_s']:.3f} s, wasted steps {r['wasted']}, graphs captured "
+            f"{r['metrics']['graphs_captured']} in {r['metrics']['graph_capture_seconds']:.3f} s")
 
 
 def chain_turns(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8) -> dict:
@@ -2010,6 +2042,317 @@ def phase8(torch, np, pkg, tra, smi: str, logit_err: float, sh: Phase8 = Phase8(
     return dict(a=a, b=b, c=c, d=d)
 
 
+# ------------------------------------------------------------ phase 9
+LOADER_LAYERS = 4  # (a): llama-8b's width at 4 layers, bf16 (about 3.9 GB)
+
+
+@dataclass
+class Phase9:
+    """Phase 9's sizes: the card's by default; the CPU tests rehearse it
+    smaller (``device="cpu"``)."""
+
+    device: str = "cuda"
+    prompt_lens: tuple = PROMPT_LENS
+    max_tokens: int = MAX_TOKENS  # (a), and (b)'s phase 5 burst
+    chain_tokens: int = CHAIN_TOKENS  # (b)'s phase 8 (a) burst
+    loader_layers: int = LOADER_LAYERS
+    preset: str = "llama-8b"  # (b)'s warm boot
+    second_preset: str = "llama-1b"  # (c)'s second boot, in a new process
+
+
+def write_checkpoint(model, path: str, shards: int = 2) -> int:
+    """``model``'s weights in HF layout as ``shards`` safetensors files
+    (``models.loader.save_safetensors``, one tensor on the host at a
+    time). Returns the bytes written."""
+    from dynamo_exp_tpu_torch.models.loader import hf_tensor_names, save_safetensors
+
+    names = hf_tensor_names(model.cfg)
+    keys = list(names)
+    per = -(-len(keys) // shards)
+    total = 0
+    for i in range(shards):
+        part = {}
+        for k in keys[i * per : (i + 1) * per]:
+            li, attr = names[k]
+            part[k] = getattr(model if li is None else model.layers[li], attr)
+        f = os.path.join(path, f"model-{i + 1:05d}-of-{shards:05d}.safetensors")
+        save_safetensors(f, part)
+        total += os.path.getsize(f)
+    return total
+
+
+def loader_path(torch, np, pkg, tra, smi: str, sh: Phase9 = Phase9(), mcfg=None) -> dict:
+    """(a) Seeded random weights at llama-8b's width and ``loader_layers``
+    layers, written as two safetensors shards beside phase 6's
+    config.json and tokenizer in a temporary directory, served through
+    ``run.main_async(in=http out=cuda --model-path <dir>)`` without
+    ``--random-weights``: the weights on the card are bit-equal to the
+    in-memory ones, and the 8 streams (phase 5's burst over HTTP) equal
+    the same weights served from memory in the same batch shape (the
+    loaded engine's and an in-memory engine's tokens, and the HTTP
+    texts against the in-memory tokens decoded). The directory is
+    deleted afterwards."""
+    import tempfile
+    from dataclasses import replace
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+    from dynamo_exp_tpu_torch.models import loader
+
+    mcfg = replace(mcfg or pkg.models.LLAMA_8B, num_layers=sh.loader_layers)
+    model = seeded_model(torch, pkg, mcfg, sh.device)
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    timing: dict = {}
+    load = loader.load_params
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        out = load(*a, **kw)
+        sync(torch, sh.device)
+        timing["load_s"] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "ckpt"), tokmod, mcfg, text)
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(model, model_dir)
+        write_s = time.perf_counter() - t0
+        tok = tokmod.Tokenizer.from_pretrained(model_dir)
+        max_len = max(sh.prompt_lens) + sh.max_tokens + PS
+        argv = [
+            "in=http", "out=cuda", "--device", sh.device, "--model-path", model_dir,
+            "--model-name", "ckpt", "--http-host", "127.0.0.1", "--http-port", "0",
+            "--max-decode-slots", "8", "--page-size", str(PS), "--max-model-len", str(max_len),
+            "--num-pages", str(8 * -(-max_len // PS)), "--kv-dtype", "bfloat16",
+            "--max-tokens", str(sh.max_tokens),
+        ]
+        loader.load_params = timed_load
+        try:
+            stats = asyncio.run(asyncio.wait_for(
+                _drive_loaded(torch, np, pkg, tra, tok, run.parse_args(argv), client, model,
+                              mcfg, sh), timeout=900))
+        finally:
+            loader.load_params = load
+        shards = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
+    assert not os.path.exists(model_dir)
+    stats.update(bytes=nbytes, write_s=write_s, load_s=timing["load_s"], shards=len(shards))
+    log(f"[loader] (a) {smi}: {mcfg.num_layers} layers of hidden {mcfg.hidden_size}, "
+        f"{nbytes / 1e9:.3f} GB in {len(shards)} shards written in {write_s:.2f} s; "
+        f"run.main_async(--model-path, no --random-weights) loaded them in "
+        f"{timing['load_s']:.3f} s ({nbytes / timing['load_s'] / 1e9:.2f} GB/s read and "
+        f"copied to the {sh.device}); weights bit-equal to the in-memory model; the "
+        f"{len(stats['tokens'])} streams "
+        f"equal the in-memory weights' (tokens, and HTTP text); launches by kernel "
+        f"{stats['designs']}; directory deleted")
+    del model
+    gc.collect()
+    if sh.device == "cuda":
+        torch.cuda.empty_cache()
+    return stats
+
+
+async def _drive_loaded(torch, np, pkg, tra, tok, opts, client, model, mcfg, sh) -> dict:
+    from dynamo_exp_tpu_torch import run
+
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({server, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if server.done():
+        server.result()  # startup failed: raise its error
+    served = ready.result()
+    eng = served.torch_engine
+    try:
+        mine, got = dict(model.named_parameters()), dict(eng.model.named_parameters())
+        assert got.keys() == mine.keys(), sorted(set(got) ^ set(mine))
+        differ = [n for n, p in mine.items() if not torch.equal(got[n], p)]
+        assert not differ, f"(a) loaded weights differ from the in-memory ones: {differ[:5]}"
+        prompts = phase5_prompts(np, mcfg.vocab_size, sh.prompt_lens)
+        seeded = min(SEEDED, len(prompts) - 1)
+        requests = [
+            {"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens,
+                                                   "ignore_eos": True},
+             "sampling_options": SEEDED_OPTIONS if i == seeded else {}}
+            for i, ids in enumerate(prompts)
+        ]
+        bodies = [
+            {"model": "ckpt", "prompt": ids, "max_tokens": sh.max_tokens, "stream": True,
+             "stream_options": {"include_usage": True}, "nvext": {"ignore_eos": True},
+             **(SEEDED_OPTIONS if i == seeded else {})}
+            for i, ids in enumerate(prompts)
+        ]
+        sync(torch, sh.device)
+        tra.reset_launches()
+        http_out, wall, _, _ = await burst(
+            client, eng, f"http://127.0.0.1:{served.port}/v1/completions", bodies,
+            reset_cache=False)
+        designs = dict(tra.KERNEL_LAUNCHES)
+        for i, r in enumerate(http_out):
+            assert r["done"] and r["finish"] == "length", f"(a) request {i}: {r['finish']}"
+        loaded, *_ = await direct_burst(eng, requests)
+    finally:
+        server.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await server
+    mem = pkg.engine.TorchEngine(eng.cfg, model=model, device=sh.device)
+    try:
+        in_memory, *_ = await direct_burst(mem, requests)
+    finally:
+        mem.stop()
+    want = [r["tokens"] for r in in_memory]
+    assert all(len(t) == sh.max_tokens for t in want)
+    assert [r["tokens"] for r in loaded] == want, "(a) loaded and in-memory tokens differ"
+    texts = [r["text"] == streamed_text(tok, t) for r, t in zip(http_out, want)]
+    assert all(texts), f"(a) HTTP texts against the in-memory tokens: {texts}"
+    return dict(designs=designs, http_wall_s=wall, tokens=want)
+
+
+def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9()) -> dict:
+    """(b) ``run.build_cuda_engine(--preset llama-8b --prewarm
+    --compile-cache-dir)``: llama-8b at full width and depth, every
+    window variant captured before traffic. Then phase 8 (a)'s greedy
+    burst and phase 5's burst (a seeded row: two sampler partitions)
+    through the prewarmed engine (graphs) and an eager engine on the
+    same weights (``cuda_graphs=False``), in turns (graphed, eager,
+    eager, graphed): equal tokens bit for bit, equal launch counts, and
+    no graph captured after the prewarm."""
+    from dataclasses import replace
+
+    from dynamo_exp_tpu_torch import run
+
+    max_len = max(sh.prompt_lens) + max(sh.chain_tokens, sh.max_tokens) + PS
+    argv = [
+        "out=cuda", "--device", sh.device, "--preset", sh.preset, "--max-decode-slots", "8",
+        "--page-size", str(PS), "--max-model-len", str(max_len),
+        "--num-pages", str(8 * -(-max_len // PS)), "--kv-dtype", "bfloat16",
+        "--prewarm", "--compile-cache-dir", cache_dir,
+    ]
+    t0 = time.perf_counter()
+    warm, _ = run.build_cuda_engine(run.parse_args(argv))
+    boot_s = time.perf_counter() - t0
+    report = warm.metrics()["prewarm"]
+    graphs_on = warm.graphs is not None
+    assert report["variants"] > 0 and report["graphs"] == (report["variants"] if graphs_on else 0)
+    assert report["builds"] == (1 if sh.device == "cuda" else 0), report
+    log(f"[warm] (b) {smi}: {sh.preset} booted with --prewarm in {boot_s:.2f} s: "
+        f"{report['variants']} window variants, {report['graphs']} CUDA graphs captured, "
+        f"{report['mixed_buckets']} mixed buckets run, {report['builds']} kernel build(s) into "
+        f"the cache dir, prewarm {report['seconds']:.2f} s, graph pool "
+        f"{report['pool_bytes']} bytes ({report['pool_bytes'] / 2**20:.1f} MiB)")
+    eager = pkg.engine.TorchEngine(replace(warm.cfg, cuda_graphs=False), model=warm.model,
+                                   device=sh.device)
+    vocab = warm.cfg.model.vocab_size
+    p8 = Phase8(device=sh.device, prompt_lens=sh.prompt_lens)
+    seeded = min(SEEDED, len(sh.prompt_lens) - 1)
+    bursts = {
+        "8a": greedy_requests(np, vocab, p8, sh.chain_tokens),
+        "5": [
+            {"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens,
+                                                   "ignore_eos": True},
+             "sampling_options": SEEDED_OPTIONS if i == seeded else {}}
+            for i, ids in enumerate(phase5_prompts(np, vocab, sh.prompt_lens))
+        ],
+    }
+    results = {}
+    for name, requests in bursts.items():
+        n = requests[0]["stop_conditions"]["max_tokens"]
+        runs = []
+        for kind, eng in (("graphed", warm), ("eager", eager), ("eager", eager),
+                          ("graphed", warm)):
+            eng.reset_prefix_cache()  # each run prefills as a cold engine would
+            replays = eng.metrics()["graph_replays"]
+            sync(torch, sh.device)
+            tra.reset_launches()
+            r = p8_burst(torch, eng, requests, sh.device)
+            r["designs"], r["kind"] = dict(tra.KERNEL_LAUNCHES), kind
+            r["replays"] = r["metrics"]["graph_replays"] - replays
+            for i, o in enumerate(r["out"]):
+                assert o["finish"] == "length" and len(o["tokens"]) == n, (
+                    f"(b) burst {name} {kind} request {i}: {o['finish']}, {len(o['tokens'])}")
+            assert (r["replays"] > 0) == (kind == "graphed" and graphs_on), r["replays"]
+            log(f"[warm] (b) burst {name} {kind}: wall {r['wall_s']:.3f} s, "
+                f"{r['tokens_per_s']:.2f} tokens/s, loop CPU {r['loop_cpu_s']:.3f} s, graph "
+                f"replays {r['replays']}, launches by kernel {r['designs']}")
+            runs.append(r)
+        for r in runs[1:]:
+            assert r["tokens"] == runs[0]["tokens"], f"(b) burst {name}: graphed and eager differ"
+            assert r["designs"] == runs[0]["designs"], (
+                f"(b) burst {name}: launches differ {r['designs']} / {runs[0]['designs']}")
+        if "--profile" in sys.argv and sh.device == "cuda":
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as tprofile
+
+            for kind, eng in (("graphed", warm), ("eager", eager)):
+                eng.reset_prefix_cache()
+                with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    r = p8_burst(torch, eng, requests, sh.device)
+                assert r["tokens"] == runs[0]["tokens"]
+                report_profile(prof, r["wall_s"], f"[profile warm {name} {kind}]", top=6)
+        results[name] = runs
+        log(f"[warm] (b) burst {name}: tokens bit-equal and launch counts equal in all four "
+            f"runs (graphed / eager / eager / graphed)")
+    captured = warm.metrics()["graphs_captured"]
+    assert captured == report["graphs"], f"(b) traffic captured {captured - report['graphs']}"
+    check_drained(warm, "(b) graphed")
+    check_drained(eager, "(b) eager")
+    log(f"[warm] (b) no graph captured after the prewarm ({captured} in all); audits clean")
+    del warm, eager
+    gc.collect()
+    if sh.device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(report=report, boot_s=boot_s, bursts=results,
+                designs=results["8a"][0]["designs"])
+
+
+def second_boot(cache_dir: str, smi: str, sh: Phase9 = Phase9()) -> dict:
+    """(c) A new process boots against (b)'s ``--compile-cache-dir``
+    (``--preset second_preset --prewarm``, one slot and 64 tokens: a
+    lattice of 4 windows, since only the boot is under test): it runs
+    no nvcc (``builds: 0``). Its graphs are captured anew: graphs do
+    not outlive a process."""
+    argv = [
+        "out=cuda", "--device", sh.device, "--preset", sh.second_preset,
+        "--max-decode-slots", "1", "--page-size", str(PS), "--max-model-len", "64",
+        "--kv-dtype", "bfloat16", "--prewarm", "--compile-cache-dir", cache_dir,
+    ]
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "from dynamo_exp_tpu_torch import run\n"
+        f"engine, _ = run.build_cuda_engine(run.parse_args({argv!r}))\n"
+        "print(json.dumps(engine.metrics()['prewarm']))\n"
+        "engine.stop()\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=HERE)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, f"(c) second boot failed:\n{proc.stderr[-4000:]}"
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["builds"] == 0, f"(c) second boot ran nvcc: {report}"
+    with open(os.path.join(cache_dir, "manifest.json"), encoding="utf-8") as f:
+        record = json.load(f)
+    assert record["manifest_hash"] == report["manifest_hash"]
+    log(f"[warm] (c) {smi}: a new process booted {sh.second_preset} against the same "
+        f"--compile-cache-dir in {wall:.2f} s: builds {report['builds']} (no nvcc), "
+        f"{report['variants']} variants, {report['graphs']} graphs captured anew, prewarm "
+        f"{report['seconds']:.2f} s; manifest.json holds its hash and "
+        f"{len(record['kernels'])} source hashes")
+    return dict(report=report, wall_s=wall)
+
+
+def phase9(torch, np, pkg, tra, smi: str, sh: Phase9 = Phase9(), mcfg=None) -> dict:
+    """Phase 9: real checkpoints and warm boot."""
+    import tempfile
+
+    a = loader_path(torch, np, pkg, tra, smi, sh, mcfg)
+    with tempfile.TemporaryDirectory() as cache_dir:
+        b = warm_boot(torch, np, pkg, tra, smi, cache_dir, sh)
+        c = second_boot(cache_dir, smi, sh)
+    return dict(a=a, b=b, c=c)
+
+
 def main() -> int:
     import torch
 
@@ -2088,6 +2431,9 @@ def main() -> int:
     t8 = time.perf_counter()
     p8 = phase8(torch, np, pkg, tra, smi, stats["logit_err"])
     log(f"[phase8] in {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    p9 = phase9(torch, np, pkg, tra, smi)
+    log(f"[phase9] in {time.perf_counter() - t9:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -2116,6 +2462,8 @@ def main() -> int:
             "launches_spec": p8["b"]["designs"][design],
             "launches_identity_f32": p8["c"]["designs"][design],
             "launches_http_logprobs": p8["d"]["designs"][design],
+            "launches_loader": p9["a"]["designs"][design],
+            "launches_warm_boot": p9["b"]["designs"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

@@ -79,6 +79,12 @@ class EngineConfig:
     # Negative disables; needs a host tier; must be below
     # preempt_stall_grace_s to fire first.
     proactive_offload_grace_s: float = 0.0
+    # Port only (the JAX package's programs are always compiled): run
+    # each decode window through a CUDA graph per window key
+    # (engine/graphs.py). None is True on a CUDA device and False on the
+    # CPU, which has no graphs; True on the CPU raises. False runs every
+    # window eagerly (the same padding and kernels), for comparison.
+    cuda_graphs: bool | None = None
     # Speculative decoding: "off", or a drafter name from the spec/
     # registry ("ngram" = prompt lookup, no second model).
     spec_mode: str = "off"

@@ -23,7 +23,11 @@ penalty/top-k/top-p sampler), in one of two shapes:
   next tokens and positions stay on the device between steps; a row
   parks at position -1 when it samples a stop token, spends its
   max_tokens budget, or reaches its page capacity. The host syncs once
-  per window, when it consumes the window's tokens.
+  per window, when it consumes the window's tokens. Its rows and page
+  bound are padded to the window's key (``aot.lattice.resolve_window_key``;
+  padding rows at position -1), and on a card the window replays the
+  key's CUDA graph (``engine/graphs.py``, ``cuda_graphs``), captured at
+  the key's first dispatch or by ``aot.warmup.prewarm_engine``.
 
 Chaining (``chained_decode``, the JAX loop's order): a window that is
 its iteration's only dispatch stays in flight; in steady state (no
@@ -74,6 +78,7 @@ from typing import AsyncIterator, Callable
 import numpy as np
 import torch
 
+from ..aot.lattice import WindowKey, resolve_window_key
 from ..device import resolve_device
 from ..models.llama import (
     Llama,
@@ -86,6 +91,7 @@ from ..models.llama import (
 )
 from ..ops.ragged_attention import ragged_supported
 from ..ops.sampling import (
+    TOP_LOGPROBS,
     apply_penalties,
     sample_tokens_seeded,
     spec_accept_length,
@@ -98,6 +104,7 @@ from ..runtime.engine import AsyncEngine, AsyncEngineContext, ResponseStream
 from ..spec import SpecManager
 from ..tokens import compute_block_hashes_for_seq
 from .config import EngineConfig
+from .graphs import WindowGraphs, pack_layout, views
 from .kv_manager import KvEvent, KvPageManager
 from .offload import CopyStream, HostKvPool, pinned_empty
 from .scheduler import Scheduler, Sequence, SeqState
@@ -107,14 +114,6 @@ log = logging.getLogger(__name__)
 
 # Width of the per-row stop-token set a decode window checks on the device.
 STOP_WIDTH = 8
-
-_TORCH_DTYPES = {
-    np.dtype(np.int64): torch.int64,
-    np.dtype(np.int32): torch.int32,
-    np.dtype(np.float32): torch.float32,
-    np.dtype(np.bool_): torch.bool,
-}
-
 
 def resolve_attn_impl(cfg: EngineConfig, device: torch.device) -> str:
     """``auto`` is the kernel on CUDA and the plain version on the CPU.
@@ -157,11 +156,11 @@ class _PendingRagged:
     ``ys`` are the outputs' host copies, queued behind the dispatch on
     the compute stream (pinned, ``non_blocking``); ``ready`` is the event
     recorded after them (None on the CPU), and consuming waits on it:
-    the dispatch's one sync. A windowed batch keeps its final carry
-    (``tokens_dev``/``positions_dev``: the next window's inputs over the
-    same rows) and the device arrays a chained successor reuses."""
+    the dispatch's one sync. A windowed batch keeps what a chained
+    successor needs: its final carry on the device and its host
+    inputs."""
 
-    ys: tuple  # windowed: toks [K, nb] (+lp); mixed: tok0 [B1] (+spec) (+lp)
+    ys: tuple  # windowed: toks [K, rows] (+lp); mixed: tok0 [B1] (+spec) (+lp)
     ready: object
     rows: list  # [_RaggedRow]
     windowed: bool
@@ -169,16 +168,21 @@ class _PendingRagged:
     want_lp: bool
     solo: bool  # the iteration's only dispatch: chainable
     with_spec: bool = False  # mixed: carried verify spans
-    nb: int = 0  # windowed: rows in the batch
+    nb: int = 0  # windowed: rows in the batch (before padding to a key's rows)
+    # Windowed: the final carry, the next window's tokens and positions
+    # over the same rows. Under CUDA graphs these are the graph's
+    # outputs, which its next replay overwrites: only a chained
+    # successor reads them, on the device, before its own replay.
     tokens_dev: torch.Tensor | None = None
     positions_dev: torch.Tensor | None = None
+    # Windowed: the host arrays it was dispatched with; a chained
+    # successor re-uploads their per-row constants (stop sets, slots,
+    # sampler parameters).
+    host_in: dict | None = None
     # Some row could reach its page/model-length cap inside the window:
     # its carry parks at -1 but the host resumes it after allocating
     # pages, so a chained window would feed a dead carry. No chaining.
     capacity_capped: bool = False
-    stop_dev: torch.Tensor | None = None  # [nb, STOP_WIDTH], reused by a chain
-    slot_dev: torch.Tensor | None = None  # [nb] counts rows (full sampler)
-    sampler_dev: tuple | None = None  # (seeds, temp, top_k, top_p, f, p, r)
 
 
 class TorchEngine(AsyncEngine):
@@ -278,6 +282,15 @@ class TorchEngine(AsyncEngine):
         self.swapped_in = 0  # rows restored from it
         self.prefetched_pages = 0  # pages restored ahead of admission
         self.prefetch_hits = 0  # of those, pages an admission attached
+        # CUDA graphs of the decode window, one per window key (None:
+        # every window runs eagerly). Set by default on a card.
+        use_graphs = cfg.cuda_graphs if cfg.cuda_graphs is not None else (
+            self.device.type == "cuda"
+        )
+        if use_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, not {self.device}")
+        self.graphs: WindowGraphs | None = WindowGraphs(self) if use_graphs else None
+        self.prewarm_report = None  # aot.warmup.PrewarmReport of a warm boot
 
     # -------------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -460,6 +473,10 @@ class TorchEngine(AsyncEngine):
         m["spec_draft_tokens"] = self.spec_draft_tokens
         m["spec_accepted_tokens"] = self.spec_accepted_tokens
         m["spec_emitted_tokens"] = self.spec_emitted_tokens
+        m["graphs_captured"] = self.graphs.captured if self.graphs else 0
+        m["graph_capture_seconds"] = self.graphs.capture_seconds if self.graphs else 0.0
+        m["graph_replays"] = self.graphs.replays if self.graphs else 0
+        m["prewarm"] = self.prewarm_report.to_dict() if self.prewarm_report else None
         if self.host_pool is not None:
             m["host_cache_resident"] = self.host_pool.resident
             m["host_cache_hits"] = self.host_pool.hits
@@ -1033,22 +1050,27 @@ class TorchEngine(AsyncEngine):
         arrays themselves."""
         if self.device.type != "cuda":
             return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        offs, total = [], 0
-        for a in arrays:
-            offs.append(total)
-            total += -(-a.nbytes // 16) * 16
-        host = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=True)
+        offs, total = pack_layout(arrays)
+        dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+        self._upload_into(dev, arrays, offs)
+        return views(dev, arrays, offs)
+
+    def _upload_into(self, dev: torch.Tensor, arrays, offs: list[int]) -> None:
+        """Host arrays into the device byte buffer ``dev`` at ``offs``:
+        through one pinned staging buffer on a card (kept until the
+        event after its copy completes), directly on the CPU."""
+        if self.device.type != "cuda":
+            for t, a in zip(views(dev, arrays, offs), arrays):
+                t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            return
+        host = torch.empty(dev.numel(), dtype=torch.uint8, pin_memory=True)
         buf = host.numpy()
         for a, o in zip(arrays, offs):
             buf[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-        dev = host.to(self.device, non_blocking=True)
+        dev.copy_(host, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         self._staged.append((done, host))
-        return [
-            dev[o : o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
-            for a, o in zip(arrays, offs)
-        ]
 
     def _poll_staged(self) -> None:
         """Drop the staging buffers whose uploads have completed."""
@@ -1058,9 +1080,11 @@ class TorchEngine(AsyncEngine):
     def _fetch(self, ys: tuple) -> tuple[tuple, object]:
         """Queue host copies of a dispatch's outputs right behind it: on
         a card into pinned buffers, ``non_blocking``, with an event after
-        them that consume waits on."""
+        them that consume waits on. On the CPU the outputs themselves,
+        or copies where they are a graph's outputs, which its next
+        replay overwrites."""
         if self.device.type != "cuda":
-            return ys, None
+            return (tuple(y.clone() for y in ys) if self.graphs is not None else ys), None
         hosts = tuple(torch.empty(y.shape, dtype=y.dtype, pin_memory=True) for y in ys)
         for h, y in zip(hosts, ys):
             h.copy_(y, non_blocking=True)
@@ -1128,71 +1152,64 @@ class TorchEngine(AsyncEngine):
         return [float(x) for x in lps], tops
 
     # ---------------------------------------------------------------- windowed
-    def _build_windowed(self, part: list, full_sampler: bool, solo: bool) -> _PendingRagged:
-        """Dispatch one pure-decode window over the rows (no host sync)."""
+    def _window_host(self, key: WindowKey) -> dict[str, np.ndarray]:
+        """A window's host arrays at ``key``'s shape, every row padding:
+        position -1 (K/V writes go to ``drop_page``, nothing is emitted),
+        the scratch penalty row ``max_decode_slots``, neutral sampler
+        parameters. The order is the upload's and the graphs' layout."""
         cfg = self.cfg
-        ps, K = cfg.page_size, cfg.decode_window
-        nb = len(part)
-        tokens = np.zeros(nb, np.int64)
-        positions = np.full(nb, -1, np.int64)
-        max_pos = np.full(nb, -1, np.int64)
-        table = np.zeros((nb, cfg.max_pages_per_seq), np.int32)
-        slot_map = np.full(nb, cfg.max_decode_slots, np.int64)
-        stop_set = np.full((nb, STOP_WIDTH), -1, np.int64)
-        eos_gate = np.zeros(nb, np.int64)
-        budget_gate = np.full(nb, K, np.int64)
-        arrs = self._sampler_arrays(nb)
-        rows: list[_RaggedRow] = []
-        max_pages = 1
-        capped = False
-        for r, (seq, wpos, cap) in enumerate(part):
-            capped = capped or cap < wpos + K
-            tokens[r] = seq.last_token()
-            positions[r] = wpos
-            max_pos[r] = cap
-            table[r, : len(seq.page_ids)] = seq.page_ids
-            slot_map[r] = seq.slot
-            max_pages = max(max_pages, (min(wpos + K, cap + 1) + ps - 1) // ps)
-            stops = self._stop_set(seq)
-            stop_set[r, : len(stops)] = stops
-            eos_gate[r], budget_gate[r] = self._stop_gates(seq, seq.generated)
-            self._row_sampler_args(seq, r, arrs)
-            rows.append(_RaggedRow(seq, "decode", r, n_valid=min(K, cap - wpos + 1)))
-        tok_d, pos_d, max_d, table_d, stop_d, eos_d, budget_d, slot_d, *samp = self._upload(
-            tokens, positions, max_pos, table, stop_set, eos_gate, budget_gate, slot_map, *arrs
-        )
-        return self._launch_window(
-            rows, nb, full_sampler, solo, capped, max_pages, tok_d, pos_d,
-            max_d, table_d, eos_d, budget_d, stop_d, slot_d, tuple(samp),
-        )
+        rows = key.rows
+        seeds, temp, top_k, top_p, freq, pres, rep = self._sampler_arrays(rows)
+        return {
+            "tokens": np.zeros(rows, np.int64),
+            "positions": np.full(rows, -1, np.int64),
+            "max_pos": np.full(rows, -1, np.int64),
+            "table": np.zeros((rows, key.pages), np.int32),
+            "stop": np.full((rows, STOP_WIDTH), -1, np.int64),
+            "eos_gate": np.zeros(rows, np.int64),
+            "budget_gate": np.full(rows, cfg.decode_window, np.int64),
+            "slot": np.full(rows, cfg.max_decode_slots, np.int64),
+            "seeds": seeds, "temp": temp, "top_k": top_k, "top_p": top_p,
+            "freq": freq, "pres": pres, "rep": rep,
+        }
 
-    def _launch_window(
-        self, rows, nb, full_sampler, solo, capped, max_pages, tok_d, pos_d,
-        max_d, table_d, eos_d, budget_d, stop_d, slot_d, samp,
-    ) -> _PendingRagged:
-        """``decode_window`` decode steps, each step's tokens fed back on
-        the device, and the outputs' host copies queued behind them: the
-        windowed shape, first or chained."""
+    def _window_out_spec(self, key: WindowKey) -> list[tuple[tuple, torch.dtype]]:
+        """Shapes and types of :meth:`_window_body`'s outputs."""
+        K, rows = self.cfg.decode_window, key.rows
+        spec = [((K, rows), torch.int64)]
+        if key.want_lp:
+            spec += [((K, rows), torch.float32), ((K, rows, TOP_LOGPROBS), torch.int32),
+                     ((K, rows, TOP_LOGPROBS), torch.float32)]
+        return spec + [((rows,), torch.int64), ((rows,), torch.int64)]
+
+    def _window_body(self, key: WindowKey, ins: dict) -> tuple:
+        """``decode_window`` decode steps over the window's device
+        inputs, each step's tokens fed back on the device: the windowed
+        shape's tensor code, run eagerly or captured as a CUDA graph.
+        Returns (sampled tokens [K, rows], logprobs (3) if the key
+        wants them, final tokens [rows], final positions [rows])."""
         mcfg, K = self.cfg.model, self.cfg.decode_window
-        want_lp = any(self._wants_logprobs(e.seq) is not None for e in rows)
-        seeds, temp, top_k, top_p, freq, pres, rep = samp
-        counts = self._counts[slot_d] if full_sampler else None
+        tok_d, pos_d, max_d = ins["tokens"], ins["positions"], ins["max_pos"]
+        stop_d, eos_d, budget_d, slot_d = ins["stop"], ins["eos_gate"], ins["budget_gate"], ins["slot"]
+        counts = self._counts[slot_d] if key.full_sampler else None
         sampled, lps = [], []
         for t in range(K):
             logits, _, _ = forward(
-                self.model, mcfg, tok_d[:, None], pos_d[:, None], table_d,
-                self.k_cache, self.v_cache, attn_pages=max_pages,
+                self.model, mcfg, tok_d[:, None], pos_d[:, None], ins["table"],
+                self.k_cache, self.v_cache, attn_pages=key.pages,
                 attn_impl=self.attn_impl, drop_page=self._drop_page,
             )
             logits = logits[:, 0]
             active = pos_d >= 0
-            if full_sampler:
-                shaped = apply_penalties(logits, counts, freq, pres, rep)
-                nxt = sample_tokens_seeded(shaped, seeds, pos_d, temp, top_k, top_p).long()
+            if key.full_sampler:
+                shaped = apply_penalties(logits, counts, ins["freq"], ins["pres"], ins["rep"])
+                nxt = sample_tokens_seeded(
+                    shaped, ins["seeds"], pos_d, ins["temp"], ins["top_k"], ins["top_p"]
+                ).long()
                 counts.scatter_add_(1, nxt[:, None], active.to(torch.int32)[:, None])
             else:
                 nxt = torch.argmax(logits, dim=-1)
-            if want_lp:
+            if key.want_lp:
                 lps.append(token_logprobs(logits, nxt))
             tok_d = torch.where(active, nxt, tok_d)
             # A row leaves the window (position -1, writes dropped) at a
@@ -1201,18 +1218,71 @@ class TorchEngine(AsyncEngine):
             done = (stop_token_hit(nxt, stop_d) & (t >= eos_d)) | (t >= budget_d)
             pos_d = torch.where(active & ~done & (pos_d < max_d), pos_d + 1, -1)
             sampled.append(nxt)
-        if full_sampler:
+        if key.full_sampler:
+            # Padding rows all gather and write back the scratch row,
+            # unchanged (they add nothing), so duplicates are harmless.
             self._counts[slot_d] = counts
-        ys = (torch.stack(sampled),)
-        if want_lp:
-            ys += tuple(torch.stack(y) for y in zip(*lps))
-        ys, ready = self._fetch(ys)
-        self.steps += K
+        outs = (torch.stack(sampled),)
+        if key.want_lp:
+            outs += tuple(torch.stack(y) for y in zip(*lps))
+        return outs + (tok_d, pos_d)
+
+    def _build_windowed(self, part: list, full_sampler: bool, solo: bool) -> _PendingRagged:
+        """Dispatch one pure-decode window over the rows (no host sync),
+        padded to its key's rows and page bound."""
+        cfg = self.cfg
+        ps, K = cfg.page_size, cfg.decode_window
+        want_lp = any(self._wants_logprobs(seq) is not None for seq, _, _ in part)
+        max_pages = max((min(wpos + K, cap + 1) + ps - 1) // ps for _, wpos, cap in part)
+        key = resolve_window_key(cfg, len(part), max_pages, full_sampler, want_lp)
+        host = self._window_host(key)
+        arrs = tuple(host[n] for n in ("seeds", "temp", "top_k", "top_p", "freq", "pres", "rep"))
+        rows: list[_RaggedRow] = []
+        capped = False
+        for r, (seq, wpos, cap) in enumerate(part):
+            capped = capped or cap < wpos + K
+            host["tokens"][r] = seq.last_token()
+            host["positions"][r] = wpos
+            host["max_pos"][r] = cap
+            n = min(len(seq.page_ids), key.pages)  # the window reads no further
+            host["table"][r, :n] = seq.page_ids[:n]
+            host["slot"][r] = seq.slot
+            stops = self._stop_set(seq)
+            host["stop"][r, : len(stops)] = stops
+            host["eos_gate"][r], host["budget_gate"][r] = self._stop_gates(seq, seq.generated)
+            self._row_sampler_args(seq, r, arrs)
+            rows.append(_RaggedRow(seq, "decode", r, n_valid=min(K, cap - wpos + 1)))
+        return self._launch_window(rows, key, len(part), solo, capped, host)
+
+    def _launch_window(
+        self, rows, key: WindowKey, nb, solo, capped, host: dict, carry=None
+    ) -> _PendingRagged:
+        """Run one window at ``key`` from the host arrays ``host`` (and,
+        chained, the previous window's device ``carry`` of tokens and
+        positions): through the key's CUDA graph when the engine has
+        graphs (captured at the key's first dispatch), else eagerly.
+        The outputs' host copies are queued right behind it."""
+        arrays = list(host.values())
+        if self.graphs is not None:
+            g = self.graphs.get(key)
+            self._upload_into(g.in_buf, arrays, g.offs)
+            if carry is not None:
+                g.inputs["tokens"].copy_(carry[0])
+                g.inputs["positions"].copy_(carry[1])
+            self.graphs.replay(g)
+            outs = g.outputs
+        else:
+            ins = dict(zip(host, self._upload(*arrays)))
+            if carry is not None:
+                ins["tokens"], ins["positions"] = carry
+            outs = self._window_body(key, ins)
+        ys, ready = self._fetch(outs[:-2])
+        self.steps += self.cfg.decode_window
         self.dispatches["windowed"] += 1
         return _PendingRagged(
-            ys=ys, ready=ready, rows=rows, windowed=True, full_sampler=full_sampler,
-            want_lp=want_lp, solo=solo, nb=nb, tokens_dev=tok_d, positions_dev=pos_d,
-            capacity_capped=capped, stop_dev=stop_d, slot_dev=slot_d, sampler_dev=samp,
+            ys=ys, ready=ready, rows=rows, windowed=True, full_sampler=key.full_sampler,
+            want_lp=key.want_lp, solo=solo, nb=nb, tokens_dev=outs[-2],
+            positions_dev=outs[-1], host_in=host, capacity_capped=capped,
         )
 
     # ---------------------------------------------------------------- chaining
@@ -1259,33 +1329,35 @@ class TorchEngine(AsyncEngine):
         None (chain break) when the pool cannot cover a row."""
         cfg = self.cfg
         ps, K = cfg.page_size, cfg.decode_window
-        nb = pending.nb
-        max_pos = np.full(nb, -1, np.int64)
-        table = np.zeros((nb, cfg.max_pages_per_seq), np.int32)
-        eos_gate = np.zeros(nb, np.int64)
-        budget_gate = np.full(nb, K, np.int64)
-        rows: list[_RaggedRow] = []
-        max_pages = 1
-        capped = False
+        plan = []
         for e in pending.rows:
-            seq, r = e.seq, e.row
+            seq = e.seq
             wpos = len(seq.tokens) - 1 + K  # host view + the in-flight window
             self.sched.ensure_pages_until(seq, wpos + K - 1)
             cap = min(cfg.max_model_len, len(seq.page_ids) * ps) - 1
             if cap < wpos:
                 return None  # pool dry: consume and rebuild instead
+            plan.append((e, wpos, cap))
+        max_pages = max((min(wpos + K, cap + 1) + ps - 1) // ps for _, wpos, cap in plan)
+        key = resolve_window_key(cfg, pending.nb, max_pages, pending.full_sampler,
+                                 pending.want_lp)
+        host = self._window_host(key)
+        for name in ("stop", "slot", "seeds", "temp", "top_k", "top_p", "freq", "pres", "rep"):
+            host[name][:] = pending.host_in[name]  # the same rows, the same rows bucket
+        rows: list[_RaggedRow] = []
+        capped = False
+        for e, wpos, cap in plan:
+            seq, r = e.seq, e.row
             capped = capped or cap < wpos + K
-            max_pos[r] = cap
-            table[r, : len(seq.page_ids)] = seq.page_ids
-            max_pages = max(max_pages, (min(wpos + K, cap + 1) + ps - 1) // ps)
-            eos_gate[r], budget_gate[r] = self._stop_gates(seq, seq.generated + K)
+            host["max_pos"][r] = cap
+            n = min(len(seq.page_ids), key.pages)
+            host["table"][r, :n] = seq.page_ids[:n]
+            host["eos_gate"][r], host["budget_gate"][r] = self._stop_gates(seq, seq.generated + K)
             rows.append(_RaggedRow(seq, "decode", r, n_valid=min(K, cap - wpos + 1)))
         self._flush_offloads()
-        max_d, table_d, eos_d, budget_d = self._upload(max_pos, table, eos_gate, budget_gate)
         nxt = self._launch_window(
-            rows, nb, pending.full_sampler, True, capped, max_pages,
-            pending.tokens_dev, pending.positions_dev, max_d, table_d, eos_d,
-            budget_d, pending.stop_dev, pending.slot_dev, pending.sampler_dev,
+            rows, key, pending.nb, True, capped, host,
+            carry=(pending.tokens_dev, pending.positions_dev),
         )
         self.dispatches["chained"] += 1
         return nxt

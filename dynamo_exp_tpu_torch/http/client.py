@@ -36,14 +36,15 @@ class HttpResponse:
         return json.loads(self.body)
 
 
-async def _open(url: str, method: str, payload: Any | None):
+async def _open(url: str, method: str, payload: Any | None, headers: dict | None = None):
     parts = urlsplit(url)
     reader, writer = await asyncio.open_connection(parts.hostname, parts.port or 80)
     body = b"" if payload is None else json.dumps(payload).encode()
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     head = (
         f"{method} {parts.path or '/'} HTTP/1.1\r\nHost: {parts.netloc}\r\n"
         f"Content-Type: application/json\r\nContent-Length: {len(body)}\r\n"
-        "Connection: close\r\n\r\n"
+        f"{extra}Connection: close\r\n\r\n"
     )
     writer.write(head.encode("latin-1") + body)
     await writer.drain()
@@ -78,9 +79,11 @@ async def _body_pieces(reader: asyncio.StreamReader, headers: dict) -> AsyncIter
         yield await reader.read()
 
 
-async def request(url: str, method: str = "GET", payload: Any | None = None) -> HttpResponse:
-    """One request; the whole body read."""
-    reader, writer, status, headers = await _open(url, method, payload)
+async def request(
+    url: str, method: str = "GET", payload: Any | None = None, headers: dict | None = None
+) -> HttpResponse:
+    """One request (with extra ``headers``, if given); the whole body read."""
+    reader, writer, status, headers = await _open(url, method, payload, headers)
     try:
         body = b"".join([p async for p in _body_pieces(reader, headers)])
     finally:
@@ -88,12 +91,15 @@ async def request(url: str, method: str = "GET", payload: Any | None = None) -> 
     return HttpResponse(status, headers, body)
 
 
-async def sse_frames(url: str, payload: Any) -> AsyncIterator[Annotated]:
-    """POST ``payload`` and yield its SSE frames as they arrive, the
-    ``[DONE]`` frame last (its ``data`` is ``DONE_SENTINEL``). Raises
-    ``HttpError`` on a non-200 answer. Closing the iterator early
-    closes the connection (a client disconnect)."""
-    reader, writer, status, headers = await _open(url, "POST", payload)
+async def sse_frames(
+    url: str, payload: Any, headers: dict | None = None
+) -> AsyncIterator[Annotated]:
+    """POST ``payload`` (with extra ``headers``, if given) and yield its
+    SSE frames as they arrive, the ``[DONE]`` frame last (its ``data``
+    is ``DONE_SENTINEL``). Raises ``HttpError`` on a non-200 answer.
+    Closing the iterator early closes the connection (a client
+    disconnect)."""
+    reader, writer, status, headers = await _open(url, "POST", payload, headers)
     try:
         if status != 200:
             body = b"".join([p async for p in _body_pieces(reader, headers)])

@@ -17,9 +17,15 @@ too long a prompt, 404 for an unknown model, 500 for an engine error
 before its response is complete kills the request's context, which
 frees its slot and pages in the engine.
 
+The priority class (body or nvext ``priority``, else the
+``X-Request-Priority`` header; 400 for an invalid spelling) is written
+into the forwarded payload, so the engine's preemption order sees it.
+
 Left out (ROADMAP Queue 1 item 9): ``/metrics`` (a), admission control,
-SLO attribution and ``timeout_s`` deadlines (b), request templates (c),
-the resumable ``seq_index`` dedupe and model discovery (e).
+SLO attribution and deadlines (b): a request with ``timeout_s`` or
+``X-Request-Timeout-S`` gets a 400 naming the item (a malformed value
+the JAX service's 400), request templates (c), the resumable
+``seq_index`` dedupe and model discovery (e).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Any
 
 from ..preprocessor.preprocessor import InvalidRequestError, PromptTooLongError
 from ..protocols.aggregator import aggregate_chat_stream, aggregate_completion_stream
+from ..protocols.common import parse_priority
 from ..protocols.openai import (
     ChatCompletionChunk,
     ChatCompletionRequest,
@@ -47,6 +54,7 @@ from ..runtime.engine import AsyncEngine, AsyncEngineContext
 
 logger = logging.getLogger(__name__)
 
+DEADLINES_ITEM = "ROADMAP Queue 1 item 9(b)"
 MAX_HEAD_BYTES = 64 << 10
 MAX_BODY_BYTES = 32 << 20
 _REASONS = {
@@ -320,9 +328,27 @@ class HttpService:
     ) -> bool:
         try:
             payload = json.loads(req.body)
+            # Popped before parsing, as the JAX service does.
+            timeout_s = _request_timeout_s(payload, req.headers)
             oreq = parse(payload)
+            # Canonicalised into the forwarded payload, so a header-only
+            # priority reaches the preprocessor and the engine's
+            # preemption victim choice.
+            priority = _request_priority(oreq, req.headers)
+            if isinstance(payload, dict):
+                payload["priority"] = priority
         except ValueError as e:  # JSONDecodeError, UnicodeDecodeError too
             await conn.send(_error_response(400, f"invalid request: {e}"), req.keep_alive)
+            return True
+        if timeout_s is not None:
+            # The JAX service arms a deadline here; until the port has
+            # deadlines the request is refused rather than served
+            # without one.
+            resp = _error_response(
+                400, f"request deadlines (timeout_s / X-Request-Timeout-S) are not ported "
+                f"to dynamo_exp_tpu_torch yet; see {DEADLINES_ITEM}",
+            )
+            await conn.send(resp, req.keep_alive)
             return True
         engine = lookup(oreq.model)
         if engine is None:
@@ -426,6 +452,35 @@ class _FanoutContext:
     def kill(self) -> None:
         for c in self._ctxs:
             c.kill()
+
+
+def _request_priority(oreq: Any, headers: dict[str, str]) -> int:
+    """Priority class: the body/nvext ``priority`` field wins over the
+    ``X-Request-Priority`` header; absent means ``normal``. An invalid
+    spelling raises ``ValueError`` (a 400)."""
+    raw = oreq.request_priority()
+    if raw is None:
+        raw = headers.get("x-request-priority")
+    return parse_priority(raw)
+
+
+def _request_timeout_s(payload: Any, headers: dict[str, str]) -> float | None:
+    """Per-request deadline budget: the body's ``timeout_s`` (popped)
+    wins over the ``X-Request-Timeout-S`` header; None when neither is
+    given. A non-number or a value <= 0 raises ``ValueError`` (a 400),
+    as in the JAX service."""
+    raw = payload.pop("timeout_s", None) if isinstance(payload, dict) else None
+    if raw is None:
+        raw = headers.get("x-request-timeout-s")
+    if raw is None:
+        return None
+    try:
+        timeout_s = float(raw)
+    except (TypeError, ValueError):
+        raise ValueError(f"timeout_s must be a number, got {raw!r}") from None
+    if timeout_s <= 0:
+        raise ValueError("timeout_s must be positive")
+    return timeout_s
 
 
 def _expand_completion_batch(payload: dict) -> list[dict]:

@@ -27,7 +27,10 @@ and the plain version zeroes the same slots.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -63,19 +66,65 @@ DECODE_SPLIT = 64
 
 # Launches: +1 where a wrapper launches its kernel, nowhere else (the
 # CPU path does not count). LAUNCHES counts calls of each entry point,
-# KERNEL_LAUNCHES which design served them.
+# KERNEL_LAUNCHES which design served them. A wrapper called while a
+# CUDA graph is being captured launches nothing: its launch goes to the
+# capture's record (record_launches), and every replay of the graph
+# adds the record to the counters (add_launches).
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_decode_attention": 0}
 KERNEL_LAUNCHES = {"mixed_tc_bf16": 0, "mixed_f32": 0, "decode_split": 0}
 
 _lib = None
+_lib_path = None
 _lib_lock = threading.Lock()
 _build_log = ""
+_builds = 0
+_recording = threading.local()
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, KERNEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the block (on this thread), the wrappers' launches are
+    counted into the yielded record, ``{"entries": {...}, "designs":
+    {...}}``, and not into the counters: a CUDA graph capture records
+    the kernels its replays will launch."""
+    rec = {"entries": dict.fromkeys(LAUNCHES, 0), "designs": dict.fromkeys(KERNEL_LAUNCHES, 0)}
+    prev = getattr(_recording, "rec", None)
+    _recording.rec = rec
+    try:
+        yield rec
+    finally:
+        _recording.rec = prev
+
+
+def add_launches(rec: dict) -> None:
+    """Add a record's launches to the counters: one replay of the graph
+    it was recorded for."""
+    for name, n in rec["entries"].items():
+        LAUNCHES[name] += n
+    for name, n in rec["designs"].items():
+        KERNEL_LAUNCHES[name] += n
+
+
+def _count(entry: str, design: str) -> None:
+    """One launch of ``entry`` through ``design``: into the current
+    record, or the counters. A capture with no record would replay
+    launches nobody counts, so it raises."""
+    rec = getattr(_recording, "rec", None)
+    if rec is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a kernel was captured outside record_launches(): its "
+                               "replays would go uncounted")
+        LAUNCHES[entry] += 1
+        KERNEL_LAUNCHES[design] += 1
+    else:
+        rec["entries"][entry] += 1
+        rec["designs"][design] += 1
 
 
 def _nvcc() -> str:
@@ -97,26 +146,54 @@ def build_log() -> str:
     return _build_log
 
 
+def source_hashes(sources: tuple[str, ...] | None = None) -> dict[str, str]:
+    """SHA-256 of each of ``sources`` (default ``KERNEL_SOURCES``) and
+    of every header, by file name, and of the nvcc flags: what a
+    library's bytes depend on."""
+    out = {}
+    for path in (sources or KERNEL_SOURCES) + _HEADERS:
+        with open(path, "rb") as f:
+            out[os.path.basename(path)] = hashlib.sha256(f.read()).hexdigest()
+    out["nvcc_flags"] = hashlib.sha256(" ".join(NVCC_FLAGS).encode()).hexdigest()
+    return out
+
+
+def _stamp_path(lib_path: str) -> str:
+    return lib_path + ".sources.json"
+
+
+def _read_stamp(lib_path: str) -> dict | None:
+    try:
+        with open(_stamp_path(lib_path), encoding="utf-8") as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
 def build_kernel(
     force: bool = False, sources: tuple[str, ...] | None = None, lib_path: str | None = None
 ) -> str:
     """Compile ``sources`` (default ``KERNEL_SOURCES``) into one library
-    at ``lib_path`` (default ``_build/libragged_attention.so``) unless a
-    library newer than every source and header is there. Sources find
-    ``csrc/`` headers wherever they lie. One ``nvcc`` per source, all
-    started together, then one link. Builds into a temporary directory
-    and renames the library into place, so concurrent builds never load
-    a half-written one. Returns the library path; raises on a compile
-    error with nvcc's output."""
-    global _build_log
+    at ``lib_path`` (default ``_build/libragged_attention.so``) unless
+    the library is there and the stamp beside it
+    (``<lib_path>.sources.json``, :func:`source_hashes` at its build)
+    equals the sources' hashes now. The rule holds for any directory,
+    also one that outlives a checkout (``--compile-cache-dir``). Sources
+    find ``csrc/`` headers wherever they lie. One ``nvcc`` per source,
+    all started together, then one link. Builds into a temporary
+    directory and renames the library, then its stamp, into place, so
+    concurrent builds never load a half-written one. Returns the
+    library path; raises on a compile error with nvcc's output."""
+    global _build_log, _builds
     sources = sources or KERNEL_SOURCES
     lib_path = lib_path or _LIB_PATH
-    newest = max(os.path.getmtime(f) for f in sources + _HEADERS)
-    if not force and os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
+    hashes = source_hashes(sources)
+    if not force and os.path.exists(lib_path) and _read_stamp(lib_path) == hashes:
         return lib_path
     out_dir = os.path.dirname(lib_path)
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
+    _builds += 1
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in sources]
         procs = [
@@ -143,6 +220,10 @@ def build_kernel(
                 f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
         os.replace(lib, lib_path)
+        stamp = os.path.join(tmp, "stamp.json")
+        with open(stamp, "w", encoding="utf-8") as f:
+            json.dump(hashes, f, sort_keys=True)
+        os.replace(stamp, _stamp_path(lib_path))
     return lib_path
 
 
@@ -166,12 +247,21 @@ def open_library(path: str, names: tuple[str, ...] = tuple(_SIGNATURES)) -> ctyp
     return lib
 
 
-def load_kernel():
-    """The kernel library, built at first use."""
-    global _lib
+def build_count() -> int:
+    """How many times :func:`build_kernel` has run nvcc in this process."""
+    return _builds
+
+
+def load_kernel(lib_path: str | None = None):
+    """The kernel library, built at first use. With ``lib_path`` (the
+    warm boot's ``--compile-cache-dir``), the library there is built if
+    stale and launched from from now on; a library loaded before stays
+    mapped, so graphs captured with it stay valid."""
+    global _lib, _lib_path
     with _lib_lock:
-        if _lib is None:
-            _lib = open_library(build_kernel())
+        if _lib is None or (lib_path is not None and lib_path != _lib_path):
+            _lib_path = lib_path or _LIB_PATH
+            _lib = open_library(build_kernel(lib_path=_lib_path))
         return _lib
 
 
@@ -312,8 +402,7 @@ def ragged_paged_attention(
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "ragged mixed attention")
-    LAUNCHES["ragged_paged_attention"] += 1
-    KERNEL_LAUNCHES["mixed_tc_bf16" if tc else "mixed_f32"] += 1
+    _count("ragged_paged_attention", "mixed_tc_bf16" if tc else "mixed_f32")
     return out
 
 
@@ -361,6 +450,5 @@ def ragged_decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "ragged decode attention")
-    LAUNCHES["ragged_decode_attention"] += 1
-    KERNEL_LAUNCHES["decode_split"] += 1
+    _count("ragged_decode_attention", "decode_split")
     return out

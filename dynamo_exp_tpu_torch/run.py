@@ -14,8 +14,14 @@ OUTPUT: cuda | echo_core | echo_full
   port's way of asking for the CPU).
 - ``in=batch:<file>``: every JSONL line's ``text`` (or ``prompt``) as a
   concurrent streaming chat request; prints one JSON stats line.
+- ``--model-path <dir>`` serves the directory's safetensors weights
+  (``models/loader.py``); ``--random-weights`` serves seeded random
+  ones instead.
 - ``--spec ngram`` (``--spec-draft-len``, ``--spec-max-draft``,
   ``--spec-ngram``): speculative decoding, as in the JAX CLI.
+- ``--prewarm`` and ``--compile-cache-dir`` (``aot/``): warm boot, as in
+  the JAX CLI (CUDA graphs of every decode-window variant, and the
+  kernel library kept in the cache directory).
 
 The JAX CLI's other inputs, outputs and flags are refused with the
 ROADMAP item that brings them, never silently ignored.
@@ -55,8 +61,6 @@ NOT_PORTED_FLAGS = {
     "--dist-leader": "ROADMAP Queue 1 item 7",
     "--dist-port": "ROADMAP Queue 1 item 7",
     "--deployment": "ROADMAP Queue 1 item 7",
-    "--prewarm": "ROADMAP Queue 1 item 6",
-    "--compile-cache-dir": "ROADMAP Queue 1 item 6",
     "--request-template": f"{_ITEM9}(c)",
     "--max-inflight": f"{_ITEM9}(b)",
     "--shed-watermark": f"{_ITEM9}(b)",
@@ -117,6 +121,12 @@ def parse_args(argv: list[str]):
                    help="completion cap of in=batch requests that set none (an HTTP "
                    "request without max_tokens gets the rest of the context, as in "
                    "the JAX CLI)")
+    p.add_argument("--prewarm", action="store_true",
+                   help="warm boot: run (on the card: capture as CUDA graphs) every "
+                   "decode-window variant before serving")
+    p.add_argument("--compile-cache-dir", default="",
+                   help="directory the kernel library is built into and kept in, with "
+                   "manifest.json (a second boot against it runs no nvcc)")
     p.add_argument("--device", default="cuda",
                    help="device of out=cuda's engine (cpu for CPU runs)")
     opts = p.parse_args(rest)
@@ -134,28 +144,30 @@ def parse_args(argv: list[str]):
 
 # ------------------------------------------------------------------- engines
 def build_cuda_engine(opts):
-    """``TorchEngine`` (seeded random weights) and the card of
-    ``--model-path`` (None with ``--preset``)."""
+    """``TorchEngine`` and the card of ``--model-path`` (None with
+    ``--preset``): the directory's safetensors weights, or seeded random
+    weights with ``--random-weights`` or ``--preset``."""
     from .engine import EngineConfig, TorchEngine
     from .model_card import ModelDeploymentCard
     from .models import PRESETS, ModelConfig
 
-    mdc = None
+    mdc = model = None
     if opts.model_path:
         mcfg = ModelConfig.from_pretrained(opts.model_path)
         mdc = ModelDeploymentCard.from_local_path(opts.model_path, opts.model_name or None)
         has_weights = any(f.endswith(".safetensors") for f in os.listdir(opts.model_path))
         if not opts.random_weights:
             # Never serve random weights under a real model's name.
-            if has_weights:
-                raise _refuse(
-                    f"loading the .safetensors weights in {opts.model_path}",
-                    f"{_ITEM9}(g); pass --random-weights to serve seeded random weights",
+            if not has_weights:
+                raise SystemExit(
+                    f"no .safetensors weights in {opts.model_path}; pass "
+                    "--random-weights to serve a random-initialized model"
                 )
-            raise SystemExit(
-                f"no .safetensors weights in {opts.model_path}; pass "
-                "--random-weights to serve a random-initialized model"
-            )
+            from .models.loader import load_params
+
+            t0 = time.monotonic()
+            model, mcfg = load_params(opts.model_path, mcfg, device=opts.device)
+            logger.info("loaded %s in %.2fs", opts.model_path, time.monotonic() - t0)
     elif opts.preset:
         mcfg = PRESETS[opts.preset]
     else:
@@ -179,7 +191,23 @@ def build_cuda_engine(opts):
         spec_max_draft=opts.spec_max_draft,
         spec_ngram=opts.spec_ngram,
     )
-    return TorchEngine(ecfg, device=opts.device), mdc
+    engine = TorchEngine(ecfg, model=model, device=opts.device)
+    if opts.prewarm:
+        # Warm boot: every window variant runs (and, on the card, is
+        # captured as a CUDA graph) now, not under first traffic.
+        from .aot import prewarm_engine
+
+        report = prewarm_engine(engine, cache_dir=opts.compile_cache_dir)
+        logger.info(
+            "prewarmed %d variants (%d graphs, %d kernel builds) in %.2fs (manifest %s)",
+            report.variants, report.graphs, report.builds, report.seconds,
+            report.manifest_hash[:12],
+        )
+    elif opts.compile_cache_dir:
+        from .aot import ensure_kernel_library
+
+        ensure_kernel_library(engine, opts.compile_cache_dir)
+    return engine, mdc
 
 
 @dataclass

@@ -1,0 +1,371 @@
+"""Warm boot in the port (``dynamo_exp_tpu_torch/aot``), on the CPU.
+
+- The window lattice: every key a CPU engine dispatches over a
+  chained / unchained burst with greedy, seeded, penalized and
+  logprob rows (``tests/test_torch_chained.py``'s shape) is in
+  ``build_manifest(cfg)``; the manifest's hash is the same in two
+  processes; its rows buckets are the JAX package's
+  ``windowed_token_buckets`` on the same config.
+- ``prewarm`` leaves the KV pools and penalty counts bit-identical to a
+  cold engine's, and a following burst's tokens too; it refuses a
+  running engine; with ``--compile-cache-dir`` it writes
+  ``manifest.json`` (no kernel build on the CPU).
+- Graph bookkeeping: the CUDA graph runner is replaced by a CPU stub
+  that runs the captured window on the graph's own input and output
+  buffers (a capture records the kernel wrappers' launches; a replay
+  runs the body again, uncounted). Tokens equal the eager engine's, and
+  the launch counters equal the eager run's, which equal the mixed
+  dispatches' launches plus, for each graph, its replays times its
+  recorded launches.
+- ``run.py --prewarm --compile-cache-dir`` parse as the JAX CLI's and
+  prewarm the engine; ``cuda_graphs=True`` on the CPU raises.
+"""
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+from dataclasses import replace
+
+import jax
+import numpy as np
+import pytest
+
+from dynamo_exp_tpu import run as jrun
+from dynamo_exp_tpu.aot import lattice as jlattice
+from dynamo_exp_tpu.engine import EngineConfig as JEngineConfig
+from dynamo_exp_tpu.models import TINY
+from dynamo_exp_tpu.models import llama as jllama
+from dynamo_exp_tpu_torch import run
+from dynamo_exp_tpu_torch.aot import build_manifest, lattice, prewarm_engine, read_manifest
+from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
+from dynamo_exp_tpu_torch.engine.graphs import WindowGraphs
+from dynamo_exp_tpu_torch.models import llama as tllama
+from dynamo_exp_tpu_torch.models import params_from_jax
+from dynamo_exp_tpu_torch.ops import ragged_attention as tra
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = replace(TINY, dtype="float32")
+ENGINE_KW = dict(
+    max_decode_slots=4, page_size=8, num_pages=64, max_model_len=128,
+    prefill_chunk=16, decode_window=4, kv_dtype="float32", eos_token_ids=[],
+)
+P1 = [5, 9, 17, 23, 4, 31, 8, 2]
+P2 = [7, 3, 19, 28, 41, 13, 6, 11, 44, 2, 9]
+P3 = [12, 60, 3, 3, 90]
+SAMPLING = [
+    {},
+    {"temperature": 0.8, "seed": 21, "top_k": 30},
+    {"temperature": 0.7, "seed": 5, "frequency_penalty": 0.5, "presence_penalty": 0.3,
+     "repetition_penalty": 1.2, "logprobs": 2},
+]
+
+
+def _run(coro):
+    return asyncio.run(asyncio.wait_for(coro, timeout=300))
+
+
+@pytest.fixture(scope="module")
+def np_params():
+    return jax.tree.map(np.asarray, jllama.init_params(jax.random.PRNGKey(0), CFG))
+
+
+def _engine(np_params, **kw):
+    cfg = EngineConfig(model=CFG, **{**ENGINE_KW, **kw})
+    return TorchEngine(cfg, model=params_from_jax(np_params, CFG, device="cpu"), device="cpu")
+
+
+async def _collect(eng, prompt, n, **sampling):
+    stream = eng.submit({
+        "token_ids": list(prompt),
+        "stop_conditions": {"max_tokens": n, "ignore_eos": True},
+        "sampling_options": sampling,
+    })
+    out = []
+    async for item in stream:
+        out.extend(item.get("token_ids", []))
+    return out
+
+
+async def _burst(eng, n=24):
+    """P1..P3 queued before the loop starts (admitted together): a
+    greedy, a seeded and a penalized row asking for logprobs; then a
+    longer greedy prompt alone, asking for logprobs (one row, a page
+    bound past the floor)."""
+    jobs = [asyncio.ensure_future(_collect(eng, p, n, **so))
+            for p, so in zip((P1, P2, P3), SAMPLING)]
+    await asyncio.sleep(0)
+    eng.start()
+    out = await asyncio.gather(*jobs)
+    out.append(await _collect(eng, P1 + [3] * 32, 40, logprobs=1))
+    return out
+
+
+def _keys_spy(eng) -> list:
+    keys = []
+    launch = eng._launch_window
+
+    def spy(rows, key, *a, **kw):
+        keys.append(key)
+        return launch(rows, key, *a, **kw)
+
+    eng._launch_window = spy
+    return keys
+
+
+@pytest.mark.parametrize("chained", [True, False], ids=["chained", "unchained"])
+def test_every_dispatched_window_key_is_in_the_manifest(np_params, chained):
+    eng = _engine(np_params, chained_decode=chained)
+    keys = _keys_spy(eng)
+    try:
+        out = _run(_burst(eng))
+    finally:
+        eng.stop()
+    assert all(len(t) == n for t, n in zip(out, (24, 24, 24, 40)))
+    manifest = build_manifest(eng.cfg, eng.attn_impl)
+    assert keys and set(keys) <= set(manifest.windows)
+    assert len(set(keys)) >= 3  # several rows / pages / sampler / logprob variants
+    assert len({k.pages for k in keys}) > 1
+    assert any(k.rows < eng.cfg.max_decode_slots for k in keys)  # padded, not exact
+
+
+@pytest.mark.parametrize("slots", [1, 3, 4, 6, 8])
+def test_rows_buckets_equal_the_jax_lattice(slots):
+    tcfg = EngineConfig(model=CFG, **{**ENGINE_KW, "max_decode_slots": slots})
+    jcfg = JEngineConfig(model=CFG, **{**ENGINE_KW, "max_decode_slots": slots})
+    assert lattice.windowed_row_buckets(tcfg) == jlattice.windowed_token_buckets(jcfg)
+    assert lattice.page_bound_buckets(tcfg)[-1] == tcfg.max_pages_per_seq
+    manifest = build_manifest(tcfg, "reference")
+    rows = len(lattice.windowed_row_buckets(tcfg))
+    pages = len(lattice.page_bound_buckets(tcfg))
+    assert len(manifest) == rows * pages * 2 * 2
+
+
+def test_resolve_window_key_pads_rows_and_pages():
+    cfg = EngineConfig(model=CFG, **{**ENGINE_KW, "max_decode_slots": 6,
+                                     "max_model_len": 2048, "page_size": 16})
+    k = lattice.resolve_window_key(cfg, 3, 5, True, False)
+    assert (k.rows, k.pages, k.full_sampler, k.want_lp) == (4, 8, True, False)
+    assert lattice.resolve_window_key(cfg, 5, 1, False, True).rows == 6  # capped at the slots
+    assert lattice.resolve_window_key(cfg, 1, 1, False, False).pages == 4  # 64-token floor
+    assert lattice.resolve_window_key(cfg, 1, 128, False, False).pages == 128
+
+
+_HASH = """
+from dynamo_exp_tpu_torch.aot import build_manifest
+from dynamo_exp_tpu_torch.engine import EngineConfig
+from dynamo_exp_tpu_torch.models import LLAMA_8B
+cfg = EngineConfig(model=LLAMA_8B, max_decode_slots=8, max_model_len=2096, num_pages=1048)
+print(build_manifest(cfg, "kernel").hash())
+"""
+
+
+def test_manifest_hash_is_stable_across_processes():
+    from dynamo_exp_tpu_torch.models import LLAMA_8B
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    hashes = {
+        subprocess.run([sys.executable, "-c", _HASH], capture_output=True, text=True,
+                       env=env, cwd=REPO, timeout=120, check=True).stdout.strip()
+        for _ in range(2)
+    }
+    cfg = EngineConfig(model=LLAMA_8B, max_decode_slots=8, max_model_len=2096, num_pages=1048)
+    assert hashes == {build_manifest(cfg, "kernel").hash()}
+    other = build_manifest(replace(cfg, decode_window=4), "kernel")
+    assert other.hash() not in hashes
+
+
+def test_prewarm_leaves_the_engine_as_a_cold_one(np_params, tmp_path):
+    cold, warm = _engine(np_params), _engine(np_params)
+    report = prewarm_engine(warm, cache_dir=str(tmp_path / "cache"))
+    manifest = build_manifest(warm.cfg, warm.attn_impl)
+    assert report.variants == len(manifest) and report.graphs == 0 and report.builds == 0
+    assert report.mixed_buckets == len(manifest.mixed_buckets) > 0
+    assert warm.metrics()["prewarm"]["variants"] == report.variants
+    record = read_manifest(str(tmp_path / "cache"))
+    assert record["manifest_hash"] == manifest.hash() == report.manifest_hash
+    assert set(record["kernels"]) >= {"ragged_mixed_tc.cu", "ragged_decode_split.cu", "nvcc_flags"}
+    for name in ("k_cache", "v_cache", "_counts"):
+        assert getattr(warm, name).equal(getattr(cold, name)), name
+    try:
+        want, got = _run(_burst(cold)), _run(_burst(warm))
+    finally:
+        cold.stop()
+        warm.stop()
+    assert got == want
+    warm.start()
+    try:
+        with pytest.raises(RuntimeError, match="before start"):
+            prewarm_engine(warm)
+    finally:
+        warm.stop()
+
+
+# ------------------------------------------------- graph bookkeeping
+class _StubRunner:
+    """A CUDA graph runner for the CPU: a capture runs the window once
+    (all padding: nothing lands) and records its launches; a replay
+    runs it again on the graph's own buffers, its launches not counted
+    (the engine adds the capture's record, as for a real graph)."""
+
+    def __init__(self):
+        self.replays: dict[int, int] = {}
+
+    def capture(self, fn):
+        fn()
+        return fn
+
+    def replay(self, fn):
+        with tra.record_launches():
+            fn()
+        self.replays[id(fn)] = self.replays.get(id(fn), 0) + 1
+
+    @staticmethod
+    def pool_bytes():
+        return 0
+
+
+def test_prewarm_after_traffic_replays_only_padding(np_params):
+    """An engine that served traffic and stopped may be prewarmed. A
+    key its traffic captured still holds the last real window in its
+    inputs; prewarm uploads padding before the replay, so the KV pools
+    and penalty counts stay as the traffic left them (the scratch page
+    past the pool, which prewarm zeroes, aside) and every window it
+    runs is all padding."""
+    eng = _engine(np_params)
+    eng.graphs = WindowGraphs(eng, runner=_StubRunner())
+    try:
+        _run(_burst(eng))
+    finally:
+        eng.stop()
+    traffic_keys = set(eng.graphs.graphs)
+    assert any(k.full_sampler for k in traffic_keys)
+    pool = slice(0, eng._drop_page)
+    state = lambda: (eng.k_cache[:, pool], eng.v_cache[:, pool], eng._counts)  # noqa: E731
+    before = [t.clone() for t in state()]
+    seen, body = [], eng._window_body
+
+    def spy(key, ins):
+        seen.append((key, bool((ins["positions"] < 0).all()), bool(
+            (ins["slot"] == eng.cfg.max_decode_slots).all())))
+        return body(key, ins)
+
+    eng._window_body = spy
+    report = prewarm_engine(eng)
+    assert report.variants == len(build_manifest(eng.cfg, eng.attn_impl))
+    assert report.graphs == report.variants - len(traffic_keys)
+    assert {k for k, _, _ in seen} >= traffic_keys
+    assert all(padding and scratch for _, padding, scratch in seen)
+    for name, now, then in zip(("k_cache", "v_cache", "_counts"), state(), before):
+        assert now.equal(then), name
+
+
+@pytest.fixture
+def counted_wrappers(monkeypatch):
+    """The kernel wrappers' CPU path (the plain version) counted as the
+    card's launches are, so a CPU run has launch counts."""
+    mixed, decode = tllama.ragged_paged_attention, tllama.ragged_decode_attention
+
+    def mixed_c(q, *a, **kw):
+        out = mixed(q, *a, **kw)
+        tra._count("ragged_paged_attention", "mixed_f32")
+        return out
+
+    def decode_c(q, *a, **kw):
+        out = decode(q, *a, **kw)
+        tra._count("ragged_decode_attention", "decode_split")
+        return out
+
+    monkeypatch.setattr(tllama, "ragged_paged_attention", mixed_c)
+    monkeypatch.setattr(tllama, "ragged_decode_attention", decode_c)
+
+
+@pytest.mark.parametrize("chained", [True, False], ids=["chained", "unchained"])
+def test_graph_replays_count_the_eager_launches(np_params, counted_wrappers, chained):
+    def go(graphs: bool):
+        eng = _engine(np_params, attention_impl="kernel", chained_decode=chained)
+        runner = None
+        if graphs:
+            runner = _StubRunner()
+            eng.graphs = WindowGraphs(eng, runner=runner)
+        tra.reset_launches()
+        try:
+            out = _run(_burst(eng))
+        finally:
+            eng.stop()
+        return out, dict(tra.LAUNCHES), dict(tra.KERNEL_LAUNCHES), eng, runner
+
+    want, launches, designs, eager, _ = go(False)
+    got, g_launches, g_designs, eng, runner = go(True)
+    assert got == want
+    assert g_launches == launches and g_designs == designs
+    assert launches["ragged_decode_attention"] > 0 and launches["ragged_paged_attention"] > 0
+    m = eng.metrics()
+    assert m["graphs_captured"] == len(eng.graphs.graphs) > 1
+    assert m["graph_capture_seconds"] > 0 and eager.metrics()["graph_capture_seconds"] == 0
+    assert m["graph_replays"] == sum(runner.replays.values()) == m["dispatches"]["windowed"]
+    replayed = {
+        name: sum(runner.replays.get(id(g.graph), 0) * g.launches["entries"][name]
+                  for g in eng.graphs.graphs.values())
+        for name in tra.LAUNCHES
+    }
+    # Windows launch only the decode kernel, mixed dispatches (eager)
+    # only the mixed one.
+    assert replayed["ragged_paged_attention"] == 0
+    assert replayed["ragged_decode_attention"] == launches["ragged_decode_attention"]
+    assert all(
+        g.launches["entries"]["ragged_decode_attention"]
+        == eng.cfg.decode_window * eng.cfg.model.num_layers
+        for g in eng.graphs.graphs.values()
+    )
+    assert eager.metrics()["dispatches"] == m["dispatches"]
+
+
+def test_record_launches_keeps_launches_apart_until_added():
+    tra.reset_launches()
+    with tra.record_launches() as rec:
+        tra._count("ragged_decode_attention", "decode_split")
+        with tra.record_launches() as inner:
+            tra._count("ragged_paged_attention", "mixed_tc_bf16")
+        tra._count("ragged_decode_attention", "decode_split")
+    assert sum(tra.LAUNCHES.values()) == sum(tra.KERNEL_LAUNCHES.values()) == 0
+    assert rec["entries"] == {"ragged_paged_attention": 0, "ragged_decode_attention": 2}
+    assert inner["designs"]["mixed_tc_bf16"] == 1
+    for _ in range(3):  # three replays
+        tra.add_launches(rec)
+    tra._count("ragged_paged_attention", "mixed_f32")
+    assert tra.LAUNCHES == {"ragged_paged_attention": 1, "ragged_decode_attention": 6}
+    assert tra.KERNEL_LAUNCHES == {"mixed_tc_bf16": 0, "mixed_f32": 1, "decode_split": 6}
+    tra.reset_launches()
+
+
+def test_cuda_graphs_true_on_the_cpu_raises(np_params):
+    with pytest.raises(ValueError, match="cuda_graphs=True needs a CUDA device"):
+        _engine(np_params, cuda_graphs=True)
+    assert _engine(np_params).graphs is None
+    assert _engine(np_params, cuda_graphs=False).graphs is None
+
+
+# ------------------------------------------------------------- run.py
+SMALL = ["--max-decode-slots", "2", "--page-size", "8", "--max-model-len", "128",
+         "--kv-dtype", "float32", "--max-tokens", "6"]
+
+
+def test_prewarm_flags_parse_as_the_jax_cli_and_prewarm(tiny_model_dir, tmp_path):
+    cache = str(tmp_path / "cc")
+    argv = ["in=http", "out=cuda", "--model-path", tiny_model_dir, "--random-weights",
+            *SMALL, "--prewarm", "--compile-cache-dir", cache]
+    opts, jopts = run.parse_args(argv + ["--device", "cpu"]), jrun.parse_args(argv)
+    assert (opts.prewarm, opts.compile_cache_dir) == (jopts.prewarm, jopts.compile_cache_dir)
+    engine, _ = run.build_cuda_engine(opts)
+    try:
+        report = engine.metrics()["prewarm"]
+        assert report["variants"] == len(build_manifest(engine.cfg, engine.attn_impl))
+        assert report["builds"] == 0 and report["graphs"] == 0
+        with open(os.path.join(cache, "manifest.json")) as f:
+            assert json.load(f)["manifest_hash"] == report["manifest_hash"]
+    finally:
+        engine.stop()
+    cold, _ = run.build_cuda_engine(run.parse_args(argv[:-3] + ["--device", "cpu"]))
+    assert cold.metrics()["prewarm"] is None

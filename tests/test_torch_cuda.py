@@ -428,3 +428,90 @@ def test_engine_under_kv_pressure_on_the_card(cuda, host_pages):
         eng.stop()
     audit = eng.kv_audit()
     assert audit["ok"] and audit["counts"]["active"] == 0, audit
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_windows_equal_eager_windows(cuda, dtype):
+    """The same burst (greedy, seeded and penalized rows with logprobs,
+    chained) through CUDA graphs of the decode window and eagerly: the
+    same tokens bit for bit and the same launch counts, and a prewarmed
+    engine's traffic captures nothing."""
+    from dynamo_exp_tpu_torch.aot import prewarm_engine
+
+    cfg_m = replace(TINY, dtype=dtype, head_dim=64, num_heads=4, num_kv_heads=2,
+                    hidden_size=256)
+    sampling = [{}, {"temperature": 0.8, "seed": 21, "top_k": 30},
+                {"temperature": 0.7, "seed": 5, "frequency_penalty": 0.5, "logprobs": 2}]
+    rs = np.random.RandomState(0)
+    prompts = [list(map(int, rs.randint(3, 250, size=n))) for n in (5, 70, 17)]
+
+    def run(graphs, prewarm=False):
+        cfg = EngineConfig(
+            model=cfg_m, max_decode_slots=4, page_size=16, num_pages=64,
+            max_model_len=256, prefill_chunk=32, decode_window=4, kv_dtype=dtype,
+            cuda_graphs=graphs,
+        )
+        eng = TorchEngine(cfg, device=cuda, seed=3)
+        if prewarm:
+            prewarm_engine(eng)
+        captured = eng.metrics()["graphs_captured"]
+        tra.reset_launches()
+
+        async def go():
+            streams = [eng.submit({"token_ids": p, "sampling_options": so,
+                                   "stop_conditions": {"max_tokens": 30, "ignore_eos": True}})
+                       for p, so in zip(prompts, sampling)]
+            eng.start()
+
+            async def collect(s):
+                return [t async for item in s for t in item.get("token_ids", [])]
+
+            return await asyncio.gather(*(collect(s) for s in streams))
+
+        try:
+            out = asyncio.run(asyncio.wait_for(go(), timeout=300))
+        finally:
+            eng.stop()
+        m = eng.metrics()
+        return out, dict(tra.KERNEL_LAUNCHES), m, m["graphs_captured"] - captured
+
+    eager, eager_launches, em, _ = run(False)
+    graphed, launches, gm, _ = run(True)
+    assert graphed == eager and all(len(t) == 30 for t in eager)
+    assert launches == eager_launches and launches["decode_split"] > 0
+    assert em["graph_replays"] == 0 and gm["graph_replays"] == gm["dispatches"]["windowed"] > 0
+    warm, warm_launches, wm, new = run(True, prewarm=True)
+    assert warm == eager and warm_launches == eager_launches
+    assert new == 0 and wm["prewarm"]["graphs"] == wm["prewarm"]["variants"] > 0
+    assert wm["prewarm"]["pool_bytes"] > 0
+
+
+def test_loader_round_trip_on_the_card(cuda, tmp_path):
+    """Weights written with ``save_safetensors`` (two shards, bf16) come
+    back bit-equal on the card through ``load_params``."""
+    import json
+
+    from dynamo_exp_tpu_torch.models import init_params
+    from dynamo_exp_tpu_torch.models.loader import hf_tensor_names, load_params, save_safetensors
+
+    cfg_m = replace(TINY, dtype="bfloat16", model_type="qwen3", qk_norm=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    want = init_params(cfg_m, gen, cuda)
+    names = hf_tensor_names(cfg_m)
+    tensors = {n: getattr(want if li is None else want.layers[li], a) for n, (li, a) in names.items()}
+    keys = sorted(tensors)
+    save_safetensors(str(tmp_path / "a.safetensors"), {k: tensors[k] for k in keys[::2]})
+    save_safetensors(str(tmp_path / "b.safetensors"), {k: tensors[k] for k in keys[1::2]})
+    conf = {"model_type": "qwen3", "vocab_size": cfg_m.vocab_size,
+            "hidden_size": cfg_m.hidden_size, "num_hidden_layers": cfg_m.num_layers,
+            "num_attention_heads": cfg_m.num_heads, "num_key_value_heads": cfg_m.num_kv_heads,
+            "intermediate_size": cfg_m.intermediate_size, "head_dim": cfg_m.head_dim_,
+            "max_position_embeddings": cfg_m.max_position_embeddings,
+            "rms_norm_eps": cfg_m.rms_norm_eps, "rope_theta": cfg_m.rope_theta,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+    (tmp_path / "config.json").write_text(json.dumps(conf))
+    got, _ = load_params(str(tmp_path), device=cuda)
+    mine = dict(got.named_parameters())
+    for name, p in want.named_parameters():
+        assert mine[name].device.type == "cuda" and torch.equal(mine[name], p), name

@@ -6,8 +6,8 @@ interpreter, which must then hold neither ``jax`` nor any
 ``dynamo_exp_tpu`` module in ``sys.modules``, nor any of the packages
 the JAX package's ingress rests on and the H100 machine does not have
 (``aiohttp``, ``pydantic``, ``tokenizers``, ``transformers``,
-``prometheus_client``). The parity tests are the only other place where
-the two packages meet.
+``prometheus_client``, ``safetensors``). The parity tests are the only
+other place where the two packages meet.
 """
 
 import json
@@ -22,7 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 FORBIDDEN = (
     "jax", "jaxlib", "dynamo_exp_tpu", "aiohttp", "pydantic", "pydantic_core",
-    "tokenizers", "transformers", "prometheus_client",
+    "tokenizers", "transformers", "prometheus_client", "safetensors",
 )
 
 _PROBE = """
@@ -62,7 +62,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "protocols.sse", "runtime.annotated", "runtime.pipeline", "tokenizer",
         "model_card", "preprocessor.prompt", "preprocessor.preprocessor",
         "backend", "engines.echo", "http.service", "http.client", "run",
-        "spec", "spec.drafter", "spec.controller",
+        "spec", "spec.drafter", "spec.controller", "models.loader", "engine.graphs",
+        "aot", "aot.lattice", "aot.warmup", "aot.compile",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

@@ -18,6 +18,7 @@ tolerance). The CUDA kernel itself is held against the plain version
 on the card by ``tests/test_torch_cuda.py``.
 """
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -159,33 +160,46 @@ def test_ragged_supported_gate():
 
 
 def test_kernel_library_is_rebuilt_when_any_source_is_newer(tmp_path, monkeypatch):
-    """The library holds every ``csrc/*.cu``; a library newer than every
-    source and header is reused without ``nvcc``, and one older than any
-    of them (a header included) is rebuilt, which here, without nvcc,
-    raises instead of loading a stale library."""
+    """The library holds every ``csrc/*.cu``; a library whose stamp
+    (the SHA-256 of every source, header and nvcc flag at its build)
+    equals the sources' hashes is reused without ``nvcc``, whatever the
+    files' mtimes, and one built from other bytes (a header included)
+    or with no stamp is rebuilt, which here, without nvcc, raises
+    instead of loading a stale library."""
     names = {os.path.basename(f) for f in tra.KERNEL_SOURCES}
     assert {"ragged_attention.cu", "ragged_mixed_tc.cu", "ragged_decode_split.cu"} <= names
     lib = tmp_path / "lib.so"
     lib.write_bytes(b"")
     monkeypatch.setattr(tra, "_LIB_PATH", str(lib))
     monkeypatch.setattr(tra, "_BUILD_DIR", str(tmp_path))
-    newest = max(os.path.getmtime(f) for f in tra.KERNEL_SOURCES + tra._HEADERS)
-    os.utime(lib, (newest + 10, newest + 10))
-    assert tra.build_kernel() == str(lib)
-    # Another set of sources into another library, by the same rule.
-    other = tmp_path / "other.so"
-    other.write_bytes(b"")
-    os.utime(other, (newest + 10, newest + 10))
-    assert tra.build_kernel(sources=tra.KERNEL_SOURCES[:1], lib_path=str(other)) == str(other)
-    # A header newer than the library: rebuilt, though no .cu changed.
-    header = tmp_path / "touched.cuh"
-    header.write_text("")
-    os.utime(header, (newest + 20, newest + 20))
-    monkeypatch.setattr(tra, "_HEADERS", tra._HEADERS + (str(header),))
+
+    def stamp(path, hashes):
+        (tmp_path / (path.name + ".sources.json")).write_text(json.dumps(hashes))
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(tra, "_nvcc", no_nvcc)
+    stamp(lib, tra.source_hashes())
+    # Older than every source by mtime, yet built from their bytes.
+    os.utime(lib, (1, 1))
+    assert tra.build_kernel() == str(lib)
+    # Another set of sources into another library, by the same rule.
+    other = tmp_path / "other.so"
+    other.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="nvcc"):  # no stamp yet
+        tra.build_kernel(sources=tra.KERNEL_SOURCES[:1], lib_path=str(other))
+    stamp(other, tra.source_hashes(tra.KERNEL_SOURCES[:1]))
+    assert tra.build_kernel(sources=tra.KERNEL_SOURCES[:1], lib_path=str(other)) == str(other)
+    # A header the library was not built from: rebuilt, though no .cu changed.
+    header = tmp_path / "touched.cuh"
+    header.write_text("")
+    monkeypatch.setattr(tra, "_HEADERS", tra._HEADERS + (str(header),))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tra.build_kernel()
+    # A header whose bytes changed since the build.
+    stamp(lib, tra.source_hashes())
+    assert tra.build_kernel() == str(lib)
+    header.write_text("// edited\n")
     with pytest.raises(RuntimeError, match="nvcc"):
         tra.build_kernel()

@@ -5,7 +5,7 @@ names and refuses what is not ported with its ROADMAP item;
 ``in=batch:…`` prints the JAX ``run_batch`` stats line; ``in=http``
 serves; SIGTERM stops the process; ``out=cuda`` without ``--device
 cpu`` raises on a host without a card; a directory of real weights is
-never served with random ones.
+loaded, never served with random ones.
 """
 
 import asyncio
@@ -22,6 +22,8 @@ from dynamo_exp_tpu import run as jrun
 from dynamo_exp_tpu.engines.echo import EchoEngineFull as JEchoFull
 from dynamo_exp_tpu_torch import run
 from dynamo_exp_tpu_torch.http import client
+from dynamo_exp_tpu_torch.models import ModelConfig, init_params
+from dynamo_exp_tpu_torch.models.loader import hf_tensor_names, save_safetensors
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--max-decode-slots", "2", "--page-size", "8", "--max-model-len", "128",
@@ -51,9 +53,9 @@ def test_parse_args_keeps_the_jax_cli_form():
         (["--coordinator", "h:1"], "item 9(e)"),
         (["--max-inflight=4"], "item 9(b)"),
         (["--request-template", "t.json"], "item 9(c)"),
-        (["--compile-cache-dir", "/tmp/cc"], "item 6"),
+        (["--shed-watermark", "3"], "item 9(b)"),
         (["--tp", "2"], "item 7"),
-        (["--prewarm"], "item 6"),
+        (["--router-mode", "kv"], "item 9(e)"),
         (["--echo-token-delay-ms", "20"], "item 9(i)"),
         (["out=tpu"], "out=cuda"),
     ],
@@ -98,14 +100,32 @@ def test_host_cache_pages_reaches_the_engine_config(tiny_model_dir):
 
 
 def test_real_weights_are_never_served_random(tiny_model_dir, tmp_path):
-    base = ["in=http", "out=cuda", "--device", "cpu", "--model-path"]
+    """A directory with safetensors is loaded (no --random-weights
+    needed); one without them is refused unless --random-weights."""
+    base = ["in=http", "out=cuda", "--device", "cpu", *SMALL, "--model-path"]
     with pytest.raises(SystemExit, match="--random-weights"):
         run.build_cuda_engine(run.parse_args(base + [tiny_model_dir]))
     for name in os.listdir(tiny_model_dir):
-        os.symlink(os.path.join(tiny_model_dir, name), tmp_path / name)
-    (tmp_path / "model.safetensors").write_bytes(b"")
-    with pytest.raises(SystemExit, match=r"item 9\(g\)"):
-        run.build_cuda_engine(run.parse_args(base + [str(tmp_path)]))
+        if name != "config.json":
+            os.symlink(os.path.join(tiny_model_dir, name), tmp_path / name)
+    with open(os.path.join(tiny_model_dir, "config.json")) as f:
+        conf = json.load(f)
+    conf["torch_dtype"] = "float32"
+    (tmp_path / "config.json").write_text(json.dumps(conf))
+    mcfg = ModelConfig.from_pretrained(str(tmp_path))
+    gen = torch.Generator().manual_seed(5)
+    want = init_params(mcfg, gen, "cpu")
+    save_safetensors(str(tmp_path / "model.safetensors"), {
+        name: getattr(want if li is None else want.layers[li], attr)
+        for name, (li, attr) in hf_tensor_names(mcfg).items()
+    })
+    engine, _ = run.build_cuda_engine(run.parse_args(base + [str(tmp_path)]))
+    got = dict(engine.model.named_parameters())
+    assert got.keys() == dict(want.named_parameters()).keys()
+    for name, p in want.named_parameters():
+        assert torch.equal(got[name], p), name
+    rand, _ = run.build_cuda_engine(run.parse_args(base + [str(tmp_path), "--random-weights"]))
+    assert not torch.equal(rand.model.embed, want.embed)
 
 
 def test_out_cuda_without_device_cpu_raises_without_a_card(tiny_model_dir):
