@@ -17,12 +17,14 @@ Phases, each fatal on failure (nothing is caught):
    (q_tile=1) with inactive rows, which must be exact zeros; once with
    bf16 pools (the main path's: the tensor-core mixed kernel and the
    split-KV decode kernel) and once with float32 pools at a tight
-   tolerance (the CUDA-core mixed kernel and the split-KV decode
-   kernel); the bf16 kernels are also held, at a tolerance set by
+   tolerance (the 3xTF32 tensor-core mixed kernel and the split-KV
+   decode kernel); the bf16 kernels are also held, at a tolerance set by
    bf16's rounding, against the plain version on float32 copies of the
-   same inputs; time the bf16 kernel, the plain version and, as a
-   yardstick only, one ``scaled_dot_product_attention`` call over the
-   gathered pages;
+   same inputs; each live row of the float32 mixed batch run alone
+   equals the same row in the batch, bit for bit (batch invariance);
+   time both mixed kernels and the bf16 decode kernel, the plain
+   version and, as a yardstick only, one ``scaled_dot_product_attention``
+   call over the gathered pages;
 4. llama-8b's logits through the kernel agree with the plain path on a
    short prompt;
 5. the main path: ``TorchEngine`` serving llama-8b at full width and
@@ -125,14 +127,17 @@ graph's recorded launches at each replay, so they count what an eager
 run counts, launch for launch (phase 9 (b) checks that).
 
 Phase 3 also holds the mixed kernels on phase 8's verify spans (9
-queries a row: two q tiles, the second mostly padding) and times the
-bf16 one there. The kernels' line has one entry per kernel design (the
+queries a row: two q tiles, the second mostly padding) and times both
+there. The float32 mixed kernel's bound is at 3xTF32's rate (494.7 / 3
+TFLOP/s); its bound at float32's 67 TFLOP/s outside the tensor cores is
+printed beside it (``bound_ms_ffma``). The kernels' line has one entry
+per kernel design (the
 bf16 mixed, split-KV decode and float32 mixed kernels), with its
 launches in the main path of its dtype (phase 5; phase 7 (c) for
 float32), over HTTP (phase 6), under KV pressure (phase 7 (a), (c)),
 in phase 8 (a)-(d) and phase 9 (a) (the loaded checkpoint) and (b) (a
-graphed phase 8 (a) burst after the warm boot); the bf16 mixed entry
-also carries the verify spans' timing (``verify_*``).
+graphed phase 8 (a) burst after the warm boot); both mixed entries
+also carry the verify spans' timing (``verify_*``).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and the result line
@@ -158,7 +163,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 494.7e12  # TF32 tensor cores, dense
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+# float32-accurate products as 3xTF32 (three TF32 products each): the
+# float32 mixed kernel's rate.
+F32_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # llama-8b attention shapes.
 H, HKV, D, PS = 32, 8, 128, 16
@@ -437,6 +446,27 @@ def decode_case(torch, np, tra, dt) -> tuple:
     return err, tight, (q, k, v, table), call, plain, (rows, lens - 1)
 
 
+def check_rows_alone(torch, tra, inputs, rows, pos, batch_out) -> int:
+    """Batch invariance, bit for bit: each live row of a flat batch run
+    alone (its tokens, positions and page-table row, the same pools)
+    gives what it gives in the batch, where it fell in other runs of q
+    tiles, warps and horizons. Returns the rows checked."""
+    q, k, v, table = inputs
+    n = 0
+    for r in sorted(set(rows.tolist())):
+        idx = (rows == r).nonzero()[:, 0]
+        if bool((pos[idx] < 0).all()):  # the empty tile
+            continue
+        alone = tra.ragged_paged_attention(
+            q[idx].contiguous(), k, v, table[r : r + 1].contiguous(),
+            torch.zeros_like(rows[idx]), pos[idx].contiguous(), num_kv_heads=HKV, q_tile=8)
+        torch.cuda.synchronize()
+        assert torch.equal(alone, batch_out[idx]), (
+            f"row {r} alone differs from the same row in the batch")
+        n += 1
+    return n
+
+
 def check_kernels(torch, np, tra, flush) -> dict:
     """Kernel against plain version at the main path's shapes, with
     float32 pools and then with bf16 pools (the main path's), which are
@@ -482,17 +512,26 @@ def check_kernels(torch, np, tra, flush) -> dict:
     for entry, (case, q_tile, what) in cases.items():
         err32, _, inputs32, call32, plain32, (rows32, pos32) = case(
             torch, np, tra, torch.float32)
-        if entry == "ragged_paged_attention":
+        if q_tile == 8:
             # The float32 mixed design (csrc/ragged_attention.cu), timed
-            # on its own inputs at float32 rates.
+            # on its own inputs, its bound at the 3xTF32 rate; the bound
+            # at the rate of float32 outside the tensor cores beside it.
+            if entry == "ragged_paged_attention":
+                n_rows = check_rows_alone(torch, tra, inputs32, rows32, pos32, call32())
+                log(f"[kernel] {what} float32: each of the {n_rows} live rows run alone "
+                    f"equals the same row in the batch, bit for bit")
             ms, plain_ms, lib_ms, b_ms, b_by, nbytes, flops = measure(
-                inputs32, call32, plain32, rows32, pos32, 10, 3, F32_FLOP_PER_S)
+                inputs32, call32, plain32, rows32, pos32, 10, 3, F32_3XTF32_FLOP_PER_S)
+            ffma_ms, ffma_by = bound(torch, inputs32[0], inputs32[1], inputs32[3], rows32,
+                                     pos32, F32_FLOP_PER_S)[:2]
             log(f"[kernel] {what} float32 (mixed_f32) N={inputs32[0].shape[0]}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop at float32 rates)")
+                f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop at 3xTF32's "
+                f"{F32_3XTF32_FLOP_PER_S / 1e12:.1f} TFLOP/s; {ffma_ms:.4f} ms by {ffma_by} "
+                f"at float32's {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s outside the tensor cores)")
             results[entry + "_f32"] = dict(
                 max_abs_err=err32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by,
+                bound_ms=b_ms, bound_by=b_by, bound_ms_ffma=ffma_ms,
             )
         del inputs32, call32, plain32
         err, (err_f32, ratio), inputs, call, plain, (rows, pos) = case(
@@ -2468,11 +2507,14 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
-        if name == "ragged_paged_attention":
-            # Phase 8 (b)'s verify spans (9 queries, two q tiles a row).
-            v = kern["ragged_paged_attention_verify"]
-            kernels[-1].update({f"verify_{key}": v[key] for key in (
+        if entry == "ragged_paged_attention":
+            # Phase 8's verify spans (9 queries, two q tiles a row).
+            v = kern[key.replace("attention", "attention_verify")]
+            kernels[-1].update({f"verify_{t}": v[t] for t in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            if "bound_ms_ffma" in k:  # float32: the bound outside the tensor cores
+                kernels[-1].update(bound_ms_ffma=k["bound_ms_ffma"],
+                                   verify_bound_ms_ffma=v["bound_ms_ffma"])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -84,14 +84,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stages kChunk kv tokens of one kv head, [kChunk][LD] elements each of
-// K and V, into shared memory with 16-byte cp.async (zeros past the
-// bound), kThreads threads together; thread e handles vector e of the
+// Stages kChunk kv tokens of one kv head, K as [kChunk][LD] and V as
+// [kChunk][LDV] elements, into shared memory with 16-byte cp.async
+// (zeros past the bound), kThreads threads together; thread e handles vector e of the
 // chunk, so neighbouring threads read neighbouring bytes of a token.
 // The page-table entries of a chunk are loaded into registers one step
 // ahead (`lookup`), so staging that chunk (`issue`) never waits on a
 // table read. Pages past the table are clamped and masked by the bound.
-template <typename T, int D, int kChunk, int kThreads, int LD>
+template <typename T, int D, int kChunk, int kThreads, int LD, int LDV = LD>
 struct KvStager {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int VPT = D / VEC;  // vectors per token
@@ -125,7 +125,7 @@ struct KvStager {
       const size_t off =
           live ? ((size_t)page[i] * ps + in_page) * fused + kvh * D + c : 0;
       cp_async16(k_s + t * LD + c, k + off, live ? 16 : 0);
-      cp_async16(v_s + t * LD + c, v + off, live ? 16 : 0);
+      cp_async16(v_s + t * LDV + c, v + off, live ? 16 : 0);
     }
   }
 };

@@ -15,10 +15,10 @@ its row's kv positions ``<= p``.
   ``sm_90a`` into one library in ``_build/`` at first use, loaded with
   ``ctypes``) or raise; on a CPU tensor they compute the plain version.
   There is no fallback from one to the other. The kernel is chosen by
-  the pool dtype: the mixed shape runs the tensor-core kernel
-  (``ragged_mixed_tc.cu``) on bf16 pools and the CUDA-core kernel
-  (``ragged_attention.cu``) on float32 pools; the decode shape runs the
-  split-KV pair (``ragged_decode_split.cu``) on both.
+  the pool dtype: the mixed shape runs the bf16 tensor-core kernel
+  (``ragged_mixed_tc.cu``) on bf16 pools and the 3xTF32 tensor-core
+  kernel (``ragged_attention.cu``) on float32 pools; the decode shape
+  runs the split-KV pair (``ragged_decode_split.cu``) on both.
 
 Every padding token (position -1) comes back as zeros from both
 versions: the kernel writes zeros for a query with nothing to attend,

@@ -3,8 +3,9 @@
 Imports neither JAX nor the JAX package, so it runs where only the port
 is installed: ``python -m pytest tests/test_torch_cuda.py`` on a machine
 with an H100. The ragged kernels are held against their plain PyTorch
-version on the same inputs: float32 at atol=1e-4 (float32 sums in
-another order and chunking of the online softmax), bf16 at atol=2e-2
+version on the same inputs: float32 at atol=1e-4 (3xTF32 products,
+within about 2^-21 of float32 ones, float32 sums in another order and
+chunking of the online softmax), bf16 at atol=2e-2
 (the kernel rounds unnormalised probabilities to bf16 before PV, the
 plain version the normalised ones, and both round the output to bf16).
 That bf16 tolerance would pass a kernel that drops a 32-token chunk of a long
@@ -13,7 +14,9 @@ copies of the same inputs, within what bf16 rounding of the probabilities
 and the output can move them (``_assert_within_bf16_rounding``).
 Long cases make the mixed kernel take multi-tile runs (a 512-query span
 at context 1,024) and the decode kernel cross several splits (a row of
-2,064 tokens). Seeded draws on the card equal those on the CPU.
+2,064 tokens), and rows of 4,096 tokens. The float32 mixed kernel is
+batch-invariant bit for bit: each row alone gives what it gives in a
+batch. Seeded draws on the card equal those on the CPU.
 """
 
 import asyncio
@@ -104,10 +107,55 @@ def test_mixed_shape_matches_plain(cuda, dtype, atol, H, Hkv, D, spans):
         _assert_within_bf16_rounding(
             got, lambda q, k, v: tra.ragged_paged_attention_ref(
                 q, k, v, *args[3:], num_kv_heads=Hkv), *args[:3])
-    # bf16 pools go through the tensor-core kernel, float32 pools not.
+    # bf16 pools go through the bf16 design, float32 pools the 3xTF32 one.
     design = "mixed_tc_bf16" if dtype == torch.bfloat16 else "mixed_f32"
     assert tra.KERNEL_LAUNCHES[design] == 1, tra.KERNEL_LAUNCHES
     assert sum(tra.KERNEL_LAUNCHES.values()) == 1
+
+
+def _row_alone(args, r, q_tile):
+    """Row ``r`` of a flat batch as a stream of its own: its tokens,
+    positions and page-table row, the same pools."""
+    q, k, v, table, row_of, pos = args
+    idx = (row_of == r).nonzero()[:, 0]
+    assert len(idx) % q_tile == 0 and int(idx[-1] - idx[0]) + 1 == len(idx)
+    zeros = torch.zeros(len(idx), dtype=torch.int32, device=q.device)
+    return idx, (q[idx].contiguous(), k, v, table[r : r + 1].contiguous(), zeros,
+                 pos[idx].contiguous())
+
+
+@pytest.mark.parametrize("H,Hkv,D", LAYOUTS)
+def test_mixed_f32_rows_alone_equal_rows_in_the_batch(cuda, H, Hkv, D):
+    """Batch invariance of the float32 kernel, bit for bit: each row of
+    the "long" span set run alone gives what it gives in the batch (other
+    runs, warps and horizons), and each such call is one launch of the
+    float32 design."""
+    rows, P, pmax = MIXED["long"]
+    args = _flat_batch(0, rows, H, Hkv, D, P, 16, pmax, 8, torch.float32, cuda)
+    batch = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8)
+    for r in range(len(rows)):
+        idx, alone = _row_alone(args, r, 8)
+        tra.reset_launches()
+        got = tra.ragged_paged_attention(*alone, num_kv_heads=Hkv, q_tile=8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, batch[idx]), f"row {rows[r]} alone differs from the batch"
+        assert tra.KERNEL_LAUNCHES == {"mixed_tc_bf16": 0, "mixed_f32": 1, "decode_split": 0}
+
+
+@pytest.mark.parametrize("dtype,atol", TOLS)
+def test_mixed_shape_rows_of_4096_tokens(cuda, dtype, atol):
+    """Rows of 4,096 tokens (64 chunks of the float32 ring): a 64-query
+    span at its end and a lone token at the last position."""
+    rows = [(64, 4096), (1, 4096), (9, 2120)]
+    args = _flat_batch(5, rows, 32, 8, 128, 2 * 256 + 136, 16, 256, 8, dtype, cuda)
+    tra.reset_launches()
+    got = tra.ragged_paged_attention(*args, num_kv_heads=8, q_tile=8)
+    want = tra.ragged_paged_attention_ref(*args, num_kv_heads=8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[args[5] < 0] == 0).all()  # padding slots and the empty tile
+    design = "mixed_tc_bf16" if dtype == torch.bfloat16 else "mixed_f32"
+    assert tra.KERNEL_LAUNCHES[design] == 1 and sum(tra.KERNEL_LAUNCHES.values()) == 1
 
 
 @pytest.mark.parametrize("dtype,atol", TOLS)
