@@ -22,7 +22,10 @@ Phases, each fatal on failure (nothing is caught):
    bf16's rounding, against the plain version on float32 copies of the
    same inputs; each live row of the float32 mixed batch run alone
    equals the same row in the batch, bit for bit (batch invariance);
-   time both mixed kernels and the bf16 decode kernel, the plain
+   the mixed shape also on a stream padded to its token bucket as the
+   engine pads it (a run of 50 tiles of the scratch row at position
+   -1), on both dtypes: equal to the plain version, exact zeros at every
+   padding token; time both mixed kernels and the bf16 decode kernel, the plain
    version and, as a yardstick only, one ``scaled_dot_product_attention``
    call over the gathered pages;
 4. llama-8b's logits through the kernel agree with the plain path on a
@@ -108,23 +111,30 @@ Phases, each fatal on failure (nothing is caught):
    the loaded engine's tokens against an in-memory engine's, same batch
    shape); printed: write and load seconds, GB/s read; the directory is
    deleted. (b) ``run.build_cuda_engine(--preset llama-8b --prewarm
-   --compile-cache-dir <tmp>)`` at full width and depth: every window
-   variant captured as a CUDA graph before traffic (printed: variants,
-   graphs, seconds, the graph pool's bytes, one kernel build into the
-   cache directory); then phase 8 (a)'s greedy burst and phase 5's
-   burst through it and through an eager engine on the same weights
+   --compile-cache-dir <tmp> --spec ngram)`` at full width and depth:
+   every window and mixed variant (112 and 80 keys, verify spans too)
+   captured as a CUDA graph before traffic (printed: variants, graphs and
+   seconds of each kind, the graph pool's bytes, one kernel build into
+   the cache directory); then phase 8 (a)'s greedy burst and phase 5's
+   burst (speculation set aside) and a speculation burst (8 rows, each
+   a block of 64 random ids repeated 4 times, 128 tokens, the n-gram
+   drafter) through it and through an eager engine on the same weights
    (``cuda_graphs=False``), in turns (graphed, eager, eager, graphed):
-   tokens bit-equal, launch counts equal, no graph captured after the
-   prewarm; printed: wall, tokens/s, loop-thread CPU seconds and graph
-   replays of each run (``--profile``: the device idle share, graphed
-   and eager). (c) a new process boots ``--preset llama-1b --prewarm``
-   against the same cache directory: ``builds: 0`` (no nvcc).
+   tokens bit-equal, launch counts equal, every mixed dispatch of a
+   graphed run replayed (verify spans from verify-span graphs), no
+   graph captured after the prewarm; printed: wall, tokens/s,
+   loop-thread CPU seconds, replays and dispatches of each run, and each
+   mixed dispatch's flat tokens before and after padding to its bucket
+   (``--profile``: the device idle share, graphed and eager). (c) a new
+   process boots ``--preset llama-1b --prewarm`` against the same cache
+   directory: ``builds: 0`` (no nvcc).
 
-Phases 5-9 run with CUDA graphs of the decode window (the engine's
-default on a card): each window key is captured at its first dispatch
+Phases 5-9 run with CUDA graphs of every dispatch (the engine's default
+on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
 graph's recorded launches at each replay, so they count what an eager
-run counts, launch for launch (phase 9 (b) checks that).
+run counts, launch for launch (phase 9 (b) checks that). Every mixed
+stream is padded to its token bucket, graphed or eager.
 
 Phase 3 also holds the mixed kernels on phase 8's verify spans (9
 queries a row: two q tiles, the second mostly padding) and times both
@@ -136,7 +146,8 @@ bf16 mixed, split-KV decode and float32 mixed kernels), with its
 launches in the main path of its dtype (phase 5; phase 7 (c) for
 float32), over HTTP (phase 6), under KV pressure (phase 7 (a), (c)),
 in phase 8 (a)-(d) and phase 9 (a) (the loaded checkpoint) and (b) (a
-graphed phase 8 (a) burst after the warm boot); both mixed entries
+graphed phase 8 (a) burst after the warm boot, and the graphed
+speculation burst: ``launches_warm_boot_spec``); both mixed entries
 also carry the verify spans' timing (``verify_*``).
 
 The last three lines of standard output are the card's name and power
@@ -243,9 +254,11 @@ def build(tra) -> float:
 
 
 # ------------------------------------------------------------ phase 3
-def flat_batch(torch, np, seed, spans, q_tile, dtype, device):
+def flat_batch(torch, np, seed, spans, q_tile, dtype, device, pad_to=0):
     """A q_tile-aligned flat stream over a scrambled page pool, one
-    empty tile at the end. Returns (q, k, v, table, row_of, positions)."""
+    empty tile at the end, owned by the scratch row ``len(spans)``, then,
+    up to ``pad_to`` tokens, more such tiles (the engine's stream padded
+    to its token bucket). Returns (q, k, v, table, row_of, positions)."""
     rs = np.random.RandomState(seed)
     pmax = max(-(-max(kv, 1) // PS) for _, kv in spans)
     pages = sum(-(-max(kv, 1) // PS) for _, kv in spans) + 8
@@ -261,8 +274,9 @@ def flat_batch(torch, np, seed, spans, q_tile, dtype, device):
         pad = (-q_len) % q_tile
         row_of += [r] * (q_len + pad)
         positions += list(range(kv_len - q_len, kv_len)) + [-1] * pad
-    row_of += [len(spans)] * q_tile
-    positions += [-1] * q_tile
+    tail = max(q_tile, pad_to - len(row_of))
+    row_of += [len(spans)] * tail
+    positions += [-1] * tail
     q = torch.from_numpy(rs.standard_normal((len(row_of), H, D)).astype(np.float32))
 
     def i32(a):
@@ -404,13 +418,14 @@ def check_case(torch, call, plain, q, k, v, zeros, what) -> tuple:
     return err, tight
 
 
-def mixed_case(torch, np, tra, dt, spans=MIXED_SPANS, what="mixed") -> tuple:
-    """The mixed shape, q_tile = 8, one empty tile at the end, against
-    the plain version with ``dt`` pools. Returns (max abs err, the
-    float32 reading, the inputs, the call, the plain call, the (row_of,
-    positions) the plain call reads)."""
+def mixed_case(torch, np, tra, dt, spans=MIXED_SPANS, what="mixed", pad_to=0) -> tuple:
+    """The mixed shape, q_tile = 8, one empty tile at the end (and
+    scratch-row tiles up to ``pad_to``), against the plain version with
+    ``dt`` pools. Returns (max abs err, the float32 reading, the inputs,
+    the call, the plain call, the (row_of, positions) the plain call
+    reads)."""
     dev = torch.device("cuda", 0)
-    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, spans, 8, dt, dev)
+    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, spans, 8, dt, dev, pad_to)
 
     def call():
         return tra.ragged_paged_attention(
@@ -420,7 +435,7 @@ def mixed_case(torch, np, tra, dt, spans=MIXED_SPANS, what="mixed") -> tuple:
         return tra.ragged_paged_attention_ref(
             q, k, v, table, row_of, pos, num_kv_heads=HKV)
 
-    zeros = pos < 0  # padding slots and the empty tile
+    zeros = pos < 0  # padding slots, the empty tile and the bucket's padding
     err, tight = check_case(torch, call, plain, q, k, v, zeros, f"{what} {dt}")
     return err, tight, (q, k, v, table), call, plain, (row_of, pos)
 
@@ -550,6 +565,18 @@ def check_kernels(torch, np, tra, flush) -> dict:
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         )
+    # The engine pads each mixed stream to its token bucket with tiles
+    # of the scratch row at position -1: the mixed spans (1,656 slots
+    # with the empty tile) padded to 2,048, a run of 50 such tiles.
+    n = sum(-(-q // 8) * 8 for q, _ in MIXED_SPANS) + 8
+    bucket = 1 << (n - 1).bit_length()
+    for dt in (torch.float32, torch.bfloat16):
+        err, tight, *_ = mixed_case(torch, np, tra, dt, what="padded", pad_to=bucket)
+        log(f"[kernel] mixed q_tile=8 padded to its bucket ({n} -> {bucket} slots, "
+            f"{(bucket - n) // 8 + 1} tiles of the scratch row) {dt}: max abs err {err:.3e}"
+            + (f", {tight[1]:.3f} of the bf16 limit" if tight else "")
+            + "; every padding token exact zeros")
+        results[f"padded_{str(dt).removeprefix('torch.')}"] = err
     return results
 
 
@@ -717,8 +744,9 @@ def main_path(torch, np, pkg, tra):
     launches = dict(tra.LAUNCHES)
     designs = dict(tra.KERNEL_LAUNCHES)
     metrics = eng.metrics()
+    pool_mib = eng.graphs.pool_bytes() / 2**20
     del eng
-    torch.cuda.empty_cache()
+    free(torch, "cuda")
 
     for i, (toks, finish, _) in enumerate(out):
         assert finish == "length", f"request {i} finished {finish!r}"
@@ -737,8 +765,7 @@ def main_path(torch, np, pkg, tra):
         f"request {SEEDED} seeded at T=0.8): all finished 'length' with {MAX_TOKENS} tokens")
     log(f"[engine] launches {launches}, by kernel {designs}; dispatches {disp}; decode steps "
         f"{metrics['decode_steps']} (wasted {metrics['decode_wasted_steps']}); graphs "
-        f"captured at first use {metrics['graphs_captured']} in "
-        f"{metrics['graph_capture_seconds']:.3f} s of the wall; "
+        f"captured at first use {graph_line(metrics)}, pool {pool_mib:.1f} MiB; "
         f"per mixed dispatch {launches['ragged_paged_attention'] / max(disp['mixed'], 1):.1f}, "
         f"per windowed step {launches['ragged_decode_attention'] / max(disp['windowed'] * ecfg.decode_window, 1):.1f}")
 
@@ -1297,6 +1324,24 @@ def sync(torch, device: str) -> None:
         torch.cuda.synchronize()
 
 
+def free(torch, device: str) -> None:
+    """Release what deleted engines held (an engine and its graphs
+    refer to each other, so their KV pools and graph pool wait for the
+    collector)."""
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def graph_line(m: dict) -> str:
+    """Graphs captured, and capture seconds, by kind (window / mixed)."""
+    g = m["graphs"]
+    if not g:
+        return "none (no graphs)"
+    return " / ".join(f"{kind} {g[kind]['captured']} in {g[kind]['capture_seconds']:.3f} s"
+                      for kind in ("window", "mixed"))
+
+
 def pages_needed(prompt_lens, max_tokens: int) -> int:
     """Pages of PS the burst holds at its end (the last sampled token
     has no KV)."""
@@ -1433,8 +1478,7 @@ def pressure_burst(torch, np, pkg, tra, smi: str, mcfg=None, sh: Pressure = Pres
              copies=copies, swapped_out=m["swapped_out"], swapped_in=m["swapped_in"],
              preempted=m["preempted"], need=need)
     del eng
-    if cuda:
-        torch.cuda.empty_cache()
+    free(torch, sh.device)
 
     # (b) the longest prompt: cold, a G1 hit, then a G2 hit after other
     # traffic has evicted its pages to the host tier.
@@ -1608,9 +1652,10 @@ def p8_burst(torch, eng, requests, device: str) -> dict:
         eng.stop()
     m = eng.metrics()
     n = sum(len(r["tokens"]) for r in out)
+    pool = eng.graphs.pool_bytes() if eng.graphs is not None and device == "cuda" else 0
     return dict(out=out, tokens=[r["tokens"] for r in out], wall_s=wall, tokens_per_s=n / wall,
                 loop_cpu_s=cpu, metrics=m, dispatches=dict(m["dispatches"]),
-                wasted=m["decode_wasted_steps"])
+                wasted=m["decode_wasted_steps"], pool_bytes=pool)
 
 
 def guard_chained_syncs(torch, eng, device: str) -> dict:
@@ -1652,7 +1697,7 @@ def p8_line(r: dict) -> str:
     return (f"wall {r['wall_s']:.3f} s, {r['tokens_per_s']:.2f} tokens/s, dispatches "
             f"chained {d['chained']} / windowed {d['windowed']} / mixed {d['mixed']}, loop "
             f"CPU {r['loop_cpu_s']:.3f} s, wasted steps {r['wasted']}, graphs captured "
-            f"{r['metrics']['graphs_captured']} in {r['metrics']['graph_capture_seconds']:.3f} s")
+            f"{graph_line(r['metrics'])}, pool {r['pool_bytes'] / 2**20:.1f} MiB")
 
 
 def chain_turns(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8) -> dict:
@@ -1682,6 +1727,7 @@ def chain_turns(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8) -> dict:
             f"{r['designs']}")
         runs.append(r)
         del eng
+        free(torch, sh.device)
     assert not guard["errors"] and guard["guarded"] > 0, guard
     for r in runs[1:]:
         assert r["tokens"] == runs[0]["tokens"], "(a) chained and unchained tokens differ"
@@ -1698,6 +1744,7 @@ def chain_turns(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8) -> dict:
             assert r["tokens"] == runs[0]["tokens"]
             report_profile(prof, r["wall_s"], f"[profile chain={chained}]", top=6)
             del eng
+            free(torch, sh.device)
     return dict(runs=runs, guard=guard, tokens=runs[0]["tokens"], designs=runs[1]["designs"])
 
 
@@ -1760,6 +1807,7 @@ def spec_path(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8, base) -> d
                     spec_draft_len=8, spec_max_draft=8)
     st = p8_burst(torch, eng, requests, sh.device)
     del eng
+    free(torch, sh.device)
     rs = np.random.RandomState(17)
     block = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=sh.repeat_block)]
     ngram_req = [{"token_ids": block * sh.repeat_times,
@@ -1767,6 +1815,7 @@ def spec_path(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8, base) -> d
     eng = p8_engine(pkg, mcfg, model, "bfloat16", sh, spec_mode="ngram")
     ng = p8_burst(torch, eng, ngram_req, sh.device)
     del eng
+    free(torch, sh.device)
     sync(torch, sh.device)
     designs = dict(tra.KERNEL_LAUNCHES)
     for r in (st, ng):
@@ -1874,6 +1923,7 @@ def f32_identity(torch, np, pkg, tra, smi: str, sh: Phase8, mcfg=None) -> dict:
         solo = [p8_burst(torch, eng, [r], sh.device)["out"][0] for r in reqs]
         check_drained(eng, f"(c) {name}")
         del eng
+        free(torch, sh.device)
         assert chained["dispatches"]["chained"] > 0, chained["dispatches"]
         assert static["metrics"]["spec_accepted_tokens"] > 0, static["metrics"]
         # Chained and unchained run the same batch shapes: equal tokens.
@@ -2096,6 +2146,8 @@ class Phase9:
     chain_tokens: int = CHAIN_TOKENS  # (b)'s phase 8 (a) burst
     loader_layers: int = LOADER_LAYERS
     preset: str = "llama-8b"  # (b)'s warm boot
+    repeat_block: int = 64  # (b)'s speculation burst: a block of random ids a row ...
+    repeat_times: int = 4  # ... repeated
     second_preset: str = "llama-1b"  # (c)'s second boot, in a new process
 
 
@@ -2247,72 +2299,169 @@ async def _drive_loaded(torch, np, pkg, tra, tok, opts, client, model, mcfg, sh)
     return dict(designs=designs, http_wall_s=wall, tokens=want)
 
 
+@contextlib.contextmanager
+def mixed_padding():
+    """Record every mixed dispatch's flat stream before and after its
+    padding to the token bucket, as ``(q_tile-aligned tokens, key)``,
+    through a wrapper on the engine module's key resolution."""
+    mod = sys.modules["dynamo_exp_tpu_torch.engine.engine"]
+    resolve, seen = mod.resolve_mixed_key, []
+
+    def spy(cfg, attn_impl, n_tokens, *a):
+        key = resolve(cfg, attn_impl, n_tokens, *a)
+        seen.append((n_tokens, key))
+        return key
+
+    mod.resolve_mixed_key = spy
+    try:
+        yield seen
+    finally:
+        mod.resolve_mixed_key = resolve
+
+
+@contextlib.contextmanager
+def speculation(eng, on: bool):
+    """A burst on an engine built with speculation, with it on or set
+    aside (its drafter manager ``_spec``), so the burst dispatches as an
+    engine without speculation would."""
+    saved = eng._spec
+    if not on:
+        eng._spec = None
+    try:
+        yield
+    finally:
+        eng._spec = saved
+
+
+def spec_burst_requests(np, vocab: int, sh: "Phase9") -> list[dict]:
+    """(b)'s speculation burst: one prompt a row, each a block of random
+    ids repeated (the n-gram drafter's food), all greedy."""
+    rs = np.random.RandomState(19)
+    return [
+        {"token_ids": [int(t) for t in rs.randint(3, vocab, size=sh.repeat_block)]
+         * sh.repeat_times,
+         "stop_conditions": {"max_tokens": sh.chain_tokens, "ignore_eos": True}}
+        for _ in sh.prompt_lens
+    ]
+
+
+def padding_line(seen: list) -> str:
+    real = sum(n for n, _ in seen)
+    padded = sum(k.tokens for _, k in seen)
+    pairs = ", ".join(f"{n}->{k.tokens}" for n, k in seen[:12])
+    more = f", ... ({len(seen) - 12} more)" if len(seen) > 12 else ""
+    return (f"{len(seen)} mixed dispatches, flat tokens real (q_tile-aligned) {real} / padded "
+            f"{padded} ({100 * (padded - real) / max(padded, 1):.1f} % padding): {pairs}{more}")
+
+
 def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9()) -> dict:
-    """(b) ``run.build_cuda_engine(--preset llama-8b --prewarm
-    --compile-cache-dir)``: llama-8b at full width and depth, every
-    window variant captured before traffic. Then phase 8 (a)'s greedy
-    burst and phase 5's burst (a seeded row: two sampler partitions)
-    through the prewarmed engine (graphs) and an eager engine on the
-    same weights (``cuda_graphs=False``), in turns (graphed, eager,
-    eager, graphed): equal tokens bit for bit, equal launch counts, and
-    no graph captured after the prewarm."""
+    """(b) ``run.build_cuda_engine(--preset llama-8b --spec ngram
+    --prewarm --compile-cache-dir)``: llama-8b at full width and depth,
+    every window and mixed variant (verify spans too) captured before
+    traffic. Then phase 8 (a)'s greedy burst and phase 5's burst (a
+    seeded row: two sampler partitions), both with speculation set
+    aside, and a speculation burst (the n-gram drafter on repeated
+    blocks), through the prewarmed engine (graphs) and an eager engine on
+    the same weights (``cuda_graphs=False``), in turns (graphed, eager,
+    eager, graphed): equal tokens bit for bit, equal launch counts, the
+    speculation burst's verify spans replayed from verify-span graphs,
+    and no graph captured after the prewarm. Each run's mixed dispatches
+    are printed with their flat tokens before and after padding."""
     from dataclasses import replace
 
     from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch.aot import MixedKey, build_manifest
 
-    max_len = max(sh.prompt_lens) + max(sh.chain_tokens, sh.max_tokens) + PS
+    max_len = (max(*sh.prompt_lens, sh.repeat_block * sh.repeat_times)
+               + max(sh.chain_tokens, sh.max_tokens) + PS)
     argv = [
         "out=cuda", "--device", sh.device, "--preset", sh.preset, "--max-decode-slots", "8",
         "--page-size", str(PS), "--max-model-len", str(max_len),
         "--num-pages", str(8 * -(-max_len // PS)), "--kv-dtype", "bfloat16",
-        "--prewarm", "--compile-cache-dir", cache_dir,
+        "--spec", "ngram", "--prewarm", "--compile-cache-dir", cache_dir,
     ]
     t0 = time.perf_counter()
     warm, _ = run.build_cuda_engine(run.parse_args(argv))
     boot_s = time.perf_counter() - t0
     report = warm.metrics()["prewarm"]
     graphs_on = warm.graphs is not None
-    assert report["variants"] > 0 and report["graphs"] == (report["variants"] if graphs_on else 0)
+    manifest = build_manifest(warm.cfg, warm.attn_impl)
+    assert report["variants"] == len(manifest.windows) > 0, report
+    assert report["mixed_variants"] == len(manifest.mixed) > 0, report
+    assert any(k.with_spec for k in manifest.mixed)
+    assert report["graphs"] == (report["variants"] if graphs_on else 0), report
+    assert report["mixed_graphs"] == (report["mixed_variants"] if graphs_on else 0), report
     assert report["builds"] == (1 if sh.device == "cuda" else 0), report
-    log(f"[warm] (b) {smi}: {sh.preset} booted with --prewarm in {boot_s:.2f} s: "
-        f"{report['variants']} window variants, {report['graphs']} CUDA graphs captured, "
-        f"{report['mixed_buckets']} mixed buckets run, {report['builds']} kernel build(s) into "
-        f"the cache dir, prewarm {report['seconds']:.2f} s, graph pool "
-        f"{report['pool_bytes']} bytes ({report['pool_bytes'] / 2**20:.1f} MiB)")
+    log(f"[warm] (b) {smi}: {sh.preset} booted with --spec ngram --prewarm in {boot_s:.2f} s: "
+        f"{report['variants']} window variants ({report['graphs']} CUDA graphs) in "
+        f"{report['window_seconds']:.2f} s, {report['mixed_variants']} mixed variants "
+        f"({report['mixed_graphs']} CUDA graphs, buckets "
+        f"{sorted({k.tokens for k in manifest.mixed})}) in {report['mixed_seconds']:.2f} s, "
+        f"{report['builds']} kernel build(s) into the cache dir, prewarm "
+        f"{report['seconds']:.2f} s, graph pool {report['pool_bytes']} bytes "
+        f"({report['pool_bytes'] / 2**20:.1f} MiB)")
     eager = pkg.engine.TorchEngine(replace(warm.cfg, cuda_graphs=False), model=warm.model,
                                    device=sh.device)
     vocab = warm.cfg.model.vocab_size
     p8 = Phase8(device=sh.device, prompt_lens=sh.prompt_lens)
     seeded = min(SEEDED, len(sh.prompt_lens) - 1)
     bursts = {
-        "8a": greedy_requests(np, vocab, p8, sh.chain_tokens),
-        "5": [
+        "8a": (False, greedy_requests(np, vocab, p8, sh.chain_tokens)),
+        "5": (False, [
             {"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens,
                                                    "ignore_eos": True},
              "sampling_options": SEEDED_OPTIONS if i == seeded else {}}
             for i, ids in enumerate(phase5_prompts(np, vocab, sh.prompt_lens))
-        ],
+        ]),
+        "spec": (True, spec_burst_requests(np, vocab, sh)),
     }
     results = {}
-    for name, requests in bursts.items():
+
+    def spec_replays() -> int:
+        return sum(g.replays for k, g in (warm.graphs.graphs.items() if graphs_on else ())
+                   if isinstance(k, MixedKey) and k.with_spec)
+
+    for name, (spec_on, requests) in bursts.items():
         n = requests[0]["stop_conditions"]["max_tokens"]
         runs = []
         for kind, eng in (("graphed", warm), ("eager", eager), ("eager", eager),
                           ("graphed", warm)):
             eng.reset_prefix_cache()  # each run prefills as a cold engine would
-            replays = eng.metrics()["graph_replays"]
+            m0 = eng.metrics()
+            mixed_replays = m0["graphs"].get("mixed", {}).get("replays", 0)
+            verify = spec_replays()
             sync(torch, sh.device)
             tra.reset_launches()
-            r = p8_burst(torch, eng, requests, sh.device)
-            r["designs"], r["kind"] = dict(tra.KERNEL_LAUNCHES), kind
-            r["replays"] = r["metrics"]["graph_replays"] - replays
+            with speculation(eng, spec_on), mixed_padding() as seen:
+                r = p8_burst(torch, eng, requests, sh.device)
+            r["designs"], r["kind"], r["padding"] = dict(tra.KERNEL_LAUNCHES), kind, seen
+            m = r["metrics"]  # the engine's, since its boot: this run's is the difference
+            r["mixed_replays"] = m["graphs"].get("mixed", {}).get("replays", 0) - mixed_replays
+            r["dispatches"] = {k: v - m0["dispatches"][k] for k, v in m["dispatches"].items()}
+            spec_m = {k: m[k] - m0[k] for k in ("spec_row_dispatches", "spec_dispatches",
+                                                "spec_draft_tokens", "spec_accepted_tokens",
+                                                "spec_emitted_tokens")}
+            r["verify_replays"] = spec_replays() - verify
             for i, o in enumerate(r["out"]):
                 assert o["finish"] == "length" and len(o["tokens"]) == n, (
                     f"(b) burst {name} {kind} request {i}: {o['finish']}, {len(o['tokens'])}")
-            assert (r["replays"] > 0) == (kind == "graphed" and graphs_on), r["replays"]
+            graphed = kind == "graphed" and graphs_on
+            assert (r["mixed_replays"] > 0) == graphed, r["mixed_replays"]
+            assert r["mixed_replays"] == (len(seen) if graphed else 0), (r["mixed_replays"], seen)
+            with_spec = sum(k.with_spec for _, k in seen)
+            assert (with_spec > 0) == spec_on, with_spec
+            assert r["verify_replays"] == (with_spec if graphed else 0), r["verify_replays"]
             log(f"[warm] (b) burst {name} {kind}: wall {r['wall_s']:.3f} s, "
-                f"{r['tokens_per_s']:.2f} tokens/s, loop CPU {r['loop_cpu_s']:.3f} s, graph "
-                f"replays {r['replays']}, launches by kernel {r['designs']}")
+                f"{r['tokens_per_s']:.2f} tokens/s, loop CPU {r['loop_cpu_s']:.3f} s, mixed "
+                f"graph replays {r['mixed_replays']} (verify spans {r['verify_replays']}), "
+                f"dispatches {r['dispatches']}, launches by kernel {r['designs']}")
+            log(f"[warm] (b) burst {name} {kind}: {padding_line(seen)}")
+            if spec_on:
+                sm = spec_m
+                log(f"[warm] (b) burst {name} {kind}: verify rows {sm['spec_row_dispatches']} in "
+                    f"{sm['spec_dispatches']} dispatches, proposed {sm['spec_draft_tokens']} / "
+                    f"accepted {sm['spec_accepted_tokens']} / emitted "
+                    f"{sm['spec_emitted_tokens']}")
             runs.append(r)
         for r in runs[1:]:
             assert r["tokens"] == runs[0]["tokens"], f"(b) burst {name}: graphed and eager differ"
@@ -2324,24 +2473,25 @@ def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9
 
             for kind, eng in (("graphed", warm), ("eager", eager)):
                 eng.reset_prefix_cache()
-                with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with speculation(eng, spec_on), tprofile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     r = p8_burst(torch, eng, requests, sh.device)
                 assert r["tokens"] == runs[0]["tokens"]
                 report_profile(prof, r["wall_s"], f"[profile warm {name} {kind}]", top=6)
         results[name] = runs
         log(f"[warm] (b) burst {name}: tokens bit-equal and launch counts equal in all four "
             f"runs (graphed / eager / eager / graphed)")
-    captured = warm.metrics()["graphs_captured"]
-    assert captured == report["graphs"], f"(b) traffic captured {captured - report['graphs']}"
+    m = warm.metrics()
+    captured = m["graphs_captured"]
+    assert captured == report["graphs"] + report["mixed_graphs"], (
+        f"(b) traffic captured {captured - report['graphs'] - report['mixed_graphs']}")
     check_drained(warm, "(b) graphed")
     check_drained(eager, "(b) eager")
-    log(f"[warm] (b) no graph captured after the prewarm ({captured} in all); audits clean")
+    log(f"[warm] (b) no graph captured after the prewarm ({graph_line(m)}); audits clean")
     del warm, eager
-    gc.collect()
-    if sh.device == "cuda":
-        torch.cuda.empty_cache()
+    free(torch, sh.device)
     return dict(report=report, boot_s=boot_s, bursts=results,
-                designs=results["8a"][0]["designs"])
+                designs=results["8a"][0]["designs"], designs_spec=results["spec"][0]["designs"])
 
 
 def second_boot(cache_dir: str, smi: str, sh: Phase9 = Phase9()) -> dict:
@@ -2503,6 +2653,7 @@ def main() -> int:
             "launches_http_logprobs": p8["d"]["designs"][design],
             "launches_loader": p9["a"]["designs"][design],
             "launches_warm_boot": p9["b"]["designs"][design],
+            "launches_warm_boot_spec": p9["b"]["designs_spec"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

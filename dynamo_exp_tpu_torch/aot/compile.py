@@ -6,7 +6,7 @@ new process deserialises them instead of compiling. What a port process
 compiles is the kernel library (``nvcc``, ``ops/ragged_attention.py``),
 so the cache directory holds that library, built there by
 ``ops.ragged_attention.build_kernel`` (whose stamp beside the library
-decides whether it is stale), and ``manifest.json``: the window
+decides whether it is stale), and ``manifest.json``: the graph
 lattice's hash (``aot/lattice.py``) and the SHA-256 of every kernel
 source and header and of the nvcc flags. A boot against a directory
 whose library was built from the checkout's sources runs no ``nvcc``
@@ -23,14 +23,14 @@ import json
 import os
 
 from ..ops import ragged_attention as tra
-from .lattice import WindowManifest, build_manifest
+from .lattice import GraphManifest, build_manifest
 
 MANIFEST_FILENAME = "manifest.json"
 LIB_NAME = "libragged_attention.so"
 
 
-def manifest_for_engine(engine) -> WindowManifest:
-    """The window lattice of a live engine (its resolved attention)."""
+def manifest_for_engine(engine) -> GraphManifest:
+    """The graph lattice of a live engine (its resolved attention)."""
     return build_manifest(engine.cfg, engine.attn_impl)
 
 
@@ -42,7 +42,7 @@ def read_manifest(cache_dir: str) -> dict | None:
         return json.load(f)
 
 
-def write_manifest(cache_dir: str, manifest: WindowManifest) -> str:
+def write_manifest(cache_dir: str, manifest: GraphManifest) -> str:
     path = os.path.join(cache_dir, MANIFEST_FILENAME)
     record = {
         "manifest_hash": manifest.hash(),
@@ -55,7 +55,7 @@ def write_manifest(cache_dir: str, manifest: WindowManifest) -> str:
     return path
 
 
-def ensure_kernel_library(engine, cache_dir: str = "", manifest: WindowManifest | None = None) -> int:
+def ensure_kernel_library(engine, cache_dir: str = "", manifest: GraphManifest | None = None) -> int:
     """Build or load the kernel library before anything is captured
     (nvcc cannot run inside a capture): into and from ``cache_dir``
     when given, else ``_build/``. With ``cache_dir``, ``manifest.json``

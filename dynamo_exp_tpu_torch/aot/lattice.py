@@ -1,26 +1,42 @@
-"""The decode-window lattice, enumerated offline.
+"""The graph lattice, enumerated offline: every decode-window key and
+every mixed key an engine can dispatch.
 
-Counterpart of ``dynamo_exp_tpu/aot/lattice.py``. In the JAX package a
-decode window is one compiled XLA program per variant key; in the port
-it is one CUDA graph per key (``engine/graphs.py``). The key of a
-windowed dispatch is
+Counterpart of ``dynamo_exp_tpu/aot/lattice.py``. In the JAX package
+each ragged variant is one compiled XLA program; in the port it is one
+CUDA graph per key (``engine/graphs.py``). Two kinds of key:
 
-    (rows bucket, page-bound bucket, full sampler?, logprobs?)
+- a windowed dispatch (pure decode) keys on
 
-- rows: the window's rows padded to a power of two, capped at
-  ``max_decode_slots`` (the JAX ``windowed_token_buckets``);
-- page bound: the table columns the window reads, a power of two from
-  ``PAGE_FLOOR_TOKENS`` of pages up to ``max_pages_per_seq``. Unlike
-  the TPU key (``resolve_ragged_key``, whose Pallas kernel reads true
-  lengths and drops the bound), it stays: the split-KV decode kernel's
-  grid is sized from ``pages * page_size`` (``ops/ragged_attention.py``).
+      (rows bucket, page-bound bucket, full sampler?, logprobs?)
 
-One source of truth: :func:`resolve_window_key` keys every live
-windowed dispatch of ``TorchEngine`` and every entry of
-:func:`build_manifest`, so the manifest holds every key the engine can
-dispatch. Mixed dispatches (prefill chunks, verify spans) are not
-graphed; the manifest lists their flat-stream token buckets, which a
-warm boot runs once eagerly.
+  - rows: the window's rows padded to a power of two, capped at
+    ``max_decode_slots`` (the JAX ``windowed_token_buckets``);
+  - page bound: the table columns the window reads, a power of two from
+    ``PAGE_FLOOR_TOKENS`` of pages up to ``max_pages_per_seq``. Unlike
+    the TPU key (``resolve_ragged_key``, whose Pallas kernel reads true
+    lengths and drops the bound), it stays: the split-KV decode
+    kernel's grid is sized from ``pages * page_size``
+    (``ops/ragged_attention.py``);
+
+- a mixed dispatch (prefill chunks, decode steps beside them,
+  speculative verify spans) keys on
+
+      (token bucket, page bound, full sampler?, logprobs?, verify spans?)
+
+  - tokens: the flat query stream padded to the JAX mixed bucket
+    (``EngineConfig.ragged_tokens_bucket_for(n, mixed=True)``): a power
+    of two from 16, capped at :func:`ragged_max_tokens`;
+  - page bound: ``None`` on the kernel path, as in the Pallas key: the
+    port's mixed kernels read true lengths and their grids depend on
+    the stream's length only. The plain version reads the first
+    ``pages`` table columns, so there it is the window page bucket;
+  - verify spans: an axis only when speculation is on (the JAX
+    ``ragged_variants``' ``include_spec``).
+
+One source of truth: :func:`resolve_window_key` and
+:func:`resolve_mixed_key` key every live dispatch of ``TorchEngine``
+and every entry of :func:`build_manifest`, so the manifest holds every
+key the engine can dispatch.
 
 Everything here is pure: config in, manifest out, no clock and no
 environment, so the manifest's hash is the same in every process.
@@ -93,13 +109,45 @@ def page_bound_buckets(cfg) -> list[int]:
     return sorted({page_bucket_for(cfg, n) for n in _pow2_candidates(cfg.max_pages_per_seq)})
 
 
-def mixed_token_buckets(cfg) -> list[int]:
-    """Flat-stream sizes a warm boot runs a mixed forward at: powers of
-    two from 16 up to the largest stream (every slot prefilling a full
-    chunk, or verifying the widest draft, each span q_tile-aligned)."""
+def ragged_max_tokens(cfg) -> int:
+    """Upper bound of one mixed dispatch's flat stream: every slot
+    prefilling a full chunk or verifying the widest draft, each span
+    q_tile-aligned, as a power of two (the JAX
+    ``EngineConfig.ragged_max_tokens``)."""
     per_row = max(cfg.prefill_chunk, cfg.spec_max_draft + 1)
-    most = cfg.max_decode_slots * (per_row + cfg.ragged_q_tile - 1)
-    return sorted({pow2_bucket(n, 16) for n in _pow2_candidates(most)})
+    return pow2_bucket(cfg.max_decode_slots * (per_row + cfg.ragged_q_tile - 1), 1)
+
+
+def mixed_bucket_for(cfg, n_tokens: int) -> int:
+    """The flat-stream bucket of a mixed dispatch of ``n_tokens``: a
+    power of two from 16, capped at :func:`ragged_max_tokens` (the JAX
+    ``ragged_tokens_bucket_for(n, mixed=True)``)."""
+    return pow2_bucket(n_tokens, 16, ragged_max_tokens(cfg))
+
+
+@dataclass(frozen=True)
+class MixedKey:
+    """One mixed variant: one CUDA graph."""
+
+    tokens: int
+    pages: int | None  # None: the kernel path, which reads true lengths
+    full_sampler: bool
+    want_lp: bool
+    with_spec: bool
+
+
+def resolve_mixed_key(cfg, attn_impl: str, n_tokens: int, attn_pages: int,
+                      full_sampler: bool, want_lp: bool, with_spec: bool) -> MixedKey:
+    """The key of a mixed dispatch whose rows' spans fill ``n_tokens``
+    flat slots and whose longest row needs ``attn_pages`` table columns.
+    The engine pads its stream to the key's tokens (padding at position
+    -1, owned by the scratch row), eagerly or graphed alike."""
+    if n_tokens > ragged_max_tokens(cfg):
+        raise ValueError(f"a mixed stream of {n_tokens} tokens exceeds "
+                         f"ragged_max_tokens={ragged_max_tokens(cfg)}")
+    pages = None if attn_impl == "kernel" else page_bucket_for(cfg, attn_pages)
+    return MixedKey(mixed_bucket_for(cfg, max(n_tokens, 1)), pages, bool(full_sampler),
+                    bool(want_lp), bool(with_spec))
 
 
 def window_keys(cfg) -> list[WindowKey]:
@@ -115,26 +163,44 @@ def window_keys(cfg) -> list[WindowKey]:
     return sorted(keys)
 
 
-_SCHEMA = 1
+def mixed_keys(cfg, attn_impl: str) -> list[MixedKey]:
+    """Every key a mixed dispatch can resolve to, deduplicated through
+    :func:`resolve_mixed_key`; the verify-span axis only with
+    speculation on."""
+    spec_axis = (False, True) if cfg.spec_mode != "off" else (False,)
+    keys = {
+        resolve_mixed_key(cfg, attn_impl, n, pages, fs, lp, spec)
+        for n in _pow2_candidates(ragged_max_tokens(cfg))
+        for pages in _pow2_candidates(cfg.max_pages_per_seq)
+        for fs in (False, True)
+        for lp in (False, True)
+        for spec in spec_axis
+    }
+    return sorted(keys, key=lambda k: (k.tokens, k.pages or 0, k.full_sampler, k.want_lp,
+                                       k.with_spec))
+
+
+# 2: mixed keys replaced the mixed buckets.
+_SCHEMA = 2
 
 
 @dataclass
-class WindowManifest:
-    """The window lattice of one engine shape. ``hash()`` covers every
-    field: the model, the knobs that shape a window, the attention
-    implementation, the lattice and the mixed buckets."""
+class GraphManifest:
+    """The graph lattice of one engine shape. ``hash()`` covers every
+    field: the model, the knobs that shape a dispatch, the attention
+    implementation and both lattices. ``len()`` counts window keys."""
 
     model: dict
     engine: dict
     windows: list[WindowKey] = field(default_factory=list)
-    mixed_buckets: list[int] = field(default_factory=list)
+    mixed: list[MixedKey] = field(default_factory=list)
     schema: int = _SCHEMA
 
     def to_dict(self) -> dict:
         return {
             "schema": self.schema, "model": self.model, "engine": self.engine,
             "windows": [asdict(k) for k in self.windows],
-            "mixed_buckets": list(self.mixed_buckets),
+            "mixed": [asdict(k) for k in self.mixed],
         }
 
     def to_json(self) -> str:
@@ -169,12 +235,12 @@ def _engine_fingerprint(cfg, attn_impl: str) -> dict:
     }
 
 
-def build_manifest(cfg, attn_impl: str) -> WindowManifest:
-    """The window lattice of an engine config (``attn_impl`` is the
+def build_manifest(cfg, attn_impl: str) -> GraphManifest:
+    """The graph lattice of an engine config (``attn_impl`` is the
     engine's resolved implementation)."""
-    return WindowManifest(
+    return GraphManifest(
         model=_fingerprint(cfg.model),
         engine=_engine_fingerprint(cfg, attn_impl),
         windows=window_keys(cfg),
-        mixed_buckets=mixed_token_buckets(cfg),
+        mixed=mixed_keys(cfg, attn_impl),
     )

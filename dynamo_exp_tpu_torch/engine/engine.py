@@ -17,7 +17,11 @@ penalty/top-k/top-p sampler), in one of two shapes:
   is scored at every position and accepted on the device
   (``spec_accept_length`` greedy, ``spec_verify_tokens`` with the full
   sampler). With the kernel, every row's span is aligned to
-  ``ragged_q_tile`` slots.
+  ``ragged_q_tile`` slots. Eager or graphed, on any device, the stream
+  is padded to its key's token bucket (``aot.lattice.resolve_mixed_key``,
+  the JAX mixed bucket; padding at position -1, owned by the scratch
+  row), and on a card the dispatch replays the key's CUDA graph,
+  captured as a window's is.
 - **windowed**: pure decode, a Python loop of ``decode_window`` steps
   of ``models.llama.forward`` at T=1 (the kernel's decode shape). The
   next tokens and positions stay on the device between steps; a row
@@ -78,7 +82,7 @@ from typing import AsyncIterator, Callable
 import numpy as np
 import torch
 
-from ..aot.lattice import WindowKey, resolve_window_key
+from ..aot.lattice import MixedKey, WindowKey, resolve_mixed_key, resolve_window_key
 from ..device import resolve_device
 from ..models.llama import (
     Llama,
@@ -104,7 +108,7 @@ from ..runtime.engine import AsyncEngine, AsyncEngineContext, ResponseStream
 from ..spec import SpecManager
 from ..tokens import compute_block_hashes_for_seq
 from .config import EngineConfig
-from .graphs import WindowGraphs, pack_layout, views
+from .graphs import DispatchGraphs, pack_layout, views
 from .kv_manager import KvEvent, KvPageManager
 from .offload import CopyStream, HostKvPool, pinned_empty
 from .scheduler import Scheduler, Sequence, SeqState
@@ -282,14 +286,14 @@ class TorchEngine(AsyncEngine):
         self.swapped_in = 0  # rows restored from it
         self.prefetched_pages = 0  # pages restored ahead of admission
         self.prefetch_hits = 0  # of those, pages an admission attached
-        # CUDA graphs of the decode window, one per window key (None:
-        # every window runs eagerly). Set by default on a card.
+        # CUDA graphs of the dispatches, one per window or mixed key
+        # (None: every dispatch runs eagerly). Set by default on a card.
         use_graphs = cfg.cuda_graphs if cfg.cuda_graphs is not None else (
             self.device.type == "cuda"
         )
         if use_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, not {self.device}")
-        self.graphs: WindowGraphs | None = WindowGraphs(self) if use_graphs else None
+        self.graphs: DispatchGraphs | None = DispatchGraphs(self) if use_graphs else None
         self.prewarm_report = None  # aot.warmup.PrewarmReport of a warm boot
 
     # -------------------------------------------------------------- lifecycle
@@ -473,10 +477,24 @@ class TorchEngine(AsyncEngine):
         m["spec_draft_tokens"] = self.spec_draft_tokens
         m["spec_accepted_tokens"] = self.spec_accepted_tokens
         m["spec_emitted_tokens"] = self.spec_emitted_tokens
-        m["graphs_captured"] = self.graphs.captured if self.graphs else 0
-        m["graph_capture_seconds"] = self.graphs.capture_seconds if self.graphs else 0.0
-        m["graph_replays"] = self.graphs.replays if self.graphs else 0
-        m["prewarm"] = self.prewarm_report.to_dict() if self.prewarm_report else None
+        # CUDA graphs, both kinds, then by kind ("window", "mixed").
+        g = self.graphs
+        by_kind = {} if g is None else {
+            kind: {"captured": g.captured[kind], "capture_seconds": g.capture_seconds[kind],
+                   "replays": g.replays[kind]}
+            for kind in g.KINDS
+        }
+        m["graphs"] = by_kind
+        for name, total in (("graphs_captured", "captured"),
+                            ("graph_capture_seconds", "capture_seconds"),
+                            ("graph_replays", "replays")):
+            m[name] = sum(k[total] for k in by_kind.values())
+        # The JAX engine's names: programs built (here graphs captured)
+        # and variants a warm boot ran.
+        m["compiled_ragged_variants"] = len(self.graphs.graphs) if self.graphs else 0
+        report = self.prewarm_report
+        m["prewarmed_variants"] = report.variants + report.mixed_variants if report else 0
+        m["prewarm"] = report.to_dict() if report else None
         if self.host_pool is not None:
             m["host_cache_resident"] = self.host_pool.resident
             m["host_cache_hits"] = self.host_pool.hits
@@ -1423,149 +1441,195 @@ class TorchEngine(AsyncEngine):
         packs tight."""
         return self.cfg.ragged_q_tile if self.attn_impl == "kernel" else 1
 
-    def _build_mixed(
-        self, dec: list, spec: list, pf: list[Sequence], full_sampler: bool
-    ) -> _PendingRagged:
-        """Dispatch one flat stream carrying each prefill row's next
-        chunk, each decode row's fed token and each speculative row's
-        last token + drafts (no host sync). Every row samples at its
+    def _mixed_host(self, key: MixedKey) -> dict[str, np.ndarray]:
+        """A mixed dispatch's host arrays at ``key``'s shape, all padding:
+        every flat token at position -1 (K/V writes go to ``drop_page``,
+        outputs zeros) owned by the scratch row ``max_decode_slots``,
+        every per-row entry neutral. The sampler's arrays come only with
+        the full sampler, the drafts only with verify spans. The order
+        is the upload's and the graphs' layout."""
+        cfg = self.cfg
+        B1, T_s = cfg.max_decode_slots + 1, cfg.spec_max_draft + 1
+        host = {
+            "tokens": np.zeros(key.tokens, np.int64),
+            "positions": np.full(key.tokens, -1, np.int32),
+            "row_of": np.full(key.tokens, B1 - 1, np.int32),
+            "table": np.zeros((B1, key.pages or cfg.max_pages_per_seq), np.int32),
+            # Each row's last fed position, then (verify spans) every
+            # position of each span: the flat indices the head projects.
+            "out_idx": np.zeros(B1 * (1 + T_s * key.with_spec), np.int64),
+        }
+        if key.with_spec:
+            host["drafts"] = np.full((B1, T_s - 1), -1, np.int64)
+            host["n_drafts"] = np.zeros(B1, np.int64)
+        if key.full_sampler:
+            host["pos0"] = np.full(B1, -1, np.int64)
+            host["is_decode"] = np.zeros(B1, np.bool_)
+            host["slot"] = np.full(B1, cfg.max_decode_slots, np.int64)
+            if key.with_spec:
+                host["spec_pos"] = np.full((B1, T_s), -1, np.int64)
+            names = ("seeds", "temp", "top_k", "top_p", "freq", "pres", "rep")
+            host.update(zip(names, self._sampler_arrays(B1)))
+        return host
+
+    def _mixed_out_spec(self, key: MixedKey) -> list[tuple[tuple, torch.dtype]]:
+        """Shapes and types of :meth:`_mixed_body`'s outputs."""
+        B1, T_s = self.cfg.max_decode_slots + 1, self.cfg.spec_max_draft + 1
+        spec = [((B1,), torch.int64)]
+        if key.with_spec:
+            spec += [((B1, T_s), torch.int64), ((B1,), torch.int32)]
+        if key.want_lp:
+            for rows in ((B1,), (B1, T_s))[: 1 + key.with_spec]:
+                spec += [(rows, torch.float32), ((*rows, TOP_LOGPROBS), torch.int32),
+                         ((*rows, TOP_LOGPROBS), torch.float32)]
+        return spec
+
+    def _mixed_body(self, key: MixedKey, ins: dict) -> tuple:
+        """One forward over the flat stream and every row's sample at its
         last fed position (a prompt's first token from the raw
         distribution, decode tokens through their penalty counts); a
         verify span is scored at every position, one vocab projection
-        with the last positions, and accepted on the device."""
-        cfg, mcfg = self.cfg, self.cfg.model
-        ps = cfg.page_size
-        B1 = cfg.max_decode_slots + 1
-        T_s = cfg.spec_max_draft + 1
-        align = self._ragged_align()
-        flat_tokens: list[int] = []
-        flat_pos: list[int] = []
-        flat_row: list[int] = []
-        table = np.zeros((B1, cfg.max_pages_per_seq), np.int32)
-        q_last = np.zeros(B1, np.int64)
-        pos0 = np.full(B1, -1, np.int64)
-        is_decode = np.zeros(B1, np.bool_)
-        slot_map = np.full(B1, cfg.max_decode_slots, np.int64)
-        spec_idx = np.zeros((B1, T_s), np.int64)
-        spec_pos = np.full((B1, T_s), -1, np.int64)
-        spec_drafts = np.full((B1, T_s - 1), -1, np.int64)
-        n_drafts = np.zeros(B1, np.int64)
-        arrs = self._sampler_arrays(B1)
-
-        def add_span(toks: list[int], poss, r: int) -> int:
-            """Append one row's span, padded to ``align`` with position
-            -1 (writes dropped, scores masked, output zeros)."""
-            start = len(flat_tokens)
-            pad = (-len(toks)) % align
-            flat_tokens.extend(list(toks) + [0] * pad)
-            flat_pos.extend(list(poss) + [-1] * pad)
-            flat_row.extend([r] * (len(toks) + pad))
-            return start
-
-        rows: list[_RaggedRow] = []
-        max_pages = 1
-        r = 0
-        for seq in pf:
-            n = min(len(seq.prompt) - seq.prefill_sent, cfg.prefill_chunk)
-            start = seq.prefill_sent
-            qs = add_span(seq.prompt[start : start + n], range(start, start + n), r)
-            seq.prefill_sent = start + n
-            table[r, : len(seq.page_ids)] = seq.page_ids
-            q_last[r] = qs + n - 1
-            # The first token's draw is keyed by the prompt's last
-            # position, as a decode step feeding that token would be.
-            pos0[r] = start + n - 1
-            max_pages = max(max_pages, (seq.prefill_sent + ps - 1) // ps)
-            self._row_sampler_args(seq, r, arrs)
-            rows.append(
-                _RaggedRow(seq, "prefill", r, completing=seq.prefill_sent == len(seq.prompt))
-            )
-            r += 1
-        for seq, wpos, _cap in dec:
-            qs = add_span([seq.last_token()], [wpos], r)
-            table[r, : len(seq.page_ids)] = seq.page_ids
-            q_last[r] = qs
-            pos0[r] = wpos
-            is_decode[r] = True
-            slot_map[r] = seq.slot
-            max_pages = max(max_pages, wpos // ps + 1)
-            self._row_sampler_args(seq, r, arrs)
-            rows.append(_RaggedRow(seq, "decode", r, n_valid=1))
-            r += 1
-        for seq, wpos, _cap, drafts in spec:
-            # [last token] + drafts at consecutive positions.
-            g = len(drafts)
-            qs = add_span([seq.last_token()] + list(drafts), range(wpos, wpos + g + 1), r)
-            table[r, : len(seq.page_ids)] = seq.page_ids
-            q_last[r] = qs + g
-            slot_map[r] = seq.slot
-            spec_idx[r, : g + 1] = qs + np.arange(g + 1)
-            spec_pos[r, : g + 1] = np.arange(wpos, wpos + g + 1)
-            spec_drafts[r, :g] = drafts
-            n_drafts[r] = g
-            max_pages = max(max_pages, (wpos + g) // ps + 1)
-            self._row_sampler_args(seq, r, arrs)
-            rows.append(_RaggedRow(seq, "spec", r, n_drafts=g))
-            r += 1
-
-        with_spec = bool(spec)
-        out_idx = np.concatenate([q_last, spec_idx.reshape(-1)]) if with_spec else q_last
-        # Flat padding goes to the scratch row B1 - 1 (at most
-        # max_decode_slots rows hold slots).
-        (tokens, positions, row_of, table_d, out_d, pos0_d, dec_d, slot_d,
-         spos_d, drafts_d, ndraft_d, *samp) = self._upload(
-            np.asarray(flat_tokens, np.int64), np.asarray(flat_pos, np.int32),
-            np.asarray(flat_row, np.int32), table, out_idx, pos0, is_decode,
-            slot_map, spec_pos, spec_drafts, n_drafts, *arrs,
-        )
-        seeds, temp, top_k, top_p, freq, pres, rep = samp
+        with the last positions, and accepted on the device: the mixed
+        shape's tensor code, run eagerly or captured as a CUDA graph.
+        Returns (tok0 [B1], with verify spans targets [B1, T_s] and
+        n_emit [B1], with logprobs theirs)."""
+        cfg = self.cfg
+        B1, T_s = cfg.max_decode_slots + 1, cfg.spec_max_draft + 1
         logits_all, _, _ = forward_ragged(
-            self.model, mcfg, tokens, positions, row_of, table_d,
-            self.k_cache, self.v_cache, out_d, attn_pages=max_pages,
-            attn_impl=self.attn_impl, q_tile=align, drop_page=self._drop_page,
+            self.model, cfg.model, ins["tokens"], ins["positions"], ins["row_of"],
+            ins["table"], self.k_cache, self.v_cache, ins["out_idx"], attn_pages=key.pages,
+            attn_impl=self.attn_impl, q_tile=self._ragged_align(), drop_page=self._drop_page,
         )
         logits0 = logits_all[:B1]
-        if full_sampler:
+        if key.full_sampler:
+            slot_d, dec_d = ins["slot"], ins["is_decode"]
             counts = self._counts[slot_d]
-            shaped = apply_penalties(logits0, counts, freq, pres, rep)
+            shaped = apply_penalties(logits0, counts, ins["freq"], ins["pres"], ins["rep"])
             tok0 = sample_tokens_seeded(
-                torch.where(dec_d[:, None], shaped, logits0), seeds, pos0_d, temp, top_k, top_p
+                torch.where(dec_d[:, None], shaped, logits0), ins["seeds"], ins["pos0"],
+                ins["temp"], ins["top_k"], ins["top_p"],
             ).long()
             counts.scatter_add_(1, tok0[:, None], dec_d.to(torch.int32)[:, None])
         else:
             tok0 = torch.argmax(logits0, dim=-1)
         ys = (tok0,)
-        if with_spec:
+        if key.with_spec:
             spec_logits = logits_all[B1:].reshape(B1, T_s, -1)
-            if full_sampler:
+            if key.full_sampler:
                 # Penalty counts thread past rejections (a rejected
                 # draft leaves no trace).
                 targets, n_emit, counts = spec_verify_tokens(
-                    spec_logits, drafts_d, ndraft_d, seeds, spos_d, temp, top_k,
-                    top_p, counts, freq, pres, rep,
+                    spec_logits, ins["drafts"], ins["n_drafts"], ins["seeds"],
+                    ins["spec_pos"], ins["temp"], ins["top_k"], ins["top_p"], counts,
+                    ins["freq"], ins["pres"], ins["rep"],
                 )
             else:
                 targets = torch.argmax(spec_logits, dim=-1)
-                n_emit = spec_accept_length(targets, drafts_d, ndraft_d)
-            ys += (targets, n_emit)
-        if full_sampler:
+                n_emit = spec_accept_length(targets, ins["drafts"], ins["n_drafts"])
+            ys += (targets.long(), n_emit)
+        if key.full_sampler:
+            # Padding rows all gather and write back the scratch row,
+            # unchanged (they add nothing), so duplicates are harmless.
             self._counts[slot_d] = counts
-        want_lp = any(self._wants_logprobs(e.seq) is not None for e in rows)
-        if want_lp:
+        if key.want_lp:
             ys += token_logprobs(logits0, tok0)
-            if with_spec:
+            if key.with_spec:
                 lp, tid, tlp = token_logprobs(
                     spec_logits.reshape(B1 * T_s, -1), targets.reshape(-1)
                 )
                 ys += (lp.reshape(B1, T_s), tid.reshape(B1, T_s, -1), tlp.reshape(B1, T_s, -1))
-        ys, ready = self._fetch(ys)
+        return ys
+
+    def _build_mixed(
+        self, dec: list, spec: list, pf: list[Sequence], full_sampler: bool
+    ) -> _PendingRagged:
+        """Dispatch one flat stream carrying each prefill row's next
+        chunk, each decode row's fed token and each speculative row's
+        last token + drafts (no host sync), padded to its key's token
+        bucket as the JAX engine pads (``aot.lattice.resolve_mixed_key``):
+        with the kernel, every row's span aligned to ``ragged_q_tile``
+        slots (padding at position -1, owned by the row), then the
+        stream's tail owned by the scratch row ``max_decode_slots``."""
+        cfg = self.cfg
+        ps, align = cfg.page_size, self._ragged_align()
+        # (kind, sequence, fed tokens, first position, drafts) per row.
+        plan = []
+        for seq in pf:
+            start = seq.prefill_sent
+            n = min(len(seq.prompt) - start, cfg.prefill_chunk)
+            plan.append(("prefill", seq, seq.prompt[start : start + n], start, ()))
+        for seq, wpos, _cap in dec:
+            plan.append(("decode", seq, [seq.last_token()], wpos, ()))
+        for seq, wpos, _cap, drafts in spec:
+            # [last token] + drafts at consecutive positions.
+            plan.append(("spec", seq, [seq.last_token()] + list(drafts), wpos, drafts))
+        n_tokens = sum(-(-len(toks) // align) * align for _, _, toks, _, _ in plan)
+        max_pages = max((p0 + len(toks) - 1) // ps + 1 for _, _, toks, p0, _ in plan)
+        want_lp = any(self._wants_logprobs(seq) is not None for _, seq, _, _, _ in plan)
+        key = resolve_mixed_key(cfg, self.attn_impl, n_tokens, max_pages, full_sampler,
+                                want_lp, bool(spec))
+        host = self._mixed_host(key)
+        B1, T_s = cfg.max_decode_slots + 1, cfg.spec_max_draft + 1
+        q_last = host["out_idx"][:B1]
+        spec_idx = host["out_idx"][B1:].reshape(-1, T_s)
+        cols = host["table"].shape[1]
+        arrs = tuple(host[n] for n in ("seeds", "temp", "top_k", "top_p", "freq", "pres",
+                                       "rep")) if full_sampler else ()
+        rows: list[_RaggedRow] = []
+        qs = 0  # the row's first flat slot
+        for r, (kind, seq, toks, p0, drafts) in enumerate(plan):
+            n = len(toks)
+            host["tokens"][qs : qs + n] = toks
+            host["positions"][qs : qs + n] = np.arange(p0, p0 + n)
+            host["row_of"][qs : qs + -(-n // align) * align] = r
+            m = min(len(seq.page_ids), cols)  # the row's pages reach no further
+            host["table"][r, :m] = seq.page_ids[:m]
+            q_last[r] = qs + n - 1
+            if full_sampler:
+                self._row_sampler_args(seq, r, arrs)
+            if kind == "prefill":
+                seq.prefill_sent = p0 + n
+                if full_sampler:
+                    # The first token's draw is keyed by the prompt's
+                    # last position, as a decode step feeding that token
+                    # would be.
+                    host["pos0"][r] = p0 + n - 1
+                rows.append(_RaggedRow(seq, "prefill", r,
+                                       completing=seq.prefill_sent == len(seq.prompt)))
+            elif kind == "decode":
+                if full_sampler:
+                    host["pos0"][r], host["is_decode"][r], host["slot"][r] = p0, True, seq.slot
+                rows.append(_RaggedRow(seq, "decode", r, n_valid=1))
+            else:
+                g = len(drafts)
+                spec_idx[r, :n] = qs + np.arange(n)
+                host["drafts"][r, :g] = drafts
+                host["n_drafts"][r] = g
+                if full_sampler:
+                    host["slot"][r] = seq.slot
+                    host["spec_pos"][r, :n] = np.arange(p0, p0 + n)
+                rows.append(_RaggedRow(seq, "spec", r, n_drafts=g))
+            qs += -(-n // align) * align
+        ys, ready = self._fetch(self._launch_mixed(key, host))
         self.steps += 1
         self.dispatches["mixed"] += 1
-        self.spec_dispatches += with_spec
+        self.spec_dispatches += key.with_spec
         return _PendingRagged(
             ys=ys, ready=ready, rows=rows, windowed=False, full_sampler=full_sampler,
-            want_lp=want_lp, solo=False, with_spec=with_spec,
+            want_lp=want_lp, solo=False, with_spec=key.with_spec,
         )
+
+    def _launch_mixed(self, key: MixedKey, host: dict) -> tuple:
+        """Run one mixed dispatch at ``key`` from the host arrays
+        ``host``: through the key's CUDA graph when the engine has
+        graphs (captured at the key's first dispatch), else eagerly.
+        Returns its outputs on the device."""
+        if self.graphs is not None:
+            g = self.graphs.get(key)
+            self._upload_into(g.in_buf, list(host.values()), g.offs)
+            self.graphs.replay(g)
+            return g.outputs
+        return self._mixed_body(key, dict(zip(host, self._upload(*host.values()))))
 
     def _consume_mixed(self, pending: _PendingRagged) -> None:
         """Decode rows emit their one token, prompts completing their

@@ -1,22 +1,29 @@
-"""CUDA graphs of the decode window, one per window key.
+"""CUDA graphs of the engine's dispatches, one per key.
 
-The JAX package compiles each decode-window variant into one XLA
-program (``TPUEngine._ragged_fn``). PyTorch runs eagerly, and a window
-is ``decode_window`` steps of about 30 small launches per layer plus the
-sampler's, each enqueued from Python. A :class:`WindowGraph` captures
-one window (the engine's ``_window_body``) for one
-:class:`~..aot.lattice.WindowKey` and replays it with one launch:
+The JAX package compiles each ragged variant into one XLA program
+(``TPUEngine._ragged_fn``). PyTorch runs eagerly: a decode window is
+``decode_window`` steps of about 30 small launches per layer plus the
+sampler's, and a mixed dispatch (prefill chunks, decode steps beside
+them, verify spans) one forward of the same launches plus its sampler,
+verify and logprobs, each enqueued from Python. A :class:`DispatchGraph`
+captures one dispatch for one key and replays it with one launch. The
+key says the kind: a :class:`~..aot.lattice.WindowKey` is captured from
+the engine's ``_window_host`` / ``_window_out_spec`` / ``_window_body``,
+a :class:`~..aot.lattice.MixedKey` from ``_mixed_host`` /
+``_mixed_out_spec`` / ``_mixed_body``. For every key:
 
 - its inputs are views of one device byte buffer laid out as the
-  engine's pinned upload, so a window's host arrays go up in one
+  engine's pinned upload, so a dispatch's host arrays go up in one
   ``non_blocking`` copy straight into them; a chained window then
   copies the previous window's carry (tokens, positions) over them on
-  the device;
+  the device. The upload is queued behind the previous replay of the
+  key on the same stream, so it never overwrites inputs still read;
 - its outputs are tensors allocated outside the graph pool, which the
   captured body copies its results into, so that no other graph's
   replay can overwrite them; the engine's ``_fetch`` queues their host
-  copies right after the replay. Only intermediates live in the pool,
-  which every graph of the engine shares;
+  copies right after the replay, ahead of the key's next replay. Only
+  intermediates live in the pool, which every graph of the engine
+  shares;
 - the kernel wrappers' launches are recorded at capture
   (``ops.ragged_attention.record_launches``) and added to the launch
   counters at every replay, so the counters stay launch for launch what
@@ -24,7 +31,7 @@ one window (the engine's ``_window_body``) for one
 
 A key is captured the first time it is dispatched (or by
 ``aot.warmup.prewarm_engine`` before traffic) and replayed after. A
-capture that fails raises; nothing falls back to the eager window.
+capture that fails raises; nothing falls back to the eager dispatch.
 Graphs live in one process: they are captured again on every boot.
 """
 
@@ -33,12 +40,14 @@ from __future__ import annotations
 import contextlib
 import gc
 import logging
+import threading
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..aot.lattice import MixedKey
 from ..ops import ragged_attention as tra
 
 log = logging.getLogger(__name__)
@@ -79,16 +88,27 @@ class CudaGraphRunner:
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
+        self._warm = threading.local()
 
     def capture(self, fn: Callable[[], None]):
         """Capture ``fn`` on the side stream, after the work queued so
         far on the current one. No device sync (unlike the
         ``torch.cuda.graph`` context), so a first-use capture may happen
         inside a chained dispatch. Any sync inside ``fn`` raises (sync
-        debug mode "error"), as would any call the capture forbids."""
+        debug mode "error"), as would any call the capture forbids. The
+        first capture on a thread runs ``fn`` once eagerly on the side
+        stream before it, uncounted: PyTorch asks for such a warm-up on
+        a side stream before a capture, so that lazily made state (the
+        CUDA libraries' handles and workspaces) is not made inside it.
+        A thread's first dispatch may be a capture now that mixed
+        dispatches are graphed too."""
         g = torch.cuda.CUDAGraph()
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
+        if not getattr(self._warm, "done", False):
+            with torch.cuda.stream(self.stream), tra.record_launches():
+                fn()
+            self._warm.done = True
         mode = torch.cuda.get_sync_debug_mode()
         # No garbage collection inside the capture: a collected cycle
         # can free pinned host memory (an old engine's staging), whose
@@ -136,9 +156,13 @@ class CudaGraphRunner:
         )
 
 
-class WindowGraph:
-    """One captured window: its input buffer and views, its outputs, the
-    graph and the kernel launches one replay makes."""
+def kind_of(key) -> str:
+    return "mixed" if isinstance(key, MixedKey) else "window"
+
+
+class DispatchGraph:
+    """One captured dispatch: its input buffer and views, its outputs,
+    the graph, the kernel launches one replay makes and its replays."""
 
     def __init__(self, key, in_buf, inputs, offs, outputs, graph, launches):
         self.key = key
@@ -148,56 +172,64 @@ class WindowGraph:
         self.outputs = outputs  # tuple, allocated outside the pool
         self.graph = graph
         self.launches = launches  # ops.ragged_attention.record_launches()
+        self.replays = 0
 
 
-class WindowGraphs:
-    """The engine's window graphs by key, captured at first use."""
+class DispatchGraphs:
+    """The engine's graphs by key (window and mixed), captured at first
+    use; counters by kind."""
+
+    KINDS = ("window", "mixed")
 
     def __init__(self, engine, runner=None):
         self.engine = engine
         self.runner = runner if runner is not None else CudaGraphRunner(engine.device)
         self.graphs: dict = {}
-        self.captured = 0
-        self.capture_seconds = 0.0  # the loop (or boot) thread's, all captures
-        self.replays = 0
+        self.captured = dict.fromkeys(self.KINDS, 0)
+        # The loop (or boot) thread's seconds in captures.
+        self.capture_seconds = dict.fromkeys(self.KINDS, 0.0)
+        self.replays = dict.fromkeys(self.KINDS, 0)
 
-    def get(self, key) -> WindowGraph:
+    def get(self, key) -> DispatchGraph:
         g = self.graphs.get(key)
         if g is None:
             g = self.graphs[key] = self._capture(key)
         return g
 
-    def _capture(self, key) -> WindowGraph:
-        eng = self.engine
+    def _capture(self, key) -> DispatchGraph:
+        eng, kind = self.engine, kind_of(key)
         t0 = time.perf_counter()
-        host = eng._window_host(key)  # all padding
+        # The engine's _{kind}_host / _out_spec / _body.
+        host = getattr(eng, f"_{kind}_host")(key)  # all padding
         names, arrays = list(host), list(host.values())
         offs, total = pack_layout(arrays)
         in_buf = torch.empty(total, dtype=torch.uint8, device=eng.device)
         eng._upload_into(in_buf, arrays, offs)
         inputs = dict(zip(names, views(in_buf, arrays, offs)))
         outputs = tuple(
-            torch.empty(shape, dtype=dt, device=eng.device) for shape, dt in eng._window_out_spec(key)
+            torch.empty(shape, dtype=dt, device=eng.device)
+            for shape, dt in getattr(eng, f"_{kind}_out_spec")(key)
         )
 
         def body():
-            for out, res in zip(outputs, eng._window_body(key, inputs)):
+            for out, res in zip(outputs, getattr(eng, f"_{kind}_body")(key, inputs)):
                 out.copy_(res)
 
         if eng.attn_impl == "kernel" and eng.device.type == "cuda":
             tra.load_kernel()  # nvcc cannot run inside a capture
         with tra.record_launches() as launches:
             graph = self.runner.capture(body)
-        self.captured += 1
+        self.captured[kind] += 1
         seconds = time.perf_counter() - t0
-        self.capture_seconds += seconds
-        log.info("captured window graph %s in %.3fs", key, seconds)
-        return WindowGraph(key, in_buf, inputs, offs, outputs, graph, launches)
+        self.capture_seconds[kind] += seconds
+        log.info("captured %s graph %s in %.3fs", kind, key, seconds)
+        return DispatchGraph(key, in_buf, inputs, offs, outputs, graph, launches)
 
-    def replay(self, g: WindowGraph) -> None:
+    def replay(self, g: DispatchGraph) -> None:
         self.runner.replay(g.graph)
         tra.add_launches(g.launches)
-        self.replays += 1
+        g.replays += 1
+        self.replays[kind_of(g.key)] += 1
 
     def pool_bytes(self) -> int:
         return self.runner.pool_bytes()

@@ -20,8 +20,8 @@ OUTPUT: cuda | echo_core | echo_full
 - ``--spec ngram`` (``--spec-draft-len``, ``--spec-max-draft``,
   ``--spec-ngram``): speculative decoding, as in the JAX CLI.
 - ``--prewarm`` and ``--compile-cache-dir`` (``aot/``): warm boot, as in
-  the JAX CLI (CUDA graphs of every decode-window variant, and the
-  kernel library kept in the cache directory).
+  the JAX CLI (CUDA graphs of every decode-window and mixed variant,
+  and the kernel library kept in the cache directory).
 
 The JAX CLI's other inputs, outputs and flags are refused with the
 ROADMAP item that brings them, never silently ignored.
@@ -123,7 +123,7 @@ def parse_args(argv: list[str]):
                    "the JAX CLI)")
     p.add_argument("--prewarm", action="store_true",
                    help="warm boot: run (on the card: capture as CUDA graphs) every "
-                   "decode-window variant before serving")
+                   "decode-window and mixed (prefill, verify) variant before serving")
     p.add_argument("--compile-cache-dir", default="",
                    help="directory the kernel library is built into and kept in, with "
                    "manifest.json (a second boot against it runs no nvcc)")
@@ -193,14 +193,15 @@ def build_cuda_engine(opts):
     )
     engine = TorchEngine(ecfg, model=model, device=opts.device)
     if opts.prewarm:
-        # Warm boot: every window variant runs (and, on the card, is
-        # captured as a CUDA graph) now, not under first traffic.
+        # Warm boot: every window and mixed variant runs (and, on the
+        # card, is captured as a CUDA graph) now, not under first traffic.
         from .aot import prewarm_engine
 
         report = prewarm_engine(engine, cache_dir=opts.compile_cache_dir)
         logger.info(
-            "prewarmed %d variants (%d graphs, %d kernel builds) in %.2fs (manifest %s)",
-            report.variants, report.graphs, report.builds, report.seconds,
+            "prewarmed %d window variants (%d graphs) and %d mixed variants (%d graphs), "
+            "%d kernel builds, in %.2fs (manifest %s)", report.variants, report.graphs,
+            report.mixed_variants, report.mixed_graphs, report.builds, report.seconds,
             report.manifest_hash[:12],
         )
     elif opts.compile_cache_dir:

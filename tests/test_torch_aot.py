@@ -11,12 +11,15 @@
   running engine; with ``--compile-cache-dir`` it writes
   ``manifest.json`` (no kernel build on the CPU).
 - Graph bookkeeping: the CUDA graph runner is replaced by a CPU stub
-  that runs the captured window on the graph's own input and output
-  buffers (a capture records the kernel wrappers' launches; a replay
-  runs the body again, uncounted). Tokens equal the eager engine's, and
-  the launch counters equal the eager run's, which equal the mixed
-  dispatches' launches plus, for each graph, its replays times its
-  recorded launches.
+  that runs the captured dispatch (a window or a mixed dispatch) on the
+  graph's own input and output buffers (a capture records the kernel
+  wrappers' launches; a replay runs the body again, uncounted). Tokens
+  equal the eager engine's, and the launch counters equal the eager
+  run's, which equal, for each graph, its replays times its recorded
+  launches: every window and every mixed dispatch is a replay. A
+  prewarmed engine (speculation on) captures every window and mixed
+  key, verify spans' too, and its traffic captures none, with the eager
+  engine's tokens and logprobs.
 - ``run.py --prewarm --compile-cache-dir`` parse as the JAX CLI's and
   prewarm the engine; ``cuda_graphs=True`` on the CPU raises.
 """
@@ -40,7 +43,7 @@ from dynamo_exp_tpu.models import llama as jllama
 from dynamo_exp_tpu_torch import run
 from dynamo_exp_tpu_torch.aot import build_manifest, lattice, prewarm_engine, read_manifest
 from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
-from dynamo_exp_tpu_torch.engine.graphs import WindowGraphs
+from dynamo_exp_tpu_torch.engine.graphs import DispatchGraphs
 from dynamo_exp_tpu_torch.models import llama as tllama
 from dynamo_exp_tpu_torch.models import params_from_jax
 from dynamo_exp_tpu_torch.ops import ragged_attention as tra
@@ -181,7 +184,7 @@ def test_prewarm_leaves_the_engine_as_a_cold_one(np_params, tmp_path):
     report = prewarm_engine(warm, cache_dir=str(tmp_path / "cache"))
     manifest = build_manifest(warm.cfg, warm.attn_impl)
     assert report.variants == len(manifest) and report.graphs == 0 and report.builds == 0
-    assert report.mixed_buckets == len(manifest.mixed_buckets) > 0
+    assert report.mixed_variants == len(manifest.mixed) > 0 and report.mixed_graphs == 0
     assert warm.metrics()["prewarm"]["variants"] == report.variants
     record = read_manifest(str(tmp_path / "cache"))
     assert record["manifest_hash"] == manifest.hash() == report.manifest_hash
@@ -228,33 +231,43 @@ class _StubRunner:
 
 def test_prewarm_after_traffic_replays_only_padding(np_params):
     """An engine that served traffic and stopped may be prewarmed. A
-    key its traffic captured still holds the last real window in its
+    key its traffic captured still holds the last real dispatch in its
     inputs; prewarm uploads padding before the replay, so the KV pools
     and penalty counts stay as the traffic left them (the scratch page
-    past the pool, which prewarm zeroes, aside) and every window it
-    runs is all padding."""
+    past the pool, which prewarm zeroes, aside) and every window and
+    mixed dispatch it runs is all padding."""
     eng = _engine(np_params)
-    eng.graphs = WindowGraphs(eng, runner=_StubRunner())
+    eng.graphs = DispatchGraphs(eng, runner=_StubRunner())
     try:
         _run(_burst(eng))
     finally:
         eng.stop()
     traffic_keys = set(eng.graphs.graphs)
     assert any(k.full_sampler for k in traffic_keys)
+    assert {type(k) for k in traffic_keys} == {lattice.WindowKey, lattice.MixedKey}
     pool = slice(0, eng._drop_page)
     state = lambda: (eng.k_cache[:, pool], eng.v_cache[:, pool], eng._counts)  # noqa: E731
     before = [t.clone() for t in state()]
-    seen, body = [], eng._window_body
+    seen, window_body, mixed_body = [], eng._window_body, eng._mixed_body
+    scratch = eng.cfg.max_decode_slots
 
-    def spy(key, ins):
+    def window_spy(key, ins):
         seen.append((key, bool((ins["positions"] < 0).all()), bool(
-            (ins["slot"] == eng.cfg.max_decode_slots).all())))
-        return body(key, ins)
+            (ins["slot"] == scratch).all())))
+        return window_body(key, ins)
 
-    eng._window_body = spy
+    def mixed_spy(key, ins):
+        seen.append((key, bool((ins["positions"] < 0).all()), bool(
+            (ins["row_of"] == scratch).all())))
+        return mixed_body(key, ins)
+
+    eng._window_body, eng._mixed_body = window_spy, mixed_spy
     report = prewarm_engine(eng)
-    assert report.variants == len(build_manifest(eng.cfg, eng.attn_impl))
-    assert report.graphs == report.variants - len(traffic_keys)
+    manifest = build_manifest(eng.cfg, eng.attn_impl)
+    assert report.variants == len(manifest) and report.mixed_variants == len(manifest.mixed)
+    windows = {k for k in traffic_keys if isinstance(k, lattice.WindowKey)}
+    assert report.graphs == report.variants - len(windows)
+    assert report.mixed_graphs == report.mixed_variants - len(traffic_keys - windows)
     assert {k for k, _, _ in seen} >= traffic_keys
     assert all(padding and scratch for _, padding, scratch in seen)
     for name, now, then in zip(("k_cache", "v_cache", "_counts"), state(), before):
@@ -288,7 +301,7 @@ def test_graph_replays_count_the_eager_launches(np_params, counted_wrappers, cha
         runner = None
         if graphs:
             runner = _StubRunner()
-            eng.graphs = WindowGraphs(eng, runner=runner)
+            eng.graphs = DispatchGraphs(eng, runner=runner)
         tra.reset_launches()
         try:
             out = _run(_burst(eng))
@@ -302,24 +315,88 @@ def test_graph_replays_count_the_eager_launches(np_params, counted_wrappers, cha
     assert g_launches == launches and g_designs == designs
     assert launches["ragged_decode_attention"] > 0 and launches["ragged_paged_attention"] > 0
     m = eng.metrics()
-    assert m["graphs_captured"] == len(eng.graphs.graphs) > 1
+    assert m["graphs_captured"] == len(eng.graphs.graphs) == m["compiled_ragged_variants"] > 1
     assert m["graph_capture_seconds"] > 0 and eager.metrics()["graph_capture_seconds"] == 0
-    assert m["graph_replays"] == sum(runner.replays.values()) == m["dispatches"]["windowed"]
+    disp = m["dispatches"]
+    assert m["graph_replays"] == sum(runner.replays.values()) == disp["windowed"] + disp["mixed"]
+    assert m["graphs"]["window"]["replays"] == disp["windowed"]
+    assert m["graphs"]["mixed"]["replays"] == disp["mixed"] > 0
+    assert eager.metrics()["graphs"] == {} and eager.metrics()["graph_replays"] == 0
     replayed = {
         name: sum(runner.replays.get(id(g.graph), 0) * g.launches["entries"][name]
                   for g in eng.graphs.graphs.values())
         for name in tra.LAUNCHES
     }
-    # Windows launch only the decode kernel, mixed dispatches (eager)
-    # only the mixed one.
-    assert replayed["ragged_paged_attention"] == 0
-    assert replayed["ragged_decode_attention"] == launches["ragged_decode_attention"]
-    assert all(
-        g.launches["entries"]["ragged_decode_attention"]
-        == eng.cfg.decode_window * eng.cfg.model.num_layers
-        for g in eng.graphs.graphs.values()
-    )
+    # Every launch of the graphed run is a replay's: windows launch only
+    # the decode kernel, mixed dispatches only the mixed one.
+    assert replayed == launches
+    for key, g in eng.graphs.graphs.items():
+        assert g.replays == runner.replays[id(g.graph)]
+        layers = eng.cfg.model.num_layers
+        if isinstance(key, lattice.MixedKey):
+            assert g.launches["entries"] == {"ragged_paged_attention": layers,
+                                             "ragged_decode_attention": 0}
+        else:
+            assert g.launches["entries"] == {"ragged_paged_attention": 0,
+                                             "ragged_decode_attention":
+                                             eng.cfg.decode_window * layers}
     assert eager.metrics()["dispatches"] == m["dispatches"]
+
+
+async def _lp_burst(eng):
+    """``_burst``'s rows with their logprobs, and a row the n-gram
+    drafter predicts (verify spans), admitted together."""
+    async def collect(prompt, n, **so):
+        stream = eng.submit({"token_ids": list(prompt), "sampling_options": so,
+                             "stop_conditions": {"max_tokens": n, "ignore_eos": True}})
+        out = []
+        async for item in stream:
+            out.append((item.get("token_ids", []), item.get("logprobs")))
+        return out
+
+    jobs = [asyncio.ensure_future(collect(p, 20, **so)) for p, so in zip((P1, P2, P3), SAMPLING)]
+    jobs.append(asyncio.ensure_future(collect([5, 9, 17, 3] * 5, 20, logprobs=1)))
+    await asyncio.sleep(0)
+    eng.start()
+    return await asyncio.gather(*jobs)
+
+
+def test_prewarmed_graphs_serve_traffic_without_capture(np_params, counted_wrappers):
+    """Speculation on, the kernel wrappers' spans: prewarm captures every
+    window and mixed key of the manifest (verify-span keys too); the
+    burst then replays every dispatch, mixed ones through
+    ``graphs.get(MixedKey)``, captures nothing, and gives the eager
+    engine's tokens, logprobs and launch counts."""
+    def go(graphs: bool):
+        eng = _engine(np_params, attention_impl="kernel", spec_mode="ngram")
+        gets = []
+        if graphs:
+            eng.graphs = DispatchGraphs(eng, runner=_StubRunner())
+            get = eng.graphs.get
+            eng.graphs.get = lambda key: gets.append(key) or get(key)
+        report = prewarm_engine(eng)
+        tra.reset_launches()
+        try:
+            out = _run(_lp_burst(eng))
+        finally:
+            eng.stop()
+        return out, dict(tra.KERNEL_LAUNCHES), eng, report, gets
+
+    want, launches, eager, _, _ = go(False)
+    got, g_launches, eng, report, gets = go(True)
+    assert got == want and g_launches == launches
+    manifest = build_manifest(eng.cfg, eng.attn_impl)
+    assert any(k.with_spec for k in manifest.mixed)
+    assert report.mixed_graphs == report.mixed_variants == len(manifest.mixed)
+    assert report.graphs == report.variants == len(manifest)
+    m = eng.metrics()
+    assert m["graphs_captured"] == report.graphs + report.mixed_graphs
+    assert m["prewarmed_variants"] == len(manifest) + len(manifest.mixed)
+    mixed = [k for k in gets[len(manifest) + len(manifest.mixed):]
+             if isinstance(k, lattice.MixedKey)]
+    assert len(mixed) == m["dispatches"]["mixed"] == eager.metrics()["dispatches"]["mixed"]
+    assert any(k.with_spec for k in mixed) and m["spec_row_dispatches"] > 0
+    assert m["graphs"]["mixed"]["replays"] == report.mixed_variants + len(mixed)
 
 
 def test_record_launches_keeps_launches_apart_until_added():

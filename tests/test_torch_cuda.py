@@ -40,7 +40,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _flat_batch(seed, spans, H, Hkv, D, P, ps, pmax, q_tile, dtype, device):
+def _flat_batch(seed, spans, H, Hkv, D, P, ps, pmax, q_tile, dtype, device, pad_to=0):
+    """A q_tile-aligned flat stream, one empty tile (owned by the scratch
+    row ``len(spans)``) at its end, then, up to ``pad_to`` tokens, more
+    such tiles: the engine's stream padded to its token bucket."""
     rs = np.random.RandomState(seed)
     k = rs.standard_normal((P, ps, Hkv * D)).astype(np.float32)
     v = rs.standard_normal((P, ps, Hkv * D)).astype(np.float32)
@@ -54,8 +57,9 @@ def _flat_batch(seed, spans, H, Hkv, D, P, ps, pmax, q_tile, dtype, device):
         pad = (-q_len) % q_tile
         row_of += [r] * (q_len + pad)
         positions += list(range(kv_len - q_len, kv_len)) + [-1] * pad
-    row_of += [len(spans)] * q_tile  # one fully empty tile
-    positions += [-1] * q_tile
+    tail = max(q_tile, pad_to - len(row_of))  # one fully empty tile, or the padding
+    row_of += [len(spans)] * tail
+    positions += [-1] * tail
     q = rs.standard_normal((len(row_of), H, D)).astype(np.float32)
 
     def f(a):
@@ -122,6 +126,26 @@ def _row_alone(args, r, q_tile):
     zeros = torch.zeros(len(idx), dtype=torch.int32, device=q.device)
     return idx, (q[idx].contiguous(), k, v, table[r : r + 1].contiguous(), zeros,
                  pos[idx].contiguous())
+
+
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("H,Hkv,D", LAYOUTS[:2])
+def test_mixed_shape_on_a_bucket_padded_stream(cuda, dtype, atol, H, Hkv, D):
+    """The engine's padded stream: the "long" spans (624 slots with the
+    empty tile) padded to the 1,024 bucket, a run of 50 tiles owned by
+    the scratch row at position -1. Equal to the plain version, exact
+    zeros at every padding token, one launch."""
+    rows, P, pmax = MIXED["long"]
+    args = _flat_batch(0, rows, H, Hkv, D, P, 16, pmax, 8, dtype, cuda, pad_to=1024)
+    assert args[0].shape[0] == 1024 and int((args[4] == len(rows)).sum()) == 1024 - 616
+    tra.reset_launches()
+    got = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8)
+    want = tra.ragged_paged_attention_ref(*args, num_kv_heads=Hkv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[args[5] < 0] == 0).all()
+    design = "mixed_tc_bf16" if dtype == torch.bfloat16 else "mixed_f32"
+    assert tra.KERNEL_LAUNCHES[design] == 1 and sum(tra.KERNEL_LAUNCHES.values()) == 1
 
 
 @pytest.mark.parametrize("H,Hkv,D", LAYOUTS)
@@ -527,11 +551,67 @@ def test_graphed_windows_equal_eager_windows(cuda, dtype):
     graphed, launches, gm, _ = run(True)
     assert graphed == eager and all(len(t) == 30 for t in eager)
     assert launches == eager_launches and launches["decode_split"] > 0
-    assert em["graph_replays"] == 0 and gm["graph_replays"] == gm["dispatches"]["windowed"] > 0
+    disp = gm["dispatches"]
+    assert em["graph_replays"] == 0 and disp["windowed"] > 0 and disp["mixed"] > 0
+    assert gm["graph_replays"] == disp["windowed"] + disp["mixed"]
+    assert gm["graphs"]["mixed"]["replays"] == disp["mixed"]
     warm, warm_launches, wm, new = run(True, prewarm=True)
     assert warm == eager and warm_launches == eager_launches
-    assert new == 0 and wm["prewarm"]["graphs"] == wm["prewarm"]["variants"] > 0
-    assert wm["prewarm"]["pool_bytes"] > 0
+    report = wm["prewarm"]
+    assert new == 0 and report["graphs"] == report["variants"] > 0
+    assert report["mixed_graphs"] == report["mixed_variants"] > 0
+    assert report["pool_bytes"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixed_key_replay_equals_its_eager_dispatch(cuda, dtype):
+    """One mixed key with the full sampler, verify spans and logprobs: a
+    prefill chunk, a decode row and a verify span of 4 drafts in a
+    stream padded to 64 slots. The key's graph replay gives its eager
+    dispatch's outputs and penalty counts bit for bit, with the same
+    kernel launches."""
+    from dynamo_exp_tpu_torch.aot import MixedKey
+
+    cfg_m = replace(TINY, dtype=dtype, head_dim=64, num_heads=4, num_kv_heads=2,
+                    hidden_size=256)
+    cfg = EngineConfig(model=cfg_m, max_decode_slots=4, page_size=16, num_pages=64,
+                       max_model_len=256, prefill_chunk=32, decode_window=4, kv_dtype=dtype,
+                       spec_mode="ngram", spec_max_draft=4)
+    eng = TorchEngine(cfg, device=cuda, seed=3)
+    key = MixedKey(64, None, True, True, True)
+    host = eng._mixed_host(key)
+    rs = np.random.RandomState(1)
+    B1, T_s = 5, 5
+    # (first slot, fed tokens, first position, pages) of rows 0-2.
+    for r, (qs, n, p0, pages) in enumerate([(0, 20, 0, [0, 1]), (24, 1, 30, [2, 3]),
+                                            (32, 5, 40, [4, 5, 6])]):
+        host["tokens"][qs : qs + n] = rs.randint(3, 250, size=n)
+        host["positions"][qs : qs + n] = np.arange(p0, p0 + n)
+        host["row_of"][qs : qs + -(-n // 8) * 8] = r
+        host["table"][r, : len(pages)] = pages
+        host["out_idx"][r] = qs + n - 1
+        host["seeds"][r], host["temp"][r], host["freq"][r] = 11 + r, 0.8, 0.3
+    host["pos0"][:2], host["is_decode"][1], host["slot"][1:3] = (19, 30), True, (1, 2)
+    host["out_idx"][B1 + 2 * T_s : B1 + 3 * T_s] = np.arange(32, 37)
+    host["drafts"][2], host["n_drafts"][2] = rs.randint(3, 250, size=4), 4
+    host["spec_pos"][2] = np.arange(40, 45)
+    eng._counts[1:3, 7] = 2
+    before = eng._counts.clone()
+    tra.reset_launches()
+    eager = [t.clone() for t in eng._mixed_body(key, dict(zip(host, eng._upload(*host.values()))))]
+    eager_launches, counts = dict(tra.KERNEL_LAUNCHES), eng._counts.clone()
+    eng._counts.copy_(before)
+    g = eng.graphs.get(key)
+    eng._upload_into(g.in_buf, list(host.values()), g.offs)
+    tra.reset_launches()
+    eng.graphs.replay(g)
+    torch.cuda.synchronize()
+    assert len(g.outputs) == len(eager) == 9
+    for i, (a, b) in enumerate(zip(eager, g.outputs)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    assert torch.equal(eng._counts, counts) and not torch.equal(counts, before)
+    assert dict(tra.KERNEL_LAUNCHES) == eager_launches
+    assert sum(eager_launches.values()) == cfg_m.num_layers
 
 
 def test_loader_round_trip_on_the_card(cuda, tmp_path):
