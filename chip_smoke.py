@@ -129,7 +129,35 @@ Phases, each fatal on failure (nothing is caught):
    process boots ``--preset llama-1b --prewarm`` against the same cache
    directory: ``builds: 0`` (no nvcc).
 
-Phases 5-9 run with CUDA graphs of every dispatch (the engine's default
+10. the observable, overload-protected edge: ``run.main_async(in=http
+   out=cuda)`` serving llama-8b at full width and depth (random weights
+   from seed 0, no prewarm: first-use captures under traffic) with
+   ``--max-inflight 10 --shed-watermark 6 --slo-ttft-ms 1000
+   --slo-itl-ms 100 --trace-file``. (a) phase 5's 8 prompts as streams of
+   256 tokens hold the edge at 8 in flight; probes low, normal, high,
+   high, high, low get 429, 429, admitted, admitted, 503, 503 (each
+   refusal with ``Retry-After``); every admitted request finishes at
+   full length; ``dynamo_requests_shed_total{priority,code}`` equals
+   the client's count; the in-flight gauge returns to 0. (b) behind a
+   full pool, ``timeout_s`` 0.5 gets the JAX service's answer (200,
+   ``finish_reason`` ``error``, no text) and
+   ``dynamo_deadline_exceeded_total{stage=engine_admission}`` +1; a lone
+   1024-token stream with ``timeout_s`` 3 finishes ``error`` mid-decode
+   (``{stage=decode}`` +1) with text equal to the same request's
+   without a deadline at that length; ``timeout_s`` 600 changes
+   nothing; page audits clean. (c) requests by status, TTFT samples,
+   goodput + violations (against the trace file's root spans),
+   ``dynamo_compile_seconds`` counts (= graphs captured by kind), a
+   ``dump_all`` flight dump holding every dispatch, no watchdog dump,
+   both bf16 kernels launched; printed: the scrape's bytes and
+   families. (d) phase 5's burst straight to ``TorchEngine`` with
+   telemetry on, off, off, on (``flight_events``,
+   ``profile_dispatches``): tokens and launch counts bit-equal, equal
+   flight events in the two "on" runs, every dispatch of the "on" runs
+   under ``torch.cuda.set_sync_debug_mode("error")``; printed: walls
+   (``--profile``: idle shares).
+
+Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
 graph's recorded launches at each replay, so they count what an eager
@@ -147,7 +175,9 @@ launches in the main path of its dtype (phase 5; phase 7 (c) for
 float32), over HTTP (phase 6), under KV pressure (phase 7 (a), (c)),
 in phase 8 (a)-(d) and phase 9 (a) (the loaded checkpoint) and (b) (a
 graphed phase 8 (a) burst after the warm boot, and the graphed
-speculation burst: ``launches_warm_boot_spec``); both mixed entries
+speculation burst: ``launches_warm_boot_spec``), and phase 10's HTTP
+traffic (``launches_edge``) and telemetry turns
+(``launches_telemetry_turns``, one run); both mixed entries
 also carry the verify spans' timing (``verify_*``).
 
 The last three lines of standard output are the card's name and power
@@ -2542,6 +2572,495 @@ def phase9(torch, np, pkg, tra, smi: str, sh: Phase9 = Phase9(), mcfg=None) -> d
     return dict(a=a, b=b, c=c)
 
 
+# ------------------------------------------------------------ phase 10
+@dataclass
+class Phase10:
+    """Phase 10's sizes and targets: the card's by default; the CPU test
+    rehearses it smaller (``device="cpu"``)."""
+
+    device: str = "cuda"
+    prompt_lens: tuple = PROMPT_LENS
+    stream_tokens: int = 256  # (a), (b): the long streams that fill the pool
+    probe_tokens: int = 8  # (a)'s admitted probes
+    max_inflight: int = 10
+    shed_watermark: int = 6
+    # TTFT: a request queued behind 8 streams of 256 tokens waits at least
+    # 256 decode steps (1.2 s at llama-8b's weight reads at 3.35 TB/s), so
+    # it misses; a lone warm request meets it.
+    slo_ttft_ms: float = 1000.0
+    # ITL: a window's 8 tokens arrive together; even a window whose key
+    # is captured at first use (0.54-0.67 s in an H100 prewarm) stays under it.
+    slo_itl_ms: float = 100.0
+    deadline_s: float = 0.5  # (b): behind a busy pool (>= 1.2 s), unmeetable
+    decode_tokens: int = 1024  # (b): a lone stream, >= 4.9 s of decode steps ...
+    decode_deadline_s: float = 3.0  # ... whose deadline falls inside its decode
+    burst_tokens: int = MAX_TOKENS  # (d): phase 5's burst
+
+
+def _family_values(text: str) -> dict:
+    """Prometheus text as {(sample name, sorted labels): value}."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name_labels, _, value = line.rpartition(" ")
+        name, _, labels = name_labels.partition("{")
+        pairs = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', labels)))
+        out[(name, pairs)] = float(value)
+    return out
+
+
+def _delta(after: dict, before: dict, name: str) -> dict:
+    """The samples of ``name`` that moved: {sorted labels: change}."""
+    return {k[1]: v - before.get(k, 0.0) for k, v in after.items()
+            if k[0] == name and v != before.get(k, 0.0)}
+
+
+async def _stream(client, url: str, body: dict, first: asyncio.Event | None = None) -> dict:
+    """One streaming request (with usage in its last frame): its data
+    frames, text, finish reason and completion tokens; ``first`` is set
+    at its first frame."""
+    frames, text, finish, usage = [], [], None, None
+    async for f in client.sse_frames(url, {**body, "stream": True,
+                                           "stream_options": {"include_usage": True}}):
+        assert f.event != "error", f"stream error: {f.comment}"
+        if f.data == "[DONE]":
+            break
+        frames.append(f.data)
+        if first is not None:
+            first.set()
+        usage = f.data.get("usage") or usage
+        for c in f.data["choices"]:
+            if c.get("text"):
+                text.append(c["text"])
+            finish = c.get("finish_reason") or finish
+    return dict(status=200, frames=frames, text="".join(text), finish=finish, stream=True,
+                tokens=usage["completion_tokens"] if usage else 0)
+
+
+def phase10(torch, np, pkg, tra, smi: str, sh: Phase10 = Phase10(), mcfg=None) -> dict:
+    """Phase 10: the port's observable, overload-protected HTTP edge."""
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    old_dump = os.environ.get("DYN_FLIGHT_DUMP")
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama-8b"), tokmod, mcfg, text)
+        trace_file = os.path.join(tmp, "spans.jsonl")
+        dump_file = os.path.join(tmp, "flight.jsonl")
+        os.environ["DYN_FLIGHT_DUMP"] = dump_file
+        max_len = max(max(sh.prompt_lens) + sh.stream_tokens, 64 + sh.decode_tokens) + PS
+        argv = [
+            "in=http", "out=cuda", "--device", sh.device, "--model-path", model_dir,
+            "--model-name", "llama-8b", "--random-weights", "--http-host", "127.0.0.1",
+            "--http-port", "0", "--max-decode-slots", "8", "--page-size", str(PS),
+            "--max-model-len", str(max_len), "--num-pages", str(8 * -(-max_len // PS)),
+            "--kv-dtype", "bfloat16", "--max-tokens", str(sh.stream_tokens),
+            "--max-inflight", str(sh.max_inflight), "--shed-watermark", str(sh.shed_watermark),
+            "--slo-ttft-ms", str(sh.slo_ttft_ms), "--slo-itl-ms", str(sh.slo_itl_ms),
+            "--trace-file", trace_file,
+        ]
+        try:
+            out = asyncio.run(asyncio.wait_for(
+                _drive_edge(torch, np, pkg, tra, smi, run.parse_args(argv), client, mcfg, sh,
+                            trace_file, dump_file), timeout=900))
+        finally:
+            if old_dump is None:
+                os.environ.pop("DYN_FLIGHT_DUMP", None)
+            else:
+                os.environ["DYN_FLIGHT_DUMP"] = old_dump
+            from dynamo_exp_tpu_torch.telemetry import get_telemetry
+
+            get_telemetry().configure(None)
+    model = out.pop("model")
+    out["d"] = telemetry_turns(torch, np, pkg, tra, smi, model, mcfg, sh)
+    del model
+    free(torch, sh.device)
+    return out
+
+
+async def _drive_edge(torch, np, pkg, tra, smi, opts, client, mcfg, sh, trace_file,
+                      dump_file) -> dict:
+    from dynamo_exp_tpu_torch import run
+
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({server, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if server.done():
+        server.result()  # startup failed: raise its error
+    served = ready.result()
+    try:
+        out = await _edge_traffic(torch, np, pkg, tra, smi, client, served, mcfg, sh,
+                                  trace_file, dump_file)
+        out["model"] = served.torch_engine.model
+        return out
+    finally:
+        server.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await server
+
+
+async def _edge_traffic(torch, np, pkg, tra, smi, client, served, mcfg, sh, trace_file,
+                        dump_file) -> dict:
+    from dynamo_exp_tpu_torch.telemetry import dump_all
+
+    base = f"http://127.0.0.1:{served.port}"
+    url = base + "/v1/completions"
+    eng, svc = served.torch_engine, served.service
+    adm = svc.admission
+    assert eng.graphs is not None or sh.device != "cuda"
+    assert eng.prewarm_report is None  # first-use captures happen under traffic
+    prompts = phase5_prompts(np, mcfg.vocab_size, sh.prompt_lens)
+    sent: list[dict] = []  # every answer, as the client saw it
+
+    def body(ids, n, **kw):
+        return {"model": "llama-8b", "prompt": ids, "max_tokens": n,
+                "nvext": {"ignore_eos": True}, **kw}
+
+    async def scrape() -> tuple[str, dict]:
+        r = await client.request(base + "/metrics")
+        assert r.status == 200 and r.headers["content-type"].startswith("text/plain")
+        text = r.body.decode()
+        return text, _family_values(text)
+
+    async def fill_pool(tag: str) -> list:
+        """Phase 5's 8 prompts as long streams at normal priority; returns
+        once every one has its first frame (all 8 slots bound)."""
+        firsts = [asyncio.Event() for _ in prompts]
+        tasks = [asyncio.ensure_future(_stream(client, url, body(ids, sh.stream_tokens), ev))
+                 for ids, ev in zip(prompts, firsts)]
+        await asyncio.wait_for(asyncio.gather(*(ev.wait() for ev in firsts)), 600)
+        assert not any(t.done() for t in tasks), f"{tag}: a stream ended before the rest began"
+        assert adm.inflight == len(prompts), adm.inflight
+        return tasks
+
+    def check_streams(results, tag):
+        for i, r in enumerate(results):
+            assert r["finish"] == "length" and r["tokens"] == sh.stream_tokens, (
+                tag, i, r["finish"], r["tokens"])
+        sent.extend(results)
+
+    sync(torch, sh.device)
+    tra.reset_launches()
+    text0, m0 = await scrape()
+    slo0 = (svc.slo.completed, svc.slo.goodput_total, dict(svc.slo.violations))
+    eng.flight.clear()
+
+    # (a) Overload: the edge holds 8 streams; probes in a fixed order.
+    t0 = time.perf_counter()
+    streams = await fill_pool("(a)")
+    thresholds = {name: adm.threshold(p) for name, p in (("low", 0), ("normal", 1),
+                                                          ("high", 2))}
+    probes, admitted = [], []
+    for prio in ("low", "normal", "high", "high", "high", "low"):
+        n = adm.inflight
+        task = asyncio.ensure_future(client.request(
+            url, "POST", body(prompts[0][:64], sh.probe_tokens), {"X-Request-Priority": prio}))
+        while not task.done() and adm.inflight == n:
+            await asyncio.sleep(0.002)
+        if task.done():
+            r = task.result()
+            assert r.status in (429, 503), (prio, r.status, r.body)
+            assert r.headers.get("retry-after") == "1", r.headers
+            err = r.json()["error"]
+            assert err["type"] == ("service_overloaded" if r.status == 503 else "request_shed")
+            probes.append((prio, r.status))
+            sent.append(dict(status=r.status, stream=False, shed=True))
+        else:
+            probes.append((prio, "admitted"))
+            admitted.append(task)
+    assert probes == [("low", 429), ("normal", 429), ("high", "admitted"),
+                      ("high", "admitted"), ("high", 503), ("low", 503)], probes
+    check_streams(await asyncio.gather(*streams), "(a)")
+    for t in admitted:
+        r = t.result() if t.done() else await t
+        assert r.status == 200 and r.json()["choices"][0]["finish_reason"] == "length", r.body
+        sent.append(dict(status=200, stream=False))
+    a_wall = time.perf_counter() - t0
+    # The edge releases a request's slot once its last frame is written.
+    for _ in range(1000):
+        if adm.inflight == 0:
+            break
+        await asyncio.sleep(0.005)
+    assert adm.inflight == 0, adm.inflight
+    _, m_a = await scrape()
+    shed = _delta(m_a, m0, "dynamo_requests_shed_total")
+    client_shed = {}
+    for prio, status in probes:
+        if status != "admitted":
+            key = (("code", str(status)), ("priority", prio))
+            client_shed[key] = client_shed.get(key, 0) + 1
+    assert shed == client_shed, (shed, client_shed)
+    assert m_a[("dynamo_admission_inflight", ())] == 0
+    shed_line = {"/".join(v for _, v in k): int(n) for k, n in shed.items()}
+    log(f"[edge] (a) {smi}: 8 streams of {sh.stream_tokens} tokens held the edge at 8 in flight "
+        f"(thresholds low/normal/high {thresholds['low']}/{thresholds['normal']}/"
+        f"{thresholds['high']}, cap {adm.max_inflight}); probes {probes}; "
+        f"dynamo_requests_shed_total code/priority {shed_line} equals the client's count; "
+        f"every admitted stream finished at full length; wall {a_wall:.3f} s; in flight back "
+        f"to 0")
+
+    # (b) Deadlines. Behind a full pool: a request with no deadline
+    # (high priority passes the edge; it waits the streams' decode, so it
+    # misses the TTFT target) and one whose deadline passes first.
+    streams = await fill_pool("(b)")
+    queued = asyncio.ensure_future(_stream(
+        client, url, body(prompts[1][:64], sh.probe_tokens, priority="high")))
+    t0 = time.perf_counter()
+    late = await client.request(url, "POST", body(prompts[0][:64], sh.probe_tokens,
+                                                  timeout_s=sh.deadline_s,
+                                                  priority="high"))
+    late_s = time.perf_counter() - t0
+    assert late.status == 200, late.body
+    late_body = late.json()
+    assert late_body["choices"][0]["finish_reason"] == "error", late_body
+    assert late_body["choices"][0]["text"] == "", late_body
+    assert not queued.done() and not any(t.done() for t in streams)
+    sent.append(dict(status=200, stream=False))
+    check_streams(await asyncio.gather(*streams), "(b)")
+    q = await queued
+    assert q["finish"] == "length" and q["tokens"] == sh.probe_tokens, q
+    sent.append(q)
+    _, m_b1 = await scrape()
+    dl = _delta(m_b1, m_a, "dynamo_deadline_exceeded_total")
+    assert dl == {(("stage", "engine_admission"),): 1.0}, dl
+    with eng.hold_admission():
+        audit = eng.kv_audit()
+    assert audit["ok"] and audit["counts"]["active"] == 0, audit
+    # A generous deadline gives the tokens of the same request without one.
+    gen = body(prompts[2][:64], sh.probe_tokens)
+    generous = await client.request(url, "POST", {**gen, "timeout_s": 600})
+    plain = await client.request(url, "POST", gen)
+    assert generous.status == plain.status == 200
+    assert generous.json()["choices"] == plain.json()["choices"], (
+        generous.json(), plain.json())
+    sent += [dict(status=200, stream=False)] * 2
+    # A lone stream whose deadline falls inside its decode: finishes
+    # "error" with its tokens so far, the start of the same request's
+    # tokens without a deadline.
+    dstream = await _stream(client, url, body(prompts[3][:64], sh.decode_tokens,
+                                              timeout_s=sh.decode_deadline_s))
+    sent.append(dstream)
+    got_tokens = dstream["tokens"]
+    assert dstream["finish"] == "error", dstream["finish"]
+    assert 0 < got_tokens < sh.decode_tokens, got_tokens
+    ref = await client.request(url, "POST", body(prompts[3][:64], got_tokens))
+    sent.append(dict(status=200, stream=False))
+    assert ref.json()["choices"][0]["text"] == dstream["text"], "deadline prefix"
+    _, m_b = await scrape()
+    dl = _delta(m_b, m_a, "dynamo_deadline_exceeded_total")
+    assert dl == {(("stage", "engine_admission"),): 1.0, (("stage", "decode"),): 1.0}, dl
+    with eng.hold_admission():
+        audit = eng.kv_audit()
+    assert audit["ok"] and audit["counts"]["active"] == 0, audit
+    log(f"[edge] (b) {smi}: timeout_s {sh.deadline_s} behind a full pool: 200, finish_reason "
+        f"'error', no text, answered after {late_s:.3f} s, "
+        f"dynamo_deadline_exceeded_total{{stage=engine_admission}} +1; a lone stream with "
+        f"timeout_s {sh.decode_deadline_s} finished 'error' after {got_tokens} of "
+        f"{sh.decode_tokens} tokens, its text the start of the same request's without a "
+        f"deadline, {{stage=decode}} +1; timeout_s 600 gave the text of no deadline; page "
+        f"audits clean")
+
+    # (c) Accounting against independent counts.
+    text1, m1 = await scrape()
+    req = _delta(m1, m0, "llm_http_service_requests_total")
+    client_req: dict = {}
+    for r in sent:
+        if r.get("shed"):
+            rt, status = "shed", f"shed_{r['status']}"
+        else:
+            rt, status = ("stream" if r["stream"] else "unary"), "success"
+        key = (("endpoint", "completions"), ("model", "llama-8b"), ("request_type", rt),
+               ("status", status))
+        client_req[key] = client_req.get(key, 0) + 1
+    assert req == client_req, (req, client_req)
+    ttft_count = _delta(m1, m0, "llm_http_service_time_to_first_token_seconds_count")
+    framed = sum(1 for r in sent if r.get("stream") and r["frames"])
+    assert sum(ttft_count.values()) == framed, (ttft_count, framed)
+    slo = svc.slo
+    completed = slo.completed - slo0[0]
+    goodput = slo.goodput_total - slo0[1]
+    violations = {k: v - slo0[2][k] for k, v in slo.violations.items()}
+    good = _delta(m1, m0, "dynamo_goodput_requests_total")
+    bad = _delta(m1, m0, "dynamo_slo_violations_total")
+    assert sum(good.values()) == goodput and sum(bad.values()) == sum(violations.values())
+    roots = []
+    with open(trace_file, encoding="utf-8") as f:
+        for line in f:
+            ev = json.loads(line)["event"]
+            if ev["stage"] == "http_request" and "ttft_s" in ev["attrs"]:
+                roots.append(ev["attrs"])
+    ttft_t, itl_t = slo.cfg.ttft_s, slo.cfg.itl_s
+    over = {"ttft": sum(a["ttft_s"] > ttft_t for a in roots),
+            "itl": sum(a.get("itl_s", 0.0) > itl_t for a in roots)}
+    violating = sum(a["ttft_s"] > ttft_t or a.get("itl_s", 0.0) > itl_t for a in roots)
+    assert len(roots) == completed, (len(roots), completed)
+    assert goodput + violating == completed, (goodput, violating, completed)
+    assert over == violations, (over, violations)
+    assert goodput > 0 and violations["ttft"] > 0, (goodput, violations)
+    m = eng.metrics()
+    compile_counts = {k[0][1]: int(v) for k, v in
+                      _delta(m1, m0, "dynamo_compile_seconds_count").items()}
+    captures = {k: g["captured"] for k, g in m["graphs"].items() if g["captured"]}
+    if eng.graphs is not None:
+        assert compile_counts == captures, (compile_counts, captures)
+    n_dumped = dump_all("smoke")
+    assert n_dumped == 1, n_dumped
+    from dynamo_exp_tpu_torch.telemetry import load_dumps
+
+    blocks = load_dumps(dump_file)
+    assert [b["header"]["reason"] for b in blocks] == ["smoke"], blocks[0]["header"]
+    events = blocks[0]["events"]
+    assert events and events[0]["seq"] == 0, "the flight ring wrapped"
+    ragged = sum(1 for e in events if e["kind"] == "dispatch" and e["dispatch"] == "ragged")
+    disp = m["dispatches"]
+    assert ragged == disp["windowed"] + disp["mixed"], (ragged, disp)
+    assert eng._watchdog is not None and eng._watchdog.dumps == 0
+    designs = dict(tra.KERNEL_LAUNCHES)
+    if sh.device == "cuda":
+        assert designs["mixed_tc_bf16"] > 0 and designs["decode_split"] > 0, designs
+    families = text1.count("# TYPE")
+    req_line = {f"{dict(k)['request_type']}/{dict(k)['status']}": int(v) for k, v in req.items()}
+    log(f"[edge] (c) {smi}: requests by status {len(sent)} = the client's ({req_line}); "
+        f"TTFT samples {int(sum(ttft_count.values()))} = streams with a frame; goodput "
+        f"{goodput} + violating {violating} = completed {completed} (violations {violations}, "
+        f"= the trace file's root spans over {ttft_t * 1e3:.0f} / {itl_t * 1e3:.0f} ms); "
+        f"compile_seconds counts {compile_counts} = captures by kind; flight dump: "
+        f"{len(events)} events, {ragged} ragged dispatch events = the engine's dispatches "
+        f"{disp}; no watchdog dump; launches by kernel {designs}")
+    log(f"[edge] (c) {smi}: /metrics scrape {len(text1.encode())} bytes, {families} families, "
+        f"{sum(1 for ln in text1.splitlines() if ln and not ln.startswith('#'))} samples; "
+        f"graphs {graph_line(m)}")
+    return dict(probes=probes, shed=shed, designs=designs, scrape_bytes=len(text1.encode()),
+                families=families, compile_counts=compile_counts,
+                goodput=goodput, violations=violations, completed=completed,
+                events=len(events), captures=captures, a_wall_s=a_wall)
+
+
+def telemetry_turns(torch, np, pkg, tra, smi, model, mcfg, sh: Phase10) -> dict:
+    """(d) Phase 5's burst straight to ``TorchEngine``, telemetry on
+    (flight events, dispatch profiling) and off, in turns on, off, off,
+    on, after one untimed burst on each engine (its graphs captured):
+    tokens and launch counts bit-equal in all four runs, the two "on"
+    runs' flight events equal (``t`` aside), and every dispatch of the
+    "on" engine's timed runs (and its gauge publish) under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from dynamo_exp_tpu_torch.runtime.engine import AsyncEngineContext
+
+    max_len = max(sh.prompt_lens) + sh.burst_tokens + PS
+    seeded = min(SEEDED, len(sh.prompt_lens) - 1)
+    requests = [
+        {"token_ids": ids, "stop_conditions": {"max_tokens": sh.burst_tokens,
+                                               "ignore_eos": True},
+         "sampling_options": SEEDED_OPTIONS if i == seeded else {}}
+        for i, ids in enumerate(phase5_prompts(np, mcfg.vocab_size, sh.prompt_lens))
+    ]
+
+    def engine(on: bool):
+        ecfg = pkg.engine.EngineConfig(
+            model=mcfg, max_decode_slots=8, page_size=PS, max_model_len=max_len,
+            num_pages=8 * -(-max_len // PS), kv_dtype="bfloat16", flight_events=on,
+            profile_dispatches=on,
+        )
+        return pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+
+    guard = {"guarded": 0, "errors": []}
+
+    def guarded(fn):
+        def call(*a, **kw):
+            if sh.device == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+            except Exception as e:
+                guard["errors"].append(repr(e))
+                raise
+            finally:
+                if sh.device == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+            guard["guarded"] += 1
+            return out
+        return call
+
+    async def burst(eng):
+        async def collect(stream):
+            return [t async for item in stream for t in item.get("token_ids", [])]
+
+        streams = [eng.submit(r, AsyncEngineContext(f"req{i}")) for i, r in enumerate(requests)]
+        t0 = time.perf_counter()
+        eng.start()
+        out = await asyncio.wait_for(asyncio.gather(*(collect(s) for s in streams)), 600)
+        sync(torch, sh.device)
+        return out, time.perf_counter() - t0
+
+    def run_once(eng):
+        eng.reset_prefix_cache()
+        if eng.flight is not None:
+            eng.flight.clear()
+        sync(torch, sh.device)
+        tra.reset_launches()
+        try:
+            out, wall = asyncio.run(burst(eng))
+        finally:
+            eng.stop()
+        events = ([{k: v for k, v in e.items() if k != "t"} for e in eng.flight.snapshot()]
+                  if eng.flight is not None else None)
+        return dict(tokens=out, wall_s=wall, designs=dict(tra.KERNEL_LAUNCHES), events=events)
+
+    engines = {True: engine(True), False: engine(False)}
+    for eng in engines.values():
+        run_once(eng)  # first-use captures, untimed
+    on = engines[True]
+    on._build_mixed = guarded(on._build_mixed)
+    on._launch_window = guarded(on._launch_window)
+    on._maybe_publish_gauges = guarded(on._maybe_publish_gauges)
+    runs = []
+    for flag in (True, False, False, True):
+        r = run_once(engines[flag])
+        r["on"] = flag
+        runs.append(r)
+        log(f"[edge] (d) {smi}: telemetry {'on ' if flag else 'off'}: wall {r['wall_s']:.3f} s, "
+            f"launches by kernel {r['designs']}")
+    for r in runs[1:]:
+        assert r["tokens"] == runs[0]["tokens"], "(d) tokens differ with telemetry on and off"
+        assert r["designs"] == runs[0]["designs"], "(d) launch counts differ"
+    assert runs[0]["events"] == runs[3]["events"] and runs[0]["events"], "(d) flight events"
+    assert runs[1]["events"] is None and on.profiler is not None
+    assert all(len(t) == sh.burst_tokens for t in runs[0]["tokens"])
+    assert not guard["errors"] and guard["guarded"] > 0, guard
+    walls = {"on": [runs[0]["wall_s"], runs[3]["wall_s"]],
+             "off": [runs[1]["wall_s"], runs[2]["wall_s"]]}
+    diff = sum(walls["on"]) / 2 - sum(walls["off"]) / 2
+    log(f"[edge] (d) {smi}: tokens and launch counts bit-equal in all four runs; the two "
+        f"telemetry-on runs recorded the same {len(runs[0]['events'])} flight events; "
+        f"{guard['guarded']} dispatches ran under torch.cuda.set_sync_debug_mode('error') "
+        f"without raising; mean wall on - off {diff * 1e3:+.1f} ms "
+        f"(on {walls['on'][0]:.3f} / {walls['on'][1]:.3f} s, off {walls['off'][0]:.3f} / "
+        f"{walls['off'][1]:.3f} s)")
+    if "--profile" in sys.argv and sh.device == "cuda":
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        for flag in (True, False):
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                r = run_once(engines[flag])
+            assert r["tokens"] == runs[0]["tokens"]
+            report_profile(prof, r["wall_s"], f"[profile telemetry={'on' if flag else 'off'}]",
+                           top=6)
+    for eng in engines.values():
+        check_drained(eng, "(d)")
+    del engines, on
+    free(torch, sh.device)
+    return dict(walls=walls, diff_s=diff, events=len(runs[0]["events"]),
+                guarded=guard["guarded"], designs=runs[0]["designs"])
+
+
 def main() -> int:
     import torch
 
@@ -2623,6 +3142,9 @@ def main() -> int:
     t9 = time.perf_counter()
     p9 = phase9(torch, np, pkg, tra, smi)
     log(f"[phase9] in {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    p10 = phase10(torch, np, pkg, tra, smi)
+    log(f"[phase10] in {time.perf_counter() - t10:.1f} s")
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -2654,6 +3176,8 @@ def main() -> int:
             "launches_loader": p9["a"]["designs"][design],
             "launches_warm_boot": p9["b"]["designs"][design],
             "launches_warm_boot_spec": p9["b"]["designs_spec"][design],
+            "launches_edge": p10["designs"][design],
+            "launches_telemetry_turns": p10["d"]["designs"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

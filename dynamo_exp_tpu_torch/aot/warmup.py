@@ -20,7 +20,9 @@ engine whose loop runs), in this order:
 
 The report (variants and graphs of each kind, seconds of each kind,
 kernel builds, seconds and the graph pool's bytes) goes into
-``TorchEngine.metrics()["prewarm"]``.
+``TorchEngine.metrics()["prewarm"]`` and, through
+``TorchEngine.record_prewarm``, into ``dynamo_prewarm_seconds``,
+``dynamo_prewarm_variants_total{kind}`` and a ``prewarm`` flight event.
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ def prewarm_engine(engine, manifest: GraphManifest | None = None, cache_dir: str
         report.mixed_graphs = graphs.captured["mixed"] - captured["mixed"]
         report.pool_bytes = graphs.pool_bytes()
     report.seconds = time.perf_counter() - t0
-    engine.prewarm_report = report
+    engine.record_prewarm(report, manifest)
     log.info(
         "prewarm: %d window variants (%d graphs, %.2fs), %d mixed variants (%d graphs, "
         "%.2fs), pool %.1f MiB, %d kernel builds in %.2fs (manifest %s)", report.variants,

@@ -1,8 +1,8 @@
 """Engine configuration.
 
 Counterpart of ``dynamo_exp_tpu/engine/config.py``, trimmed to the
-fields the port reads (the KV-pressure, tiering, chaining and
-speculation knobs keep the JAX package's defaults; the ``DYN_*``
+fields the port reads (the KV-pressure, tiering, chaining, speculation
+and observability knobs keep the JAX package's defaults; the ``DYN_*``
 environment overrides are not ported, ROADMAP Queue 1 item 4(d)).
 """
 
@@ -102,6 +102,21 @@ class EngineConfig:
     # not probed until its context grows by spec_retry_tokens.
     spec_miss_limit: int = 4
     spec_retry_tokens: int = 32
+    # Per-dispatch profiling (telemetry/dispatch.py): host gap, in-flight
+    # time and first-use captures per dispatch kind, stamped at the
+    # loop's own dispatch and consume points (no added host sync). Off
+    # only to measure its cost.
+    profile_dispatches: bool = True
+    # Flight recorder (telemetry/flight.py): a bounded ring of loop
+    # events dumped on a watchdog stall, SIGUSR1 or a loop crash.
+    flight_events: bool = True
+    # Dump target; empty resolves to $DYN_FLIGHT_DUMP or a per-process
+    # file under the temp directory (telemetry.flight.default_dump_path).
+    flight_dump_path: str = ""
+    # Watchdog: dump the flight ring and a slot/page snapshot when the
+    # loop has made no progress for this long while work is queued. A
+    # first-use CUDA graph capture counts as progress. <= 0 disables.
+    watchdog_stall_s: float = 30.0
 
     def __post_init__(self):
         if self.kv_dtype not in ("bfloat16", "float32"):

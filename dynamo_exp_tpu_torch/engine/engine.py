@@ -62,8 +62,28 @@ pages are written back to the host tier and injected again on a prefix
 match (``_apply_uploads``) or ahead of admission (``_plan_prefetch``).
 Device <-> host copies run on side CUDA streams (``offload.py``).
 
+Deadlines (the JAX loop's three points): a waiting request whose
+deadline passed is reaped (``Scheduler.reap_waiting``, throttled, and at
+admission), a bound row is finished with ``error`` at its deadline (only
+when no window is in flight, so its pages are released safely), and a
+chain breaks at a row's deadline so the finish is not deferred. Each
+counts on ``dynamo_deadline_exceeded_total{stage}`` (``engine_admission``
+/ ``decode``).
+
+Observability (``telemetry/``), every hook on the host side of a
+dispatch, never inside a captured graph (a call there runs once, at
+capture): the flight recorder at the JAX engine's event sites (admit,
+dispatch, consume, first token, finish, preempt, stall, swap, prefetch,
+page moves, speculation accept and rewind, chain break, prewarm), the
+watchdog and the SIGUSR1 dump registry (both started by :meth:`start`,
+after any prewarm), :class:`~..telemetry.dispatch.DispatchProfiler` at
+the dispatch and consume points the loop already has (a dispatch that
+captures its key's graph is its kind's first use), the engine gauges
+published at most twice a second from host state, and the counters and
+histograms the JAX engine feeds on the paths the port has.
+
 Left out (ROADMAP): the persistent KV tier, partial-tail copy-on-write,
-leases, reclaim, request deadlines, telemetry and the flight recorder.
+leases, reclaim and the request anatomy.
 """
 
 from __future__ import annotations
@@ -82,6 +102,7 @@ from typing import AsyncIterator, Callable
 import numpy as np
 import torch
 
+from ..aot.compile import manifest_for_engine
 from ..aot.lattice import MixedKey, WindowKey, resolve_mixed_key, resolve_window_key
 from ..device import resolve_device
 from ..models.llama import (
@@ -106,6 +127,16 @@ from ..ops.sampling import (
 from ..protocols.common import BackendInput, FinishReason, LLMEngineOutput
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, ResponseStream
 from ..spec import SpecManager
+from ..telemetry import (
+    DispatchProfiler,
+    FlightRecorder,
+    Watchdog,
+    current_trace,
+    get_telemetry,
+    register_dumper,
+    unregister_dumper,
+)
+from ..telemetry.flight import default_dump_path
 from ..tokens import compute_block_hashes_for_seq
 from .config import EngineConfig
 from .graphs import DispatchGraphs, pack_layout, views
@@ -168,6 +199,7 @@ class _PendingRagged:
     ready: object
     rows: list  # [_RaggedRow]
     windowed: bool
+    dispatched_at: float  # the profiler's dispatch stamp (0.0 without it)
     full_sampler: bool
     want_lp: bool
     solo: bool  # the iteration's only dispatch: chainable
@@ -241,7 +273,22 @@ class TorchEngine(AsyncEngine):
             cfg.num_pages, cfg.page_size, event_cb=kv_event_cb,
             sharing=cfg.prefix_sharing, host_pool=self.host_pool, on_evict=on_evict,
         )
-        self.sched = Scheduler(cfg, self.kv)
+        # Observability: the per-dispatch profiler and the flight
+        # recorder's ring (dumped by the watchdog, SIGUSR1 and a crash).
+        self.profiler = DispatchProfiler(get_telemetry()) if cfg.profile_dispatches else None
+        self.flight = FlightRecorder() if cfg.flight_events else None
+        self.sched = Scheduler(cfg, self.kv, flight=self.flight)
+        if self.profiler is not None:
+            self.sched.span_attrs = self._decode_span_attrs
+        self._last_gauge_pub = 0.0  # gauge publish throttle (monotonic)
+        self._last_reap = 0.0  # waiting-queue reap throttle (monotonic)
+        # Watchdog progress: bumped by every loop iteration that did work
+        # and by every graph capture; frozen with work queued = a stall.
+        self._progress_mark = 0
+        self._watchdog: Watchdog | None = None
+        self._flight_handle: int | None = None
+        # Prefix-hit totals already published (the counters move by delta).
+        self._pub_prefix_hits = dict.fromkeys(self.kv.prefix_hits, 0)
         # Prefetch jobs by request id (their target pages are held by the
         # job until injected), completed restores for hit attribution,
         # and the copy thread's results for the loop.
@@ -295,6 +342,14 @@ class TorchEngine(AsyncEngine):
             raise ValueError(f"cuda_graphs=True needs a CUDA device, not {self.device}")
         self.graphs: DispatchGraphs | None = DispatchGraphs(self) if use_graphs else None
         self.prewarm_report = None  # aot.warmup.PrewarmReport of a warm boot
+        # Config fingerprint for fleet scrapes, published from boot.
+        self._build_info = {
+            "manifest_hash": manifest_for_engine(self).hash(),
+            "jax_version": f"torch-{torch.__version__}",
+            "prefix_sharing": bool(cfg.prefix_sharing),
+            "spec": cfg.spec_mode,
+        }
+        get_telemetry().set_build_info(**self._build_info)
 
     # -------------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -307,10 +362,26 @@ class TorchEngine(AsyncEngine):
             target=self._loop, name="torch-engine-loop", daemon=True
         )
         self._thread.start()
+        if self.flight is not None:
+            self._flight_handle = register_dumper(self._dump_flight)
+            if self.cfg.watchdog_stall_s > 0 and self._watchdog is None:
+                self._watchdog = Watchdog(
+                    self.cfg.watchdog_stall_s,
+                    progress=lambda: self._progress_mark,
+                    has_work=lambda: self.sched.has_work() or not self._submit_q.empty(),
+                    dump_fn=self._dump_flight,
+                )
+                self._watchdog.start()
 
     def stop(self) -> None:
         self._running = False
         self._wake.set()
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+        if self._flight_handle is not None:
+            unregister_dumper(self._flight_handle)
+            self._flight_handle = None
         if self._thread is not None:
             self._thread.join(timeout=60)
             if self._thread.is_alive():
@@ -431,9 +502,11 @@ class TorchEngine(AsyncEngine):
             stop=binput,
             emit=emit,
             is_cancelled=lambda: ctx.is_stopped or orphaned.is_set(),
+            trace=current_trace(),
             submitted_at=time.time(),
             sample_seed=int(seed) if seed is not None else self._seed_rng.getrandbits(31),
             priority=binput.priority,
+            deadline_unix=ctx.deadline or 0.0,
         )
         self._submit_q.put(seq)
         self._wake.set()
@@ -501,7 +574,100 @@ class TorchEngine(AsyncEngine):
             m["host_cache_stores"] = self.host_pool.stores
             m["offload_hits"] = self.kv.offload_hits
             m["offload_misses"] = self.kv.offload_misses
+        # Per-dispatch profiling: host gap / in-flight percentiles and
+        # first-use captures by kind (window, mixed, kv_move, offload).
+        if self.profiler is not None:
+            m["dispatch"] = self.profiler.summary()
+        m["decode_window"] = self.cfg.decode_window
+        m["kv_prefix_hits"] = dict(self.kv.prefix_hits)
+        m["build_info"] = dict(self._build_info)
         return m
+
+    # ---------------------------------------------------- flight / profiling
+    def _decode_span_attrs(self) -> dict:
+        """Profiler attrs for the decode span: median in-flight and host
+        gap of decode windows, and the window size."""
+        return self.profiler.span_attrs("window", decode_window=self.cfg.decode_window)
+
+    def _flight_snapshot(self) -> dict:
+        """Slot, queue and page state for a flight dump, read from host
+        state only (the watchdog thread may call it while the loop is
+        wedged: a torn read beats no dump)."""
+        try:
+            slots = [
+                {
+                    "slot": i, "req": s.request_id, "state": s.state.value,
+                    "generated": s.generated, "pages": len(s.page_ids),
+                    "stalled": bool(s.stalled_since), "swapped": s.swap is not None,
+                    "preemptions": s.preemptions,
+                }
+                for i, s in enumerate(self.sched.slots) if s is not None
+            ]
+            return {
+                "slots": slots,
+                "waiting": len(self.sched.waiting),
+                "submitted_unqueued": self._submit_q.qsize(),
+                "pages_active": self.kv.active_pages,
+                "pages_total": self.kv.num_pages,
+                "inflight_window": self._inflight is not None,
+                "progress_mark": self._progress_mark,
+                "kv_audit": self.kv_audit(),
+            }
+        except Exception:  # noqa: BLE001 - the snapshot is best effort
+            log.exception("flight snapshot failed")
+            return {}
+
+    def _dump_flight(self, reason: str) -> None:
+        """Dump the flight ring and a snapshot (watchdog stall, SIGUSR1
+        through the process registry, ``dump_all``, or a loop crash)."""
+        if self.flight is None:
+            return
+        path = self.cfg.flight_dump_path or default_dump_path()
+        self.flight.dump(path, reason, snapshot=self._flight_snapshot())
+
+    def _maybe_publish_gauges(self) -> None:
+        """Mirror the engine gauges into the registry at most twice a
+        second (the loop can spin far faster); host state only."""
+        now = time.monotonic()
+        if now - self._last_gauge_pub < 0.5:
+            return
+        self._last_gauge_pub = now
+        tel = get_telemetry()
+        tel.publish_engine_gauges(self.metrics())
+        if self.host_pool is not None:
+            tel.kv_host_pages.set(self.host_pool.resident)
+        for kind, total in self.kv.prefix_hits.items():
+            delta = total - self._pub_prefix_hits[kind]
+            if delta:
+                tel.kv_prefix_hits.labels(kind).inc(delta)
+                self._pub_prefix_hits[kind] = total
+
+    def record_prewarm(self, report, manifest) -> None:
+        """A warm boot's report (``aot.warmup.prewarm_engine``): its
+        seconds and variants by kind on the registry, a ``prewarm``
+        flight event, and (no graphs) its keys marked as used, so their
+        first traffic dispatch is not counted as first use."""
+        self.prewarm_report = report
+        tel = get_telemetry()
+        tel.prewarm_seconds.set(report.seconds)
+        tel.prewarm_variants.labels("window").inc(report.variants)
+        tel.prewarm_variants.labels("mixed").inc(report.mixed_variants)
+        if self.profiler is not None:
+            self.profiler.seed_variants("window", manifest.windows)
+            self.profiler.seed_variants("mixed", manifest.mixed)
+        if self.flight is not None:
+            self.flight.record("prewarm", window=report.variants, mixed=report.mixed_variants)
+
+    def _fresh(self, kind: str, key, captured_before: int | None) -> bool:
+        """Whether this dispatch was ``key``'s first use: it captured the
+        key's graph (a capture is progress for the watchdog), or, with no
+        graphs, it is the key's first dispatch."""
+        if captured_before is not None:
+            fresh = self.graphs.captured[kind] > captured_before
+            if fresh:
+                self._progress_mark += 1
+            return fresh
+        return self.profiler.first_variant(kind, key) if self.profiler is not None else False
 
     # ------------------------------------------------------------------- loop
     def _loop(self) -> None:
@@ -521,26 +687,42 @@ class TorchEngine(AsyncEngine):
                     nxt = self._dispatch_chained(self._inflight) if self._can_chain() else None
                     prev, self._inflight = self._inflight, nxt
                     self._consume_ragged(prev)
+                    self._maybe_publish_gauges()
+                    self._progress_mark += 1  # consumed a window
                     if self._inflight is not None:
                         continue
-                    # Chain broken (arrivals, prefill, a stop, a dry
-                    # pool): the full scheduling path follows.
+                    # Chain broken (arrivals, prefill, a stop, a
+                    # deadline, a dry pool): the full scheduling path
+                    # follows.
+                    if self.flight is not None:
+                        self.flight.record("chain_break")
+                if not self.sched.has_work() and self._submit_q.empty():
+                    # Idle: completed prefetches still inject, buffered
+                    # evictions still reach the host tier, and the
+                    # gauges decay to the idle state.
+                    self._apply_prefetches()
+                    self._flush_offloads()
+                    self._maybe_publish_gauges()
+                    if self.profiler is not None:
+                        # Waiting for work is not host gap.
+                        self.profiler.mark_idle()
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                    continue
                 while True:
                     try:
                         self.sched.submit(self._submit_q.get_nowait())
                     except queue.Empty:
                         break
-                if not self.sched.has_work():
-                    # Idle: completed prefetches still inject, buffered
-                    # evictions still reach the host tier.
-                    self._apply_prefetches()
-                    self._flush_offloads()
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-                    continue
-                for seq in list(self.sched.slots):
-                    if seq is not None and seq.is_cancelled():
-                        self.sched.finish(seq, FinishReason.CANCELLED)
+                self._poll_cancellations()
+                # Reap dead work anywhere in the waiting queue before it
+                # can waste a prefill; the full scan is throttled (the
+                # loop can spin fast on a dry pool) and admission checks
+                # the head in between.
+                now_m = time.monotonic()
+                if now_m - self._last_reap >= 0.02:
+                    self._last_reap = now_m
+                    self.sched.reap_waiting()
                 # KV pressure (no window is in flight here, so no device
                 # write can race a release): swap a cold row out first,
                 # preempt once a stall outlasts its grace; completed
@@ -556,6 +738,7 @@ class TorchEngine(AsyncEngine):
                         self._on_admitted(admitted)
                 # Restore host-resident prefixes of what is still waiting.
                 self._plan_prefetch()
+                self._maybe_publish_gauges()
                 prefilling = [
                     s for s in self.sched.slots
                     if s is not None and s.state is SeqState.PREFILL
@@ -569,8 +752,13 @@ class TorchEngine(AsyncEngine):
                     # they just confirmed.
                     for p in pendings:
                         self._consume_ragged(p)
-                if not pendings:
-                    # Pool dry / everything stalled: yield briefly.
+                if pendings:
+                    self._progress_mark += 1
+                else:
+                    # Pool dry / everything stalled: yield briefly. No
+                    # progress: the state the watchdog must see frozen.
+                    if self.profiler is not None:
+                        self.profiler.mark_idle()
                     self._wake.wait(timeout=0.001)
                     self._wake.clear()
             if self._inflight is not None:
@@ -580,6 +768,7 @@ class TorchEngine(AsyncEngine):
                 self._consume_ragged(prev)
         except Exception:  # engine death must not hang clients
             log.exception("engine loop crashed; failing in-flight requests")
+            self._dump_flight("crash")
             self._running = False
             self._inflight = None
             pending = list(self.sched.slots) + list(self.sched.waiting)
@@ -590,15 +779,44 @@ class TorchEngine(AsyncEngine):
                     seq.emit([], FinishReason.ERROR)
             raise
 
+    def _poll_cancellations(self) -> None:
+        """Finish bound rows that were cancelled or whose deadline passed
+        (no window is in flight here, so the release races no write)."""
+        now = time.time()
+        for s in list(self.sched.slots):
+            if s is None:
+                continue
+            if s.is_cancelled():
+                self.sched.finish(s, FinishReason.CANCELLED)
+            elif s.deadline_unix and now >= s.deadline_unix:
+                get_telemetry().deadline_exceeded.labels("decode").inc()
+                self.sched.finish(s, FinishReason.ERROR)
+
     def _on_admitted(self, seq: Sequence) -> None:
-        """Inject the admission's G2 pages (before any forward that can
-        read them) and count the prefetched pages it attached."""
-        self._apply_uploads(seq)
+        """Close the request's queue wait (submission -> slot and pages
+        bound), inject the admission's G2 pages (before any forward that
+        can read them) and attribute the prefetched pages it attached."""
+        now = time.time()
+        seq.admitted_at = now
+        tel = get_telemetry()
+        if seq.request_id in self._prefetch_inflight:
+            tel.kv_prefetch_pages.labels("late").inc()
         served = self._prefetch_served.pop(seq.request_id, None)
         if served:
-            self.prefetch_hits += sum(
-                1 for h in seq.prompt_hashes[: seq.hashed_pages] if h in served
+            hits = sum(1 for h in seq.prompt_hashes[: seq.hashed_pages] if h in served)
+            if hits:
+                self.prefetch_hits += hits
+                tel.kv_prefetch_pages.labels("hit").inc(hits)
+        if self.flight is not None:
+            self.flight.record(
+                "admit", req=seq.request_id, slot=seq.slot, prompt=len(seq.prompt),
+                cached=seq.cached_len, priority=seq.priority,
             )
+        if seq.submitted_at:
+            tel.queue_wait.observe(max(now - seq.submitted_at, 0.0))
+            tel.emit_stage("queue_wait", seq.submitted_at, now, seq.trace,
+                           prompt_tokens=len(seq.prompt))
+        self._apply_uploads(seq)
 
     # ------------------------------------------------------- KV pressure
     def _kv_pressure(self) -> bool:
@@ -629,9 +847,17 @@ class TorchEngine(AsyncEngine):
         victim = self.sched.preemption_victim(self.cfg.max_preemptions_per_seq)
         if victim is None:
             return
+        now = time.time()
+        t0 = victim.stalled_since or now
         freed, generated = len(victim.page_ids), victim.generated
         self.sched.preempt(victim)
         self.preempted += 1
+        tel = get_telemetry()
+        tel.preemptions.labels("kv_pressure").inc()
+        tel.emit_stage(
+            "preemption", t0, now, victim.trace, generated_tokens=generated,
+            freed_pages=freed, priority=victim.priority, preemption=victim.preemptions,
+        )
         log.warning(
             "KV pressure: preempted request %s (priority=%d, %d tokens generated, "
             "%d pages freed, preemption %d/%d); resuming as a deterministic "
@@ -686,10 +912,12 @@ class TorchEngine(AsyncEngine):
             return False
         record = SwapRecord(entries=entries, committed=not off_pids)
         if off_pids:
-            k_b, v_b, ready = self._gather_page_batch(off_pids)
+            k_b, v_b, ready, t_disp = self._gather_page_batch(off_pids)
 
-            def committed(rec=record):
+            def committed(rec=record, prof=self.profiler):
                 rec.committed = True  # copy thread, after the store
+                if prof is not None:
+                    prof.consume("offload", t_disp)
 
             if not self.copy_stream.offload_batch(
                 off_keys, k_b, v_b, on_stored=committed, ready=ready
@@ -704,6 +932,15 @@ class TorchEngine(AsyncEngine):
         victim.stalled = False
         victim.stalled_since = 0.0
         self.swapped_out += 1
+        tel = get_telemetry()
+        tel.kv_proactive_offloads.inc()
+        tel.kv_page_moves.labels("offload").inc(len(off_pids))
+        if self.flight is not None:
+            self.flight.record(
+                "swap_out", req=victim.request_id, slot=victim.slot,
+                pages=len(off_pids) + len(park_pids) + len(drop_pids),
+                kept=len(victim.page_ids),
+            )
         log.info(
             "KV pressure: swapped out %d page(s) of request %s to the host tier "
             "(%d kept)", len(off_pids) + len(park_pids) + len(drop_pids),
@@ -765,16 +1002,21 @@ class TorchEngine(AsyncEngine):
                     new_ids.append(pid)
                     inj.append(pid)
             if inj:
-                self._inject_page_batch(inj, k_st, v_st)
+                self._inject_page_batch(inj, k_st, v_st, op="swap_in")
             seq.page_ids = new_ids
             seq.swap = None
             seq.swapped_since = 0.0
             self.swapped_in += 1
+            get_telemetry().kv_swap_ins.inc()
+            if self.flight is not None:
+                self.flight.record("swap_in", req=seq.request_id, slot=seq.slot,
+                                   pages=len(inj), attached=len(attach))
 
     def _preempt_swapped(self, seq: Sequence) -> None:
         """Swap-in fallback: the host tier lost a swapped page."""
         self.sched.preempt(seq)
         self.preempted += 1
+        get_telemetry().preemptions.labels("swap_miss").inc()
         log.warning(
             "request %s: swapped KV could not be restored (host-tier miss); "
             "falling back to preemption", seq.request_id,
@@ -837,6 +1079,7 @@ class TorchEngine(AsyncEngine):
             }
             if not self.copy_stream.fetch_batch(g2, job, self._on_prefetched):
                 self.kv.release_sequence(pids)  # saturated: retry later
+                get_telemetry().kv_prefetch_pages.labels("dropped").inc(len(pids))
                 return
             self._prefetch_inflight[rid] = job
 
@@ -872,9 +1115,13 @@ class TorchEngine(AsyncEngine):
                 parent = h
             if inj:
                 self._inject_page_batch(
-                    [pid for pid, _, _ in inj], *self._stage([(k, v) for _, k, v in inj])
+                    [pid for pid, _, _ in inj], *self._stage([(k, v) for _, k, v in inj]),
+                    op="prefetch",
                 )
                 self.prefetched_pages += len(inj)
+                get_telemetry().kv_prefetch_pages.labels("restored").inc(len(inj))
+                if self.flight is not None:
+                    self.flight.record("prefetch", req=job["req"], pages=len(inj))
             if served:
                 self._prefetch_served[job["req"]] = served
                 while len(self._prefetch_served) > 256:
@@ -908,8 +1155,12 @@ class TorchEngine(AsyncEngine):
 
     def _gather_page_batch(self, pids: list[int]):
         """One gather of ``pids`` into contiguous device batches
-        ``[L, n, ps, Hkv*D]`` on the compute stream, and (CUDA) the event
-        recorded after it, which the copy stream waits on."""
+        ``[L, n, ps, Hkv*D]`` on the compute stream, the event recorded
+        after it (CUDA), which the copy stream waits on, and the
+        profiler's dispatch stamp (consumed on the copy thread once the
+        batch is stored)."""
+        prof = self.profiler
+        t0 = prof.begin("offload") if prof is not None else 0.0
         (idx,) = self._upload(np.asarray(pids, np.int64))
         k_b = self.k_cache.index_select(1, idx)
         v_b = self.v_cache.index_select(1, idx)
@@ -917,19 +1168,33 @@ class TorchEngine(AsyncEngine):
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record()
-        return k_b, v_b, ready
+        t_disp = prof.end("offload", t0) if prof is not None else 0.0
+        if self.flight is not None:
+            self.flight.record("dispatch", dispatch="offload", pages=len(pids))
+        return k_b, v_b, ready, t_disp
 
-    def _inject_page_batch(self, pids: list[int], k_host: torch.Tensor, v_host: torch.Tensor):
+    def _inject_page_batch(self, pids: list[int], k_host: torch.Tensor, v_host: torch.Tensor,
+                           op: str):
         """Inject host batches ``[L, n, ps, Hkv*D]`` into device pages
         ``pids``: host -> device on the copy stream's side stream, then a
         scatter on the compute stream after it, ahead of every later
         forward. Buffered evictions are gathered first, so a page being
-        overwritten reached the host tier's gather before this lands."""
+        overwritten reached the host tier's gather before this lands.
+        No sync follows a scatter, so the profiler sees its dispatch
+        only. ``op`` labels the page-move counter (upload, prefetch,
+        swap_in)."""
         self._flush_offloads()
+        prof = self.profiler
+        t0 = prof.begin("kv_move") if prof is not None else 0.0
         k_dev, v_dev = self.copy_stream.upload(k_host, v_host)
         (idx,) = self._upload(np.asarray(pids, np.int64))
         self.k_cache.index_copy_(1, idx, k_dev)
         self.v_cache.index_copy_(1, idx, v_dev)
+        if prof is not None:
+            prof.end("kv_move", t0)
+        if self.flight is not None:
+            self.flight.record("dispatch", dispatch="kv_move", op=op, pages=len(pids))
+        get_telemetry().kv_page_moves.labels(op).inc(len(pids))
 
     def _flush_offloads(self) -> None:
         """Gather every eviction buffered since the last dispatch and
@@ -941,8 +1206,14 @@ class TorchEngine(AsyncEngine):
         moved, self._pending_offloads = self._pending_offloads, []
         if self.copy_stream is None:
             return
-        k_b, v_b, ready = self._gather_page_batch([pid for pid, _ in moved])
-        self.copy_stream.offload_batch([h for _, h in moved], k_b, v_b, ready=ready)
+        k_b, v_b, ready, t_disp = self._gather_page_batch([pid for pid, _ in moved])
+        on_stored = None
+        if self.profiler is not None:
+            prof = self.profiler
+            on_stored = lambda: prof.consume("offload", t_disp)  # noqa: E731
+        self.copy_stream.offload_batch([h for _, h in moved], k_b, v_b, on_stored=on_stored,
+                                       ready=ready)
+        get_telemetry().kv_page_moves.labels("offload").inc(len(moved))
 
     def _apply_uploads(self, seq: Sequence) -> None:
         """Inject an admission's G2 pages into their fresh device pages,
@@ -951,7 +1222,8 @@ class TorchEngine(AsyncEngine):
             return
         ups = seq.pending_uploads
         self._inject_page_batch(
-            [pid for pid, _, _, _ in ups], *self._stage([(k, v) for _, _, k, v in ups])
+            [pid for pid, _, _, _ in ups], *self._stage([(k, v) for _, _, k, v in ups]),
+            op="upload",
         )
         seq.pending_uploads = []
 
@@ -982,8 +1254,12 @@ class TorchEngine(AsyncEngine):
                 seq.stalled = True
                 if not seq.stalled_since:
                     seq.stalled_since = time.time()
+                    if self.flight is not None:
+                        self.flight.record("stall_start", req=seq.request_id, slot=seq.slot)
                 continue  # pool dry: the row sits this iteration out
             seq.stalled = len(seq.page_ids) * ps < min(wpos + K, cfg.max_model_len)
+            if seq.stalled_since and self.flight is not None:
+                self.flight.record("stall_end", req=seq.request_id, slot=seq.slot)
             seq.stalled_since = 0.0  # progressing (even if window-capped)
             parts[self._needs_sampler(seq)].append((seq, wpos, cap))
         spec_parts: dict[bool, list] = {False: [], True: []}
@@ -1150,6 +1426,8 @@ class TorchEngine(AsyncEngine):
             extra = seq.page_ids[keep:]
             del seq.page_ids[keep:]
             self.kv.release_sequence(extra)
+            if self.flight is not None:
+                self.flight.record("spec_rewind", req=seq.request_id, pages=len(extra))
 
     # --------------------------------------------------------------- logprobs
     @staticmethod
@@ -1279,7 +1557,12 @@ class TorchEngine(AsyncEngine):
         chained, the previous window's device ``carry`` of tokens and
         positions): through the key's CUDA graph when the engine has
         graphs (captured at the key's first dispatch), else eagerly.
-        The outputs' host copies are queued right behind it."""
+        The outputs' host copies are queued right behind it. The
+        profiler's stamps and the flight event are taken here, on the
+        host, around the replay."""
+        prof = self.profiler
+        t0 = prof.begin("window") if prof is not None else 0.0
+        captured = self.graphs.captured["window"] if self.graphs is not None else None
         arrays = list(host.values())
         if self.graphs is not None:
             g = self.graphs.get(key)
@@ -1295,12 +1578,20 @@ class TorchEngine(AsyncEngine):
                 ins["tokens"], ins["positions"] = carry
             outs = self._window_body(key, ins)
         ys, ready = self._fetch(outs[:-2])
+        fresh = self._fresh("window", key, captured)
+        dispatched_at = prof.end("window", t0, fresh) if prof is not None else 0.0
+        if self.flight is not None:
+            event = dict(dispatch="ragged", rows=nb, bucket=key.rows, windowed=True)
+            if carry is not None:
+                event["chained"] = True
+            self.flight.record("dispatch", **event)
         self.steps += self.cfg.decode_window
         self.dispatches["windowed"] += 1
+        get_telemetry().decode_batch_rows.observe(nb)
         return _PendingRagged(
-            ys=ys, ready=ready, rows=rows, windowed=True, full_sampler=key.full_sampler,
-            want_lp=key.want_lp, solo=solo, nb=nb, tokens_dev=outs[-2],
-            positions_dev=outs[-1], host_in=host, capacity_capped=capped,
+            ys=ys, ready=ready, rows=rows, windowed=True, dispatched_at=dispatched_at,
+            full_sampler=key.full_sampler, want_lp=key.want_lp, solo=solo, nb=nb,
+            tokens_dev=outs[-2], positions_dev=outs[-1], host_in=host, capacity_capped=capped,
         )
 
     # ---------------------------------------------------------------- chaining
@@ -1323,11 +1614,14 @@ class TorchEngine(AsyncEngine):
             # and drafts are planned from freshly consumed tokens.
             return False
         stepped = {id(e.seq) for e in p.rows}
+        now = time.time()
         for s in self.sched.slots:
             if s is None:
                 continue
             if s.state is SeqState.PREFILL or s.is_cancelled():
                 return False
+            if s.deadline_unix and now >= s.deadline_unix:
+                return False  # break the chain so the deadline is enforced
             if s.state is SeqState.ACTIVE and id(s) not in stepped:
                 return False  # joined or sat out: rebuild the window
         K = self.cfg.decode_window
@@ -1394,14 +1688,19 @@ class TorchEngine(AsyncEngine):
         (the page release) until the successor is consumed: the device
         already parked the row, so the successor writes nothing for it."""
         host = self._host(pending)
+        if self.profiler is not None:
+            # The wait in _host was this window's one sync.
+            self.profiler.consume("window", pending.dispatched_at)
         sampled = host[0]
         if pending.want_lp:
             lps, top_ids, top_lps = host[1:4]
+        tel = get_telemetry()
         finishes: list[Sequence] = []
+        wasted = emitted = 0
         for e in pending.rows:
             seq, row = e.seq, e.row
             if seq.state is not SeqState.ACTIVE or seq.pending_finish is not None:
-                self.wasted_steps += e.n_valid
+                wasted += e.n_valid  # the whole window past this row's stop
                 continue
             kept: list[int] = []
             reason = None
@@ -1413,17 +1712,25 @@ class TorchEngine(AsyncEngine):
                 reason = self.sched.check_stop(seq, token)
                 if reason is not None:
                     break
-            self.wasted_steps += e.n_valid - len(kept)
+            wasted += e.n_valid - len(kept)
+            emitted += len(kept)
             self.sched.register_full_pages(seq)
             n_top = self._wants_logprobs(seq)
             pack = None
             if n_top is not None and kept:
                 n = len(kept)
                 pack = self._lp_pack(n_top, lps[:n, row], top_ids[:n, row], top_lps[:n, row])
+            if kept:
+                self._note_emit(seq, len(kept), tel)
             seq.emit(kept, None, pack)
             if reason is not None:
                 seq.pending_finish = reason
                 finishes.append(seq)
+        if self.flight is not None:
+            self.flight.record("consume", dispatch="ragged", tokens=emitted, wasted=wasted)
+        if wasted:
+            self.wasted_steps += wasted
+            tel.decode_wasted_steps.inc(wasted)
         if finishes:
             # No window may be in flight over pages about to be
             # released: consume the successor first.
@@ -1610,13 +1917,22 @@ class TorchEngine(AsyncEngine):
                     host["spec_pos"][r, :n] = np.arange(p0, p0 + n)
                 rows.append(_RaggedRow(seq, "spec", r, n_drafts=g))
             qs += -(-n // align) * align
+        prof = self.profiler
+        t0 = prof.begin("mixed") if prof is not None else 0.0
+        captured = self.graphs.captured["mixed"] if self.graphs is not None else None
         ys, ready = self._fetch(self._launch_mixed(key, host))
+        fresh = self._fresh("mixed", key, captured)
+        dispatched_at = prof.end("mixed", t0, fresh) if prof is not None else 0.0
+        if self.flight is not None:
+            self.flight.record("dispatch", dispatch="ragged", rows=len(rows), tokens=n_tokens,
+                               bucket=key.tokens, windowed=False)
         self.steps += 1
         self.dispatches["mixed"] += 1
         self.spec_dispatches += key.with_spec
+        get_telemetry().decode_batch_rows.observe(len(dec) + len(spec))
         return _PendingRagged(
-            ys=ys, ready=ready, rows=rows, windowed=False, full_sampler=full_sampler,
-            want_lp=want_lp, solo=False, with_spec=key.with_spec,
+            ys=ys, ready=ready, rows=rows, windowed=False, dispatched_at=dispatched_at,
+            full_sampler=full_sampler, want_lp=want_lp, solo=False, with_spec=key.with_spec,
         )
 
     def _launch_mixed(self, key: MixedKey, host: dict) -> tuple:
@@ -1639,6 +1955,11 @@ class TorchEngine(AsyncEngine):
         check_stop gates every token. Mixed batches are never chained
         over, so finishes release their pages at once."""
         host = self._host(pending)
+        if self.profiler is not None:
+            self.profiler.consume("mixed", pending.dispatched_at)
+        if self.flight is not None:
+            self.flight.record("consume", dispatch="ragged", rows=len(pending.rows))
+        tel = get_telemetry()
         tok0, i = host[0], 1
         if pending.with_spec:
             targets, n_emits = host[1], host[2]
@@ -1662,6 +1983,7 @@ class TorchEngine(AsyncEngine):
                 continue
             if seq.state is not SeqState.ACTIVE or seq.pending_finish is not None:
                 self.wasted_steps += 1
+                tel.decode_wasted_steps.inc()
                 continue
             if e.kind == "decode":
                 token = int(tok0[r])
@@ -1669,6 +1991,7 @@ class TorchEngine(AsyncEngine):
                 seq.generated += 1
                 reason = self.sched.check_stop(seq, token)
                 self.sched.register_full_pages(seq)
+                self._note_emit(seq, 1, tel)
                 seq.emit([token], None, pack0(seq, r))
                 if reason is not None:
                     self.sched.finish(seq, reason)
@@ -1687,7 +2010,9 @@ class TorchEngine(AsyncEngine):
                 reason = self.sched.check_stop(seq, token)
                 if reason is not None:
                     break
-            self.wasted_steps += n_emit - len(kept)  # past a host-found stop
+            if n_emit - len(kept):  # past a host-found stop
+                self.wasted_steps += n_emit - len(kept)
+                tel.decode_wasted_steps.inc(n_emit - len(kept))
             seq.spec_dispatches += 1
             seq.spec_draft_tokens += g
             seq.spec_accepted_tokens += accepted
@@ -1696,6 +2021,12 @@ class TorchEngine(AsyncEngine):
             self.spec_draft_tokens += g
             self.spec_accepted_tokens += accepted
             self.spec_emitted_tokens += len(kept)
+            tel.spec_draft_tokens.inc(g)
+            tel.spec_accepted_tokens.inc(accepted)
+            tel.spec_tokens_per_dispatch.observe(len(kept))
+            if self.flight is not None:
+                self.flight.record("spec_accept", req=seq.request_id, proposed=g,
+                                   accepted=accepted, emitted=len(kept))
             self._spec.record(seq, proposed=g, accepted=accepted)
             self.sched.register_full_pages(seq)
             n_top = self._wants_logprobs(seq)
@@ -1703,16 +2034,39 @@ class TorchEngine(AsyncEngine):
             if pending.want_lp and n_top is not None and kept:
                 n = len(kept)
                 pack = self._lp_pack(n_top, s_lps[r, :n], s_tids[r, :n], s_tlps[r, :n])
+            if kept:
+                self._note_emit(seq, len(kept), tel)
             seq.emit(kept, None, pack)
             if reason is not None:
                 self.sched.finish(seq, reason)
             else:
                 self._rewind_spec_pages(seq)
 
+    @staticmethod
+    def _note_emit(seq: Sequence, n: int, tel) -> None:
+        """Time between tokens of ``n`` tokens emitted now (a window's
+        share averaged over them)."""
+        now = time.time()
+        if seq.last_emit_at:
+            tel.time_between_tokens.observe(max(now - seq.last_emit_at, 0.0) / n)
+        seq.last_emit_at = now
+
     def _finish_first_token(self, seq: Sequence, token: int, lp_pack=None) -> None:
-        """The prompt's first sampled token: start its penalty counts,
-        promote the sequence to decode, and emit (with its logprobs)."""
-        seq.first_token_at = time.time()
+        """The prompt's first sampled token: close its prefill (histogram
+        and span), start its penalty counts, promote the sequence to
+        decode, and emit (with its logprobs)."""
+        now = time.time()
+        seq.first_token_at = seq.last_emit_at = now
+        tel = get_telemetry()
+        start = seq.admitted_at or seq.submitted_at or now
+        tel.prefill_compute.observe(max(now - start, 0.0))
+        tel.emit_stage(
+            "prefill", start, now, seq.trace, prompt_tokens=len(seq.prompt),
+            cached_tokens=seq.cached_len, resumed_tokens=seq.stop.resume_offset or None,
+            **(self.profiler.span_attrs("mixed") if self.profiler is not None else {}),
+        )
+        if self.flight is not None:
+            self.flight.record("first_token", req=seq.request_id, slot=seq.slot)
         seq.state = SeqState.ACTIVE
         self._counts[seq.slot] = 0
         self._counts[seq.slot, token] += 1

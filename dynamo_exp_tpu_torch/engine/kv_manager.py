@@ -103,6 +103,9 @@ class KvPageManager:
         # how many the host tier supplied.
         self.offload_hits = 0
         self.offload_misses = 0
+        # Prompt pages at admission by source (dynamo_kv_prefix_hits_total):
+        # shared (G1 attach), restore (G2 upload), miss (fresh prefill).
+        self.prefix_hits = {"shared": 0, "restore": 0, "miss": 0}
         # Conservation ledger, kept at the same transitions that move
         # pages between the free list, the parked LRU and the held set
         # (``ledger_check`` is counter arithmetic; ``audit`` scans).
@@ -194,6 +197,9 @@ class KvPageManager:
         if self.host_pool is not None:
             self.offload_hits += len(restored)
             self.offload_misses += need_fresh - len(restored)
+        self.prefix_hits["shared"] += len(matched)
+        self.prefix_hits["restore"] += len(restored)
+        self.prefix_hits["miss"] += need_fresh - len(restored)
         cached_pages = len(matched) + len(restored)
         cached = min(cached_pages * ps, n_tokens - 1)
         return Allocation(

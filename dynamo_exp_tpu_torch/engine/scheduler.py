@@ -7,22 +7,28 @@ dispatch, so decode interleaves between the chunks of a long prompt.
 With ``kv_packing`` the next admission is the first waiting sequence
 whose lifetime KV forecast fits the free pages (``tiering.py``). Under
 KV pressure the engine preempts (:meth:`Scheduler.preempt`): the victim
-requeues as a deterministic continuation of itself. Single-writer: all
-mutation happens on the engine loop thread.
+requeues as a deterministic continuation of itself. A sequence carries
+its request's deadline: :meth:`Scheduler.reap_waiting` drops cancelled
+and expired sequences anywhere in the waiting queue, and admission never
+binds an expired one. Finishes emit the request's ``decode`` span and,
+with the engine's flight recorder, ``finish`` and ``preempt`` events.
+Single-writer: all mutation happens on the engine loop thread.
 
-Left out (ROADMAP): remote KV, deadlines and reaping (Queue 1 item
-9(b)), and telemetry.
+Left out (ROADMAP): remote KV and the request-anatomy accumulators
+(Queue 1).
 """
 
 from __future__ import annotations
 
 import enum
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from itertools import islice
 from typing import Callable
 
 from ..protocols.common import BackendInput, FinishReason
+from ..telemetry import get_telemetry
 from ..tokens import chain_hash, compute_block_hash
 from .config import EngineConfig
 from .kv_manager import KvPageManager
@@ -63,8 +69,17 @@ class Sequence:
     # Priority class (0 low, 1 normal, 2 high): preemption and swap take
     # low first; packed admission never bypasses a higher class.
     priority: int = 1
+    # End-to-end deadline (unix seconds, 0 = none), from the request's
+    # context at submission.
+    deadline_unix: float = 0.0
+    # The request's trace context (captured from the submitting task:
+    # the loop thread does not share its contextvar) and unix-time stage
+    # stamps.
+    trace: object | None = None
     submitted_at: float = 0.0
+    admitted_at: float = 0.0
     first_token_at: float = 0.0
+    last_emit_at: float = 0.0
     # The pool ran dry for this row's next window (it may still step).
     stalled: bool = False
     # When a hard stall began (the row cannot feed its next token): the
@@ -125,17 +140,49 @@ def select_preemption_victim(candidates, max_preemptions: int):
 
 
 class Scheduler:
-    def __init__(self, cfg: EngineConfig, kv: KvPageManager):
+    def __init__(self, cfg: EngineConfig, kv: KvPageManager, flight=None):
         self.cfg = cfg
         self.kv = kv
         self.waiting: deque[Sequence] = deque()
         self.slots: list[Sequence | None] = [None] * cfg.max_decode_slots
         self.active_count = 0  # PREFILL + ACTIVE (slot holders)
+        # The engine's flight recorder (None = recording off).
+        self.flight = flight
+        # Set by the engine: () -> dispatch-profiler attrs for the
+        # decode span.
+        self.span_attrs: Callable[[], dict] | None = None
         # Footprint-packed admission; None = plain first-fit FIFO.
         self.forecast = KvFootprintForecast(kv, cfg) if cfg.kv_packing else None
 
     def submit(self, seq: Sequence) -> None:
         self.waiting.append(seq)
+
+    def reap_waiting(self, now: float | None = None) -> int:
+        """Drop cancelled and deadline-expired sequences anywhere in the
+        waiting queue, so dead requests neither count as queued nor waste
+        a prefill when their turn comes. Returns the number reaped."""
+        if not self.waiting:
+            return 0
+        now = time.time() if now is None else now
+        kept: list[Sequence] = []
+        reaped = 0
+        for seq in self.waiting:
+            if seq.is_cancelled():
+                seq.state = SeqState.FINISHED
+                seq.emit([], FinishReason.CANCELLED)
+                reaped += 1
+            elif seq.deadline_unix and now >= seq.deadline_unix:
+                # The client has given up: admitting would burn a slot
+                # and a prefill on work nobody reads.
+                seq.state = SeqState.FINISHED
+                get_telemetry().deadline_exceeded.labels("engine_admission").inc()
+                seq.emit([], FinishReason.ERROR)
+                reaped += 1
+            else:
+                kept.append(seq)
+        if reaped:
+            self.waiting = deque(kept)
+        return reaped
 
     def has_work(self) -> bool:
         return self.active_count > 0 or bool(self.waiting)
@@ -154,6 +201,15 @@ class Scheduler:
                 seq = self.waiting.popleft()
                 seq.state = SeqState.FINISHED
                 seq.emit([], FinishReason.CANCELLED)
+                continue
+            head = self.waiting[0]
+            if head.deadline_unix and time.time() >= head.deadline_unix:
+                # The loop's reap is throttled: expired work never slips
+                # through admission in between.
+                self.waiting.popleft()
+                head.state = SeqState.FINISHED
+                get_telemetry().deadline_exceeded.labels("engine_admission").inc()
+                head.emit([], FinishReason.ERROR)
                 continue
             slot = self.free_slot()
             if slot is None:
@@ -277,7 +333,29 @@ class Scheduler:
     def finish(self, seq: Sequence, reason: FinishReason) -> None:
         if seq.state == SeqState.FINISHED:
             return
+        now = time.time()
         was_bound = seq.state in (SeqState.PREFILL, SeqState.ACTIVE)
+        if seq.first_token_at:
+            # The request's decode span (first token -> finish), with the
+            # trace captured at submission.
+            get_telemetry().emit_stage(
+                "decode", seq.first_token_at, now, seq.trace,
+                generated_tokens=seq.generated,
+                finish_reason=getattr(reason, "value", str(reason)),
+                spec_tokens_per_dispatch=(
+                    round(seq.spec_emitted_tokens / seq.spec_dispatches, 4)
+                    if seq.spec_dispatches else None
+                ),
+                pages=len(seq.page_ids),
+                priority=seq.priority,
+                **(self.span_attrs() if self.span_attrs is not None else {}),
+            )
+        if self.flight is not None:
+            self.flight.record(
+                "finish", req=seq.request_id, slot=seq.slot if was_bound else None,
+                reason=getattr(reason, "value", str(reason)), generated=seq.generated,
+                pages=len(seq.page_ids), priority=seq.priority,
+            )
         seq.state = SeqState.FINISHED
         if seq.slot >= 0 and was_bound:
             self.slots[seq.slot] = None
@@ -303,6 +381,11 @@ class Scheduler:
         uninterrupted one; the client's stream only ever sees tokens
         past the splice, and its usage stays the original request's."""
         k = seq.generated
+        if self.flight is not None:
+            self.flight.record(
+                "preempt", req=seq.request_id, slot=seq.slot, generated=k,
+                freed_pages=len(seq.page_ids),
+            )
         if seq.slot >= 0:
             self.slots[seq.slot] = None
             self.active_count -= 1
@@ -373,6 +456,7 @@ class Scheduler:
             ),
             "num_requests_running": running,
             "num_requests_waiting": len(self.waiting),
+            "decode_batch_utilization": running / max(self.cfg.max_decode_slots, 1),
             "kv_active_blocks": self.kv.active_pages,
             "kv_total_blocks": self.kv.num_pages,
             "gpu_cache_usage_perc": self.kv.usage,

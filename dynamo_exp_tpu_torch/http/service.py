@@ -9,22 +9,33 @@ SSE as ``text/event-stream`` in chunked transfer encoding, ending with
 
 Routes: ``POST /v1/chat/completions``, ``POST /v1/completions`` (a list
 of prompts fans out into one sub-request each, with re-indexed
-choices), ``GET /v1/models``, ``/health`` and ``/live``. The service
-always streams from the engine and folds ``stream=false`` responses.
-Errors as the JAX service sends them: 400 for bad JSON, a bad shape or
-too long a prompt, 404 for an unknown model, 500 for an engine error
-(mid-stream: an SSE ``event: error`` frame). A client that disconnects
-before its response is complete kills the request's context, which
-frees its slot and pages in the engine.
+choices), ``GET /v1/models``, ``GET /metrics`` (Prometheus text: the
+``llm_http_service_*`` families of ``http/metrics.py`` and the process
+telemetry registry), ``/health`` and ``/live``. The service always
+streams from the engine and folds ``stream=false`` responses. Errors as
+the JAX service sends them: 400 for bad JSON, a bad shape or too long a
+prompt, 404 for an unknown model, 500 for an engine error (mid-stream:
+an SSE ``event: error`` frame). A client that disconnects before its
+response is complete kills the request's context, which frees its slot
+and pages in the engine.
 
 The priority class (body or nvext ``priority``, else the
 ``X-Request-Priority`` header; 400 for an invalid spelling) is written
 into the forwarded payload, so the engine's preemption order sees it.
+With an :class:`~.admission.AdmissionController` the request holds an
+in-flight slot for its whole lifetime, its last frame included; a shed
+request gets 429 (``request_shed``) or, at the hard cap, 503
+(``service_overloaded``), both with ``Retry-After``. A ``timeout_s``
+body field or ``X-Request-Timeout-S`` header arms the request's
+deadline: the engine reaps it while it waits and finishes it at the
+deadline once bound (``finish_reason`` ``error``), and a
+``DeadlineExceededError`` raised before the response starts is a 504
+``deadline_exceeded``. Each request is the root ``http_request`` span of
+its trace, and a completed one is attributed against the SLO targets
+(``telemetry/slo.py``): TTFT from arrival to the first content chunk,
+ITL the mean gap after it.
 
-Left out (ROADMAP Queue 1 item 9): ``/metrics`` (a), admission control,
-SLO attribution and deadlines (b): a request with ``timeout_s`` or
-``X-Request-Timeout-S`` gets a 400 naming the item (a malformed value
-the JAX service's 400), request templates (c), the resumable
+Left out (ROADMAP Queue 1 item 9): request templates (c), the resumable
 ``seq_index`` dedupe and model discovery (e).
 """
 
@@ -34,6 +45,7 @@ import asyncio
 import contextlib
 import json
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -50,17 +62,20 @@ from ..protocols.openai import (
 )
 from ..protocols.sse import encode_done, encode_frame
 from ..runtime.annotated import Annotated
-from ..runtime.engine import AsyncEngine, AsyncEngineContext
+from ..runtime.engine import AsyncEngine, AsyncEngineContext, DeadlineExceededError
+from ..telemetry import span
+from .admission import AdmissionController, RequestShedError
+from .metrics import CONTENT_TYPE_LATEST, ServiceMetrics
 
 logger = logging.getLogger(__name__)
 
-DEADLINES_ITEM = "ROADMAP Queue 1 item 9(b)"
 MAX_HEAD_BYTES = 64 << 10
 MAX_BODY_BYTES = 32 << 20
 _REASONS = {
     100: "Continue", 200: "OK", 400: "Bad Request", 404: "Not Found",
-    405: "Method Not Allowed", 413: "Payload Too Large", 500: "Internal Server Error",
-    501: "Not Implemented",
+    405: "Method Not Allowed", 413: "Payload Too Large", 429: "Too Many Requests",
+    500: "Internal Server Error", 501: "Not Implemented", 503: "Service Unavailable",
+    504: "Gateway Timeout",
 }
 
 
@@ -114,17 +129,19 @@ class _Response:
     status: int
     body: bytes = b""
     content_type: str = "application/json; charset=utf-8"
+    headers: dict[str, str] = field(default_factory=dict)
 
 
-def _json_response(obj: Any, status: int = 200) -> _Response:
-    return _Response(status, json.dumps(obj).encode())
+def _json_response(obj: Any, status: int = 200, headers: dict[str, str] | None = None) -> _Response:
+    return _Response(status, json.dumps(obj).encode(), headers=headers or {})
 
 
 def _error_response(
-    status: int, message: str, err_type: str = "invalid_request_error"
+    status: int, message: str, err_type: str = "invalid_request_error",
+    headers: dict[str, str] | None = None,
 ) -> _Response:
     return _json_response(
-        {"error": {"message": message, "type": err_type, "code": status}}, status
+        {"error": {"message": message, "type": err_type, "code": status}}, status, headers
     )
 
 
@@ -211,6 +228,7 @@ class _Connection:
                 "Content-Type": resp.content_type,
                 "Content-Length": str(len(resp.body)),
                 "Connection": "keep-alive" if keep_alive else "close",
+                **resp.headers,
             },
         )
         self.writer.write(resp.body)
@@ -225,18 +243,29 @@ class HttpService:
     def __init__(
         self,
         manager: ModelManager | None = None,
+        metrics: ServiceMetrics | None = None,
         host: str = "0.0.0.0",
         port: int = 8080,
+        admission: AdmissionController | None = None,
+        slo=None,
     ):
         self.manager = manager or ModelManager()
+        self.metrics = metrics or ServiceMetrics()
         self.host = host
         self.port = port
+        # Bounded in-flight work with priority-aware shedding; None
+        # admits everything.
+        self.admission = admission
+        # A telemetry.SloAttribution fed each completed request's TTFT
+        # and ITL at this edge; None measures nothing.
+        self.slo = slo
         self._server: asyncio.Server | None = None
         self._conns: set[asyncio.Task] = set()
         self._routes = {
             ("POST", "/v1/chat/completions"): self._chat,
             ("POST", "/v1/completions"): self._completions,
             ("GET", "/v1/models"): self._models,
+            ("GET", "/metrics"): self._metrics,
             ("GET", "/health"): self._health,
             ("GET", "/live"): self._health,
         }
@@ -303,6 +332,11 @@ class HttpService:
         await conn.send(_json_response(listing.to_dict()), req.keep_alive)
         return True
 
+    async def _metrics(self, req: _Request, conn: _Connection) -> bool:
+        resp = _Response(200, self.metrics.render(), CONTENT_TYPE_LATEST)
+        await conn.send(resp, req.keep_alive)
+        return True
+
     async def _chat(self, req: _Request, conn: _Connection) -> bool:
         return await self._serve_llm(
             req, conn,
@@ -310,6 +344,7 @@ class HttpService:
             lookup=self.manager.chat_engine,
             chunk_type=ChatCompletionChunk,
             aggregate=aggregate_chat_stream,
+            endpoint="chat_completions",
         )
 
     async def _completions(self, req: _Request, conn: _Connection) -> bool:
@@ -319,12 +354,13 @@ class HttpService:
             lookup=self.manager.completion_engine,
             chunk_type=CompletionChunk,
             aggregate=aggregate_completion_stream,
+            endpoint="completions",
             expand_batch=_expand_completion_batch,
         )
 
     async def _serve_llm(
         self, req: _Request, conn: _Connection, parse, lookup, chunk_type, aggregate,
-        expand_batch=None,
+        endpoint: str, expand_batch=None,
     ) -> bool:
         try:
             payload = json.loads(req.body)
@@ -340,84 +376,158 @@ class HttpService:
         except ValueError as e:  # JSONDecodeError, UnicodeDecodeError too
             await conn.send(_error_response(400, f"invalid request: {e}"), req.keep_alive)
             return True
-        if timeout_s is not None:
-            # The JAX service arms a deadline here; until the port has
-            # deadlines the request is refused rather than served
-            # without one.
-            resp = _error_response(
-                400, f"request deadlines (timeout_s / X-Request-Timeout-S) are not ported "
-                f"to dynamo_exp_tpu_torch yet; see {DEADLINES_ITEM}",
-            )
-            await conn.send(resp, req.keep_alive)
-            return True
         engine = lookup(oreq.model)
         if engine is None:
             resp = _error_response(404, f"model {oreq.model!r} not found", "model_not_found")
             await conn.send(resp, req.keep_alive)
             return True
+        if self.admission is not None:
+            # Above the shed watermark lower classes get 429; at the hard
+            # cap everything gets 503. Both carry Retry-After: the
+            # request was fine, the service is busy.
+            try:
+                self.admission.acquire(priority)
+            except RequestShedError as e:
+                self.metrics.count_shed(oreq.model, endpoint, e.status)
+                resp = _error_response(
+                    e.status, str(e),
+                    "service_overloaded" if e.status == 503 else "request_shed",
+                    headers={"Retry-After": str(max(int(e.retry_after_s), 1))},
+                )
+                await conn.send(resp, req.keep_alive)
+                return True
+        try:
+            return await self._serve_admitted(
+                req, conn, oreq, engine, timeout_s, payload=payload, chunk_type=chunk_type,
+                aggregate=aggregate, endpoint=endpoint, expand_batch=expand_batch,
+                priority=priority,
+            )
+        finally:
+            # Released once the response is complete: in flight covers
+            # the request's whole lifetime.
+            if self.admission is not None:
+                self.admission.release()
+
+    async def _serve_admitted(
+        self, req: _Request, conn: _Connection, oreq, engine: AsyncEngine,
+        timeout_s: float | None, *, payload, chunk_type, aggregate, endpoint: str,
+        expand_batch, priority: int,
+    ) -> bool:
+        # SLO clock: TTFT and ITL from the request's arrival at this edge.
+        t_arrival = time.monotonic()
+        lat = {"first": 0.0, "last": 0.0, "tokens": 0}
         sub_payloads = expand_batch(payload) if expand_batch else [payload]
         # One context per sub-request: a finished sub-stream must not stop
         # its batch siblings; a disconnect kills them all.
         ctxs = [AsyncEngineContext() for _ in sub_payloads]
+        for c in ctxs:
+            c.start_timeout(timeout_s)
         ctx = _FanoutContext(ctxs)
-        try:
-            streams = [await engine.generate(p, c) for p, c in zip(sub_payloads, ctxs)]
-        except PromptTooLongError as e:
-            resp = _error_response(400, str(e), "context_length_exceeded")
-        except InvalidRequestError as e:
-            resp = _error_response(400, str(e), "invalid_request_error")
-        except Exception as e:
-            logger.exception("engine rejected request")
-            resp = _error_response(500, str(e))
-        else:
-            resp = None
-        if resp is not None:
-            ctx.kill()
-            await conn.send(resp, req.keep_alive)
-            return True
-
-        async def typed_chunks():
-            for idx, stream in enumerate(streams):
-                async for item in stream:
-                    chunk = chunk_type.from_dict(item) if isinstance(item, dict) else item
-                    if idx:
-                        for choice in chunk.choices:
-                            choice.index = idx
-                    yield chunk
-
-        respond = (
-            self._stream_response(conn, typed_chunks(), ctx)
-            if oreq.stream
-            else self._unary_response(conn, aggregate(typed_chunks()), ctx, req.keep_alive)
-        )
-        serve = asyncio.ensure_future(respond)
-        watch = asyncio.ensure_future(conn.watch_disconnect())
-        try:
-            await asyncio.wait({serve, watch}, return_when=asyncio.FIRST_COMPLETED)
-        finally:
-            if not serve.done():
-                # Client went away (or the service is stopping): kill
-                # generation now so the engine frees the slot.
-                logger.info("client disconnected; killing request %s", ctx.id)
+        request_type = "stream" if oreq.stream else "unary"
+        # The root span of the request's trace: the engine's stages
+        # parent onto it, and log lines emitted meanwhile carry its id.
+        with span(
+            "http_request", request_id=ctx.id, model=oreq.model, endpoint=endpoint,
+            request_type=request_type,
+        ) as root, self.metrics.track(oreq.model, endpoint, request_type) as tracker:
+            logger.info("request %s: model=%s endpoint=%s type=%s",
+                        ctx.id, oreq.model, endpoint, request_type)
+            status = None
+            try:
+                streams = [await engine.generate(p, c) for p, c in zip(sub_payloads, ctxs)]
+            except PromptTooLongError as e:
+                status, resp = "rejected", _error_response(400, str(e), "context_length_exceeded")
+            except InvalidRequestError as e:
+                status, resp = "rejected", _error_response(400, str(e), "invalid_request_error")
+            except DeadlineExceededError as e:
+                status, resp = "deadline", _error_response(504, str(e), "deadline_exceeded")
+            except Exception as e:
+                logger.exception("engine rejected request")
+                status, resp = "error", _error_response(500, str(e))
+            if status is not None:
+                tracker.status = status
+                root.set(status=status)
                 ctx.kill()
-                serve.cancel()
-            watch.cancel()
-            await asyncio.gather(serve, watch, return_exceptions=True)
-        if serve.cancelled() or serve.exception() is not None:
-            return False
-        return not oreq.stream and req.keep_alive
+                await conn.send(resp, req.keep_alive)
+                return True
 
-    async def _unary_response(self, conn: _Connection, full, ctx, keep_alive: bool) -> None:
+            async def typed_chunks():
+                for idx, stream in enumerate(streams):
+                    high = 0  # cumulative tokens counted so far
+                    async for item in stream:
+                        if oreq.stream:
+                            tracker.first_token()
+                        chunk = chunk_type.from_dict(item) if isinstance(item, dict) else item
+                        si = getattr(chunk, "seq_index", None)
+                        if si is not None:
+                            delta, high = si - high, max(si, high)
+                        else:
+                            delta = 1
+                        if chunk.choices:
+                            # SLO marks: first and last content chunk,
+                            # and the chunk's tokens (its seq_index
+                            # delta; one for a chunk without one), so a
+                            # decode window's chunk counts every token.
+                            now = time.monotonic()
+                            if not lat["first"]:
+                                lat["first"] = now
+                            lat["last"] = now
+                            lat["tokens"] += max(delta, 1)
+                        if idx:
+                            for choice in chunk.choices:
+                                choice.index = idx
+                        yield chunk
+
+            respond = (
+                self._stream_response(conn, typed_chunks(), ctx)
+                if oreq.stream
+                else self._unary_response(conn, aggregate(typed_chunks()), ctx, req.keep_alive)
+            )
+            serve = asyncio.ensure_future(respond)
+            watch = asyncio.ensure_future(conn.watch_disconnect())
+            try:
+                await asyncio.wait({serve, watch}, return_when=asyncio.FIRST_COMPLETED)
+            finally:
+                if not serve.done():
+                    # Client went away (or the service is stopping): kill
+                    # generation now so the engine frees the slot.
+                    logger.info("client disconnected; killing request %s", ctx.id)
+                    ctx.kill()
+                    serve.cancel()
+                watch.cancel()
+                await asyncio.gather(serve, watch, return_exceptions=True)
+            if serve.cancelled() or serve.exception() is not None:
+                tracker.status = "disconnect"
+                root.set(status="disconnect")
+                return False
+            status = serve.result()
+            if status == "success":
+                # Attributed only when the response completed: an errored
+                # or abandoned request is not goodput.
+                self._record_slo(priority, t_arrival, lat, root)
+            else:
+                tracker.status = status
+                root.set(status=status)
+            return not oreq.stream and req.keep_alive
+
+    async def _unary_response(self, conn: _Connection, full, ctx, keep_alive: bool) -> str:
+        """Send the folded response; returns the request's status."""
+        status = "success"
         try:
             resp = _json_response((await full).to_dict())
+        except DeadlineExceededError as e:
+            ctx.kill()
+            status, resp = "deadline", _error_response(504, str(e), "deadline_exceeded")
         except Exception as e:
             logger.exception("request failed")
             ctx.kill()
-            resp = _error_response(500, str(e))
+            status, resp = "error", _error_response(500, str(e))
         await conn.send(resp, keep_alive)
+        return status
 
-    async def _stream_response(self, conn: _Connection, chunks, ctx) -> None:
-        """SSE in chunked encoding; the connection closes after it."""
+    async def _stream_response(self, conn: _Connection, chunks, ctx) -> str:
+        """SSE in chunked encoding; the connection closes after it.
+        Returns the request's status."""
         conn.write_head(
             200,
             {
@@ -427,6 +537,7 @@ class HttpService:
                 "Connection": "close",
             },
         )
+        status = "success"
         try:
             async for chunk in chunks:
                 frame = encode_frame(Annotated.from_data(chunk.to_dict()))
@@ -438,8 +549,29 @@ class HttpService:
         except Exception as e:
             logger.exception("stream failed mid-flight")
             ctx.kill()
+            status = "error"
             await conn.send_chunk(encode_frame(Annotated.from_error(str(e))).encode())
         await conn.send_chunk(b"")
+        return status
+
+    def _record_slo(self, priority: int, t_arrival: float, lat: dict, root) -> None:
+        """One completed request into the SLO attribution: TTFT = arrival
+        to the first content chunk, ITL = the mean interval after it
+        (None for a one-token response: never a violation). The same
+        marks stamp the root span (``ttft_s``, ``itl_s``, ``latency_s``,
+        ``tokens``, ``priority``)."""
+        if not lat["first"]:
+            return
+        ttft = max(lat["first"] - t_arrival, 0.0)
+        itl = None
+        if lat["tokens"] > 1:
+            itl = max(lat["last"] - lat["first"], 0.0) / (lat["tokens"] - 1)
+        root.set(ttft_s=round(ttft, 6), latency_s=round(max(lat["last"] - t_arrival, 0.0), 6),
+                 tokens=lat["tokens"], priority=priority)
+        if itl is not None:
+            root.set(itl_s=round(itl, 6))
+        if self.slo is not None:
+            self.slo.record(priority, ttft_s=ttft, itl_s=itl)
 
 
 class _FanoutContext:

@@ -18,6 +18,7 @@ PRIORITY_NORMAL = 1
 PRIORITY_HIGH = 2
 
 _PRIORITY_NAMES = {"low": PRIORITY_LOW, "normal": PRIORITY_NORMAL, "high": PRIORITY_HIGH}
+_NAME_BY_PRIORITY = {v: k for k, v in _PRIORITY_NAMES.items()}
 
 
 def parse_priority(raw) -> int:
@@ -37,6 +38,11 @@ def parse_priority(raw) -> int:
         if name.lstrip("-").isdigit():
             return parse_priority(int(name))
     raise ValueError(f"invalid priority: {raw!r} (expected 0..2 or low/normal/high)")
+
+
+def priority_name(priority: int) -> str:
+    """The class name of a priority (``"low"``, ``"normal"``, ``"high"``)."""
+    return _NAME_BY_PRIORITY.get(priority, str(priority))
 
 
 class FinishReason(str, enum.Enum):

@@ -22,6 +22,12 @@ OUTPUT: cuda | echo_core | echo_full
 - ``--prewarm`` and ``--compile-cache-dir`` (``aot/``): warm boot, as in
   the JAX CLI (CUDA graphs of every decode-window and mixed variant,
   and the kernel library kept in the cache directory).
+- ``--max-inflight`` / ``--shed-watermark`` (admission control at the
+  HTTP edge: 429 / 503 with ``Retry-After``), ``--slo-ttft-ms`` /
+  ``--slo-itl-ms`` (SLO attribution on ``/metrics``) and
+  ``--trace-file`` (request spans as JSONL), as in the JAX CLI. Logging
+  follows ``DYN_LOG`` / ``DYN_LOGGING_JSONL``; SIGUSR1 dumps every
+  engine's flight recorder (``telemetry/flight.py``).
 
 The JAX CLI's other inputs, outputs and flags are refused with the
 ROADMAP item that brings them, never silently ignored.
@@ -62,12 +68,7 @@ NOT_PORTED_FLAGS = {
     "--dist-port": "ROADMAP Queue 1 item 7",
     "--deployment": "ROADMAP Queue 1 item 7",
     "--request-template": f"{_ITEM9}(c)",
-    "--max-inflight": f"{_ITEM9}(b)",
-    "--shed-watermark": f"{_ITEM9}(b)",
-    "--slo-ttft-ms": f"{_ITEM9}(b)",
-    "--slo-itl-ms": f"{_ITEM9}(b)",
-    "--profiler-port": "ROADMAP Queue 1, 'also still outside the port' (profiler)",
-    "--trace-file": "ROADMAP Queue 1, 'also still outside the port' (telemetry)",
+    "--profiler-port": "ROADMAP Queue 1, 'also still outside the port' (runtime/profiler.py)",
     "--echo-token-delay-ms": f"{_ITEM9}(i)",
 }
 
@@ -127,6 +128,22 @@ def parse_args(argv: list[str]):
     p.add_argument("--compile-cache-dir", default="",
                    help="directory the kernel library is built into and kept in, with "
                    "manifest.json (a second boot against it runs no nvcc)")
+    # Overload protection at the HTTP edge: bounded in-flight work,
+    # priority-aware shedding (429 + Retry-After), hard-cap 503.
+    p.add_argument("--max-inflight", type=int, default=0,
+                   help="hard cap on concurrently admitted HTTP requests "
+                   "(503 above it); 0 disables admission control")
+    p.add_argument("--shed-watermark", type=int, default=0,
+                   help="in-flight level where low-priority requests start "
+                   "shedding with 429 (default: 3/4 of --max-inflight)")
+    # SLO attribution: per-request TTFT/ITL at the HTTP edge against these
+    # targets -> dynamo_slo_violations_total / dynamo_goodput_requests_total.
+    p.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                   help="time-to-first-token SLO target in ms (0 = not an SLO)")
+    p.add_argument("--slo-itl-ms", type=float, default=0.0,
+                   help="inter-token-latency SLO target in ms (0 = not an SLO)")
+    p.add_argument("--trace-file", default="",
+                   help="record request span telemetry to this JSONL file")
     p.add_argument("--device", default="cuda",
                    help="device of out=cuda's engine (cpu for CPU runs)")
     opts = p.parse_args(rest)
@@ -221,6 +238,7 @@ class Served:
     torch_engine: object | None
     mdc: object | None
     port: int | None = None
+    service: object | None = None  # the HttpService (in=http)
 
 
 def build_output(opts):
@@ -251,11 +269,41 @@ def resolve_openai_engine(opts, core, full, mdc):
 
 
 # -------------------------------------------------------------------- inputs
+def build_admission(opts):
+    """``--max-inflight`` / ``--shed-watermark`` as an admission
+    controller (None: admission control off)."""
+    if opts.max_inflight <= 0:
+        return None
+    from .http import AdmissionController
+
+    return AdmissionController(
+        max_inflight=opts.max_inflight, shed_watermark=opts.shed_watermark or None
+    )
+
+
+def build_slo(opts):
+    """``--slo-ttft-ms`` / ``--slo-itl-ms`` as an SLO attribution on the
+    process registry (None: neither set)."""
+    if opts.slo_ttft_ms <= 0 and opts.slo_itl_ms <= 0:
+        return None
+    from .telemetry import SloAttribution, SloConfig, get_telemetry
+
+    return SloAttribution(
+        SloConfig(
+            ttft_s=opts.slo_ttft_ms / 1e3 if opts.slo_ttft_ms > 0 else None,
+            itl_s=opts.slo_itl_ms / 1e3 if opts.slo_itl_ms > 0 else None,
+        ),
+        get_telemetry(),
+    )
+
+
 async def run_http(opts, served: Served, ready: asyncio.Future | None) -> None:
     """OpenAI ingress until cancelled."""
     from .http import HttpService
 
-    svc = HttpService(host=opts.http_host, port=opts.http_port)
+    svc = HttpService(host=opts.http_host, port=opts.http_port,
+                      admission=build_admission(opts), slo=build_slo(opts))
+    served.service = svc
     name = (served.mdc.display_name if served.mdc else "") or opts.model_name or "default"
     svc.manager.add_chat_model(name, served.engine)
     svc.manager.add_completion_model(name, served.engine)
@@ -329,6 +377,10 @@ async def main_async(opts, ready: asyncio.Future | None = None) -> None:
     """Build ``out=…``, serve ``in=…``; the engine is stopped on the way
     out, cancellation included. ``ready`` (optional) receives a
     :class:`Served` once the input is up."""
+    if opts.trace_file:
+        from .telemetry import get_telemetry
+
+        get_telemetry().configure(opts.trace_file)
     core, full, mdc, torch_engine = build_output(opts)
     try:
         engine, mdc = resolve_openai_engine(opts, core, full, mdc)
@@ -347,7 +399,9 @@ async def main_async(opts, ready: asyncio.Future | None = None) -> None:
 
 
 def main(argv: list[str] | None = None) -> None:
-    logging.basicConfig(level=os.environ.get("DYN_LOG", "INFO").upper())
+    from .runtime.logging import configure_logging
+
+    configure_logging()
     opts = parse_args(argv if argv is not None else sys.argv[1:])
     loop = asyncio.new_event_loop()
     main_task = loop.create_task(main_async(opts))
@@ -355,6 +409,10 @@ def main(argv: list[str] | None = None) -> None:
     for sig in (signal.SIGINT, signal.SIGTERM):
         with contextlib.suppress(NotImplementedError, ValueError):
             loop.add_signal_handler(sig, main_task.cancel)
+    # SIGUSR1 -> every live engine's flight recorder ring is dumped.
+    from .telemetry import install_sigusr1
+
+    install_sigusr1()
     try:
         loop.run_until_complete(main_task)
     except asyncio.CancelledError:

@@ -1,14 +1,15 @@
 """The streaming-engine abstraction.
 
-Counterpart of ``dynamo_exp_tpu/runtime/engine.py`` without telemetry:
-an ``AsyncEngine`` takes one request and returns a stream of responses
-attached to a context that supports cooperative stop ("finish current
-tokens, then stop") and kill ("drop everything now").
+Counterpart of ``dynamo_exp_tpu/runtime/engine.py``: an ``AsyncEngine``
+takes one request and returns a stream of responses attached to a
+context that supports cooperative stop ("finish current tokens, then
+stop"), kill ("drop everything now") and an end-to-end deadline.
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 import uuid
 from typing import AsyncIterator, Generic, Protocol, TypeVar, runtime_checkable
 
@@ -16,13 +17,49 @@ Req = TypeVar("Req", contravariant=True)
 Resp = TypeVar("Resp", covariant=True)
 
 
-class AsyncEngineContext:
-    """Per-request control handle carried alongside the response stream."""
+class DeadlineExceededError(TimeoutError):
+    """The request's end-to-end deadline expired before it completed."""
 
-    def __init__(self, request_id: str | None = None):
+
+class AsyncEngineContext:
+    """Per-request control handle carried alongside the response stream,
+    with an optional end-to-end **deadline** (unix seconds): the engine
+    reaps a waiting request whose deadline passed and finishes a bound
+    one at it."""
+
+    def __init__(self, request_id: str | None = None, deadline: float | None = None):
         self.id = request_id or uuid.uuid4().hex
+        self.deadline = deadline
         self._stopped = asyncio.Event()
         self._killed = asyncio.Event()
+
+    # --- deadline -----------------------------------------------------
+    def start_timeout(self, timeout_s: float | None) -> None:
+        """Arm the deadline ``timeout_s`` seconds from now (None = no-op)."""
+        if timeout_s is not None:
+            self.deadline = time.time() + timeout_s
+
+    def time_remaining(self) -> float | None:
+        """Seconds until the deadline (may be negative); None if unset."""
+        if self.deadline is None:
+            return None
+        return self.deadline - time.time()
+
+    @property
+    def deadline_expired(self) -> bool:
+        return self.deadline is not None and time.time() >= self.deadline
+
+    def check_deadline(self, stage: str = "router") -> None:
+        """Raise :class:`DeadlineExceededError` if the deadline passed,
+        counting the abandoning stage on
+        ``dynamo_deadline_exceeded_total{stage}``."""
+        if self.deadline_expired:
+            from ..telemetry import get_telemetry
+
+            get_telemetry().deadline_exceeded.labels(stage).inc()
+            raise DeadlineExceededError(
+                f"request {self.id} deadline exceeded at stage {stage!r}"
+            )
 
     def stop_generating(self) -> None:
         """Ask the generator to stop gracefully after the current step."""

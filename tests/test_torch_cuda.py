@@ -563,6 +563,74 @@ def test_graphed_windows_equal_eager_windows(cuda, dtype):
     assert report["pool_bytes"] > 0
 
 
+@pytest.mark.parametrize("chained", [True, False], ids=["chained", "unchained"])
+def test_graphed_and_eager_runs_record_the_same_telemetry_on_the_card(cuda, chained):
+    """Telemetry hooks run on the host around each replay, never inside a
+    captured graph: real CUDA graphs and eager dispatches give the same
+    flight events (the wall stamp aside) and the same counter and
+    histogram-sample deltas; ``dynamo_compile_seconds`` counts one
+    sample per graph captured, by kind."""
+    from dynamo_exp_tpu_torch.runtime.engine import AsyncEngineContext
+    from dynamo_exp_tpu_torch.telemetry import get_telemetry
+
+    cfg_m = replace(TINY, dtype="bfloat16", head_dim=64, num_heads=4, num_kv_heads=2,
+                    hidden_size=256)
+    rs = np.random.RandomState(1)
+    prompts = [list(map(int, rs.randint(3, 250, size=n))) for n in (5, 70, 17)]
+    sampling = [{}, {} if chained else {"temperature": 0.8, "seed": 21}, {}]
+
+    def counts():
+        out = {}
+        for line in get_telemetry().render().decode().splitlines():
+            if line.startswith("#") or ("_bucket" in line or "_sum" in line):
+                continue
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+        return out
+
+    def run(graphs):
+        cfg = EngineConfig(model=cfg_m, max_decode_slots=4, page_size=16, num_pages=64,
+                           max_model_len=256, prefill_chunk=32, decode_window=4,
+                           kv_dtype="bfloat16", cuda_graphs=graphs, chained_decode=chained)
+        eng = TorchEngine(cfg, device=cuda, seed=3)
+        before = counts()
+
+        async def go():
+            streams = [eng.submit({"token_ids": p, "sampling_options": so,
+                                   "stop_conditions": {"max_tokens": 30, "ignore_eos": True}},
+                                  AsyncEngineContext(f"r{i}"))
+                       for i, (p, so) in enumerate(zip(prompts, sampling))]
+            eng.start()
+
+            async def collect(s):
+                return [t async for item in s for t in item.get("token_ids", [])]
+
+            return await asyncio.gather(*(collect(s) for s in streams))
+
+        try:
+            out = asyncio.run(asyncio.wait_for(go(), timeout=300))
+        finally:
+            eng.stop()
+        after = counts()
+        timing = ("dynamo_dispatch_seconds", "dynamo_host_gap_seconds",
+                  "dynamo_compile_seconds", "dynamo_compile_cache_misses",
+                  "dynamo_engine_", "dynamo_stage_duration", "dynamo_kv_")
+        delta = {k: v - before.get(k, 0.0) for k, v in after.items()
+                 if v != before.get(k, 0.0) and not k.startswith(timing)}
+        events = [{k: v for k, v in e.items() if k != "t"} for e in eng.flight.snapshot()]
+        return out, events, delta, {k: v - before.get(k, 0.0) for k, v in after.items()
+                                    if k.startswith("dynamo_compile_seconds_count")}, eng
+
+    eager, e_events, e_delta, _, _ = run(False)
+    graphed, g_events, g_delta, g_compile, eng = run(True)
+    assert graphed == eager and g_events == e_events and g_delta == e_delta
+    m = eng.metrics()
+    for kind in ("window", "mixed"):
+        assert g_compile[f'dynamo_compile_seconds_count{{kind="{kind}"}}'] == (
+            m["graphs"][kind]["captured"]) > 0
+    assert (m["dispatches"]["chained"] > 0) == chained
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mixed_key_replay_equals_its_eager_dispatch(cuda, dtype):
     """One mixed key with the full sampler, verify spans and logprobs: a

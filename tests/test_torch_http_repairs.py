@@ -2,9 +2,12 @@
 
 - ``timeout_s`` (body) and ``X-Request-Timeout-S`` (header): the JAX
   service pops the field, answers 400 to a non-number or a value <= 0
-  and otherwise arms a deadline. The port has no deadlines yet, so a
-  well-formed value gets a 400 naming ROADMAP Queue 1 item 9(b) (it was
-  accepted and ignored), and a malformed one the JAX service's own 400.
+  and otherwise arms a deadline. The port's service does the same since
+  deadlines were ported (it first accepted and ignored the field, then
+  refused it with a 400 naming ROADMAP Queue 1 item 9(b)): a well-formed
+  value reaches the engine with the deadline armed on its context, and
+  a deadline an engine finds expired before the response starts is the
+  JAX service's 504 ``deadline_exceeded``.
 - ``X-Request-Priority``: the body / nvext ``priority`` wins, else the
   header is read, and the class is written into the forwarded payload
   (it was ignored). Under KV pressure on the CPU a request whose class
@@ -13,6 +16,7 @@
 """
 
 import asyncio
+import time
 from dataclasses import replace
 
 import jax
@@ -41,15 +45,32 @@ def _run(coro, timeout=300):
 
 
 class _Recording(EchoEngineFull):
-    """The full echo engine, keeping every payload it is handed."""
+    """The full echo engine, keeping every payload it is handed and the
+    deadline armed on its context."""
 
     def __init__(self):
         super().__init__()
         self.requests: list[dict] = []
+        self.deadlines: list = []
 
     async def generate(self, request, context=None):
         self.requests.append(request)
+        self.deadlines.append(context.deadline)
         return await super().generate(request, context)
+
+
+def _expiring(base):
+    """``base`` (an echo engine class) whose ``generate`` waits past a
+    short deadline, then checks it at the ``router`` stage, as a routed
+    deployment's dispatch does."""
+
+    class Expiring(base):
+        async def generate(self, request, context=None):
+            await asyncio.sleep(0.05)
+            context.check_deadline("router")
+            return await super().generate(request, context)
+
+    return Expiring
 
 
 async def _serve(svc, engine) -> str:
@@ -59,42 +80,62 @@ async def _serve(svc, engine) -> str:
 
 
 @pytest.mark.parametrize(
-    "body,headers,status_jax",
+    "body,headers,status_jax,expiring",
     [
-        ({"timeout_s": -1}, {}, 400),
-        ({"timeout_s": "soon"}, {}, 400),
-        ({}, {"X-Request-Timeout-S": "0"}, 400),
-        ({"timeout_s": 5}, {}, 200),
-        ({}, {"X-Request-Timeout-S": "5"}, 200),
-        ({"timeout_s": 5}, {"X-Request-Timeout-S": "5"}, 200),
+        ({"timeout_s": -1}, {}, 400, False),
+        ({"timeout_s": "soon"}, {}, 400, False),
+        ({}, {"X-Request-Timeout-S": "0"}, 400, False),
+        ({"timeout_s": 5}, {}, 200, False),
+        ({}, {"X-Request-Timeout-S": "5"}, 200, False),
+        ({"timeout_s": 5}, {"X-Request-Timeout-S": "5"}, 200, False),
+        ({"timeout_s": 0.01}, {}, 504, True),
+        ({}, {"X-Request-Timeout-S": "0.01"}, 504, True),
     ],
-    ids=["body-negative", "body-nan", "header-zero", "body-5", "header-5", "both"],
+    ids=["body-negative", "body-nan", "header-zero", "body-5", "header-5", "both",
+         "body-expired", "header-expired"],
 )
-def test_timeout_s_is_refused_until_deadlines_are_ported(body, headers, status_jax):
+def test_timeout_s_is_refused_until_deadlines_are_ported(body, headers, status_jax, expiring):
+    """The name is the refusal's, kept: every case is now held to the JAX
+    service's answer, status and body (the ``id`` and ``created``
+    fields aside)."""
+
     async def go():
         jsvc, tsvc = JHttpService(host="127.0.0.1", port=0), HttpService(host="127.0.0.1", port=0)
-        jbase = await _serve(jsvc, JEchoFull())
-        tengine = _Recording()
+        jengine = _expiring(JEchoFull)() if expiring else JEchoFull()
+        tengine = _expiring(_Recording)() if expiring else _Recording()
+        jbase = await _serve(jsvc, jengine)
         tbase = await _serve(tsvc, tengine)
         try:
             payload = {**CHAT, **body}
+            t0 = time.time()
             want = await client.request(jbase + "/v1/chat/completions", "POST", payload, headers)
             got = await client.request(tbase + "/v1/chat/completions", "POST", payload, headers)
-            return want, got, tengine.requests
+            return want, got, tengine, t0
         finally:
             await tsvc.stop()
             await jsvc.stop()
 
-    want, got, reached = _run(go())
-    assert want.status == status_jax and got.status == 400
-    assert reached == []  # the engine never saw it
-    message = got.json()["error"]["message"]
+    want, got, tengine, t0 = _run(go())
+    assert want.status == status_jax and got.status == status_jax
+    wbody, gbody = want.json(), got.json()
     if status_jax == 400:
-        # A malformed value: the JAX service's own answer.
-        assert message == want.json()["error"]["message"]
-        assert message.startswith("invalid request: timeout_s must be")
+        # A malformed value: the JAX service's own answer; the engine
+        # never saw it.
+        assert gbody == wbody
+        assert gbody["error"]["message"].startswith("invalid request: timeout_s must be")
+        assert tengine.requests == []
+    elif status_jax == 504:
+        assert gbody["error"]["type"] == wbody["error"]["type"] == "deadline_exceeded"
+        assert gbody["error"]["code"] == wbody["error"]["code"] == 504
+        assert "deadline exceeded at stage 'router'" in gbody["error"]["message"]
     else:
-        assert "ROADMAP Queue 1 item 9(b)" in message and "timeout_s" in message
+        for d in (wbody, gbody):
+            d.pop("id"), d.pop("created")
+        assert gbody == wbody
+        # Popped before the engine, and armed on the context instead.
+        (request,), (deadline,) = tengine.requests, tengine.deadlines
+        assert "timeout_s" not in request
+        assert t0 + 4 < deadline < time.time() + 5
 
 
 def test_priority_header_reaches_the_forwarded_payload():

@@ -64,6 +64,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "backend", "engines.echo", "http.service", "http.client", "run",
         "spec", "spec.drafter", "spec.controller", "models.loader", "engine.graphs",
         "aot", "aot.lattice", "aot.warmup", "aot.compile",
+        "telemetry", "telemetry.context", "telemetry.prom", "telemetry.spans",
+        "telemetry.slo", "telemetry.flight", "telemetry.dispatch", "http.metrics",
+        "http.admission", "runtime.logging",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

@@ -51,9 +51,9 @@ def test_parse_args_keeps_the_jax_cli_form():
         (["in=http", "out=dyn://ns.c.ep"], "item 9(e)"),
         (["in=dyn://ns.c.ep", "out=cuda"], "item 9(e)"),
         (["--coordinator", "h:1"], "item 9(e)"),
-        (["--max-inflight=4"], "item 9(b)"),
+        (["--profiler-port=6009"], "runtime/profiler.py"),
         (["--request-template", "t.json"], "item 9(c)"),
-        (["--shed-watermark", "3"], "item 9(b)"),
+        (["--profiler-port", "6009"], "runtime/profiler.py"),
         (["--tp", "2"], "item 7"),
         (["--router-mode", "kv"], "item 9(e)"),
         (["--echo-token-delay-ms", "20"], "item 9(i)"),
@@ -97,6 +97,44 @@ def test_host_cache_pages_reaches_the_engine_config(tiny_model_dir):
     assert engine.cfg.host_cache_pages == 24 and engine.host_pool.num_pages == 24
     default, _ = run.build_cuda_engine(run.parse_args(argv[:-2] + ["--device", "cpu"]))
     assert default.cfg.host_cache_pages == 0 and default.host_pool is None
+
+
+@pytest.mark.parametrize(
+    "flags,name,value",
+    [
+        (["--max-inflight", "4"], "max_inflight", 4),
+        (["--max-inflight=8", "--shed-watermark", "3"], "shed_watermark", 3),
+        (["--slo-ttft-ms", "250"], "slo_ttft_ms", 250.0),
+        (["--slo-itl-ms=40"], "slo_itl_ms", 40.0),
+        (["--trace-file", "spans.jsonl"], "trace_file", "spans.jsonl"),
+    ],
+    ids=["max-inflight", "shed-watermark", "slo-ttft", "slo-itl", "trace-file"],
+)
+def test_overload_slo_and_trace_flags_are_accepted_and_wired(flags, name, value):
+    """``--max-inflight`` (refused until deadlines and admission were
+    ported), ``--shed-watermark``, ``--slo-*`` and ``--trace-file`` parse
+    as the JAX CLI parses them and build what the JAX ``run_http`` builds
+    from them: the admission controller's bounds (the same watermark
+    rule) and the SLO targets in seconds."""
+    argv = ["in=http", "out=echo_full", *flags]
+    opts, jopts = run.parse_args(argv), jrun.parse_args(argv)
+    assert getattr(opts, name) == getattr(jopts, name) == value
+    admission = run.build_admission(opts)
+    if opts.max_inflight:
+        from dynamo_exp_tpu.http import AdmissionController as JAdmission
+
+        want = JAdmission(max_inflight=jopts.max_inflight,
+                          shed_watermark=jopts.shed_watermark or None)
+        assert (admission.max_inflight, admission.shed_watermark) == (
+            want.max_inflight, want.shed_watermark)
+    else:
+        assert admission is None
+    slo = run.build_slo(opts)
+    if opts.slo_ttft_ms or opts.slo_itl_ms:
+        assert (slo.cfg.ttft_s, slo.cfg.itl_s) == (
+            opts.slo_ttft_ms / 1e3 or None, opts.slo_itl_ms / 1e3 or None)
+    else:
+        assert slo is None
 
 
 def test_real_weights_are_never_served_random(tiny_model_dir, tmp_path):
