@@ -157,6 +157,40 @@ Phases, each fatal on failure (nothing is caught):
    under ``torch.cuda.set_sync_debug_mode("error")``; printed: walls
    (``--profile``: idle shares).
 
+11. the distributed runtime plane and the KV-aware router: the port's
+   coordinator (its CLI, a subprocess), two worker processes (spawned;
+   each runs ``run.main_async(in=dyn://smoke.llm.generate out=cuda
+   --random-weights --num-pages 2048 --max-decode-slots 8 --kv-dtype
+   bfloat16)``, llama-8b at full width and depth from seed 0, no
+   prewarm, and writes its launch counters, prefix hits and computed
+   prefill tokens to a file every 0.25 s) and the ingress in this
+   process (``run.main_async(in=http out=dyn://… --router-mode kv``,
+   then ``round-robin``; no ``--model-path``: the model arrives through
+   the ``ModelWatcher``). Phases 5-10's engines are freed first. (a) the
+   model is listed and both instances are in discovery within 60 s of
+   the second worker's start; (b) 16 groups of a 1024-token prefix and
+   4 suffixes of 64-256 tokens, 32 greedy tokens each, in two waves (each
+   group's first request, then the other 48 at once), once under kv and
+   once under round-robin on other groups: every stream finishes
+   ``length`` at 32 tokens, the kv decisions' overlap blocks (the
+   ``kv-hit-rate`` subject) equal the prefix-hit pages the chosen
+   workers attached, kv computes fewer prefill tokens than
+   round-robin, and each worker launched the tensor-core mixed and the
+   split-KV decode kernels; (c) phase 6's lone greedy request, sent
+   twice under round-robin (each worker serves it once), gives phase
+   6's direct engine's tokens bit for bit; (d) 8 streams of 256 tokens
+   (logprobs 1) under round-robin, one worker SIGKILLed while they
+   stream: every stream finishes at full length with ``seq_index``
+   strictly rising to 256 = its logprob entries, the ingress's
+   ``dynamo_request_recoveries_total`` equals the streams on the killed
+   worker and ``dynamo_tokens_deduplicated_total`` the client's
+   duplicate indices (0), and after the lease TTL the model is still
+   listed with one instance. Printed: boot to registration, both
+   prefill totals, wave 2's TTFT p50 / p95 in each mode, the ingress's
+   block-hash time per 1024 and 2048 tokens, the phase's wall. The
+   survivor drains on SIGTERM; every process the phase started is
+   stopped.
+
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
@@ -177,7 +211,8 @@ in phase 8 (a)-(d) and phase 9 (a) (the loaded checkpoint) and (b) (a
 graphed phase 8 (a) burst after the warm boot, and the graphed
 speculation burst: ``launches_warm_boot_spec``), and phase 10's HTTP
 traffic (``launches_edge``) and telemetry turns
-(``launches_telemetry_turns``, one run); both mixed entries
+(``launches_telemetry_turns``, one run), and phase 11's two worker
+processes (``launches_cluster``, summed); both mixed entries
 also carry the verify spans' timing (``verify_*``).
 
 The last three lines of standard output are the card's name and power
@@ -1332,6 +1367,7 @@ async def _traffic(torch, np, pkg, tra, tok, client, base, eng, model_dir, phase
         chat_preprocess_s=t_chat_pre, chat_prompt_tokens=[len(i) for i in chat_ids],
         encode_s=t_encode, encode_chars=sum(len(t) for t in texts),
         encode_tokens=sum(len(e) for e in encoded), lone_text=lone["text"],
+        lone_ids=lone_ids, lone_tokens=direct,
         stop=stop, b_finish=[r["finish"] for r in b_out],
     )
 
@@ -3061,6 +3097,486 @@ def telemetry_turns(torch, np, pkg, tra, smi, model, mcfg, sh: Phase10) -> dict:
                 guarded=guard["guarded"], designs=runs[0]["designs"])
 
 
+# ------------------------------------------------------------ phase 11
+CLUSTER_ENDPOINT = "dyn://smoke.llm.generate"
+
+
+@dataclass(frozen=True)
+class Phase11:
+    """Phase 11's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``)."""
+
+    device: str = "cuda"
+    groups: int = 16  # (b): prefix groups per routing mode
+    prefix_tokens: int = 1024
+    suffix_tokens: tuple = (64, 256)  # each suffix's length, drawn in this range
+    per_group: int = 4  # wave 1 sends the first, wave 2 the rest
+    max_tokens: int = MAX_TOKENS
+    num_pages: int = 2048  # 4 GiB at llama-8b's 2 MiB a page, in each worker
+    slots: int = 8
+    max_model_len: int = 2048
+    discovery_s: float = 60.0  # (a): the model is listed this soon after the 2nd start
+    failover_streams: int = 8  # (d)
+    failover_prompt: int = 64
+    failover_tokens: int = 256
+    kill_after_tokens: int = 32  # (d): SIGKILL once every stream has this many
+    lease_ttl_s: float = 10.0  # the runtime's default lease TTL (RuntimeConfig)
+    state_period_s: float = 0.25  # how often a worker writes its counters
+
+
+def _p11_worker(argv: list, state_path: str, period_s: float, t_spawn: float) -> None:
+    """A phase 11 worker process: the port's entry point,
+    ``run.main_async`` on ``argv`` (``in=dyn://… out=cuda``), stopped by
+    SIGTERM as ``run.main`` stops it. This process's launch counters,
+    prefix hits, computed prefill tokens and boot time (from ``t_spawn``,
+    the wall clock when the smoke started the process, to registration)
+    go to ``state_path`` every ``period_s`` seconds, and once more, with
+    its telemetry, after the entry point returned."""
+    sys.path.insert(0, HERE)
+    import signal
+
+    import torch
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch.ops import ragged_attention as tra
+    from dynamo_exp_tpu_torch.telemetry import get_telemetry
+
+    def write(state: dict) -> None:
+        with open(state_path + ".tmp", "w") as f:
+            json.dump(state, f)
+        os.replace(state_path + ".tmp", state_path)
+
+    async def serve() -> None:
+        loop = asyncio.get_running_loop()
+        ready = loop.create_future()
+        task = asyncio.ensure_future(run.main_async(run.parse_args(argv), ready))
+        loop.add_signal_handler(signal.SIGTERM, task.cancel)
+        await asyncio.wait({task, ready}, return_when=asyncio.FIRST_COMPLETED)
+        if task.done():
+            task.result()  # the worker failed to start: raise its error
+        served, boot_s = ready.result(), time.time() - t_spawn
+        eng = served.torch_engine
+
+        def state(final: bool) -> dict:
+            m = eng.metrics()
+            return dict(t=time.time(), pid=os.getpid(), final=final, boot_s=boot_s,
+                        instance=served.instance.instance_id,
+                        launches=dict(tra.LAUNCHES), designs=dict(tra.KERNEL_LAUNCHES),
+                        prefix_hits=m["kv_prefix_hits"], prefill=m["prefill_tokens_computed"],
+                        active=m["request_active_slots"], dispatches=m["dispatches"],
+                        graphs=m["graphs_captured"],
+                        peak_gib=(torch.cuda.max_memory_reserved() / 2**30
+                                  if torch.cuda.is_available() else 0.0))
+
+        async def pump() -> None:
+            while True:
+                write(state(False))
+                await asyncio.sleep(period_s)
+
+        pumping = asyncio.ensure_future(pump())
+        with contextlib.suppress(asyncio.CancelledError):
+            await task
+        pumping.cancel()
+        write({**state(True), "telemetry": get_telemetry().render().decode()})
+
+    asyncio.run(serve())
+
+
+def _p11_read(path: str) -> dict | None:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        return None
+
+
+async def _p11_states(paths, procs, after: float, timeout: float = 60.0) -> list[dict]:
+    """The workers' states written after ``after`` (wall clock); fails
+    if a worker died or went quiet."""
+    deadline = time.monotonic() + timeout
+    while True:
+        states = [_p11_read(p) for p in paths]
+        if all(st is not None and st["t"] > after for st in states):
+            return states
+        for proc in procs:
+            assert proc.is_alive(), f"worker {proc.name} exited with {proc.exitcode}"
+        assert time.monotonic() < deadline, "a worker stopped writing its state"
+        await asyncio.sleep(0.05)
+
+
+def _p11_delta(after: list[dict], before: list[dict]) -> list[dict]:
+    """Per worker: computed prefill tokens, prefix-hit pages (G1 shared)
+    and launches by kernel design between two states."""
+    return [dict(prefill=a["prefill"] - b["prefill"],
+                 shared=a["prefix_hits"]["shared"] - b["prefix_hits"]["shared"],
+                 designs={k: v - b["designs"][k] for k, v in a["designs"].items()})
+            for a, b in zip(after, before)]
+
+
+def _p11_groups(np, vocab: int, sh: Phase11, seed: int) -> list[list[list[int]]]:
+    """``sh.groups`` prefix groups: a shared prefix, then ``per_group``
+    suffixes of seeded random lengths and ids."""
+    rs = np.random.RandomState(seed)
+    lo, hi = sh.suffix_tokens
+    out = []
+    for _ in range(sh.groups):
+        prefix = [int(t) for t in rs.randint(3, vocab, size=sh.prefix_tokens)]
+        out.append([prefix + [int(t) for t in rs.randint(3, vocab, size=rs.randint(lo, hi + 1))]
+                    for _ in range(sh.per_group)])
+    return out
+
+
+def _p11_body(ids: list[int], max_tokens: int, **extra) -> dict:
+    return {"model": "llama-8b", "prompt": ids, "max_tokens": max_tokens, "stream": True,
+            "temperature": 0, "nvext": {"ignore_eos": True},
+            "stream_options": {"include_usage": True}, **extra}
+
+
+def _p11_pct(xs: list[float], q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+
+async def _p11_ingress(run, addr: str, mode: str):
+    """The ingress in this process through the entry point a user calls:
+    ``run.main_async(in=http out=dyn://… --router-mode <mode>)``, no
+    ``--model-path``. Returns (task, base URL)."""
+    opts = run.parse_args(["in=http", f"out={CLUSTER_ENDPOINT}", "--coordinator", addr,
+                           "--http-host", "127.0.0.1", "--http-port", "0",
+                           "--router-mode", mode])
+    ready = asyncio.get_running_loop().create_future()
+    task = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({task, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if task.done():
+        task.result()
+    return task, f"http://127.0.0.1:{ready.result().port}"
+
+
+async def _p11_stop(task) -> None:
+    task.cancel()
+    with contextlib.suppress(asyncio.CancelledError):
+        await task
+
+
+async def _p11_models(client, base: str) -> list[str]:
+    return [m["id"] for m in (await client.request(base + "/v1/models")).json()["data"]]
+
+
+async def _p11_traffic(client, base: str, groups, sh: Phase11) -> dict:
+    """Wave 1 (each group's first request, together), then wave 2 (the
+    rest, together); every stream must finish ``length`` at full
+    length. Returns wave 2's TTFTs and the wall."""
+    url = base + "/v1/completions"
+
+    async def wave(prompts):
+        res = await asyncio.gather(*(sse_request(client, url, _p11_body(p, sh.max_tokens))
+                                     for p in prompts))
+        for r in res:
+            assert r["done"] and r["finish"] == "length", r
+            assert r["usage"]["completion_tokens"] == sh.max_tokens, r["usage"]
+        return res
+
+    t0 = time.perf_counter()
+    await wave([g[0] for g in groups])
+    await asyncio.sleep(1.0)  # wave 1's KV events indexed, the workers idle
+    res = await wave([p for g in groups for p in g[1:]])
+    return dict(ttft=[r["frames"][0] - r["sent"] for r in res], wall_s=time.perf_counter() - t0,
+                requests=len(groups) * sh.per_group)
+
+
+async def _p11_failover(client, base, np, vocab, sh: Phase11, procs, paths, tel) -> dict:
+    """(d): streams under round-robin, one worker SIGKILLed while they
+    stream; every stream still finishes at full length with its
+    ``seq_index`` rising by its frame's tokens (logprob entries)."""
+    rs = np.random.RandomState(13)
+    url = base + "/v1/completions"
+    counts = [0] * sh.failover_streams
+
+    async def one(i, ids):
+        frames, idx, n_lp, finish, usage, done = [], [], 0, None, None, False
+        async for f in client.sse_frames(url, _p11_body(ids, sh.failover_tokens, logprobs=1)):
+            assert f.event != "error", f"stream error: {f.comment}"
+            if f.data == "[DONE]":
+                done = True
+                break
+            usage = f.data.get("usage") or usage
+            for c in f.data["choices"]:
+                finish = c.get("finish_reason") or finish
+                lp = (c.get("logprobs") or {}).get("tokens") or []
+                n_lp += len(lp)
+            if f.data.get("seq_index") is not None:
+                idx.append(f.data["seq_index"])
+                counts[i] = idx[-1]
+        return dict(idx=idx, logprob_tokens=n_lp, finish=finish, usage=usage, done=done)
+
+    prompts = [[int(t) for t in rs.randint(3, vocab, size=sh.failover_prompt)]
+               for _ in range(sh.failover_streams)]
+    def counts_now() -> tuple[float, float]:
+        v = _family_values(tel.render().decode())
+        return (v.get(("dynamo_request_recoveries_total", (("reason", "stream_drop"),)), 0.0),
+                v.get(("dynamo_tokens_deduplicated_total", ()), 0.0))
+
+    rec0, dedup0 = counts_now()
+    tasks = [asyncio.ensure_future(one(i, p)) for i, p in enumerate(prompts)]
+    while min(counts) < sh.kill_after_tokens:
+        assert not any(t.done() for t in tasks), "a stream ended before the kill"
+        await asyncio.sleep(0.005)
+    mark = time.time()
+    states = await _p11_states(paths, procs, mark)
+    victim = 0
+    on_victim = states[victim]["active"]
+    procs[victim].kill()
+    t_kill = time.perf_counter()
+    res = await asyncio.gather(*tasks)
+    recovery_wall = time.perf_counter() - t_kill
+    for r in res:
+        assert r["done"] and r["finish"] == "length", r
+        assert r["usage"]["completion_tokens"] == sh.failover_tokens, r["usage"]
+        assert all(a < b for a, b in zip(r["idx"], r["idx"][1:])), r["idx"]
+        assert r["idx"][-1] == sh.failover_tokens == r["logprob_tokens"], r
+    rec1, dedup1 = counts_now()
+    recoveries, dedup = int(rec1 - rec0), int(dedup1 - dedup0)
+    client_dups = sum(len(r["idx"]) - len(set(r["idx"])) for r in res)
+    assert recoveries == on_victim and on_victim > 0, (recoveries, on_victim)
+    assert dedup == client_dups == 0, (dedup, client_dups)
+    return dict(victim_pid=states[victim]["pid"], on_victim=on_victim, recoveries=recoveries,
+                dedup=dedup, streams=len(res), wall_after_kill_s=recovery_wall,
+                states_before_kill=states)
+
+
+def phase11(torch, np, pkg, tra, smi: str, lone: tuple, sh: Phase11 = Phase11(),
+            mcfg=None) -> dict:
+    """Phase 11: two worker processes behind the KV-aware router, the
+    port's coordinator and the HTTP ingress in this process. ``lone``:
+    (prompt ids, tokens) of a lone greedy request served by a direct
+    ``TorchEngine`` on the same seeded weights (phase 6's)."""
+    import multiprocessing
+    import socket
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    t_phase = time.perf_counter()
+    free(torch, sh.device)
+    if sh.device == "cuda":
+        free_b, total_b = torch.cuda.mem_get_info()
+        log(f"[cluster] {smi}: card memory before the workers: {free_b / 2**30:.2f} GiB free "
+            f"of {total_b / 2**30:.2f} GiB (this process: "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)")
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama-8b"), tokmod, mcfg, text)
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        coord = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_exp_tpu_torch.runtime.transports.coordinator",
+             "--host", "127.0.0.1", "--port", str(port)],
+            cwd=HERE, stdout=subprocess.PIPE, text=True)
+        procs = []
+        try:
+            line = coord.stdout.readline().strip()
+            assert line == f"coordinator ready on 127.0.0.1:{port}", line
+            addr = f"127.0.0.1:{port}"
+            argv = [f"in={CLUSTER_ENDPOINT}", "out=cuda", "--device", sh.device,
+                    "--model-path", model_dir, "--model-name", "llama-8b", "--random-weights",
+                    "--coordinator", addr, "--num-pages", str(sh.num_pages),
+                    "--max-decode-slots", str(sh.slots), "--page-size", str(PS),
+                    "--max-model-len", str(sh.max_model_len), "--kv-dtype", "bfloat16"]
+            paths = [os.path.join(tmp, f"worker{i}.json") for i in range(2)]
+            ctx = multiprocessing.get_context("spawn")
+            for i in range(2):
+                proc = ctx.Process(target=_p11_worker, name=f"worker{i}",
+                                   args=(argv, paths[i], sh.state_period_s, time.time()))
+                proc.start()
+                procs.append(proc)
+            t_second = time.perf_counter()
+            out = asyncio.run(asyncio.wait_for(
+                _drive_cluster(np, pkg, run, client, smi, sh, mcfg, addr, procs, paths,
+                               t_second, lone), timeout=900))
+            # The survivor drains on SIGTERM and writes its telemetry.
+            survivor = procs[1]
+            survivor.terminate()
+            survivor.join(120)
+            assert survivor.exitcode == 0, f"the surviving worker exited {survivor.exitcode}"
+            final = _p11_read(paths[1])
+            assert final["final"] and "dynamo_engine_" in final["telemetry"]
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(30)
+            coord.kill()
+            coord.wait(30)
+    # Launches of the whole phase by kernel design: the survivor's final
+    # counts and the victim's last before the kill.
+    last = [out["d"]["states_before_kill"][0], final]
+    out["designs"] = {k: sum(st["designs"][k] for st in last) for k in last[0]["designs"]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] {smi}: phase 11 wall {out['wall_s']:.1f} s; launches of both workers by "
+        f"kernel {out['designs']}; peak memory reserved by worker "
+        f"{[round(st['peak_gib'], 2) for st in last]} GiB, graphs captured "
+        f"{[st['graphs'] for st in last]}")
+    return out
+
+
+async def _drive_cluster(np, pkg, run, client, smi, sh, mcfg, addr, procs, paths, t_second,
+                         lone) -> dict:
+    from dynamo_exp_tpu_torch import tokens as ttokens
+    from dynamo_exp_tpu_torch.kv_router import KV_HIT_RATE_SUBJECT
+    from dynamo_exp_tpu_torch.runtime import DistributedRuntime, PushRouter, RouterMode
+    from dynamo_exp_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_exp_tpu_torch.telemetry import get_telemetry
+
+    tel = get_telemetry()
+    drt = DistributedRuntime(config=RuntimeConfig(coordinator_endpoint=addr))
+    hits_sub = await drt.event_plane.subscribe(KV_HIT_RATE_SUBJECT)
+    hits: list[dict] = []
+
+    async def collect_hits():
+        async for h in hits_sub:
+            hits.append(h)
+
+    collecting = asyncio.ensure_future(collect_hits())
+    ingress, base = await _p11_ingress(run, addr, "kv")
+    out: dict = {}
+    try:
+        # (a) Discovery: the model at the ingress, both instances listed.
+        while "llama-8b" not in await _p11_models(client, base):
+            for proc in procs:
+                assert proc.is_alive(), f"worker {proc.name} exited with {proc.exitcode}"
+            await asyncio.sleep(0.1)
+        listed_s = time.perf_counter() - t_second
+        comp = drt.namespace("smoke").component("llm")
+        while len(await drt.discovery.list_instances(comp.path)) < 2:
+            await asyncio.sleep(0.1)
+        both_s = time.perf_counter() - t_second
+        assert both_s <= sh.discovery_s, f"2 instances after {both_s:.1f} s"
+        st0 = await _p11_states(paths, procs, 0.0)
+        boot = [st["boot_s"] for st in st0]
+        log(f"[cluster] {smi}: (a) model listed at the ingress {listed_s:.1f} s and both "
+            f"instances in discovery {both_s:.1f} s after the second worker started; boot to "
+            f"registration (from the process's start: interpreter, imports, weights, pool, "
+            f"registration) {boot[0]:.1f} / {boot[1]:.1f} s")
+
+        # Warm-up, not measured: the traffic's shape on groups of its own,
+        # so that the first-use graph captures (no prewarm) land here and
+        # not on whichever mode runs first.
+        t0 = time.perf_counter()
+        await _p11_traffic(client, base, _p11_groups(np, mcfg.vocab_size, sh, 303), sh)
+        log(f"[cluster] {smi}: warm-up wave pair (graph captures at first use) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # (b) Routing: the same traffic shape, kv then round-robin.
+        modes = {}
+        for mode, seed in (("kv", 101), ("round-robin", 202)):
+            if mode != "kv":
+                await _p11_stop(ingress)
+                ingress, base = await _p11_ingress(run, addr, mode)
+                while "llama-8b" not in await _p11_models(client, base):
+                    await asyncio.sleep(0.1)
+            groups = _p11_groups(np, mcfg.vocab_size, sh, seed)
+            before = await _p11_states(paths, procs, time.time())
+            n_hits = len(hits)
+            traffic = await _p11_traffic(client, base, groups, sh)
+            await asyncio.sleep(2 * sh.state_period_s)
+            after = await _p11_states(paths, procs, time.time())
+            d = _p11_delta(after, before)
+            decisions = hits[n_hits:]
+            modes[mode] = dict(traffic, workers=d, decisions=decisions,
+                               prefill=sum(w["prefill"] for w in d),
+                               shared=sum(w["shared"] for w in d))
+        kv, rr = modes["kv"], modes["round-robin"]
+        assert len(kv["decisions"]) == kv["requests"], len(kv["decisions"])
+        assert not rr["decisions"], "round-robin published kv decisions"
+        overlap = sum(h["overlap_blocks"] for h in kv["decisions"])
+        # Wave 2 is routed after wave 1's pages are all registered and
+        # indexed: no block is still being filled at routing time, so the
+        # router's overlap must equal the pages the engines attached.
+        assert overlap == kv["shared"], (overlap, kv["shared"])
+        assert kv["prefill"] < rr["prefill"], (kv["prefill"], rr["prefill"])
+        for w, (dk, dr) in enumerate(zip(kv["workers"], rr["workers"])):
+            moved = {k: dk["designs"][k] + dr["designs"][k] for k in dk["designs"]}
+            if sh.device == "cuda":
+                assert moved["mixed_tc_bf16"] > 0 and moved["decode_split"] > 0, (w, moved)
+                assert moved["mixed_f32"] == 0, (w, moved)
+        for mode, m in modes.items():
+            log(f"[cluster] {smi}: (b) {mode}: {m['requests']} streams of {sh.max_tokens} "
+                f"tokens ({sh.groups} groups: a {sh.prefix_tokens}-token prefix, suffixes "
+                f"{sh.suffix_tokens[0]}-{sh.suffix_tokens[1]}) all finished 'length'; prefill "
+                f"tokens computed {m['prefill']} (by worker "
+                f"{[w['prefill'] for w in m['workers']]}), prefix-hit pages {m['shared']}; "
+                f"wave 2 TTFT p50 {_p11_pct(m['ttft'], 0.5):.3f} s p95 "
+                f"{_p11_pct(m['ttft'], 0.95):.3f} s; wall {m['wall_s']:.2f} s; launches by "
+                f"worker {[w['designs'] for w in m['workers']]}")
+        log(f"[cluster] {smi}: (b) kv decisions {len(kv['decisions'])}: overlap blocks "
+            f"{overlap} = prefix-hit pages the chosen workers attached {kv['shared']}; "
+            f"prefill tokens computed kv {kv['prefill']} < round-robin {rr['prefill']} "
+            f"({kv['prefill'] / rr['prefill']:.3f}x)")
+
+        # The ingress's block hashing, per prompt (kv mode hashes each).
+        hash_ms = {}
+        rs = np.random.RandomState(5)
+        for n in (1024, 2048):
+            ids = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=n)]
+            t0 = time.perf_counter()
+            for _ in range(10):
+                ttokens.compute_block_hashes_for_seq(ids, PS)
+            hash_ms[n] = (time.perf_counter() - t0) / 10 * 1e3
+        log(f"[cluster] {smi}: the ingress's block hashing (tokens.py, Python) "
+            f"{hash_ms[1024]:.3f} ms per 1024-token prompt, {hash_ms[2048]:.3f} ms per 2048")
+
+        # (c) Worker identity: the lone greedy request twice under
+        # round-robin, each worker serving it once.
+        lone_ids, lone_tokens = lone
+        endpoint = comp.endpoint("generate")
+        cl = await endpoint.client()
+        router = PushRouter(cl, RouterMode.ROUND_ROBIN)
+        before = await _p11_states(paths, procs, time.time())
+        got = []
+        for _ in range(2):
+            stream = await router.generate({"token_ids": lone_ids, "stop_conditions": {
+                "max_tokens": len(lone_tokens), "ignore_eos": True}})
+            got.append([t async for f in stream for t in (f.get("token_ids") or [])])
+        await asyncio.sleep(2 * sh.state_period_s)
+        after = await _p11_states(paths, procs, time.time())
+        served = [w["prefill"] for w in _p11_delta(after, before)]
+        cl.close()
+        assert served == [len(lone_ids)] * 2, served
+        assert got[0] == got[1] == list(lone_tokens), (got, lone_tokens)
+        log(f"[cluster] {smi}: (c) the lone {len(lone_ids)}-token greedy request, once on each "
+            f"worker (prefill tokens by worker {served}): {len(lone_tokens)} tokens bit-equal "
+            f"across the workers and to phase 6's direct engine on the same weights")
+
+        # (d) Failover under round-robin.
+        d = await _p11_failover(client, base, np, mcfg.vocab_size, sh, procs, paths, tel)
+        t_wait = time.perf_counter()
+        await asyncio.sleep(sh.lease_ttl_s + 2.0)
+        listed = await _p11_models(client, base)
+        alive = await drt.discovery.list_instances(comp.path)
+        assert "llama-8b" in listed and len(alive) == 1, (listed, alive)
+        log(f"[cluster] {smi}: (d) {d['streams']} streams of {sh.failover_tokens} tokens, "
+            f"worker pid {d['victim_pid']} SIGKILLed with {d['on_victim']} of them on it: all "
+            f"finished 'length' at full length, seq_index strictly rising to "
+            f"{sh.failover_tokens} = logprob entries; recoveries {d['recoveries']} = streams on "
+            f"the killed worker, tokens deduplicated {d['dedup']} = the client's duplicate "
+            f"indices; {d['wall_after_kill_s']:.2f} s from the kill to the last [DONE]; "
+            f"{time.perf_counter() - t_wait:.1f} s later the model is still listed, 1 instance")
+        out.update(listed_s=listed_s, both_s=both_s, boot_s=boot, modes=modes, overlap=overlap,
+                   hash_ms=hash_ms, d=d)
+        return out
+    finally:
+        await _p11_stop(ingress)
+        collecting.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await collecting
+        await drt.close()
+
+
 def main() -> int:
     import torch
 
@@ -3145,7 +3661,9 @@ def main() -> int:
     t10 = time.perf_counter()
     p10 = phase10(torch, np, pkg, tra, smi)
     log(f"[phase10] in {time.perf_counter() - t10:.1f} s")
-    log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
+    p11 = phase11(torch, np, pkg, tra, smi, (h["lone_ids"], h["lone_tokens"]))
+    log(f"[phase11] in {p11['wall_s']:.1f} s")
+    log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
     # (kernels-line name, kernel result, source, where its launches are
@@ -3178,6 +3696,7 @@ def main() -> int:
             "launches_warm_boot_spec": p9["b"]["designs_spec"][design],
             "launches_edge": p10["designs"][design],
             "launches_telemetry_turns": p10["d"]["designs"][design],
+            "launches_cluster": p11["designs"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

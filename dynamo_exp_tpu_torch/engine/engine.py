@@ -580,6 +580,7 @@ class TorchEngine(AsyncEngine):
             m["dispatch"] = self.profiler.summary()
         m["decode_window"] = self.cfg.decode_window
         m["kv_prefix_hits"] = dict(self.kv.prefix_hits)
+        m["prefill_tokens_computed"] = self.sched.prefill_tokens
         m["build_info"] = dict(self._build_info)
         return m
 

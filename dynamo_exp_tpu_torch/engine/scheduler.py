@@ -146,6 +146,9 @@ class Scheduler:
         self.waiting: deque[Sequence] = deque()
         self.slots: list[Sequence | None] = [None] * cfg.max_decode_slots
         self.active_count = 0  # PREFILL + ACTIVE (slot holders)
+        # Prompt tokens admitted whose KV the engine computes (the prompt
+        # less its cached prefix): the work prefix-aware routing saves.
+        self.prefill_tokens = 0
         # The engine's flight recorder (None = recording off).
         self.flight = flight
         # Set by the engine: () -> dispatch-profiler attrs for the
@@ -245,6 +248,7 @@ class Scheduler:
             self._register_uploads(seq, alloc.hashes)
             seq.tokens = list(seq.prompt)
             seq.prefill_sent = seq.cached_len
+            self.prefill_tokens += len(seq.prompt) - seq.cached_len
             seq.slot = slot
             seq.state = SeqState.PREFILL
             self.slots[slot] = seq

@@ -30,13 +30,20 @@ body field or ``X-Request-Timeout-S`` header arms the request's
 deadline: the engine reaps it while it waits and finishes it at the
 deadline once bound (``finish_reason`` ``error``), and a
 ``DeadlineExceededError`` raised before the response starts is a 504
-``deadline_exceeded``. Each request is the root ``http_request`` span of
-its trace, and a completed one is attributed against the SLO targets
+``deadline_exceeded``. Behind a router (``out=dyn://``) no live or
+healthy instance is a 503 ``service_unavailable`` with ``Retry-After``,
+and a resumable stream that broke more often than the router recovers
+is a 502 ``bad_gateway``. Chunks carry a cumulative ``seq_index``: one
+at or below the emitted watermark is a replayed duplicate of a
+mid-stream failover and is dropped (``dynamo_tokens_deduplicated_total``).
+Each request is the root ``http_request`` span of its trace, and a
+completed one is attributed against the SLO targets
 (``telemetry/slo.py``): TTFT from arrival to the first content chunk,
-ITL the mean gap after it.
+ITL the mean gap after it. The ModelManager gains and loses models as
+the ingress's ``ModelWatcher`` (``http/discovery.py``) sees workers come
+and go.
 
-Left out (ROADMAP Queue 1 item 9): request templates (c), the resumable
-``seq_index`` dedupe and model discovery (e).
+Left out (ROADMAP Queue 1): request templates (item 9(c)).
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ from ..protocols.openai import (
 from ..protocols.sse import encode_done, encode_frame
 from ..runtime.annotated import Annotated
 from ..runtime.engine import AsyncEngine, AsyncEngineContext, DeadlineExceededError
-from ..telemetry import span
+from ..runtime.push_router import NoInstancesError, RecoveryExhaustedError
+from ..telemetry import get_telemetry, span
 from .admission import AdmissionController, RequestShedError
 from .metrics import CONTENT_TYPE_LATEST, ServiceMetrics
 
@@ -74,13 +82,16 @@ MAX_BODY_BYTES = 32 << 20
 _REASONS = {
     100: "Continue", 200: "OK", 400: "Bad Request", 404: "Not Found",
     405: "Method Not Allowed", 413: "Payload Too Large", 429: "Too Many Requests",
-    500: "Internal Server Error", 501: "Not Implemented", 503: "Service Unavailable",
-    504: "Gateway Timeout",
+    500: "Internal Server Error", 501: "Not Implemented", 502: "Bad Gateway",
+    503: "Service Unavailable", 504: "Gateway Timeout",
 }
+# Clients hint how soon to retry a 503 (no instances / breaker open):
+# instance churn resolves within a lease TTL or breaker cooldown.
+RETRY_AFTER_S = "1"
 
 
 class ModelManager:
-    """Per-model engine registry."""
+    """Per-model engine registry with dynamic attach / detach."""
 
     def __init__(self):
         self._chat: dict[str, AsyncEngine] = {}
@@ -91,6 +102,12 @@ class ModelManager:
 
     def add_completion_model(self, name: str, engine: AsyncEngine) -> None:
         self._completion[name] = engine
+
+    def remove_chat_model(self, name: str) -> None:
+        self._chat.pop(name, None)
+
+    def remove_completion_model(self, name: str) -> None:
+        self._completion.pop(name, None)
 
     def chat_engine(self, name: str) -> AsyncEngine | None:
         return self._chat.get(name)
@@ -130,6 +147,11 @@ class _Response:
     body: bytes = b""
     content_type: str = "application/json; charset=utf-8"
     headers: dict[str, str] = field(default_factory=dict)
+
+
+def _unavailable(e: Exception) -> _Response:
+    return _error_response(503, str(e) or "no instances available", "service_unavailable",
+                           headers={"Retry-After": RETRY_AFTER_S})
 
 
 def _json_response(obj: Any, status: int = 200, headers: dict[str, str] | None = None) -> _Response:
@@ -439,6 +461,9 @@ class HttpService:
                 status, resp = "rejected", _error_response(400, str(e), "context_length_exceeded")
             except InvalidRequestError as e:
                 status, resp = "rejected", _error_response(400, str(e), "invalid_request_error")
+            except NoInstancesError as e:
+                # No live / healthy worker (breaker-open included): transient.
+                status, resp = "unavailable", _unavailable(e)
             except DeadlineExceededError as e:
                 status, resp = "deadline", _error_response(504, str(e), "deadline_exceeded")
             except Exception as e:
@@ -453,14 +478,23 @@ class HttpService:
 
             async def typed_chunks():
                 for idx, stream in enumerate(streams):
-                    high = 0  # cumulative tokens counted so far
+                    # Chunks carry a cumulative ``seq_index``; one at or
+                    # below the emitted watermark is a replayed duplicate
+                    # of a failover splice and is dropped.
+                    high = 0  # emitted watermark (cumulative tokens)
+                    last = 0  # the previous chunk's index, arrival order
                     async for item in stream:
                         if oreq.stream:
                             tracker.first_token()
                         chunk = chunk_type.from_dict(item) if isinstance(item, dict) else item
                         si = getattr(chunk, "seq_index", None)
                         if si is not None:
-                            delta, high = si - high, max(si, high)
+                            if si <= high:
+                                get_telemetry().tokens_deduplicated.inc(max(si - last, 0))
+                                last = si
+                                continue
+                            delta = si - high
+                            last = high = si
                         else:
                             delta = 1
                         if chunk.choices:
@@ -515,6 +549,14 @@ class HttpService:
         status = "success"
         try:
             resp = _json_response((await full).to_dict())
+        except RecoveryExhaustedError as e:
+            # The upstream fleet kept dying mid-generation: a gateway
+            # failure, not a client error and not "no instances".
+            ctx.kill()
+            status, resp = "recovery_exhausted", _error_response(502, str(e), "bad_gateway")
+        except NoInstancesError as e:
+            ctx.kill()
+            status, resp = "unavailable", _unavailable(e)
         except DeadlineExceededError as e:
             ctx.kill()
             status, resp = "deadline", _error_response(504, str(e), "deadline_exceeded")

@@ -2,7 +2,8 @@
 
 A trimmed copy of ``dynamo_exp_tpu/kv/prefix.py`` (``PrefixIndex``):
 hashes only, without the token runs, payloads and partial-tail matching
-this slice does not use. Each
+the port does not use. The engine's page manager and the KV router's
+per-worker index (``kv_router/indexer.py``) share it. Each
 indexed *block* is one full KV page's worth of tokens, identified by its
 chained sequence hash (``tokens.py``): equal sequence hashes imply equal
 full prefixes, so prefix containment is a chain walk. A node holds a
@@ -47,6 +48,11 @@ class PrefixIndex:
         # Detached subtrees waiting for their parent block to come back
         # (evicted mid-chain): missing parent hash -> orphaned nodes.
         self._orphans: dict[int, list[_Node]] = {}
+
+    @property
+    def num_blocks(self) -> int:
+        """All indexed blocks, including orphaned (detached) ones."""
+        return len(self._loc)
 
     # --------------------------------------------------------------- insert
     def insert(self, parent_hash: int | None, seq_hash: int) -> bool:
@@ -169,3 +175,7 @@ class PrefixIndex:
             matched.append(h)
             idx += 1
         return matched
+
+    def coverage_blocks(self, hashes: Sequence[int]) -> int:
+        """Length of the longest root-anchored match of ``hashes``."""
+        return len(self.match_hashes(hashes))

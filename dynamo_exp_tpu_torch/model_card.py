@@ -1,17 +1,27 @@
 """ModelDeploymentCard: everything a frontend needs to serve a model.
 
 Counterpart of ``dynamo_exp_tpu/model_card.py``, the HF-directory path
-only (``from_local_path``): context length, the chat template and special tokens from ``tokenizer_config.json``, and the EOS
-ids. GGUF cards and card publication are not ported (ROADMAP Queue 1
-item 9(e)/(f)).
+(``from_local_path``): context length, KV block size, config.json, the
+chat template and special tokens from ``tokenizer_config.json``, and the
+EOS ids; the card's JSON (``to_json`` / ``from_json``) and its
+publication heartbeat (``stamp``, ``is_expired``) as a worker publishes
+it (``local_model.py``) and an ingress reads it (``http/discovery.py``),
+in the JAX card's fields and order. The tokenizer travels as a path
+(``tokenizer_path``), not as bytes. GGUF cards are not ported (ROADMAP
+Queue 1 item 9(f)).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass, field
+import time
+from dataclasses import asdict, dataclass, field, fields
 from typing import Any
+
+# How stale a card's last_published may be before ingress treats it as a
+# dead worker's leftover. Workers re-publish every CARD_MAX_AGE_S / 3.
+CARD_MAX_AGE_S = 300.0
 
 
 def _eos_list(eos) -> list[int]:
@@ -28,6 +38,9 @@ class ModelDeploymentCard:
     display_name: str
     model_path: str = ""
     context_length: int = 4096
+    kv_cache_block_size: int = 16
+    # Raw HF config.json contents (architecture, dims, eos ids, ...).
+    model_config: dict[str, Any] = field(default_factory=dict)
     # Jinja chat template + special tokens from tokenizer_config.json.
     chat_template: str | None = None
     bos_token: str | None = None
@@ -35,6 +48,37 @@ class ModelDeploymentCard:
     eos_token_ids: list[int] = field(default_factory=list)
     # Where the frontend should load the tokenizer from.
     tokenizer_path: str = ""
+    model_type: str = "chat"  # "chat" | "completion" | "backend"
+    migration_limit: int = 0
+    # Publication heartbeat: None means never advertised (a local card).
+    last_published: float | None = None
+    revision: int = 0
+
+    @property
+    def slug(self) -> str:
+        return self.display_name.replace("/", "--")
+
+    def stamp(self) -> None:
+        """Mark the card as freshly advertised (call just before put)."""
+        self.last_published = time.time()
+        self.revision += 1
+
+    def is_expired(self, max_age_s: float = CARD_MAX_AGE_S, now: float | None = None) -> bool:
+        """Stale last_published: the publishing worker is likely gone.
+        Never-published cards are not expired."""
+        if self.last_published is None:
+            return False
+        return (now if now is not None else time.time()) - self.last_published > max_age_s
+
+    def to_json(self) -> str:
+        return json.dumps(asdict(self))
+
+    @classmethod
+    def from_json(cls, text: str) -> "ModelDeploymentCard":
+        # Unknown keys are dropped, so the format can grow mid-rollout.
+        d = json.loads(text)
+        known = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
     @classmethod
     def from_local_path(
@@ -49,11 +93,11 @@ class ModelDeploymentCard:
         card = cls(display_name=name, model_path=path, tokenizer_path=path)
         cfg_path = os.path.join(path, "config.json")
         if os.path.exists(cfg_path):
-            model_config = _read_json(cfg_path)
+            card.model_config = _read_json(cfg_path)
             card.context_length = int(
-                model_config.get("max_position_embeddings", card.context_length)
+                card.model_config.get("max_position_embeddings", card.context_length)
             )
-            eos = model_config.get("eos_token_id")
+            eos = card.model_config.get("eos_token_id")
             if eos is not None:
                 card.eos_token_ids = _eos_list(eos)
         tok_cfg_path = os.path.join(path, "tokenizer_config.json")

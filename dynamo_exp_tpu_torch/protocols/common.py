@@ -174,4 +174,11 @@ class LLMEngineOutput:
         d = _known(cls, d)
         if d.get("finish_reason") is not None:
             d["finish_reason"] = FinishReason(d["finish_reason"])
+        if d.get("top_logprobs"):
+            # JSON (the request plane) turns the token-id keys into
+            # strings; the JAX model's validation turns them back.
+            d["top_logprobs"] = [
+                None if tops is None else {int(t): lp for t, lp in tops.items()}
+                for tops in d["top_logprobs"]
+            ]
         return cls(**d)

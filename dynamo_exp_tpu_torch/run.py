@@ -1,17 +1,31 @@
-"""``dynamo-run`` for the port: one CLI for the local node shapes.
+"""``dynamo-run`` for the port: one CLI for every node shape it serves.
 
 Counterpart of ``dynamo_exp_tpu/run.py``:
 
     python -m dynamo_exp_tpu_torch.run in=<INPUT> out=<OUTPUT> [flags]
 
-INPUT:  http | batch:<prompts.jsonl>
-OUTPUT: cuda | echo_core | echo_full
+INPUT:  http | batch:<prompts.jsonl> | dyn://ns.comp.ep
+OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
 
 - ``in=http out=cuda``: an OpenAI server (``http/service.py``) in front
   of ``TorchEngine`` on the card; it prints ``listening on
   http://host:port``. ``--device cpu`` runs the engine on the CPU (the
   JAX package picks its device through ``JAX_PLATFORMS``; this is the
   port's way of asking for the CPU).
+- ``in=dyn://ns.comp.ep out=cuda|echo_core --coordinator H:P``: a
+  worker. The engine serves on a discoverable endpoint (the TCP request
+  plane), answers the stats scrape with its load, publishes its KV
+  events and, with ``--model-path``, its model card (``local_model.py``);
+  it prints ``worker serving dyn://… (instance N)``. SIGTERM drains it:
+  it leaves discovery, finishes what is in flight, then exits.
+- ``in=http out=dyn://ns.comp.ep --coordinator H:P``: an ingress that
+  routes to such workers (``--router-mode random|round-robin|kv``).
+  With ``--model-path`` it serves that card; without, models appear and
+  leave as workers register and die (``http/discovery.py``).
+  ``python -m dynamo_exp_tpu_torch.runtime.transports.coordinator``
+  runs the coordinator; ``--coordinator`` defaults to
+  ``DYN_COORDINATOR``. Workers and ingresses of this package and of the
+  JAX package share the wire and serve each other.
 - ``in=batch:<file>``: every JSONL line's ``text`` (or ``prompt``) as a
   concurrent streaming chat request; prints one JSON stats line.
 - ``--model-path <dir>`` serves the directory's safetensors weights
@@ -49,17 +63,15 @@ from dataclasses import dataclass
 logger = logging.getLogger("dynamo_exp_tpu_torch.run")
 
 OUTPUTS = ("cuda", "echo_core", "echo_full")
+ROUTER_MODES = {"random": "RANDOM", "round-robin": "ROUND_ROBIN", "kv": "KV"}
 _ITEM9 = "ROADMAP Queue 1 item 9"
 # Inputs/outputs and flags of the JAX CLI the port does not serve yet.
 NOT_PORTED_IO = {
     "text": f"{_ITEM9}(d)",
     "stdin": f"{_ITEM9}(d)",
-    "dyn://": f"{_ITEM9}(e)",
     "tpu": "the port's device output is out=cuda",
 }
 NOT_PORTED_FLAGS = {
-    "--coordinator": f"{_ITEM9}(e)",
-    "--router-mode": f"{_ITEM9}(e)",
     "--tensor-parallel-size": "ROADMAP Queue 1 item 7",
     "--tp": "ROADMAP Queue 1 item 7",
     "--num-nodes": "ROADMAP Queue 1 item 7",
@@ -99,6 +111,10 @@ def parse_args(argv: list[str]):
                    help="random-init from a seed instead of loading safetensors")
     p.add_argument("--http-host", default="0.0.0.0")
     p.add_argument("--http-port", type=int, default=8080, help="0 = any free port")
+    p.add_argument("--coordinator", default=os.environ.get("DYN_COORDINATOR", ""),
+                   help="control-plane address host:port (enables dyn:// endpoints)")
+    p.add_argument("--router-mode", default="random", choices=list(ROUTER_MODES),
+                   help="how an out=dyn:// ingress picks a worker")
     p.add_argument("--max-decode-slots", type=int, default=16)
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=0, help="0 = auto")
@@ -151,12 +167,18 @@ def parse_args(argv: list[str]):
         for prefix, item in NOT_PORTED_IO.items():
             if value == prefix or (prefix.endswith("//") and value.startswith(prefix)):
                 raise _refuse(f"{key}={value}", item)
-    if io["in"] != "http" and not io["in"].startswith("batch:"):
-        raise SystemExit(f"unknown in={io['in']!r} (http | batch:<file>)")
-    if io["out"] not in OUTPUTS:
-        raise SystemExit(f"unknown out={io['out']!r} ({' | '.join(OUTPUTS)})")
+    if io["in"] != "http" and not io["in"].startswith(("batch:", "dyn://")):
+        raise SystemExit(f"unknown in={io['in']!r} (http | batch:<file> | dyn://ns.comp.ep)")
+    if io["out"] not in OUTPUTS and not io["out"].startswith("dyn://"):
+        raise SystemExit(f"unknown out={io['out']!r} ({' | '.join(OUTPUTS)} | dyn://ns.comp.ep)")
     opts.input, opts.output = io["in"], io["out"]
     return opts
+
+
+def router_mode(opts):
+    from .runtime.push_router import RouterMode
+
+    return RouterMode[ROUTER_MODES[opts.router_mode]]
 
 
 # ------------------------------------------------------------------- engines
@@ -231,41 +253,72 @@ def build_cuda_engine(opts):
 @dataclass
 class Served:
     """What ``main_async`` hands its ``ready`` future: the OpenAI-level
-    engine, the ``TorchEngine`` behind it (``out=cuda``), the model card
-    and, with ``in=http``, the bound port."""
+    engine (the core engine, for a worker), the ``TorchEngine`` behind it
+    (``out=cuda``), the model card, with ``in=http`` the bound port and
+    the service, with ``in=dyn://`` the served instance."""
 
     engine: object
     torch_engine: object | None
     mdc: object | None
     port: int | None = None
     service: object | None = None  # the HttpService (in=http)
+    instance: object | None = None  # the ServedInstance (in=dyn://)
 
 
 def build_output(opts):
-    """``out=…`` as (core_engine, full_engine, mdc, torch_engine)."""
+    """``out=…`` as (core_engine, full_engine, mdc, torch_engine);
+    ``out=dyn://…`` is resolved by the input (all None here)."""
     from .engines.echo import EchoEngineCore, EchoEngineFull
 
     if opts.output == "echo_core":
         return EchoEngineCore(), None, None, None
     if opts.output == "echo_full":
         return None, EchoEngineFull(), None, None
+    if opts.output.startswith("dyn://"):
+        return None, None, None, None
     engine, mdc = build_cuda_engine(opts)
     return engine, None, mdc, engine
 
 
-def resolve_openai_engine(opts, core, full, mdc):
-    """The OpenAI-level engine: core engines get the preprocessor and
-    backend of the model card (tokenizer and chat template)."""
-    from .http import build_pipeline_engine
+async def remote_core(opts, drt, block_size: int):
+    """``out=dyn://…``: a core engine over the request plane, routed by
+    ``--router-mode``. Returns (engine, kv_router or None); the caller
+    stops the router."""
+    from .kv_router.router import build_routed_core
+    from .runtime.transports.base import EndpointAddress
+
+    addr = EndpointAddress.from_url(opts.output)
+    ep = drt.namespace(addr.namespace).component(addr.component).endpoint(addr.name)
+    return await build_routed_core(ep, router_mode(opts), block_size)
+
+
+def require_mdc(opts):
     from .model_card import ModelDeploymentCard
 
+    if not opts.model_path:
+        raise SystemExit(f"in={opts.input} with out={opts.output} needs --model-path "
+                         "(tokenizer, template)")
+    mdc = ModelDeploymentCard.from_local_path(opts.model_path, opts.model_name or None)
+    mdc.kv_cache_block_size = opts.page_size
+    return mdc
+
+
+async def resolve_openai_engine(opts, drt, core, full, mdc):
+    """The OpenAI-level engine: core engines (local, or remote through
+    ``out=dyn://``) get the preprocessor and backend of the model card.
+    Returns (engine, mdc, kv_router or None); the caller stops the
+    router."""
+    from .http import build_pipeline_engine
+
+    kv_router = None
+    if opts.output.startswith("dyn://"):
+        mdc = require_mdc(opts)
+        core, kv_router = await remote_core(opts, drt, mdc.kv_cache_block_size)
     if core is None:
-        return full, mdc
+        return full, mdc, kv_router
     if mdc is None:
-        if not opts.model_path:
-            raise SystemExit(f"out={opts.output} needs --model-path (tokenizer, template)")
-        mdc = ModelDeploymentCard.from_local_path(opts.model_path, opts.model_name or None)
-    return build_pipeline_engine(mdc, core), mdc
+        mdc = require_mdc(opts)
+    return build_pipeline_engine(mdc, core), mdc, kv_router
 
 
 # -------------------------------------------------------------------- inputs
@@ -297,25 +350,120 @@ def build_slo(opts):
     )
 
 
-async def run_http(opts, served: Served, ready: asyncio.Future | None) -> None:
-    """OpenAI ingress until cancelled."""
+async def run_http(opts, drt, core, full, mdc, torch_engine,
+                   ready: asyncio.Future | None) -> None:
+    """OpenAI ingress until cancelled. With ``out=dyn://`` and no
+    ``--model-path``, models come and go with the workers that register
+    them."""
     from .http import HttpService
+    from .http.discovery import ModelWatcher
 
     svc = HttpService(host=opts.http_host, port=opts.http_port,
                       admission=build_admission(opts), slo=build_slo(opts))
-    served.service = svc
-    name = (served.mdc.display_name if served.mdc else "") or opts.model_name or "default"
-    svc.manager.add_chat_model(name, served.engine)
-    svc.manager.add_completion_model(name, served.engine)
-    port = await svc.start()
-    print(f"listening on http://{opts.http_host}:{port}", flush=True)
-    served.port = port
-    if ready is not None and not ready.done():
-        ready.set_result(served)
+    watcher = kv_router = engine = None
+    if opts.output.startswith("dyn://") and not opts.model_path:
+        watcher = ModelWatcher(drt, svc.manager, router_mode(opts))
+        await watcher.start()
+    else:
+        engine, mdc, kv_router = await resolve_openai_engine(opts, drt, core, full, mdc)
+        name = (mdc.display_name if mdc else "") or opts.model_name or "default"
+        svc.manager.add_chat_model(name, engine)
+        svc.manager.add_completion_model(name, engine)
+    served = Served(engine=engine, torch_engine=torch_engine, mdc=mdc, service=svc)
     try:
-        await asyncio.Event().wait()
+        port = await svc.start()
+        print(f"listening on http://{opts.http_host}:{port}", flush=True)
+        served.port = port
+        if ready is not None and not ready.done():
+            ready.set_result(served)
+        await drt.runtime.primary_token.cancelled()
     finally:
+        if watcher is not None:
+            await watcher.close()
+        if kv_router is not None:
+            await kv_router.stop()
         await svc.stop()
+
+
+def tokenizer_registrable(model_path: str) -> bool:
+    """Can an ingress build a preprocessor chain from this model dir?
+    A tokenizer-less dir registered with an ingress would strand it in
+    a rebuild loop."""
+    if any(os.path.exists(os.path.join(model_path, name))
+           for name in ("tokenizer.json", "tokenizer.model")):
+        return True
+    if all(os.path.exists(os.path.join(model_path, name))
+           for name in ("vocab.json", "merges.txt")):
+        return True
+    from .tokenizer import Tokenizer
+
+    try:
+        Tokenizer.from_pretrained(model_path)
+        return True
+    except Exception:  # noqa: BLE001 - genuinely tokenizer-less
+        return False
+
+
+async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future | None) -> None:
+    """Worker node: serve the core engine on a discoverable endpoint
+    until cancelled, then drain (bounded)."""
+    from .kv_router.protocols import ForwardPassMetrics
+    from .kv_router.publisher import KvEventPublisher, KvMetricsPublisher
+    from .local_model import register_llm
+    from .runtime.component import annotated_stream
+    from .runtime.transports.base import EndpointAddress
+    from .telemetry import get_telemetry
+
+    addr = EndpointAddress.from_url(opts.input)
+    ep = drt.namespace(addr.namespace).component(addr.component).endpoint(addr.name)
+
+    async def handler(request: dict, context):
+        async for frame in annotated_stream(core, request, context):
+            yield frame
+
+    metrics_pub = KvMetricsPublisher()
+    # The live KV migration and reclaim triage that the JAX worker arms
+    # here wait for disaggregation (ROADMAP Queue 1); SIGTERM drains.
+    served = await ep.serve_endpoint(handler, stats_handler=metrics_pub.stats_handler,
+                                     metadata={"instance": get_telemetry().instance})
+    try:
+        if torch_engine is not None:
+            # KV events -> the routers' indexes, attributed to this instance.
+            kv_pub = KvEventPublisher(drt.event_plane, ep.component.path, served.instance_id,
+                                      loop=asyncio.get_running_loop())
+            torch_engine.kv.event_cb = kv_pub.engine_callback()
+
+            async def pump_metrics():
+                while True:
+                    await asyncio.sleep(0.5)
+                    metrics_pub.update(ForwardPassMetrics.from_dict(torch_engine.metrics()))
+
+            metrics_pub.update(ForwardPassMetrics.from_dict(torch_engine.metrics()))
+            drt.runtime.spawn(pump_metrics())
+        if opts.model_path:
+            # Off the loop: the probe may load a tokenizer, which must not
+            # stall this process's coordinator reads and keepalives.
+            registrable = mdc is not None or await asyncio.to_thread(
+                tokenizer_registrable, opts.model_path)
+            if registrable:
+                await register_llm(drt, ep, opts.model_path, opts.model_name or None,
+                                   kv_cache_block_size=opts.page_size)
+            else:
+                logger.warning("not registering %s with ingress: no tokenizer", opts.model_path)
+        print(f"worker serving {opts.input} (instance {served.instance_id})", flush=True)
+        if ready is not None and not ready.done():
+            ready.set_result(Served(engine=core, torch_engine=torch_engine, mdc=mdc,
+                                    instance=served))
+        await drt.runtime.primary_token.cancelled()
+    finally:
+        # Bounded: an unresponsive coordinator must not wedge shutdown
+        # (the lease expiring cleans up the registrations anyway).
+        t0 = time.monotonic()
+        try:
+            await asyncio.wait_for(served.close(), 15)
+        except asyncio.TimeoutError:
+            logger.warning("endpoint close timed out after 15s")
+        logger.info("endpoint closed in %.2fs", time.monotonic() - t0)
 
 
 def _chat_payload(model: str, prompt: str, opts) -> dict:
@@ -374,28 +522,51 @@ async def run_batch(opts, engine, mdc, path: str) -> dict:
 
 # --------------------------------------------------------------------- main
 async def main_async(opts, ready: asyncio.Future | None = None) -> None:
-    """Build ``out=…``, serve ``in=…``; the engine is stopped on the way
-    out, cancellation included. ``ready`` (optional) receives a
-    :class:`Served` once the input is up."""
+    """Build ``out=…``, serve ``in=…``; the engine is stopped and the
+    runtime closed on the way out, cancellation included. ``ready``
+    (optional) receives a :class:`Served` once the input is up."""
+    from .runtime.component import DistributedRuntime
+    from .runtime.config import RuntimeConfig
+
     if opts.trace_file:
         from .telemetry import get_telemetry
 
         get_telemetry().configure(opts.trace_file)
+    needs_cluster = opts.input.startswith("dyn://") or opts.output.startswith("dyn://")
+    if needs_cluster and not opts.coordinator:
+        raise SystemExit("dyn:// endpoints need --coordinator (or DYN_COORDINATOR)")
+    if opts.input.startswith("dyn://") and opts.output not in ("cuda", "echo_core"):
+        raise SystemExit("in=dyn:// needs a local core engine (out=cuda|echo_core)")
+    cfg = RuntimeConfig.from_settings()
+    if opts.coordinator:
+        cfg.coordinator_endpoint = opts.coordinator
+    drt = DistributedRuntime(config=cfg)
     core, full, mdc, torch_engine = build_output(opts)
     try:
-        engine, mdc = resolve_openai_engine(opts, core, full, mdc)
-        served = Served(engine=engine, torch_engine=torch_engine, mdc=mdc)
         if opts.input == "http":
-            await run_http(opts, served, ready)
+            await run_http(opts, drt, core, full, mdc, torch_engine, ready)
+        elif opts.input.startswith("dyn://"):
+            await run_worker(opts, drt, core, torch_engine, mdc, ready)
         else:
-            if ready is not None:
-                ready.set_result(served)
-            await run_batch(opts, engine, mdc, opts.input[len("batch:"):])
+            engine, mdc, kv_router = await resolve_openai_engine(opts, drt, core, full, mdc)
+            try:
+                if ready is not None:
+                    ready.set_result(Served(engine=engine, torch_engine=torch_engine, mdc=mdc))
+                await run_batch(opts, engine, mdc, opts.input[len("batch:"):])
+            finally:
+                if kv_router is not None:
+                    await kv_router.stop()
     finally:
         if torch_engine is not None:
             t0 = time.monotonic()
             torch_engine.stop()
             logger.info("engine stopped in %.2fs", time.monotonic() - t0)
+        t0 = time.monotonic()
+        try:
+            await asyncio.wait_for(drt.close(), 15)
+        except asyncio.TimeoutError:
+            logger.warning("runtime close timed out after 15s")
+        logger.info("runtime closed in %.2fs", time.monotonic() - t0)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import asyncio
 import time
 import uuid
-from typing import AsyncIterator, Generic, Protocol, TypeVar, runtime_checkable
+from typing import Any, AsyncIterator, Generic, Protocol, TypeVar, runtime_checkable
 
 Req = TypeVar("Req", contravariant=True)
 Resp = TypeVar("Resp", covariant=True)
@@ -115,3 +115,16 @@ class AsyncEngine(Protocol[Req, Resp]):
         self, request: Req, context: AsyncEngineContext | None = None
     ) -> ResponseStream[Resp]: ...
 
+
+
+class LambdaEngine(AsyncEngine[Any, Any]):
+    """Wrap an async-generator function as an AsyncEngine (glue and tests)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    async def generate(
+        self, request: Any, context: AsyncEngineContext | None = None
+    ) -> ResponseStream[Any]:
+        ctx = context or AsyncEngineContext()
+        return ResponseStream(self._fn(request, ctx), ctx)

@@ -5,7 +5,7 @@ Counterpart of the ``Operator`` / ``build_pipeline`` part of
 and the engine below it, so it can transform the request on the way
 down and wrap the response stream on the way up; ``build_pipeline``
 chains operators in front of a sink engine. The node graph and network
-segments of the reference are not ported (ROADMAP Queue 1 item 9(e)).
+segments of the JAX package wait for a later slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

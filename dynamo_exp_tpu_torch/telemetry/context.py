@@ -4,9 +4,9 @@ Counterpart of ``dynamo_exp_tpu/telemetry/context.py``, unchanged in
 behaviour: a contextvar carries the current trace coordinates, so every
 task of one request shares them; the engine loop thread, which does
 not share the contextvar, gets the ``TraceContext`` captured at
-submission. ``to_wire`` / ``from_wire`` give the dict a transport
-carries (the port has no transport between processes yet, ROADMAP
-Queue 1 item 9(e)).
+submission. ``to_wire`` / ``from_wire`` give the dict the TCP request
+plane carries in a request's header (``runtime/transports/tcp.py``), so
+a worker's spans join the ingress's trace.
 """
 
 

@@ -237,6 +237,45 @@ class Telemetry:
             "Requests abandoned because their end-to-end deadline expired",
             ["stage"], registry=r,  # engine_admission | decode | router
         )
+        # The request plane's fault tolerance (runtime/push_router.py,
+        # health.py, component.py, journal.py): retries and failovers,
+        # circuit-breaker churn, the drain lifecycle, mid-stream
+        # recoveries, duplicate tokens trimmed by the journal, and
+        # reclaim notices (metadata-only reclaim).
+        self.request_retries = Counter(
+            "dynamo_request_retries_total",
+            "Request-plane retries after connection/stream-start failures",
+            ["reason"], registry=r,  # connect | stream_start
+        )
+        self.breaker_transitions = Counter(
+            "dynamo_circuit_breaker_transitions_total",
+            "Circuit-breaker state transitions across all tracked targets",
+            ["state"], registry=r,  # open | half_open | closed
+        )
+        self.drain_events = Counter(
+            "dynamo_drain_events_total",
+            "Graceful-drain lifecycle events on served instances",
+            ["event"], registry=r,  # started | completed
+        )
+        self.request_recoveries = Counter(
+            "dynamo_request_recoveries_total",
+            "Mid-stream failovers resumed on a different instance",
+            ["reason"], registry=r,  # stream_drop | drain | reclaim
+        )
+        self.tokens_deduplicated = Counter(
+            "dynamo_tokens_deduplicated_total",
+            "Duplicate-index tokens dropped while splicing a resumed stream",
+            registry=r,
+        )
+        self.reclaim_events = Counter(
+            "dynamo_reclaim_events_total",
+            "Spot-reclamation lifecycle events: notice (metadata "
+            "flipped to reclaiming), migrated / failover (per-sequence "
+            "triage outcomes), deadline_degraded (a planned migration "
+            "fell back to journal failover at the grace deadline), "
+            "completed (triage finished inside the grace window)",
+            ["event"], registry=r,  # notice (the port's only event so far)
+        )
         # Overload protection: edge sheds, the edge's in-flight count,
         # engine-side KV-pressure preemptions.
         self.requests_shed = Counter(

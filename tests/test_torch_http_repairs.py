@@ -6,8 +6,9 @@
   deadlines were ported (it first accepted and ignored the field, then
   refused it with a 400 naming ROADMAP Queue 1 item 9(b)): a well-formed
   value reaches the engine with the deadline armed on its context, and
-  a deadline an engine finds expired before the response starts is the
-  JAX service's 504 ``deadline_exceeded``.
+  a deadline that passes before any instance takes the request (a
+  ``PushRouter`` waiting for its first worker) is the JAX service's 504
+  ``deadline_exceeded``, counted at stage ``router``.
 - ``X-Request-Priority``: the body / nvext ``priority`` wins, else the
   header is read, and the class is written into the forwarded payload
   (it was ignored). Under KV pressure on the CPU a request whose class
@@ -30,12 +31,18 @@ from dynamo_exp_tpu.http import HttpService as JHttpService
 from dynamo_exp_tpu.models import ModelConfig as JModelConfig
 from dynamo_exp_tpu.models import llama as jllama
 from dynamo_exp_tpu.parallel import single_device_mesh
+from dynamo_exp_tpu.runtime import Client as JClient
+from dynamo_exp_tpu.runtime import PushRouter as JPushRouter
+from dynamo_exp_tpu.runtime.transports.inproc import InProcRequestPlane as JInProcPlane
 from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_exp_tpu_torch.engines.echo import EchoEngineFull
 from dynamo_exp_tpu_torch.http import HttpService, build_pipeline_engine, client
 from dynamo_exp_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_exp_tpu_torch.models import ModelConfig, params_from_jax
 from dynamo_exp_tpu_torch.protocols.common import PRIORITY_HIGH, PRIORITY_LOW, parse_priority
+from dynamo_exp_tpu_torch.runtime import Client, PushRouter
+from dynamo_exp_tpu_torch.runtime.transports.inproc import InProcRequestPlane
+from dynamo_exp_tpu_torch.telemetry import get_telemetry
 
 CHAT = {"model": "m", "messages": [{"role": "user", "content": "hello there"}]}
 
@@ -59,18 +66,11 @@ class _Recording(EchoEngineFull):
         return await super().generate(request, context)
 
 
-def _expiring(base):
-    """``base`` (an echo engine class) whose ``generate`` waits past a
-    short deadline, then checks it at the ``router`` stage, as a routed
-    deployment's dispatch does."""
-
-    class Expiring(base):
-        async def generate(self, request, context=None):
-            await asyncio.sleep(0.05)
-            context.check_deadline("router")
-            return await super().generate(request, context)
-
-    return Expiring
+def _router(client_cls, router_cls, plane_cls):
+    """A routed deployment before its first worker registers: the
+    router waits 0.05 s for an instance, then dispatches, checking the
+    request's deadline at stage ``router`` first."""
+    return router_cls(client_cls.new_static(plane_cls(), []), ready_wait_s=0.05)
 
 
 async def _serve(svc, engine) -> str:
@@ -101,8 +101,9 @@ def test_timeout_s_is_refused_until_deadlines_are_ported(body, headers, status_j
 
     async def go():
         jsvc, tsvc = JHttpService(host="127.0.0.1", port=0), HttpService(host="127.0.0.1", port=0)
-        jengine = _expiring(JEchoFull)() if expiring else JEchoFull()
-        tengine = _expiring(_Recording)() if expiring else _Recording()
+        jengine = (_router(JClient, JPushRouter, JInProcPlane) if expiring else JEchoFull())
+        tengine = (_router(Client, PushRouter, InProcRequestPlane) if expiring
+                   else _Recording())
         jbase = await _serve(jsvc, jengine)
         tbase = await _serve(tsvc, tengine)
         try:
@@ -115,7 +116,10 @@ def test_timeout_s_is_refused_until_deadlines_are_ported(body, headers, status_j
             await tsvc.stop()
             await jsvc.stop()
 
+    router_504 = get_telemetry().deadline_exceeded.labels("router")
+    before = router_504.get()
     want, got, tengine, t0 = _run(go())
+    assert router_504.get() - before == (1 if expiring else 0)
     assert want.status == status_jax and got.status == status_jax
     wbody, gbody = want.json(), got.json()
     if status_jax == 400:

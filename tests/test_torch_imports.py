@@ -67,6 +67,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "telemetry", "telemetry.context", "telemetry.prom", "telemetry.spans",
         "telemetry.slo", "telemetry.flight", "telemetry.dispatch", "http.metrics",
         "http.admission", "runtime.logging",
+        "runtime.transports", "runtime.transports.base", "runtime.transports.codec",
+        "runtime.transports.inproc", "runtime.transports.coordinator",
+        "runtime.transports.tcp", "runtime.config", "runtime.runtime", "runtime.health",
+        "runtime.journal", "runtime.client", "runtime.push_router", "runtime.component",
+        "kv_router", "kv_router.protocols", "kv_router.indexer", "kv_router.scheduler",
+        "kv_router.publisher", "kv_router.metrics_aggregator", "kv_router.router",
+        "local_model", "http.discovery",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 
@@ -90,3 +97,24 @@ def test_port_sources_name_no_jax_module():
                     if top in FORBIDDEN:
                         offenders.append(f"{path}:{i}: {s}")
     assert offenders == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """``chip_smoke.py`` (the proof on the card, run where JAX is not
+    installed) holds to the same rule: no forbidden import in its source
+    (its imports sit inside functions), and importing it leaves none in
+    ``sys.modules``."""
+    path = os.path.join(ROOT, "chip_smoke.py")
+    with open(path, encoding="utf-8") as fh:
+        offenders = [
+            f"{path}:{i}: {line.strip()}" for i, line in enumerate(fh, 1)
+            if line.strip().startswith(("import ", "from "))
+            and line.strip().split()[1].split(".")[0] in FORBIDDEN
+        ]
+    assert offenders == []
+    probe = ("import json, sys; import chip_smoke; print(json.dumps(sorted("
+             "m for m in sys.modules if m.split('.')[0] in %r)))" % (FORBIDDEN,))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

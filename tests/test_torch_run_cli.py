@@ -5,10 +5,16 @@ names and refuses what is not ported with its ROADMAP item;
 ``in=batch:…`` prints the JAX ``run_batch`` stats line; ``in=http``
 serves; SIGTERM stops the process; ``out=cuda`` without ``--device
 cpu`` raises on a host without a card; a directory of real weights is
-loaded, never served with random ones.
+loaded, never served with random ones. ``dyn://`` endpoints,
+``--coordinator`` and ``--router-mode`` parse as the JAX CLI parses
+them, a ``dyn://`` endpoint without a coordinator is refused with the
+JAX CLI's message, and three processes (the port's coordinator CLI, an
+``in=dyn:// out=echo_core`` worker, an ``in=http out=dyn://`` ingress)
+serve with model discovery and drop the model when the worker exits.
 """
 
 import asyncio
+import contextlib
 import json
 import os
 import signal
@@ -18,12 +24,16 @@ import sys
 import pytest
 import torch
 
+from dynamo_exp_tpu.runtime.push_router import RouterMode as JRouterMode
+
 from dynamo_exp_tpu import run as jrun
 from dynamo_exp_tpu.engines.echo import EchoEngineFull as JEchoFull
 from dynamo_exp_tpu_torch import run
 from dynamo_exp_tpu_torch.http import client
 from dynamo_exp_tpu_torch.models import ModelConfig, init_params
 from dynamo_exp_tpu_torch.models.loader import hf_tensor_names, save_safetensors
+
+from .fixtures import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--max-decode-slots", "2", "--page-size", "8", "--max-model-len", "128",
@@ -48,14 +58,10 @@ def test_parse_args_keeps_the_jax_cli_form():
     [
         (["in=text", "out=cuda"], "item 9(d)"),
         (["in=stdin"], "item 9(d)"),
-        (["in=http", "out=dyn://ns.c.ep"], "item 9(e)"),
-        (["in=dyn://ns.c.ep", "out=cuda"], "item 9(e)"),
-        (["--coordinator", "h:1"], "item 9(e)"),
         (["--profiler-port=6009"], "runtime/profiler.py"),
         (["--request-template", "t.json"], "item 9(c)"),
         (["--profiler-port", "6009"], "runtime/profiler.py"),
         (["--tp", "2"], "item 7"),
-        (["--router-mode", "kv"], "item 9(e)"),
         (["--echo-token-delay-ms", "20"], "item 9(i)"),
         (["out=tpu"], "out=cuda"),
     ],
@@ -64,6 +70,41 @@ def test_unported_inputs_outputs_and_flags_are_refused(argv, item):
     with pytest.raises(SystemExit, match="not ported") as err:
         run.parse_args(argv)
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["in=http", "out=dyn://ns.c.ep"],
+        ["in=dyn://ns.c.ep", "out=cuda"],
+        ["in=dyn://ns.c.ep", "out=echo_core", "--coordinator", "h:1"],
+        ["in=http", "out=dyn://ns.c.ep", "--coordinator=h:2", "--router-mode", "kv"],
+        ["in=http", "out=dyn://ns.c.ep", "--router-mode", "round-robin"],
+    ],
+    ids=["out-dyn", "in-dyn", "coordinator", "router-mode-kv", "router-mode-rr"],
+)
+def test_dyn_endpoints_coordinator_and_router_mode_are_accepted(argv, monkeypatch):
+    """No longer refused: ``dyn://`` endpoints, ``--coordinator`` (default
+    ``DYN_COORDINATOR``) and ``--router-mode`` parse as the JAX CLI
+    parses them, and the mode maps to the same ``RouterMode``."""
+    monkeypatch.setenv("DYN_COORDINATOR", "env-host:7")
+    opts, jopts = run.parse_args(argv), jrun.parse_args(argv)
+    for name in ("input", "output", "coordinator", "router_mode"):
+        assert getattr(opts, name) == getattr(jopts, name), name
+    assert run.router_mode(opts).name == jrun.router_mode(jopts).name
+    assert run.router_mode(opts).value == JRouterMode[run.router_mode(opts).name].value
+    with pytest.raises(SystemExit):
+        run.parse_args(argv + ["--router-mode", "direct"])
+
+
+@pytest.mark.parametrize("argv", [["in=http", "out=dyn://ns.c.ep"],
+                                  ["in=dyn://ns.c.ep", "out=echo_core"]])
+def test_dyn_endpoints_need_a_coordinator(argv, monkeypatch):
+    monkeypatch.delenv("DYN_COORDINATOR", raising=False)
+    opts = run.parse_args(argv)
+    with pytest.raises(SystemExit, match=r"dyn:// endpoints need --coordinator \(or "
+                       r"DYN_COORDINATOR\)"):
+        asyncio.run(run.main_async(opts))
 
 
 @pytest.mark.parametrize(
@@ -235,3 +276,90 @@ def test_sigterm_stops_the_server():
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
+
+
+async def test_three_process_serve_with_discovery(tiny_model_dir):
+    """The port's coordinator CLI, an ``in=dyn:// out=echo_core`` worker
+    and an ``in=http out=dyn://`` ingress without ``--model-path``: the
+    model appears at the ingress through discovery, serves a chat, and
+    leaves when the worker exits on SIGTERM. A second ingress with
+    ``--model-path`` serves the same worker through a static chain."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    coord = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_exp_tpu_torch.runtime.transports.coordinator",
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, text=True)
+    worker = ingress = None
+    try:
+        line = await asyncio.to_thread(coord.stdout.readline)
+        assert line.strip() == f"coordinator ready on 127.0.0.1:{port}"
+        worker = _cli("in=dyn://t.worker.generate", "out=echo_core", "--model-path",
+                      tiny_model_dir, "--model-name", "tiny", "--coordinator",
+                      f"127.0.0.1:{port}", stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+        opts = run.parse_args(["in=http", "out=dyn://t.worker.generate", "--coordinator",
+                               f"127.0.0.1:{port}", "--http-host", "127.0.0.1",
+                               "--http-port", "0", "--router-mode", "round-robin"])
+        ready = asyncio.get_running_loop().create_future()
+        ingress = asyncio.ensure_future(run.main_async(opts, ready))
+        served = await asyncio.wait_for(ready, 30)
+        base = f"http://127.0.0.1:{served.port}"
+
+        async def models():
+            return [m["id"] for m in (await client.request(base + "/v1/models")).json()["data"]]
+
+        for _ in range(300):
+            assert worker.poll() is None
+            if "tiny" in await models():
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise AssertionError("model never discovered")
+        r = await client.request(base + "/v1/chat/completions", "POST", {
+            "model": "tiny", "messages": [{"role": "user", "content": "hello world"}],
+            "max_tokens": 3})
+        assert r.status == 200, r.body
+        assert r.json()["choices"][0]["message"]["content"]
+        # With --model-path the ingress serves that card over a static
+        # chain, routed kv, to the same worker.
+        static = run.parse_args(["in=http", "out=dyn://t.worker.generate", "--coordinator",
+                                 f"127.0.0.1:{port}", "--http-host", "127.0.0.1",
+                                 "--http-port", "0", "--router-mode", "kv", "--model-path",
+                                 tiny_model_dir, "--model-name", "tiny"])
+        ready2 = asyncio.get_running_loop().create_future()
+        ingress2 = asyncio.ensure_future(run.main_async(static, ready2))
+        try:
+            served2 = await asyncio.wait_for(ready2, 30)
+            r = await client.request(
+                f"http://127.0.0.1:{served2.port}/v1/completions", "POST",
+                {"model": "tiny", "prompt": "hello world", "max_tokens": 3})
+            assert r.status == 200, r.body
+            assert r.json()["choices"][0]["text"]
+        finally:
+            ingress2.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await ingress2
+        worker.send_signal(signal.SIGTERM)
+        for _ in range(300):
+            if worker.poll() is not None:
+                break
+            await asyncio.sleep(0.1)
+        assert worker.returncode == 0
+        for _ in range(300):
+            if "tiny" not in await models():
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise AssertionError("model not removed after the worker left")
+        r = await client.request(base + "/v1/chat/completions", "POST", {
+            "model": "tiny", "messages": [{"role": "user", "content": "hi"}]})
+        assert r.status == 404
+    finally:
+        if ingress is not None:
+            ingress.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await ingress
+        for proc in (worker, coord):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                await asyncio.to_thread(proc.wait, 30)

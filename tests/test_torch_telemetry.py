@@ -61,22 +61,16 @@ JAX_ONLY = {
     "dynamo_kv_store_pages": "the G3 store (item 4(a))",
     "dynamo_kv_checksum_failures": "the G3 store and wire checksums (items 4(a), 5)",
     "dynamo_kv_quarantined": "the G3 store (item 4(a))",
-    "dynamo_request_retries": "runtime/push_router.py (item 9(e))",
-    "dynamo_circuit_breaker_transitions": "runtime/health.py (item 9(e))",
-    "dynamo_drain_events": "runtime/component.py (item 9(e))",
-    "dynamo_request_recoveries": "runtime/push_router.py (item 9(e))",
-    "dynamo_tokens_deduplicated": "runtime/journal.py (item 9(e))",
     "dynamo_kv_lease_reclaims": "leases (item 4(c))",
-    "dynamo_reclaim_events": "runtime/reclaim.py (item 5)",
     "dynamo_reclaim_migrated_pages": "runtime/reclaim.py (item 5)",
     "dynamo_reclaim_triage_seconds": "runtime/reclaim.py (item 5)",
-    "dynamo_request_seconds": "telemetry/anatomy.py (telemetry, entry 2)",
-    "dynamo_workload_drift_score": "telemetry/fingerprint.py (telemetry, entry 2)",
+    "dynamo_request_seconds": "telemetry/anatomy.py (telemetry, entry 1)",
+    "dynamo_workload_drift_score": "telemetry/fingerprint.py (telemetry, entry 1)",
     "dynamo_config_swaps": "planner/ (item 8)",
     "dynamo_kv_ledger_violations": "the in-loop ledger auditor (item 4(c))",
-    "dynamo_kv_link_bytes": "telemetry/fleet.py (telemetry, entry 2)",
-    "dynamo_kv_link_transfers": "telemetry/fleet.py (telemetry, entry 2)",
-    "dynamo_kv_link_bandwidth_bytes_per_s": "telemetry/fleet.py (telemetry, entry 2)",
+    "dynamo_kv_link_bytes": "telemetry/fleet.py (telemetry, entry 1)",
+    "dynamo_kv_link_transfers": "telemetry/fleet.py (telemetry, entry 1)",
+    "dynamo_kv_link_bandwidth_bytes_per_s": "telemetry/fleet.py (telemetry, entry 1)",
 }
 
 
