@@ -117,6 +117,11 @@ class EngineConfig:
     # loop has made no progress for this long while work is queued. A
     # first-use CUDA graph capture counts as progress. <= 0 disables.
     watchdog_stall_s: float = 30.0
+    # KV handoff lease TTL (disaggregation and live migration): pages
+    # extracted for the wire, or a decode-side prefix pinned for a
+    # suffix-only transfer, stay held this long awaiting the confirm;
+    # the loop's reaper then reclaims them (the JAX default).
+    kv_lease_ttl_s: float = 30.0
 
     def __post_init__(self):
         if self.kv_dtype not in ("bfloat16", "float32"):

@@ -82,8 +82,25 @@ captures its key's graph is its kind's first use), the engine gauges
 published at most twice a second from host state, and the counters and
 histograms the JAX engine feeds on the paths the port has.
 
-Left out (ROADMAP): the persistent KV tier, partial-tail copy-on-write,
-leases, reclaim and the request anatomy.
+Disaggregation and reclaim (the JAX engine's entry points): a decode
+worker's ``generate(..., remote_kv=)`` admits a sequence whose prompt KV
+a prefill worker computed, and the loop injects it (``_run_remote_inject``)
+instead of prefilling; a prefill worker's ``prefill_extract`` runs the
+prefill alone and hands back the first token and the prompt's pages,
+pinned under a handoff lease (``_extract_prompt_pages``) until
+``confirm_kv_lease`` or the loop's reaper releases them. ``pin_prefix``
+pins a decode worker's resident prefix for a suffix-only transfer.
+``reclaim_inflight`` / ``reclaim_extract`` / ``seed_prefix`` serve the
+spot-reclaim plane's live KV migration. Every such call queues work for
+the loop thread, the page manager's single writer, and the loop serves
+it only when no window is in flight (a chain breaks for it): extracts
+gather on the compute stream and copy device -> host on the copy
+stream's side stream into pinned memory with one sync per sequence;
+injects go through the same pinned staging and host -> device leg as
+the host tier's uploads. None runs inside a captured graph.
+
+Left out (ROADMAP): the persistent KV tier, partial-tail copy-on-write
+and the request anatomy.
 """
 
 from __future__ import annotations
@@ -142,7 +159,7 @@ from .config import EngineConfig
 from .graphs import DispatchGraphs, pack_layout, views
 from .kv_manager import KvEvent, KvPageManager
 from .offload import CopyStream, HostKvPool, pinned_empty
-from .scheduler import Scheduler, Sequence, SeqState
+from .scheduler import RemoteKv, Scheduler, Sequence, SeqState
 from .tiering import SwapRecord, plan_swap_entries
 
 log = logging.getLogger(__name__)
@@ -309,6 +326,21 @@ class TorchEngine(AsyncEngine):
         # position, so a pinned seed reproduces a stream anywhere).
         self._seed_rng = random.Random(seed + 1)
         self._submit_q: queue.Queue[Sequence] = queue.Queue()
+        # Work the asyncio side queues for the loop thread: lease
+        # confirms, prefix pins (tokens, loop, future, trace) and reclaim
+        # calls (op, payload, loop, future); and the open ``kv_lease``
+        # spans by lease id (trace, grant time).
+        self._lease_confirm_q: queue.Queue[str] = queue.Queue()
+        self._pin_q: queue.Queue[tuple] = queue.Queue()
+        self._reclaim_q: queue.Queue[tuple] = queue.Queue()
+        self._lease_traces: dict[str, tuple] = {}
+        # KV handoff moves: pages and host seconds of the extract legs
+        # (gather, device -> host, sync) and pages injected from a wire.
+        self.kv_extract_pages = 0
+        self.kv_extract_s = 0.0
+        self.kv_inject_pages = 0
+        self.leases_granted = 0  # handoff leases granted (extracts and pins)
+        self.leases_confirmed = 0  # of those, confirmed (the rest reaped)
         self._wake = threading.Event()
         self._running = False
         self._held = False
@@ -388,6 +420,8 @@ class TorchEngine(AsyncEngine):
                 log.error("engine loop did not exit within 60s")
                 return
             self._thread = None
+        self._drain_pin_q()
+        self._drain_reclaim_q()
         if self.copy_stream is not None:
             # Write back what the loop buffered, let every queued copy
             # commit (swap records need theirs), then stop the stream.
@@ -436,7 +470,7 @@ class TorchEngine(AsyncEngine):
                 holders[f"seq:{s.request_id}"] = list(s.page_ids)
         for rid, job in self._prefetch_inflight.items():
             holders[f"prefetch:{rid}"] = list(job["pids"])
-        return self.kv.audit(holders)
+        return self.kv.audit(holders)  # leases join as ``lease:<id>``
 
     def loop_cpu_seconds(self) -> float:
         """CPU seconds the current loop thread has used since it
@@ -460,14 +494,19 @@ class TorchEngine(AsyncEngine):
         return self.kv.reset_prefix_cache()
 
     async def generate(
-        self, request, context: AsyncEngineContext | None = None
+        self, request, context: AsyncEngineContext | None = None,
+        remote_kv: RemoteKv | None = None,
     ) -> ResponseStream[dict]:
-        stream = self.submit(request, context)
+        """Stream a request. ``remote_kv``: its prompt KV was computed
+        by a prefill worker (disaggregation); the loop injects it at
+        admission and goes straight to decode."""
+        stream = self.submit(request, context, remote_kv=remote_kv)
         self.start()
         return stream
 
     def submit(
-        self, request, context: AsyncEngineContext | None = None
+        self, request, context: AsyncEngineContext | None = None,
+        remote_kv: RemoteKv | None = None,
     ) -> ResponseStream[dict]:
         """Queue a request and return its stream, without starting the
         loop thread (``generate`` is ``submit`` then ``start``). The
@@ -507,6 +546,7 @@ class TorchEngine(AsyncEngine):
             sample_seed=int(seed) if seed is not None else self._seed_rng.getrandbits(31),
             priority=binput.priority,
             deadline_unix=ctx.deadline or 0.0,
+            remote_kv=remote_kv,
         )
         self._submit_q.put(seq)
         self._wake.set()
@@ -532,6 +572,123 @@ class TorchEngine(AsyncEngine):
                     return
 
         return ResponseStream(_gen(), ctx)
+
+    # ------------------------------------------------------- disaggregation
+    async def prefill_extract(
+        self, request, context: AsyncEngineContext | None = None, skip_pages: int = 0,
+    ) -> tuple[int, list, str]:
+        """Run prefill only; hand back ``(first_token, pages, lease_id)``:
+        the prompt's KV pages (host tensors, one ``(k, v)`` pair a page)
+        for a decode worker to inject via ``generate(..., remote_kv=)``.
+        ``skip_pages`` leading pages (the decode side's pinned resident
+        prefix) are neither gathered nor shipped; the whole prompt is
+        still prefilled here. The shipped device pages stay pinned under
+        the lease until :meth:`confirm_kv_lease` or the reaper."""
+        ctx = context or AsyncEngineContext()
+        binput = (
+            request.copy() if isinstance(request, BackendInput)
+            else BackendInput.from_dict(request)
+        )
+        binput.stop_conditions.max_tokens = 1  # prefill produces one token
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+
+        def extract_cb(token: int, pages: list, lease_id: str) -> None:
+            loop.call_soon_threadsafe(
+                lambda: fut.done() or fut.set_result((token, pages, lease_id)))
+
+        def emit(tokens: list[int], reason: FinishReason | None, logprobs=None) -> None:
+            if reason in (FinishReason.ERROR, FinishReason.CANCELLED):
+                try:
+                    loop.call_soon_threadsafe(
+                        lambda: fut.done()
+                        or fut.set_exception(RuntimeError(f"prefill failed: {reason}")))
+                except RuntimeError:
+                    pass  # the caller's loop closed
+
+        seed = binput.sampling_options.seed
+        seq = Sequence(
+            request_id=ctx.id,
+            prompt=list(binput.token_ids),
+            stop=binput,
+            emit=emit,
+            is_cancelled=lambda: ctx.is_stopped,
+            extract_cb=extract_cb,
+            extract_skip=max(int(skip_pages), 0),
+            trace=current_trace(),
+            submitted_at=time.time(),
+            sample_seed=int(seed) if seed is not None else self._seed_rng.getrandbits(31),
+            priority=binput.priority,
+            deadline_unix=ctx.deadline or 0.0,
+        )
+        self._submit_q.put(seq)
+        self._wake.set()
+        self.start()
+        return await fut
+
+    def confirm_kv_lease(self, lease_id: str) -> None:
+        """Delivery ack for a lease (thread-safe: queued for the loop,
+        the page manager's single writer)."""
+        self._lease_confirm_q.put(lease_id)
+        self._wake.set()
+
+    async def pin_prefix(self, token_ids: list[int]) -> tuple[int, str | None]:
+        """How many full prompt pages this engine holds, pinned under a
+        lease until admission re-references them (the suffix-only
+        transfer's ``skip_blocks``; released at inject, the reaper the
+        backstop). ``(0, None)`` when the loop is not running, sharing
+        is off, or nothing is resident."""
+        if not self._running or not self.kv.sharing:
+            # A prefix_sharing=False engine never re-attaches at
+            # admission, so a skip would discard the whole transfer.
+            return (0, None)
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._pin_q.put((list(token_ids), loop, fut, current_trace()))
+        self._wake.set()
+        if not self._running and not fut.done():
+            # stop() drained the queue before this put landed.
+            fut.set_result((0, None))
+        return await fut
+
+    def kv_page_nbytes(self) -> int:
+        """Host bytes one KV page occupies on the wire (K and V, all
+        layers): the triage planner's cost unit."""
+        m = self.cfg.model
+        itemsize = 2 if self.cfg.kv_dtype == "bfloat16" else 4
+        return 2 * m.num_layers * self.cfg.page_size * m.num_kv_heads * m.head_dim_ * itemsize
+
+    # --------------------------------------------------- spot-reclaim plane
+    async def reclaim_inflight(self) -> list[dict]:
+        """Triage snapshot: every migratable in-flight sequence (ACTIVE,
+        resident, not an extract leg) with its priority and shippable
+        KV size."""
+        return await self._reclaim_call("snapshot", None, default=[])
+
+    async def reclaim_extract(self, request_id: str, ttl_s: float):
+        """Live-migration extract: the sequence's complete pages to the
+        host in one gather, pinned under a ``ttl_s`` lease; returns
+        ``(block_hashes, pages, lease_id)``, or None when the sequence
+        is gone or not migratable (the caller falls back to the
+        journal). The partial tail page is never shipped."""
+        return await self._reclaim_call("extract", (request_id, ttl_s), default=None)
+
+    async def seed_prefix(self, hashes: list[int], pages: list) -> int:
+        """Survivor side of a migration: inject the shipped blocks and
+        park them as matchable prefix pages (refcount 0, LRU), as a
+        finished sequence's are; returns the blocks seeded."""
+        return await self._reclaim_call("seed", (hashes, pages), default=0)
+
+    async def _reclaim_call(self, op: str, payload, default):
+        if not self._running:
+            return default
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._reclaim_q.put((op, payload, loop, fut))
+        self._wake.set()
+        if not self._running and not fut.done():
+            fut.set_result(default)
+        return await fut
 
     def metrics(self) -> dict:
         m = self.sched.metrics()
@@ -581,6 +738,17 @@ class TorchEngine(AsyncEngine):
         m["decode_window"] = self.cfg.decode_window
         m["kv_prefix_hits"] = dict(self.kv.prefix_hits)
         m["prefill_tokens_computed"] = self.sched.prefill_tokens
+        # Handoff leases and the KV moves of disaggregation and reclaim.
+        m["kv_leases_active"] = self.kv.active_leases
+        m["kv_leases_granted"] = self.leases_granted
+        m["kv_leases_confirmed"] = self.leases_confirmed
+        m["kv_lease_reclaimed_pages"] = self.kv.lease_reclaimed_pages
+        m["kv_extract_pages"] = self.kv_extract_pages
+        m["kv_extract_seconds"] = self.kv_extract_s
+        m["kv_inject_pages"] = self.kv_inject_pages
+        from ..disagg.transfer import wire_checksum_failures
+
+        m["kv_wire_checksum_failures"] = wire_checksum_failures()
         m["build_info"] = dict(self._build_info)
         return m
 
@@ -697,6 +865,13 @@ class TorchEngine(AsyncEngine):
                     # follows.
                     if self.flight is not None:
                         self.flight.record("chain_break")
+                # No window is in flight from here on. Lease confirms and
+                # the reaper, prefix pins and the reclaim plane's calls
+                # move pages (and extracts sync), so they run here; a
+                # chain breaks when any is queued (``_can_chain``).
+                self._service_leases()
+                self._service_pins()
+                self._service_reclaims()
                 if not self.sched.has_work() and self._submit_q.empty():
                     # Idle: completed prefetches still inject, buffered
                     # evictions still reach the host tier, and the
@@ -744,7 +919,15 @@ class TorchEngine(AsyncEngine):
                     s for s in self.sched.slots
                     if s is not None and s.state is SeqState.PREFILL
                 ]
-                pendings = self._dispatch_ragged(prefilling[: self.cfg.prefill_batch])
+                # Prompts whose KV a prefill worker computed are injected
+                # (and start decoding) instead of prefilled. Partitioned
+                # first, as the JAX loop does: a fallback to local
+                # prefill joins the next dispatch.
+                batch = [s for s in prefilling if s.remote_kv is None]
+                for seq in prefilling:
+                    if seq.remote_kv is not None:
+                        self._run_remote_inject(seq)
+                pendings = self._dispatch_ragged(batch[: self.cfg.prefill_batch])
                 if len(pendings) == 1 and pendings[0].solo and self.cfg.chained_decode:
                     self._inflight = pendings[0]  # consumed next iteration
                 else:
@@ -772,6 +955,8 @@ class TorchEngine(AsyncEngine):
             self._dump_flight("crash")
             self._running = False
             self._inflight = None
+            self._drain_pin_q()
+            self._drain_reclaim_q()
             pending = list(self.sched.slots) + list(self.sched.waiting)
             while not self._submit_q.empty():
                 pending.append(self._submit_q.get_nowait())
@@ -873,7 +1058,7 @@ class TorchEngine(AsyncEngine):
         stalled row is eligible only when several rows starve (freeing
         the one starving row feeds nobody). One victim per iteration."""
         grace = self.cfg.proactive_offload_grace_s
-        if grace < 0 or self.copy_stream is None or not self._stalled_past(grace):
+        if grace < 0 or self.host_pool is None or not self._stalled_past(grace):
             return
         n_stalled = sum(1 for s in self.sched.slots if s is not None and s.stalled_since)
         cands = [
@@ -882,6 +1067,7 @@ class TorchEngine(AsyncEngine):
             and s.state is SeqState.ACTIVE
             and s.swap is None
             and (n_stalled >= 2 or not s.stalled_since)
+            and s.extract_cb is None
         ]
         now = time.time()
         for victim in sorted(cands, key=lambda s: (s.priority, -s.submitted_at)):
@@ -1035,7 +1221,7 @@ class TorchEngine(AsyncEngine):
         cfg = self.cfg
         if (
             not cfg.kv_prefetch
-            or self.copy_stream is None
+            or self.host_pool is None
             or not self.kv.sharing
             or not self.sched.waiting
         ):
@@ -1154,24 +1340,28 @@ class TorchEngine(AsyncEngine):
             v_st[:, j].copy_(v_pg)
         return k_st, v_st
 
-    def _gather_page_batch(self, pids: list[int]):
+    def _gather_page_batch(self, pids: list[int], kind: str = "offload",
+                           page_major: bool = False):
         """One gather of ``pids`` into contiguous device batches
-        ``[L, n, ps, Hkv*D]`` on the compute stream, the event recorded
-        after it (CUDA), which the copy stream waits on, and the
-        profiler's dispatch stamp (consumed on the copy thread once the
-        batch is stored)."""
+        ``[L, n, ps, Hkv*D]`` (``[n, L, ps, Hkv*D]`` when ``page_major``)
+        on the compute stream, the event recorded after it (CUDA), which
+        the copy stream waits on, and the profiler's dispatch stamp
+        (consumed once the batch is on the host). ``kind``: ``offload``
+        (host tier) or ``kv_move`` (an extract for the wire)."""
         prof = self.profiler
-        t0 = prof.begin("offload") if prof is not None else 0.0
+        t0 = prof.begin(kind) if prof is not None else 0.0
         (idx,) = self._upload(np.asarray(pids, np.int64))
         k_b = self.k_cache.index_select(1, idx)
         v_b = self.v_cache.index_select(1, idx)
+        if page_major:
+            k_b, v_b = k_b.transpose(0, 1).contiguous(), v_b.transpose(0, 1).contiguous()
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record()
-        t_disp = prof.end("offload", t0) if prof is not None else 0.0
+        t_disp = prof.end(kind, t0) if prof is not None else 0.0
         if self.flight is not None:
-            self.flight.record("dispatch", dispatch="offload", pages=len(pids))
+            self.flight.record("dispatch", dispatch=kind, pages=len(pids))
         return k_b, v_b, ready, t_disp
 
     def _inject_page_batch(self, pids: list[int], k_host: torch.Tensor, v_host: torch.Tensor,
@@ -1187,7 +1377,7 @@ class TorchEngine(AsyncEngine):
         self._flush_offloads()
         prof = self.profiler
         t0 = prof.begin("kv_move") if prof is not None else 0.0
-        k_dev, v_dev = self.copy_stream.upload(k_host, v_host)
+        k_dev, v_dev = self._moves().upload(k_host, v_host)
         (idx,) = self._upload(np.asarray(pids, np.int64))
         self.k_cache.index_copy_(1, idx, k_dev)
         self.v_cache.index_copy_(1, idx, v_dev)
@@ -1227,6 +1417,294 @@ class TorchEngine(AsyncEngine):
             op="upload",
         )
         seq.pending_uploads = []
+
+    # ------------------------------------------------------ KV handoffs
+    def _moves(self) -> CopyStream:
+        """The copy stream the handoffs' device <-> host legs use: the
+        host tier's, or one made for them (no host pool, no offloads)."""
+        if self.copy_stream is None:
+            self.copy_stream = CopyStream(self.host_pool, device=self.device)
+        return self.copy_stream
+
+    def _pages_to_host(self, pids: list[int]) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """``pids``' KV on the host, one ``(k, v)`` pair of contiguous
+        ``[L, ps, Hkv*D]`` pages each: one gather on the compute stream
+        (page-major, so no page is copied again for the wire), the
+        device -> host copy on the copy stream into pinned memory, one
+        sync."""
+        t0 = time.perf_counter()
+        k_b, v_b, ready, t_disp = self._gather_page_batch(pids, kind="kv_move", page_major=True)
+        k_h, v_h = self._moves().to_host(k_b, v_b, ready)
+        if self.profiler is not None:
+            self.profiler.consume("kv_move", t_disp)
+        if self.flight is not None:
+            self.flight.record("consume", dispatch="kv_move", pages=len(pids))
+        get_telemetry().kv_page_moves.labels("extract").inc(len(pids))
+        self.kv_extract_pages += len(pids)
+        self.kv_extract_s += time.perf_counter() - t0
+        return [(k_h[j], v_h[j]) for j in range(len(pids))]
+
+    def _open_lease(self, lease_id: str, seq: Sequence | None, pages: int, trace=None) -> None:
+        """Open a lease's ``kv_lease`` span (closed at confirm or reap)
+        and record its grant."""
+        self.leases_granted += 1
+        trace = seq.trace if seq is not None else trace
+        if trace is not None:
+            self._lease_traces[lease_id] = (trace, time.time())
+        if self.flight is not None and seq is not None:
+            self.flight.record("lease_grant", req=seq.request_id, pages=pages)
+
+    def _close_lease_span(self, lease_id: str, outcome: str, pages: int | None = None) -> None:
+        """One ``kv_lease`` span from grant to confirm or reap, in the
+        request's trace (leases granted without one: no span)."""
+        self.leases_confirmed += outcome == "confirmed"
+        entry = self._lease_traces.pop(lease_id, None)
+        if entry is None:
+            return
+        trace, granted_at = entry
+        get_telemetry().emit_stage(
+            "kv_lease", granted_at, time.time(), trace,
+            lease_id=lease_id, outcome=outcome, pages=pages,
+        )
+
+    def _extract_prompt_pages(self, seq: Sequence) -> tuple[list, str]:
+        """Every prompt page past ``extract_skip`` (the partial tail
+        included) on the host for the wire, in one gather and one sync,
+        pinned under a handoff lease granted while the sequence still
+        holds its references."""
+        ps = self.cfg.page_size
+        n_pages = (len(seq.prompt) + ps - 1) // ps
+        skip = min(seq.extract_skip, n_pages)
+        pids = seq.page_ids[skip:n_pages]
+        if not pids:
+            return [], ""
+        pages = self._pages_to_host(pids)
+        lease_id = self.kv.grant_lease(pids, self.cfg.kv_lease_ttl_s)
+        self._open_lease(lease_id, seq, len(pids))
+        return pages, lease_id
+
+    def _run_remote_inject(self, seq: Sequence) -> None:
+        """Disaggregated admission: inject the remote prefill's pages
+        (one batch) and go straight to decode. A suffix-only transfer
+        ships pages from prompt page ``skip_pages``; the pin that kept
+        the first ones resident is released here (admission holds them
+        now). If those pages are no longer all resident (the pin was
+        reaped under a long queue wait), the received suffix is useless:
+        the sequence falls back to local prefill."""
+        ps = self.cfg.page_size
+        rk = seq.remote_kv
+        if rk.pin_lease:
+            if self.kv.confirm_lease(rk.pin_lease):
+                self._close_lease_span(rk.pin_lease, "confirmed")
+            rk.pin_lease = None
+        n_pages = (len(seq.prompt) + ps - 1) // ps
+        resident = seq.hashed_pages  # G1 matched + G2 restored at admission
+        if rk.skip_pages and resident < rk.skip_pages:
+            log.warning(
+                "request %s: suffix-only KV transfer skipped %d pages but only %d are "
+                "resident; prefilling locally", seq.request_id, rk.skip_pages, resident,
+            )
+            seq.remote_kv = None
+            return
+        start = max(resident, rk.skip_pages)
+        end = min(n_pages, rk.skip_pages + len(rk.pages))
+        if end > start:
+            pages = [rk.pages[i - rk.skip_pages] for i in range(start, end)]
+            self._inject_page_batch(seq.page_ids[start:end], *self._stage(pages), op="inject")
+            self.kv_inject_pages += end - start
+        seq.remote_kv = None  # drop the host copy once its inject is queued
+        seq.remote_prefilled = True
+        # The decode worker computed none of this prompt's KV.
+        self.sched.prefill_tokens -= len(seq.prompt) - seq.cached_len
+        seq.prefill_sent = len(seq.prompt)
+        self._finish_first_token(seq, rk.first_token)
+
+    def _service_leases(self) -> None:
+        """Queued delivery confirms, then the reaper: a decode worker
+        that died between extract and inject returns the pinned pages
+        within one lease period."""
+        while True:
+            try:
+                lid = self._lease_confirm_q.get_nowait()
+            except queue.Empty:
+                break
+            if self.kv.confirm_lease(lid):  # a confirm that raced the reaper: no-op
+                self._close_lease_span(lid, "confirmed")
+                if self.flight is not None:
+                    self.flight.record("lease_confirm")
+        if self.kv.active_leases:
+            reclaimed = self.kv.reap_expired()
+            if reclaimed:
+                for lid, pages in self.kv.last_reaped:
+                    self._close_lease_span(lid, "reaped", pages=pages)
+                if self.flight is not None:
+                    self.flight.record("lease_reap", pages=reclaimed)
+                get_telemetry().kv_lease_reclaims.inc(reclaimed)
+                log.warning(
+                    "reaped %d KV pages from expired handoff leases (the receiver "
+                    "never confirmed delivery)", reclaimed,
+                )
+
+    def _service_pins(self) -> None:
+        """Loop side of :meth:`pin_prefix`: match the resident prefix
+        (every registered page here is filled) and pin it."""
+        while True:
+            try:
+                tokens, loop, fut, trace = self._pin_q.get_nowait()
+            except queue.Empty:
+                return
+            hashes = compute_block_hashes_for_seq(tokens, self.cfg.page_size)
+            pages = self.kv.match_resident_hashes(hashes)
+            lease = self.kv.grant_lease(pages, self.cfg.kv_lease_ttl_s) if pages else None
+            if lease is not None:
+                self._open_lease(lease, None, len(pages), trace=trace)
+            result = (len(pages), lease)
+
+            def resolve(f=fut, r=result, lease=lease):
+                # On the caller's loop: a future already done (cancelled
+                # request) can never hand the lease back, so release it.
+                if f.done():
+                    if lease is not None:
+                        self.confirm_kv_lease(lease)
+                else:
+                    f.set_result(r)
+
+            try:
+                loop.call_soon_threadsafe(resolve)
+            except RuntimeError:  # the caller's loop closed: release the pin
+                if lease is not None and self.kv.confirm_lease(lease):
+                    self._close_lease_span(lease, "confirmed")
+
+    def _drain_pin_q(self) -> None:
+        """Resolve every queued pin with the no-coverage answer:
+        shutdown must never strand an awaiting caller."""
+        while True:
+            try:
+                _tokens, loop, fut, _trace = self._pin_q.get_nowait()
+            except queue.Empty:
+                return
+            with contextlib.suppress(RuntimeError):
+                loop.call_soon_threadsafe(lambda f=fut: f.done() or f.set_result((0, None)))
+
+    def _service_reclaims(self) -> None:
+        """Loop side of the reclaim plane's calls."""
+        while True:
+            try:
+                op, payload, loop, fut = self._reclaim_q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                if op == "snapshot":
+                    result = self._reclaim_snapshot()
+                elif op == "extract":
+                    result = self._reclaim_extract(*payload)
+                else:
+                    result = self._seed_prefix(*payload)
+            except Exception as err:
+                log.exception("reclaim op %s failed", op)
+                with contextlib.suppress(RuntimeError):
+                    loop.call_soon_threadsafe(
+                        lambda f=fut, e=err: f.done() or f.set_exception(e))
+                continue
+
+            def resolve(f=fut, r=result, op=op):
+                # An extract whose caller gave up hands its lease back.
+                if f.done():
+                    if op == "extract" and r is not None:
+                        self.confirm_kv_lease(r[2])
+                else:
+                    f.set_result(r)
+
+            try:
+                loop.call_soon_threadsafe(resolve)
+            except RuntimeError:
+                if op == "extract" and result is not None and self.kv.confirm_lease(result[2]):
+                    self._close_lease_span(result[2], "confirmed")
+
+    def _drain_reclaim_q(self) -> None:
+        """Resolve every queued reclaim call with its no-op answer."""
+        defaults = {"snapshot": [], "extract": None, "seed": 0}
+        while True:
+            try:
+                op, _payload, loop, fut = self._reclaim_q.get_nowait()
+            except queue.Empty:
+                return
+            with contextlib.suppress(RuntimeError):
+                loop.call_soon_threadsafe(
+                    lambda f=fut, r=defaults.get(op): f.done() or f.set_result(r))
+
+    def _migratable(self, seq: Sequence | None) -> bool:
+        return (
+            seq is not None and seq.state is SeqState.ACTIVE and seq.swap is None
+            and seq.extract_cb is None
+        )
+
+    def _full_pages(self, seq: Sequence) -> int:
+        """Complete pages whose KV is written (positions up to pos - 1,
+        as ``register_full_pages`` counts them)."""
+        return min(max(0, (seq.pos - 1) // self.cfg.page_size), len(seq.page_ids))
+
+    def _reclaim_snapshot(self) -> list[dict]:
+        nb = self.kv_page_nbytes()
+        out = []
+        for seq in self.sched.slots:
+            if not self._migratable(seq):
+                continue
+            full = self._full_pages(seq)
+            out.append({
+                "request_id": seq.request_id,
+                "priority": seq.priority,
+                "full_pages": full,
+                "kv_bytes": full * nb,
+                "tokens_generated": max(0, len(seq.tokens) - len(seq.prompt)),
+            })
+        return out
+
+    def _reclaim_extract(self, request_id: str, ttl_s: float):
+        seq = next((s for s in self.sched.slots
+                    if self._migratable(s) and s.request_id == request_id), None)
+        if seq is None:
+            return None
+        full = self._full_pages(seq)
+        if full <= 0:
+            return None
+        pids = seq.page_ids[:full]
+        # The chained block hashes are the migration's identity: the
+        # survivor registers the pages under them, and the journal
+        # continuation (prompt + confirmed tokens) recomputes the same
+        # chain at admission.
+        hashes = compute_block_hashes_for_seq(seq.tokens, self.cfg.page_size)[:full]
+        pages = self._pages_to_host(pids)
+        lease_id = self.kv.grant_lease(pids, ttl_s)
+        self._open_lease(lease_id, seq, full)
+        return hashes, pages, lease_id
+
+    def _seed_prefix(self, hashes: list[int], pages: list) -> int:
+        if not self.kv.sharing:
+            return 0
+        seeded: list[int] = []
+        seed_pages: list = []
+        parent: int | None = None
+        for i, h in enumerate(hashes[: len(pages)]):
+            if self.kv.resident_page(h) is not None:
+                parent = h  # block already here: extend the chain past it
+                continue
+            pid = self.kv.allocate_page()
+            if pid is None:
+                break  # pool dry: a shorter contiguous prefix still matches
+            self.kv.register_full_page(pid, h, parent_hash=parent)
+            seeded.append(pid)
+            seed_pages.append(pages[i])
+            parent = h
+        if seeded:
+            # Registered now, injected ahead of every later forward on
+            # the compute stream, then parked: exactly a finished
+            # sequence's pages. LRU pressure may evict them before the
+            # continuation attaches, which costs a re-prefill only.
+            self._inject_page_batch(seeded, *self._stage(seed_pages), op="inject")
+            self.kv_inject_pages += len(seeded)
+            self.kv.release_sequence(seeded)
+        return len(seeded)
 
     def _dispatch_ragged(self, prefill_rows: list[Sequence]) -> list[_PendingRagged]:
         """Assemble and dispatch this iteration's ragged batches, one per
@@ -1608,6 +2086,11 @@ class TorchEngine(AsyncEngine):
             return False
         if not self._submit_q.empty() or self.sched.waiting:
             return False
+        if (
+            not self._lease_confirm_q.empty() or not self._pin_q.empty()
+            or not self._reclaim_q.empty() or self.kv.lease_due()
+        ):
+            return False  # the loop serves these between windows
         if self._spec is not None and any(
             e.seq.state is SeqState.ACTIVE and self._spec.wants_draft(e.seq) for e in p.rows
         ):
@@ -2063,7 +2546,8 @@ class TorchEngine(AsyncEngine):
         tel.prefill_compute.observe(max(now - start, 0.0))
         tel.emit_stage(
             "prefill", start, now, seq.trace, prompt_tokens=len(seq.prompt),
-            cached_tokens=seq.cached_len, resumed_tokens=seq.stop.resume_offset or None,
+            cached_tokens=seq.cached_len, remote=seq.remote_prefilled or None,
+            resumed_tokens=seq.stop.resume_offset or None,
             **(self.profiler.span_attrs("mixed") if self.profiler is not None else {}),
         )
         if self.flight is not None:
@@ -2085,6 +2569,9 @@ class TorchEngine(AsyncEngine):
         seq.tokens.append(token)
         seq.generated = 1
         self.sched.register_full_pages(seq)
+        if seq.extract_cb is not None:
+            pages, lease_id = self._extract_prompt_pages(seq)
+            seq.extract_cb(token, pages, lease_id)
         reason = self.sched.check_stop(seq, token)
         seq.emit([token], None, lp_pack)
         if reason is not None:

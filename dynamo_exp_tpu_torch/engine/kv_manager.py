@@ -16,16 +16,28 @@ host pool) before it can be overwritten, and an admission extends its
 G1 match into the host pool: the matched host pages come back as
 ``Allocation.uploads`` for the engine to inject before the prefill.
 
+Handoff leases (the JAX manager's, with its semantics): a lease pins a
+set of pages with one extra reference each while a KV handoff is in
+flight (a prefill worker's extracted prompt, a reclaim migration, a
+decode worker's prefix pinned for a suffix-only transfer). Delivery
+confirms it (``confirm_lease``), and the loop's reaper reclaims it once
+its TTL passes (``reap_expired``); either way the pins drop through
+``release_sequence``. A held page is never on the free list or in the
+parked LRU, so eviction, swap-out and preemption cannot take it.
+
 Left out (ROADMAP Queue 1 item 4): the persistent tier, registration of
-pages still being filled, partial-tail sharing with copy-on-write, and
-handoff leases. A page is registered here only once its KV has been
-written (or, for an upload, once its inject is on the compute stream
-ahead of every read), so every registered page is filled.
+pages still being filled and partial-tail sharing with copy-on-write. A
+page is registered here only once its KV has been written (or, for an
+upload or a seeded migration, once its inject is on the compute stream
+ahead of every read), so every registered page is filled: the JAX pin's
+``match_prefix(..., require_filled=True)`` is the resident-hash match
+(``match_resident_hashes``).
 """
 
 from __future__ import annotations
 
 import time
+import uuid
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -60,6 +72,17 @@ class Allocation:
 
 
 @dataclass
+class KvLease:
+    """A pin on pages during a KV handoff: GRANTED, then CONFIRMED
+    (delivery acked) or EXPIRED (reaped at ``expires_at``, on the
+    manager's clock)."""
+
+    lease_id: str
+    page_ids: list[int]
+    expires_at: float
+
+
+@dataclass
 class KvEvent:
     """Stored/removed notification for a router's radix index."""
 
@@ -82,6 +105,7 @@ class KvPageManager:
         sharing: bool = True,
         host_pool=None,
         on_evict: Callable[[int, int], None] | None = None,
+        clock: Callable[[], float] = time.monotonic,
     ):
         self.num_pages = num_pages
         self.page_size = page_size
@@ -97,6 +121,12 @@ class KvPageManager:
         self.index = PrefixIndex()
         # Zero-ref registered pages, LRU order (oldest first).
         self._reclaimable: OrderedDict[int, None] = OrderedDict()
+        # Handoff leases by id, their clock, the pages the reaper has
+        # freed, and the (lease id, pages) the last reap took.
+        self.clock = clock
+        self._leases: dict[str, KvLease] = {}
+        self.lease_reclaimed_pages = 0
+        self.last_reaped: list[tuple[str, int]] = []
         self.hits = 0
         self.misses = 0
         # G2 hit/miss: of the pages a prompt needed beyond its G1 match,
@@ -295,6 +325,52 @@ class KvPageManager:
             self._free.append(pid)
         return len(dropped)
 
+    # ---------------------------------------------------------------- leases
+    @property
+    def active_leases(self) -> int:
+        return len(self._leases)
+
+    def grant_lease(self, page_ids: Sequence[int], ttl_s: float) -> str:
+        """Pin ``page_ids`` (one extra reference each) for a handoff in
+        flight and return the lease id the wire carries. Call while the
+        pages are still referenced (before their sequence is released),
+        or on resident pages a match just returned."""
+        for pid in page_ids:
+            self._ref_page(pid)
+        lease = KvLease(uuid.uuid4().hex, list(page_ids), self.clock() + ttl_s)
+        self._leases[lease.lease_id] = lease
+        return lease.lease_id
+
+    def confirm_lease(self, lease_id: str) -> bool:
+        """Delivery confirmed: drop the lease's pins (registered pages
+        park in the LRU). An unknown or already reaped id is a no-op:
+        the confirm raced the reaper."""
+        lease = self._leases.pop(lease_id, None)
+        if lease is None:
+            return False
+        self.release_sequence(lease.page_ids)
+        return True
+
+    def lease_due(self, now: float | None = None) -> bool:
+        """Whether some lease has expired (the loop breaks a chain of
+        windows so that its reaper runs)."""
+        now = self.clock() if now is None else now
+        return any(now >= lease.expires_at for lease in self._leases.values())
+
+    def reap_expired(self, now: float | None = None) -> int:
+        """Reclaim every expired lease's pages; returns the pages freed
+        and names the leases in ``last_reaped``."""
+        now = self.clock() if now is None else now
+        reclaimed = 0
+        self.last_reaped = []
+        for lid in [lid for lid, lease in self._leases.items() if now >= lease.expires_at]:
+            lease = self._leases.pop(lid)
+            self.release_sequence(lease.page_ids)
+            reclaimed += len(lease.page_ids)
+            self.last_reaped.append((lid, len(lease.page_ids)))
+        self.lease_reclaimed_pages += reclaimed
+        return reclaimed
+
     # ------------------------------------------------- conservation ledger
     def ledger_check(self) -> list[str]:
         """Counter arithmetic: every page is exactly one of {free,
@@ -316,21 +392,37 @@ class KvPageManager:
                 f"refcount total below holder floor: ref_total={self._ref_total} "
                 f"< held={held} + shared={self.live_shared}"
             )
+        if self._ref_total < 0 or held < 0:
+            violations.append(
+                f"negative ledger counter: ref_total={self._ref_total} held={held}"
+            )
+        lease_pins = sum(len(lease.page_ids) for lease in self._leases.values())
+        if lease_pins > self._ref_total:
+            violations.append(
+                f"lease pins exceed refcount total: lease_pins={lease_pins} "
+                f"ref_total={self._ref_total}"
+            )
         return violations
 
     def audit(self, holders: dict[str, Sequence[int]] | None = None) -> dict:
         """Full conservation audit: classify every page into exactly one
         state, and, when ``holders`` maps holder names to the page ids
         they believe they hold, cross-check each page's refcount
-        against them so a leak is named. Read-only."""
+        against them so a leak is named. Leases join the holders as
+        ``lease:<id>``. Read-only."""
         free_list = list(self._free)
         free = set(free_list)
         parked = set(self._reclaimable)
         expected: dict[int, list[str]] = {}
-        for name, pids in (holders or {}).items():
+        all_holders: dict[str, Sequence[int]] = dict(holders or {})
+        for lid, lease in self._leases.items():
+            all_holders[f"lease:{lid}"] = lease.page_ids
+        for name, pids in all_holders.items():
             for pid in pids:
                 expected.setdefault(pid, []).append(name)
-        counts = {"free": 0, "parked": 0, "active": 0, "shared": 0}
+        cross = holders is not None or bool(self._leases)
+        counts = {"free": 0, "parked": 0, "active": 0, "shared": 0,
+                  "leased": sum(len(lease.page_ids) for lease in self._leases.values())}
         violations: list[dict] = []
 
         def flag(pid, kind: str, detail: str) -> None:
@@ -357,7 +449,7 @@ class KvPageManager:
             if rec.ref_count < 0:
                 flag(pid, "negative_refcount", f"ref_count={rec.ref_count}")
             want = len(expected.get(pid, []))
-            if holders is not None and rec.ref_count != want:
+            if cross and rec.ref_count != want and (rec.ref_count > 0 or want > 0):
                 kind = "leaked_ref" if rec.ref_count > want else "lost_ref"
                 flag(pid, kind, f"ref_count={rec.ref_count} but {want} live holder(s)")
         for check in self.ledger_check():
@@ -366,6 +458,7 @@ class KvPageManager:
             "ok": not violations,
             "counts": counts,
             "pool": self.num_pages,
+            "leases": len(self._leases),
             "held_pages": self._held_pages,
             "ref_total": self._ref_total,
             "violations": violations,

@@ -145,10 +145,12 @@ class CopyStream:
     One bounded queue carries both the offloads and the host side of
     prefetches, so :meth:`drain` and :meth:`stop` cover both. Byte and
     time counters (CUDA events, so device time of the copies alone) read
-    the rate of each direction."""
+    the rate of each direction. Without a host tier (``pool`` None) the
+    stream serves the KV handoffs' uploads and :meth:`to_host` only."""
 
     def __init__(
-        self, pool: HostKvPool, max_inflight: int = 256, device: torch.device | None = None
+        self, pool: HostKvPool | None, max_inflight: int = 256,
+        device: torch.device | None = None,
     ):
         self.pool = pool
         self.device = resolve_device(device if device is not None else "cpu")
@@ -290,6 +292,16 @@ class CopyStream:
             pass  # the worker re-checks _running per item
         self._thread.join(timeout=10)
         self.poll(wait=True)
+
+    def to_host(self, k_dev, v_dev, ready) -> tuple:
+        """The device -> host leg alone, on the calling thread (the
+        disaggregation extract and the reclaim extract, page-major
+        batches ``[n, L, ps, Hkv*D]``): the batch's pinned host copy once
+        it has landed, counted as d2h."""
+        k_h, v_h = self._to_host(k_dev, v_dev, ready)
+        self.d2h_pages += k_dev.shape[0]  # page-major: [n, L, ps, Hkv*D]
+        self.d2h_bytes += 2 * k_dev.numel() * k_dev.element_size()
+        return k_h, v_h
 
     def _to_host(self, k_dev, v_dev, ready):
         """The device -> host leg of one offload (see the module

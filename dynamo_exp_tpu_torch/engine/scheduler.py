@@ -14,8 +14,13 @@ binds an expired one. Finishes emit the request's ``decode`` span and,
 with the engine's flight recorder, ``finish`` and ``preempt`` events.
 Single-writer: all mutation happens on the engine loop thread.
 
-Left out (ROADMAP): remote KV and the request-anatomy accumulators
-(Queue 1).
+Disaggregation: a sequence carrying :class:`RemoteKv` (prefill computed
+by a remote prefill worker) is admitted as any other, then injected
+instead of prefilled; a sequence with ``extract_cb`` (a prefill
+worker's) hands its prompt pages to the callback at its first token and
+is exempt from preemption and swap-out.
+
+Left out (ROADMAP): the request-anatomy accumulators (Queue 1).
 """
 
 from __future__ import annotations
@@ -33,6 +38,21 @@ from ..tokens import chain_hash, compute_block_hash
 from .config import EngineConfig
 from .kv_manager import KvPageManager
 from .tiering import KvFootprintForecast, SwapRecord, select_packed_index
+
+
+@dataclass
+class RemoteKv:
+    """Prefill computed elsewhere (disaggregation): the first sampled
+    token and the prompt's KV pages, host tensors ``(k, v)`` of shape
+    ``[L, page_size, Hkv*D]`` each (the pools' page layout)."""
+
+    first_token: int
+    pages: list
+    # Suffix-only transfer: ``pages[i]`` is prompt page ``skip_pages +
+    # i``; the first ``skip_pages`` are resident here, pinned under
+    # ``pin_lease`` since the routing decision (released at inject).
+    skip_pages: int = 0
+    pin_lease: str | None = None
 
 
 class SeqState(enum.Enum):
@@ -109,6 +129,15 @@ class Sequence:
     spec_draft_tokens: int = 0
     spec_accepted_tokens: int = 0
     spec_emitted_tokens: int = 0
+    # Disaggregation: the remote prefill's KV to inject at admission
+    # instead of prefilling (decode worker), whether the prompt's KV
+    # came that way, and the prefill worker's extract hook
+    # ``extract_cb(first_token, pages, lease_id)`` with the leading
+    # pages it must not ship (the decode side holds them).
+    remote_kv: RemoteKv | None = None
+    remote_prefilled: bool = False
+    extract_cb: Callable[[int, list, str], None] | None = None
+    extract_skip: int = 0
 
     @property
     def pos(self) -> int:
@@ -123,15 +152,17 @@ def select_preemption_victim(candidates, max_preemptions: int):
     """KV-pressure victim policy: lowest priority first, youngest
     (latest submitted) on ties: the least sunk cost and the weakest
     claim. Sequences at their preemption bound are exempt, as are rows
-    with a deferred finish in flight. Returns None when nothing
-    qualifies (``dynamo_exp_tpu/engine/scheduler.py``'s function without
-    the disaggregation exemption, which the port does not have)."""
+    with a deferred finish in flight and extract-mode sequences (a
+    prefill worker's: their one token is already sampled). Returns None
+    when nothing qualifies (``dynamo_exp_tpu/engine/scheduler.py``'s
+    function)."""
     eligible = [
         s
         for s in candidates
         if s is not None
         and s.state is SeqState.ACTIVE
         and s.pending_finish is None
+        and s.extract_cb is None
         and s.preemptions < max_preemptions
     ]
     if not eligible:
@@ -339,9 +370,10 @@ class Scheduler:
             return
         now = time.time()
         was_bound = seq.state in (SeqState.PREFILL, SeqState.ACTIVE)
-        if seq.first_token_at:
+        if seq.first_token_at and seq.extract_cb is None:
             # The request's decode span (first token -> finish), with the
-            # trace captured at submission.
+            # trace captured at submission. An extract-mode sequence (a
+            # prefill worker's) never decodes.
             get_telemetry().emit_stage(
                 "decode", seq.first_token_at, now, seq.trace,
                 generated_tokens=seq.generated,
@@ -419,6 +451,8 @@ class Scheduler:
         seq.prompt_hashes = []
         seq.hashed_pages = 0
         seq.parent_hash = None
+        seq.remote_kv = None
+        seq.remote_prefilled = False
         # The continuation's prompt is new (forecast hashes stale), its
         # queue history resets, and a swap record dies with the old page
         # table (its host pages age out of the LRU as plain cache).

@@ -120,6 +120,10 @@ class BackendInput:
     stop_conditions: StopConditions = field(default_factory=StopConditions)
     sampling_options: SamplingOptions = field(default_factory=SamplingOptions)
     annotations: list[str] = field(default_factory=list)
+    # Router hint: estimated prefix-cache overlap blocks on the chosen
+    # worker (the disaggregated decode engine subtracts them from the
+    # prefill it weighs).
+    estimated_prefix_hit_num_blocks: int | None = None
     # A continuation (failover replay or KV-pressure preemption): the
     # last ``resume_offset`` entries of ``token_ids`` are journaled
     # completion tokens being re-prefilled, not prompt; a penalized
@@ -143,6 +147,10 @@ class BackendInput:
                 d.get("sampling_options") or {}
             ),
             annotations=list(d.get("annotations") or []),
+            estimated_prefix_hit_num_blocks=(
+                int(d["estimated_prefix_hit_num_blocks"])
+                if d.get("estimated_prefix_hit_num_blocks") is not None else None
+            ),
             resume_offset=(
                 int(d["resume_offset"]) if d.get("resume_offset") is not None else None
             ),

@@ -16,7 +16,13 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
   worker. The engine serves on a discoverable endpoint (the TCP request
   plane), answers the stats scrape with its load, publishes its KV
   events and, with ``--model-path``, its model card (``local_model.py``);
-  it prints ``worker serving dyn://… (instance N)``. SIGTERM drains it:
+  it prints ``worker serving dyn://… (instance N)``. It publishes its
+  topology coordinate (``DYN_TOPOLOGY``) and, when its engine shares
+  prefixes, a ``migrate_addr`` where a ``MigrationSink`` takes live KV
+  migrations into its prefix cache. SIGTERM is a spot-reclaim notice
+  (``runtime/reclaim.py``): the instance flips to ``reclaiming``, its
+  ``ReclaimController`` migrates the in-flight streams' KV to the
+  nearest survivor within ``DYN_RECLAIM_GRACE_S``, and then it drains:
   it leaves discovery, finishes what is in flight, then exits.
 - ``in=http out=dyn://ns.comp.ep --coordinator H:P``: an ingress that
   routes to such workers (``--router-mode random|round-robin|kv``).
@@ -255,7 +261,8 @@ class Served:
     """What ``main_async`` hands its ``ready`` future: the OpenAI-level
     engine (the core engine, for a worker), the ``TorchEngine`` behind it
     (``out=cuda``), the model card, with ``in=http`` the bound port and
-    the service, with ``in=dyn://`` the served instance."""
+    the service, with ``in=dyn://`` the served instance, its reclaim
+    controller and its migration sink."""
 
     engine: object
     torch_engine: object | None
@@ -263,6 +270,8 @@ class Served:
     port: int | None = None
     service: object | None = None  # the HttpService (in=http)
     instance: object | None = None  # the ServedInstance (in=dyn://)
+    reclaim: object | None = None  # runtime.reclaim.ReclaimController
+    migrate_sink: object | None = None  # runtime.reclaim.MigrationSink
 
 
 def build_output(opts):
@@ -422,10 +431,43 @@ async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future |
             yield frame
 
     metrics_pub = KvMetricsPublisher()
-    # The live KV migration and reclaim triage that the JAX worker arms
-    # here wait for disaggregation (ROADMAP Queue 1); SIGTERM drains.
+    # Spot-reclaim plane: advertise what survivors are selected on (this
+    # worker's ledger name, its topology coordinate and, when the engine
+    # can park migrated prefixes, a live-migration landing address),
+    # then arm the triage controller on the served instance.
+    from .parallel.multihost import TOPOLOGY_KEY, TopologyCoordinate
+    from .runtime.reclaim import (
+        MigrationSink,
+        ReclaimController,
+        install_sigterm_reclaim,
+        survivors_from_instances,
+    )
+
+    topo = TopologyCoordinate.from_env()
+    metadata: dict = {"instance": get_telemetry().instance, TOPOLOGY_KEY: topo.encode()}
+    migrate_rx = migrate_sink = None
+    if torch_engine is not None and torch_engine.kv.sharing:
+        from .disagg.transfer import KvPageReceiver
+
+        migrate_rx = KvPageReceiver()
+        await migrate_rx.start()
+        migrate_sink = MigrationSink(torch_engine, migrate_rx)
+        metadata["migrate_addr"] = migrate_rx.address
     served = await ep.serve_endpoint(handler, stats_handler=metrics_pub.stats_handler,
-                                     metadata={"instance": get_telemetry().instance})
+                                     metadata=metadata)
+    reclaim = None
+    if torch_engine is not None:
+
+        async def survivors():
+            infos = await drt.discovery.list_instances(ep.component.path)
+            return survivors_from_instances(infos, served.instance_id)
+
+        reclaim = ReclaimController(torch_engine, topology=topo, survivors_fn=survivors)
+        reclaim.attach(served)
+        # SIGTERM is the platform's reclaim notice: triage within the
+        # grace window, then fall through to the drain this handler
+        # displaces (cancelling the main task, as main() does).
+        install_sigterm_reclaim(served, then=asyncio.current_task().cancel)
     try:
         if torch_engine is not None:
             # KV events -> the routers' indexes, attributed to this instance.
@@ -453,7 +495,8 @@ async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future |
         print(f"worker serving {opts.input} (instance {served.instance_id})", flush=True)
         if ready is not None and not ready.done():
             ready.set_result(Served(engine=core, torch_engine=torch_engine, mdc=mdc,
-                                    instance=served))
+                                    instance=served, reclaim=reclaim,
+                                    migrate_sink=migrate_sink))
         await drt.runtime.primary_token.cancelled()
     finally:
         # Bounded: an unresponsive coordinator must not wedge shutdown
@@ -464,6 +507,9 @@ async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future |
         except asyncio.TimeoutError:
             logger.warning("endpoint close timed out after 15s")
         logger.info("endpoint closed in %.2fs", time.monotonic() - t0)
+        if migrate_sink is not None:
+            migrate_sink.close()
+            await migrate_rx.close()
 
 
 def _chat_payload(model: str, prompt: str, opts) -> dict:

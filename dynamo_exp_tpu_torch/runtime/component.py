@@ -6,11 +6,12 @@ the coordinator and TCP planes with ``coordinator_endpoint`` set);
 namespaces contain components; components expose named endpoints that
 are served over the request plane and registered in discovery under a
 lease, so a worker's death removes its instance. A served instance
-watches the drain-intent and reclaim-notice KV prefixes. Reclaim is
-metadata-only here (``on_reclaim`` stays None: routers stop sending and
-in-flight streams ride the journal's failover); the reclaim controller
-and live KV migration (``runtime/reclaim.py``) wait for disaggregation
-(ROADMAP Queue 1).
+watches the drain-intent and reclaim-notice KV prefixes. A reclaim
+flips the instance's metadata (routers stop sending) and hands the grace
+window to ``on_reclaim``: a served engine's worker attaches
+``runtime/reclaim.py``'s ``ReclaimController`` there, which triages the
+in-flight streams and migrates their KV live to a survivor; without it,
+in-flight streams ride the journal's failover.
 """
 
 from __future__ import annotations

@@ -40,6 +40,10 @@ class MsgType(enum.IntEnum):
     DATA = 7  # generic RPC of the coordinator protocol
 
 
+# Payloads above this are written apart from their header.
+_SPLIT_PAYLOAD = 1 << 16
+
+
 class CodecError(RuntimeError):
     pass
 
@@ -51,11 +55,16 @@ class TwoPartMessage:
     payload: bytes = b""
 
 
-def encode(msg: TwoPartMessage) -> bytes:
+def _head(msg: TwoPartMessage) -> bytes:
+    """A frame's prefix and header (its payload follows them)."""
     header = json.dumps(msg.header, separators=(",", ":")).encode()
     if len(header) > MAX_HEADER or len(msg.payload) > MAX_PAYLOAD:
         raise CodecError("frame exceeds size limits")
-    return _PREFIX.pack(int(msg.msg_type), len(header), len(msg.payload)) + header + msg.payload
+    return _PREFIX.pack(int(msg.msg_type), len(header), len(msg.payload)) + header
+
+
+def encode(msg: TwoPartMessage) -> bytes:
+    return _head(msg) + msg.payload
 
 
 async def read_message(reader: asyncio.StreamReader) -> TwoPartMessage:
@@ -72,5 +81,11 @@ async def read_message(reader: asyncio.StreamReader) -> TwoPartMessage:
 
 
 async def write_message(writer: asyncio.StreamWriter, msg: TwoPartMessage) -> None:
-    writer.write(encode(msg))
+    if len(msg.payload) > _SPLIT_PAYLOAD:
+        # The same bytes without joining a large payload (a KV frame's
+        # megabytes) to its header first.
+        writer.write(_head(msg))
+        writer.write(msg.payload)
+    else:
+        writer.write(encode(msg))
     await writer.drain()

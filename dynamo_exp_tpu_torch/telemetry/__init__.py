@@ -3,9 +3,10 @@ and per-dispatch profiling (counterpart of ``dynamo_exp_tpu/telemetry/``,
 trimmed to the parts the port feeds; ``prom.py`` stands in for
 ``prometheus_client``).
 
-Waits for a later slice (ROADMAP Queue 1): ``anatomy.py``,
-``fingerprint.py``, ``timeline.py``, ``fleet.py`` and
-``bench_compare.py``.
+``fleet.py`` holds the per-link transfer ledger and the fleet view;
+``fingerprint.py`` only its drift threshold. Waits for a later slice
+(ROADMAP Queue 1): ``anatomy.py``, the rest of ``fingerprint.py``,
+``timeline.py`` and ``bench_compare.py``.
 """
 
 from .context import (

@@ -20,11 +20,15 @@ package's names, labels and buckets:
 - the HTTP edge's overload and deadline families and the SLO families
   (violations, goodput, burn rate); ``dynamo_build_info``.
 
-Left out, with the modules that feed them (ROADMAP Queue 1): KV
-transfer, leases and reclaim, the circuit breaker, drain, recoveries and
-retries, the G3 store and its checksums, the link ledger, config swaps,
-workload drift and ``dynamo_request_seconds`` (fed by
-``telemetry/anatomy.py``).
+- the disaggregation plane (``disagg/transfer.py``): KV transfer time,
+  bytes and outcomes, wire checksum failures (``path="wire"``), lease
+  reclaims; the reclaim plane (``runtime/reclaim.py``): migrated pages
+  and triage seconds; the link ledger (``telemetry/fleet.py``).
+
+Left out, with the modules that feed them (ROADMAP Queue 1): the G3
+store (its pages, quarantines and ``path="store"`` checksums), copy-on-
+write, the ledger auditor, config swaps, workload drift and
+``dynamo_request_seconds`` (fed by ``telemetry/anatomy.py``).
 
 Gauge writes and span emission are thread-safe: the engine loop thread
 emits with the ``TraceContext`` captured at submission.
@@ -56,6 +60,11 @@ _STAGE_BUCKETS = (
 )
 _TBT_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+)
+# KV transfer payloads: one page to a 3k-token prompt of a large model.
+_BYTES_BUCKETS = (
+    1 << 10, 16 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20,
+    64 << 20, 256 << 20, 1 << 30,
 )
 # Per-dispatch timings: a decode window is ms-scale, a first-use capture
 # seconds.
@@ -274,7 +283,68 @@ class Telemetry:
             "triage outcomes), deadline_degraded (a planned migration "
             "fell back to journal failover at the grace deadline), "
             "completed (triage finished inside the grace window)",
-            ["event"], registry=r,  # notice (the port's only event so far)
+            ["event"], registry=r,  # notice|migrated|failover|deadline_degraded|completed
+        )
+        self.reclaim_migrated_pages = Counter(
+            "dynamo_reclaim_migrated_pages_total",
+            "KV pages live-migrated to survivor instances during "
+            "spot reclamation",
+            registry=r,
+        )
+        self.reclaim_triage_seconds = Histogram(
+            "dynamo_reclaim_triage_seconds",
+            "Wall time of one reclaim triage pass (notice to last "
+            "migration confirm) — must beat the grace window",
+            buckets=_STAGE_BUCKETS, registry=r,
+        )
+        # Disaggregation: the KV page wire, its checksums, and the
+        # handoff leases the loop's reaper reclaimed.
+        self.kv_transfer_duration = Histogram(
+            "dynamo_kv_transfer_duration_seconds",
+            "Disagg KV page transfer wall time",
+            ["direction"], buckets=_STAGE_BUCKETS, registry=r,  # send | recv
+        )
+        self.kv_transfer_bytes = Histogram(
+            "dynamo_kv_transfer_bytes",
+            "Disagg KV page transfer payload size",
+            ["direction"], buckets=_BYTES_BUCKETS, registry=r,
+        )
+        self.kv_transfer_total = Counter(
+            "dynamo_kv_transfers_total",
+            "Disagg KV transfers by direction and outcome",
+            ["direction", "outcome"], registry=r,
+        )
+        self.kv_checksum_failures = Counter(
+            "dynamo_kv_checksum_failures_total",
+            "KV pages that failed checksum verification on a restore "
+            "path: store (G3 fetch) or wire (disagg inject / reclaim "
+            "migration sink) — each one was quarantined or failed the "
+            "transfer, never served",
+            ["path"], registry=r,  # wire (the port has no G3 store)
+        )
+        self.kv_lease_reclaims = Counter(
+            "dynamo_kv_lease_reclaims_total",
+            "KV pages reclaimed from expired disagg handoff leases",
+            registry=r,
+        )
+        # The per-link transfer ledger (telemetry/fleet.py).
+        self.kv_link_bytes = Counter(
+            "dynamo_kv_link_bytes_total",
+            "KV lease-transfer payload bytes per (src, dst) instance "
+            "link, as observed by this process's transfer ledger",
+            ["src", "dst"], registry=r,
+        )
+        self.kv_link_transfers = Counter(
+            "dynamo_kv_link_transfers_total",
+            "KV lease transfers observed per (src, dst) instance link",
+            ["src", "dst"], registry=r,
+        )
+        self.kv_link_bandwidth = Gauge(
+            "dynamo_kv_link_bandwidth_bytes_per_s",
+            "Online per-link bandwidth estimate (EWMA over observed "
+            "extract->ack lease-transfer durations) — the input surface "
+            "for topology-aware decode-instance selection",
+            ["src", "dst"], registry=r,
         )
         # Overload protection: edge sheds, the edge's in-flight count,
         # engine-side KV-pressure preemptions.

@@ -205,38 +205,56 @@ def test_waiting_request_expires_as_in_tpu_engine(np_params):
 @pytest.mark.parametrize("chained", [True, False], ids=["chained", "unchained"])
 def test_bound_row_finishes_at_its_deadline(np_params, chained):
     """Each window's consume is slowed to 20 ms, so a 60-token request
-    with a 0.25 s deadline expires mid-decode."""
+    with a 0.25 s deadline expires mid-decode. The deadline is armed
+    inside the first slowed consume, once the row is bound and has
+    tokens, so however long prefill takes on the host, the expiry falls
+    in decode; the wall is timed from that arming."""
     n = 60
 
-    def slowed(eng):
+    def slowed(eng, arm=None):
         consume = eng._consume_windowed
 
         def slow(pending):
             time.sleep(0.02)
-            return consume(pending)
+            out = consume(pending)
+            if arm is not None:
+                arm(eng)
+            return out
 
         eng._consume_windowed = slow
         return eng
 
-    async def run(eng, deadline_s):
-        ctx = AsyncEngineContext("row")
-        ctx.start_timeout(deadline_s)
+    def arming(ctx, deadline_s, armed):
+        # Runs on the loop thread, the only writer of a bound row.
+        def arm(eng):
+            if armed:
+                return
+            ctx.start_timeout(deadline_s)
+            for s in eng.sched.slots:
+                if s is not None and s.request_id == ctx.id:
+                    s.deadline_unix = ctx.deadline
+            armed.append(time.time())
+
+        return arm
+
+    async def run(eng, ctx, armed):
         stream = eng.submit(_request(P1, n), ctx)
-        t0 = time.time()
         eng.start()
         toks, finish = await _collect(stream)
-        return toks, finish, time.time() - t0
+        return toks, finish, time.time() - (armed[0] if armed else 0.0)
 
     want_eng = slowed(_port_engine(np_params, chained_decode=chained))
     try:
-        want, wfinish, _ = asyncio.run(asyncio.wait_for(run(want_eng, None), 300))
+        want, wfinish, _ = asyncio.run(
+            asyncio.wait_for(run(want_eng, AsyncEngineContext("row"), []), 300))
     finally:
         want_eng.stop()
     assert wfinish == "length" and len(want) == n
     counts = Counts()
-    eng = slowed(_port_engine(np_params, chained_decode=chained))
+    ctx, armed = AsyncEngineContext("row"), []
+    eng = slowed(_port_engine(np_params, chained_decode=chained), arming(ctx, 0.25, armed))
     try:
-        got, finish, wall = asyncio.run(asyncio.wait_for(run(eng, 0.25), 300))
+        got, finish, wall = asyncio.run(asyncio.wait_for(run(eng, ctx, armed), 300))
         with eng.hold_admission():
             audit = eng.kv_audit()
     finally:

@@ -54,23 +54,13 @@ from dynamo_exp_tpu_torch.telemetry.spans import Telemetry
 # JAX families the port does not register, each with what feeds it in
 # the JAX package (ROADMAP Queue 1).
 JAX_ONLY = {
-    "dynamo_kv_transfer_duration_seconds": "disagg/ (item 5)",
-    "dynamo_kv_transfer_bytes": "disagg/ (item 5)",
-    "dynamo_kv_transfers": "disagg/ (item 5)",
     "dynamo_kv_cow_copies": "copy-on-write (item 4(b))",
     "dynamo_kv_store_pages": "the G3 store (item 4(a))",
-    "dynamo_kv_checksum_failures": "the G3 store and wire checksums (items 4(a), 5)",
     "dynamo_kv_quarantined": "the G3 store (item 4(a))",
-    "dynamo_kv_lease_reclaims": "leases (item 4(c))",
-    "dynamo_reclaim_migrated_pages": "runtime/reclaim.py (item 5)",
-    "dynamo_reclaim_triage_seconds": "runtime/reclaim.py (item 5)",
     "dynamo_request_seconds": "telemetry/anatomy.py (telemetry, entry 1)",
     "dynamo_workload_drift_score": "telemetry/fingerprint.py (telemetry, entry 1)",
     "dynamo_config_swaps": "planner/ (item 8)",
     "dynamo_kv_ledger_violations": "the in-loop ledger auditor (item 4(c))",
-    "dynamo_kv_link_bytes": "telemetry/fleet.py (telemetry, entry 1)",
-    "dynamo_kv_link_transfers": "telemetry/fleet.py (telemetry, entry 1)",
-    "dynamo_kv_link_bandwidth_bytes_per_s": "telemetry/fleet.py (telemetry, entry 1)",
 }
 
 
