@@ -236,7 +236,51 @@ Phases, each fatal on failure (nothing is caught):
    and the ledger's learned link bandwidth, extract and inject times
    per page, remote and local TTFT p50 / p95, the triage's seconds and
    pages, tokens equal to an uninterrupted run (not asserted at bf16),
-   the phase's wall.
+   the phase's wall. Phase 11 also runs ``python -m
+   dynamo_exp_tpu_torch.llmctl`` in subprocesses after its waves:
+   ``http list`` lists the model, ``top --json`` both workers. In (a)
+   the two workers record spans under ``DYN_TRACE_FILE`` (one file a
+   process) and the ingress to a file beside it: each remote request's
+   trace, read back with ``timeline.load_spans``, spans the ingress, the
+   prefill and the decode process, has transfer hops and a
+   ``kv_transfer`` anatomy component above 0; the median component
+   shares of remote against local requests are printed. In (d)
+   ``llmctl reclaim <victim> --grace-s 30`` flips the victim to
+   ``reclaiming`` before the SIGTERM.
+
+13. request anatomy, the workload fingerprint and drift, the profiler
+   and ``llmctl``, llama-8b at full width and depth over HTTP
+   (``run.main_async``, bf16, seed 0) with ``--trace-file``,
+   ``--profiler-port`` and ``DYN_WORKLOAD_REF`` pinned to a
+   fingerprint built beforehand from the planned burst's lengths,
+   under phase 7 (a)'s KV pressure (8 slots, 416 pages, 1024 host
+   pages; phase 5's eight prompts, 128 tokens each). (a) every
+   request's ``anatomy_from_spans`` components sum to its root
+   ``http_request`` span's duration (within the 6-decimal rounding of
+   the terms), some request has a nonzero ``swap_stall``, the live
+   exemplar ring (``metrics()["anatomy_slow"]``) and the offline
+   anatomy name the same dominant component for each request and agree
+   on the engine's share (every component but ``other``) within 1e-5 s,
+   and ``dynamo_request_seconds{component}`` on ``/metrics`` equals the
+   engine's ``anatomy_totals``; during (a) the anatomy and fingerprint
+   taps run under ``torch.cuda.set_sync_debug_mode("error")``. (b) the live
+   fingerprint's digest equals ``fingerprint_from_spans`` on the trace
+   file, and a second run of the burst (new prompts of the same
+   lengths) hashes the same. (c) ``dynamo_workload_drift_score`` is
+   below ``DRIFT_ALERT_THRESHOLD`` after the matching burst, above it
+   after 16 prompts of 16-32 tokens with 8 tokens each, and equal to
+   ``metrics()["workload_drift_score"]``. (d) after the graphs of a
+   small burst are captured and a short first trace has started CUPTI
+   (timed: seconds), ``capture_trace`` around a run of that
+   burst and a capture through the ``--profiler-port`` listener around
+   another (each with new prompts of the same lengths, sent one by
+   one) each write a trace naming both bf16 kernels, and no graph
+   is captured while they record; their kernel counts are printed
+   beside the launch counters' delta. (e) ``llmctl trace <id> --why``, ``slow``,
+   ``fingerprint --json --ref``, ``flight --why`` and ``audit`` on the
+   phase's own trace file and flight dump exit 0 and name the request
+   (or the digest). Printed: anatomy shares, the taps' seconds against
+   the burst's wall, the drift scores, the digests.
 
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
@@ -261,7 +305,8 @@ traffic (``launches_edge``) and telemetry turns
 (``launches_telemetry_turns``, one run), and phase 11's two worker
 processes (``launches_cluster``, summed), and phase 12's prefill worker,
 decode worker and two reclaim workers (``launches_disagg_prefill``,
-``launches_disagg_decode``, ``launches_reclaim``); both mixed entries
+``launches_disagg_decode``, ``launches_reclaim``), and phase 13's
+observed HTTP burst (``launches_observability``); both mixed entries
 also carry the verify spans' timing (``verify_*``).
 
 The last three lines of standard output are the card's name and power
@@ -3291,13 +3336,16 @@ def _p11_pct(xs: list[float], q: float) -> float:
     return xs[min(int(q * len(xs)), len(xs) - 1)]
 
 
-async def _p11_ingress(run, addr: str, mode: str, endpoint: str = CLUSTER_ENDPOINT):
+async def _p11_ingress(run, addr: str, mode: str, endpoint: str = CLUSTER_ENDPOINT,
+                       trace_file: str = ""):
     """The ingress in this process through the entry point a user calls:
     ``run.main_async(in=http out=<endpoint> --router-mode <mode>)``, no
-    ``--model-path``. Returns (task, base URL)."""
+    ``--model-path`` (with ``trace_file``: ``--trace-file``). Returns
+    (task, base URL)."""
     opts = run.parse_args(["in=http", f"out={endpoint}", "--coordinator", addr,
                            "--http-host", "127.0.0.1", "--http-port", "0",
-                           "--router-mode", mode])
+                           "--router-mode", mode]
+                          + (["--trace-file", trace_file] if trace_file else []))
     ready = asyncio.get_running_loop().create_future()
     task = asyncio.ensure_future(run.main_async(opts, ready))
     await asyncio.wait({task, ready}, return_when=asyncio.FIRST_COMPLETED)
@@ -3572,6 +3620,17 @@ async def _drive_cluster(np, pkg, run, client, smi, sh, mcfg, addr, procs, paths
             f"prefill tokens computed kv {kv['prefill']} < round-robin {rr['prefill']} "
             f"({kv['prefill'] / rr['prefill']:.3f}x)")
 
+        # The operator's view of the cluster through the port's llmctl,
+        # in subprocesses: the registered model and both workers.
+        listed = await llmctl("--coordinator", addr, "http", "list")
+        assert listed.returncode == 0 and "llama-8b" in listed.stdout, listed
+        top = await llmctl("--coordinator", addr, "top", "--json")
+        assert top.returncode == 0, top
+        ids = sorted(f"llm/{st['instance']}" for st in st0)
+        assert sorted(json.loads(top.stdout)["instances"]) == ids, (top.stdout, ids)
+        log(f"[cluster] {smi}: llmctl http list: {listed.stdout.strip()!r}; llmctl top --json "
+            f"lists {ids}")
+
         # The ingress's block hashing, per prompt (kv mode hashes each).
         hash_ms = {}
         rs = np.random.RandomState(5)
@@ -3655,8 +3714,13 @@ class Phase12:
     reap_by_s: float = 10.0  # (c): the reap lands within [lease_ttl_s, reap_by_s]
     reclaim_streams: int = 8  # (d)
     reclaim_prompt: int = 1024
-    reclaim_tokens: int = 256
+    # (d): each stream must still run on the victim when the triage
+    # reports, after llmctl's start and a triage of 2-4 s at ~30 ms a
+    # token: 256 tokens left too little (one triage of 3.6 s outlasted
+    # every stream on the victim).
+    reclaim_tokens: int = 512
     reclaim_after_tokens: int = 32  # (d): SIGTERM once every stream has this many
+    reclaim_grace_s: float = 30.0  # (d): llmctl reclaim's notice (DYN_RECLAIM_GRACE_S's default)
     state_period_s: float = 0.25
 
 
@@ -3832,6 +3896,42 @@ def _p12_reference(torch, pkg, mcfg, sh: Phase12, prompts: list[list[int]]) -> l
         free(torch, sh.device)
 
 
+def _p12_anatomy(smi, sh, traces: dict, worker_pids: list, ingress: str) -> dict:
+    """(a)'s traces read back from the three processes' span files: each
+    remote request's tree spans the ingress, the prefill and the decode
+    process, has KV transfer hops and a ``kv_transfer`` component; the
+    median component shares of remote against local requests."""
+    from dynamo_exp_tpu_torch.telemetry import anatomy_from_spans, load_spans, transfer_hops
+
+    groups = _traces(load_spans([traces["ingress"], traces["workers"]]))
+    kinds: dict = {"remote": [], "local": []}
+    for group in groups.values():
+        if not any(s.stage == "http_request" for s in group):
+            continue
+        prompt = max((int(s.attrs.get("prompt_tokens", 0) or 0) for s in group
+                      if s.stage == "prefill"), default=0)
+        kind = "remote" if prompt > sh.max_local else "local"
+        a = anatomy_from_spans(group)
+        if kind == "remote":
+            pids = {str(s.attrs.get("instance", "")).rsplit(":", 1)[-1] for s in group}
+            assert {str(p) for p in worker_pids} <= pids, (pids, worker_pids)
+            assert any(s.attrs.get("instance") == ingress for s in group), ingress
+            assert any(s.stage == "remote_prefill" for s in group), a.request_id
+            assert transfer_hops(group), f"no transfer hop in {a.request_id}"
+            assert a.components["kv_transfer"] > 0, a.components
+        kinds[kind].append(a)
+    assert len(kinds["remote"]) == sh.remote_n and len(kinds["local"]) == sh.local_n, (
+        {k: len(v) for k, v in kinds.items()})
+    shares = {k: _shares(v) for k, v in kinds.items()}
+    for k in ("remote", "local"):
+        edge = sorted(a.edge_latency_s for a in kinds[k])
+        log(f"[disagg] {smi}: (a) anatomy of the {k} requests (median share of the edge "
+            f"latency, p50 edge {edge[len(edge) // 2]:.3f} s): {_share_line(shares[k])}")
+    log(f"[disagg] {smi}: (a) every remote request's trace spans the ingress, prefill and "
+        f"decode processes, with transfer hops and kv_transfer > 0")
+    return shares
+
+
 def _p12_pages(n_tokens: int) -> int:
     return -(-n_tokens // PS)
 
@@ -3884,15 +3984,27 @@ def phase12(torch, np, pkg, tra, smi: str, sh: Phase12 = Phase12(), mcfg=None) -
                          max_queue=sh.max_queue)
             ctx = multiprocessing.get_context("spawn")
             paths = [os.path.join(tmp, f"{role}.json") for role in ("prefill", "decode")]
-            for role, path in zip(("prefill", "decode"), paths):
-                proc = ctx.Process(target=_p12_worker, name=role, args=(
-                    role, [f"in={P12_DISAGG}", *common], path, sh.state_period_s, time.time(),
-                    knobs))
-                proc.start()
-                procs.append(proc)
+            # (a)'s spans: each worker process records under
+            # DYN_TRACE_FILE (to <path>.pid<pid>), the ingress beside it.
+            traces = {"workers": os.path.join(tmp, "workers.jsonl"),
+                      "ingress": os.path.join(tmp, "ingress.jsonl")}
+            old_trace = os.environ.get("DYN_TRACE_FILE")
+            os.environ["DYN_TRACE_FILE"] = traces["workers"]
+            try:
+                for role, path in zip(("prefill", "decode"), paths):
+                    proc = ctx.Process(target=_p12_worker, name=role, args=(
+                        role, [f"in={P12_DISAGG}", *common], path, sh.state_period_s,
+                        time.time(), knobs))
+                    proc.start()
+                    procs.append(proc)
+            finally:
+                if old_trace is None:
+                    os.environ.pop("DYN_TRACE_FILE", None)
+                else:
+                    os.environ["DYN_TRACE_FILE"] = old_trace
             out.update(asyncio.run(asyncio.wait_for(
                 _p12_drive_disagg(np, pkg, run, client, smi, sh, mcfg, addr, procs, paths,
-                                  prompts, refs, page_nbytes), timeout=900)))
+                                  prompts, refs, page_nbytes, traces), timeout=900)))
             for proc in procs:
                 proc.terminate()
             for proc in procs:
@@ -3963,15 +4075,16 @@ def phase12(torch, np, pkg, tra, smi: str, sh: Phase12 = Phase12(), mcfg=None) -
 
 
 async def _p12_drive_disagg(np, pkg, run, client, smi, sh, mcfg, addr, procs, paths, prompts,
-                            refs, page_nbytes) -> dict:
+                            refs, page_nbytes, traces) -> dict:
     from dynamo_exp_tpu_torch.disagg import RemotePrefillRequest
     from dynamo_exp_tpu_torch.disagg.protocol import kv_signature
     from dynamo_exp_tpu_torch.planner import prefill_queue_name
     from dynamo_exp_tpu_torch.runtime import DistributedRuntime, PushRouter, RouterMode
     from dynamo_exp_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_exp_tpu_torch.telemetry import get_telemetry
 
     drt = DistributedRuntime(config=RuntimeConfig(coordinator_endpoint=addr))
-    ingress, base = await _p11_ingress(run, addr, "round-robin", P12_DISAGG)
+    ingress, base = await _p11_ingress(run, addr, "round-robin", P12_DISAGG, traces["ingress"])
     out: dict = {}
     try:
         t0 = time.perf_counter()
@@ -4069,7 +4182,10 @@ async def _p12_drive_disagg(np, pkg, run, client, smi, sh, mcfg, addr, procs, pa
             f"between two tasks of the idle smoke process: {plane_s:.3f} s, "
             f"{plane_bps / 1e9:.3f} GB/s")
         out["a"] = dict(pre=pre, dec=dec, designs=designs, ttft=ttft, wall_s=wall,
-                        bandwidth_bps=bw, link_bps=link["bandwidth_bps"], plane_bps=plane_bps)
+                        bandwidth_bps=bw, link_bps=link["bandwidth_bps"], plane_bps=plane_bps,
+                        anatomy=_p12_anatomy(smi, sh, traces, [p.pid for p in procs],
+                                             get_telemetry().instance))
+        get_telemetry().configure(None)  # the ingress's trace holds (a) alone
 
         # (a) identity, then (b): token-level requests, each alone.
         cl = await drt.namespace(P12_NS).component("disagg").endpoint("generate").client()
@@ -4219,6 +4335,20 @@ async def _p12_drive_reclaim(np, run, client, smi, sh, mcfg, addr, procs, paths,
         victim, survivor = 0, 1
         on_victim = states[victim]["active"]
         at_term = list(counts)
+        # The operator's notice first (llmctl reclaim, in a subprocess):
+        # the victim republishes itself as reclaiming and starts its
+        # triage; the platform's SIGTERM then lands on a worker already
+        # reclaiming, as a second notice of the same reclaim.
+        iid = states[victim]["instance"]
+        notice = await llmctl("--coordinator", addr, "reclaim", str(iid),
+                              "--grace-s", str(sh.reclaim_grace_s))
+        assert notice.returncode == 0 and f"instance {iid}" in notice.stdout, notice
+        t_notice = time.perf_counter()
+        while not any(i.instance_id == iid and i.metadata.get("reclaiming")
+                      for i in await drt.discovery.list_instances(comp.path)):
+            assert time.perf_counter() - t_notice < 30, "llmctl reclaim: no reclaiming flip"
+            await asyncio.sleep(0.05)
+        flip_s = time.perf_counter() - t_notice
         procs[victim].terminate()  # the spot platform's reclaim notice
         t_term = time.perf_counter()
         while True:
@@ -4230,6 +4360,7 @@ async def _p12_drive_reclaim(np, run, client, smi, sh, mcfg, addr, procs, paths,
         victim_last = st[victim]
         still = victim_last["active"]
         at_kill = list(counts)
+        assert still > 0, f"every stream on the victim finished inside the triage: {at_kill}"
         procs[victim].kill()  # the grace window ends
         res = await asyncio.gather(*tasks)
         wall = time.perf_counter() - t0
@@ -4274,6 +4405,9 @@ async def _p12_drive_reclaim(np, run, client, smi, sh, mcfg, addr, procs, paths,
             f"rising, no duplicate; the survivor seeded {migrated} blocks, its prefix hits on "
             f"the continuations {hits} >= {migrated}, prefill tokens computed {prefill} < "
             f"{sigkill} (a SIGKILL failover's floor); wall {wall:.2f} s")
+        log(f"[reclaim] {smi}: (d) llmctl reclaim {iid} --grace-s {sh.reclaim_grace_s:g} flipped "
+            f"the victim to reclaiming {flip_s:.3f} s after the command returned, before the "
+            f"SIGTERM")
         log(f"[reclaim] {smi}: (d) the reclaim's triage {summary['triage_s']:.3f} s")
         log(f"[reclaim] {smi}: (d) migrated pages {migrated}")
         log(f"[reclaim] {smi}: (d) tokens equal to an uninterrupted run on the survivor, by "
@@ -4284,6 +4418,446 @@ async def _p12_drive_reclaim(np, run, client, smi, sh, mcfg, addr, procs, paths,
     finally:
         await _p11_stop(ingress)
         await drt.close()
+
+
+
+# ------------------------------------------------------------------ phase 13
+@dataclass
+class Phase13:
+    """Phase 13's sizes: the card's by default (phase 7 (a)'s pressure);
+    the CPU test rehearses it smaller (``device="cpu"``)."""
+
+    device: str = "cuda"
+    prompt_lens: tuple = PROMPT_LENS
+    max_tokens: int = PRESSURE_TOKENS
+    num_pages: int = PRESSURE_PAGES
+    host_pages: int = HOST_PAGES
+    drift_n: int = 16  # (c): a burst unlike the pinned reference ...
+    drift_lens: tuple = (16, 32)
+    drift_tokens: int = 8
+    profile_lens: tuple = (64, 160)  # (d): a small burst, its keys captured first
+    profile_tokens: int = 32
+    profile_lead_s: float = 3.0  # (d): a capture starts this long before its burst ...
+    profile_ms: int = 20000  # ... and records this long, the burst inside it
+
+
+# Each anatomy component and the edge latency are rounded to 6 decimals,
+# so a sum of k nonzero components can miss the root span's duration by
+# the k + 1 roundings: half a microsecond each.
+ROUND_S = 5e-7
+# Live against offline anatomy, the engine's share (every component but
+# ``other``): both split the same host stamps (submission, admission,
+# first token, finish, and the swap and stall windows), so they differ
+# only by float64 sums of unix seconds (2.4e-7 s apart at 1.7e9 s) and
+# the roundings.
+LIVE_OFFLINE_S = 1e-5
+
+
+def llmctl(*argv, timeout: float = 120.0):
+    """``python -m dynamo_exp_tpu_torch.llmctl`` in a subprocess, off the
+    event loop (a coordinator this process serves must keep answering):
+    await the result."""
+    return asyncio.to_thread(
+        subprocess.run, [sys.executable, "-m", "dynamo_exp_tpu_torch.llmctl", *argv], cwd=HERE,
+        capture_output=True, text=True, timeout=timeout)
+
+
+def guard_taps(torch, eng, device: str) -> dict:
+    """Wrap the anatomy and fingerprint taps the loop thread calls (the
+    scheduler's finish tap, the fingerprint's admission feed, the
+    profiler's capture-seconds read) so that on the card each runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in one
+    raises. The mode is the process's, not the thread's: each tap puts
+    back the mode it found, and ``tally["undo"]()`` takes the wrappers
+    off again, before anything that synchronizes on purpose (the
+    profiler) runs beside the loop. The host tier's copy thread waits on
+    CUDA events, which the mode does not check. Tallies the taps' calls
+    and host seconds."""
+    tally = {"calls": 0, "seconds": 0.0}
+    wrapped = []
+
+    def wrap(obj, name: str) -> None:
+        fn = getattr(obj, name)
+
+        def guarded(*args, **kw):
+            t0 = time.perf_counter()
+            if device == "cuda":
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                if device == "cuda":
+                    torch.cuda.set_sync_debug_mode(mode)
+                tally["calls"] += 1
+                tally["seconds"] += time.perf_counter() - t0
+
+        setattr(obj, name, guarded)
+        wrapped.append((obj, name, fn))
+
+    def undo() -> None:
+        for obj, name, fn in wrapped:
+            setattr(obj, name, fn)
+
+    wrap(eng.sched, "on_finish")
+    wrap(eng.fingerprint, "observe_admit")
+    if eng.profiler is not None:
+        wrap(eng.profiler, "compile_total_s")
+    tally["undo"] = undo
+    return tally
+
+
+def _p13_prompts(np, vocab: int, lens, seed: int) -> list[list[int]]:
+    rs = np.random.RandomState(seed)
+    return [[int(t) for t in rs.randint(3, vocab, size=n)] for n in lens]
+
+
+def _traces(spans) -> dict:
+    out: dict = {}
+    for s in spans:
+        out.setdefault(s.trace_id, []).append(s)
+    return out
+
+
+def _roots(groups: dict, since: float = 0.0) -> dict:
+    """{request id: (trace id, root span)} of the traces whose
+    ``http_request`` root started at or after ``since``."""
+    out = {}
+    for tid, group in groups.items():
+        root = next((s for s in group if s.stage == "http_request"), None)
+        if root is not None and root.start >= since:
+            out[str(root.attrs.get("request_id", ""))] = (tid, root)
+    return out
+
+
+def _shares(anatomies) -> dict:
+    """The median share of the edge latency, by component."""
+    from dynamo_exp_tpu_torch.telemetry import COMPONENTS
+
+    out = {}
+    for c in COMPONENTS:
+        xs = sorted(a.components.get(c, 0.0) / max(a.edge_latency_s, 1e-9) for a in anatomies)
+        out[c] = xs[len(xs) // 2] if xs else 0.0
+    return out
+
+
+def _share_line(shares: dict) -> str:
+    return ", ".join(f"{c} {v:.3f}" for c, v in shares.items() if v > 0)
+
+
+def phase13(torch, np, pkg, tra, smi: str, sh: Phase13 = Phase13(), mcfg=None) -> dict:
+    """Phase 13: request anatomy, the workload fingerprint and drift,
+    the profiler and llmctl, on llama-8b served over HTTP under KV
+    pressure."""
+    import socket
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+    from dynamo_exp_tpu_torch.telemetry import FingerprintBuilder, get_telemetry
+
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    t_phase = time.perf_counter()
+    free(torch, sh.device)
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    saved = {k: os.environ.get(k) for k in ("DYN_FLIGHT_DUMP", "DYN_WORKLOAD_REF")}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama-8b"), tokmod, mcfg, text)
+        files = {name: os.path.join(tmp, f"{name}") for name in (
+            "spans.jsonl", "flight.jsonl", "ref.json", "capture", "profiles")}
+        # The reference the drift gauge scores against: the planned
+        # burst's lengths, built before any traffic.
+        ref = FingerprintBuilder()
+        for n in sh.prompt_lens:
+            ref.observe_admit(n)
+            ref.observe_finish(sh.max_tokens)
+        with open(files["ref.json"], "w") as f:
+            json.dump(ref.snapshot().to_dict(), f)
+        os.environ["DYN_WORKLOAD_REF"] = files["ref.json"]
+        os.environ["DYN_FLIGHT_DUMP"] = files["flight.jsonl"]
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            prof_port = probe.getsockname()[1]
+        argv = [
+            "in=http", "out=cuda", "--device", sh.device, "--model-path", model_dir,
+            "--model-name", "llama-8b", "--random-weights", "--http-host", "127.0.0.1",
+            "--http-port", "0", "--max-decode-slots", "8", "--page-size", str(PS),
+            "--max-model-len", str(max(sh.prompt_lens) + sh.max_tokens + PS),
+            "--num-pages", str(sh.num_pages), "--host-cache-pages", str(sh.host_pages),
+            "--kv-dtype", "bfloat16", "--trace-file", files["spans.jsonl"],
+            "--profiler-port", str(prof_port),
+        ]
+        try:
+            tra.reset_launches()
+            out = asyncio.run(asyncio.wait_for(
+                _p13_drive(torch, np, run, client, smi, run.parse_args(argv), mcfg, sh, files,
+                           prof_port), timeout=900))
+            out["designs"] = dict(tra.KERNEL_LAUNCHES)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            get_telemetry().configure(None)
+    d = out["designs"]
+    if sh.device == "cuda":
+        assert d["mixed_tc_bf16"] > 0 and d["decode_split"] > 0, d
+        assert d["mixed_f32"] == 0, d
+    free(torch, sh.device)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[observe] {smi}: phase 13 wall {out['wall_s']:.1f} s; launches by kernel {d}")
+    return out
+
+
+async def _p13_drive(torch, np, run, client, smi, opts, mcfg, sh, files, prof_port) -> dict:
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({server, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if server.done():
+        server.result()  # startup failed: raise its error
+    try:
+        return await _p13_traffic(torch, np, client, smi, ready.result(), mcfg, sh, files,
+                                  prof_port)
+    finally:
+        server.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await server
+
+
+async def _p13_traffic(torch, np, client, smi, served, mcfg, sh, files, prof_port) -> dict:
+    from dynamo_exp_tpu_torch.ops import ragged_attention as tra
+    from dynamo_exp_tpu_torch.runtime import profiler
+    from dynamo_exp_tpu_torch.telemetry import (
+        anatomy_from_spans,
+        fingerprint_from_spans,
+        load_spans,
+    )
+    from dynamo_exp_tpu_torch.telemetry.fingerprint import DRIFT_ALERT_THRESHOLD
+
+    base = f"http://127.0.0.1:{served.port}"
+    url = base + "/v1/completions"
+    eng = served.torch_engine
+    trace_file = files["spans.jsonl"]
+    taps = guard_taps(torch, eng, sh.device)
+    assert eng.drift_watch.reference is not None, "DYN_WORKLOAD_REF was not read"
+
+    async def run_burst(prompts, n, one_by_one=False):
+        """``one_by_one``: each request after the last one's end, so the
+        same lengths give the same schedule and keys whatever the
+        arrival times."""
+        t0 = time.perf_counter()
+        bodies = [_p11_body(p, n) for p in prompts]
+        if one_by_one:
+            res = [await sse_request(client, url, b) for b in bodies]
+        else:
+            res = await asyncio.gather(*(sse_request(client, url, b) for b in bodies))
+        wall = time.perf_counter() - t0
+        for p, r in zip(prompts, res):
+            assert r["done"] and r["finish"] == "length", r
+            assert r["usage"]["completion_tokens"] == n, r["usage"]
+            assert r["usage"]["prompt_tokens"] == len(p), (r["usage"], len(p))
+        await asyncio.sleep(0.5)  # the root spans close after the last frame
+        return wall
+
+    async def scrape() -> dict:
+        r = await client.request(base + "/metrics")
+        assert r.status == 200
+        return _family_values(r.body.decode())
+
+    def family(values: dict, name: str) -> dict:
+        return {dict(k[1]).get("component", ""): v for k, v in values.items() if k[0] == name}
+
+    # (a) The pressured burst, its anatomy offline and live.
+    before = family(await scrape(), "dynamo_request_seconds_total")
+    prompts = phase5_prompts(np, mcfg.vocab_size, sh.prompt_lens)
+    t_a = time.time()
+    taps0 = dict(taps)
+    wall_a = await run_burst(prompts, sh.max_tokens)
+    tap_s = taps["seconds"] - taps0["seconds"]
+    tap_calls = taps["calls"] - taps0["calls"]
+    taps["undo"]()
+    m = eng.metrics()
+    assert m["swapped_out"] > 0 or m["preempted"] > 0, f"(a) no pressure: {m}"
+    groups = _traces(load_spans([trace_file]))
+    roots = _roots(groups, t_a)
+    assert len(roots) == len(prompts), (len(roots), len(prompts))
+    offline, sum_err = {}, 0.0
+    for rid, (tid, root) in roots.items():
+        a = anatomy_from_spans(groups[tid])
+        k = sum(1 for v in a.components.values() if v > 0)
+        err = abs(a.total_s - root.duration_s)
+        assert err <= ROUND_S * (k + 1), (rid, a.components, root.duration_s)
+        sum_err = max(sum_err, err)
+        offline[rid] = a
+    assert any(a.components["swap_stall"] > 0 for a in offline.values()), "no swap stall"
+    live = {d["request_id"]: d for d in m["anatomy_slow"]}
+    assert set(live) == set(offline), (sorted(live), sorted(offline))
+    live_err = 0.0
+    for rid, a in offline.items():
+        d = live[rid]
+        assert d["dominant"] == a.dominant, (rid, d["components"], a.components)
+        eng_off = sum(v for c, v in a.components.items() if c != "other")
+        eng_live = sum(v for c, v in d["components"].items() if c != "other")
+        live_err = max(live_err, abs(eng_off - eng_live))
+        assert abs(eng_off - eng_live) <= LIVE_OFFLINE_S, (rid, d["components"], a.components)
+    after = family(await scrape(), "dynamo_request_seconds_total")
+    totals = m["anatomy_totals"]
+    for comp, total in totals.items():
+        got = after.get(comp, 0.0) - before.get(comp, 0.0)
+        assert abs(got - total) <= 1e-6 * max(1.0, total), (comp, got, total)
+    shares = _shares(offline.values())
+    worst = max(offline.values(), key=lambda a: a.edge_latency_s)
+    log(f"[observe] {smi}: (a) {len(prompts)} streams of {sh.max_tokens} tokens over HTTP on "
+        f"{sh.num_pages} pages + {sh.host_pages} host pages: wall {wall_a:.3f} s; swapped out "
+        f"{m['swapped_out']}, in {m['swapped_in']}, preempted {m['preempted']}; every trace's "
+        f"components sum to its root span (max error {sum_err:.2e} s); the live ring and the "
+        f"offline anatomy name the same dominant component for all {len(offline)} and differ "
+        f"by at most {live_err:.2e} s in the engine's share; dynamo_request_seconds = "
+        f"anatomy_totals {dict((c, round(v, 3)) for c, v in totals.items() if v)}")
+    log(f"[observe] {smi}: (a) median share of the edge latency by component: "
+        f"{_share_line(shares)}; slowest request {worst.request_id} "
+        f"{worst.edge_latency_s:.3f} s, dominant {worst.dominant}")
+    log(f"[observe] {smi}: (a) the anatomy and fingerprint taps: {tap_calls} calls under "
+        f"set_sync_debug_mode('error'), {tap_s * 1e3:.3f} ms of host time on the burst's "
+        f"{wall_a:.3f} s wall ({tap_s / wall_a * 100:.4f} %)")
+
+    # (b) The live digest against the trace file's; (c) drift, low.
+    live_digest = m["workload_fingerprint"]
+    off_fp = fingerprint_from_spans([s for tid, _ in roots.values() for s in groups[tid]])
+    assert off_fp.digest() == live_digest and off_fp.n == len(prompts), (
+        off_fp.to_dict(), live_digest)
+    low = m["workload_drift_score"]
+    gauge = _family_values_one(await scrape(), "dynamo_workload_drift_score")
+    m_low = eng.metrics()["workload_drift_score"]
+    assert gauge == m_low == low < DRIFT_ALERT_THRESHOLD, (gauge, m_low, low)
+
+    # (c) A burst unlike the reference: drift above the threshold.
+    rs = np.random.RandomState(17)
+    short = [[int(t) for t in rs.randint(3, mcfg.vocab_size, size=int(n))]
+             for n in rs.randint(sh.drift_lens[0], sh.drift_lens[1] + 1, size=sh.drift_n)]
+    wall_c = await run_burst(short, sh.drift_tokens)
+    high = eng.metrics()["workload_drift_score"]
+    gauge_high = _family_values_one(await scrape(), "dynamo_workload_drift_score")
+    assert high > DRIFT_ALERT_THRESHOLD and gauge_high == high, (high, gauge_high)
+    log(f"[observe] {smi}: (c) drift against the pinned reference: {low:.4f} after the "
+        f"matching burst, {high:.4f} after {sh.drift_n} prompts of {sh.drift_lens[0]}-"
+        f"{sh.drift_lens[1]} tokens x {sh.drift_tokens} ({wall_c:.3f} s); threshold "
+        f"{DRIFT_ALERT_THRESHOLD}; the gauge on /metrics equals metrics() both times")
+
+    # (b) The same burst again (new prompts, the same lengths): the same
+    # digest from its spans alone.
+    t_b = time.time()
+    wall_b = await run_burst(_p13_prompts(np, mcfg.vocab_size, sh.prompt_lens, 23), sh.max_tokens)
+    groups = _traces(load_spans([trace_file]))
+    roots_b = _roots(groups, t_b)
+    assert len(roots_b) == len(prompts), len(roots_b)
+    fp_b = fingerprint_from_spans([s for tid, _ in roots_b.values() for s in groups[tid]])
+    assert fp_b.digest() == live_digest, (fp_b.to_dict(), live_digest)
+    log(f"[observe] {smi}: (b) the live fingerprint's digest {live_digest[:16]} = the trace "
+        f"file's (fingerprint_from_spans) = the second run's ({wall_b:.3f} s, "
+        f"{eng.metrics()['preempted']} preempted in all)")
+
+    # (d) The profiler, around a small burst whose keys are captured:
+    # each run has new prompts of the same lengths (no prefix to reuse,
+    # in the pool or the host tier), one request after another, so it
+    # replays the first run's graphs and captures none. (Admission is
+    # not held here: a pause stops and restarts the loop and copy
+    # threads, and a trace across one recorded no CUDA kernel at all on
+    # an H100, cause not found.)
+    await run_burst(_p13_prompts(np, mcfg.vocab_size, sh.profile_lens, 29), sh.profile_tokens,
+                    one_by_one=True)
+    graphs0 = eng.metrics()["graphs_captured"]
+    # The process's first trace starts CUPTI, which takes seconds: a
+    # burst sent meanwhile ends before the recording begins. A short
+    # trace first, timed.
+    t0 = time.perf_counter()
+    first = await asyncio.to_thread(profiler.capture_trace, files["capture"] + "_first", 100,
+                                    sh.device)
+    first_s = time.perf_counter() - t0
+    log(f"[observe] {smi}: (d) the process's first trace, a 100 ms window: {first_s:.3f} s "
+        f"from the call to its return ({first.seconds:.3f} s between start and stop)")
+    traced = {}
+
+    async def profiled(tag, start, seed):
+        task = asyncio.ensure_future(start())
+        await asyncio.sleep(sh.profile_lead_s)
+        before = dict(tra.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        await run_burst(_p13_prompts(np, mcfg.vocab_size, sh.profile_lens, seed),
+                        sh.profile_tokens, one_by_one=True)
+        dt = time.perf_counter() - t0
+        kernels = await task
+        delta = {k: tra.KERNEL_LAUNCHES[k] - before[k] for k in before}
+        count = {name: sum(n for k, n in kernels.items() if name in k)
+                 for name in ("mixed_tc_kernel", "decode_split_kernel")}
+        if sh.device == "cuda":
+            assert count["mixed_tc_kernel"] > 0 and count["decode_split_kernel"] > 0, (
+                tag, sorted(kernels)[:20])
+        traced[tag] = dict(kernels=count, launches=delta, burst_s=dt)
+        log(f"[observe] {smi}: (d) {tag}: traced kernels {count} against the launch counters' "
+            f"delta {delta} over the {dt:.3f} s burst")
+
+    async def by_call():
+        cap = await asyncio.to_thread(profiler.capture_trace, files["capture"], sh.profile_ms,
+                                      sh.device)
+        assert os.path.exists(cap.path), cap.path
+        return dict(cap.kernels)
+
+    async def by_listener():
+        import urllib.request
+
+        def get():
+            with urllib.request.urlopen(f"http://127.0.0.1:{prof_port}/capture?duration_ms="
+                                        f"{sh.profile_ms}", timeout=sh.profile_ms / 1e3 + 300) as r:
+                return json.loads(r.read())
+
+        doc = await asyncio.to_thread(get)
+        assert os.path.exists(doc["trace_file"]), doc
+        return doc["kernels"]
+
+    await profiled("capture_trace", by_call, 31)
+    await profiled("--profiler-port listener", by_listener, 37)
+    graphs1 = eng.metrics()["graphs_captured"]
+    assert graphs1 == graphs0, f"(d) {graphs1 - graphs0} graphs captured while profiling"
+    log(f"[observe] {smi}: (d) graphs captured while profiling: {graphs1 - graphs0}")
+
+    # (e) llmctl on this phase's own trace file and flight dump.
+    with eng.hold_admission():
+        eng._dump_flight("smoke")
+    tid = worst.trace_id
+    why = await llmctl("trace", tid, "--trace-file", trace_file, "--why")
+    assert why.returncode == 0 and f"request {worst.request_id}" in why.stdout, why
+    slow = await llmctl("slow", "--trace-file", trace_file, "-n", "40")
+    assert slow.returncode == 0 and worst.request_id[:28] in slow.stdout, slow
+    fpr = await llmctl("fingerprint", trace_file, "--json", "--ref", files["ref.json"])
+    assert fpr.returncode == 0 and "drift vs" in fpr.stdout, fpr
+    doc = json.loads(fpr.stdout[: fpr.stdout.index("drift vs")])
+    assert doc["digest"] == eng.metrics()["workload_fingerprint"], doc["digest"]
+    flight = await llmctl("flight", files["flight.jsonl"], "--why")
+    all_rids = set(_roots(_traces(load_spans([trace_file]))))
+    named = [rid for rid in all_rids if f"request {rid}" in flight.stdout]
+    assert flight.returncode == 0 and named, flight
+    audit = await llmctl("audit", files["flight.jsonl"])
+    assert audit.returncode == 0 and "CONSERVED" in audit.stdout, audit
+    log(f"[observe] {smi}: (e) llmctl trace {tid[:8]}.. --why names request "
+        f"{worst.request_id} (dominant {worst.dominant}); slow lists it; fingerprint --json "
+        f"--ref: digest {doc['digest'][:16]} = the live one, {fpr.stdout.strip().splitlines()[-1]}"
+        f"; flight --why explains {len(named)} requests of the dump; audit: conserved")
+    print(why.stdout, end="", flush=True)
+    return dict(a=dict(wall_s=wall_a, shares=shares, sum_err=sum_err, live_err=live_err,
+                       tap_s=tap_s, tap_calls=tap_calls, swapped_out=m["swapped_out"],
+                       preempted=m["preempted"]),
+                digest=live_digest, drift_low=low, drift_high=high, profile=traced,
+                first_trace_s=first_s)
+
+
+def _family_values_one(values: dict, name: str) -> float:
+    """The one sample of an unlabelled family."""
+    (v,) = [v for k, v in values.items() if k[0] == name]
+    return v
 
 
 def main() -> int:
@@ -4374,6 +4948,8 @@ def main() -> int:
     log(f"[phase11] in {p11['wall_s']:.1f} s")
     p12 = phase12(torch, np, pkg, tra, smi)
     log(f"[phase12] in {p12['wall_s']:.1f} s")
+    p13 = phase13(torch, np, pkg, tra, smi)
+    log(f"[phase13] in {p13['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -4411,6 +4987,7 @@ def main() -> int:
             "launches_disagg_prefill": p12["designs_prefill"][design],
             "launches_disagg_decode": p12["designs_decode"][design],
             "launches_reclaim": p12["designs_reclaim"][design],
+            "launches_observability": p13["designs"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

@@ -99,8 +99,22 @@ stream's side stream into pinned memory with one sync per sequence;
 injects go through the same pinned staging and host -> device leg as
 the host tier's uploads. None runs inside a captured graph.
 
-Left out (ROADMAP): the persistent KV tier, partial-tail copy-on-write
-and the request anatomy.
+Request anatomy and workload fingerprint (``telemetry/anatomy.py``,
+``fingerprint.py``), at the JAX engine's tap sites: admission closes a
+request's queue wait (or its preemption requeue) and feeds the live
+fingerprint, the first token closes its prefill and books the
+profiler's first-use capture seconds since admission as its compile
+stall (``compile_s`` on the ``prefill`` span), swap and stall windows
+close into its swap stall, and the scheduler's finish tap assembles the
+anatomy (``anatomy_from_timing``) into per-component totals
+(``dynamo_request_seconds{component}``) and a worst-N exemplar ring
+(``metrics()["anatomy_slow"]``). ``DYN_WORKLOAD_REF`` pins a reference
+fingerprint that ``metrics()`` scores live traffic against
+(``dynamo_workload_drift_score``).
+Every tap reads host clocks and counters only: none syncs the card.
+
+Left out (ROADMAP): the persistent KV tier and partial-tail
+copy-on-write.
 """
 
 from __future__ import annotations
@@ -108,6 +122,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import logging
+import os
 import queue
 import random
 import threading
@@ -153,6 +168,8 @@ from ..telemetry import (
     register_dumper,
     unregister_dumper,
 )
+from ..telemetry.anatomy import COMPONENTS, AnatomyRing, anatomy_from_timing
+from ..telemetry.fingerprint import FingerprintBuilder, WorkloadDriftWatch, load_fingerprint
 from ..telemetry.flight import default_dump_path
 from ..tokens import compute_block_hashes_for_seq
 from .config import EngineConfig
@@ -297,6 +314,23 @@ class TorchEngine(AsyncEngine):
         self.sched = Scheduler(cfg, self.kv, flight=self.flight)
         if self.profiler is not None:
             self.sched.span_attrs = self._decode_span_attrs
+        # Request anatomy and workload fingerprint: per-component totals
+        # over finished requests, the worst-N exemplar ring, the live
+        # fingerprint (fed at admission and finish) and its drift from a
+        # pinned reference (DYN_WORKLOAD_REF=<fingerprint.json>).
+        self.anatomy_totals: dict[str, float] = dict.fromkeys(COMPONENTS, 0.0)
+        self.anatomy_requests = 0
+        self.anatomy_ring = AnatomyRing()
+        self.fingerprint = FingerprintBuilder()
+        ref = None
+        ref_path = os.environ.get("DYN_WORKLOAD_REF", "")
+        if ref_path:
+            try:
+                ref = load_fingerprint(ref_path)
+            except (OSError, ValueError) as e:
+                log.warning("DYN_WORKLOAD_REF unreadable (%s): %s", ref_path, e)
+        self.drift_watch = WorkloadDriftWatch(self.fingerprint, ref)
+        self.sched.on_finish = self._record_anatomy
         self._last_gauge_pub = 0.0  # gauge publish throttle (monotonic)
         self._last_reap = 0.0  # waiting-queue reap throttle (monotonic)
         # Watchdog progress: bumped by every loop iteration that did work
@@ -750,6 +784,19 @@ class TorchEngine(AsyncEngine):
 
         m["kv_wire_checksum_failures"] = wire_checksum_failures()
         m["build_info"] = dict(self._build_info)
+        # Request anatomy and workload fingerprint: component totals over
+        # finished requests, the worst-N exemplars (``llmctl slow``), the
+        # live fingerprint's digest and its drift from the pinned
+        # reference (0.0 without one).
+        m["anatomy_totals"] = {k: round(v, 6) for k, v in self.anatomy_totals.items()}
+        m["anatomy_requests"] = self.anatomy_requests
+        m["anatomy_slow"] = self.anatomy_ring.snapshot()
+        fp = self.fingerprint.snapshot()
+        m["workload_fingerprint"] = fp.digest()
+        m["workload_requests"] = fp.n
+        drift = self.drift_watch.score()
+        m["workload_drift_score"] = drift
+        get_telemetry().workload_drift_score.set(drift)
         return m
 
     # ---------------------------------------------------- flight / profiling
@@ -984,6 +1031,21 @@ class TorchEngine(AsyncEngine):
         can read them) and attribute the prefetched pages it attached."""
         now = time.time()
         seq.admitted_at = now
+        # Anatomy: a first admission closes the queue wait, a re-admission
+        # after preemption the requeue wait; the profiler's capture-seconds
+        # total is marked for the first token's compile stall. The
+        # fingerprint counts first admissions only (a continuation is the
+        # same request).
+        if seq.anat_preempted_at:
+            seq.anat_preempt_s += max(now - seq.anat_preempted_at, 0.0)
+            seq.anat_preempted_at = 0.0
+        else:
+            if seq.submitted_at:
+                seq.anat_queue_s += max(now - seq.submitted_at, 0.0)
+            self.fingerprint.observe_admit(
+                len(seq.prompt), seq.cached_len, seq.priority, seq.submitted_at or now)
+        if self.profiler is not None:
+            seq.anat_compile_mark = self.profiler.compile_total_s()
         tel = get_telemetry()
         if seq.request_id in self._prefetch_inflight:
             tel.kv_prefetch_pages.labels("late").inc()
@@ -1003,6 +1065,70 @@ class TorchEngine(AsyncEngine):
             tel.emit_stage("queue_wait", seq.submitted_at, now, seq.trace,
                            prompt_tokens=len(seq.prompt))
         self._apply_uploads(seq)
+
+    # ------------------------------------------------------ request anatomy
+    def _record_anatomy(self, seq: Sequence, reason, now: float, was_bound: bool) -> None:
+        """The scheduler's finish tap: close the sequence's open anatomy
+        segments, assemble its anatomy from the loop-stamped sums (host
+        arithmetic only) and feed the component totals, the exemplar
+        ring and the fingerprint. A prefill worker's extract sequence is
+        an internal sub-request: its time shows in the client request's
+        remote prefill and transfer spans."""
+        if seq.extract_cb is not None:
+            return
+        if seq.anat_preempted_at:
+            # Finished in preemption limbo (cancelled while requeued).
+            seq.anat_preempt_s += max(now - seq.anat_preempted_at, 0.0)
+            seq.anat_preempted_at = 0.0
+        elif was_bound:
+            if seq.first_token_at:
+                seq.anat_decode_s += max(now - seq.first_token_at, 0.0)
+            elif seq.admitted_at:
+                seq.anat_prefill_s += max(now - seq.admitted_at, 0.0)
+            if seq.swapped_since:
+                seq.anat_swap_s += max(now - seq.swapped_since, 0.0)
+            elif seq.stalled_since:
+                seq.anat_swap_s += max(now - seq.stalled_since, 0.0)
+            if seq.admitted_at:
+                seq.anat_page_s += len(seq.page_ids) * max(now - seq.admitted_at, 0.0)
+        resumed = seq.stop.resume_offset or 0
+        generated = resumed + seq.generated
+        ttft = None
+        if seq.first_token_at and not seq.preemptions and seq.submitted_at:
+            ttft = max(seq.first_token_at - seq.submitted_at, 0.0)
+        itl = None
+        if seq.first_token_at and seq.generated > 1:
+            itl = max(now - seq.first_token_at, 0.0) / (seq.generated - 1)
+        a = anatomy_from_timing(
+            seq.request_id,
+            queue_s=seq.anat_queue_s,
+            prefill_s=seq.anat_prefill_s,
+            decode_s=seq.anat_decode_s,
+            compile_s=seq.anat_compile_s,
+            swap_s=seq.anat_swap_s,
+            preempt_s=seq.anat_preempt_s,
+            gap_frac=(self.profiler.host_gap_fraction("window")
+                      if self.profiler is not None else 0.0),
+            edge_latency_s=max(now - seq.submitted_at, 0.0) if seq.submitted_at else 0.0,
+            ttft_s=ttft,
+            itl_s=itl,
+            prompt_tokens=max(len(seq.prompt) - resumed, 0),
+            generated_tokens=generated,
+            priority=seq.priority,
+            page_seconds=seq.anat_page_s,
+        )
+        self.anatomy_requests += 1
+        tel = get_telemetry()
+        for comp, v in a.components.items():
+            if v > 0:
+                self.anatomy_totals[comp] += v
+                tel.request_seconds.labels(comp).inc(v)
+        self.anatomy_ring.offer(a)
+        self.fingerprint.observe_finish(
+            generated,
+            round(seq.spec_emitted_tokens / seq.spec_dispatches, 4)
+            if seq.spec_dispatches else 0.0,
+        )
 
     # ------------------------------------------------------- KV pressure
     def _kv_pressure(self) -> bool:
@@ -1116,6 +1242,10 @@ class TorchEngine(AsyncEngine):
         victim.page_ids = [pid for kind, pid in entries if kind == "kept"]
         victim.swap = record
         victim.swapped_since = time.time()
+        # A stalled victim now waits in the host tier: its open stall
+        # window rolls into the swap stall, and the swap window starts.
+        if victim.stalled_since:
+            victim.anat_swap_s += max(victim.swapped_since - victim.stalled_since, 0.0)
         victim.stalled = False
         victim.stalled_since = 0.0
         self.swapped_out += 1
@@ -1192,6 +1322,8 @@ class TorchEngine(AsyncEngine):
                 self._inject_page_batch(inj, k_st, v_st, op="swap_in")
             seq.page_ids = new_ids
             seq.swap = None
+            if seq.swapped_since:  # anatomy: the swap window closed
+                seq.anat_swap_s += max(time.time() - seq.swapped_since, 0.0)
             seq.swapped_since = 0.0
             self.swapped_in += 1
             get_telemetry().kv_swap_ins.inc()
@@ -1737,8 +1869,11 @@ class TorchEngine(AsyncEngine):
                         self.flight.record("stall_start", req=seq.request_id, slot=seq.slot)
                 continue  # pool dry: the row sits this iteration out
             seq.stalled = len(seq.page_ids) * ps < min(wpos + K, cfg.max_model_len)
-            if seq.stalled_since and self.flight is not None:
-                self.flight.record("stall_end", req=seq.request_id, slot=seq.slot)
+            if seq.stalled_since:
+                # Anatomy: the page stall closed.
+                seq.anat_swap_s += max(time.time() - seq.stalled_since, 0.0)
+                if self.flight is not None:
+                    self.flight.record("stall_end", req=seq.request_id, slot=seq.slot)
             seq.stalled_since = 0.0  # progressing (even if window-capped)
             parts[self._needs_sampler(seq)].append((seq, wpos, cap))
         spec_parts: dict[bool, list] = {False: [], True: []}
@@ -2543,11 +2678,20 @@ class TorchEngine(AsyncEngine):
         seq.first_token_at = seq.last_emit_at = now
         tel = get_telemetry()
         start = seq.admitted_at or seq.submitted_at or now
-        tel.prefill_compute.observe(max(now - start, 0.0))
+        prefill_s = max(now - start, 0.0)
+        tel.prefill_compute.observe(prefill_s)
+        # Anatomy: close this life's prefill, and book the first-use
+        # capture seconds since admission as its compile stall.
+        seq.anat_prefill_s += prefill_s
+        compile_s = 0.0
+        if self.profiler is not None:
+            compile_s = max(self.profiler.compile_total_s() - seq.anat_compile_mark, 0.0)
+            seq.anat_compile_s += min(compile_s, prefill_s)
         tel.emit_stage(
             "prefill", start, now, seq.trace, prompt_tokens=len(seq.prompt),
             cached_tokens=seq.cached_len, remote=seq.remote_prefilled or None,
             resumed_tokens=seq.stop.resume_offset or None,
+            compile_s=round(compile_s, 6) if compile_s else None,
             **(self.profiler.span_attrs("mixed") if self.profiler is not None else {}),
         )
         if self.flight is not None:

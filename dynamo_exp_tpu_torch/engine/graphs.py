@@ -52,6 +52,10 @@ from ..ops import ragged_attention as tra
 
 log = logging.getLogger(__name__)
 
+# Held for every capture: ``runtime/profiler.py`` starts and stops a
+# trace only under it, so a profile's allocations never land inside one.
+CAPTURE_LOCK = threading.Lock()
+
 
 # Host array dtype -> the device tensor's, for the views of an upload.
 TORCH_DTYPES = {
@@ -116,6 +120,7 @@ class CudaGraphRunner:
         # invalidates the capture (seen on an H100 as
         # CUBLAS_STATUS_EXECUTION_FAILED in the next GEMM).
         collecting = gc.isenabled()
+        CAPTURE_LOCK.acquire()
         gc.disable()
         try:
             with torch.cuda.stream(self.stream):
@@ -140,6 +145,7 @@ class CudaGraphRunner:
         finally:
             if collecting:
                 gc.enable()
+            CAPTURE_LOCK.release()
         current.wait_stream(self.stream)
         return g
 

@@ -20,7 +20,12 @@ instead of prefilled; a sequence with ``extract_cb`` (a prefill
 worker's) hands its prompt pages to the callback at its first token and
 is exempt from preemption and swap-out.
 
-Left out (ROADMAP): the request-anatomy accumulators (Queue 1).
+Request anatomy (``telemetry/anatomy.py``): a sequence carries the JAX
+scheduler's ``anat_*`` accumulators, host clock sums that survive
+preemption; :meth:`Scheduler.preempt` closes its open segments, and
+:meth:`Scheduler.finish` puts the swap and stall seconds on the decode
+span (``swap_stall_s``) and calls the engine's ``on_finish`` tap before
+the pages are released.
 """
 
 from __future__ import annotations
@@ -138,6 +143,24 @@ class Sequence:
     remote_prefilled: bool = False
     extract_cb: Callable[[int, list, str], None] | None = None
     extract_skip: int = 0
+    # Request anatomy: host wall-time sums over the request's whole life
+    # (preemption resets decode state, never these): first-admission
+    # queue wait, prefill and decode wall per life, first-use capture
+    # stall inside prefill, swap and stall windows inside decode,
+    # preempt -> re-admit requeue time, and the page-residency integral
+    # (pages x slot-resident wall, booked at each preempt and finish).
+    # anat_compile_mark holds the profiler's capture-seconds total at
+    # admission; anat_preempted_at the last preempt's time (0 = not
+    # preempted now).
+    anat_queue_s: float = 0.0
+    anat_prefill_s: float = 0.0
+    anat_decode_s: float = 0.0
+    anat_compile_s: float = 0.0
+    anat_swap_s: float = 0.0
+    anat_preempt_s: float = 0.0
+    anat_page_s: float = 0.0
+    anat_compile_mark: float = 0.0
+    anat_preempted_at: float = 0.0
 
     @property
     def pos(self) -> int:
@@ -185,6 +208,9 @@ class Scheduler:
         # Set by the engine: () -> dispatch-profiler attrs for the
         # decode span.
         self.span_attrs: Callable[[], dict] | None = None
+        # Set by the engine: (seq, reason, now, was_bound) -> None, called
+        # at finish before the pages are released (the anatomy tap).
+        self.on_finish: Callable | None = None
         # Footprint-packed admission; None = plain first-fit FIFO.
         self.forecast = KvFootprintForecast(kv, cfg) if cfg.kv_packing else None
 
@@ -384,6 +410,7 @@ class Scheduler:
                 ),
                 pages=len(seq.page_ids),
                 priority=seq.priority,
+                swap_stall_s=round(seq.anat_swap_s, 6) if seq.anat_swap_s else None,
                 **(self.span_attrs() if self.span_attrs is not None else {}),
             )
         if self.flight is not None:
@@ -392,6 +419,10 @@ class Scheduler:
                 reason=getattr(reason, "value", str(reason)), generated=seq.generated,
                 pages=len(seq.page_ids), priority=seq.priority,
             )
+        # The anatomy tap, with the pages still counted and the decode
+        # span's ``now``.
+        if self.on_finish is not None:
+            self.on_finish(seq, reason, now, was_bound)
         seq.state = SeqState.FINISHED
         if seq.slot >= 0 and was_bound:
             self.slots[seq.slot] = None
@@ -417,6 +448,21 @@ class Scheduler:
         uninterrupted one; the client's stream only ever sees tokens
         past the splice, and its usage stays the original request's."""
         k = seq.generated
+        now = time.time()
+        # Anatomy: close this life's decode (or prefill) segment and any
+        # open swap or stall window, book the page residency of the pages
+        # about to go, and mark the requeue wait as preemption.
+        if seq.first_token_at:
+            seq.anat_decode_s += max(now - seq.first_token_at, 0.0)
+        elif seq.admitted_at:
+            seq.anat_prefill_s += max(now - seq.admitted_at, 0.0)
+        if seq.swapped_since:
+            seq.anat_swap_s += max(now - seq.swapped_since, 0.0)
+        elif seq.stalled_since:
+            seq.anat_swap_s += max(now - seq.stalled_since, 0.0)
+        if seq.admitted_at:
+            seq.anat_page_s += len(seq.page_ids) * max(now - seq.admitted_at, 0.0)
+        seq.anat_preempted_at = now
         if self.flight is not None:
             self.flight.record(
                 "preempt", req=seq.request_id, slot=seq.slot, generated=k,

@@ -45,7 +45,12 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
 - ``--max-inflight`` / ``--shed-watermark`` (admission control at the
   HTTP edge: 429 / 503 with ``Retry-After``), ``--slo-ttft-ms`` /
   ``--slo-itl-ms`` (SLO attribution on ``/metrics``) and
-  ``--trace-file`` (request spans as JSONL), as in the JAX CLI. Logging
+  ``--trace-file`` (request spans as JSONL; ``DYN_TRACE_FILE=<path>``
+  records each process to ``<path>.pid<pid>``), as in the JAX CLI.
+  ``DYN_WORKLOAD_REF`` pins the engine's reference fingerprint for the
+  drift gauge. ``--profiler-port N`` serves on-demand ``torch.profiler``
+  captures (``runtime/profiler.py``: ``GET /capture?duration_ms=M`` on
+  that port), where the JAX CLI serves ``jax.profiler``. Logging
   follows ``DYN_LOG`` / ``DYN_LOGGING_JSONL``; SIGUSR1 dumps every
   engine's flight recorder (``telemetry/flight.py``).
 
@@ -86,7 +91,6 @@ NOT_PORTED_FLAGS = {
     "--dist-port": "ROADMAP Queue 1 item 7",
     "--deployment": "ROADMAP Queue 1 item 7",
     "--request-template": f"{_ITEM9}(c)",
-    "--profiler-port": "ROADMAP Queue 1, 'also still outside the port' (runtime/profiler.py)",
     "--echo-token-delay-ms": f"{_ITEM9}(i)",
 }
 
@@ -164,6 +168,9 @@ def parse_args(argv: list[str]):
                    help="time-to-first-token SLO target in ms (0 = not an SLO)")
     p.add_argument("--slo-itl-ms", type=float, default=0.0,
                    help="inter-token-latency SLO target in ms (0 = not an SLO)")
+    p.add_argument("--profiler-port", type=int, default=0,
+                   help="serve torch.profiler captures on this port (GET "
+                   "/capture?duration_ms=N writes a Chrome trace); 0 = off")
     p.add_argument("--trace-file", default="",
                    help="record request span telemetry to this JSONL file")
     p.add_argument("--device", default="cuda",
@@ -578,6 +585,10 @@ async def main_async(opts, ready: asyncio.Future | None = None) -> None:
         from .telemetry import get_telemetry
 
         get_telemetry().configure(opts.trace_file)
+    if opts.profiler_port:
+        from .runtime.profiler import start_profiler_server
+
+        start_profiler_server(opts.profiler_port, device=opts.device)
     needs_cluster = opts.input.startswith("dyn://") or opts.output.startswith("dyn://")
     if needs_cluster and not opts.coordinator:
         raise SystemExit("dyn:// endpoints need --coordinator (or DYN_COORDINATOR)")
@@ -603,6 +614,10 @@ async def main_async(opts, ready: asyncio.Future | None = None) -> None:
                 if kv_router is not None:
                     await kv_router.stop()
     finally:
+        if opts.profiler_port:
+            from .runtime.profiler import stop_profiler_server
+
+            stop_profiler_server()
         if torch_engine is not None:
             t0 = time.monotonic()
             torch_engine.stop()

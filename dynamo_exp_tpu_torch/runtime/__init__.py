@@ -3,9 +3,10 @@ engines and contexts, the component model, discovery and the request
 planes, routing with health, retries and resumable streams.
 
 ``reclaim.py`` is the spot-reclaim plane (triage and live KV
-migration). Waits for a later slice (ROADMAP Queue 1): ``pool.py``, the
-pipeline node graph beyond ``Operator`` / ``build_pipeline``,
-``profiler.py`` and ``transports/chaos.py``.
+migration); ``profiler.py`` the ``torch.profiler`` capture hooks and
+their ``--profiler-port`` listener. Waits for a later slice (ROADMAP
+Queue 1): ``pool.py``, the pipeline node graph beyond ``Operator`` /
+``build_pipeline`` and ``transports/chaos.py``.
 """
 
 from .annotated import Annotated

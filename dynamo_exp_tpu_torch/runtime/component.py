@@ -320,6 +320,10 @@ class ServedInstance:
         # inside the grace window. None = metadata-only reclaim (routers
         # stop sending; in-flight streams ride the journal failover).
         self.on_reclaim = None
+        # The running triage of the first notice: a later notice (the
+        # platform's SIGTERM after an operator's ``llmctl reclaim``)
+        # waits for it instead of returning while it runs.
+        self._reclaim_run: asyncio.Future | None = None
 
     @property
     def instance_id(self) -> int:
@@ -417,9 +421,17 @@ class ServedInstance:
         ``reclaiming`` (and ``draining``, so every legacy gate holds) in
         its discovery metadata — routers and the KV aggregator stop
         sending work within one watch event — then hand the grace
-        window to :attr:`on_reclaim` for in-flight triage."""
-        if self.info.metadata.get("reclaiming"):
-            return
+        window to :attr:`on_reclaim` for in-flight triage. A notice
+        while reclaiming returns once the first notice's republish and
+        triage have run (shielded: cancelling a waiter, or the watch
+        task that started it, never cuts the triage)."""
+        if self._reclaim_run is None:
+            if self.info.metadata.get("reclaiming"):
+                return
+            self._reclaim_run = asyncio.ensure_future(self._reclaim(grace_s))
+        await asyncio.shield(self._reclaim_run)
+
+    async def _reclaim(self, grace_s: float) -> None:
         from ..telemetry import get_telemetry
 
         self.info.metadata = {

@@ -1,14 +1,26 @@
-"""Request tracing, metric families, SLO attribution, the flight recorder
-and per-dispatch profiling (counterpart of ``dynamo_exp_tpu/telemetry/``,
-trimmed to the parts the port feeds; ``prom.py`` stands in for
-``prometheus_client``).
+"""Request tracing, metric families, SLO attribution, the flight recorder,
+per-dispatch profiling, the request anatomy and the workload
+fingerprint (counterpart of ``dynamo_exp_tpu/telemetry/``; ``prom.py``
+stands in for ``prometheus_client``).
 
 ``fleet.py`` holds the per-link transfer ledger and the fleet view;
-``fingerprint.py`` only its drift threshold. Waits for a later slice
-(ROADMAP Queue 1): ``anatomy.py``, the rest of ``fingerprint.py``,
-``timeline.py`` and ``bench_compare.py``.
+``anatomy.py`` splits a request's wall into components (from spans, a
+flight dump, or the engine's own stamps); ``fingerprint.py`` summarizes
+a workload into a digest and scores its drift; ``timeline.py`` reads
+span files back into traces; ``bench_compare.py`` compares two bench
+captures.
 """
 
+from .anatomy import (
+    COMPONENTS,
+    AnatomyRing,
+    RequestAnatomy,
+    anatomy_from_flight,
+    anatomy_from_spans,
+    anatomy_from_timing,
+    render_anatomy,
+    render_slow,
+)
 from .context import (
     TraceContext,
     attach,
@@ -20,6 +32,18 @@ from .context import (
     wire_headers,
 )
 from .dispatch import DISPATCH_KINDS, DispatchProfiler
+from .fingerprint import (
+    FingerprintBuilder,
+    WorkloadDriftWatch,
+    WorkloadFingerprint,
+    drift_score,
+    fingerprint_from_bench,
+    fingerprint_from_spans,
+    fingerprint_from_trace,
+    load_fingerprint,
+    render_fingerprint,
+    replay_workload,
+)
 from .flight import (
     FlightRecorder,
     Watchdog,
@@ -33,38 +57,68 @@ from .flight import (
 from .prom import CONTENT_TYPE_LATEST, Counter, Gauge, Histogram, Registry
 from .slo import BURN_WINDOWS, SloAttribution, SloConfig, percentile
 from .spans import Span, Telemetry, adopt, get_telemetry, span
+from .timeline import (
+    find_trace,
+    list_traces,
+    load_spans,
+    render_timeline,
+    transfer_hops,
+)
 
 __all__ = [
+    "AnatomyRing",
     "BURN_WINDOWS",
+    "COMPONENTS",
     "CONTENT_TYPE_LATEST",
-    "DISPATCH_KINDS",
     "Counter",
+    "DISPATCH_KINDS",
     "DispatchProfiler",
+    "FingerprintBuilder",
     "FlightRecorder",
     "Gauge",
     "Histogram",
     "Registry",
+    "RequestAnatomy",
     "SloAttribution",
     "SloConfig",
     "Span",
     "Telemetry",
     "TraceContext",
     "Watchdog",
+    "WorkloadDriftWatch",
+    "WorkloadFingerprint",
     "adopt",
+    "anatomy_from_flight",
+    "anatomy_from_spans",
+    "anatomy_from_timing",
     "attach",
     "current_span_id",
     "current_trace",
     "current_trace_id",
     "detach",
+    "drift_score",
     "dump_all",
+    "find_trace",
+    "fingerprint_from_bench",
+    "fingerprint_from_spans",
+    "fingerprint_from_trace",
     "get_telemetry",
     "install_sigusr1",
+    "list_traces",
     "load_dumps",
+    "load_fingerprint",
+    "load_spans",
     "new_trace",
     "percentile",
     "register_dumper",
+    "render_anatomy",
+    "render_fingerprint",
     "render_flight",
+    "render_slow",
+    "render_timeline",
+    "replay_workload",
     "span",
+    "transfer_hops",
     "unregister_dumper",
     "wire_headers",
 ]

@@ -149,6 +149,22 @@ class DispatchProfiler:
         the gap references so wait time never reads as host gap."""
         self._last_consume.clear()
 
+    def compile_total_s(self) -> float:
+        """First-use capture seconds over all kinds; the anatomy marks it
+        at admission and books the growth at first token as the
+        request's compile stall."""
+        return sum(self._compile_s.values())
+
+    def host_gap_fraction(self, kind: str) -> float:
+        """Median host-gap share of one ``kind`` dispatch interval,
+        gap / (gap + in-flight), in [0, 1]; 0.0 before a sample. The
+        anatomy carves host_gap out of decode compute with it."""
+        flight = self._p(self._flight[kind], 0.5)
+        if flight is None:
+            return 0.0
+        gap = self._p(self._gap[kind], 0.5) or 0.0
+        return gap / (gap + flight) if (gap + flight) > 0 else 0.0
+
     # ------------------------------------------------------------- summary
     @staticmethod
     def _p(samples, q) -> float | None:

@@ -2,9 +2,11 @@
 
 Counterpart of ``dynamo_exp_tpu/telemetry/spans.py``. Every finished
 span goes to the ``dynamo_stage_duration_seconds{stage}`` histogram and,
-when ``configure(trace_file)`` set one, to a JSONL file (one ``{"ts",
-"event"}`` line a span, rotated at 64 MiB keeping 4 older files,
-flushed at exit). The hub's registry (``telemetry/prom.py``, in place of
+when ``configure(trace_file)`` set one, to a JSONL file through
+``recorder.Recorder`` (one ``{"ts", "event"}`` line a span, rotated at
+64 MiB keeping 4 older files; flushed at exit). ``DYN_TRACE_FILE=<path>``
+makes each process record to ``<path>.pid<pid>``, which
+``telemetry/timeline.py`` reads back with the path. The hub's registry (``telemetry/prom.py``, in place of
 ``prometheus_client``) holds the families the port feeds, with the JAX
 package's names, labels and buckets:
 
@@ -25,10 +27,14 @@ package's names, labels and buckets:
   reclaims; the reclaim plane (``runtime/reclaim.py``): migrated pages
   and triage seconds; the link ledger (``telemetry/fleet.py``).
 
+- the request anatomy's per-component seconds
+  (``dynamo_request_seconds{component}``, ``telemetry/anatomy.py``) and
+  the live workload's drift from a pinned reference
+  (``dynamo_workload_drift_score``, ``telemetry/fingerprint.py``).
+
 Left out, with the modules that feed them (ROADMAP Queue 1): the G3
 store (its pages, quarantines and ``path="store"`` checksums), copy-on-
-write, the ledger auditor, config swaps, workload drift and
-``dynamo_request_seconds`` (fed by ``telemetry/anatomy.py``).
+write, the ledger auditor and config swaps.
 
 Gauge writes and span emission are thread-safe: the engine loop thread
 emits with the ``TraceContext`` captured at submission.
@@ -38,7 +44,6 @@ from __future__ import annotations
 
 import atexit
 import contextlib
-import json
 import logging
 import os
 import socket
@@ -47,6 +52,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..recorder import Recorder
 from .context import TraceContext, attach, current_trace, detach, new_trace
 from .prom import Counter, Gauge, Histogram, Registry
 
@@ -114,39 +120,17 @@ class Span:
             "attrs": self.attrs,
         }
 
-
-class _Recorder:
-    """Append-only JSONL span file, ``{"ts": end, "event": span}`` a line,
-    rotated at ``max_bytes`` keeping ``max_files`` older generations
-    (``path.1`` …), as ``dynamo_exp_tpu/recorder.py``'s ``Recorder``."""
-
-    def __init__(self, path: str, max_bytes: int, max_files: int):
-        self.path = path
-        self.max_bytes = max_bytes
-        self.max_files = max_files
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self._fh = open(path, "a", encoding="utf-8")
-
-    def record(self, event: dict, ts: float) -> None:
-        self._fh.write(json.dumps({"ts": ts, "event": event}) + "\n")
-        self._fh.flush()
-        if self._fh.tell() >= self.max_bytes:
-            self._rotate()
-
-    def _rotate(self) -> None:
-        self._fh.close()
-        oldest = f"{self.path}.{self.max_files}"
-        if os.path.exists(oldest):
-            os.remove(oldest)
-        for i in range(self.max_files - 1, 0, -1):
-            src = f"{self.path}.{i}"
-            if os.path.exists(src):
-                os.replace(src, f"{self.path}.{i + 1}")
-        os.replace(self.path, f"{self.path}.1")
-        self._fh = open(self.path, "a", encoding="utf-8")
-
-    def close(self) -> None:
-        self._fh.close()
+    @classmethod
+    def from_event(cls, d: dict) -> "Span":
+        return cls(
+            stage=d.get("stage", "?"),
+            trace_id=d.get("trace_id", ""),
+            span_id=d.get("span_id", ""),
+            parent_span_id=d.get("parent_span_id", ""),
+            start=float(d.get("start", 0.0)),
+            end=float(d.get("end", 0.0)),
+            attrs=d.get("attrs", {}) or {},
+        )
 
 
 class Telemetry:
@@ -155,7 +139,7 @@ class Telemetry:
     def __init__(self, registry: Registry | None = None):
         self.registry = registry or Registry()
         r = self.registry
-        self._recorder: _Recorder | None = None
+        self._recorder: Recorder | None = None
         self._rec_lock = threading.Lock()
         self._atexit_registered = False
         # Instance identity stamped on every span.
@@ -431,12 +415,28 @@ class Telemetry:
             "Completed requests that met every configured SLO target",
             ["priority"], registry=r,
         )
+        # The request anatomy's component totals and the live-vs-pinned
+        # workload drift (telemetry/anatomy.py, fingerprint.py).
+        self.request_seconds = Counter(
+            "dynamo_request_seconds",
+            "Request wall time decomposed by anatomy component "
+            "(telemetry/anatomy.py COMPONENTS) — summed across "
+            "finished requests",
+            ["component"], registry=r,
+        )
         self.slo_burn_rate = Gauge(
             "dynamo_slo_burn_rate",
             "Fraction of recent requests breaching each SLO axis, per "
             "burn window (fast=last 64, slow=last 1024 completed "
             "requests)",
             ["slo", "window"], registry=r,
+        )
+        self.workload_drift_score = Gauge(
+            "dynamo_workload_drift_score",
+            "Normalized [0,1] distance between the live workload "
+            "fingerprint and the pinned reference (DYN_WORKLOAD_REF); "
+            "0 when no reference is pinned",
+            registry=r,
         )
         self.build_info = Gauge(
             "dynamo_build_info",
@@ -449,17 +449,31 @@ class Telemetry:
 
     # ------------------------------------------------------------ recorder
     def configure(self, trace_file: str | None) -> None:
-        """Record spans to ``trace_file`` (None disables); an exit hook
-        closes it."""
+        """Record spans to ``trace_file`` (None disables), rotated as
+        ``Recorder``'s defaults say; an exit hook closes it."""
         with self._rec_lock:
             if self._recorder is not None:
                 self._recorder.close()
                 self._recorder = None
             if trace_file:
-                self._recorder = _Recorder(trace_file, max_bytes=64 << 20, max_files=4)
+                self._recorder = Recorder(trace_file)
                 if not self._atexit_registered:
                     self._atexit_registered = True
                     atexit.register(self._flush_at_exit)
+
+    def configure_from_env(self) -> None:
+        """Honour ``DYN_TRACE_FILE``: every process sharing it records to
+        ``<path>.pid<pid>`` (two writers rotating one file would clobber
+        each other's generations); ``timeline.load_spans(<path>)`` reads
+        the siblings with the path."""
+        path = os.environ.get("DYN_TRACE_FILE", "")
+        if path:
+            self.configure(f"{path}.pid{os.getpid()}")
+
+    @property
+    def trace_file(self) -> str | None:
+        rec = self._recorder
+        return rec.path if rec is not None else None
 
     def _flush_at_exit(self) -> None:
         with self._rec_lock:
@@ -568,12 +582,15 @@ _global_lock = threading.Lock()
 
 
 def get_telemetry() -> Telemetry:
-    """The process-wide hub (made at first use)."""
+    """The process-wide hub (made at first use; honours
+    ``DYN_TRACE_FILE``)."""
     global _global
     if _global is None:
         with _global_lock:
             if _global is None:
-                _global = Telemetry()
+                hub = Telemetry()
+                hub.configure_from_env()
+                _global = hub
     return _global
 
 

@@ -614,7 +614,8 @@ def test_graphed_and_eager_runs_record_the_same_telemetry_on_the_card(cuda, chai
         after = counts()
         timing = ("dynamo_dispatch_seconds", "dynamo_host_gap_seconds",
                   "dynamo_compile_seconds", "dynamo_compile_cache_misses",
-                  "dynamo_engine_", "dynamo_stage_duration", "dynamo_kv_")
+                  "dynamo_engine_", "dynamo_stage_duration", "dynamo_kv_",
+                  "dynamo_request_seconds")
         delta = {k: v - before.get(k, 0.0) for k, v in after.items()
                  if v != before.get(k, 0.0) and not k.startswith(timing)}
         events = [{k: v for k, v in e.items() if k != "t"} for e in eng.flight.snapshot()]

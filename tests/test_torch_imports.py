@@ -74,6 +74,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "kv_router", "kv_router.protocols", "kv_router.indexer", "kv_router.scheduler",
         "kv_router.publisher", "kv_router.metrics_aggregator", "kv_router.router",
         "local_model", "http.discovery",
+        "recorder", "telemetry.timeline", "telemetry.anatomy", "telemetry.fingerprint",
+        "telemetry.bench_compare", "sim", "sim.workload", "runtime.profiler", "llmctl",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

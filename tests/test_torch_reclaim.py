@@ -462,3 +462,41 @@ def test_unconfirmed_extract_lease_is_reaped_on_the_manager_clock():
             assert eng.kv_audit()["ok"]
     finally:
         eng.stop()
+
+
+async def test_a_second_reclaim_notice_waits_for_the_first_triage():
+    """An operator's ``llmctl reclaim`` notice, then the platform's
+    SIGTERM (a second notice): the second returns only once the first's
+    triage has run, the triage runs once, and the watch task that
+    started it dying does not cut it short."""
+    from dynamo_exp_tpu_torch.runtime import DistributedRuntime
+
+    drt = DistributedRuntime.detached()
+    try:
+        async def handler(req, ctx):
+            yield {"ok": True}
+
+        served = await drt.namespace("ns").component("w").endpoint("gen").serve_endpoint(handler)
+        runs, gate = [], asyncio.Event()
+
+        async def on_reclaim(grace_s):
+            runs.append(grace_s)
+            await gate.wait()
+            runs.append("done")
+
+        served.on_reclaim = on_reclaim
+        first = asyncio.ensure_future(served.reclaim(7.0))
+        await asyncio.sleep(0.05)
+        second = asyncio.ensure_future(served.reclaim(3.0))
+        await asyncio.sleep(0.05)
+        assert served.is_reclaiming and runs == [7.0] and not second.done()
+        first.cancel()
+        await asyncio.sleep(0.05)
+        assert not second.done()
+        gate.set()
+        await asyncio.wait_for(second, 5)
+        assert runs == [7.0, "done"]
+        await asyncio.wait_for(served.reclaim(1.0), 5)  # a third: already done
+        assert runs == [7.0, "done"]
+    finally:
+        await drt.close()

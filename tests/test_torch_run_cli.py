@@ -44,11 +44,12 @@ def test_parse_args_keeps_the_jax_cli_form():
     argv = ["in=http", "out=cuda", "--model-path", "/m", "--model-name", "x",
             "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
             "--max-decode-slots", "3", "--page-size", "8", "--num-pages", "99",
-            "--max-model-len", "512", "--kv-dtype", "float32", "--max-tokens", "7"]
+            "--max-model-len", "512", "--kv-dtype", "float32", "--max-tokens", "7",
+            "--profiler-port", "6009"]
     opts, jopts = run.parse_args(argv + ["--device", "cpu"]), jrun.parse_args(argv)
     for name in ("input", "output", "model_path", "model_name", "random_weights",
                  "http_host", "http_port", "max_decode_slots", "page_size",
-                 "num_pages", "max_model_len", "kv_dtype", "max_tokens"):
+                 "num_pages", "max_model_len", "kv_dtype", "max_tokens", "profiler_port"):
         assert getattr(opts, name) == getattr(jopts, name), name
     assert opts.device == "cpu" and run.parse_args(["out=cuda"]).device == "cuda"
 
@@ -58,9 +59,9 @@ def test_parse_args_keeps_the_jax_cli_form():
     [
         (["in=text", "out=cuda"], "item 9(d)"),
         (["in=stdin"], "item 9(d)"),
-        (["--profiler-port=6009"], "runtime/profiler.py"),
+        (["--dist-leader=h:1"], "item 7"),
         (["--request-template", "t.json"], "item 9(c)"),
-        (["--profiler-port", "6009"], "runtime/profiler.py"),
+        (["--num-nodes", "2"], "item 7"),
         (["--tp", "2"], "item 7"),
         (["--echo-token-delay-ms", "20"], "item 9(i)"),
         (["out=tpu"], "out=cuda"),
