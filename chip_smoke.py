@@ -27,7 +27,15 @@ Phases, each fatal on failure (nothing is caught):
    -1), on both dtypes: equal to the plain version, exact zeros at every
    padding token; time both mixed kernels and the bf16 decode kernel, the plain
    version and, as a yardstick only, one ``scaled_dot_product_attention``
-   call over the gathered pages;
+   call over the gathered pages; then (``check_windowed``) all three
+   designs at gemma2-9b's sliding layers (H=16, Hkv=8, D=256, window
+   4,096, softcap 50, scale 256^-0.5) and at mistral-7b's window (H=32,
+   Hkv=8, D=128, window 4,096), on mixed rows of 300-6,000 tokens (past
+   the window and inside it) and decode rows of up to 6,000, both pool
+   dtypes, at the same tolerances, each float32 mixed row alone
+   bit-equal to the batch, timed beside the plain version, the bound
+   (the keys each query sees) and SDPA with the window mask where it
+   can compute the case (not under a softcap);
 4. llama-8b's logits through the kernel agree with the plain path on a
    short prompt;
 5. the main path: ``TorchEngine`` serving llama-8b at full width and
@@ -282,6 +290,28 @@ Phases, each fatal on failure (nothing is caught):
    (or the digest). Printed: anatomy shares, the taps' seconds against
    the burst's wall, the drift scores, the digests.
 
+14. the gemma2 family, head dim 256, through both bf16 kernels. (a)
+   ``TorchEngine`` serving the ``gemma2-9b`` preset at full width and
+   depth (42 layers, hidden 3584, 16/8 heads of 256, ffn 14336, vocab
+   256000, a 4,096 window on even layers, softcaps 50 / 30, random bf16
+   weights from seed 0, 9.24 B parameters): 8 requests admitted
+   together (prompts of 4,500 and 6,000 tokens, past the window, and six
+   of 64-1,024; 32 tokens each, one seeded at temperature 0.8): all
+   finish ``length``, a rerun on a new engine is token-identical, both
+   bf16 kernels launched; printed: TTFT, tokens/s, wall. (b) 4 layers of
+   gemma2-9b's width and of mistral-7b's (D=128, a window on every
+   layer): one 4,500-token prompt's logits (every 64th position before
+   the window, every one past it) through the kernels and the plain
+   versions, within 5 % of the logit scale (phase 4's bound); argmax
+   agreement printed. (c) ``run.main_async(in=http out=cuda
+   --model-path <dir> --random-weights)`` on a gemma2 directory written
+   here (the preset's config.json, read back equal; a 256,000-entry
+   SentencePiece-BPE tokenizer.json in Gemma's layout, byte fallback
+   included; Gemma's chat template): 8 streaming chats at once, one of
+   README text past the window: ``[DONE]``, finish reasons, exact
+   ``usage``, both bf16 kernels; a lone greedy request's HTTP text
+   equals a direct engine's tokens decoded.
+
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
@@ -306,8 +336,13 @@ traffic (``launches_edge``) and telemetry turns
 processes (``launches_cluster``, summed), and phase 12's prefill worker,
 decode worker and two reclaim workers (``launches_disagg_prefill``,
 ``launches_disagg_decode``, ``launches_reclaim``), and phase 13's
-observed HTTP burst (``launches_observability``); both mixed entries
-also carry the verify spans' timing (``verify_*``).
+observed HTTP burst (``launches_observability``), and phase 14's engine
+(``launches_gemma2``), HTTP (``launches_gemma2_http``) and 4-layer
+checks (``launches_window_logits``); both mixed entries also carry the
+verify spans' timing (``verify_*``), and every entry phase 3's windowed
+cases in its own dtype (``gemma2_d256_softcap_window``,
+``mistral_d128_window``; the decode design also ``*_f32``; a softcap
+case's ``library_ms`` is null: SDPA has no softcap).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and the result line
@@ -413,16 +448,18 @@ def build(tra) -> float:
 
 
 # ------------------------------------------------------------ phase 3
-def flat_batch(torch, np, seed, spans, q_tile, dtype, device, pad_to=0):
+def flat_batch(torch, np, seed, spans, q_tile, dtype, device, pad_to=0, shape=(H, HKV, D)):
     """A q_tile-aligned flat stream over a scrambled page pool, one
     empty tile at the end, owned by the scratch row ``len(spans)``, then,
     up to ``pad_to`` tokens, more such tiles (the engine's stream padded
-    to its token bucket). Returns (q, k, v, table, row_of, positions)."""
+    to its token bucket), at attention shape ``shape`` (H, Hkv, D).
+    Returns (q, k, v, table, row_of, positions)."""
+    n_heads, n_kv, hd = shape
     rs = np.random.RandomState(seed)
     pmax = max(-(-max(kv, 1) // PS) for _, kv in spans)
     pages = sum(-(-max(kv, 1) // PS) for _, kv in spans) + 8
-    k = torch.from_numpy(rs.standard_normal((pages, PS, HKV * D)).astype(np.float32))
-    v = torch.from_numpy(rs.standard_normal((pages, PS, HKV * D)).astype(np.float32))
+    k = torch.from_numpy(rs.standard_normal((pages, PS, n_kv * hd)).astype(np.float32))
+    v = torch.from_numpy(rs.standard_normal((pages, PS, n_kv * hd)).astype(np.float32))
     perm = rs.permutation(pages)
     table = np.zeros((len(spans) + 1, pmax), np.int32)
     used, row_of, positions = 0, [], []
@@ -436,7 +473,7 @@ def flat_batch(torch, np, seed, spans, q_tile, dtype, device, pad_to=0):
     tail = max(q_tile, pad_to - len(row_of))
     row_of += [len(spans)] * tail
     positions += [-1] * tail
-    q = torch.from_numpy(rs.standard_normal((len(row_of), H, D)).astype(np.float32))
+    q = torch.from_numpy(rs.standard_normal((len(row_of), n_heads, hd)).astype(np.float32))
 
     def i32(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
@@ -467,39 +504,49 @@ def timed(torch, fn, reps, flush):
     return total / reps
 
 
-def bound(torch, q, k, table, row_of, positions, peak=BF16_FLOP_PER_S):
+def bound(torch, q, k, table, row_of, positions, peak=BF16_FLOP_PER_S, window=None):
     """Least time for the attention function on these inputs: each
-    input byte it needs read once (q, the live K/V tokens of every row,
-    the live page-table entries and the per-token indices), the output
-    written once, against the flops of QK and PV over the live context,
-    at the card's rate ``peak`` for the inputs' type (bf16 tensor cores;
-    float32 outside them). Returns (ms, "bytes" | "operations", bytes,
-    flops)."""
+    input byte it needs read once (q, the K/V tokens of every row that
+    some query of the row sees: its causal context, from its earliest
+    query's window start under a sliding ``window``; their page-table
+    entries and the per-token indices), the output written once, against
+    the flops of QK and PV over the keys each query sees, at the card's
+    rate ``peak`` for the inputs' type (bf16 tensor cores; float32
+    outside them). A softcap's tanh is not counted. Returns (ms, "bytes"
+    | "operations", bytes, flops)."""
+    n_heads, hd = q.shape[1], q.shape[2]
+    n_kv = k.shape[2] // hd
+    win = window or 1 << 62
     pos = positions.long().cpu()
     rows = row_of.long().cpu()
     live = pos >= 0
-    ctx = {}
+    span = {}  # row -> (first key any query sees, last key + 1)
     for r, p in zip(rows[live].tolist(), pos[live].tolist()):
-        ctx[r] = max(ctx.get(r, 0), p + 1)
-    tokens = sum(ctx.values())
-    pages = sum(-(-n // PS) for n in ctx.values())
+        lo, hi = span.get(r, (1 << 62, 0))
+        span[r] = (min(lo, max(0, p - win + 1)), max(hi, p + 1))
+    tokens = sum(hi - lo for lo, hi in span.values())
+    pages = sum(-(-hi // PS) - lo // PS for lo, hi in span.values())
     el = q.element_size()
     nbytes = (
         2 * q.numel() * el  # q in, out
-        + 2 * tokens * HKV * D * el  # K and V of the live context
+        + 2 * tokens * n_kv * hd * el  # K and V of the keys some query sees
         + pages * 4 + 2 * rows.numel() * 4
     )
-    flops = 4 * H * D * int((pos[live] + 1).sum())  # QK and PV
+    seen = torch.clamp(pos[live] + 1, max=win)  # keys each query sees
+    flops = 4 * n_heads * hd * int(seen.sum())  # QK and PV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
 
 
-def sdpa_inputs(torch, q, k, v, table, row_of, positions):
+def sdpa_inputs(torch, q, k, v, table, row_of, positions, window=None):
     """The same attention as one padded dense batch for
     ``scaled_dot_product_attention``: per row its queries [R, H, Tq, D]
-    and its gathered pages [R, Hkv, S, D], with a causal position mask.
-    Padding queries attend to key 0 (their output is ignored)."""
+    and its gathered pages [R, Hkv, S, D], with a causal position mask
+    (and the sliding ``window``'s). Padding queries attend to key 0
+    (their output is ignored)."""
+    n_heads, hd = q.shape[1], q.shape[2]
+    n_kv = k.shape[2] // hd
     rows = row_of.long().cpu().tolist()
     pos = positions.long().cpu().tolist()
     by_row: dict[int, list[int]] = {}
@@ -510,7 +557,7 @@ def sdpa_inputs(torch, q, k, v, table, row_of, positions):
     Tq = max(len(ix) for ix in by_row.values())
     S = table.shape[1] * PS
     dev = q.device
-    qd = torch.zeros(R, H, Tq, D, dtype=q.dtype, device=dev)
+    qd = torch.zeros(R, n_heads, Tq, hd, dtype=q.dtype, device=dev)
     qpos = torch.zeros(R, Tq, dtype=torch.long, device=dev)
     rsel = []
     for j, (r, ix) in enumerate(sorted(by_row.items())):
@@ -519,9 +566,12 @@ def sdpa_inputs(torch, q, k, v, table, row_of, positions):
         qpos[j, : len(ix)] = positions[ixt].long()
         rsel.append(r)
     t = table[torch.tensor(rsel, device=dev).long()].long()
-    kd = k[t].reshape(R, S, HKV, D).transpose(1, 2).contiguous()
-    vd = v[t].reshape(R, S, HKV, D).transpose(1, 2).contiguous()
-    mask = torch.arange(S, device=dev)[None, None, None, :] <= qpos[:, None, :, None]
+    kd = k[t].reshape(R, S, n_kv, hd).transpose(1, 2).contiguous()
+    vd = v[t].reshape(R, S, n_kv, hd).transpose(1, 2).contiguous()
+    kv_pos = torch.arange(S, device=dev)[None, None, None, :]
+    mask = kv_pos <= qpos[:, None, :, None]
+    if window:
+        mask &= kv_pos > qpos[:, None, :, None] - window
     return qd, kd, vd, mask
 
 
@@ -577,55 +627,59 @@ def check_case(torch, call, plain, q, k, v, zeros, what) -> tuple:
     return err, tight
 
 
-def mixed_case(torch, np, tra, dt, spans=MIXED_SPANS, what="mixed", pad_to=0) -> tuple:
+def mixed_case(torch, np, tra, dt, spans=MIXED_SPANS, what="mixed", pad_to=0,
+               shape=(H, HKV, D), attn=None) -> tuple:
     """The mixed shape, q_tile = 8, one empty tile at the end (and
     scratch-row tiles up to ``pad_to``), against the plain version with
-    ``dt`` pools. Returns (max abs err, the float32 reading, the inputs,
-    the call, the plain call, the (row_of, positions) the plain call
-    reads)."""
+    ``dt`` pools, at attention shape ``shape`` with ``attn`` (window,
+    softcap, sm_scale) passed to both. Returns (max abs err, the float32
+    reading, the inputs, the call, the plain call, the (row_of,
+    positions) the plain call reads)."""
     dev = torch.device("cuda", 0)
-    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, spans, 8, dt, dev, pad_to)
+    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, spans, 8, dt, dev, pad_to, shape)
+    kw = dict(attn or {}, num_kv_heads=shape[1])
 
     def call():
-        return tra.ragged_paged_attention(
-            q, k, v, table, row_of, pos, num_kv_heads=HKV, q_tile=8)
+        return tra.ragged_paged_attention(q, k, v, table, row_of, pos, q_tile=8, **kw)
 
     def plain(q=q, k=k, v=v):
-        return tra.ragged_paged_attention_ref(
-            q, k, v, table, row_of, pos, num_kv_heads=HKV)
+        return tra.ragged_paged_attention_ref(q, k, v, table, row_of, pos, **kw)
 
     zeros = pos < 0  # padding slots, the empty tile and the bucket's padding
     err, tight = check_case(torch, call, plain, q, k, v, zeros, f"{what} {dt}")
     return err, tight, (q, k, v, table), call, plain, (row_of, pos)
 
 
-def decode_case(torch, np, tra, dt) -> tuple:
-    """The decode shape, q_tile = 1, two inactive rows; as mixed_case."""
+def decode_case(torch, np, tra, dt, lengths=DECODE_LENGTHS, what="decode",
+                shape=(H, HKV, D), attn=None) -> tuple:
+    """The decode shape, q_tile = 1, rows of ``lengths`` (0: inactive);
+    as mixed_case."""
     dev = torch.device("cuda", 0)
-    spans = [(1, max(n, 1)) for n in DECODE_LENGTHS]
-    q, k, v, table, _, _ = flat_batch(torch, np, 1, spans, 1, dt, dev)
-    B = len(DECODE_LENGTHS)
+    spans = [(1, max(n, 1)) for n in lengths]
+    q, k, v, table, _, _ = flat_batch(torch, np, 1, spans, 1, dt, dev, shape=shape)
+    B = len(lengths)
     q, table = q[:B].contiguous(), table[:B].contiguous()
-    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     rows = torch.arange(B, dtype=torch.int32, device=dev)
+    kw = dict(attn or {}, num_kv_heads=shape[1])
 
     def call():
-        return tra.ragged_decode_attention(q, k, v, table, lens, num_kv_heads=HKV)
+        return tra.ragged_decode_attention(q, k, v, table, lens, **kw)
 
     def plain(q=q, k=k, v=v):
-        return tra.ragged_paged_attention_ref(
-            q, k, v, table, rows, lens - 1, num_kv_heads=HKV)
+        return tra.ragged_paged_attention_ref(q, k, v, table, rows, lens - 1, **kw)
 
-    err, tight = check_case(torch, call, plain, q, k, v, lens == 0, f"decode {dt}")
+    err, tight = check_case(torch, call, plain, q, k, v, lens == 0, f"{what} {dt}")
     return err, tight, (q, k, v, table), call, plain, (rows, lens - 1)
 
 
-def check_rows_alone(torch, tra, inputs, rows, pos, batch_out) -> int:
+def check_rows_alone(torch, tra, inputs, rows, pos, batch_out, attn=None) -> int:
     """Batch invariance, bit for bit: each live row of a flat batch run
     alone (its tokens, positions and page-table row, the same pools)
     gives what it gives in the batch, where it fell in other runs of q
     tiles, warps and horizons. Returns the rows checked."""
     q, k, v, table = inputs
+    kw = dict(attn or {}, num_kv_heads=k.shape[2] // q.shape[2])
     n = 0
     for r in sorted(set(rows.tolist())):
         idx = (rows == r).nonzero()[:, 0]
@@ -633,7 +687,7 @@ def check_rows_alone(torch, tra, inputs, rows, pos, batch_out) -> int:
             continue
         alone = tra.ragged_paged_attention(
             q[idx].contiguous(), k, v, table[r : r + 1].contiguous(),
-            torch.zeros_like(rows[idx]), pos[idx].contiguous(), num_kv_heads=HKV, q_tile=8)
+            torch.zeros_like(rows[idx]), pos[idx].contiguous(), q_tile=8, **kw)
         torch.cuda.synchronize()
         assert torch.equal(alone, batch_out[idx]), (
             f"row {r} alone differs from the same row in the batch")
@@ -737,6 +791,84 @@ def check_kernels(torch, np, tra, flush) -> dict:
             + "; every padding token exact zeros")
         results[f"padded_{str(dt).removeprefix('torch.')}"] = err
     return results
+
+
+# Phase 3's windowed and softcapped cases: (attention shape (H, Hkv, D),
+# the kernels' window / softcap / scale arguments). gemma2-9b's sliding
+# layers (a 4,096 window, scores capped at 50, query_pre_attn_scalar
+# 256) at head dim 256, and mistral-7b's 4,096 window at head dim 128.
+WINDOW_CASES = {
+    "gemma2_d256_softcap_window": ((16, 8, 256), dict(window=4096, softcap=50.0,
+                                                       sm_scale=256**-0.5)),
+    "mistral_d128_window": ((32, 8, 128), dict(window=4096)),
+}
+# Mixed rows past the window (prefill chunks of 512 at 5,120 and 6,000,
+# a 64-token chunk at 4,500, decode tokens at 5,500 and 6,000, a verify
+# span across the window's length) and inside it.
+WINDOW_MIXED_SPANS = [(512, 5120), (512, 6000), (64, 4500), (1, 5500), (1, 6000),
+                      (16, 1024), (1, 4096), (1, 300), (9, 4105)]
+WINDOW_DECODE_LENGTHS = [6000, 5000, 4097, 4096, 2000, 300, 0, 5500]
+
+
+def check_windowed(torch, np, tra, flush) -> dict:
+    """``WINDOW_CASES`` through all three designs: the mixed shape on
+    ``WINDOW_MIXED_SPANS`` and the decode shape on
+    ``WINDOW_DECODE_LENGTHS``, with float32 and bf16 pools, held to the
+    plain version as ``check_kernels`` holds them (float32 at atol 1e-4;
+    bf16 at atol 2e-2 + rtol 2^-7 and within bf16 rounding of float32
+    copies), each float32 mixed row alone bit-equal to the batch; timed
+    by CUDA events after an L2 flush beside the plain version, the bound
+    (the keys each query sees) and, where SDPA computes the case (no
+    softcap), one ``scaled_dot_product_attention`` call with the causal
+    and window mask. Returns {case: {entry: numbers}}."""
+    F = torch.nn.functional
+    out = {}
+    for case, (shape, attn) in WINDOW_CASES.items():
+        res = out[case] = {}
+        for entry, make in (
+            ("mixed", lambda dt: mixed_case(torch, np, tra, dt, WINDOW_MIXED_SPANS,
+                                            f"{case} mixed", shape=shape, attn=attn)),
+            ("decode", lambda dt: decode_case(torch, np, tra, dt, WINDOW_DECODE_LENGTHS,
+                                              f"{case} decode", shape=shape, attn=attn)),
+        ):
+            for dt in (torch.float32, torch.bfloat16):
+                err, tight, inputs, call, plain, (rows, pos) = make(dt)
+                q, k, v, table = inputs
+                if entry == "mixed" and dt == torch.float32:
+                    n_rows = check_rows_alone(torch, tra, inputs, rows, pos, call(), attn)
+                    log(f"[kernel] {case} mixed float32: each of the {n_rows} live rows run "
+                        f"alone equals the same row in the batch, bit for bit")
+                bf16 = dt == torch.bfloat16
+                peak = BF16_FLOP_PER_S if bf16 else F32_3XTF32_FLOP_PER_S
+                if entry == "decode":
+                    peak = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S  # CUDA cores
+                reps = 20 if entry == "mixed" else 50
+                ms = timed(torch, call, reps, flush)
+                plain_ms = timed(torch, plain, 3, flush)
+                lib_ms = None
+                if not attn.get("softcap"):
+                    qd, kd, vd, mask = sdpa_inputs(torch, q, k, v, table, rows, pos,
+                                                   attn.get("window"))
+                    lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, attn_mask=mask, enable_gqa=True), reps, flush)
+                    del qd, kd, vd, mask
+                b_ms, b_by, nbytes, flops = bound(torch, q, k, table, rows, pos, peak,
+                                                  attn.get("window"))
+                design = ("decode_split" if entry == "decode"
+                          else "mixed_tc_bf16" if bf16 else "mixed_f32")
+                name = f"{entry} {str(dt).removeprefix('torch.')} ({design})"
+                log(f"[kernel] {case} {name} H/Hkv/D {shape} {attn}: max abs err {err:.3e}"
+                    + (f" (against float32 plain {tight[0]:.3e}, {tight[1]:.3f} of its limit)"
+                       if tight else "")
+                    + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                    + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)")
+                    + f", bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
+                res[f"{entry}_{str(dt).removeprefix('torch.')}"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by)
+                del inputs, call, plain, q, k, v, table
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ engine helpers
@@ -4860,6 +4992,431 @@ def _family_values_one(values: dict, name: str) -> float:
     return v
 
 
+# ------------------------------------------------------------ phase 14
+GEMMA_SPECIALS = ["<pad>", "<eos>", "<bos>", "<unk>", "<mask>", "<start_of_turn>",
+                  "<end_of_turn>"]
+GEMMA_CHAT_TEMPLATE = (
+    "{{ bos_token }}"
+    "{%- for message in messages %}"
+    "{%- set role = 'model' if message['role'] == 'assistant' else message['role'] %}"
+    "{{ '<start_of_turn>' + role + '\n' + message['content'] | trim + '<end_of_turn>\n' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}{{ '<start_of_turn>model\n' }}{%- endif %}"
+)
+
+
+@dataclass(frozen=True)
+class Phase14:
+    """Phase 14's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, a tiny gemma2 config)."""
+
+    device: str = "cuda"
+    long_lens: tuple = (4500, 6000)  # (a): past gemma2's 4,096 window ...
+    short_lens: tuple = (64, 160, 320, 512, 768, 1024)  # ... beside chat turns
+    max_tokens: int = 32
+    seeded: int = 3  # (a): the request sampled at temperature 0.8
+    check_layers: int = 4  # (b): depth of the plain-against-kernel models
+    check_len: int = 4500  # (b): their prompt, past the window
+    long_chat_chars: int = 24000  # (c): one chat of README text past the window
+
+
+def sp_tokenizer_spec(vocab_size: int, text: str, n_merges: int = 3000) -> dict:
+    """A Gemma-layout SentencePiece-BPE ``tokenizer.json`` of exactly
+    ``vocab_size`` entries: Gemma's special tokens first, the 256
+    ``<0xNN>`` byte tokens, ``▁`` and the characters ``text`` uses at
+    least 3 times (rarer ones, CJK and emoji fall back to bytes), the
+    merges learned from ``text``'s words (``▁`` for each space), then
+    deterministic filler pieces. ``Replace(" ", "▁")`` normalizer, no
+    pre-tokenizer, ``Replace`` / ``ByteFallback`` / ``Fuse`` decoder, a
+    ``<bos>`` template."""
+    import random
+    from collections import Counter
+
+    vocab: dict[str, int] = {}
+
+    def add(tok: str) -> None:
+        if tok not in vocab and len(vocab) < vocab_size:
+            vocab[tok] = len(vocab)
+
+    for t in GEMMA_SPECIALS + [f"<0x{b:02X}>" for b in range(256)] + ["▁"]:
+        add(t)
+    for c, n in sorted(Counter(text).items()):
+        if n >= 3 and c not in " \n":
+            add(c)
+    words = Counter("▁" + w for w in text.split())
+    kept = []  # merges of pieces the vocabulary holds, while it has room
+    for a, b in learn_merges(dict(words), n_merges):
+        if a in vocab and b in vocab:
+            add(a + b)
+            if a + b in vocab:
+                kept.append([a, b])
+    pieces = [a + b for a, b in kept] or ["▁"]
+    rng = random.Random(0)
+    while len(vocab) < vocab_size:
+        add(("▁" if rng.random() < 0.6 else "") + "".join(
+            rng.choice(pieces).lstrip("▁") for _ in range(rng.randint(1, 3))))
+    added = [
+        {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+         "normalized": False, "special": True}
+        for i, t in enumerate(GEMMA_SPECIALS)
+    ]
+    bos = vocab["<bos>"]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Replace", "pattern": {"String": " "}, "content": "▁"},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<bos>": {"id": "<bos>", "ids": [bos], "tokens": ["<bos>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": kept},
+    }
+
+
+def gemma2_hf_config(mcfg) -> dict:
+    """A gemma2 ``config.json`` that reads back equal to ``mcfg``."""
+    cfg = {
+        "architectures": ["Gemma2ForCausalLM"], "model_type": mcfg.model_type,
+        "vocab_size": mcfg.vocab_size, "hidden_size": mcfg.hidden_size,
+        "intermediate_size": mcfg.intermediate_size, "num_hidden_layers": mcfg.num_layers,
+        "num_attention_heads": mcfg.num_heads, "num_key_value_heads": mcfg.num_kv_heads,
+        "head_dim": mcfg.head_dim_, "rope_theta": mcfg.rope_theta,
+        "rms_norm_eps": mcfg.rms_norm_eps,
+        "max_position_embeddings": mcfg.max_position_embeddings,
+        "tie_word_embeddings": mcfg.tie_word_embeddings, "torch_dtype": mcfg.dtype,
+        "hidden_activation": "gelu_pytorch_tanh",
+        "attn_logit_softcapping": mcfg.attn_logit_softcap,
+        "final_logit_softcapping": mcfg.final_logit_softcap,
+        "query_pre_attn_scalar": mcfg.query_pre_attn_scalar,
+        "sliding_window": mcfg.sliding_window, "attention_bias": mcfg.attention_bias,
+        "norm_topk_prob": mcfg.norm_topk_prob,
+        "bos_token_id": GEMMA_SPECIALS.index("<bos>"),
+        "eos_token_id": [GEMMA_SPECIALS.index("<eos>"),
+                         GEMMA_SPECIALS.index("<end_of_turn>")],
+    }
+    return cfg
+
+
+def write_gemma_model_dir(path: str, mcfg, text: str) -> str:
+    """config.json of ``mcfg``, the tokenizer of ``sp_tokenizer_spec``,
+    Gemma's chat template; EOS ``<eos>`` and ``<end_of_turn>``. No
+    weights: the server runs with --random-weights."""
+    os.makedirs(path, exist_ok=True)
+    files = {
+        "config.json": gemma2_hf_config(mcfg),
+        "tokenizer_config.json": {"bos_token": "<bos>", "eos_token": "<eos>",
+                                  "chat_template": GEMMA_CHAT_TEMPLATE},
+        "tokenizer.json": sp_tokenizer_spec(mcfg.vocab_size, text),
+    }
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    return path
+
+
+def p14_requests(np, vocab: int, sh: Phase14) -> list[dict]:
+    rs = np.random.RandomState(14)
+    return [
+        {"token_ids": [int(t) for t in rs.randint(3, vocab, size=n)],
+         "stop_conditions": {"max_tokens": sh.max_tokens, "ignore_eos": True},
+         "sampling_options": SEEDED_OPTIONS if i == sh.seeded else {}}
+        for i, n in enumerate(sh.long_lens + sh.short_lens)
+    ]
+
+
+def p14_engine_path(torch, pkg, tra, smi, sh: Phase14, mcfg, requests) -> dict:
+    """(a): ``TorchEngine`` serving ``mcfg`` at full width and depth
+    (random weights from seed 0): the 8 requests admitted together,
+    then again on a new engine over the same weights."""
+    lens = [len(r["token_ids"]) for r in requests]
+    max_len = max(lens) + sh.max_tokens + PS
+    ecfg = pkg.engine.EngineConfig(
+        model=mcfg, max_decode_slots=8, page_size=PS, max_model_len=max_len,
+        num_pages=pages_needed(lens, sh.max_tokens) + 64, kv_dtype="bfloat16",
+    )
+    dev = torch.device(sh.device, 0) if sh.device == "cuda" else torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = pkg.models.init_params(mcfg, gen, dev)
+    sync(torch, sh.device)
+    n_params = sum(p.numel() for p in model.parameters())
+    kv_token = 2 * mcfg.num_layers * mcfg.num_kv_heads * mcfg.head_dim_ * 2
+    log(f"[gemma2] {mcfg.model_type}: {mcfg.num_layers} layers, hidden {mcfg.hidden_size}, "
+        f"H {mcfg.num_heads}/Hkv {mcfg.num_kv_heads} x {mcfg.head_dim_}, ffn "
+        f"{mcfg.intermediate_size}, vocab {mcfg.vocab_size}, {n_params / 1e9:.3f} B params "
+        f"bf16 from seed 0 in {time.perf_counter() - t0:.1f} s; {kv_token} B of KV a token; "
+        f"window {mcfg.sliding_window} (even layers: {mcfg.alt_sliding_window}), softcaps "
+        f"{mcfg.attn_logit_softcap} / {mcfg.final_logit_softcap}")
+    runs = []
+    for _ in range(2):
+        eng = pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+        sync(torch, sh.device)
+        tra.reset_launches()
+        out, wall = run_engine(eng, requests)
+        sync(torch, sh.device)
+        runs.append((out, wall, dict(tra.KERNEL_LAUNCHES), eng.metrics()))
+        del eng
+        free(torch, sh.device)
+    (out, wall, designs, metrics), (rerun, wall2, designs2, _) = runs
+    for i, (toks, finish, _) in enumerate(out):
+        assert finish == "length" and len(toks) == sh.max_tokens, (i, finish, len(toks))
+        assert all(0 <= t < mcfg.vocab_size for t in toks)
+    assert [t for t, _, _ in rerun] == [t for t, _, _ in out], "rerun gave other tokens"
+    if sh.device == "cuda":
+        for d in (designs, designs2):
+            assert d["mixed_tc_bf16"] > 0 and d["decode_split"] > 0, d
+            assert d["mixed_f32"] == 0, d
+    ttfts = sorted(t for _, _, t in out)
+    total = sum(len(t) for t, _, _ in out)
+    log(f"[gemma2] {smi}: (a) 8 requests (prompts {lens}, {sh.max_tokens} tokens each, "
+        f"request {sh.seeded} seeded at T=0.8) admitted together: wall {wall:.3f} s (rerun "
+        f"{wall2:.3f} s), {total} tokens, {total / wall:.2f} tokens/s, TTFT p50 "
+        f"{ttfts[len(ttfts) // 2]:.3f} s max {ttfts[-1]:.3f} s; all 'length', the rerun "
+        f"token-identical; launches by kernel {designs}; dispatches {metrics['dispatches']}")
+    del model
+    free(torch, sh.device)
+    return dict(wall_s=wall, rerun_wall_s=wall2, completion_tokens=total,
+                tokens_per_s=total / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
+                ttft_max_s=ttfts[-1], designs=designs, tokens=[t for t, _, _ in out])
+
+
+def p14_window_logits(torch, np, pkg, tra, smi, sh: Phase14, mcfg) -> dict:
+    """(b): ``mcfg`` cut to ``sh.check_layers`` layers (random weights,
+    seed 0), one ``sh.check_len``-token prompt through ``forward_ragged``
+    with the kernels and with the plain versions: the logits at every
+    64th position before the window and at every position past it.
+    Held as phase 4 holds llama-8b's: max abs error within 5 % of the
+    logits' scale (bf16 activations through the layers; the two
+    attention numerics differ by bf16 ulps a layer)."""
+    from dataclasses import replace
+
+    llama = pkg.models.llama
+    cfg = replace(mcfg, num_layers=sh.check_layers,
+                  layer_types=mcfg.layer_types[: sh.check_layers] if mcfg.layer_types else None)
+    dev = torch.device(sh.device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = pkg.models.init_params(cfg, gen, dev)
+    n = sh.check_len
+    pad = (-n) % 8
+    rs = np.random.RandomState(15)
+    toks = torch.tensor(list(rs.randint(3, cfg.vocab_size, size=n)) + [0] * pad, device=dev)
+    pos = torch.tensor(list(range(n)) + [-1] * pad, dtype=torch.int32, device=dev)
+    rows = torch.zeros(n + pad, dtype=torch.int32, device=dev)
+    pages = -(-(n + pad) // PS)
+    table = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+    win = cfg.sliding_window or n
+    idx = list(range(63, min(win, n), 64)) + list(range(min(win, n), n))
+    out_idx = torch.tensor(idx, device=dev)
+    logits, secs = {}, {}
+    for impl in ("kernel", "reference"):
+        kc, vc = llama.init_kv_cache(cfg, pages, PS, torch.bfloat16, device=dev)
+        t0 = time.perf_counter()
+        tra.reset_launches()
+        lg, _, _ = llama.forward_ragged(model, cfg, toks, pos, rows, table, kc, vc, out_idx,
+                                        attn_impl=impl, q_tile=8)
+        sync(torch, sh.device)
+        secs[impl] = time.perf_counter() - t0
+        if impl == "kernel":
+            designs = dict(tra.KERNEL_LAUNCHES)
+        logits[impl] = lg
+        del kc, vc
+    a, b = logits["kernel"], logits["reference"]
+    assert a.shape == (len(idx), cfg.vocab_size) and torch.isfinite(a).all()
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"[gemma2] {smi}: (b) {cfg.model_type} width at {cfg.num_layers} layers (D "
+        f"{cfg.head_dim_}, window {cfg.sliding_window}, softcaps {cfg.attn_logit_softcap} / "
+        f"{cfg.final_logit_softcap}), a {n}-token prompt, logits at {len(idx)} positions "
+        f"({n - min(win, n)} past the window): kernel vs plain max abs err {err:.4e} (logit "
+        f"scale {scale:.3f}, limit 5 %), argmax agreement {agree:.4f}; forward "
+        f"{secs['kernel']:.2f} s kernel ({designs}), {secs['reference']:.2f} s plain")
+    assert err <= 0.05 * scale, f"{cfg.model_type} logits differ: {err} > 5% of {scale}"
+    if sh.device == "cuda":
+        assert designs["mixed_tc_bf16"] == cfg.num_layers, designs
+    del model, logits, a, b
+    free(torch, sh.device)
+    return dict(max_abs_err=err, scale=scale, argmax_agreement=agree, designs=designs)
+
+
+def p14_chats(text: str, sh: Phase14) -> list[list[dict]]:
+    """(c)'s 8 chats: short turns (one with CJK and emoji, which the
+    tokenizer sends through byte fallback), a follow-up with the model's
+    role, and one long user message of README text past the window."""
+    return [
+        [{"role": "user", "content": "Name three uses of paged attention."}],
+        [{"role": "user", "content": "Ünïcödé, 日本語 and emoji ☃🎉 in one prompt."}],
+        [{"role": "user", "content": "What is a sliding window?"},
+         {"role": "assistant", "content": "A mask on keys older than a bound."},
+         {"role": "user", "content": "And a softcap?"}],
+        [{"role": "user", "content": "Summarise: " + text[: sh.long_chat_chars]}],
+        [{"role": "user", "content": "  Leading  and doubled  spaces.  "}],
+        [{"role": "user", "content": "Count to ten."}],
+        [{"role": "user", "content": text[1000:1600]}],
+        [{"role": "user", "content": "Write a haiku about GPUs."}],
+    ]
+
+
+def p14_http(torch, np, pkg, tra, smi, sh: Phase14, mcfg) -> dict:
+    """(c): ``run.main_async(in=http out=cuda --model-path <dir>
+    --random-weights)`` on a gemma2 model directory written here (the
+    preset's config.json, read back equal; a SentencePiece-BPE
+    tokenizer.json; Gemma's chat template), the same seeded weights as
+    (a)'s: 8 streaming chats at once, then a lone greedy completion of
+    token ids, also served straight by a ``TorchEngine`` on the served
+    weights."""
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.http import client
+    from dynamo_exp_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_exp_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_exp_tpu_torch.protocols.openai import ChatCompletionRequest
+
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model_dir = write_gemma_model_dir(os.path.join(tmp, "gemma2-9b"), mcfg, text)
+        t_write = time.perf_counter() - t0
+        assert pkg.models.ModelConfig.from_pretrained(model_dir) == mcfg
+        t0 = time.perf_counter()
+        tok = tokmod.Tokenizer.from_pretrained(model_dir)
+        t_load = time.perf_counter() - t0
+        assert tok.vocab_size == mcfg.vocab_size
+        chats = p14_chats(text, sh)
+        pre = OpenAIPreprocessor(ModelDeploymentCard.from_local_path(model_dir, "gemma2-9b"),
+                                 tok)
+        t0 = time.perf_counter()
+        chat_ids = [
+            pre.preprocess_chat(ChatCompletionRequest.from_dict(
+                {"model": "gemma2-9b", "messages": m})).token_ids
+            for m in chats
+        ]
+        t_encode = time.perf_counter() - t0
+        lens = [len(i) for i in chat_ids]
+        assert max(lens) > (mcfg.sliding_window or 0), lens
+        max_len = max(lens + [LONE_PROMPT_LEN]) + sh.max_tokens + PS
+        argv = [
+            "in=http", "out=cuda", "--device", sh.device, "--model-path", model_dir,
+            "--model-name", "gemma2-9b", "--random-weights", "--http-host", "127.0.0.1",
+            "--http-port", "0", "--max-decode-slots", "8", "--page-size", str(PS),
+            "--max-model-len", str(max_len), "--num-pages",
+            str(pages_needed(lens + [LONE_PROMPT_LEN], sh.max_tokens) + 64),
+            "--kv-dtype", "bfloat16", "--max-tokens", str(sh.max_tokens),
+        ]
+        log(f"[gemma2] (c) model dir: config.json of the preset, a SentencePiece-BPE "
+            f"tokenizer.json of {tok.vocab_size} entries (written in {t_write:.2f} s, loaded "
+            f"in {t_load:.2f} s), EOS {tok.eos_token_ids}; the 8 chats templated and "
+            f"encoded in {t_encode:.3f} s")
+        out = asyncio.run(asyncio.wait_for(
+            _p14_drive(torch, np, pkg, tra, run, client, tok, run.parse_args(argv), chats,
+                       chat_ids, mcfg, sh, smi), timeout=900))
+    free(torch, sh.device)
+    return out
+
+
+async def _p14_drive(torch, np, pkg, tra, run, client, tok, opts, chats, chat_ids, mcfg, sh,
+                     smi):
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({server, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if server.done():
+        server.result()  # startup failed: raise its error
+    served = ready.result()
+    base = f"http://127.0.0.1:{served.port}"
+    eng = served.torch_engine
+    try:
+        bodies = [{"model": "gemma2-9b", "messages": m, "max_tokens": sh.max_tokens,
+                   "stream": True, "stream_options": {"include_usage": True}}
+                  for m in chats]
+        sync(torch, sh.device)
+        tra.reset_launches()
+        res, wall, _, _ = await burst(client, eng, base + "/v1/chat/completions", bodies,
+                                      reset_cache=False)
+        for i, (r, ids) in enumerate(zip(res, chat_ids)):
+            assert r["done"], f"chat {i} did not end with [DONE]"
+            assert r["finish"] in ("length", "stop"), (i, r["finish"])
+            n = r["usage"]["completion_tokens"]
+            assert r["usage"]["prompt_tokens"] == len(ids) and 0 < n <= sh.max_tokens, r
+            assert n == sh.max_tokens or r["finish"] == "stop", r
+        # A lone greedy request of token ids, over HTTP ...
+        rs = np.random.RandomState(16)
+        lone_ids = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=LONE_PROMPT_LEN)]
+        lone = await sse_request(client, base + "/v1/completions", {
+            "model": "gemma2-9b", "prompt": lone_ids, "max_tokens": sh.max_tokens,
+            "stream": True, "nvext": {"ignore_eos": True}})
+        sync(torch, sh.device)
+        designs = dict(tra.KERNEL_LAUNCHES)
+        if sh.device == "cuda":
+            assert designs["mixed_tc_bf16"] > 0 and designs["decode_split"] > 0, designs
+            assert designs["mixed_f32"] == 0, designs
+        # ... and straight to a TorchEngine on the served weights.
+        eng2 = pkg.engine.TorchEngine(eng.cfg, model=eng.model, device=sh.device)
+        try:
+            stream = eng2.submit({"token_ids": lone_ids, "stop_conditions": {
+                "max_tokens": sh.max_tokens, "ignore_eos": True}})
+            eng2.start()
+            direct = [t async for item in stream for t in item.get("token_ids", [])]
+        finally:
+            eng2.stop()
+        del eng2
+        assert len(direct) == sh.max_tokens
+        assert lone["text"] == streamed_text(tok, direct), (lone["text"], tok.decode(direct))
+        # A chat may stop at a first sampled EOS and stream no text.
+        texts = [r for r in res if r["frames"]]
+        st = dict(edge_stats(texts, wall, 0.0, 0.0), completion_tokens=sum(
+            r["usage"]["completion_tokens"] for r in res))
+        st["tokens_per_s"] = st["completion_tokens"] / wall
+        log(f"[gemma2] {smi}: (c) 8 streaming chats over HTTP (prompts "
+            f"{[len(i) for i in chat_ids]} tokens) at once: wall {wall:.3f} s, "
+            f"{st['completion_tokens']} tokens, {st['tokens_per_s']:.2f} tokens/s, edge TTFT "
+            f"p50 {st['ttft_p50_s']:.3f} s max {st['ttft_max_s']:.3f} s; every stream ended "
+            f"[DONE], finishes {[r['finish'] for r in res]}, usage exact; the lone greedy "
+            f"request's HTTP text equals a direct engine's tokens decoded; launches by "
+            f"kernel {designs}")
+        return dict(st, designs=designs, finishes=[r["finish"] for r in res],
+                    prompt_tokens=[len(i) for i in chat_ids])
+    finally:
+        server.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await server
+
+
+def phase14(torch, np, pkg, tra, smi: str, sh: Phase14 = Phase14(), mcfg=None,
+            check_cfgs=None) -> dict:
+    """Phase 14: gemma2-9b (head dim 256, a 4,096 window on even layers,
+    softcaps) at full width and depth through both bf16 kernels: (a) the
+    engine, (b) plain against kernel at 4 layers, also at mistral-7b's
+    width (D = 128, a window on every layer), (c) over HTTP with a
+    SentencePiece-BPE tokenizer."""
+    mcfg = mcfg or pkg.models.GEMMA2_9B
+    check_cfgs = check_cfgs or (mcfg, pkg.models.MISTRAL_7B)
+    t0 = time.perf_counter()
+    free(torch, sh.device)
+    a = p14_engine_path(torch, pkg, tra, smi, sh, mcfg,
+                        p14_requests(np, mcfg.vocab_size, sh))
+    b = {c.model_type: p14_window_logits(torch, np, pkg, tra, smi, sh, c) for c in check_cfgs}
+    c = p14_http(torch, np, pkg, tra, smi, sh, mcfg)
+    wall = time.perf_counter() - t0
+    log(f"[gemma2] {smi}: phase 14 wall {wall:.1f} s")
+    return dict(a=a, b=b, c=c, designs=a["designs"], designs_http=c["designs"],
+                wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -4890,6 +5447,7 @@ def main() -> int:
     build(tra)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     kern = check_kernels(torch, np, tra, flush)
+    windowed = check_windowed(torch, np, tra, flush)
     del flush
     stats = main_path(torch, np, pkg, tra)
     log(f"[engine] {name} ({smi}): wall {stats['wall_s']:.3f} s (rerun "
@@ -4950,6 +5508,8 @@ def main() -> int:
     log(f"[phase12] in {p12['wall_s']:.1f} s")
     p13 = phase13(torch, np, pkg, tra, smi)
     log(f"[phase13] in {p13['wall_s']:.1f} s")
+    p14 = phase14(torch, np, pkg, tra, smi)
+    log(f"[phase14] in {p14['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -4988,6 +5548,9 @@ def main() -> int:
             "launches_disagg_decode": p12["designs_decode"][design],
             "launches_reclaim": p12["designs_reclaim"][design],
             "launches_observability": p13["designs"][design],
+            "launches_gemma2": p14["designs"][design],
+            "launches_gemma2_http": p14["designs_http"][design],
+            "launches_window_logits": sum(r["designs"][design] for r in p14["b"].values()),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
@@ -5000,6 +5563,16 @@ def main() -> int:
             if "bound_ms_ffma" in k:  # float32: the bound outside the tensor cores
                 kernels[-1].update(bound_ms_ffma=k["bound_ms_ffma"],
                                    verify_bound_ms_ffma=v["bound_ms_ffma"])
+        # Phase 3's windowed and softcapped cases (gemma2 at D = 256,
+        # mistral's window at D = 128): this design's own shape and dtype;
+        # the decode design also at float32 pools.
+        for case, res in windowed.items():
+            if entry == "ragged_decode_attention":
+                kernels[-1][case] = res["decode_bfloat16"]
+                kernels[-1][case + "_f32"] = res["decode_float32"]
+            else:
+                kernels[-1][case] = res["mixed_float32" if name.endswith("_f32")
+                                        else "mixed_bfloat16"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,29 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// A raw q.k as the softmax takes it, in log2 units: times the scale,
+// then, with a softcap (gemma2), cap * tanh(s / cap) in natural units,
+// then times log2(e). tanhf is the accurate one (about 2 ulp): the
+// approximate instruction's 2^-11 times a cap of 50 would move scores
+// by about 0.02. The softcap is a template argument, so the families
+// without one run no tanh and no branch per score: as a run-time branch
+// it slowed the bf16 mixed kernel at llama-8b's shapes by 7.5 % (15.6 %
+// at verify spans) on an H100 (tools/torch_kernel_probe.py --parent).
+template <bool kCapped>
+struct Scorer {
+  float mul;  // scale * log2(e), or scale / cap under a softcap
+  float cap;  // cap * log2(e)
+  __device__ __forceinline__ Scorer(float scale, float softcap) {
+    constexpr float kLog2e = 1.4426950408889634f;
+    cap = kCapped ? softcap * kLog2e : 0.f;
+    mul = kCapped ? scale / softcap : scale * kLog2e;
+  }
+  __device__ __forceinline__ float operator()(float s) const {
+    if constexpr (kCapped) return cap * tanhf(s * mul);
+    return s * mul;
+  }
+};
+
 // (page slot, offset in page) of kv token `tok`: shifts when the page
 // size is a power of two (ps_log2 >= 0), a division otherwise.
 __device__ __forceinline__ void page_split(int tok, int ps, int ps_log2, int& slot,

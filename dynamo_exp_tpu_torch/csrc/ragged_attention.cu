@@ -6,8 +6,12 @@
 // `ragged_paged_attention` with float32 pools, and computes what it
 // computes: causal GQA attention of a flat query stream q[N, H, D]
 // against a paged KV pool [P, ps, Hkv*D]. A token at position p attends
-// to its row's kv positions <= p; online softmax with float32
-// accumulators. Tiles of q_tile tokens each belong to one row; a tile
+// to its row's kv positions in (p - window, p]; online softmax with
+// float32 accumulators over the scores scale * q.k, capped to
+// cap * tanh(s / cap) under a softcap (gemma2): what the JAX package's
+// paged_attention (dynamo_exp_tpu/ops/attention.py) computes for the
+// windowed and softcapped families, which the TPU kernel does not
+// take. Tiles of q_tile tokens each belong to one row; a tile
 // whose positions are all -1 writes exact zeros, and so does every
 // padding slot (position -1) inside a live tile. bf16 pools go to
 // ragged_mixed_tc.cu and the decode shape to ragged_decode_split.cu.
@@ -30,10 +34,12 @@
 // requests run alone rests on it). Every product is per row (mma.sync
 // computes each output element from its own row of A); chunks and
 // softmax steps sit at absolute kv positions (every block walks its
-// row from position 0), and which of a row's two states takes a step
+// row from position 0, or under a window from the chunk of its run's
+// earliest visible key), and which of a row's two states takes a step
 // is fixed by the step's position; a step in which a row has no live
 // token is an exact no-op for it (probabilities 0, the rescale factor
-// exactly 1), so a warp may skip the steps past its rows' horizon.
+// exactly 1), so a warp may skip the steps past its rows' horizon and
+// before their windows.
 //
 // What bounds it on this card: the operations. At the main path's
 // mixed shape (llama-8b, prefill chunks of 512 next to decode rows) QK
@@ -86,22 +92,27 @@ namespace {
 // batches a few percent faster and verify spans half again slower; a
 // third 64-token stage does not fit in a block's shared memory.
 constexpr int kSplit = 2;      // warps per 16-row m-tile, each on every kSplit-th step
-constexpr int kChunk = 64;     // kv tokens per staged chunk
 constexpr int kStages = 2;     // chunks in the ring
-constexpr int kSub = 32;       // kv tokens per softmax step
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMTiles = kWarps / kSplit;  // 16-row m-tiles of a block
 constexpr int kMaxRows = 16 * kMTiles;    // query rows a block takes at most
-static_assert(kChunk % (kSub * kSplit) == 0, "a chunk holds whole rounds of steps");
 constexpr int kMaxRun = 8;  // q tiles per block at most
 constexpr int kMaxQTile = 8;
 constexpr int kMaxRunQ = kMaxRun * kMaxQTile;
 
-// Shared-memory row strides in floats (see the header: bank-free
-// fragment loads) and the floats of one ring stage.
+// Per head dim: kv tokens per staged chunk and per softmax step, the
+// shared-memory row strides in floats (see the header: bank-free
+// fragment loads) and the floats of one ring stage. D = 256 (gemma)
+// halves the chunk and the step: two 64-token stages of 256-float rows
+// (268 KB) do not fit a block beside the q tile, two 32-token ones
+// (134 KB) do, and a chunk still holds one step for each of an
+// m-tile's two warps.
 template <int D>
 struct Layout {
+  static constexpr int kChunk = D > 128 ? 32 : 64;
+  static constexpr int kSub = D > 128 ? 16 : 32;
+  static_assert(kChunk % (kSub * kSplit) == 0, "a chunk holds whole rounds of steps");
   static constexpr int LDQ = D + 8;
   static constexpr int LDK = D + 8;
   static constexpr int LDV = D + 4;
@@ -113,6 +124,7 @@ struct Layout {
   static_assert((kSplit - 1) * kMTiles * XS * 32 <= kStages * STAGE, "combine space");
 };
 static_assert(Layout<128>::kSmemBytes <= 232448 - 1024, "ring too deep for one block");
+static_assert(Layout<256>::kSmemBytes <= 232448 - 1024, "ring too deep for one block");
 
 // The two tf32 halves of x: hi rounded to nearest (ties away), lo the
 // float32 remainder.
@@ -167,21 +179,23 @@ __device__ __forceinline__ void split_a(float x0, float x1, float x2, float x3,
   split_tf32(x3, ah[3], al[3]);
 }
 
-// One warp's share of kSub staged kv tokens: S = Q K^T for its 16 rows,
-// the online softmax and O += P V. kMasked: the tokens cross a row's
-// causal bound, the run's kv bound or the warp holds a padding row, so
-// scores are masked and the 8-token n-tiles past the warp's horizon
-// `whor` are skipped; otherwise every score is live. Thread state is
-// indexed by h: 0 for row g of the m-tile, 1 for row g + 8.
-template <int D, bool kMasked>
+// One warp's share of L::kSub staged kv tokens: S = Q K^T for its 16
+// rows, the online softmax (`score` maps q.k to log2 units) and
+// O += P V. kMasked: the tokens cross a row's causal bound, its
+// window's start `qlo`, the run's kv bound or the warp holds a padding
+// row, so scores are masked and the 8-token n-tiles past the warp's
+// horizon `whor` are skipped; otherwise every score is live. Thread
+// state is indexed by h: 0 for row g of the m-tile, 1 for row g + 8.
+template <int D, bool kMasked, bool kCapped>
 __device__ __forceinline__ void warp_step(const float* q_w, const float* k_s,
                                           const float* v_s, int c0, int whor, int kvlen,
-                                          const int (&qpos)[2], float sl2, float (&m)[2],
+                                          const int (&qpos)[2], const int (&qlo)[2],
+                                          const dx::Scorer<kCapped>& score, float (&m)[2],
                                           float (&l)[2], float (&acc)[D / 8][4]) {
   using L = Layout<D>;
   constexpr int NT = D / 8;    // output n-tiles
   constexpr int KS = D / 8;    // k-steps of QK
-  constexpr int SN = kSub / 8;  // score n-tiles
+  constexpr int SN = L::kSub / 8;  // score n-tiles
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const int nn = kMasked ? min(SN, (whor - c0 + 7) / 8) : SN;
   // S = Q K^T, its three terms in accumulators of their own (the
@@ -225,10 +239,10 @@ __device__ __forceinline__ void warp_step(const float* q_w, const float* k_s,
       for (int j = 0; j < 4; ++j) {
         if (kMasked) {
           const int tok = c0 + n * 8 + tig * 2 + (j & 1);
-          const bool live = tok < kvlen && tok <= qpos[j >> 1];
-          s[n][j] = live ? s[n][j] * sl2 : -1e30f;
+          const bool live = tok < kvlen && tok <= qpos[j >> 1] && tok >= qlo[j >> 1];
+          s[n][j] = live ? score(s[n][j]) : -1e30f;
         } else {
-          s[n][j] *= sl2;
+          s[n][j] = score(s[n][j]);
         }
         mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
       }
@@ -284,7 +298,7 @@ __device__ __forceinline__ void warp_step(const float* q_w, const float* k_s,
   }
 }
 
-template <int D>
+template <int D, bool kCapped>
 __global__ void __launch_bounds__(kThreads, 1)
     ragged_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -292,9 +306,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const int32_t* __restrict__ row_of,
                             const int32_t* __restrict__ positions, float* __restrict__ out,
                             int n_tiles, int H, int Hkv, int ps, int pmax, int qt, int run,
-                            float scale) {
+                            float scale, int window, float softcap) {
   using L = Layout<D>;
   constexpr int NT = D / 8;
+  constexpr int kChunk = L::kChunk, kSub = L::kSub;
   extern __shared__ __align__(16) float smem[];
   __shared__ int pos_s[kMaxRunQ];
   __shared__ int n_run_s;
@@ -338,31 +353,44 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  int kvlen = 0;  // the run's causal horizon: max position + 1
-  for (int i = 0; i < nq; ++i) kvlen = max(kvlen, pos_s[i] + 1);
+  int kvlen = 0;       // the run's causal horizon: max position + 1
+  int pmin = 1 << 30;  // its earliest live position
+  for (int i = 0; i < nq; ++i) {
+    kvlen = max(kvlen, pos_s[i] + 1);
+    if (pos_s[i] >= 0) pmin = min(pmin, pos_s[i]);
+  }
   kvlen = min(kvlen, pmax * ps);  // kv past the page table does not exist
+  // The run's earliest visible key: its walk starts at that key's chunk.
+  const int ch0 = kvlen > 0 ? max(0, pmin - window + 1) / kChunk : 0;
 
-  // This thread's two rows; the warp's horizon (tokens any of its rows
-  // attends) and full span (tokens all of its rows attend: 0 if it
-  // holds a padding row).
+  // This thread's two rows and the first key each sees; the warp's
+  // horizon (tokens any of its rows attends) and full span (tokens all
+  // of its rows attend: 0 if it holds a padding row), and its window's
+  // starts: the first key any live row sees (wlo) and the first key
+  // every row sees (wlo_all).
   const int g = lane >> 2, tig = lane & 3;
-  int qpos[2];
-  int wmax = -1, wmin = 1 << 30;
+  int qpos[2], qlo[2];
+  int wmax = -1, wmin = 1 << 30, wlo = 1 << 30, wlo_all = -(1 << 30);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = mt * 16 + g + 8 * h;
     qpos[h] = r < rows ? pos_s[r / qpk] : -1;
+    qlo[h] = qpos[h] - window + 1;
     wmax = max(wmax, qpos[h]);
     wmin = min(wmin, qpos[h]);
+    if (qpos[h] >= 0) wlo = min(wlo, qlo[h]);
+    wlo_all = max(wlo_all, qlo[h]);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
     wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, o));
+    wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
+    wlo_all = max(wlo_all, __shfl_xor_sync(0xffffffffu, wlo_all, o));
   }
   const int whor = min(kvlen, wmax + 1);
   const int wfull = min(kvlen, wmin + 1);
-  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  const dx::Scorer<kCapped> score(scale, softcap);
 
   float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, acc[NT][4];
 #pragma unroll
@@ -370,49 +398,51 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int32_t* table_row = page_table + (size_t)row * pmax;
   const float* q_w = q_s + mt * 16 * L::LDQ;
-  const int nchunks = (kvlen + kChunk - 1) / kChunk;
+  // Chunks ch0 .. nchunks-1; chunk ch0 + i lives in ring slot i % kStages.
+  const int nch = (kvlen + kChunk - 1) / kChunk - ch0;
   // A ring of kStages chunk buffers: chunks c+1 .. c+kStages-1 load
   // while chunk c is computed. The first group also holds q.
   dx::KvStager<float, D, kChunk, kThreads, L::LDK, L::LDV> stager;
-  if (nchunks > 0) stager.lookup(table_row, 0, kvlen, ps, ps_log2, pmax);
+  if (nch > 0) stager.lookup(table_row, ch0 * kChunk, kvlen, ps, ps_log2, pmax);
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nchunks) {
+    if (st < nch) {
       float* nb = kv_s + st * L::STAGE;
       stager.issue(k, v, ps, ps_log2, fused, kvh, nb, nb + kChunk * L::LDK);
-      if (st + 1 < nchunks)
-        stager.lookup(table_row, (st + 1) * kChunk, kvlen, ps, ps_log2, pmax);
+      if (st + 1 < nch)
+        stager.lookup(table_row, (ch0 + st + 1) * kChunk, kvlen, ps, ps_log2, pmax);
     }
     dx::cp_async_commit();
   }
 
-  for (int ch = 0; ch < nchunks; ++ch) {
+  for (int i = 0; i < nch; ++i) {
     dx::cp_async_wait<kStages - 2>();  // this chunk (and q) landed
     // Every thread's copies of this chunk are visible, and every warp
     // is done with the buffer the next copies overwrite.
     __syncthreads();
-    const int nx = ch + kStages - 1;
-    if (nx < nchunks) {
+    const int nx = i + kStages - 1;
+    if (nx < nch) {
       float* nb = kv_s + (nx % kStages) * L::STAGE;
       stager.issue(k, v, ps, ps_log2, fused, kvh, nb, nb + kChunk * L::LDK);
-      if (nx + 1 < nchunks)
-        stager.lookup(table_row, (nx + 1) * kChunk, kvlen, ps, ps_log2, pmax);
+      if (nx + 1 < nch)
+        stager.lookup(table_row, (ch0 + nx + 1) * kChunk, kvlen, ps, ps_log2, pmax);
     }
     dx::cp_async_commit();
 
-    const int c0 = ch * kChunk;
-    const float* k_s = kv_s + (ch % kStages) * L::STAGE;
+    const int c0 = (ch0 + i) * kChunk;
+    const float* k_s = kv_s + (i % kStages) * L::STAGE;
     const float* v_s = k_s + kChunk * L::LDK;
 #pragma unroll
     for (int sub = part; sub < kChunk / kSub; sub += kSplit) {
-      // Warp-uniform: tokens past the warp's rows are skipped.
+      // Warp-uniform: tokens past the warp's rows, or before their
+      // windows, are skipped.
       const int c = c0 + sub * kSub;
       const float* ksub = k_s + sub * kSub * L::LDK;
       const float* vsub = v_s + sub * kSub * L::LDV;
-      if (c + kSub <= wfull)
-        warp_step<D, false>(q_w, ksub, vsub, c, whor, kvlen, qpos, sl2, m, l, acc);
-      else if (c < whor)
-        warp_step<D, true>(q_w, ksub, vsub, c, whor, kvlen, qpos, sl2, m, l, acc);
+      if (c >= wlo_all && c + kSub <= wfull)
+        warp_step<D, false>(q_w, ksub, vsub, c, whor, kvlen, qpos, qlo, score, m, l, acc);
+      else if (c < whor && c + kSub > wlo)
+        warp_step<D, true>(q_w, ksub, vsub, c, whor, kvlen, qpos, qlo, score, m, l, acc);
     }
   }
   dx::cp_async_wait<0>();
@@ -479,9 +509,9 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* page_table,
                    const void* row_of, const void* positions, void* out, int n_tiles,
                    int H, int Hkv, int ps, int pmax, int qt, int run, float scale,
-                   cudaStream_t stream) {
+                   int window, float softcap, cudaStream_t stream) {
   const size_t smem = Layout<D>::kSmemBytes;
-  auto kern = ragged_attention_kernel<D>;
+  auto kern = softcap > 0.f ? ragged_attention_kernel<D, true> : ragged_attention_kernel<D, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -489,7 +519,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* page
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(row_of), static_cast<const int32_t*>(positions),
-      static_cast<float*>(out), n_tiles, H, Hkv, ps, pmax, qt, run, scale);
+      static_cast<float*>(out), n_tiles, H, Hkv, ps, pmax, qt, run, scale, window, softcap);
   return cudaGetLastError();
 }
 
@@ -499,21 +529,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* page
 // Float32 pools only. Shapes are checked by the Python wrapper; this
 // re-checks only what would index out of the kernel's fixed arrays.
 // `run` (q tiles a block may take) is the largest that keeps a block
-// within kMaxRows query rows.
+// within kMaxRows query rows. `window` >= 1 (1 << 30: none); `softcap`
+// 0: none.
 extern "C" int dx_ragged_attention(const void* q, const void* k, const void* v,
                                    const void* page_table, const void* row_of,
                                    const void* positions, void* out, int n_tokens, int H,
                                    int Hkv, int D, int ps, int pmax, int q_tile, float scale,
-                                   void* stream) {
+                                   int window, float softcap, void* stream) {
   if (q_tile < 1 || q_tile > kMaxQTile || n_tokens % q_tile != 0 || Hkv < 1 ||
-      H % Hkv != 0 || (H / Hkv) * q_tile > kMaxRows || (D != 64 && D != 128))
+      H % Hkv != 0 || (H / Hkv) * q_tile > kMaxRows || window < 1 || softcap < 0.f ||
+      (D != 64 && D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   if (n_tokens == 0) return 0;
   const int run = max(1, min(kMaxRun, kMaxRows / ((H / Hkv) * q_tile)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_tokens / q_tile;
-  return (int)(D == 64 ? launch<64>(q, k, v, page_table, row_of, positions, out, n_tiles,
-                                    H, Hkv, ps, pmax, q_tile, run, scale, s)
-                       : launch<128>(q, k, v, page_table, row_of, positions, out,
-                                     n_tiles, H, Hkv, ps, pmax, q_tile, run, scale, s));
+#define DX_LAUNCH(DIM)                                                                   \
+  return (int)launch<DIM>(q, k, v, page_table, row_of, positions, out, n_tiles, H, Hkv, ps, \
+                          pmax, q_tile, run, scale, window, softcap, s)
+  if (D == 64) DX_LAUNCH(64);
+  if (D == 128) DX_LAUNCH(128);
+  DX_LAUNCH(256);
+#undef DX_LAUNCH
 }

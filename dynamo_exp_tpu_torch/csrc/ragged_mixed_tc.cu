@@ -6,8 +6,12 @@
 // `ragged_paged_attention` with bf16 pools, and computes what it
 // computes: causal GQA attention of a flat query stream q[N, H, D]
 // against a paged KV pool [P, ps, Hkv*D]. A token at position p attends
-// to its row's kv positions <= p; online softmax with float32
-// accumulators. Tiles of q_tile tokens each belong to one row; a tile
+// to its row's kv positions in (p - window, p]; online softmax with
+// float32 accumulators over the scores scale * q.k, capped to
+// cap * tanh(s / cap) under a softcap (gemma2). The TPU kernel has no
+// window or softcap: the JAX package computes those in XLA's
+// paged_attention (dynamo_exp_tpu/ops/attention.py), and this kernel
+// computes what that function computes. Tiles of q_tile tokens each belong to one row; a tile
 // whose positions are all -1 writes exact zeros, and so does every
 // padding slot (position -1) inside a live tile.
 //
@@ -43,7 +47,12 @@
 //   staged once for all of the run's query rows, up to the run's causal
 //   horizon, which divides the re-reading of K/V by the run length.
 //   Warps skip the tokens past their own rows' horizon, and mask only
-//   where a row's causal bound, the run's bound or a padding row falls.
+//   where a row's causal bound, its window's start, the run's bound or
+//   a padding row falls;
+// - with a sliding window, starts the chunk walk at the chunk holding
+//   the run's earliest visible key, and warps skip the steps before
+//   their rows' windows, so a windowed layer reads about `window` keys
+//   a row however long the context.
 // Rows in a block are laid out (query, q head of the kv head): for one
 // query token the kv head's q heads are adjacent in q, so the rows of a
 // run are contiguous in memory. Layouts whose row count is not a
@@ -109,17 +118,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // One warp's share of kSub staged kv tokens: S = Q K^T for its kMT
 // m-tiles (each K and V fragment read from shared memory serves all of
-// them), the online softmax (in the log2 domain: scores are pre-scaled
-// by scale * log2(e), so exp2 gives the same probabilities), and
-// O += P V. kMasked: the tokens cross a row's causal bound, the run's
-// kv bound or the warp holds a padding row, so scores are masked and
-// n-tile pairs past the warp's horizon `whor` are skipped; otherwise
-// every score is live. Thread state is indexed [m-tile][h], h = 0 for
+// them), the online softmax (in the log2 domain: `score` maps q.k to
+// log2 units, so exp2 gives the same probabilities), and O += P V.
+// kMasked: the tokens cross a row's causal bound, its window's start
+// `qlo`, the run's kv bound or the warp holds a padding row, so scores
+// are masked and n-tile pairs past the warp's horizon `whor` are
+// skipped; otherwise every score is live. Thread state is indexed [m-tile][h], h = 0 for
 // row g of the m-tile and 1 for row g + 8.
-template <int D, bool kMasked>
+template <int D, bool kMasked, bool kCapped>
 __device__ __forceinline__ void warp_step(const bf16* q_w, const bf16* k_s, const bf16* v_s,
                                           int c0, int whor, int kvlen,
-                                          const int (&qpos)[kMT][2], float sl2,
+                                          const int (&qpos)[kMT][2],
+                                          const int (&qlo)[kMT][2],
+                                          const dx::Scorer<kCapped>& score,
                                           float (&m)[kMT][2], float (&l)[kMT][2],
                                           float (&acc)[kMT][D / 8][4]) {
   constexpr int LD = D + 8;
@@ -166,10 +177,11 @@ __device__ __forceinline__ void warp_step(const bf16* q_w, const bf16* k_s, cons
       for (int j = 0; j < 4; ++j) {
         if (kMasked) {
           const int tok = c0 + n * 8 + tig * 2 + (j & 1);
-          const bool live = tok < kvlen && tok <= qpos[mt][j >> 1];
-          s[mt][n][j] = live ? s[mt][n][j] * sl2 : -1e30f;
+          const bool live =
+              tok < kvlen && tok <= qpos[mt][j >> 1] && tok >= qlo[mt][j >> 1];
+          s[mt][n][j] = live ? score(s[mt][n][j]) : -1e30f;
         } else {
-          s[mt][n][j] *= sl2;
+          s[mt][n][j] = score(s[mt][n][j]);
         }
         mx[j >> 1] = fmaxf(mx[j >> 1], s[mt][n][j]);
       }
@@ -238,14 +250,14 @@ __device__ __forceinline__ void warp_step(const bf16* q_w, const bf16* k_s, cons
   }
 }
 
-template <int D>
+template <int D, bool kCapped>
 __global__ void __launch_bounds__(kThreads)
     mixed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int32_t* __restrict__ page_table,
                     const int32_t* __restrict__ row_of,
                     const int32_t* __restrict__ positions, bf16* __restrict__ out,
                     int n_tiles, int H, int Hkv, int ps, int pmax, int qt, int run,
-                    float scale) {
+                    float scale, int window, float softcap) {
   constexpr int LD = D + 8;  // smem row stride (bf16): 16-byte pad
   constexpr int NT = D / 8;  // output n-tiles
   constexpr int WR = 16 * kMT;  // rows a warp owns
@@ -290,33 +302,46 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  int kvlen = 0;  // the run's causal horizon: max position + 1
-  for (int i = 0; i < nq; ++i) kvlen = max(kvlen, pos_s[i] + 1);
+  int kvlen = 0;       // the run's causal horizon: max position + 1
+  int pmin = 1 << 30;  // its earliest live position
+  for (int i = 0; i < nq; ++i) {
+    kvlen = max(kvlen, pos_s[i] + 1);
+    if (pos_s[i] >= 0) pmin = min(pmin, pos_s[i]);
+  }
   kvlen = min(kvlen, pmax * ps);  // kv past the page table does not exist
+  // The run's earliest visible key: its walk starts at that key's chunk.
+  const int ch0 = kvlen > 0 ? max(0, pmin - window + 1) / kChunk : 0;
 
-  // This thread's rows (two per m-tile); the warp's horizon (tokens any
-  // of its rows attends) and full span (tokens all of its rows attend:
-  // 0 if it holds a padding row).
+  // This thread's rows (two per m-tile) and the first key each sees;
+  // the warp's horizon (tokens any of its rows attends) and full span
+  // (tokens all of its rows attend: 0 if it holds a padding row), and
+  // its window's starts: the first key any live row sees (wlo) and the
+  // first key every row sees (wlo_all).
   const int g = lane >> 2, tig = lane & 3;
-  int qpos[kMT][2];
-  int wmax = -1, wmin = 1 << 30;
+  int qpos[kMT][2], qlo[kMT][2];
+  int wmax = -1, wmin = 1 << 30, wlo = 1 << 30, wlo_all = -(1 << 30);
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = warp * WR + mt * 16 + g + 8 * h;
       qpos[mt][h] = r < rows ? pos_s[r / qpk] : -1;
+      qlo[mt][h] = qpos[mt][h] - window + 1;
       wmax = max(wmax, qpos[mt][h]);
       wmin = min(wmin, qpos[mt][h]);
+      if (qpos[mt][h] >= 0) wlo = min(wlo, qlo[mt][h]);
+      wlo_all = max(wlo_all, qlo[mt][h]);
     }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
     wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, o));
+    wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
+    wlo_all = max(wlo_all, __shfl_xor_sync(0xffffffffu, wlo_all, o));
   }
   const int whor = min(kvlen, wmax + 1);
   const int wfull = min(kvlen, wmin + 1);
-  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  const dx::Scorer<kCapped> score(scale, softcap);
 
   float m[kMT][2], l[kMT][2], acc[kMT][NT][4];
 #pragma unroll
@@ -330,47 +355,49 @@ __global__ void __launch_bounds__(kThreads)
 
   const int32_t* table_row = page_table + (size_t)row * pmax;
   const bf16* q_w = q_s + warp * WR * LD;
-  const int nchunks = (kvlen + kChunk - 1) / kChunk;
+  // Chunks ch0 .. nchunks-1; chunk ch0 + i lives in ring slot i % kStages.
+  const int nch = (kvlen + kChunk - 1) / kChunk - ch0;
   // A ring of kStages chunk buffers: chunks c+1 .. c+kStages-1 load
   // while chunk c is computed. The first group also holds q.
   dx::KvStager<bf16, D, kChunk, kThreads, LD> stager;
-  if (nchunks > 0) stager.lookup(table_row, 0, kvlen, ps, ps_log2, pmax);
+  if (nch > 0) stager.lookup(table_row, ch0 * kChunk, kvlen, ps, ps_log2, pmax);
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nchunks) {
+    if (st < nch) {
       bf16* nb = kv_s + st * 2 * kChunk * LD;
       stager.issue(k, v, ps, ps_log2, fused, kvh, nb, nb + kChunk * LD);
-      if (st + 1 < nchunks)
-        stager.lookup(table_row, (st + 1) * kChunk, kvlen, ps, ps_log2, pmax);
+      if (st + 1 < nch)
+        stager.lookup(table_row, (ch0 + st + 1) * kChunk, kvlen, ps, ps_log2, pmax);
     }
     dx::cp_async_commit();
   }
 
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int c0 = ch * kChunk;
-    const int nx = ch + kStages - 1;
-    if (nx < nchunks) {
+  for (int i = 0; i < nch; ++i) {
+    const int c0 = (ch0 + i) * kChunk;
+    const int nx = i + kStages - 1;
+    if (nx < nch) {
       bf16* nb = kv_s + (nx % kStages) * 2 * kChunk * LD;
       stager.issue(k, v, ps, ps_log2, fused, kvh, nb, nb + kChunk * LD);
-      if (nx + 1 < nchunks)
-        stager.lookup(table_row, (nx + 1) * kChunk, kvlen, ps, ps_log2, pmax);
+      if (nx + 1 < nch)
+        stager.lookup(table_row, (ch0 + nx + 1) * kChunk, kvlen, ps, ps_log2, pmax);
     }
     dx::cp_async_commit();
     dx::cp_async_wait<kStages - 1>();  // this chunk (and q) landed
     __syncthreads();
 
-    const bf16* k_s = kv_s + (ch % kStages) * 2 * kChunk * LD;
+    const bf16* k_s = kv_s + (i % kStages) * 2 * kChunk * LD;
     const bf16* v_s = k_s + kChunk * LD;
 #pragma unroll
     for (int sub = 0; sub < kChunk / kSub; ++sub) {
-      // Warp-uniform: tokens past the warp's rows are skipped.
+      // Warp-uniform: tokens past the warp's rows, or before their
+      // windows, are skipped.
       const int c = c0 + sub * kSub;
       const bf16* ksub = k_s + sub * kSub * LD;
       const bf16* vsub = v_s + sub * kSub * LD;
-      if (c + kSub <= wfull)
-        warp_step<D, false>(q_w, ksub, vsub, c, whor, kvlen, qpos, sl2, m, l, acc);
-      else if (c < whor)
-        warp_step<D, true>(q_w, ksub, vsub, c, whor, kvlen, qpos, sl2, m, l, acc);
+      if (c >= wlo_all && c + kSub <= wfull)
+        warp_step<D, false>(q_w, ksub, vsub, c, whor, kvlen, qpos, qlo, score, m, l, acc);
+      else if (c < whor && c + kSub > wlo)
+        warp_step<D, true>(q_w, ksub, vsub, c, whor, kvlen, qpos, qlo, score, m, l, acc);
     }
     __syncthreads();  // every warp is done with this buffer
   }
@@ -399,9 +426,10 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* page_table,
                    const void* row_of, const void* positions, void* out, int n_tiles,
                    int H, int Hkv, int ps, int pmax, int qt, int run, float scale,
-                   cudaStream_t stream) {
+                   int window, float softcap, cudaStream_t stream) {
+  // D = 256: 67,584 B of q rows and a 135,168 B ring, within 227 KB.
   const size_t smem = (size_t)(kMaxRows + 2 * kStages * kChunk) * (D + 8) * sizeof(bf16);
-  auto kern = mixed_tc_kernel<D>;
+  auto kern = softcap > 0.f ? mixed_tc_kernel<D, true> : mixed_tc_kernel<D, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -409,7 +437,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* page
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(row_of), static_cast<const int32_t*>(positions),
-      static_cast<bf16*>(out), n_tiles, H, Hkv, ps, pmax, qt, run, scale);
+      static_cast<bf16*>(out), n_tiles, H, Hkv, ps, pmax, qt, run, scale, window, softcap);
   return cudaGetLastError();
 }
 
@@ -419,20 +447,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* page
 // Shapes are checked by the Python wrapper; this re-checks only what
 // would index out of the kernel's fixed arrays. `run` (q tiles a block
 // may take) is the largest that keeps a block within 128 query rows.
+// `window` >= 1 (1 << 30: none); `softcap` 0: none.
 extern "C" int dx_ragged_mixed_tc(const void* q, const void* k, const void* v,
                                   const void* page_table, const void* row_of,
                                   const void* positions, void* out, int n_tokens, int H,
                                   int Hkv, int D, int ps, int pmax, int q_tile, float scale,
-                                  void* stream) {
+                                  int window, float softcap, void* stream) {
   if (q_tile < 1 || q_tile > kMaxQTile || n_tokens % q_tile != 0 || Hkv < 1 ||
-      H % Hkv != 0 || (H / Hkv) * q_tile > kMaxRows || (D != 64 && D != 128))
+      H % Hkv != 0 || (H / Hkv) * q_tile > kMaxRows || window < 1 || softcap < 0.f ||
+      (D != 64 && D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   if (n_tokens == 0) return 0;
   const int run = max(1, min(kMaxRun, kMaxRows / ((H / Hkv) * q_tile)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = n_tokens / q_tile;
-  return (int)(D == 64 ? launch<64>(q, k, v, page_table, row_of, positions, out, n_tiles,
-                                    H, Hkv, ps, pmax, q_tile, run, scale, s)
-                       : launch<128>(q, k, v, page_table, row_of, positions, out,
-                                     n_tiles, H, Hkv, ps, pmax, q_tile, run, scale, s));
+#define DX_LAUNCH(DIM)                                                                   \
+  return (int)launch<DIM>(q, k, v, page_table, row_of, positions, out, n_tiles, H, Hkv, ps, \
+                          pmax, q_tile, run, scale, window, softcap, s)
+  if (D == 64) DX_LAUNCH(64);
+  if (D == 128) DX_LAUNCH(128);
+  DX_LAUNCH(256);
+#undef DX_LAUNCH
 }

@@ -1,7 +1,10 @@
 from .config import (
+    GEMMA2_9B,
+    GEMMA_2B,
     LLAMA_1B,
     LLAMA_3B,
     LLAMA_8B,
+    MISTRAL_7B,
     PRESETS,
     QWEN2_7B,
     QWEN3_8B,
@@ -23,6 +26,9 @@ __all__ = [
     "LLAMA_8B",
     "QWEN2_7B",
     "QWEN3_8B",
+    "GEMMA_2B",
+    "GEMMA2_9B",
+    "MISTRAL_7B",
     "PRESETS",
     "Llama",
     "forward",

@@ -3,8 +3,9 @@
 A copy of ``dynamo_exp_tpu/models/config.py`` (``ModelConfig``,
 ``PRESETS``, ``from_pretrained``): the port imports nothing of the JAX
 package, so it keeps its own. Family differences are fields, not
-subclasses; this slice serves the dense families (llama, qwen2 QKV
-bias, qwen3 q/k norm) and raises on the rest (``models/llama.py``).
+subclasses; the port serves the dense families (llama, mistral, qwen2,
+qwen3, phi3, gemma, gemma2, gemma3) and raises on the sparse-MoE ones
+(``models/llama.py``).
 """
 
 from __future__ import annotations

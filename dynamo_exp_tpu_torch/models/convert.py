@@ -31,6 +31,8 @@ _LAYER_KEYS = {
     "bv": False,
     "q_norm": False,
     "k_norm": False,
+    "post_attn_norm": False,
+    "post_ffn_norm": False,
 }
 
 

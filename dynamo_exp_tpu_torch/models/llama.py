@@ -1,8 +1,14 @@
 """Llama-family transformer over a paged KV cache, in PyTorch.
 
 Counterpart of ``dynamo_exp_tpu/models/llama.py`` for the dense
-families: llama, qwen2 (QKV bias) and qwen3 (per-head q/k RMSNorm).
-The model is an ``nn.Module`` whose linear weights are stored
+families: llama, mistral (a sliding window on every layer), qwen2 (QKV
+bias), qwen3 (per-head q/k RMSNorm), phi3 (the llama layer; its packed
+tensors are split by the loader), gemma (GELU-tanh FFN, ``(1 + w)``
+norms, embeddings scaled by ``sqrt(hidden)``), gemma2 (post-attention
+and post-FFN norms, attention and final-logit softcaps, a query scale
+of its own, a window on even layers) and gemma3 (q/k norms, a window
+on the layers ``layer_types`` names sliding, which rope at a local
+base). The model is an ``nn.Module`` whose linear weights are stored
 ``[out, in]`` (``F.linear``'s layout; ``models/convert.py`` transposes
 the JAX package's ``x @ W`` weights). Where JAX scans over stacked
 layers, this loops over ``model.layers`` in Python. The KV pools
@@ -58,30 +64,12 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse configs outside this slice's dense families instead of
-    running them wrongly (ROADMAP.md, Queue 1 of the port)."""
+    """Refuse what the port does not run instead of running it wrongly:
+    the sparse-MoE FFN (ROADMAP.md, Queue 1 of the port, item 7)."""
     if cfg.is_moe:
         raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP: port Queue 1, "
+            "MoE FFN is not ported yet (ROADMAP: port Queue 1 item 7, "
             "'tensor/sequence parallelism and MoE')"
-        )
-    gemma_mistral = {
-        "sliding_window": cfg.sliding_window is not None,
-        "attn_logit_softcap": cfg.attn_logit_softcap is not None,
-        "final_logit_softcap": cfg.final_logit_softcap is not None,
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar is not None,
-        "rms_norm_offset": cfg.rms_norm_offset,
-        "scale_embeddings": cfg.scale_embeddings,
-        "post_norms": cfg.post_norms,
-        "hidden_act": cfg.hidden_act != "silu",
-        "layer_types": bool(cfg.layer_types),
-        "rope_local_base_freq": cfg.rope_local_base_freq is not None,
-    }
-    bad = [name for name, on in gemma_mistral.items() if on]
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)} not ported yet (ROADMAP: port Queue 1, "
-            "'gemma/mistral families')"
         )
 
 
@@ -111,9 +99,13 @@ class LlamaLayer(nn.Module):
             self.bk = _param((Hkv * hd,), dtype, device)
             self.bv = _param((Hkv * hd,), dtype, device)
         self.q_norm = self.k_norm = None
-        if cfg.qk_norm:  # qwen3: per-head q/k RMSNorm before rope
+        if cfg.qk_norm:  # qwen3, gemma3: per-head q/k RMSNorm before rope
             self.q_norm = _param((hd,), dtype, device)
             self.k_norm = _param((hd,), dtype, device)
+        self.post_attn_norm = self.post_ffn_norm = None
+        if cfg.post_norms:  # gemma2, gemma3: norms on the blocks' outputs too
+            self.post_attn_norm = _param((D,), dtype, device)
+            self.post_ffn_norm = _param((D,), dtype, device)
 
 
 class Llama(nn.Module):
@@ -147,7 +139,8 @@ def init_params(
 ) -> Llama:
     """Random weights on ``device`` from ``generator`` (which must live
     on that device): normal / sqrt(fan_in) for matrices and biases,
-    ones for norms — the JAX package's init scheme (not its bits)."""
+    ones for norms (zeros for the post norms of ``(1 + w)`` families) —
+    the JAX package's init scheme (not its bits)."""
     model = Llama(cfg, device=device)
 
     def fill(p: nn.Parameter, fan_in: int) -> None:
@@ -170,6 +163,10 @@ def init_params(
             w = getattr(layer, name)
             if w is not None:
                 w.fill_(1.0)
+        for name in ("post_attn_norm", "post_ffn_norm"):
+            w = getattr(layer, name)
+            if w is not None:
+                w.fill_(0.0 if cfg.rms_norm_offset else 1.0)
     model.final_norm.fill_(1.0)
     if model.lm_head is not None:
         fill(model.lm_head, D)
@@ -193,38 +190,60 @@ def init_kv_cache(
     )
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(
+    x: torch.Tensor, w: torch.Tensor, eps: float, offset: bool = False
+) -> torch.Tensor:
     """HF LlamaRMSNorm rounding order: normalise in float32, cast to the
-    input dtype, then multiply by the weight."""
+    input dtype, then multiply by the weight. ``offset`` (gemma): the
+    scale is ``1 + w`` and the whole product stays float32 until one
+    final cast (HF GemmaRMSNorm), as ``1 + w`` in bf16 would round away
+    the precision near 1.0 the convention keeps."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    normed = xf * torch.rsqrt(var + eps)
+    if offset:
+        return (normed * (w.to(torch.float32) + 1.0)).to(x.dtype)
+    return normed.to(x.dtype) * w
+
+
+def _act(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The FFN's gate activation, on float32 values: GELU-tanh (gemma)
+    or SiLU (every other name, as in the JAX package)."""
+    if name == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
 
 
 def _attn_mlp_layer(x, layer: LlamaLayer, cfg, inv_freq, rope_pos, eps, attend):
     """One decoder layer over x [B, T, D]. ``attend(q, k, v)`` is the
     only thing that differs between the forward shapes."""
     B, T = x.shape[:2]
-    hd = cfg.head_dim_
-    h = rms_norm(x, layer.attn_norm, eps)
+    hd, off = cfg.head_dim_, cfg.rms_norm_offset
+    h = rms_norm(x, layer.attn_norm, eps, off)
     q = F.linear(h, layer.wq, layer.bq).reshape(B, T, -1, hd)
     k = F.linear(h, layer.wk, layer.bk).reshape(B, T, -1, hd)
     v = F.linear(h, layer.wv, layer.bv).reshape(B, T, -1, hd)
-    if layer.q_norm is not None:
-        q = rms_norm(q, layer.q_norm, eps)
-        k = rms_norm(k, layer.k_norm, eps)
+    if layer.q_norm is not None:  # gemma3 stores these gemma-style too
+        q = rms_norm(q, layer.q_norm, eps, off)
+        k = rms_norm(k, layer.k_norm, eps, off)
     q = apply_rope(q, rope_pos, inv_freq)
     k = apply_rope(k, rope_pos, inv_freq)
     attn = attend(q, k, v)
-    x = x + F.linear(attn.reshape(B, T, -1), layer.wo)
-    h = rms_norm(x, layer.mlp_norm, eps)
-    # SiLU in float32, then back to the activation dtype.
-    gate = F.silu(F.linear(h, layer.w_gate).to(torch.float32)).to(x.dtype)
-    return x + F.linear(gate * F.linear(h, layer.w_up), layer.w_down)
+    attn_out = F.linear(attn.reshape(B, T, -1), layer.wo)
+    if layer.post_attn_norm is not None:
+        attn_out = rms_norm(attn_out, layer.post_attn_norm, eps, off)
+    x = x + attn_out
+    h = rms_norm(x, layer.mlp_norm, eps, off)
+    # The activation in float32, then back to the activation dtype.
+    gate = _act(F.linear(h, layer.w_gate).to(torch.float32), cfg.hidden_act).to(x.dtype)
+    ffn_out = F.linear(gate * F.linear(h, layer.w_up), layer.w_down)
+    if layer.post_ffn_norm is not None:
+        ffn_out = rms_norm(ffn_out, layer.post_ffn_norm, eps, off)
+    return x + ffn_out
 
 
 def _final_logits(model: Llama, cfg, x, eps) -> torch.Tensor:
-    x = rms_norm(x, model.final_norm, eps)
+    x = rms_norm(x, model.final_norm, eps, cfg.rms_norm_offset)
     head = model.head
     logits = F.linear(x, head).to(torch.float32)
     if head.dtype == torch.bfloat16:
@@ -232,7 +251,47 @@ def _final_logits(model: Llama, cfg, x, eps) -> torch.Tensor:
         # reduce_precision(..., 8, 7)), so greedy ties break the same
         # way whatever fused the matmul and the argmax.
         logits = logits.to(torch.bfloat16).to(torch.float32)
+    if cfg.final_logit_softcap is not None:  # gemma2
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
     return logits
+
+
+def _embed(model: Llama, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings; gemma scales them by sqrt(hidden) rounded to the
+    parameter dtype first, and multiplies in that dtype, as the JAX
+    package does."""
+    x = model.embed[tokens.long()]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
+    return x
+
+
+def _layer_attention(cfg: ModelConfig, device) -> list[tuple]:
+    """Per layer, as the JAX package's forward reads the config:
+    (inverse rope frequencies, sliding window or None, softcap, scale).
+    The sliding layers are gemma3's ``layer_types`` ones, gemma2's even
+    layers (``alt_sliding_window``) or every layer (mistral, phi3);
+    they take ``sliding_window`` where it is set, and gemma3's rope at
+    ``rope_local_base_freq`` (no scaling). Every other layer ropes at
+    ``rope_theta`` with ``rope_scaling``. The scale is
+    ``query_pre_attn_scalar ** -0.5`` where the config sets it
+    (gemma2/3), else the kernels' default."""
+    hd = cfg.head_dim_
+    inv_freq = rope_frequencies(hd, cfg.rope_theta, cfg.rope_scaling, device)
+    local = inv_freq
+    if cfg.rope_local_base_freq is not None:
+        local = rope_frequencies(hd, cfg.rope_local_base_freq, None, device)
+    if cfg.layer_types:
+        sliding = [t == "sliding_attention" for t in cfg.layer_types]
+    else:
+        sliding = [not cfg.alt_sliding_window or i % 2 == 0 for i in range(cfg.num_layers)]
+    scale = cfg.query_pre_attn_scalar**-0.5 if cfg.query_pre_attn_scalar else None
+    return [
+        (local, cfg.sliding_window, cfg.attn_logit_softcap, scale) if s
+        else (inv_freq, None, cfg.attn_logit_softcap, scale)
+        for s in sliding
+    ]
 
 
 def _write_coords(positions, rows_of, page_table, ps, drop_page=None):
@@ -283,12 +342,12 @@ def forward(
             "or attn_impl='reference'"
         )
     hd, ps, eps = cfg.head_dim_, k_cache.shape[2], cfg.rms_norm_eps
-    inv_freq = rope_frequencies(hd, cfg.rope_theta, cfg.rope_scaling, tokens.device)
+    per_layer = _layer_attention(cfg, tokens.device)
     rows_of = torch.arange(B * T, device=tokens.device) // T
     page_ids, offsets, valid = _write_coords(
         positions.reshape(-1), rows_of, page_table, ps, drop_page
     )
-    x = model.embed[tokens.long()]
+    x = _embed(model, cfg, tokens)
     rope_pos = torch.clamp(positions, min=0)
     if use_kernel:
         lengths = torch.clamp(positions[:, 0] + 1, min=0).to(torch.int32)
@@ -299,8 +358,9 @@ def forward(
 
     for li, layer in enumerate(model.layers):
         kp, vp = k_cache[li], v_cache[li]
+        inv_freq, window, softcap, scale = per_layer[li]
 
-        def attend(q, k, v, kp=kp, vp=vp):
+        def attend(q, k, v, kp=kp, vp=vp, window=window):
             write_kv_pages(
                 kp, vp, k.reshape(B * T, fused), v.reshape(B * T, fused),
                 page_ids, offsets, valid,
@@ -308,9 +368,11 @@ def forward(
             if use_kernel:
                 return ragged_decode_attention(
                     q[:, 0].contiguous(), kp, vp, table, lengths,
-                    num_kv_heads=cfg.num_kv_heads,
+                    num_kv_heads=cfg.num_kv_heads, sm_scale=scale, window=window,
+                    softcap=softcap,
                 )[:, None]
-            return paged_attention(q, kp, vp, attn_table, positions)
+            return paged_attention(q, kp, vp, attn_table, positions, sm_scale=scale,
+                                   window=window, softcap=softcap)
 
         x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend)
     return _final_logits(model, cfg, x, eps), k_cache, v_cache
@@ -347,9 +409,9 @@ def forward_ragged(
     attn_impl = resolve_attn(attn_impl, tokens.device)
     N = tokens.shape[0]
     hd, ps, eps = cfg.head_dim_, k_cache.shape[2], cfg.rms_norm_eps
-    inv_freq = rope_frequencies(hd, cfg.rope_theta, cfg.rope_scaling, tokens.device)
+    per_layer = _layer_attention(cfg, tokens.device)
     page_ids, offsets, valid = _write_coords(positions, row_of, page_table, ps, drop_page)
-    x = model.embed[tokens.long()][None]  # [1, N, D]
+    x = _embed(model, cfg, tokens)[None]  # [1, N, D]
     rope_pos = torch.clamp(positions, min=0)[None]
     fused = cfg.num_kv_heads * hd
     if attn_impl == "kernel":
@@ -361,20 +423,21 @@ def forward_ragged(
 
     for li, layer in enumerate(model.layers):
         kp, vp = k_cache[li], v_cache[li]
+        inv_freq, window, softcap, scale = per_layer[li]
 
-        def attend(q, k, v, kp=kp, vp=vp):
+        def attend(q, k, v, kp=kp, vp=vp, window=window):
             write_kv_pages(
                 kp, vp, k.reshape(N, fused), v.reshape(N, fused),
                 page_ids, offsets, valid,
             )
+            attn = {"num_kv_heads": cfg.num_kv_heads, "sm_scale": scale, "window": window,
+                    "softcap": softcap}
             if attn_impl == "kernel":
                 return ragged_paged_attention(
-                    q[0].contiguous(), kp, vp, table, rows, pos,
-                    num_kv_heads=cfg.num_kv_heads, q_tile=q_tile,
+                    q[0].contiguous(), kp, vp, table, rows, pos, q_tile=q_tile, **attn
                 )[None]
             return ragged_paged_attention_ref(
-                q[0], kp, vp, attn_table, row_of, positions,
-                num_kv_heads=cfg.num_kv_heads,
+                q[0], kp, vp, attn_table, row_of, positions, **attn
             )[None]
 
         x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend)

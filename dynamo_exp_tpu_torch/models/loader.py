@@ -14,7 +14,12 @@ read as 16-bit integers and viewed as ``torch.bfloat16`` (bit-exact);
 
 HF stores every linear weight ``[out, in]``, which is already the port's
 layout (``F.linear``). Unlike the JAX loader (``loader.py:69-71``, which
-transposes to ``x @ W``), nothing here is transposed.
+transposes to ``x @ W``), nothing here is transposed. The tensor names
+are the JAX loader's: gemma2 and gemma3 carry four norms a layer
+(``post_attention_layernorm`` norms the attention's output there, and
+``pre_feedforward_layernorm`` is the FFN's input norm), gemma3 the q/k
+norms of qwen3, and phi3 packs q, k and v into ``qkv_proj`` and gate and
+up into ``gate_up_proj``, which are split by rows on the way in.
 """
 
 from __future__ import annotations
@@ -32,17 +37,15 @@ from .llama import Llama, check_supported, model_dtype
 
 _ITEM = "ROADMAP Queue 1 item"
 # model_type -> why the port cannot serve it yet (the JAX package's
-# SUPPORTED_MODEL_TYPES beyond the dense llama family).
+# SUPPORTED_MODEL_TYPES beyond the dense families).
 UNSUPPORTED_MODEL_TYPES = {
-    "gemma": f"{_ITEM} 8 (gemma/mistral families)",
-    "gemma2": f"{_ITEM} 8 (gemma/mistral families)",
-    "gemma3_text": f"{_ITEM} 8 (gemma/mistral families)",
     "mixtral": f"{_ITEM} 7 (MoE)",
     "qwen2_moe": f"{_ITEM} 7 (MoE)",
     "qwen3_moe": f"{_ITEM} 7 (MoE)",
-    "phi3": f"{_ITEM} 9(j) (phi3's packed qkv_proj / gate_up_proj)",
 }
-SUPPORTED_MODEL_TYPES = ("llama", "mistral", "qwen2", "qwen3")
+SUPPORTED_MODEL_TYPES = (
+    "llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "gemma3_text", "phi3",
+)
 
 # safetensors dtype -> (numpy type the bytes are read as, torch type).
 _DTYPES = {
@@ -135,7 +138,7 @@ def _open_safetensors(path: str) -> tuple[list[SafetensorsFile], dict[str, int]]
 
 def check_loadable(cfg: ModelConfig) -> None:
     """Raise for a model type the port cannot serve, naming its ROADMAP
-    item (mistral passes only without a sliding window)."""
+    item."""
     if cfg.model_type in UNSUPPORTED_MODEL_TYPES:
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not ported to dynamo_exp_tpu_torch yet; "
@@ -148,15 +151,17 @@ def check_loadable(cfg: ModelConfig) -> None:
     check_supported(cfg)
 
 
-def hf_tensor_names(cfg: ModelConfig) -> dict[str, tuple[int | None, str]]:
-    """HF tensor name -> (layer index or None, the port's attribute)."""
-    out: dict[str, tuple[int | None, str]] = {
+def hf_tensor_names(cfg: ModelConfig) -> dict[str, tuple[int | None, str | tuple[str, ...]]]:
+    """HF tensor name -> (layer index or None, the port's attribute), or,
+    for a packed tensor (phi3), the attributes it stacks by rows, in
+    order (:func:`model_tensor` gives the stacked tensor)."""
+    out: dict[str, tuple[int | None, str | tuple[str, ...]]] = {
         "model.embed_tokens.weight": (None, "embed"),
         "model.norm.weight": (None, "final_norm"),
     }
     if not cfg.tie_word_embeddings:
         out["lm_head.weight"] = (None, "lm_head")
-    per_layer = {
+    per_layer: dict[str, str | tuple[str, ...]] = {
         "input_layernorm.weight": "attn_norm",
         "self_attn.q_proj.weight": "wq",
         "self_attn.k_proj.weight": "wk",
@@ -167,18 +172,39 @@ def hf_tensor_names(cfg: ModelConfig) -> dict[str, tuple[int | None, str]]:
         "mlp.up_proj.weight": "w_up",
         "mlp.down_proj.weight": "w_down",
     }
+    if cfg.post_norms:  # gemma2/3: the attention's and the FFN's outputs normed too
+        per_layer.update({
+            "post_attention_layernorm.weight": "post_attn_norm",
+            "pre_feedforward_layernorm.weight": "mlp_norm",
+            "post_feedforward_layernorm.weight": "post_ffn_norm",
+        })
+    if cfg.model_type == "phi3":  # [(H + 2 Hkv) hd, D] and [2 I, D]
+        for name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                     "mlp.gate_proj", "mlp.up_proj"):
+            del per_layer[f"{name}.weight"]
+        per_layer["self_attn.qkv_proj.weight"] = ("wq", "wk", "wv")
+        per_layer["mlp.gate_up_proj.weight"] = ("w_gate", "w_up")
     if cfg.attention_bias:  # qwen2: bias on q/k/v, none on o
         per_layer.update({
             "self_attn.q_proj.bias": "bq",
             "self_attn.k_proj.bias": "bk",
             "self_attn.v_proj.bias": "bv",
         })
-    if cfg.qk_norm:  # qwen3: per-head q/k RMSNorm
+    if cfg.qk_norm:  # qwen3, gemma3: per-head q/k RMSNorm
         per_layer.update({"self_attn.q_norm.weight": "q_norm", "self_attn.k_norm.weight": "k_norm"})
     for i in range(cfg.num_layers):
         for hf, attr in per_layer.items():
             out[f"model.layers.{i}.{hf}"] = (i, attr)
     return out
+
+
+def model_tensor(model: Llama, li: int | None, attr: str | tuple[str, ...]) -> torch.Tensor:
+    """The tensor a checkpoint holds for one :func:`hf_tensor_names`
+    entry: the attribute, or the packed attributes stacked by rows."""
+    owner = model if li is None else model.layers[li]
+    if isinstance(attr, str):
+        return getattr(owner, attr)
+    return torch.cat([getattr(owner, a) for a in attr])
 
 
 @torch.no_grad()
@@ -201,13 +227,19 @@ def load_params(
             if name not in index:
                 raise KeyError(f"{path}: checkpoint has no tensor {name!r}")
             src = files[index[name]].get(name)
-            dst = getattr(model if li is None else model.layers[li], attr)
-            if tuple(src.shape) != tuple(dst.shape):
+            owner = model if li is None else model.layers[li]
+            dsts = [getattr(owner, a) for a in ((attr,) if isinstance(attr, str) else attr)]
+            want = [sum(d.shape[0] for d in dsts), *dsts[0].shape[1:]]
+            if list(src.shape) != want:
                 raise ValueError(
                     f"{files[index[name]].path}: tensor {name!r} has shape "
-                    f"{list(src.shape)}, the model wants {list(dst.shape)}"
+                    f"{list(src.shape)}, the model wants {want}"
                 )
-            dst.copy_(src if src.dtype == dt else src.to(dt))
+            row = 0
+            for dst in dsts:  # a packed tensor's parts, by rows
+                part = src[row : row + dst.shape[0]]
+                dst.copy_(part if part.dtype == dt else part.to(dt))
+                row += dst.shape[0]
     finally:
         for sf in files:
             sf.close()

@@ -5,7 +5,13 @@ as a flat token stream ``q[N, H, D]`` with per-token ``positions[N]``
 (absolute context position, -1 = padding) and ``row_of[N]`` (the batch
 row owning the token). Rows own KV pages through
 ``page_table[R, Pmax]``; a token at position ``p`` attends causally to
-its row's kv positions ``<= p``.
+its row's kv positions ``<= p``, and with a sliding ``window`` only to
+those ``> p - window`` (mistral, gemma2's even layers, gemma3's local
+layers). Scores are ``sm_scale * q.k`` (default ``D ** -0.5``), capped
+to ``softcap * tanh(s / softcap)`` when a softcap is set (gemma2). The
+window and the softcap are the JAX package's ``paged_attention``
+arguments; its Pallas kernel takes neither, and the JAX package sends
+those families to XLA. Here every kernel takes both.
 
 - :func:`ragged_paged_attention_ref` is the plain PyTorch version: each
   flat token becomes a T=1 row of :func:`ops.attention.paged_attention`.
@@ -56,13 +62,16 @@ NVCC_FLAGS = [
 ]
 
 # The kernels' instantiations (csrc/).
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
 SUPPORTED_Q_TILES = (1, 8)
 MAX_ROWS_PER_BLOCK = 64  # qpk * q_tile of one tile
 # kv tokens per block of the split-KV decode kernel: on an H100 64 ran
 # faster than 128 and 256 in each of five interleaved rounds of
 # tools/torch_kernel_probe.py at the smoke's decode rows.
 DECODE_SPLIT = 64
+# The window the kernels read as "none" (the JAX package passes the same
+# for its full-attention layers).
+NO_WINDOW = 1 << 30
 
 # Launches: +1 where a wrapper launches its kernel, nowhere else (the
 # CPU path does not count). LAUNCHES counts calls of each entry point,
@@ -230,9 +239,9 @@ def build_kernel(
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Each exported launcher's arguments (csrc/); every one returns a cudaError_t.
 _SIGNATURES = {
-    "dx_ragged_attention": [_PTR] * 7 + [_I32] * 7 + [_F32, _PTR],
-    "dx_ragged_mixed_tc": [_PTR] * 7 + [_I32] * 7 + [_F32, _PTR],
-    "dx_ragged_decode_split": [_PTR] * 8 + [_I32] * 7 + [_F32, _I32, _PTR],
+    "dx_ragged_attention": [_PTR] * 7 + [_I32] * 7 + [_F32, _I32, _F32, _PTR],
+    "dx_ragged_mixed_tc": [_PTR] * 7 + [_I32] * 7 + [_F32, _I32, _F32, _PTR],
+    "dx_ragged_decode_split": [_PTR] * 8 + [_I32] * 7 + [_F32, _I32, _F32, _I32, _PTR],
 }
 
 
@@ -273,8 +282,8 @@ def ragged_supported(
     num_heads: int | None = None,
     q_tile: int = 8,
 ) -> bool:
-    """Whether the Hopper kernel takes this KV layout: head dim 64 or
-    128, a bf16 or float32 pool, q_tile 1 or 8, and at most
+    """Whether the Hopper kernel takes this KV layout: head dim 64,
+    128 or 256, a bf16 or float32 pool, q_tile 1 or 8, and at most
     ``MAX_ROWS_PER_BLOCK`` query rows (q heads per kv head x q_tile) in
     one block. Any page size works (pages are read token by token)."""
     qpk = (num_heads // num_kv_heads) if num_heads else 1
@@ -297,12 +306,17 @@ def ragged_paged_attention_ref(
     positions: torch.Tensor,  # [N] int absolute position, -1 = padding
     num_kv_heads: int | None = None,
     sm_scale: float | None = None,
+    window: int | None = None,
+    softcap: float | None = None,
 ) -> torch.Tensor:
     """Plain ragged paged attention. Returns [N, H, D] in q's dtype,
     zeros at padding tokens. Each flat token is its own T=1 row of
     :func:`paged_attention` with its row's page table, as in the JAX
     reference; the tokens go through in slices so the per-token page
-    gather stays within about 1 GiB at full model widths."""
+    gather stays within about 1 GiB at full model widths. ``window``
+    (None or ``NO_WINDOW``: full attention) and ``softcap`` go to
+    :func:`paged_attention` as the JAX reference passes them."""
+    window = _window(window)
     N = q.shape[0]
     pb, ps, fused = page_table.shape[1], k_cache.shape[1], k_cache.shape[2]
     per_token = max(pb * ps * fused * 4 * 2, 1)
@@ -317,8 +331,29 @@ def ragged_paged_attention_ref(
             page_table[row_of[sl].long()],
             positions[sl, None],
             sm_scale=sm_scale,
+            window=None if window == NO_WINDOW else window,
+            softcap=softcap,
         )[:, 0]
     return torch.where((positions >= 0)[:, None, None], out, torch.zeros_like(out))
+
+
+def _window(window: int | None) -> int:
+    """A layer's window as the kernels take it: ``NO_WINDOW`` for None
+    (full attention) or anything at least as wide."""
+    if window is None:
+        return NO_WINDOW
+    if int(window) < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+    return min(int(window), NO_WINDOW)
+
+
+def _softcap(softcap: float | None) -> float:
+    """A softcap as the kernels take it: 0.0 for none."""
+    if softcap is None:
+        return 0.0
+    if not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    return float(softcap)
 
 
 # ------------------------------------------------------------------ kernel
@@ -371,15 +406,18 @@ def ragged_paged_attention(
     num_kv_heads: int | None = None,
     q_tile: int = 8,
     sm_scale: float | None = None,
+    window: int | None = None,
+    softcap: float | None = None,
 ) -> torch.Tensor:
     """Ragged paged attention over a flat query stream. The caller
     aligns each row's query span to ``q_tile`` slots (padding tokens
     carry position -1), so every tile belongs to one row. Returns
-    [N, H, D] in q's dtype, zeros at padding tokens."""
+    [N, H, D] in q's dtype, zeros at padding tokens. ``window`` and
+    ``softcap``: see the module docstring."""
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, k_cache, v_cache, page_table, row_of, positions,
-            num_kv_heads=num_kv_heads, sm_scale=sm_scale,
+            num_kv_heads=num_kv_heads, sm_scale=sm_scale, window=window, softcap=softcap,
         )
     N, H, D, ps, Hkv = _check(
         q, k_cache, v_cache,
@@ -399,7 +437,8 @@ def ragged_paged_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), row_of.data_ptr(), positions.data_ptr(),
         out.data_ptr(), N, H, Hkv, D, ps, page_table.shape[1], q_tile,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), _window(window), _softcap(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "ragged mixed attention")
     _count("ragged_paged_attention", "mixed_tc_bf16" if tc else "mixed_f32")
@@ -414,17 +453,23 @@ def ragged_decode_attention(
     lengths: torch.Tensor,  # [B] int32 tokens to attend over (0 = inactive)
     num_kv_heads: int | None = None,
     split: int = DECODE_SPLIT,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    softcap: float | None = None,
 ) -> torch.Tensor:
     """The pure-decode shape: one query per row; row b attends its own
-    ``lengths[b]`` tokens, rows with length 0 return zeros. On the card
-    each row's context is cut into blocks of ``split`` tokens (a
-    multiple of 32) whose partial softmaxes a second pass combines."""
+    ``lengths[b]`` tokens (the last ``window`` of them under a window),
+    rows with length 0 return zeros. On the card each row's context is
+    cut into blocks of ``split`` tokens (a multiple of 32) whose partial
+    softmaxes a second pass combines; blocks wholly before the window
+    are not read. ``sm_scale``, ``window`` and ``softcap``: see the
+    module docstring."""
     if q.device.type == "cpu":
         B = q.shape[0]
         return ragged_paged_attention_ref(
             q, k_cache, v_cache, page_table,
             torch.arange(B, dtype=torch.int32), (lengths - 1).to(torch.int32),
-            num_kv_heads=num_kv_heads,
+            num_kv_heads=num_kv_heads, sm_scale=sm_scale, window=window, softcap=softcap,
         )
     B, H, D, ps, Hkv = _check(
         q, k_cache, v_cache, {"page_table": page_table, "lengths": lengths},
@@ -446,7 +491,8 @@ def ragged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
         part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, D, ps, pmax, split,
-        float(D**-0.5), int(q.dtype == torch.bfloat16),
+        float(sm_scale if sm_scale is not None else D**-0.5), _window(window),
+        _softcap(softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "ragged decode attention")

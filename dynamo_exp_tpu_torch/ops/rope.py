@@ -20,7 +20,9 @@ def rope_frequencies(
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """Inverse frequencies [head_dim/2] float32 on ``device``, with
-    optional llama3 or linear scaling."""
+    optional llama3 or linear scaling. gemma3's sliding layers take a
+    second set at ``rope_local_base_freq`` without scaling
+    (``models/llama.py``)."""
     exps = torch.arange(
         0, head_dim, 2, dtype=torch.float32, device=resolve_device(device)
     )

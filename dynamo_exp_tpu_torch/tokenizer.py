@@ -2,34 +2,43 @@
 
 Counterpart of ``dynamo_exp_tpu/tokenizer.py``. Where the JAX package
 wraps HuggingFace ``tokenizers``, the port reads ``tokenizer.json`` and
-runs the byte-level BPE itself, so it needs no package beyond the
-standard library. What it reads:
+runs the BPE itself, so it needs no package beyond the standard library.
+It reads the two BPE layouts published checkpoints ship (:class:`BPE`):
 
-- ``model``: BPE with ``vocab`` and ``merges`` (``"a b"`` strings or
-  ``[a, b]`` pairs), ``ignore_merges``; no dropout, no subword
-  prefix/suffix, no byte fallback;
-- ``added_tokens``: split out of the text before pre-tokenization
-  (leftmost-longest, with ``lstrip``/``rstrip``); the ``special`` ones
-  are skipped by ``decode(skip_special_tokens=True)``;
-- ``normalizer``: none or NFC;
-- ``pre_tokenizer``: ``ByteLevel(use_regex=True)`` (GPT-2's pattern) or
-  ``Sequence[Split(Regex, Isolated), ByteLevel(use_regex=False)]``
-  (Llama-3's and Qwen2's layout), without ``add_prefix_space``;
-- ``post_processor``: none, ``ByteLevel``, or ``TemplateProcessing``
-  (its ``single`` template, applied when ``add_special_tokens``);
-- ``decoder``: ``ByteLevel`` (GPT-2's byte<->unicode table).
+- byte-level (GPT-2, Llama-3, Qwen2): ``pre_tokenizer``
+  ``ByteLevel(use_regex=True)`` (GPT-2's pattern) or
+  ``Sequence[Split(Regex, Isolated), ByteLevel(use_regex=False)]``,
+  without ``add_prefix_space``; ``decoder`` ``ByteLevel`` (GPT-2's
+  byte<->unicode table);
+- SentencePiece-style (Llama-2, Mistral, Gemma, Phi-3): a
+  ``Prepend("▁")`` / ``Replace(" ", "▁")`` normalizer and no
+  pre-tokenizer, or a ``Metaspace`` pre-tokenizer; ``model.byte_fallback``
+  (``<0xNN>`` tokens for characters outside the vocabulary) and
+  ``unk_token`` / ``fuse_unk``; a decoder of ``Replace``,
+  ``ByteFallback``, ``Fuse``, ``Strip`` and ``Metaspace`` steps.
+
+Both: ``model`` BPE with ``vocab`` and ``merges`` (``"a b"`` strings or
+``[a, b]`` pairs) and ``ignore_merges``, no dropout, no subword
+prefix/suffix; ``added_tokens`` split out before pre-tokenization
+(leftmost-longest, with ``lstrip``/``rstrip``; ``normalized`` ones
+matched by their normalized content in the normalized text), the
+``special`` ones skipped by ``decode(skip_special_tokens=True)``;
+``normalizer`` none, NFC, ``Prepend``, ``Replace`` or a ``Sequence`` of
+them; ``post_processor`` none, ``ByteLevel``, or ``TemplateProcessing``
+(its ``single`` template, applied when ``add_special_tokens``).
 
 Python's ``re`` has no ``\\p{L}``/``\\p{N}`` and its ``\\s`` also takes
 U+001C..U+001F, so a pattern's ``\\p{L}``, ``\\p{N}``, ``\\s`` and
 ``\\S`` are rewritten once, at load, into explicit character classes
 built from ``unicodedata`` and Unicode's White_Space list. Any other
 layout raises ``NotImplementedError`` naming the ROADMAP item that
-brings it (SentencePiece ``tokenizer.model``, GGUF, Unigram, WordPiece:
-Queue 1 item 9(f)).
+brings it (a bare SentencePiece ``tokenizer.model``, GGUF, Unigram,
+WordPiece and the other normalizers: Queue 1 item 9(f)).
 """
 
 from __future__ import annotations
 
+import heapq
 import json
 import os
 import re
@@ -157,12 +166,60 @@ def translate_pattern(pattern: str) -> str:
 def _unsupported(what: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"tokenizer.json {what} {json.dumps(value)[:120]} is not supported by "
-        f"the port's byte-level BPE; see {LATER}"
+        f"the port's BPE; see {LATER}"
     )
 
 
-class ByteLevelBPE:
-    """The encode/decode backend read from one ``tokenizer.json``."""
+def _string_pattern(spec: dict, what: str) -> str:
+    """A ``Replace`` step's ``{"String": s}`` pattern (a regex one raises)."""
+    pattern = spec.get("pattern") or {}
+    if "String" not in pattern:
+        raise _unsupported(what, spec)
+    return pattern["String"]
+
+
+def _byte_fallback(tokens: list[str]) -> list[str]:
+    """HF's ``ByteFallback`` decoder: each run of ``<0xNN>`` tokens
+    becomes its bytes as UTF-8, or one U+FFFD a byte if they are not
+    valid UTF-8."""
+    out: list[str] = []
+    run = bytearray()
+    for tok in tokens + [""]:
+        if len(tok) == 6 and tok.startswith("<0x") and tok.endswith(">"):
+            try:
+                run.append(int(tok[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend(REPLACEMENT_CHAR * len(run))
+            run = bytearray()
+        out.append(tok)
+    return out[:-1]
+
+
+class BPE:
+    """The encode/decode backend read from one ``tokenizer.json``: a BPE
+    model in one of two layouts.
+
+    - Byte-level (GPT-2, Llama-3, Qwen2): the ``ByteLevel`` decoder; text
+      is split by the pre-tokenizer's pattern and each piece's UTF-8
+      bytes are mapped to GPT-2's printable characters before BPE.
+    - SentencePiece-style (Llama-2, Mistral, Gemma, Phi-3): spaces
+      become ``▁`` through a ``Replace`` / ``Prepend`` normalizer or a
+      ``Metaspace`` pre-tokenizer, BPE runs on the characters themselves,
+      and a character outside the vocabulary falls back to its UTF-8
+      bytes as ``<0xNN>`` tokens (``model.byte_fallback``) or to
+      ``unk_token``. The decoder is a ``Sequence`` of ``Replace``,
+      ``ByteFallback``, ``Fuse``, ``Strip`` and ``Metaspace`` steps.
+
+    Merges are applied as HF's ``Word::merge_all`` applies them: the
+    lowest-ranked pair first, the leftmost among equals, one merge at a
+    time, so even a merge list whose new pairs outrank older ones
+    tokenizes as ``tokenizers`` does."""
 
     def __init__(self, spec: dict):
         model = spec.get("model") or {}
@@ -171,14 +228,17 @@ class ByteLevelBPE:
         for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if model.get(key):
                 raise _unsupported(f"model.{key}", model[key])
-        if model.get("byte_fallback"):
-            raise _unsupported("model.byte_fallback", True)
         self.vocab: dict[str, int] = dict(model.get("vocab") or {})
         self.ignore_merges = bool(model.get("ignore_merges", False))
-        self.ranks: dict[tuple[str, str], int] = {}
+        self.byte_fallback = bool(model.get("byte_fallback", False))
+        self.unk_id = self.vocab.get(model["unk_token"]) if model.get("unk_token") else None
+        self.fuse_unk = bool(model.get("fuse_unk", False))
+        # (left id, right id) -> (rank, merged id), as HF keys its merges.
+        self.merges: dict[tuple[int, int], tuple[int, int]] = {}
         for rank, m in enumerate(model.get("merges") or []):
             a, b = m.split(" ", 1) if isinstance(m, str) else m
-            self.ranks[(a, b)] = rank
+            if a in self.vocab and b in self.vocab and a + b in self.vocab:
+                self.merges.setdefault((self.vocab[a], self.vocab[b]), (rank, self.vocab[a + b]))
         self.id_to_token: dict[int, str] = {i: t for t, i in self.vocab.items()}
         self.added: dict[str, dict] = {}
         self.special_ids: set[int] = set()
@@ -190,35 +250,64 @@ class ByteLevelBPE:
             if t.get("special"):
                 self.special_ids.add(t["id"])
         self.added_ids = {t["content"]: t["id"] for t in self.added.values()}
-        self._added_re = (
-            re.compile(
-                "|".join(
-                    re.escape(c) for c in sorted(self.added, key=len, reverse=True)
-                )
-            )
-            if self.added
-            else None
-        )
-        self._normalize = self._read_normalizer(spec.get("normalizer"))
-        self._split_re = self._read_pre_tokenizer(spec.get("pre_tokenizer"))
-        self._template = self._read_post_processor(spec.get("post_processor"))
         dec = spec.get("decoder")
-        if dec is None or dec.get("type") != "ByteLevel":
-            raise _unsupported("decoder", dec)
+        self.byte_level = dec is not None and dec.get("type") == "ByteLevel"
+        self._normalize = self._read_normalizer(spec.get("normalizer"))
+        # Added tokens are split out of the raw text by their content, or,
+        # when marked ``normalized``, out of each normalized piece by
+        # their normalized content, as HF's added vocabulary matches them.
+        self._added_by = {False: {}, True: {}}
+        for c, t in self.added.items():
+            norm = bool(t.get("normalized"))
+            key = self._normalize(c) if norm and self._normalize is not None else c
+            self._added_by[norm][key] = t
+        self._added_re = {norm: self._alternation(list(by)) for norm, by in self._added_by.items()}
+        if self.byte_level:
+            if self.byte_fallback:
+                raise _unsupported("model.byte_fallback", True)
+            self._split_re = self._read_pre_tokenizer(spec.get("pre_tokenizer"))
+        else:
+            self._decoders = self._read_decoders(dec)
+            self._metaspace = self._read_metaspace(spec.get("pre_tokenizer"))
+        self._template = self._read_post_processor(spec.get("post_processor"))
         self._cache: dict[str, list[int]] = {}
 
-    # ------------------------------------------------------------ layout
     @staticmethod
-    def _read_normalizer(norm):
+    def _alternation(words: list[str]) -> re.Pattern | None:
+        """Leftmost-longest matching of ``words`` (longest listed first)."""
+        if not words:
+            return None
+        return re.compile("|".join(re.escape(w) for w in sorted(words, key=len, reverse=True)))
+
+    # ------------------------------------------------------------ layout
+    @classmethod
+    def _read_normalizer(cls, norm):
+        """A function of a text piece, or None: NFC, ``Prepend``,
+        ``Replace`` (a string pattern) or a ``Sequence`` of them."""
         if norm is None:
             return None
-        if norm.get("type") == "NFC":
+        kind = norm.get("type")
+        if kind == "NFC":
             return lambda s: unicodedata.normalize("NFC", s)
+        if kind == "Prepend":
+            pre = norm["prepend"]
+            return lambda s: pre + s if s else s
+        if kind == "Replace":
+            old, new = _string_pattern(norm, "normalizer"), norm["content"]
+            return lambda s: s.replace(old, new)
+        if kind == "Sequence":
+            steps = [cls._read_normalizer(n) for n in norm.get("normalizers") or []]
+
+            def run(s):
+                for step in steps:
+                    s = step(s) if step else s
+                return s
+            return run
         raise _unsupported("normalizer", norm)
 
     @staticmethod
     def _read_pre_tokenizer(pre) -> re.Pattern:
-        """The pattern that splits text into pre-tokens."""
+        """The byte-level layouts' pattern that splits text into pieces."""
         if pre is None or pre.get("add_prefix_space"):
             raise _unsupported("pre_tokenizer", pre)
         if pre.get("type") == "ByteLevel" and pre.get("use_regex", True):
@@ -237,6 +326,44 @@ class ByteLevelBPE:
             ):
                 return re.compile(translate_pattern(seq[0]["pattern"]["Regex"]))
         raise _unsupported("pre_tokenizer", pre)
+
+    @staticmethod
+    def _read_metaspace(pre) -> tuple[str, str, bool] | None:
+        """The SentencePiece layouts' pre-tokenizer: none (the normalizer
+        did the work; the piece is one word) or ``Metaspace`` as
+        (replacement, prepend scheme, split)."""
+        if pre is None:
+            return None
+        if pre.get("type") == "Metaspace":
+            scheme = pre.get("prepend_scheme")
+            if scheme is None:  # older files: add_prefix_space
+                scheme = "always" if pre.get("add_prefix_space", True) else "never"
+            if scheme in ("always", "first", "never"):
+                return pre.get("replacement", "▁"), scheme, bool(pre.get("split", True))
+        raise _unsupported("pre_tokenizer", pre)
+
+    @staticmethod
+    def _read_decoders(dec) -> list[tuple]:
+        """The SentencePiece layouts' decoder steps, in order."""
+        sequence = dec is not None and dec.get("type") == "Sequence"
+        steps = (dec.get("decoders") or []) if sequence else [dec]
+        out = []
+        for d in steps:
+            kind = (d or {}).get("type")
+            if kind == "Replace":
+                out.append((kind, _string_pattern(d, "decoder"), d["content"]))
+            elif kind in ("ByteFallback", "Fuse"):
+                out.append((kind,))
+            elif kind == "Strip":
+                out.append((kind, d["content"], int(d.get("start", 0)), int(d.get("stop", 0))))
+            elif kind == "Metaspace":
+                scheme = d.get("prepend_scheme")
+                if scheme is None:
+                    scheme = "always" if d.get("add_prefix_space", True) else "never"
+                out.append((kind, d.get("replacement", "▁"), scheme != "never"))
+            else:
+                raise _unsupported("decoder", dec)
+        return out
 
     def _read_post_processor(self, post) -> list | None:
         """The ``single`` template as a list of ids and ``None`` (the
@@ -261,15 +388,16 @@ class ByteLevelBPE:
         raise _unsupported("post_processor", post)
 
     # ------------------------------------------------------------ encode
-    def _split_added(self, text: str) -> list[str | int]:
+    def _split_added(self, text: str, normalized: bool) -> list[str | int]:
         """Text pieces and added-token ids, in order."""
-        if self._added_re is None:
+        added_re = self._added_re[normalized]
+        if added_re is None:
             return [text]
         out: list[str | int] = []
         pos = 0
-        for m in self._added_re.finditer(text):
+        for m in added_re.finditer(text):
             s, e = m.span()
-            tok = self.added[m.group(0)]
+            tok = self._added_by[normalized][m.group(0)]
             if tok.get("lstrip"):
                 while s > pos and text[s - 1].isspace():
                     s -= 1
@@ -282,18 +410,85 @@ class ByteLevelBPE:
         out.append(text[pos:])
         return out
 
-    def _pre_tokenize(self, text: str) -> list[str]:
-        pieces, pos = [], 0
-        for m in self._split_re.finditer(text):
-            s, e = m.span()
-            if s > pos:
-                pieces.append(text[pos:s])
-            if e > s:
-                pieces.append(text[s:e])
-            pos = e
-        if pos < len(text):
-            pieces.append(text[pos:])
-        return pieces
+    def _pre_tokenize(self, text: str, first: bool) -> list[str]:
+        """The words of one normalized piece; ``first``: the piece starts
+        the input (``Metaspace``'s ``first`` prepend scheme)."""
+        if self.byte_level:
+            pieces, pos = [], 0
+            for m in self._split_re.finditer(text):
+                s, e = m.span()
+                if s > pos:
+                    pieces.append(text[pos:s])
+                if e > s:
+                    pieces.append(text[s:e])
+                pos = e
+            if pos < len(text):
+                pieces.append(text[pos:])
+            return ["".join(BYTE_ENCODER[b] for b in w.encode("utf-8")) for w in pieces]
+        if self._metaspace is None:
+            return [text]
+        rep, scheme, split = self._metaspace
+        text = text.replace(" ", rep)
+        if not text.startswith(rep) and (scheme == "always" or (scheme == "first" and first)):
+            text = rep + text
+        if not split:
+            return [text]
+        words = re.split(f"(?={re.escape(rep)})", text)  # each ▁ opens a word
+        return [w for w in words if w]
+
+    def _symbols(self, word: str) -> list[int]:
+        """A word's first symbols: one id a character; outside the
+        vocabulary, its UTF-8 bytes as ``<0xNN>`` tokens (byte fallback)
+        when they all exist, else ``unk_token`` (runs fused with
+        ``fuse_unk``), else nothing."""
+        ids: list[int] = []
+        unk = False
+        for c in word:
+            i = self.vocab.get(c)
+            if i is None and self.byte_fallback:
+                fb = [self.vocab.get(f"<0x{b:02X}>") for b in c.encode("utf-8")]
+                if None not in fb:
+                    ids.extend(fb)
+                    unk = False
+                    continue
+            if i is None:
+                if self.unk_id is not None and not (unk and self.fuse_unk):
+                    ids.append(self.unk_id)
+                unk = self.unk_id is not None
+                continue
+            ids.append(i)
+            unk = False
+        return ids
+
+    def _merge(self, ids: list[int]) -> list[int]:
+        """Apply the merges to a word's symbols (see the class docstring)."""
+        n = len(ids)
+        if n < 2:
+            return ids
+        nxt = list(range(1, n)) + [-1]
+        prv = list(range(-1, n - 1))
+        heap = []
+        for i in range(n - 1):
+            m = self.merges.get((ids[i], ids[i + 1]))
+            if m is not None:
+                heap.append((m[0], i, m[1]))
+        heapq.heapify(heap)
+        ids = list(ids)
+        while heap:
+            rank, i, new = heapq.heappop(heap)
+            j = nxt[i]
+            if ids[i] < 0 or j < 0 or self.merges.get((ids[i], ids[j]), (0, None))[1] != new:
+                continue  # a stale entry: a side of the pair was merged since
+            ids[i], ids[j] = new, -1
+            nxt[i] = nxt[j]
+            if nxt[j] >= 0:
+                prv[nxt[j]] = i
+            for a, b in ((prv[i], i), (i, nxt[i])):
+                if a >= 0 and b >= 0:
+                    m = self.merges.get((ids[a], ids[b]))
+                    if m is not None:
+                        heapq.heappush(heap, (m[0], a, m[1]))
+        return [i for i in ids if i >= 0]
 
     def _bpe(self, word: str) -> list[int]:
         hit = self._cache.get(word)
@@ -302,45 +497,27 @@ class ByteLevelBPE:
         if self.ignore_merges and word in self.vocab:
             ids = [self.vocab[word]]
         else:
-            parts = [c for c in word if c in self.vocab]
-            ranks = self.ranks
-            while len(parts) > 1:
-                best, best_rank = None, None
-                for i in range(len(parts) - 1):
-                    r = ranks.get((parts[i], parts[i + 1]))
-                    if r is not None and (best_rank is None or r < best_rank):
-                        best, best_rank = i, r
-                if best is None:
-                    break
-                a, b = parts[best], parts[best + 1]
-                merged, i = [], 0
-                while i < len(parts):
-                    if i < len(parts) - 1 and parts[i] == a and parts[i + 1] == b:
-                        merged.append(a + b)
-                        i += 2
-                    else:
-                        merged.append(parts[i])
-                        i += 1
-                parts = merged
-            ids = [self.vocab[p] for p in parts]
-        if len(self._cache) >= 100_000:
-            self._cache.clear()
-        self._cache[word] = ids
+            ids = self._merge(self._symbols(word))
+        if len(word) <= 256:  # one-word layouts pass whole texts
+            if len(self._cache) >= 100_000:
+                self._cache.clear()
+            self._cache[word] = ids
         return ids
 
     def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
         ids: list[int] = []
-        for piece in self._split_added(text):
-            if isinstance(piece, int):
-                ids.append(piece)
-                continue
-            if not piece:
-                continue
-            if self._normalize is not None:
-                piece = self._normalize(piece)
-            for word in self._pre_tokenize(piece):
-                mapped = "".join(BYTE_ENCODER[b] for b in word.encode("utf-8"))
-                ids.extend(self._bpe(mapped))
+        first = True  # the next piece starts the input
+        for raw in self._split_added(text, normalized=False):
+            if isinstance(raw, str) and raw and self._normalize is not None:
+                raw = self._normalize(raw)
+            parts = [raw] if isinstance(raw, int) else self._split_added(raw, normalized=True)
+            for part in parts:
+                if isinstance(part, int):
+                    ids.append(part)
+                elif part:
+                    for word in self._pre_tokenize(part, first):
+                        ids.extend(self._bpe(word))
+                first = False
         if add_special_tokens and self._template is not None:
             out: list[int] = []
             for t in self._template:
@@ -350,16 +527,35 @@ class ByteLevelBPE:
 
     # ------------------------------------------------------------ decode
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
-        buf = bytearray()
-        for i in ids:
-            tok = self.id_to_token.get(int(i))
-            if tok is None or (skip_special_tokens and int(i) in self.special_ids):
-                continue
-            try:
-                buf.extend(BYTE_DECODER[c] for c in tok)
-            except KeyError:  # an added token written as plain text
-                buf.extend(tok.encode("utf-8"))
-        return buf.decode("utf-8", errors="replace")
+        toks = [
+            self.id_to_token[int(i)] for i in ids
+            if int(i) in self.id_to_token
+            and not (skip_special_tokens and int(i) in self.special_ids)
+        ]
+        if self.byte_level:
+            buf = bytearray()
+            for tok in toks:
+                try:
+                    buf.extend(BYTE_DECODER[c] for c in tok)
+                except KeyError:  # an added token written as plain text
+                    buf.extend(tok.encode("utf-8"))
+            return buf.decode("utf-8", errors="replace")
+        for step in self._decoders:  # HF's decode_chain, step by step
+            kind = step[0]
+            if kind == "Replace":
+                toks = [t.replace(step[1], step[2]) for t in toks]
+            elif kind == "ByteFallback":
+                toks = _byte_fallback(toks)
+            elif kind == "Fuse":
+                toks = ["".join(toks)]
+            elif kind == "Strip":
+                _, ch, lead, trail = step
+                toks = [_strip(t, ch, lead, trail) for t in toks]
+            else:  # Metaspace: the first token loses its replacements
+                _, rep, prepended = step
+                toks = [t.replace(rep, "" if (k == 0 and prepended) else " ")
+                        for k, t in enumerate(toks)]
+        return "".join(toks)
 
     def token_to_id(self, token: str) -> int | None:
         if token in self.added_ids:
@@ -370,10 +566,22 @@ class ByteLevelBPE:
         return len(set(self.vocab) | set(self.added))
 
 
-class Tokenizer:
-    """Encode/decode facade over :class:`ByteLevelBPE`."""
+def _strip(tok: str, ch: str, lead: int, trail: int) -> str:
+    """HF's ``Strip`` decoder: up to ``lead`` leading and ``trail``
+    trailing ``ch`` characters off one token."""
+    a = 0
+    while a < min(lead, len(tok)) and tok[a] == ch:
+        a += 1
+    b = len(tok)
+    while len(tok) - b < trail and b > a and tok[b - 1] == ch:
+        b -= 1
+    return tok[a:b]
 
-    def __init__(self, backend: ByteLevelBPE, eos_token_ids: list[int] | None = None):
+
+class Tokenizer:
+    """Encode/decode facade over :class:`BPE`."""
+
+    def __init__(self, backend: BPE, eos_token_ids: list[int] | None = None):
         self._t = backend
         self.eos_token_ids = eos_token_ids or []
 
@@ -390,7 +598,7 @@ class Tokenizer:
                 )
             raise FileNotFoundError(f"no tokenizer.json at {path}")
         with open(tok_json, encoding="utf-8") as f:
-            backend = ByteLevelBPE(json.load(f))
+            backend = BPE(json.load(f))
         return cls(backend, _eos_ids_from_config(model_dir, backend))
 
     def encode(self, text: str, add_special_tokens: bool = True) -> Encoding:
@@ -441,7 +649,7 @@ class DecodeStream:
         return text
 
 
-def _eos_ids_from_config(model_dir: str, backend: ByteLevelBPE) -> list[int]:
+def _eos_ids_from_config(model_dir: str, backend: BPE) -> list[int]:
     """EOS token id(s) from generation_config.json / config.json, else
     the literal ``</s>``-style token of the vocabulary."""
     for fname in ("generation_config.json", "config.json"):

@@ -16,7 +16,10 @@ Long cases make the mixed kernel take multi-tile runs (a 512-query span
 at context 1,024) and the decode kernel cross several splits (a row of
 2,064 tokens), and rows of 4,096 tokens. The float32 mixed kernel is
 batch-invariant bit for bit: each row alone gives what it gives in a
-batch. Seeded draws on the card equal those on the CPU.
+batch. Sliding windows, softcaps and explicit scales (mistral, gemma,
+gemma2) at head dims 128 and 256 go through all three designs on rows
+longer than the window, held the same way. Seeded draws on the card
+equal those on the CPU.
 """
 
 import asyncio
@@ -274,6 +277,91 @@ def test_seeded_draws_on_the_card_equal_the_cpu(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+# Windowed and softcapped attention: (H, Hkv, D, window, softcap,
+# sm_scale) of gemma2-9b (both layer kinds), gemma-2b (one kv head),
+# mistral-7b and a window shorter than a chunk. Rows run past the window
+# and stay inside it; a 512-query chunk straddles the window's start.
+WINDOWED = {
+    "gemma2_sliding": (16, 8, 256, 300, 50.0, 256**-0.5),
+    "gemma2_global": (16, 8, 256, None, 50.0, 224**-0.5),
+    "gemma_2b": (8, 1, 256, None, None, None),
+    "mistral": (32, 8, 128, 300, None, None),
+    "window_17": (8, 4, 64, 17, 30.0, None),
+}
+WINDOW_SPANS = ([(512, 1024), (1, 17), (64, 700), (1, 2049), (9, 301), (24, 300)], 600, 129)
+
+
+def _attn_kw(case):
+    H, Hkv, D, window, softcap, scale = WINDOWED[case]
+    return (H, Hkv, D), dict(window=window, softcap=softcap, sm_scale=scale)
+
+
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("case", sorted(WINDOWED))
+def test_mixed_shape_windows_and_softcaps_match_plain(cuda, dtype, atol, case):
+    (H, Hkv, D), kw = _attn_kw(case)
+    rows, P, pmax = WINDOW_SPANS
+    args = _flat_batch(6, rows, H, Hkv, D, P, 16, pmax, 8, dtype, cuda)
+    tra.reset_launches()
+    got = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8, **kw)
+    want = tra.ragged_paged_attention_ref(*args, num_kv_heads=Hkv, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[args[5] < 0] == 0).all()
+    if dtype == torch.bfloat16:
+        _assert_within_bf16_rounding(
+            got, lambda q, k, v: tra.ragged_paged_attention_ref(
+                q, k, v, *args[3:], num_kv_heads=Hkv, **kw), *args[:3])
+    design = "mixed_tc_bf16" if dtype == torch.bfloat16 else "mixed_f32"
+    assert tra.KERNEL_LAUNCHES[design] == 1 and sum(tra.KERNEL_LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("case", ["gemma2_sliding", "mistral", "gemma_2b"])
+def test_mixed_f32_windowed_rows_alone_equal_rows_in_the_batch(cuda, case):
+    """Batch invariance holds with a window and at D = 256: the walk
+    starts at the run's earliest visible key, and steps before a row's
+    window are exact no-ops for it."""
+    (H, Hkv, D), kw = _attn_kw(case)
+    rows, P, pmax = WINDOW_SPANS
+    args = _flat_batch(6, rows, H, Hkv, D, P, 16, pmax, 8, torch.float32, cuda)
+    batch = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8, **kw)
+    for r in range(len(rows)):
+        idx, alone = _row_alone(args, r, 8)
+        got = tra.ragged_paged_attention(*alone, num_kv_heads=Hkv, q_tile=8, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, batch[idx]), f"row {rows[r]} alone differs from the batch"
+
+
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("case", sorted(WINDOWED))
+@pytest.mark.parametrize("split", [32, 64])
+def test_decode_shape_windows_and_softcaps_match_plain(cuda, dtype, atol, case, split):
+    """Rows past the window (their leading splits are skipped and the
+    combine starts at the window's split), inside it and inactive."""
+    (H, Hkv, D), kw = _attn_kw(case)
+    lengths = [2064, 1, 0, 301, 1040, 17, 2049, 300]
+    spans = [(1, max(n, 1)) for n in lengths]
+    pmax = -(-max(lengths) // 16) + 1
+    P = sum(-(-max(n, 1) // 16) for n in lengths) + 4
+    q, k, v, table, _, _ = _flat_batch(7, spans, H, Hkv, D, P, 16, pmax, 1, dtype, cuda)
+    q, table = q[: len(lengths)].contiguous(), table[: len(lengths)].contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    rows = torch.arange(len(lengths), dtype=torch.int32, device=cuda)
+    tra.reset_launches()
+    got = tra.ragged_decode_attention(q, k, v, table, lens, num_kv_heads=Hkv, split=split,
+                                      **kw)
+    want = tra.ragged_paged_attention_ref(q, k, v, table, rows, lens - 1, num_kv_heads=Hkv,
+                                          **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[lens == 0] == 0).all()
+    if dtype == torch.bfloat16:
+        _assert_within_bf16_rounding(
+            got, lambda q, k, v: tra.ragged_paged_attention_ref(
+                q, k, v, table, rows, lens - 1, num_kv_heads=Hkv, **kw), q, k, v)
+    assert tra.KERNEL_LAUNCHES == {"mixed_tc_bf16": 0, "mixed_f32": 0, "decode_split": 1}
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     args = _flat_batch(2, [(3, 9)], 8, 4, 64, 8, 16, 4, 8, torch.float32, cuda)
     with pytest.raises(ValueError, match="q_tile"):
@@ -286,6 +374,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         )
     with pytest.raises(ValueError, match="dtypes"):
         tra.ragged_paged_attention(q.bfloat16(), k, v, table, row_of, pos, num_kv_heads=4)
+    with pytest.raises(ValueError, match="window"):
+        tra.ragged_paged_attention(*args, num_kv_heads=4, window=0)
+    with pytest.raises(ValueError, match="softcap"):
+        tra.ragged_paged_attention(*args, num_kv_heads=4, softcap=-1.0)
+    lens = torch.tensor([9], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="window"):
+        tra.ragged_decode_attention(q[:1].contiguous(), k, v, table[:1].contiguous(), lens,
+                                    num_kv_heads=4, window=0)
+    # Head dims other than 64, 128 and 256, and more than 64 query rows
+    # a tile (q heads per kv head x q_tile), stay refused.
+    for H, Hkv, D in ((8, 4, 96), (72, 1, 64), (16, 2, 512)):
+        bad = _flat_batch(2, [(3, 9)], H, Hkv, D, 8, 16, 4, 8, torch.bfloat16, cuda)
+        with pytest.raises(ValueError, match="unsupported layout"):
+            tra.ragged_paged_attention(*bad, num_kv_heads=Hkv)
 
 
 def test_engine_kernel_matches_reference_greedy(cuda):

@@ -7,8 +7,13 @@ package is importable. ``dynamo_exp_tpu.models.loader.load_params`` and
 ``dynamo_exp_tpu_torch.models.loader.load_params`` read the same
 directory: their weights are equal (bit-equal for a bf16 checkpoint)
 and their float32 logits agree within 1e-5, for llama, qwen2 (biases),
-qwen3 (q/k norms) and tied embeddings. Malformed files and model types
-the port cannot serve raise, naming what is wrong or its ROADMAP item.
+qwen3 (q/k norms) and tied embeddings. For gemma, gemma2, gemma3 (four
+norms a layer, q/k norms) and phi3 (packed ``qkv_proj`` and
+``gate_up_proj``) the port writes the checkpoint under the HF names with
+``save_safetensors``, and its ``load_params`` gives the logits of the
+JAX loader's parameters carried over by ``convert``. Malformed files and
+model types the port cannot serve raise, naming what is wrong or its
+ROADMAP item.
 ``run.py --model-path <dir>`` without ``--random-weights`` serves the
 checkpoint: tokens equal ``TPUEngine``'s on the JAX loader's weights.
 """
@@ -296,11 +301,7 @@ def test_missing_or_misshapen_tensor_raises(tmp_path):
         tloader.load_params(path, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "model_type,item",
-    [("gemma", "item 8"), ("gemma2", "item 8"), ("gemma3_text", "item 8"),
-     ("mixtral", "item 7"), ("qwen3_moe", "item 7"), ("phi3", "item 9(j)")],
-)
+@pytest.mark.parametrize("model_type,item", [("mixtral", "item 7"), ("qwen3_moe", "item 7")])
 def test_unsupported_model_types_raise_naming_their_roadmap_item(tmp_path, model_type, item):
     conf = hf_config(CFGS["llama"])
     conf["model_type"] = model_type
@@ -313,12 +314,38 @@ def test_unsupported_model_types_raise_naming_their_roadmap_item(tmp_path, model
         tloader.load_params(str(tmp_path), device="cpu")
 
 
-def test_mistral_with_a_sliding_window_is_refused(tmp_path):
-    conf = hf_config(CFGS["llama"])
-    conf.update(model_type="mistral", sliding_window=32)
-    (tmp_path / "config.json").write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        tloader.load_params(str(tmp_path), device="cpu")
+@pytest.mark.parametrize("family", ["gemma", "gemma2", "gemma3_text", "phi3", "mistral"])
+def test_family_checkpoint_loads_like_the_jax_loader(tmp_path, family):
+    """The port writes a family's weights under the HF names (phi3's
+    packed, gemma2/3's four norms); the JAX loader and the port's read
+    the directory back: the port's weights are the JAX loader's carried
+    over by ``convert``, bit for bit, and their logits agree."""
+    from dynamo_exp_tpu_torch.models import ModelConfig as TModelConfig, convert
+    from tests.test_torch_families import HF_CONFIGS
+    from tests.test_torch_families import _params as family_params
+
+    hf = HF_CONFIGS[family]
+    (tmp_path / "config.json").write_text(json.dumps(hf))
+    jcfg = JModelConfig.from_hf_config(hf)
+    written = convert.params_from_jax(family_params(jcfg, seed=4),
+                                      TModelConfig.from_hf_config(hf), device="cpu")
+    names = tloader.hf_tensor_names(written.cfg)
+    if family == "phi3":
+        assert {"self_attn.qkv_proj.weight", "mlp.gate_up_proj.weight"} <= {
+            n.split(".", 3)[-1] for n in names}
+    if family in ("gemma2", "gemma3_text"):
+        assert "model.layers.0.post_feedforward_layernorm.weight" in names
+    keys = sorted(names)
+    for i, part in enumerate((keys[::2], keys[1::2])):
+        tloader.save_safetensors(str(tmp_path / f"model-{i}.safetensors"),
+                                 {k: tloader.model_tensor(written, *names[k]) for k in part})
+    jp, _ = jloader.load_params(str(tmp_path))
+    model, tcfg = tloader.load_params(str(tmp_path), device="cpu")
+    want = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    for (name, got), (_, ref) in zip(model.named_parameters(), want.named_parameters()):
+        assert torch.equal(got, ref), name
+    jl, tl = forward_both(jcfg, jp, model)
+    np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=0)
 
 
 # ------------------------------------------------------------------ run.py

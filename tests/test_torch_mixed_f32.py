@@ -35,7 +35,12 @@ Held here, on inputs made from a numpy seed:
 - bit for bit, a row computed alone equals the same row inside a mixed
   batch, where it falls in other runs, warps and horizons;
 - on smaller layouts (Qwen2-7B's 7 q heads per kv head, D 64), the
-  emulation against the port's plain version within atol 1e-4.
+  emulation against the port's plain version within atol 1e-4;
+- with a sliding window, a softcap and a scale of their own, at D 256
+  (where the kernel steps 16 tokens at a time) and D 128: the emulation
+  against the JAX reference given the same arguments, and each row
+  alone bit-equal to the batch (a step before a row's window is an
+  exact no-op for it, as one past its horizon is).
 """
 
 import jax
@@ -51,7 +56,7 @@ ATOL = 1e-4
 ROWS = 64  # query rows a block takes at most
 WARP_ROWS = 16  # rows of an m-tile
 SPLIT = 2  # states (warps) of an m-tile: step i goes to state i % SPLIT
-STEP = 32  # kv tokens per softmax step
+STEP = 32  # kv tokens per softmax step (16 at D = 256)
 MAX_RUN = 8
 LOG2E = 1.4426950408889634
 
@@ -99,11 +104,13 @@ def runs_of(row_of: np.ndarray, q_tile: int, run: int) -> list[tuple[int, int]]:
     return out
 
 
-def emulate(q, k, v, table, row_of, positions, num_kv_heads, q_tile=8, terms=3):
+def emulate(q, k, v, table, row_of, positions, num_kv_heads, q_tile=8, terms=3,
+            sm_scale=None, window=None, softcap=None):
     """The float32 mixed kernel's output for float32 tensors ``q [N, H,
     D]``, pools ``[P, ps, Hkv * D]``, ``table [R, Pmax]``, ``row_of`` and
     ``positions [N]`` (int32): see the module docstring."""
     N, H, D = q.shape
+    step = STEP // 2 if D > 128 else STEP
     Hkv = num_kv_heads
     qpk = H // Hkv
     ps, pmax = k.shape[1], table.shape[1]
@@ -123,34 +130,46 @@ def emulate(q, k, v, table, row_of, positions, num_kv_heads, q_tile=8, terms=3):
     run_rows = torch.tensor([int(rows_np[t0]) for t0, _ in runs], dtype=torch.int64)
     wq = qpos.view(R, ROWS // WARP_ROWS, WARP_ROWS)
     whor = torch.minimum(kvlen[:, None], wq.max(-1).values + 1)  # [R, warps]
-    sl2 = np.float32(D**-0.5) * np.float32(LOG2E)  # as the kernel, in float32
+    scale = np.float32(sm_scale if sm_scale is not None else D**-0.5)
+    if softcap:  # as the kernel's dx::Scorer, in float32
+        mul, cap = scale / np.float32(softcap), np.float32(softcap) * np.float32(LOG2E)
+
+        def score(x):
+            return torch.tanh(x * mul) * cap
+    else:
+        sl2 = scale * np.float32(LOG2E)
+
+        def score(x):
+            return x * sl2
 
     # Per state: running max, per-thread partial sums, accumulators.
     ms = [torch.full((R, Hkv, ROWS), -1e30) for _ in range(SPLIT)]
     lparts = [torch.zeros(R, Hkv, ROWS, 4) for _ in range(SPLIT)]
     accs = [torch.zeros(R, Hkv, ROWS, D) for _ in range(SPLIT)]
     kf, vf = k.view(-1, Hkv, D), v.view(-1, Hkv, D)
-    for c0 in range(0, int(kvlen.max()), STEP):
-        tok = c0 + torch.arange(STEP)
+    for c0 in range(0, int(kvlen.max()), step):
+        tok = c0 + torch.arange(step)
         # The staged tokens: zeros past the run's horizon.
-        ok = tok[None] < kvlen[:, None]  # [R, STEP]
+        ok = tok[None] < kvlen[:, None]  # [R, step]
         page = table[run_rows[:, None], torch.clamp(tok // ps, max=pmax - 1)[None]].long()
         slot = torch.where(ok, page * ps + tok % ps, 0)
         kc = torch.where(ok[..., None, None], kf[slot], 0.0).permute(0, 2, 3, 1)  # [R,Hkv,D,S]
         vc = torch.where(ok[..., None, None], vf[slot], 0.0).permute(0, 2, 1, 3)  # [R,Hkv,S,D]
         live = ok[:, None, :] & (tok[None, None, :] <= qpos[:, :, None])  # [R, ROWS, S]
-        part = (c0 // STEP) % SPLIT
+        if window:
+            live &= tok[None, None, :] > qpos[:, :, None] - window
+        part = (c0 // step) % SPLIT
         m, lpart, acc = ms[part], lparts[part], accs[part]
-        s = tf32_mm(qr, kc, terms) * sl2
+        s = score(tf32_mm(qr, kc, terms))
         s = torch.where(live[:, None], s, torch.tensor(-1e30))
         mn = torch.maximum(m, s.max(-1).values)
         alpha = torch.where(mn == m, torch.ones(()), torch.exp2(m - mn))
         p = torch.where(live[:, None], torch.exp2(s - mn[..., None]), torch.zeros(()))
         # Thread t of a row holds tokens 8n + 2t and 8n + 2t + 1, summed
         # in order of n, then of the pair.
-        pt = p.view(R, Hkv, ROWS, STEP // 8, 4, 2)
+        pt = p.view(R, Hkv, ROWS, step // 8, 4, 2)
         tsum = torch.zeros(R, Hkv, ROWS, 4)
-        for n in range(STEP // 8):
+        for n in range(step // 8):
             for j in range(2):
                 tsum = tsum + pt[..., n, :, j]
         new_l = lpart * alpha[..., None] + tsum
@@ -287,3 +306,28 @@ def test_tf32_split():
     assert hi[:4].tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 3.0]
     assert (tf32_round(hi) == hi).all() and (tf32_trunc(lo) == lo).all()
     assert ((hi.double() + lo.double() - x.double()).abs() <= 2.0**-21 * x.abs()).all()
+
+
+# (H, Hkv, D, window, softcap, sm_scale): gemma2's sliding layer at D 256
+# and mistral's window at D 128, with windows shorter than the rows.
+WINDOWED = {"d256_softcap_window": (8, 4, 256, 50, 5.0, 0.1),
+            "d128_window": (16, 4, 128, 70, None, None)}
+WINDOW_SPANS = [(40, 300), (1, 290), (9, 133), (17, 60), (24, 200)]
+
+
+@pytest.mark.parametrize("case", sorted(WINDOWED))
+def test_windowed_softcapped_emulation_matches_jax_and_is_batch_invariant(case):
+    H, Hkv, D, window, softcap, scale = WINDOWED[case]
+    kw = dict(num_kv_heads=Hkv, sm_scale=scale, window=window, softcap=softcap)
+    arrays = flat_batch(3, WINDOW_SPANS, H, Hkv, D)
+    q, k, v, table, row_of, pos = as_torch(arrays)
+    batch = emulate(q, k, v, table, row_of, pos, **kw)
+    valid = arrays[5] >= 0
+    q_, k_, v_, t_, r_, p_ = (jnp.asarray(a) for a in arrays)
+    want = np.asarray(jra.ragged_paged_attention_ref(q_, k_, v_, t_, r_, p_, **kw))
+    np.testing.assert_allclose(batch.numpy()[valid], want[valid], atol=ATOL, rtol=0)
+    for r in range(len(WINDOW_SPANS)):
+        idx = torch.nonzero(row_of == r)[:, 0]
+        alone = emulate(q[idx], k, v, table[r : r + 1], torch.zeros_like(row_of[idx]),
+                        pos[idx], **kw)
+        assert torch.equal(alone, batch[idx]), f"row {WINDOW_SPANS[r]}"

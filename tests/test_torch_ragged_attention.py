@@ -152,7 +152,10 @@ def test_bfloat16_cache():
 def test_ragged_supported_gate():
     assert tra.ragged_supported(16, 8, 128, torch.bfloat16, 32, 8)
     assert tra.ragged_supported(16, 8, 64, torch.float32, 32, 1)
-    assert not tra.ragged_supported(16, 8, 256, torch.bfloat16, 32, 8)  # D
+    assert tra.ragged_supported(16, 8, 256, torch.bfloat16, 16, 8)  # gemma2-9b
+    assert tra.ragged_supported(16, 1, 256, torch.float32, 8, 8)  # gemma-2b
+    assert not tra.ragged_supported(16, 8, 96, torch.bfloat16, 32, 8)  # D
+    assert not tra.ragged_supported(16, 8, 512, torch.bfloat16, 32, 8)  # D
     assert not tra.ragged_supported(16, 8, 128, torch.float16, 32, 8)  # dtype
     assert not tra.ragged_supported(16, 8, 128, torch.bfloat16, 32, 4)  # q_tile
     assert not tra.ragged_supported(16, 1, 128, torch.bfloat16, 16, 8)  # 128 rows
@@ -203,3 +206,56 @@ def test_kernel_library_is_rebuilt_when_any_source_is_newer(tmp_path, monkeypatc
     header.write_text("// edited\n")
     with pytest.raises(RuntimeError, match="nvcc"):
         tra.build_kernel()
+
+
+# (window, softcap, sm_scale): gemma2's sliding layer (a window shorter
+# than the rows, a softcap small enough to bite, a query scale other than
+# D**-0.5), its global layer, and mistral's window alone.
+WINDOWED = {
+    "sliding_softcap_scale": (5, 2.0, 0.1),
+    "softcap_scale": (None, 50.0, 20**-0.5),
+    "window": (7, None, None),
+}
+DTYPES = {"float32": (jnp.float32, torch.float32, F32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, dict(atol=2e-2, rtol=0))}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOWED))
+@pytest.mark.parametrize("D,H,Hkv", [(256, 4, 1), (128, 8, 2)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_version_windows_and_softcaps_match_jax_reference(case, D, H, Hkv, dtype):
+    """Both entry points' plain versions (the mixed wrapper's, and the
+    decode wrapper's on CPU tensors) with window, softcap and scale,
+    against the JAX reference given the same arguments."""
+    window, softcap, scale = WINDOWED[case]
+    jdt, tdt, tol = DTYPES[dtype]
+    kw = dict(num_kv_heads=Hkv, sm_scale=scale, window=window, softcap=softcap)
+    spans = [(1, 17), (9, 25), (5, 5), (3, 20)]
+    arrs = _flat_batch(5, spans, H, Hkv, D, 64, 8, 8, q_tile=1)
+    want = np.asarray(jra.ragged_paged_attention_ref(*_jax(*arrs, dtype=jdt), **kw), np.float32)
+    got = tra.ragged_paged_attention_ref(*_torch(*arrs, dtype=tdt), **kw).float().numpy()
+    live = arrs[-1] >= 0
+    np.testing.assert_allclose(got[live], want[live], **tol)
+
+    lengths = np.asarray([17, 0, 25, 5], np.int32)
+    q, k, v, table = arrs[0][:4], arrs[1], arrs[2], arrs[3][:4]
+    want = np.asarray(jra.ragged_paged_attention_ref(
+        *_jax(q, k, v, table, np.arange(4, dtype=np.int32), lengths - 1, dtype=jdt), **kw),
+        np.float32)
+    got = tra.ragged_decode_attention(*_torch(q, k, v, table, lengths, dtype=tdt), **kw)
+    active = lengths > 0
+    np.testing.assert_allclose(got.float().numpy()[active], want[active], **tol)
+    assert (got[~torch.from_numpy(active)] == 0).all()
+
+
+def test_no_window_is_the_jax_packages_full_layer_window():
+    """The JAX package passes ``1 << 30`` for a full layer; the port takes
+    it, and None, as no window at all."""
+    arrs = _flat_batch(6, [(9, 40), (1, 33)], 4, 2, 64, 16, 8, 8, q_tile=1)
+    t = _torch(*arrs)
+    none = tra.ragged_paged_attention_ref(*t, num_kv_heads=2)
+    wide = tra.ragged_paged_attention_ref(*t, num_kv_heads=2, window=1 << 30)
+    want = jra.ragged_paged_attention_ref(*_jax(*arrs), num_kv_heads=2, window=1 << 30)
+    assert torch.equal(none, wide)
+    live = arrs[-1] >= 0
+    np.testing.assert_allclose(none.numpy()[live], np.asarray(want)[live], **F32)

@@ -18,7 +18,7 @@ pools, llama-8b attention shapes (H=32, Hkv=8, D=128, page 16).
    copy computes wrong values; only its time is read.
 2. With ``--parent DIR`` (an unpacked checkout of an earlier commit):
    that checkout's two entry points against this one's on the smoke's
-   mixed batch and decode rows (bf16 pools), and its mixed entry point
+   mixed batch, verify spans and decode rows (bf16 pools), and its mixed entry point
    on float32 pools at the smoke's mixed batch and verify spans (the
    float32 mixed kernel, ``csrc/ragged_attention.cu``), in the order
    parent, this, this, parent, by the same timer, and each design's
@@ -62,8 +62,8 @@ ABLATIONS = [
     ("full kernel", []),
     ("no K/V staging after the first chunks", [(
         "      stager.issue(k, v, ps, ps_log2, fused, kvh, nb, nb + kChunk * LD);\n"
-        "      if (nx + 1 < nchunks)",
-        "      if (nx + 1 < nchunks)",
+        "      if (nx + 1 < nch)",
+        "      if (nx + 1 < nch)",
     )]),
     ("no K fragment loads (ldmatrix)", [(
         "        ldmatrix_x4(b, k_s + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +\n"
@@ -123,8 +123,8 @@ F32_ABLATIONS = [
     )]),
     ("no K/V staging after the first chunks", [(
         "      stager.issue(k, v, ps, ps_log2, fused, kvh, nb, nb + kChunk * L::LDK);\n"
-        "      if (nx + 1 < nchunks)",
-        "      if (nx + 1 < nchunks)",
+        "      if (nx + 1 < nch)",
+        "      if (nx + 1 < nch)",
     )]),
 ]
 # Names of the hand-written kernels, as torch.profiler lists them.
@@ -133,13 +133,16 @@ KERNEL_NAMES = ("ragged_attention_kernel", "mixed_tc_kernel", "decode_split_kern
 
 
 def mixed_launch(torch, lib, q, k, v, table, row_of, pos, hkv, ps, fn="dx_ragged_mixed_tc"):
-    """One launch of the mixed launcher ``fn`` from ``lib`` (q_tile 8)."""
+    """One launch of the mixed launcher ``fn`` from ``lib`` (q_tile 8,
+    no window, no softcap)."""
+    from dynamo_exp_tpu_torch.ops import ragged_attention as tra
+
     out = torch.empty_like(q)
     N, H, D = q.shape
     err = getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), row_of.data_ptr(),
         pos.data_ptr(), out.data_ptr(), N, H, hkv, D, ps, table.shape[1], 8,
-        float(D**-0.5), torch.cuda.current_stream().cuda_stream,
+        float(D**-0.5), tra.NO_WINDOW, 0.0, torch.cuda.current_stream().cuda_stream,
     )
     assert err == 0, f"launch failed: cudaError {err}"
     return out
@@ -165,13 +168,18 @@ def kernel_ms(torch, fn, reps):
 
 
 def f32_variant(source, chunk, stages, split, reverse):
-    """``csrc/ragged_attention.cu`` with ``kChunk = chunk``, ``kStages =
-    stages``, ``kSplit = split`` and, unless ``reverse``, blocks in
-    stream order."""
+    """``csrc/ragged_attention.cu`` at D <= 128 with ``kChunk = chunk``,
+    ``kStages = stages``, ``kSplit = split`` and, unless ``reverse``,
+    blocks in stream order; D = 256 is taken out (its ring would not fit
+    some of these depths)."""
     text = source
-    for name, value in (("kChunk", chunk), ("kStages", stages), ("kSplit", split)):
-        text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
-                          text)
+    edits = ((r"constexpr int kStages = \d+;", f"constexpr int kStages = {stages};"),
+             (r"constexpr int kSplit = \d+;", f"constexpr int kSplit = {split};"),
+             (r"int kChunk = D > 128 \? 32 : \d+;", f"int kChunk = D > 128 ? 32 : {chunk};"),
+             (r"static_assert\(Layout<256>.*\n", ""),
+             (r"DX_LAUNCH\(256\);", "return (int)cudaErrorInvalidValue;"))
+    for old, new in edits:
+        text, n = re.subn(old, new, text)
         assert n == 1, "the float32 kernel source changed"
     if not reverse:
         old = "const int tile = n_tiles - 1 - (int)(blockIdx.x / Hkv);"
@@ -257,7 +265,9 @@ def main() -> int:
                    ("verify float32", mixed(f32["verify"]), 20)]
         if not args.float32_only:
             bf16_mixed = cs.flat_batch(torch, np, 0, cs.MIXED_SPANS, 8, torch.bfloat16, dev)
+            bf16_verify = cs.flat_batch(torch, np, 0, cs.VERIFY_SPANS, 8, torch.bfloat16, dev)
             entries = [("mixed bf16", mixed(bf16_mixed), 20),
+                       ("verify bf16", mixed(bf16_verify), 20),
                        ("decode bf16", lambda mod: decode(cs.DECODE_LENGTHS, mod=mod), 50),
                        *entries]
         for entry, make, reps in entries:
