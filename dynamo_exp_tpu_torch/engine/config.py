@@ -1,13 +1,15 @@
 """Engine configuration.
 
 Counterpart of ``dynamo_exp_tpu/engine/config.py``, trimmed to the
-fields the port reads (the KV-pressure, tiering, chaining, speculation
-and observability knobs keep the JAX package's defaults; the ``DYN_*``
-environment overrides are not ported, ROADMAP Queue 1 item 4(d)).
+fields the port reads (the KV-pressure, tiering, chaining, speculation,
+G3 and observability knobs keep the JAX package's defaults). Of the
+JAX package's env table it keeps ``DYN_KV_STORE`` (``env_overrides``),
+which the CLI reads; a config built in code reads no environment.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import torch
@@ -15,6 +17,49 @@ import torch
 from ..models.config import ModelConfig
 
 ATTENTION_IMPLS = ("auto", "kernel", "reference")
+
+_TRUTHY = frozenset({"1", "true", "on", "yes"})
+_FALSY = frozenset({"0", "false", "no", "off"})
+
+# The deployment environment the CLI reads (run.py), as one validated
+# table of (env name, config attr). Only ``DYN_KV_STORE`` is taken: a
+# directory path arms the G3 persistent tier, a falsy spelling leaves
+# it off, a truthy one raises (the knob needs a path, not "1"). An
+# engine built in code reads no environment, so a stray variable never
+# overrides the arguments it was given.
+_ENV_KNOBS: tuple[tuple[str, str], ...] = (("DYN_KV_STORE", "kv_store_dir"),)
+# Env-name families this table owns: any OTHER name under these
+# prefixes is a typo (DYN_KV_STOR=<dir> must fail loudly, not silently
+# serve without the tier) — except names owned by other modules.
+_ENV_FAMILIES = ("DYN_KV_",)
+_ENV_EXEMPT = frozenset({
+    "DYN_KV_DEFAULT_BW_BPS",  # telemetry.fleet: link-bandwidth prior
+})
+
+
+def env_overrides() -> dict[str, str]:
+    """The ``EngineConfig`` fields the ``DYN_KV_*`` environment sets.
+    An unknown name in the owned families, or a malformed value, raises
+    ``ValueError`` naming the accepted spellings."""
+    accepted = {name for name, _ in _ENV_KNOBS} | _ENV_EXEMPT
+    for name in os.environ:
+        if name not in accepted and name.startswith(_ENV_FAMILIES):
+            raise ValueError(
+                f"unknown engine env knob {name!r}; accepted: "
+                f"{', '.join(sorted(accepted))}"
+            )
+    out = {}
+    for name, attr in _ENV_KNOBS:
+        raw = os.environ.get(name, "").strip()
+        low = raw.lower()
+        if low in _TRUTHY:
+            raise ValueError(
+                f"{name}={raw!r} must be a directory path (or a "
+                f"falsy spelling to disable), not a bare flag"
+            )
+        if raw and low not in _FALSY:
+            out[attr] = raw
+    return out
 
 
 @dataclass
@@ -122,10 +167,35 @@ class EngineConfig:
     # suffix-only transfer, stay held this long awaiting the confirm;
     # the loop's reaper then reclaims them (the JAX default).
     kv_lease_ttl_s: float = 30.0
+    # KV conservation auditor: run the page manager's counter-delta
+    # ledger check (and the G3 store's) every loop cycle, as pure host
+    # integer arithmetic with no host sync; a violation bumps
+    # ``kv_ledger_violations`` (dynamo_kv_ledger_violations_total),
+    # records a ``ledger_violation`` flight event and dumps a flight
+    # snapshot once per episode. Off only to measure its cost.
+    kv_ledger_check: bool = True
+    # G3 persistent KV tier (kv/persistent.py). Empty disables. Pages
+    # LRU-demoted out of the G2 host pool land here as checksummed,
+    # crash-recoverable files keyed by the same chained block hashes; a
+    # restarted process boot-scans the directory and re-attaches
+    # surviving prefixes. Needs a host tier (host_cache_pages > 0):
+    # demotion rides its eviction path. The CLI arms it from
+    # DYN_KV_STORE=<dir> (env_overrides).
+    kv_store_dir: str = ""
+    # Store capacity in pages, LRU-evicted beyond it. <= 0 with a
+    # kv_store_dir set is rejected at construction.
+    kv_store_pages: int = 4096
+    # Seeded StorageChaos schedule (tests and the smoke only).
+    kv_store_chaos: object = None
 
     def __post_init__(self):
         if self.kv_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unsupported kv_dtype: {self.kv_dtype!r}")
+        if self.kv_store_dir and self.kv_store_pages <= 0:
+            raise ValueError(
+                f"kv_store_dir={self.kv_store_dir!r} needs "
+                f"kv_store_pages > 0 (got {self.kv_store_pages})"
+            )
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"attention_impl must be one of {ATTENTION_IMPLS}, "
@@ -147,3 +217,4 @@ class EngineConfig:
     @property
     def max_pages_per_seq(self) -> int:
         return (self.max_model_len + self.page_size - 1) // self.page_size
+

@@ -137,6 +137,7 @@ import torch
 from ..aot.compile import manifest_for_engine
 from ..aot.lattice import MixedKey, WindowKey, resolve_mixed_key, resolve_window_key
 from ..device import resolve_device
+from ..kv.persistent import PersistentKvStore
 from ..models.llama import (
     Llama,
     check_supported,
@@ -180,6 +181,10 @@ from .scheduler import RemoteKv, Scheduler, Sequence, SeqState
 from .tiering import SwapRecord, plan_swap_entries
 
 log = logging.getLogger(__name__)
+
+# Every KV ledger violation any engine in this process detected (in the
+# loop or at stop), so a test suite can assert none happened.
+LEDGER_VIOLATIONS: list[str] = []
 
 # Width of the per-row stop-token set a decode window checks on the device.
 STOP_WIDTH = 8
@@ -303,9 +308,31 @@ class TorchEngine(AsyncEngine):
             def on_evict(pid: int, seq_hash: int) -> None:
                 self._pending_offloads.append((pid, seq_hash))
 
+        # G3 persistent tier: rides the host pool's eviction path (each
+        # LRU-demoted G2 page is written through), boot-scanned here so a
+        # restarted process re-attaches the prefixes that survived.
+        self.g3_store: PersistentKvStore | None = None
+        self.g3_boot_seconds = 0.0
+        if cfg.kv_store_dir:
+            if self.host_pool is None:
+                log.warning("kv_store_dir=%r ignored: the G3 tier rides the G2 host pool's "
+                            "eviction path (set host_cache_pages > 0)", cfg.kv_store_dir)
+            else:
+                self.g3_store = PersistentKvStore(
+                    cfg.kv_store_dir, cfg.kv_store_pages, self.host_pool.page_shape,
+                    cfg.kv_torch_dtype, chaos=cfg.kv_store_chaos,
+                )
+                t0 = time.perf_counter()
+                adopted = self.g3_store.boot_scan()
+                self.g3_boot_seconds = time.perf_counter() - t0
+                if adopted or self.g3_store.torn_pages:
+                    log.info("G3 store %s: adopted %d page(s), quarantined %d torn",
+                             cfg.kv_store_dir, adopted, self.g3_store.torn_pages)
+                self.host_pool.on_demote = self.g3_store.store
         self.kv = KvPageManager(
             cfg.num_pages, cfg.page_size, event_cb=kv_event_cb,
             sharing=cfg.prefix_sharing, host_pool=self.host_pool, on_evict=on_evict,
+            g3_store=self.g3_store,
         )
         # Observability: the per-dispatch profiler and the flight
         # recorder's ring (dumped by the watchdog, SIGUSR1 and a crash).
@@ -338,8 +365,17 @@ class TorchEngine(AsyncEngine):
         self._progress_mark = 0
         self._watchdog: Watchdog | None = None
         self._flight_handle: int | None = None
-        # Prefix-hit totals already published (the counters move by delta).
+        # Prefix-hit totals already published (the counters move by delta),
+        # and the G3 store's checksum failures and quarantines.
         self._pub_prefix_hits = dict.fromkeys(self.kv.prefix_hits, 0)
+        self._pub_store_checksum_failures = 0
+        self._pub_store_quarantined = 0
+        # In-loop conservation auditor: violations counted, the kinds of
+        # the current episode (a persistent defect counts once), and
+        # whether this episode has dumped its flight snapshot.
+        self.kv_ledger_violations = 0
+        self._ledger_last: tuple = ()
+        self._ledger_dumped = False
         # Prefetch jobs by request id (their target pages are held by the
         # job until injected), completed restores for hit attribution,
         # and the copy thread's results for the loop.
@@ -422,7 +458,10 @@ class TorchEngine(AsyncEngine):
         if self._running or self._held:
             return
         if self.host_pool is not None and self.copy_stream is None:
-            self.copy_stream = CopyStream(self.host_pool, device=self.device)
+            # The G3 store rides along: prefetch fetches fall through
+            # G2 -> G3.
+            self.copy_stream = CopyStream(self.host_pool, device=self.device,
+                                          store=self.g3_store)
         self._running = True
         self._thread = threading.Thread(
             target=self._loop, name="torch-engine-loop", daemon=True
@@ -440,6 +479,32 @@ class TorchEngine(AsyncEngine):
                 self._watchdog.start()
 
     def stop(self) -> None:
+        """Stop the loop and the copy stream, then run the final ledger
+        check and, with a G3 store, demote the whole warm G2 set into it
+        and seal its manifest (the next boot's cache is as warm as this
+        process was)."""
+        self._halt()
+        if self._thread is not None:
+            return  # a wedged loop: leave its state alone
+        if self.cfg.kv_ledger_check:
+            # Only violation kinds the in-loop check has not counted.
+            seen = set(self._ledger_last)
+            final = [v for v in self._ledger_violations()
+                     if v.split(":", 1)[0] not in seen]
+            if final:
+                self.kv_ledger_violations += len(final)
+                LEDGER_VIOLATIONS.extend(final)
+                get_telemetry().kv_ledger_violations.inc(len(final))
+                for v in final:
+                    log.error("KV ledger violation at stop: %s", v)
+        if self.g3_store is not None:
+            for h, k_page, v_page in self.host_pool.snapshot():
+                self.g3_store.store(h, k_page, v_page)
+            self.g3_store.seal()
+
+    def _halt(self) -> None:
+        """Stop the loop thread and the copy stream (``hold_admission``
+        pauses through this, without the G3 drain)."""
         self._running = False
         self._wake.set()
         if self._watchdog is not None:
@@ -475,7 +540,7 @@ class TorchEngine(AsyncEngine):
         exit the loop's first iteration admits it together, as
         :meth:`submit` before :meth:`start` does, so a burst's schedule
         does not depend on its arrival times. Rows in flight pause too."""
-        self.stop()
+        self._halt()
         if self._thread is not None:
             raise RuntimeError("engine loop did not pause; not holding admission")
         self._held = True
@@ -504,7 +569,46 @@ class TorchEngine(AsyncEngine):
                 holders[f"seq:{s.request_id}"] = list(s.page_ids)
         for rid, job in self._prefetch_inflight.items():
             holders[f"prefetch:{rid}"] = list(job["pids"])
-        return self.kv.audit(holders)  # leases join as ``lease:<id>``
+        report = self.kv.audit(holders)  # leases join as ``lease:<id>``
+        if self.g3_store is not None:
+            # The G3 store's own ledger (resident == adopted + stores -
+            # evictions - quarantined), rendered by ``llmctl audit``.
+            g3 = self.g3_store.ledger()
+            report["g3"] = g3
+            if g3["violations"]:
+                report["ok"] = False
+        return report
+
+    def _ledger_violations(self) -> list[str]:
+        violations = self.kv.ledger_check()
+        if self.g3_store is not None:
+            violations = violations + self.g3_store.ledger_check()
+        return violations
+
+    def _check_ledger(self) -> None:
+        """One in-loop conservation check: counter arithmetic on the
+        host, no device access. Only a new set of violation kinds counts
+        (a persistent defect re-observed each cycle with drifting values
+        must not melt the counter), and the first violation of an
+        episode dumps a flight snapshot carrying the full audit."""
+        violations = self._ledger_violations()
+        sig = tuple(sorted({v.split(":", 1)[0] for v in violations}))
+        if sig == self._ledger_last:
+            return
+        self._ledger_last = sig
+        if not violations:
+            self._ledger_dumped = False  # episode over: re-arm the dump
+            return
+        self.kv_ledger_violations += len(violations)
+        LEDGER_VIOLATIONS.extend(violations)
+        get_telemetry().kv_ledger_violations.inc(len(violations))
+        for v in violations:
+            log.error("KV ledger violation: %s", v)
+        if self.flight is not None:
+            self.flight.record("ledger_violation", count=len(violations))
+        if not self._ledger_dumped:
+            self._ledger_dumped = True
+            self._dump_flight("kv_ledger")
 
     def loop_cpu_seconds(self) -> float:
         """CPU seconds the current loop thread has used since it
@@ -765,12 +869,29 @@ class TorchEngine(AsyncEngine):
             m["host_cache_stores"] = self.host_pool.stores
             m["offload_hits"] = self.kv.offload_hits
             m["offload_misses"] = self.kv.offload_misses
+        if self.g3_store is not None:
+            # G3: occupancy, demote / promote traffic, crash-recovery
+            # adoption and the corruption-containment counters.
+            g3 = self.g3_store
+            m["kv_store_resident"] = g3.resident  # kv_store_pages: the page manager's gauges
+            m["kv_store_adopted"] = g3.adopted
+            m["kv_store_demotes"] = g3.stores
+            m["kv_store_promotes"] = g3.hits
+            m["kv_store_evictions"] = g3.evictions
+            m["kv_store_quarantined"] = g3.quarantined
+            m["kv_store_torn"] = g3.torn_pages
+            m["kv_store_checksum_failures"] = g3.checksum_failures
+            m["kv_store_errors"] = g3.store_errors
+            m["kv_store_degraded"] = int(g3.degraded)
         # Per-dispatch profiling: host gap / in-flight percentiles and
         # first-use captures by kind (window, mixed, kv_move, offload).
         if self.profiler is not None:
             m["dispatch"] = self.profiler.summary()
         m["decode_window"] = self.cfg.decode_window
         m["kv_prefix_hits"] = dict(self.kv.prefix_hits)
+        for kind, n in self.kv.prefix_hits.items():
+            m[f"kv_prefix_hits_{kind}"] = n
+        m["kv_ledger_violations"] = self.kv_ledger_violations
         m["prefill_tokens_computed"] = self.sched.prefill_tokens
         # Handoff leases and the KV moves of disaggregation and reclaim.
         m["kv_leases_active"] = self.kv.active_leases
@@ -852,6 +973,18 @@ class TorchEngine(AsyncEngine):
         tel.publish_engine_gauges(self.metrics())
         if self.host_pool is not None:
             tel.kv_host_pages.set(self.host_pool.resident)
+        if self.g3_store is not None:
+            # Occupancy, and the store's own counters by delta.
+            g3 = self.g3_store
+            tel.kv_store_pages.set(g3.resident)
+            delta = g3.checksum_failures - self._pub_store_checksum_failures
+            if delta:
+                tel.kv_checksum_failures.labels("store").inc(delta)
+                self._pub_store_checksum_failures += delta
+            delta = g3.quarantined - self._pub_store_quarantined
+            if delta:
+                tel.kv_quarantined.inc(delta)
+                self._pub_store_quarantined += delta
         for kind, total in self.kv.prefix_hits.items():
             delta = total - self._pub_prefix_hits[kind]
             if delta:
@@ -896,6 +1029,11 @@ class TorchEngine(AsyncEngine):
                         raise RuntimeError("the KV copy stream failed") from self.copy_stream.error
                     self.copy_stream.poll()
                 self._poll_staged()
+                # Conservation auditor: counter arithmetic over the page
+                # ledger every cycle, busy or idle (a leaked ref or a
+                # double release is caught within one cycle).
+                if self.cfg.kv_ledger_check:
+                    self._check_ledger()
                 if self._inflight is not None:
                     # Steady state: launch the next window from the
                     # in-flight one's device carry, then consume the
@@ -1374,7 +1512,13 @@ class TorchEngine(AsyncEngine):
                 seq.forecast_hashes = compute_block_hashes_for_seq(seq.prompt, ps)
             hashes = seq.forecast_hashes
             start = len(self.kv.match_resident_hashes(hashes))
-            g2 = self.host_pool.match_chain(hashes[start:])[:budget]
+            rest = hashes[start:]
+            g2 = self.host_pool.match_chain(rest)
+            if self.g3_store is not None and len(g2) < len(rest):
+                # The copy stream's fetch falls through G2 -> G3 per page,
+                # so a store-resident tail restores on the same path.
+                g2 = g2 + self.g3_store.match_chain(rest[len(g2):])
+            g2 = g2[:budget]
             if not g2:
                 continue
             pids: list[int] = []
@@ -1555,7 +1699,8 @@ class TorchEngine(AsyncEngine):
         """The copy stream the handoffs' device <-> host legs use: the
         host tier's, or one made for them (no host pool, no offloads)."""
         if self.copy_stream is None:
-            self.copy_stream = CopyStream(self.host_pool, device=self.device)
+            self.copy_stream = CopyStream(self.host_pool, device=self.device,
+                                          store=self.g3_store)
         return self.copy_stream
 
     def _pages_to_host(self, pids: list[int]) -> list[tuple[torch.Tensor, torch.Tensor]]:

@@ -25,8 +25,12 @@ its TTL passes (``reap_expired``); either way the pins drop through
 ``release_sequence``. A held page is never on the free list or in the
 parked LRU, so eviction, swap-out and preemption cannot take it.
 
-Left out (ROADMAP Queue 1 item 4): the persistent tier, registration of
-pages still being filled and partial-tail sharing with copy-on-write. A
+With a G3 store (``g3_store``, ``kv/persistent.py``), admission extends
+an unbroken G1 + G2 match into it; each fetched page is checksum-verified
+by the store and promoted through the host pool.
+
+Left out (ROADMAP Queue 1 item 4(b)): registration of pages still being
+filled and partial-tail sharing with copy-on-write. A
 page is registered here only once its KV has been written (or, for an
 upload or a seeded migration, once its inject is on the compute stream
 ahead of every read), so every registered page is filled: the JAX pin's
@@ -106,6 +110,7 @@ class KvPageManager:
         host_pool=None,
         on_evict: Callable[[int, int], None] | None = None,
         clock: Callable[[], float] = time.monotonic,
+        g3_store=None,
     ):
         self.num_pages = num_pages
         self.page_size = page_size
@@ -115,6 +120,11 @@ class KvPageManager:
         # registered page back to ``host_pool`` (engine-side gather).
         self.host_pool = host_pool
         self.on_evict = on_evict
+        # G3 tier (kv/persistent.py): admission extends an unbroken
+        # G1 + G2 match into the persistent store; each fetched page is
+        # checksum-verified there and promoted through the host pool (a
+        # corrupt page quarantines and just shortens the restore).
+        self.g3_store = g3_store
         self._records = {i: PageRecord(i) for i in range(num_pages)}
         self._free: list[int] = list(range(num_pages - 1, -1, -1))
         self._by_hash: dict[int, int] = {}  # seq_hash -> resident page
@@ -134,8 +144,9 @@ class KvPageManager:
         self.offload_hits = 0
         self.offload_misses = 0
         # Prompt pages at admission by source (dynamo_kv_prefix_hits_total):
-        # shared (G1 attach), restore (G2 upload), miss (fresh prefill).
-        self.prefix_hits = {"shared": 0, "restore": 0, "miss": 0}
+        # shared (G1 attach), restore (G2 upload), persist (G3 restore:
+        # the restart re-attachment proof), miss (fresh prefill).
+        self.prefix_hits = {"shared": 0, "restore": 0, "persist": 0, "miss": 0}
         # Conservation ledger, kept at the same transitions that move
         # pages between the free list, the parked LRU and the held set
         # (``ledger_check`` is counter arithmetic; ``audit`` scans).
@@ -171,6 +182,7 @@ class KvPageManager:
             "offload_hit_rate": self.offload_hit_rate(),
             "kv_shared_pages": self.live_shared,
             "kv_host_pages": self.host_pool.resident if self.host_pool else 0,
+            "kv_store_pages": self.g3_store.resident if self.g3_store else 0,
         }
 
     # ------------------------------------------------------------ allocation
@@ -189,8 +201,9 @@ class KvPageManager:
         self, tokens: Sequence[int], max_pages: int
     ) -> Allocation | None:
         """Pages for a new sequence: attach the longest resident (G1)
-        shared prefix, extend it from the host tier (G2), then fresh
-        pages for the rest of the prompt. None when the pool cannot
+        shared prefix, extend it from the host tier (G2) and the
+        persistent store (G3), then fresh pages for the rest of the
+        prompt. None when the pool cannot
         satisfy it right now (the caller re-queues)."""
         ps = self.page_size
         n_tokens = len(tokens)
@@ -204,6 +217,10 @@ class KvPageManager:
         g2_hashes: list[int] = []
         if self.sharing and self.host_pool is not None:
             g2_hashes = self.host_pool.match_chain(hashes[len(matched) :])
+        # Then the G3 store (membership only; bytes are verified at fetch).
+        g3_hashes: list[int] = []
+        if self.sharing and self.g3_store is not None:
+            g3_hashes = self.g3_store.match_chain(hashes[len(matched) + len(g2_hashes) :])
         need_fresh = need_total - len(matched)
         # Matched parked pages are about to leave the LRU; they cannot
         # also be counted as takeable.
@@ -218,6 +235,19 @@ class KvPageManager:
             if data is None:
                 break
             restored.append((h, data[0], data[1]))
+        # G3 fetches only extend an unbroken chain. A page that fails its
+        # checksum is quarantined by the store and ends the restore: the
+        # block re-prefills from the prompt, token-identically. Verified
+        # bytes promote through the host pool.
+        n_g2 = len(restored)
+        if n_g2 == len(g2_hashes):
+            for h in g3_hashes:
+                data = self.g3_store.fetch(h)
+                if data is None:
+                    break
+                restored.append((h, data[0], data[1]))
+                if self.host_pool is not None:
+                    self.host_pool.store(h, data[0], data[1])
         for pid in matched:
             self._ref_page(pid)
         fresh = [self._take_free() for _ in range(need_fresh)]
@@ -225,10 +255,11 @@ class KvPageManager:
         self.hits += len(matched) + len(restored)
         self.misses += need_fresh - len(restored)
         if self.host_pool is not None:
-            self.offload_hits += len(restored)
+            self.offload_hits += n_g2
             self.offload_misses += need_fresh - len(restored)
         self.prefix_hits["shared"] += len(matched)
-        self.prefix_hits["restore"] += len(restored)
+        self.prefix_hits["restore"] += n_g2
+        self.prefix_hits["persist"] += len(restored) - n_g2
         self.prefix_hits["miss"] += need_fresh - len(restored)
         cached_pages = len(matched) + len(restored)
         cached = min(cached_pages * ps, n_tokens - 1)

@@ -1,7 +1,7 @@
 """G2 host-memory KV tier and the device <-> host copy stream.
 
 Counterpart of ``dynamo_exp_tpu/engine/offload.py`` for one CUDA
-device, without the G3 persistent tier:
+device:
 
 - :class:`HostKvPool` keeps the JAX pool's content addressing (pages
   keyed by the chained block hash of ``tokens.py``) and LRU, in torch
@@ -28,7 +28,11 @@ device, without the G3 persistent tier:
     forward that reads them.
   * the host side of a prefetch (:meth:`CopyStream.fetch_batch`): pages
     are copied out of the pool on the copy thread and handed back to
-    the loop, which uploads them.
+    the loop, which uploads them. A page that misses the pool is read
+    from the G3 store (``kv/persistent.py``), checksum-verified, into
+    the pool.
+- The G2 -> G3 write-through: :attr:`HostKvPool.on_demote` receives a
+  copy of each LRU-evicted page before its slot is overwritten.
 
 On the CPU the same calls run without streams or events.
 """
@@ -58,6 +62,7 @@ class HostKvPool:
         page_shape: tuple[int, ...],
         dtype: torch.dtype,
         pin_memory: bool = False,
+        on_demote=None,
     ):
         self.num_pages = num_pages
         self.page_shape = tuple(page_shape)
@@ -69,6 +74,11 @@ class HostKvPool:
         # seq_hash -> host slot; the OrderedDict is the LRU (oldest first).
         self._by_hash: OrderedDict[int, int] = OrderedDict()
         self._lock = threading.Lock()
+        # ``on_demote(seq_hash, k_copy, v_copy)``: called, outside the
+        # lock, with a copy of each LRU-evicted page (cold G2 -> G3);
+        # the copy thread calls it for offloads, the loop thread for
+        # admission promotes.
+        self.on_demote = on_demote
         self.stores = 0
         self.hits = 0
         self.evictions = 0
@@ -86,14 +96,19 @@ class HostKvPool:
         """Insert one page, evicting the LRU page when full. Idempotent
         per hash: a resident page is refreshed, not duplicated. A copy
         that raises leaves the hash out of the pool."""
+        demoted = None
         with self._lock:
             slot = self._by_hash.pop(seq_hash, None)
             if slot is None:
                 if self._free:
                     slot = self._free.pop()
                 else:
-                    _, slot = self._by_hash.popitem(last=False)
+                    h_old, slot = self._by_hash.popitem(last=False)
                     self.evictions += 1
+                    if self.on_demote is not None:
+                        # Copied before the overwrite below; the callback
+                        # (file I/O) runs outside the lock.
+                        demoted = (h_old, self._k[slot].clone(), self._v[slot].clone())
             try:
                 self._k[slot].copy_(k_page)
                 self._v[slot].copy_(v_page)
@@ -102,6 +117,11 @@ class HostKvPool:
                 raise
             self._by_hash[seq_hash] = slot  # most recently used
             self.stores += 1
+        if demoted is not None:
+            try:
+                self.on_demote(*demoted)
+            except Exception:  # a broken G3 writer must not break G2
+                log.exception("G2->G3 demotion callback failed")
 
     def fetch(
         self, seq_hash: int, out: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -132,6 +152,15 @@ class HostKvPool:
                 out.append(h)
         return out
 
+    def snapshot(self) -> list[tuple[int, torch.Tensor, torch.Tensor]]:
+        """Copy every resident page out, LRU-oldest first, without
+        touching recency or hit counters: the graceful-shutdown G2 -> G3
+        drain (``TorchEngine.stop``) walks it so the sealed manifest
+        covers the whole warm set."""
+        with self._lock:
+            return [(h, self._k[slot].clone(), self._v[slot].clone())
+                    for h, slot in self._by_hash.items()]
+
 
 def pinned_empty(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A host staging tensor: pinned when the copy's other end is a
@@ -150,9 +179,12 @@ class CopyStream:
 
     def __init__(
         self, pool: HostKvPool | None, max_inflight: int = 256,
-        device: torch.device | None = None,
+        device: torch.device | None = None, store=None,
     ):
         self.pool = pool
+        # The G3 PersistentKvStore, when armed: a prefetch fetch that
+        # misses the pool falls through to it (checksum-verified).
+        self.store = store
         self.device = resolve_device(device if device is not None else "cpu")
         cuda = self.device.type == "cuda"
         self.d2h = torch.cuda.Stream(self.device) if cuda else None
@@ -343,6 +375,13 @@ class CopyStream:
                     fetched = []
                     for h in seq_hashes:
                         data = self.pool.fetch(h)
+                        if data is None and self.store is not None:
+                            # G3 fallback: a verified page promotes into
+                            # the pool; a corrupt one quarantines there
+                            # and misses.
+                            data = self.store.fetch(h)
+                            if data is not None:
+                                self.pool.store(h, data[0], data[1])
                         if data is None:
                             break  # chain broken: later pages unmatchable
                         fetched.append((h, data[0], data[1]))

@@ -1,5 +1,7 @@
-"""KV prefix-sharing primitives: the radix ``PrefixIndex``."""
+"""KV primitives: the radix ``PrefixIndex`` and the G3 persistent page
+store ``PersistentKvStore``."""
 
+from .persistent import PersistentKvStore
 from .prefix import PrefixIndex
 
-__all__ = ["PrefixIndex"]
+__all__ = ["PersistentKvStore", "PrefixIndex"]

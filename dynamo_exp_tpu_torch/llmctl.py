@@ -724,8 +724,8 @@ def run_audit(args) -> int:
         f"  ref_total={audit.get('ref_total', '?')}"
     )
     # G3 persistent tier: present only in a dump of an engine that ran
-    # with a store (the JAX engine's; the port has none yet), whose own
-    # conservation arithmetic rides in the same snapshot.
+    # with a store, whose own conservation arithmetic rides in the same
+    # snapshot.
     g3 = audit.get("g3")
     g3_violations: list[str] = []
     if isinstance(g3, dict):

@@ -37,6 +37,13 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
 - ``--model-path <dir>`` serves the directory's safetensors weights
   (``models/loader.py``); ``--random-weights`` serves seeded random
   ones instead.
+- ``--host-cache-pages N`` keeps a pinned G2 host KV tier of N pages;
+  ``DYN_KV_STORE=<dir>`` (with a host tier) arms the G3 persistent tier
+  under it (``kv/persistent.py``): demoted pages land in ``<dir>`` as
+  checksummed files, a later process over the same directory adopts
+  them at boot, and a normal shutdown drains the warm host set into it.
+  An unknown ``DYN_KV_*`` name or a malformed value exits naming the
+  accepted spellings.
 - ``--spec ngram`` (``--spec-draft-len``, ``--spec-max-draft``,
   ``--spec-ngram``): speculative decoding, as in the JAX CLI.
 - ``--prewarm`` and ``--compile-cache-dir`` (``aot/``): warm boot, as in
@@ -176,6 +183,12 @@ def parse_args(argv: list[str]):
     p.add_argument("--device", default="cuda",
                    help="device of out=cuda's engine (cpu for CPU runs)")
     opts = p.parse_args(rest)
+    from .engine.config import env_overrides
+
+    try:
+        opts.engine_env = env_overrides()
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     for key, value in io.items():
         for prefix, item in NOT_PORTED_IO.items():
             if value == prefix or (prefix.endswith("//") and value.startswith(prefix)):
@@ -242,6 +255,7 @@ def build_cuda_engine(opts):
         spec_draft_len=opts.spec_draft_len,
         spec_max_draft=opts.spec_max_draft,
         spec_ngram=opts.spec_ngram,
+        **opts.engine_env,
     )
     engine = TorchEngine(ecfg, model=model, device=opts.device)
     if opts.prewarm:

@@ -4,9 +4,9 @@ planes, routing with health, retries and resumable streams.
 
 ``reclaim.py`` is the spot-reclaim plane (triage and live KV
 migration); ``profiler.py`` the ``torch.profiler`` capture hooks and
-their ``--profiler-port`` listener. Waits for a later slice (ROADMAP
-Queue 1): ``pool.py``, the pipeline node graph beyond ``Operator`` /
-``build_pipeline`` and ``transports/chaos.py``.
+their ``--profiler-port`` listener; ``pipeline.py`` the node graph and
+its network segments; ``pool.py`` the returnable object pool;
+``transports/chaos.py`` the seeded fault planes.
 """
 
 from .annotated import Annotated
@@ -31,7 +31,20 @@ from .engine import (
 from .health import BreakerState, CircuitBreaker, HealthTracker, is_draining
 from .journal import ReplayJournal
 from .logging import configure_logging
-from .pipeline import Operator, build_pipeline
+from .pipeline import (
+    Context,
+    MapOperator,
+    Operator,
+    PipelineNode,
+    PipelineOperator,
+    SegmentSink,
+    SegmentSource,
+    ServiceBackend,
+    ServiceFrontend,
+    build_pipeline,
+    build_segment,
+)
+from .pool import Pool, PoolItem
 from .push_router import (
     NoHealthyInstancesError,
     NoInstancesError,
@@ -51,6 +64,7 @@ __all__ = [
     "CircuitBreaker",
     "Client",
     "Component",
+    "Context",
     "DRAIN_PREFIX",
     "DeadlineExceededError",
     "DistributedRuntime",
@@ -61,10 +75,15 @@ __all__ = [
     "InstanceInfo",
     "LambdaEngine",
     "Lease",
+    "MapOperator",
     "Namespace",
     "NoHealthyInstancesError",
     "NoInstancesError",
     "Operator",
+    "PipelineNode",
+    "PipelineOperator",
+    "Pool",
+    "PoolItem",
     "PushRouter",
     "RecoveryExhaustedError",
     "ReplayJournal",
@@ -72,10 +91,15 @@ __all__ = [
     "RouterMode",
     "Runtime",
     "RuntimeConfig",
+    "SegmentSink",
+    "SegmentSource",
     "ServedInstance",
+    "ServiceBackend",
+    "ServiceFrontend",
     "Worker",
     "annotated_stream",
     "build_pipeline",
+    "build_segment",
     "configure_logging",
     "is_draining",
 ]

@@ -1,6 +1,6 @@
 """Discovery and the request / response planes (counterpart of
-``dynamo_exp_tpu/runtime/transports/``). The fault-injection planes
-(``chaos.py``) wait for a later slice (ROADMAP Queue 1)."""
+``dynamo_exp_tpu/runtime/transports/``), and the seeded fault-injection
+planes that wrap them (``chaos.py``)."""
 
 from .base import (
     Discovery,

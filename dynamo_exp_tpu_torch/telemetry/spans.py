@@ -197,12 +197,27 @@ class Telemetry:
             "refcounted), restore (G2 host-tier upload), persist (G3 "
             "persistent-store restore — the restart re-attachment "
             "path), miss (fresh prefill)",
-            ["kind"], registry=r,  # shared | restore | miss
+            ["kind"], registry=r,  # shared | restore | persist | miss
         )
         self.kv_host_pages = Gauge(
             "dynamo_kv_host_pages",
             "G2 host-tier KV pages currently resident (HostKvPool "
             "occupancy — fleet views read host-tier pressure here)",
+            registry=r,
+        )
+        # G3 persistent tier: occupancy and quarantines (its checksum
+        # failures count under kv_checksum_failures{path="store"}).
+        self.kv_store_pages = Gauge(
+            "dynamo_kv_store_pages",
+            "G3 persistent-store KV pages currently resident "
+            "(PersistentKvStore occupancy)",
+            registry=r,
+        )
+        self.kv_quarantined = Counter(
+            "dynamo_kv_quarantined_total",
+            "G3 store pages moved to quarantine after failing "
+            "verification (the entry is barred from re-adoption; the "
+            "block re-prefills from the journal, token-identically)",
             registry=r,
         )
         self.kv_prefetch_pages = Counter(
@@ -304,7 +319,14 @@ class Telemetry:
             "path: store (G3 fetch) or wire (disagg inject / reclaim "
             "migration sink) — each one was quarantined or failed the "
             "transfer, never served",
-            ["path"], registry=r,  # wire (the port has no G3 store)
+            ["path"], registry=r,  # store | wire
+        )
+        self.kv_ledger_violations = Counter(
+            "dynamo_kv_ledger_violations_total",
+            "KV page-ledger conservation violations detected by the "
+            "in-loop auditor (every page exactly one of free/parked/"
+            "active/leased/shared, refcount totals conserved)",
+            registry=r,
         )
         self.kv_lease_reclaims = Counter(
             "dynamo_kv_lease_reclaims_total",

@@ -1,16 +1,20 @@
 """Chained block hashing over fixed-size token blocks.
 
-Counterpart of ``dynamo_exp_tpu/tokens.py``, as the pure-Python copy of
-its hash (the exact-mirror fallback of ``dynamo_exp_tpu/native``): a
-splitmix64 chain whose block hashes equal the JAX package's bit for
-bit, so both packages' prefix indexes and KV events agree. Each block
-gets a *local* hash over its tokens and a *sequence* hash chaining it to
-its prefix; equal sequence hashes imply equal full prefixes.
+Counterpart of ``dynamo_exp_tpu/tokens.py``: a splitmix64 chain whose
+block hashes equal the JAX package's bit for bit, so both packages'
+prefix indexes, KV events and G3 page keys agree. Each block gets a
+*local* hash over its tokens and a *sequence* hash chaining it to its
+prefix; equal sequence hashes imply equal full prefixes. The public
+functions run the host C++ library (``native/blockhash.cpp``); the
+``py_*`` functions are its pure-Python mirror, the plain version the
+tests hold it to.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
+
+from . import native as _native
 
 # Version tag of the block-hash algorithm (v2 = the splitmix64 chain),
 # mixed into the default seed exactly as the JAX package does.
@@ -33,7 +37,7 @@ def _mix64(x: int) -> int:
     return x
 
 
-def compute_block_hash(tokens: Sequence[int], seed: int = DEFAULT_HASH_SEED) -> int:
+def py_compute_block_hash(tokens: Sequence[int], seed: int = DEFAULT_HASH_SEED) -> int:
     """Hash one block's tokens (local hash, not chained)."""
     h = _mix64((seed & _M) ^ _LOCAL_TAG)
     for t in tokens:
@@ -41,22 +45,40 @@ def compute_block_hash(tokens: Sequence[int], seed: int = DEFAULT_HASH_SEED) -> 
     return _mix64(h ^ len(tokens))
 
 
-def chain_hash(parent: int | None, local: int, seed: int = DEFAULT_HASH_SEED) -> int:
+def py_chain_hash(parent: int | None, local: int, seed: int = DEFAULT_HASH_SEED) -> int:
     """Chain a block's local hash onto its prefix's sequence hash."""
     h = _mix64((seed & _M) ^ _CHAIN_TAG)
     h = _mix64(h ^ (_NO_PARENT_TAG if parent is None else parent & _M))
     return _mix64(h ^ (local & _M))
 
 
-def compute_block_hashes_for_seq(
+def py_block_hashes_for_seq(
     tokens: Sequence[int], block_size: int, seed: int = DEFAULT_HASH_SEED
 ) -> list[int]:
     """Sequence hashes for every *complete* block of ``tokens``."""
     out: list[int] = []
     parent = None
     for start in range(0, len(tokens) - block_size + 1, block_size):
-        parent = chain_hash(
-            parent, compute_block_hash(tokens[start : start + block_size], seed), seed
+        parent = py_chain_hash(
+            parent, py_compute_block_hash(tokens[start : start + block_size], seed), seed
         )
         out.append(parent)
     return out
+
+
+def compute_block_hash(tokens: Sequence[int], seed: int = DEFAULT_HASH_SEED) -> int:
+    """Hash one block's tokens (local hash, not chained)."""
+    return _native.block_hash(tokens, seed)
+
+
+def chain_hash(parent: int | None, local: int, seed: int = DEFAULT_HASH_SEED) -> int:
+    """Chain a block's local hash onto its prefix's sequence hash."""
+    return _native.chain_hash(parent, local, seed)
+
+
+def compute_block_hashes_for_seq(
+    tokens: Sequence[int], block_size: int, seed: int = DEFAULT_HASH_SEED
+) -> list[int]:
+    """Sequence hashes for every *complete* block of ``tokens``: what the
+    router hashes a prompt with, in one native call."""
+    return _native.seq_hashes(tokens, block_size, seed)

@@ -18,6 +18,7 @@ import asyncio
 import json
 import os
 import random
+import time
 from dataclasses import replace
 
 import jax
@@ -304,3 +305,62 @@ def test_request_seconds_family_holds_the_totals_and_drift_gauge(np_params, tmp_
     for comp, total in m["anatomy_totals"].items():
         assert tel.request_seconds.labels(comp).get() - before[comp] == pytest.approx(
             total, abs=1e-5)
+
+
+FINISH_DELAY_S = 0.05  # the forced race: the finish stamp this long after the last token
+
+
+def test_live_decode_past_the_root_is_the_only_live_offline_gap(np_params, monkeypatch):
+    """The race behind ``chip_smoke.py`` phase 13's live/offline check,
+    forced: the client's root span closes at the ``max_tokens``-th token
+    (as the backend does), and the engine stamps its finish
+    ``FINISH_DELAY_S`` later. Both engines' live anatomies then count
+    that interval as decode and the offline anatomy, clipped to the root,
+    does not: the reference splits a request so, and phase 13's
+    comparison sets exactly that interval aside (``decode_past_root``).
+    Tolerance: ``chip_smoke.LIVE_OFFLINE_S``, the phase's own."""
+    import chip_smoke as cs
+
+    for name, pkg, make in (("jax", J, jax_engine), ("torch", T, torch_engine)):
+        spans = []
+        tel = pkg.get_telemetry()
+        monkeypatch.setattr(tel, "emit", spans.append)
+        eng = make(np_params, **ENGINE_KW)
+        finish = eng.sched.finish
+
+        def late_finish(seq, reason, finish=finish):
+            time.sleep(FINISH_DELAY_S)
+            finish(seq, reason)
+
+        eng.sched.finish = late_finish
+        try:
+            async def client():
+                req = {"token_ids": LIVE_PROMPTS[0],
+                       "stop_conditions": {"max_tokens": 6, "ignore_eos": True}}
+                with pkg.span("http_request", request_id="forced") as root:
+                    stream = await eng.generate(req)
+                    n = 0
+                    async for out in stream:
+                        n += len(out.get("token_ids") or [])
+                        if n >= 6:
+                            break
+                async for _ in stream:
+                    pass
+                return root
+
+            _run(client())
+            deadline = time.time() + 30
+            while eng.metrics()["anatomy_requests"] < 1 and time.time() < deadline:
+                time.sleep(0.01)
+            live = eng.metrics()["anatomy_slow"][0]
+        finally:
+            eng.stop()
+        root = next(s for s in spans if s.stage == "http_request")
+        trace = [s for s in spans if s.trace_id == root.trace_id]
+        offline = pkg.anatomy_from_spans(trace)
+        past = cs.decode_past_root(trace, root)
+        assert past > FINISH_DELAY_S / 2, (name, past)  # less the token's delivery
+        eng_off = sum(v for c, v in offline.components.items() if c != "other")
+        eng_live = sum(v for c, v in live["components"].items() if c != "other")
+        assert eng_live - eng_off > FINISH_DELAY_S / 2, name
+        assert cs.engine_share_gap(offline, live, trace, root) <= cs.LIVE_OFFLINE_S, name

@@ -55,10 +55,7 @@ from dynamo_exp_tpu_torch.telemetry.spans import Telemetry
 # the JAX package (ROADMAP Queue 1).
 JAX_ONLY = {
     "dynamo_kv_cow_copies": "copy-on-write (item 4(b))",
-    "dynamo_kv_store_pages": "the G3 store (item 4(a))",
-    "dynamo_kv_quarantined": "the G3 store (item 4(a))",
     "dynamo_config_swaps": "planner/ (item 8)",
-    "dynamo_kv_ledger_violations": "the in-loop ledger auditor (item 4(c))",
 }
 
 
