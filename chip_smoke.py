@@ -119,8 +119,9 @@ Phases, each fatal on failure (nothing is caught):
    burst over HTTP gives the in-memory weights' tokens (HTTP text and
    the loaded engine's tokens against an in-memory engine's, same batch
    shape); printed: write and load seconds, GB/s read; the directory is
-   deleted. (b) ``run.build_cuda_engine(--preset llama-8b --prewarm
-   --compile-cache-dir <tmp> --spec ngram)`` at full width and depth:
+   deleted. (b) ``run.build_cuda_engine(--model-path <dir> --random-weights
+   --prewarm --compile-cache-dir <tmp> --spec ngram)``, the directory's
+   config.json llama-8b's at 8 of its 32 layers:
    every window and mixed variant (112 and 80 keys, verify spans too)
    captured as a CUDA graph before traffic (printed: variants, graphs and
    seconds of each kind, the graph pool's bytes, one kernel build into
@@ -359,6 +360,39 @@ Phases, each fatal on failure (nothing is caught):
    stream cut at token 16 equals the uninterrupted one (ties within
    ``F32_TIE``).
 
+16. the sparse-MoE families and copy-on-write of partial tails. (a)
+   ``run.build_cuda_engine(--model-path <dir> --random-weights)`` on a
+   directory of the ``mixtral-8x7b`` preset's config.json cut to 24 of
+   its 32 layers (hidden 4096, 32/8 heads of 128, 8 experts of 14,336,
+   top-2, vocab 32,000; 70.2 GB of bf16 weights, where 32 layers would
+   be 93.4 GB), page size 16, 8 slots: phase 5's 8 prompts (32 tokens
+   each, the 2,048-token one 128), then its first 1,000 and 1,500 ids (32
+   tokens each), all queued before the loop starts; the last two wait
+   for slots and are admitted while the 2,048-token row still decodes,
+   attach its pages and, as a shared tail, the page their prompt ends
+   in, which each copies before its first write. Every stream whole,
+   ``cow_copies`` >= 2, the grouped products and both bf16 kernels
+   launched, window and mixed graphs replayed; a rerun on a new engine
+   over the same weights token-identical, with every dispatch and every
+   copy-on-write under ``torch.cuda.set_sync_debug_mode("error")``.
+   Printed: wall, TTFT p50 and max, tokens/s, ``cow_copies``, grouped
+   launches, graphs by kind, ``torch.cuda.mem_get_info``. (b) 4 layers
+   of Qwen3-30B-A3B's, Qwen1.5-MoE-A2.7B's and mixtral-8x7b's published
+   widths (config.json written here and read back): a 512-token prompt's
+   logits with the grouped products against their plain per-expert loop
+   within 5 % of the logit scale; layer 0's FFN at a decode batch of 8
+   and a 512-token chunk, grouped against plain within two bf16 ulps of
+   the output's scale, both timed by CUDA events beside the bound of
+   that routing (each touched expert's weights read once). (c)
+   llama-8b's width at 4 layers, float32: (a)'s traffic with
+   ``prefix_sharing`` on and off: the same tokens (float32 ties within
+   ``F32_TIE``), copies on and none off, fewer prefill tokens computed
+   on. (d) (b)'s mixtral at 4 layers, bf16: phase 5's prompts with
+   drafts of each row's own continuation, so verify spans run the MoE
+   layers: drafts accepted, verify-span graphs replayed, every dispatch
+   under sync debug "error"; tokens equal to a run without speculation
+   printed, not asserted (bf16 ties).
+
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
@@ -387,7 +421,9 @@ observed HTTP burst (``launches_observability``), and phase 14's engine
 (``launches_gemma2``), HTTP (``launches_gemma2_http``) and 4-layer
 checks (``launches_window_logits``), and phase 15's G3 engines
 (``launches_g3``: (a) and (b)) and chaos-plane engines
-(``launches_chaos``: (d)); both mixed entries also carry the
+(``launches_chaos``: (d)), and phase 16's mixtral engine
+(``launches_moe``: (a)) and float32 sharing engines
+(``launches_sharing_f32``: (c)); both mixed entries also carry the
 verify spans' timing (``verify_*``), and every entry phase 3's windowed
 cases in its own dtype (``gemma2_d256_softcap_window``,
 ``mistral_d128_window``; the decode design also ``*_f32``; a softcap
@@ -409,6 +445,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -453,6 +490,13 @@ PRESSURE_TOKENS = 128
 PRESSURE_PAGES = 416
 HOST_PAGES = 1024
 F32_LAYERS = 4  # phase 7 (c): llama-8b's width, 4 layers, float32
+
+
+def reset_launches() -> None:
+    """Zero every launch counter of the port (ops/launches.py)."""
+    from dynamo_exp_tpu_torch.ops import launches
+
+    launches.reset()
 
 
 def log(msg: str) -> None:
@@ -1122,7 +1166,7 @@ def main_path(torch, np, pkg, tra):
         f"slots {ecfg.max_decode_slots}, page {ecfg.page_size}, pages {ecfg.num_pages}, "
         f"prefill_chunk {ecfg.prefill_chunk}, decode_window {ecfg.decode_window}")
     torch.cuda.synchronize()
-    tra.reset_launches()
+    reset_launches()
     out, wall = run_engine(eng, requests)
     launches = dict(tra.LAUNCHES)
     designs = dict(tra.KERNEL_LAUNCHES)
@@ -1338,13 +1382,9 @@ def tokenizer_spec(tokmod, vocab_size: int, text: str, n_merges: int = 1500) -> 
     }
 
 
-def write_model_dir(path: str, tokmod, mcfg, text: str) -> str:
-    """config.json of ``mcfg`` (read back equal to it), the tokenizer
-    of ``tokenizer_spec``, a Llama-3-style chat template and EOS
-    ``<|eot_id|>`` in generation_config.json. No weights: the server
-    runs with --random-weights."""
-    os.makedirs(path, exist_ok=True)
-    bos = mcfg.vocab_size - N_SPECIAL
+def hf_config(mcfg) -> dict:
+    """A llama-layout ``config.json`` (llama, mistral, qwen2/3 and the
+    MoE families) that reads back equal to ``mcfg``."""
     cfg = {
         "architectures": ["LlamaForCausalLM"], "model_type": mcfg.model_type,
         "vocab_size": mcfg.vocab_size, "hidden_size": mcfg.hidden_size,
@@ -1355,15 +1395,31 @@ def write_model_dir(path: str, tokmod, mcfg, text: str) -> str:
         "max_position_embeddings": mcfg.max_position_embeddings,
         "tie_word_embeddings": mcfg.tie_word_embeddings,
         "attention_bias": mcfg.attention_bias, "torch_dtype": mcfg.dtype,
-        "bos_token_id": bos,
         # The preset's MoE routing default (unused by a dense model), so
         # that the file reads back equal to the preset.
         "norm_topk_prob": mcfg.norm_topk_prob,
     }
     if mcfg.head_dim:
         cfg["head_dim"] = mcfg.head_dim
+    if mcfg.sliding_window:
+        cfg["sliding_window"] = mcfg.sliding_window
+    if mcfg.is_moe:
+        experts = "num_local_experts" if mcfg.model_type == "mixtral" else "num_experts"
+        cfg.update({experts: mcfg.num_experts, "num_experts_per_tok": mcfg.num_experts_per_tok,
+                    "moe_intermediate_size": mcfg.moe_intermediate_size,
+                    "shared_expert_intermediate_size": mcfg.shared_expert_intermediate_size})
+    return cfg
+
+
+def write_model_dir(path: str, tokmod, mcfg, text: str) -> str:
+    """config.json of ``mcfg`` (read back equal to it), the tokenizer
+    of ``tokenizer_spec``, a Llama-3-style chat template and EOS
+    ``<|eot_id|>`` in generation_config.json. No weights: the server
+    runs with --random-weights."""
+    os.makedirs(path, exist_ok=True)
+    bos = mcfg.vocab_size - N_SPECIAL
     files = {
-        "config.json": cfg,
+        "config.json": {**hf_config(mcfg), "bos_token_id": bos},
         "generation_config.json": {"bos_token_id": bos, "eos_token_id": bos + EOT_OFFSET},
         "tokenizer_config.json": {"bos_token": LLAMA3_SPECIALS[0],
                                   "eos_token": "<|eot_id|>",
@@ -1556,7 +1612,7 @@ async def _traffic(torch, np, pkg, tra, tok, client, base, eng, model_dir, phase
     ]
     if device == "cuda":
         torch.cuda.synchronize()
-    tra.reset_launches()
+    reset_launches()
     # Only HTTP requests from here to the read of the launch counts.
     # (a), twice.
     a_out, *a_times = await burst(client, eng, cmpl, bodies, reset_cache=False)
@@ -1834,7 +1890,7 @@ def pressure_burst(torch, np, pkg, tra, smi: str, mcfg=None, sh: Pressure = Pres
     # (a) the burst under a pool smaller than its need.
     eng = pressure_engine(pkg, mcfg, model, "bfloat16", sh)
     sync(torch, sh.device)
-    tra.reset_launches()
+    reset_launches()
     out, wall = run_engine(eng, requests)
     sync(torch, sh.device)
     launches, designs = dict(tra.LAUNCHES), dict(tra.KERNEL_LAUNCHES)
@@ -1945,7 +2001,7 @@ def pressure_identity_f32(torch, np, pkg, tra, smi: str, mcfg=None,
     requests = pressure_requests(np, mcfg.vocab_size, sh)
     eng = pressure_engine(pkg, mcfg, model, "float32", sh)
     sync(torch, sh.device)
-    tra.reset_launches()
+    reset_launches()
     out, wall = run_engine(eng, requests)
     sync(torch, sh.device)
     launches, designs = dict(tra.LAUNCHES), dict(tra.KERNEL_LAUNCHES)
@@ -2099,7 +2155,7 @@ def chain_turns(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8) -> dict:
         if chained and guard is None:
             guard = guard_chained_syncs(torch, eng, sh.device)
         sync(torch, sh.device)
-        tra.reset_launches()
+        reset_launches()
         r = p8_burst(torch, eng, requests, sh.device)
         r["designs"], r["chained_decode"] = dict(tra.KERNEL_LAUNCHES), chained
         for i, o in enumerate(r["out"]):
@@ -2186,7 +2242,7 @@ def spec_path(torch, np, pkg, tra, smi: str, model, mcfg, sh: Phase8, base) -> d
     prompts = [r["token_ids"] for r in requests]
     mode = continuation_drafter(pkg, prompts, base)
     sync(torch, sh.device)
-    tra.reset_launches()
+    reset_launches()
     eng = p8_engine(pkg, mcfg, model, "bfloat16", sh, spec_mode=mode,
                     spec_draft_len=8, spec_max_draft=8)
     st = p8_burst(torch, eng, requests, sh.device)
@@ -2287,7 +2343,7 @@ def f32_identity(torch, np, pkg, tra, smi: str, sh: Phase8, mcfg=None) -> dict:
                    for i in range(len(prompts))],
     }
     sync(torch, sh.device)
-    tra.reset_launches()
+    reset_launches()
     out = {}
     for name, sos in bursts.items():
         reqs = [{"token_ids": p, "stop_conditions": {"max_tokens": sh.f32_tokens,
@@ -2410,7 +2466,7 @@ async def _logprob_traffic(torch, np, pkg, tra, run, client, opts, mcfg, sh: Pha
     ids = [int(t) for t in rs.randint(3, mcfg.vocab_size, size=sh.lp_prompt_len)]
     try:
         sync(torch, sh.device)
-        tra.reset_launches()
+        reset_launches()
         frames = {}
         for kind, path, body in (
             ("chat", "/v1/chat/completions",
@@ -2529,7 +2585,8 @@ class Phase9:
     max_tokens: int = MAX_TOKENS  # (a), and (b)'s phase 5 burst
     chain_tokens: int = CHAIN_TOKENS  # (b)'s phase 8 (a) burst
     loader_layers: int = LOADER_LAYERS
-    preset: str = "llama-8b"  # (b)'s warm boot
+    preset: str = "llama-8b"  # (b)'s warm boot: the preset's width ...
+    warm_layers: int = 8  # ... at this depth (a model directory of its config.json)
     repeat_block: int = 64  # (b)'s speculation burst: a block of random ids a row ...
     repeat_times: int = 4  # ... repeated
     second_preset: str = "llama-1b"  # (c)'s second boot, in a new process
@@ -2658,7 +2715,7 @@ async def _drive_loaded(torch, np, pkg, tra, tok, opts, client, model, mcfg, sh)
             for i, ids in enumerate(prompts)
         ]
         sync(torch, sh.device)
-        tra.reset_launches()
+        reset_launches()
         http_out, wall, _, _ = await burst(
             client, eng, f"http://127.0.0.1:{served.port}/v1/completions", bodies,
             reset_cache=False)
@@ -2739,8 +2796,9 @@ def padding_line(seen: list) -> str:
 
 
 def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9()) -> dict:
-    """(b) ``run.build_cuda_engine(--preset llama-8b --spec ngram
-    --prewarm --compile-cache-dir)``: llama-8b at full width and depth,
+    """(b) ``run.build_cuda_engine(--model-path <dir> --random-weights
+    --spec ngram --prewarm --compile-cache-dir)``, the directory's
+    config.json the preset's width at ``sh.warm_layers`` layers,
     every window and mixed variant (verify spans too) captured before
     traffic. Then phase 8 (a)'s greedy burst and phase 5's burst (a
     seeded row: two sampler partitions), both with speculation set
@@ -2758,14 +2816,24 @@ def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9
 
     max_len = (max(*sh.prompt_lens, sh.repeat_block * sh.repeat_times)
                + max(sh.chain_tokens, sh.max_tokens) + PS)
+    import tempfile
+
+    model_dir = tempfile.mkdtemp(prefix="warm-model-")
+    wcfg = replace(pkg.models.PRESETS[sh.preset], num_layers=sh.warm_layers)
+    with open(os.path.join(model_dir, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(hf_config(wcfg), f)
     argv = [
-        "out=cuda", "--device", sh.device, "--preset", sh.preset, "--max-decode-slots", "8",
+        "out=cuda", "--device", sh.device, "--model-path", model_dir, "--random-weights",
+        "--max-decode-slots", "8",
         "--page-size", str(PS), "--max-model-len", str(max_len),
         "--num-pages", str(8 * -(-max_len // PS)), "--kv-dtype", "bfloat16",
         "--spec", "ngram", "--prewarm", "--compile-cache-dir", cache_dir,
     ]
     t0 = time.perf_counter()
-    warm, _ = run.build_cuda_engine(run.parse_args(argv))
+    try:
+        warm, _ = run.build_cuda_engine(run.parse_args(argv))
+    finally:
+        shutil.rmtree(model_dir)
     boot_s = time.perf_counter() - t0
     report = warm.metrics()["prewarm"]
     graphs_on = warm.graphs is not None
@@ -2776,7 +2844,9 @@ def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9
     assert report["graphs"] == (report["variants"] if graphs_on else 0), report
     assert report["mixed_graphs"] == (report["mixed_variants"] if graphs_on else 0), report
     assert report["builds"] == (1 if sh.device == "cuda" else 0), report
-    log(f"[warm] (b) {smi}: {sh.preset} booted with --spec ngram --prewarm in {boot_s:.2f} s: "
+    assert warm.cfg.model == wcfg, warm.cfg.model
+    log(f"[warm] (b) {smi}: {sh.preset} at {sh.warm_layers} layers booted with --spec ngram "
+        f"--prewarm in {boot_s:.2f} s: "
         f"{report['variants']} window variants ({report['graphs']} CUDA graphs) in "
         f"{report['window_seconds']:.2f} s, {report['mixed_variants']} mixed variants "
         f"({report['mixed_graphs']} CUDA graphs, buckets "
@@ -2815,7 +2885,7 @@ def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9
             mixed_replays = m0["graphs"].get("mixed", {}).get("replays", 0)
             verify = spec_replays()
             sync(torch, sh.device)
-            tra.reset_launches()
+            reset_launches()
             with speculation(eng, spec_on), mixed_padding() as seen:
                 r = p8_burst(torch, eng, requests, sh.device)
             r["designs"], r["kind"], r["padding"] = dict(tra.KERNEL_LAUNCHES), kind, seen
@@ -3101,7 +3171,7 @@ async def _edge_traffic(torch, np, pkg, tra, smi, client, served, mcfg, sh, trac
         sent.extend(results)
 
     sync(torch, sh.device)
-    tra.reset_launches()
+    reset_launches()
     text0, m0 = await scrape()
     slo0 = (svc.slo.completed, svc.slo.goodput_total, dict(svc.slo.violations))
     eng.flight.clear()
@@ -3358,7 +3428,7 @@ def telemetry_turns(torch, np, pkg, tra, smi, model, mcfg, sh: Phase10) -> dict:
         if eng.flight is not None:
             eng.flight.clear()
         sync(torch, sh.device)
-        tra.reset_launches()
+        reset_launches()
         try:
             out, wall = asyncio.run(burst(eng))
         finally:
@@ -4837,7 +4907,7 @@ def phase13(torch, np, pkg, tra, smi: str, sh: Phase13 = Phase13(), mcfg=None) -
             "--profiler-port", str(prof_port),
         ]
         try:
-            tra.reset_launches()
+            reset_launches()
             out = asyncio.run(asyncio.wait_for(
                 _p13_drive(torch, np, run, client, smi, run.parse_args(argv), mcfg, sh, files,
                            prof_port), timeout=900))
@@ -5278,7 +5348,7 @@ def p14_engine_path(torch, pkg, tra, smi, sh: Phase14, mcfg, requests) -> dict:
     for _ in range(2):
         eng = pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
         sync(torch, sh.device)
-        tra.reset_launches()
+        reset_launches()
         out, wall = run_engine(eng, requests)
         sync(torch, sh.device)
         runs.append((out, wall, dict(tra.KERNEL_LAUNCHES), eng.metrics()))
@@ -5339,7 +5409,7 @@ def p14_window_logits(torch, np, pkg, tra, smi, sh: Phase14, mcfg) -> dict:
     for impl in ("kernel", "reference"):
         kc, vc = llama.init_kv_cache(cfg, pages, PS, torch.bfloat16, device=dev)
         t0 = time.perf_counter()
-        tra.reset_launches()
+        reset_launches()
         lg, _, _ = llama.forward_ragged(model, cfg, toks, pos, rows, table, kc, vc, out_idx,
                                         attn_impl=impl, q_tile=8)
         sync(torch, sh.device)
@@ -5460,7 +5530,7 @@ async def _p14_drive(torch, np, pkg, tra, run, client, tok, opts, chats, chat_id
                    "stream": True, "stream_options": {"include_usage": True}}
                   for m in chats]
         sync(torch, sh.device)
-        tra.reset_launches()
+        reset_launches()
         res, wall, _, _ = await burst(client, eng, base + "/v1/chat/completions", bodies,
                                       reset_cache=False)
         for i, (r, ids) in enumerate(zip(res, chat_ids)):
@@ -5580,11 +5650,18 @@ def hard_kill(engine) -> None:
     no G2 -> G3 drain, no manifest seal), as ``tests/test_kv_persist.py``
     kills one. Whatever the demotion write-through committed is all the
     next boot gets."""
+    from dynamo_exp_tpu_torch.telemetry import unregister_dumper
+
     engine._running = False
     engine._wake.set()
     if engine._watchdog is not None:
         engine._watchdog.stop()
         engine._watchdog = None
+    if engine._flight_handle is not None:
+        # The process's dump registry goes with it: a later dump_all in
+        # this process must not find the dead engine.
+        unregister_dumper(engine._flight_handle)
+        engine._flight_handle = None
     if engine._thread is not None:
         engine._thread.join(timeout=60)
         assert not engine._thread.is_alive(), "the loop thread did not end"
@@ -6242,14 +6319,14 @@ def phase15(torch, np, pkg, tra, smi: str, sh: Phase15 = Phase15(), mcfg=None,
     t0 = time.perf_counter()
     free(torch, sh.device)
     sync(torch, sh.device)
-    tra.reset_launches()
+    reset_launches()
     a = g3_restart(torch, np, pkg, tra, smi, sh, mcfg)
     b = g3_containment_f32(torch, np, pkg, tra, smi, sh, f32_cfg)
     sync(torch, sh.device)
     designs_g3 = dict(tra.KERNEL_LAUNCHES)
     c = g3_processes(torch, np, pkg, smi, sh, mcfg)
     sync(torch, sh.device)
-    tra.reset_launches()
+    reset_launches()
     d = chaos_plane(torch, np, pkg, tra, smi, sh, mcfg, f32_cfg)
     sync(torch, sh.device)
     designs_chaos = dict(tra.KERNEL_LAUNCHES)
@@ -6261,6 +6338,480 @@ def phase15(torch, np, pkg, tra, smi: str, sh: Phase15 = Phase15(), mcfg=None,
     log(f"[g3] {smi}: phase 15 launches by kernel: G3 {designs_g3}, chaos {designs_chaos}; "
         f"wall {wall:.1f} s")
     return dict(a=a, b=b, c=c, d=d, designs_g3=designs_g3, designs_chaos=designs_chaos,
+                wall_s=wall)
+
+
+# ------------------------------------------------------------ phase 16
+MOE_LAYERS = 24  # (a): mixtral-8x7b's 32 layers are 93.4 GB in bf16; 24 are 70.2 GB
+# (b): published shapes at 4 layers: Qwen3-30B-A3B and Qwen1.5-MoE-A2.7B's
+# config.json (the HF hub's), and mixtral-8x7b's.
+QWEN3_30B_A3B = {
+    "model_type": "qwen3_moe", "vocab_size": 151936, "hidden_size": 2048,
+    "intermediate_size": 6144, "num_hidden_layers": 48, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "head_dim": 128, "num_experts": 128, "num_experts_per_tok": 8,
+    "moe_intermediate_size": 768, "norm_topk_prob": True, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 40960, "tie_word_embeddings": False,
+    "attention_bias": False, "torch_dtype": "bfloat16",
+}
+QWEN15_MOE_A27B = {
+    "model_type": "qwen2_moe", "vocab_size": 151936, "hidden_size": 2048,
+    "intermediate_size": 5632, "num_hidden_layers": 24, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "num_experts": 60, "num_experts_per_tok": 4,
+    "moe_intermediate_size": 1408, "shared_expert_intermediate_size": 5632,
+    "norm_topk_prob": False, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 8192, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+}
+
+
+@dataclass
+class Phase16:
+    """Phase 16's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, tiny MoE configs)."""
+
+    device: str = "cuda"
+    layers: int = MOE_LAYERS  # (a)'s depth
+    prompt_lens: tuple = PROMPT_LENS  # (a), (c): phase 5's prompts ...
+    max_tokens: int = MAX_TOKENS  # ... at 32 tokens ...
+    long_tokens: int = 128  # ... but the longest, still decoding when ...
+    share_lens: tuple = (1000, 1500)  # ... its first 1,000 and 1,500 ids arrive
+    check_layers: int = 4  # (b)'s depth
+    check_len: int = 512  # (b)'s prompt
+    decode_rows: int = 8  # (b): the FFN timed at a decode batch ...
+    chunk: int = 512  # ... and at a prefill chunk
+    reps: int = 20
+    f32_layers: int = 4  # (c)'s depth
+
+
+def p16_requests(np, vocab: int, sh: Phase16, **so) -> list[dict]:
+    """Phase 5's prompts (the longest decoding ``long_tokens``), then
+    prompts ending inside pages of the longest one's: with 8 slots the
+    last two wait until the short rows finish, and are admitted while
+    the longest still decodes. Admitted in that order every run."""
+    prompts = phase5_prompts(np, vocab, sh.prompt_lens)
+    long = prompts[-1]
+    toks = [sh.max_tokens] * (len(prompts) - 1) + [sh.long_tokens]
+    toks += [sh.max_tokens] * len(sh.share_lens)
+    prompts += [long[:n] for n in sh.share_lens]
+    return [{"token_ids": p, "stop_conditions": {"max_tokens": n, "ignore_eos": True},
+             "sampling_options": dict(so)} for p, n in zip(prompts, toks)]
+
+
+def p16_run(torch, eng, requests, device: str) -> dict:
+    """``requests`` queued before the loop starts; each stream's tokens,
+    time to first token and time to finish."""
+    async def collect(stream, t0):
+        r = dict(tokens=[], finish=None, ttft=None, done=None)
+        async for item in stream:
+            if item.get("token_ids") and r["ttft"] is None:
+                r["ttft"] = time.perf_counter() - t0
+            r["tokens"] += item.get("token_ids", [])
+            r["finish"] = item.get("finish_reason", r["finish"])
+        r["done"] = time.perf_counter() - t0
+        return r
+
+    async def go():
+        streams = [eng.submit(r) for r in requests]
+        t0 = time.perf_counter()
+        eng.start()
+        out = await asyncio.wait_for(asyncio.gather(*(collect(s, t0) for s in streams)), 600)
+        sync(torch, device)
+        return out, time.perf_counter() - t0
+
+    try:
+        out, wall = asyncio.run(go())
+    finally:
+        eng.stop()
+    return dict(out=out, wall_s=wall, metrics=eng.metrics())
+
+
+def guard_dispatch(torch, eng, device: str, names) -> dict:
+    """Wrap the engine instance's ``names`` so that on the card each call
+    runs under ``torch.cuda.set_sync_debug_mode("error")``: a host sync
+    in one raises. Returns the tally of guarded calls."""
+    guard = {"guarded": 0, "errors": []}
+
+    def wrap(fn):
+        def call(*a, **kw):
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+            except Exception as e:
+                guard["errors"].append(repr(e))
+                raise
+            finally:
+                if device == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+            guard["guarded"] += 1
+            return out
+        return call
+
+    for name in names:
+        setattr(eng, name, wrap(getattr(eng, name)))
+    return guard
+
+
+def p16_mixtral(torch, np, pkg, tra, smi: str, sh: Phase16, mcfg) -> dict:
+    """(a) ``run.build_cuda_engine(--model-path <dir> --random-weights)``
+    on a model directory of ``mcfg``'s config.json (bf16, page size 16):
+    :func:`p16_requests` twice, on two engines over the same weights,
+    the second with every dispatch and copy-on-write under sync debug
+    "error"."""
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch.ops import moe as tmoe
+
+    requests = p16_requests(np, mcfg.vocab_size, sh)
+    lens = [len(r["token_ids"]) for r in requests]
+    max_len = max(lens) + sh.long_tokens + PS
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w", encoding="utf-8") as f:
+            json.dump(hf_config(mcfg), f)
+        argv = ["out=cuda", "--device", sh.device, "--model-path", tmp, "--random-weights",
+                "--max-decode-slots", "8", "--page-size", str(PS), "--max-model-len",
+                str(max_len), "--num-pages", str(pages_needed(lens, sh.long_tokens) + 64),
+                "--kv-dtype", "bfloat16"]
+        t0 = time.perf_counter()
+        eng, _ = run.build_cuda_engine(run.parse_args(argv))
+        sync(torch, sh.device)
+        init_s = time.perf_counter() - t0
+    assert eng.cfg.model == mcfg, eng.cfg.model
+    model = eng.model
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mem = ""
+    if sh.device == "cuda":
+        free_b, total_b = torch.cuda.mem_get_info()
+        mem = (f"; torch.cuda.mem_get_info after the engine: {free_b / 1e9:.2f} GB free of "
+               f"{total_b / 1e9:.2f} GB")
+    log(f"[moe] (a) {smi}: {mcfg.model_type} at {mcfg.num_layers} layers, hidden "
+        f"{mcfg.hidden_size}, H {mcfg.num_heads}/Hkv {mcfg.num_kv_heads} x {mcfg.head_dim_}, "
+        f"{mcfg.num_experts} experts of {mcfg.expert_intermediate_size}, top-"
+        f"{mcfg.num_experts_per_tok}, vocab {mcfg.vocab_size}: {n_params / 1e9:.3f} B params, "
+        f"{weight_bytes / 1e9:.2f} GB bf16 from seed 0, engine built in {init_s:.1f} s{mem}")
+    ecfg, runs = eng.cfg, []
+    for i in range(2):
+        if i:
+            eng = pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+        guard = (guard_dispatch(torch, eng, sh.device,
+                                ("_build_mixed", "_launch_window", "_resolve_shared_tail"))
+                 if i else None)
+        sync(torch, sh.device)
+        reset_launches()
+        r = p16_run(torch, eng, requests, sh.device)
+        r.update(designs=dict(tra.KERNEL_LAUNCHES), grouped=tmoe.LAUNCHES["grouped_mm"],
+                 guard=guard, pool=eng.graphs.pool_bytes() if eng.graphs is not None else 0)
+        runs.append(r)
+        del eng
+        free(torch, sh.device)
+    first, rerun = runs
+    out, m = first["out"], first["metrics"]
+    for i, (r, req) in enumerate(zip(out, requests)):
+        want = req["stop_conditions"]["max_tokens"]
+        assert r["finish"] == "length" and len(r["tokens"]) == want, (i, r["finish"],
+                                                                       len(r["tokens"]))
+        assert all(0 <= t < mcfg.vocab_size for t in r["tokens"])
+    assert [r["tokens"] for r in rerun["out"]] == [r["tokens"] for r in out], "rerun tokens"
+    n_share = len(sh.share_lens)
+    long_row, sharers = out[-n_share - 1], out[-n_share:]
+    assert all(s["ttft"] < long_row["done"] for s in sharers), "the sharers came too late"
+    for r in runs:
+        mr = r["metrics"]
+        assert mr["kv_cow_copies"] >= n_share, mr["kv_cow_copies"]
+        assert mr["kv_prefix_hits"]["shared"] >= sum(n // PS + 1 for n in sh.share_lens), (
+            mr["kv_prefix_hits"])
+        if sh.device == "cuda":
+            assert r["grouped"] > 0 and r["designs"]["mixed_tc_bf16"] > 0, r
+            assert r["designs"]["decode_split"] > 0, r["designs"]
+            g = mr["graphs"]
+            assert g["window"]["replays"] > 0 and g["mixed"]["replays"] > 0, g
+    guard = rerun["guard"]
+    assert not guard["errors"] and guard["guarded"] > 0, guard
+    ttfts = sorted(r["ttft"] for r in out)
+    total = sum(len(r["tokens"]) for r in out)
+    log(f"[moe] (a) {smi}: phase 5's 8 prompts ({sh.max_tokens} tokens; the "
+        f"{max(sh.prompt_lens)}-token one {sh.long_tokens}) then its first "
+        f"{list(sh.share_lens)} ids, admitted while it "
+        f"decoded: wall {first['wall_s']:.3f} s (rerun {rerun['wall_s']:.3f} s), {total} "
+        f"tokens, {total / first['wall_s']:.2f} tokens/s, TTFT p50 "
+        f"{ttfts[len(ttfts) // 2]:.3f} s max {ttfts[-1]:.3f} s; sharers' TTFT "
+        f"{[round(s['ttft'], 3) for s in sharers]} s before the long row's end at "
+        f"{long_row['done']:.3f} s; cow_copies {m['kv_cow_copies']}, prefix hits "
+        f"{m['kv_prefix_hits']}, prefill tokens computed {m['prefill_tokens_computed']}; "
+        f"grouped products launched {first['grouped']} (rerun {rerun['grouped']}); graphs "
+        f"{graph_line(m)}, pool {first['pool'] / 2**20:.1f} MiB; launches by kernel "
+        f"{first['designs']}; dispatches {m['dispatches']}; all 'length', the rerun "
+        f"token-identical with {guard['guarded']} dispatches and copies under "
+        f"torch.cuda.set_sync_debug_mode('error')")
+    del model
+    free(torch, sh.device)
+    return dict(wall_s=first["wall_s"], rerun_wall_s=rerun["wall_s"], completion_tokens=total,
+                tokens_per_s=total / first["wall_s"], ttft_p50_s=ttfts[len(ttfts) // 2],
+                ttft_max_s=ttfts[-1], cow_copies=m["kv_cow_copies"],
+                grouped=first["grouped"], designs=first["designs"],
+                tokens=[r["tokens"] for r in out], guarded=guard["guarded"])
+
+
+@contextlib.contextmanager
+def plain_grouped(tmoe):
+    """Within the block, the MoE FFN's grouped products run through
+    their plain version (the per-expert loop) on any device."""
+    grouped = tmoe.grouped_linear
+    tmoe.grouped_linear = lambda xs, w, counts, ends: tmoe.grouped_linear_ref(xs, w, counts)
+    try:
+        yield
+    finally:
+        tmoe.grouped_linear = grouped
+
+
+def moe_bound_ms(mcfg, ids, n_tokens: int, itemsize: int = 2) -> tuple[float, str]:
+    """The least time of one MoE FFN on this routing: each touched
+    expert's three matrices read once, the tokens read and the output
+    written once, against 2 x 3 x (tokens x k) x D x I products at the
+    bf16 peak."""
+    D, Ie, K = mcfg.hidden_size, mcfg.expert_intermediate_size, mcfg.num_experts_per_tok
+    touched = len(set(ids.reshape(-1).tolist()))
+    nbytes = (touched * 3 * D * Ie + 2 * n_tokens * D) * itemsize
+    flops = 2 * 3 * n_tokens * K * D * Ie
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def p16_check(torch, np, pkg, smi: str, sh: Phase16, mcfg) -> dict:
+    """(b) ``mcfg`` (a config.json written here, read back): one
+    ``sh.check_len``-token prompt through ``forward_ragged`` with the
+    grouped products on the card and with their plain version, logits
+    within 5 % of their scale (phase 14 (b)'s bound: bf16 activations
+    through the layers); then layer 0's FFN on ``sh.decode_rows`` and
+    ``sh.chunk`` tokens, grouped against plain (outputs, and device ms
+    by CUDA events) beside the bound of that routing."""
+    import tempfile
+
+    from dynamo_exp_tpu_torch.ops import moe as tmoe
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w", encoding="utf-8") as f:
+            json.dump(mcfg, f)
+        cfg = pkg.models.ModelConfig.from_pretrained(tmp)
+    from dataclasses import replace
+
+    cfg = replace(cfg, num_layers=sh.check_layers)
+    llama = pkg.models.llama
+    dev = torch.device(sh.device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = pkg.models.init_params(cfg, gen, dev)
+    n = sh.check_len
+    rs = np.random.RandomState(16)
+    toks = torch.tensor(rs.randint(3, cfg.vocab_size, size=n), device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    rows = torch.zeros(n, dtype=torch.int32, device=dev)
+    table = torch.arange(-(-n // PS), dtype=torch.int32, device=dev)[None]
+    out_idx = torch.arange(63, n, 64, device=dev)
+    logits = {}
+    for impl in ("grouped", "plain"):
+        kc, vc = llama.init_kv_cache(cfg, table.shape[1], PS, torch.bfloat16, device=dev)
+        reset_launches()
+        with plain_grouped(tmoe) if impl == "plain" else contextlib.nullcontext():
+            lg, _, _ = llama.forward_ragged(model, cfg, toks, pos, rows, table, kc, vc, out_idx,
+                                            q_tile=8)
+        sync(torch, sh.device)
+        launches = tmoe.LAUNCHES["grouped_mm"] if impl == "grouped" else launches
+        logits[impl] = lg
+        del kc, vc
+    a, b = logits["grouped"], logits["plain"]
+    assert torch.isfinite(a).all()
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    assert err <= 0.05 * scale, f"{cfg.model_type} logits differ: {err} > 5% of {scale}"
+    if sh.device == "cuda":
+        assert launches == 3 * cfg.num_layers, launches
+    # Layer 0's FFN alone, at a decode batch and a prefill chunk.
+    layer = model.layers[0]
+    args = (layer.router, layer.w_gate, layer.w_up, layer.w_down, cfg.num_experts_per_tok,
+            cfg.norm_topk_prob)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev) if sh.device == "cuda" else None
+    ffn = {}
+    for rows_n in (sh.decode_rows, sh.chunk):
+        x = (torch.randn(rows_n, cfg.hidden_size, generator=gen, device=dev)).to(torch.bfloat16)
+        got = tmoe.moe_ffn(x, *args)
+        with plain_grouped(tmoe):
+            want = tmoe.moe_ffn(x, *args)
+        ffn_err = float((got.float() - want.float()).abs().max())
+        ffn_scale = float(want.float().abs().max())
+        assert ffn_err <= 2 * 2**-8 * ffn_scale, (rows_n, ffn_err, ffn_scale)
+        ids = tmoe.moe_router(x, layer.router, cfg.num_experts_per_tok, cfg.norm_topk_prob)[1]
+        bound_ms, bound_by = moe_bound_ms(cfg, ids, rows_n)
+        ms = plain_ms = None
+        if sh.device == "cuda":
+            ms = timed(torch, lambda: tmoe.moe_ffn(x, *args), sh.reps, flush)
+            with plain_grouped(tmoe):
+                plain_ms = timed(torch, lambda: tmoe.moe_ffn(x, *args), sh.reps, flush)
+        ffn[rows_n] = dict(max_abs_err=ffn_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, touched=len(set(ids.reshape(-1).tolist())))
+    # float32 on the card: torch._grouped_mm would copy the ends to the
+    # host (a sync, refused inside a capture), so the FFN must refuse it.
+    refused = None
+    if sh.device == "cuda":
+        w32 = [layer.w_gate[:, :8].float(), layer.w_up[:, :8].float(),
+               layer.w_down[..., :8].float()]
+        try:
+            tmoe.moe_ffn(x[:2].float(), layer.router, *w32, cfg.num_experts_per_tok,
+                         cfg.norm_topk_prob)
+        except NotImplementedError as e:
+            refused = str(e).split(":")[0]
+        assert refused, "a float32 MoE FFN ran on the card"
+    log(f"[moe] (b) {smi}: {cfg.model_type} at {cfg.num_layers} layers (hidden "
+        f"{cfg.hidden_size}, {cfg.num_experts} experts of {cfg.expert_intermediate_size}, top-"
+        f"{cfg.num_experts_per_tok}, shared expert {cfg.shared_expert_intermediate_size}), a "
+        f"{n}-token prompt: grouped vs plain logits max abs err {err:.4e} (scale {scale:.3f}, "
+        f"limit 5 %), argmax agreement {agree:.4f}, grouped products {launches}; layer 0's "
+        f"FFN: " + "; ".join(
+            f"{k} tokens ({v['touched']} experts touched): grouped {v['ms']} ms, plain loop "
+            f"{v['plain_ms']} ms, bound {v['bound_ms']:.4f} ms by {v['bound_by']}, max abs err "
+            f"{v['max_abs_err']:.3e}" for k, v in ffn.items()) + f"; float32 refused: {refused}")
+    del model, logits, a, b, flush
+    free(torch, sh.device)
+    return dict(max_abs_err=err, scale=scale, argmax_agreement=agree, ffn=ffn,
+                f32_refused=refused)
+
+
+def p16_sharing_f32(torch, np, pkg, tra, smi: str, sh: Phase16, mcfg) -> dict:
+    """(c) ``mcfg`` (float32 weights and pools): :func:`p16_requests`
+    with ``prefix_sharing`` on and off (the private-copy baseline): the
+    same tokens (float32 ties within ``F32_TIE`` in logprob: the shared
+    prefix's KV comes from another row's prefill chunks), copies on, none
+    off, fewer prefill tokens computed on."""
+    requests = p16_requests(np, mcfg.vocab_size, sh, logprobs=LP_TOP)
+    lens = [len(r["token_ids"]) for r in requests]
+    max_len = max(lens) + sh.long_tokens + PS
+    model = seeded_model(torch, pkg, mcfg, sh.device)
+    runs = {}
+    for sharing in (True, False):
+        ecfg = pkg.engine.EngineConfig(
+            model=mcfg, max_decode_slots=8, page_size=PS, max_model_len=max_len,
+            num_pages=pages_needed(lens, sh.long_tokens) + 64, kv_dtype="float32",
+            prefix_sharing=sharing,
+        )
+        eng = pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+        sync(torch, sh.device)
+        reset_launches()
+        r = p8_burst(torch, eng, requests, sh.device)
+        r["designs"] = dict(tra.KERNEL_LAUNCHES)
+        runs[sharing] = r
+        del eng
+        free(torch, sh.device)
+    on, off = runs[True], runs[False]
+    faults, ties = divergences(off["out"], on["out"], F32_TIE)
+    assert not faults, faults
+    m_on, m_off = on["metrics"], off["metrics"]
+    assert m_on["kv_cow_copies"] >= 1 and m_off["kv_cow_copies"] == 0, (
+        m_on["kv_cow_copies"], m_off["kv_cow_copies"])
+    assert m_on["prefill_tokens_computed"] < m_off["prefill_tokens_computed"]
+    if sh.device == "cuda":
+        for r in runs.values():
+            assert r["designs"]["mixed_f32"] > 0 and r["designs"]["decode_split"] > 0, r
+    log(f"[moe] (c) {smi}: {mcfg.model_type} width at {mcfg.num_layers} layers, float32: "
+        f"prefix sharing on / off: wall {on['wall_s']:.3f} / {off['wall_s']:.3f} s, prefill "
+        f"tokens computed {m_on['prefill_tokens_computed']} / "
+        f"{m_off['prefill_tokens_computed']}, prefix hits {m_on['kv_prefix_hits']} / "
+        f"{m_off['kv_prefix_hits']}, cow_copies {m_on['kv_cow_copies']} / "
+        f"{m_off['kv_cow_copies']}; tokens equal ({len(ties)} float32 ties: {ties}); launches "
+        f"by kernel {on['designs']} / {off['designs']}")
+    del model
+    free(torch, sh.device)
+    return dict(ties=ties, cow_copies=m_on["kv_cow_copies"], designs=on["designs"],
+                tokens=on["tokens"])
+
+
+def p16_spec(torch, np, pkg, tra, smi: str, sh: Phase16, mcfg) -> dict:
+    """(d) ``mcfg`` at ``sh.check_layers`` layers (bf16, graphs on the
+    card): phase 5's prompts greedy without speculation, then with a
+    drafter proposing each row's continuation from that run, so verify
+    spans (a row's last token and its drafts in one mixed dispatch) run
+    the MoE layers; every dispatch of the speculating engine under sync
+    debug "error", its verify-span graphs replayed. Tokens equal to the
+    plain run are counted, not asserted (bf16: a verify pass scores a
+    position in another batch shape than a window step)."""
+    from dataclasses import replace
+
+    from dynamo_exp_tpu_torch.ops import moe as tmoe
+
+    cfg = replace(mcfg, num_layers=sh.check_layers)
+    requests = [{"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens,
+                                                        "ignore_eos": True}}
+                for ids in phase5_prompts(np, cfg.vocab_size, sh.prompt_lens)]
+    lens = [len(r["token_ids"]) for r in requests]
+    model = seeded_model(torch, pkg, cfg, sh.device)
+
+    def engine(**kw):
+        ecfg = pkg.engine.EngineConfig(
+            model=cfg, max_decode_slots=8, page_size=PS, max_model_len=max(lens) + 2 * PS
+            + sh.max_tokens, num_pages=pages_needed(lens, sh.max_tokens) + 64,
+            kv_dtype="bfloat16", **kw)
+        return pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+
+    base = p8_burst(torch, engine(), requests, sh.device)
+    free(torch, sh.device)
+    mode = continuation_drafter(pkg, [r["token_ids"] for r in requests], base["tokens"])
+    eng = engine(spec_mode=mode, spec_draft_len=8, spec_max_draft=8)
+    guard = guard_dispatch(torch, eng, sh.device, ("_build_mixed", "_launch_window"))
+    sync(torch, sh.device)
+    reset_launches()
+    st = p8_burst(torch, eng, requests, sh.device)
+    grouped = tmoe.LAUNCHES["grouped_mm"]
+    spec_graphs = (sum(g.replays for k, g in eng.graphs.graphs.items()
+                       if getattr(k, "with_spec", False)) if eng.graphs is not None else None)
+    del eng
+    free(torch, sh.device)
+    for o in st["out"]:
+        assert o["finish"] == "length" and len(o["tokens"]) == sh.max_tokens, o["finish"]
+    m = st["metrics"]
+    assert m["spec_row_dispatches"] > 0 and m["spec_accepted_tokens"] > 0, m
+    assert not guard["errors"] and guard["guarded"] > 0, guard
+    if sh.device == "cuda":
+        assert grouped > 0 and spec_graphs, (grouped, spec_graphs)
+    equal = sum(a == b for t, w in zip(st["tokens"], base["tokens"]) for a, b in zip(t, w))
+    log(f"[moe] (d) {smi}: {cfg.model_type} at {cfg.num_layers} layers, phase 5's prompts with "
+        f"drafts of each row's continuation: verify rows {m['spec_row_dispatches']}, proposed "
+        f"{m['spec_draft_tokens']} / accepted {m['spec_accepted_tokens']} / emitted "
+        f"{m['spec_emitted_tokens']}; verify-span graph replays {spec_graphs}; grouped products "
+        f"{grouped}; {guard['guarded']} dispatches under sync debug 'error'; tokens equal to the "
+        f"plain run {equal}/{sum(len(t) for t in base['tokens'])} (not asserted at bf16); wall "
+        f"{st['wall_s']:.3f} s against {base['wall_s']:.3f} s")
+    del model
+    free(torch, sh.device)
+    return dict(verify_rows=m["spec_row_dispatches"], accepted=m["spec_accepted_tokens"],
+                equal=equal, spec_graph_replays=spec_graphs, grouped=grouped)
+
+
+def phase16(torch, np, pkg, tra, smi: str, sh: Phase16 = Phase16(), mcfg=None,
+            check_cfgs=None, f32_cfg=None) -> dict:
+    """Phase 16: the sparse-MoE families and copy-on-write of partial
+    tails on the card: (a) mixtral-8x7b at ``sh.layers`` layers through
+    the engine, (b) the grouped products against their plain version at
+    three families' published widths, (c) float32 sharing on against
+    off."""
+    from dataclasses import replace
+
+    mcfg = mcfg or replace(pkg.models.MIXTRAL_8X7B, num_layers=sh.layers)
+    check_cfgs = check_cfgs or {"qwen3_moe": QWEN3_30B_A3B, "qwen2_moe": QWEN15_MOE_A27B,
+                                "mixtral": hf_config(pkg.models.MIXTRAL_8X7B)}
+    f32_cfg = f32_cfg or replace(pkg.models.LLAMA_8B, num_layers=sh.f32_layers, dtype="float32")
+    t0 = time.perf_counter()
+    free(torch, sh.device)
+    if sh.device == "cuda":
+        free_b, total_b = torch.cuda.mem_get_info()
+        log(f"[moe] {smi}: before phase 16, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"allocated, {free_b / 1e9:.2f} GB free of {total_b / 1e9:.2f} GB")
+    a = p16_mixtral(torch, np, pkg, tra, smi, sh, mcfg)
+    b = {name: p16_check(torch, np, pkg, smi, sh, c) for name, c in check_cfgs.items()}
+    c = p16_sharing_f32(torch, np, pkg, tra, smi, sh, f32_cfg)
+    d = p16_spec(torch, np, pkg, tra, smi, sh, mcfg)
+    wall = time.perf_counter() - t0
+    log(f"[moe] {smi}: phase 16 wall {wall:.1f} s")
+    return dict(a=a, b=b, c=c, d=d, designs=a["designs"], designs_f32=c["designs"],
                 wall_s=wall)
 
 
@@ -6337,6 +6888,7 @@ def main() -> int:
         f"(a)'s prompts as text, {h['encode_chars']} chars -> {h['encode_tokens']} tokens, "
         f"encoded in {h['encode_s']:.3f} s")
     t7 = time.perf_counter()
+    log(f"[smoke] phases 1-6 in {t7 - t_start:.1f} s")
     p7 = pressure_burst(torch, np, pkg, tra, smi)
     p7c = pressure_identity_f32(torch, np, pkg, tra, smi)
     log(f"[pressure] phase 7 in {time.perf_counter() - t7:.1f} s")
@@ -6359,6 +6911,8 @@ def main() -> int:
     log(f"[phase14] in {p14['wall_s']:.1f} s")
     p15 = phase15(torch, np, pkg, tra, smi)
     log(f"[phase15] in {p15['wall_s']:.1f} s")
+    p16 = phase16(torch, np, pkg, tra, smi)
+    log(f"[phase16] in {p16['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -6402,6 +6956,8 @@ def main() -> int:
             "launches_window_logits": sum(r["designs"][design] for r in p14["b"].values()),
             "launches_g3": p15["designs_g3"][design],
             "launches_chaos": p15["designs_chaos"][design],
+            "launches_moe": p16["designs"][design],
+            "launches_sharing_f32": p16["designs_f32"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

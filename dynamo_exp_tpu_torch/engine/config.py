@@ -86,7 +86,10 @@ class EngineConfig:
     kv_dtype: str = "bfloat16"  # "bfloat16" | "float32"
     default_max_tokens: int = 256
     eos_token_ids: list[int] = field(default_factory=list)
-    # Refcounted reuse of registered full pages across sequences.
+    # Refcounted reuse of KV pages across sequences: full pages attached
+    # while still being filled, and partial tails copied before their
+    # first write. False is the private-copy baseline: no cross-sequence
+    # reuse at all (token streams are the same either way).
     prefix_sharing: bool = True
     # "kernel": the ragged CUDA kernel (on a CUDA device; on the CPU its
     # wrapper computes the plain version); "reference": the plain

@@ -113,8 +113,21 @@ fingerprint that ``metrics()`` scores live traffic against
 (``dynamo_workload_drift_score``).
 Every tap reads host clocks and counters only: none syncs the card.
 
-Left out (ROADMAP): the persistent KV tier and partial-tail
-copy-on-write.
+Prefix sharing of pages still being filled, and partial tails
+(``kv_manager.py``; JAX ``engine.py:1596-1598, 3023-3058``): a prefill
+row attached to pages another row is still filling sits out until their
+fills are dispatched (``Scheduler.fill_ready``, which also claims
+orphans), and a row that attached a shared partial tail has it made
+private (``_resolve_shared_tail``: a device-to-device copy of the page
+in K and V on the compute stream) before its first write into it.
+Unlike the JAX engine, that is before the prefill of the prompt's last
+token, which lands in the tail page, and not before the first decode
+step: on the card a recompute of that position in another batch shape
+can differ in the last bit, so the sharer writes only its own copy and
+the owner's page keeps the owner's bytes. For the same reason a
+page-aligned prompt matched in full, whose last token's prefill lands
+in the last matched page, copies that page first while another row
+holds it.
 """
 
 from __future__ import annotations
@@ -140,7 +153,6 @@ from ..device import resolve_device
 from ..kv.persistent import PersistentKvStore
 from ..models.llama import (
     Llama,
-    check_supported,
     forward,
     forward_ragged,
     init_kv_cache,
@@ -188,6 +200,7 @@ LEDGER_VIOLATIONS: list[str] = []
 
 # Width of the per-row stop-token set a decode window checks on the device.
 STOP_WIDTH = 8
+
 
 def resolve_attn_impl(cfg: EngineConfig, device: torch.device) -> str:
     """``auto`` is the kernel on CUDA and the plain version on the CPU.
@@ -274,7 +287,6 @@ class TorchEngine(AsyncEngine):
         self.cfg = cfg
         self.device = resolve_device(device)
         mcfg = cfg.model
-        check_supported(mcfg)
         self.attn_impl = resolve_attn_impl(cfg, self.device)
         if model is None:
             gen = torch.Generator(device=self.device)
@@ -330,7 +342,8 @@ class TorchEngine(AsyncEngine):
                              cfg.kv_store_dir, adopted, self.g3_store.torn_pages)
                 self.host_pool.on_demote = self.g3_store.store
         self.kv = KvPageManager(
-            cfg.num_pages, cfg.page_size, event_cb=kv_event_cb,
+            cfg.num_pages, cfg.page_size,
+            event_cb=kv_event_cb,
             sharing=cfg.prefix_sharing, host_pool=self.host_pool, on_evict=on_evict,
             g3_store=self.g3_store,
         )
@@ -901,6 +914,7 @@ class TorchEngine(AsyncEngine):
         m["kv_extract_pages"] = self.kv_extract_pages
         m["kv_extract_seconds"] = self.kv_extract_s
         m["kv_inject_pages"] = self.kv_inject_pages
+        m["kv_cow_copies"] = self.kv.cow_copies
         from ..disagg.transfer import wire_checksum_failures
 
         m["kv_wire_checksum_failures"] = wire_checksum_failures()
@@ -1104,12 +1118,18 @@ class TorchEngine(AsyncEngine):
                     s for s in self.sched.slots
                     if s is not None and s.state is SeqState.PREFILL
                 ]
-                # Prompts whose KV a prefill worker computed are injected
-                # (and start decoding) instead of prefilled. Partitioned
-                # first, as the JAX loop does: a fallback to local
-                # prefill joins the next dispatch.
-                batch = [s for s in prefilling if s.remote_kv is None]
-                for seq in prefilling:
+                # Rows attached to pages another row is still filling sit
+                # out until those fills are dispatched (fill_ready also
+                # claims orphans), and a shared partial tail is copied
+                # before the row's first write into it: stream order then
+                # makes the reads safe. Prompts whose KV a prefill worker
+                # computed are injected (and start decoding) instead of
+                # prefilled. Partitioned first, as the JAX loop does: a
+                # fallback to local prefill joins the next dispatch.
+                ready = [s for s in prefilling
+                         if self.sched.fill_ready(s) and self._resolve_shared_tail(s)]
+                batch = [s for s in ready if s.remote_kv is None]
+                for seq in ready:
                     if seq.remote_kv is not None:
                         self._run_remote_inject(seq)
                 pendings = self._dispatch_ragged(batch[: self.cfg.prefill_batch])
@@ -1357,7 +1377,7 @@ class TorchEngine(AsyncEngine):
         bytes are not recomputable, so the pages stay)."""
         entries, off_pids, off_keys, park_pids, drop_pids = plan_swap_entries(
             victim.page_ids, victim.tokens, self.cfg.page_size,
-            self.kv.page_ref, self.kv.page_hash,
+            self.kv.page_ref, self.kv.page_hash, victim.shared_tail_pid,
         )
         if not (off_pids or park_pids or drop_pids):
             return False
@@ -1688,11 +1708,54 @@ class TorchEngine(AsyncEngine):
         if not seq.pending_uploads:
             return
         ups = seq.pending_uploads
-        self._inject_page_batch(
-            [pid for pid, _, _, _ in ups], *self._stage([(k, v) for _, _, k, v in ups]),
-            op="upload",
-        )
+        pids = [pid for pid, _, _, _ in ups]
+        self._inject_page_batch(pids, *self._stage([(k, v) for _, _, k, v in ups]),
+                                op="upload")
+        self.kv.mark_filled(pids)  # registered pending at admission
         seq.pending_uploads = []
+
+    def _resolve_shared_tail(self, seq: Sequence) -> bool:
+        """Copy-on-write before the row's first write into its shared
+        partial tail (the prefill of the prompt's last token, or a
+        remote inject), or into the last matched page of a page-aligned
+        prompt matched in full, while another row holds it. Sole holder: the page just leaves the index.
+        Shared: a fresh page takes a device-to-device copy of it in K
+        and V on the compute stream, ahead of the dispatch that writes
+        it, and replaces it in the row's table. False when the pool
+        cannot supply the copy (the row waits; retried next iteration).
+        True for a row with no shared tail."""
+        pid = seq.shared_tail_pid
+        if pid < 0:
+            return True
+        full = (seq.page_ids.index(pid) + 1) * self.cfg.page_size <= len(seq.prompt)
+        if full and self.kv.page_ref(pid) <= 1:
+            # A fully covered last page no other row holds: the rewrite
+            # of its last slot reaches no live reader, and the block
+            # stays registered.
+            seq.shared_tail_pid = -1
+            return True
+        new_pid = self.kv.make_private(pid)
+        if new_pid is None:
+            return False
+        if new_pid != pid:
+            # An eviction the new page's allocation made reaches its
+            # gather before the copy overwrites the page.
+            self._flush_offloads()
+            prof = self.profiler
+            t0 = prof.begin("kv_move") if prof is not None else 0.0
+            self.k_cache[:, new_pid].copy_(self.k_cache[:, pid])
+            self.v_cache[:, new_pid].copy_(self.v_cache[:, pid])
+            if prof is not None:
+                prof.end("kv_move", t0)
+            seq.page_ids[seq.page_ids.index(pid)] = new_pid
+            self.kv.release_sequence([pid])
+            tel = get_telemetry()
+            tel.kv_page_moves.labels("cow").inc()
+            tel.kv_cow_copies.inc()
+            if self.flight is not None:
+                self.flight.record("cow", req=seq.request_id, slot=seq.slot)
+        seq.shared_tail_pid = -1
+        return True
 
     # ------------------------------------------------------ KV handoffs
     def _moves(self) -> CopyStream:
@@ -1788,6 +1851,7 @@ class TorchEngine(AsyncEngine):
         if end > start:
             pages = [rk.pages[i - rk.skip_pages] for i in range(start, end)]
             self._inject_page_batch(seq.page_ids[start:end], *self._stage(pages), op="inject")
+            self.kv.mark_filled(seq.page_ids[start:end])
             self.kv_inject_pages += end - start
         seq.remote_kv = None  # drop the host copy once its inject is queued
         seq.remote_prefilled = True
@@ -1831,7 +1895,7 @@ class TorchEngine(AsyncEngine):
             except queue.Empty:
                 return
             hashes = compute_block_hashes_for_seq(tokens, self.cfg.page_size)
-            pages = self.kv.match_resident_hashes(hashes)
+            pages = self.kv.match_resident_hashes(hashes, require_filled=True)
             lease = self.kv.grant_lease(pages, self.cfg.kv_lease_ttl_s) if pages else None
             if lease is not None:
                 self._open_lease(lease, None, len(pages), trace=trace)
@@ -2685,6 +2749,10 @@ class TorchEngine(AsyncEngine):
         t0 = prof.begin("mixed") if prof is not None else 0.0
         captured = self.graphs.captured["mixed"] if self.graphs is not None else None
         ys, ready = self._fetch(self._launch_mixed(key, host))
+        # The prompt pages these chunks completed are filled in dispatch
+        # order: rows waiting on them may read from the next dispatch.
+        for seq in pf:
+            self.sched.mark_prefill_filled(seq)
         fresh = self._fresh("mixed", key, captured)
         dispatched_at = prof.end("mixed", t0, fresh) if prof is not None else 0.0
         if self.flight is not None:

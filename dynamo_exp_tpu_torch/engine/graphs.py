@@ -24,10 +24,10 @@ a :class:`~..aot.lattice.MixedKey` from ``_mixed_host`` /
   copies right after the replay, ahead of the key's next replay. Only
   intermediates live in the pool, which every graph of the engine
   shares;
-- the kernel wrappers' launches are recorded at capture
-  (``ops.ragged_attention.record_launches``) and added to the launch
-  counters at every replay, so the counters stay launch for launch what
-  an eager run counts.
+- the kernel wrappers' launches, and the MoE FFN's grouped products,
+  are recorded at capture (``ops.launches.record``) and added to the
+  launch counters at every replay, so the counters stay launch for
+  launch what an eager run counts.
 
 A key is captured the first time it is dispatched (or by
 ``aot.warmup.prewarm_engine`` before traffic) and replayed after. A
@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..aot.lattice import MixedKey
+from ..ops import launches
 from ..ops import ragged_attention as tra
 
 log = logging.getLogger(__name__)
@@ -110,7 +111,7 @@ class CudaGraphRunner:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         if not getattr(self._warm, "done", False):
-            with torch.cuda.stream(self.stream), tra.record_launches():
+            with torch.cuda.stream(self.stream), launches.record():
                 fn()
             self._warm.done = True
         mode = torch.cuda.get_sync_debug_mode()
@@ -177,7 +178,7 @@ class DispatchGraph:
         self.offs = offs
         self.outputs = outputs  # tuple, allocated outside the pool
         self.graph = graph
-        self.launches = launches  # ops.ragged_attention.record_launches()
+        self.launches = launches  # ops.launches.record()
         self.replays = 0
 
 
@@ -223,17 +224,17 @@ class DispatchGraphs:
 
         if eng.attn_impl == "kernel" and eng.device.type == "cuda":
             tra.load_kernel()  # nvcc cannot run inside a capture
-        with tra.record_launches() as launches:
+        with launches.record() as rec:
             graph = self.runner.capture(body)
         self.captured[kind] += 1
         seconds = time.perf_counter() - t0
         self.capture_seconds[kind] += seconds
         log.info("captured %s graph %s in %.3fs", kind, key, seconds)
-        return DispatchGraph(key, in_buf, inputs, offs, outputs, graph, launches)
+        return DispatchGraph(key, in_buf, inputs, offs, outputs, graph, rec)
 
     def replay(self, g: DispatchGraph) -> None:
         self.runner.replay(g.graph)
-        tra.add_launches(g.launches)
+        launches.add(g.launches)
         g.replays += 1
         self.replays[kind_of(g.key)] += 1
 

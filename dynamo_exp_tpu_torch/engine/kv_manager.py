@@ -29,13 +29,22 @@ With a G3 store (``g3_store``, ``kv/persistent.py``), admission extends
 an unbroken G1 + G2 match into it; each fetched page is checksum-verified
 by the store and promoted through the host pool.
 
-Left out (ROADMAP Queue 1 item 4(b)): registration of pages still being
-filled and partial-tail sharing with copy-on-write. A
-page is registered here only once its KV has been written (or, for an
-upload or a seeded migration, once its inject is on the compute stream
-ahead of every read), so every registered page is filled: the JAX pin's
-``match_prefix(..., require_filled=True)`` is the resident-hash match
-(``match_resident_hashes``).
+Sharing extends to pages still being filled and to partial tails (the
+JAX manager's ``kv_manager.py:532-600``): a fresh full prompt page is
+registered at allocation (``filled=False``, its filler the admitting
+request) so a same-prefix admission attaches it instead of prefilling
+it again, and waits (``Allocation.wait_fill``) until the filler's chunk
+is dispatched (``mark_filled``); stream order then protects the read. A
+filler that goes away first orphans its pending pages
+(``abort_fills``); a waiting sharer claims them (``claim_fill``) and
+fills them itself. A prompt ending inside a registered block attaches
+that block read-shared as its tail (``Allocation.shared_tail``, the
+radix ``partial_match``); before the sharer's first write into it the
+engine calls :meth:`make_private` and copies the page on the device.
+G2 uploads register pending too (``register_full_page(...,
+content_ready=False)`` and ``begin_fill``) until their inject.
+``sharing=False`` is the private-copy baseline (JAX
+``engine/config.py:145-151``): no cross-sequence reuse at all.
 """
 
 from __future__ import annotations
@@ -55,6 +64,10 @@ class PageRecord:
     page_id: int
     seq_hash: int | None = None  # None until the page is registered
     ref_count: int = 0
+    # Registered but its write not dispatched yet; ``filler`` names the
+    # request that owes it ("" = orphaned: a sharer must claim it).
+    filled: bool = True
+    filler: str = ""
 
 
 @dataclass
@@ -66,13 +79,19 @@ class Allocation:
     computed); ``cached_pages`` counts those pages; ``hashes`` are the
     chained hashes of every full prompt page; ``uploads`` lists the
     ``(page_id, seq_hash, k_page, v_page)`` host pages the engine must
-    inject before the prefill."""
+    inject before the prefill; ``wait_fill`` the attached pages another
+    sequence is still filling (the first prefill dispatch waits for
+    them); ``shared_tail`` the ``(page_id, covered tokens)`` partial
+    tail attached read-shared, copied before the first write into it
+    (its tokens count in ``cached_len``)."""
 
     page_ids: list[int]
     cached_len: int
     hashes: list[int]
     cached_pages: int = 0
     uploads: list = field(default_factory=list)
+    wait_fill: list[int] = field(default_factory=list)
+    shared_tail: tuple[int, int] | None = None
 
 
 @dataclass
@@ -147,6 +166,8 @@ class KvPageManager:
         # shared (G1 attach), restore (G2 upload), persist (G3 restore:
         # the restart re-attachment proof), miss (fresh prefill).
         self.prefix_hits = {"shared": 0, "restore": 0, "persist": 0, "miss": 0}
+        # Shared pages copied before a divergent write (make_private).
+        self.cow_copies = 0
         # Conservation ledger, kept at the same transitions that move
         # pages between the free list, the parked LRU and the held set
         # (``ledger_check`` is counter arithmetic; ``audit`` scans).
@@ -186,24 +207,30 @@ class KvPageManager:
         }
 
     # ------------------------------------------------------------ allocation
-    def _match_hashes(self, hashes: list[int]) -> tuple[list[int], list[int]]:
+    def _match_hashes(
+        self, hashes: list[int], require_filled: bool = False
+    ) -> tuple[list[int], list[int]]:
         pages: list[int] = []
         matched: list[int] = []
         for h in self.index.match_hashes(hashes):
             pid = self._by_hash.get(h)
             if pid is None:
                 break
+            if require_filled and not self._records[pid].filled:
+                break
             pages.append(pid)
             matched.append(h)
         return pages, matched
 
     def allocate_sequence(
-        self, tokens: Sequence[int], max_pages: int
+        self, tokens: Sequence[int], max_pages: int, request_id: str = ""
     ) -> Allocation | None:
         """Pages for a new sequence: attach the longest resident (G1)
-        shared prefix, extend it from the host tier (G2) and the
-        persistent store (G3), then fresh pages for the rest of the
-        prompt. None when the pool cannot
+        shared prefix, pages still being filled included, and a partial
+        tail inside a registered block; extend the prefix from the host
+        tier (G2) and the persistent store (G3), then fresh pages for
+        the rest of the prompt, whose full pages register at once as
+        pending fills of ``request_id``. None when the pool cannot
         satisfy it right now (the caller re-queues)."""
         ps = self.page_size
         n_tokens = len(tokens)
@@ -211,7 +238,7 @@ class KvPageManager:
         if need_total > max_pages:
             return None
         hashes = compute_block_hashes_for_seq(tokens, ps)
-        matched = self._match_hashes(hashes)[0] if self.sharing else []
+        matched, matched_hashes = self._match_hashes(hashes) if self.sharing else ([], [])
         # Match the host tier first (no copies): pages are fetched only
         # once the allocation is known to succeed.
         g2_hashes: list[int] = []
@@ -221,10 +248,21 @@ class KvPageManager:
         g3_hashes: list[int] = []
         if self.sharing and self.g3_store is not None:
             g3_hashes = self.g3_store.match_chain(hashes[len(matched) + len(g2_hashes) :])
-        need_fresh = need_total - len(matched)
+        # Shared partial tail: the prompt ends inside a block another
+        # sequence registered; attach that page read-shared.
+        shared_tail: tuple[int, int] | None = None
+        tail_tokens = tokens[(n_tokens // ps) * ps :]
+        if (self.sharing and tail_tokens and not g2_hashes and not g3_hashes
+                and len(matched) == n_tokens // ps):
+            parent = matched_hashes[-1] if matched_hashes else None
+            hit = self.index.partial_match(parent, tail_tokens)
+            if hit is not None and hit[0] in self._by_hash:
+                shared_tail = (self._by_hash[hit[0]], hit[1])
+        attach = matched + ([shared_tail[0]] if shared_tail else [])
+        need_fresh = need_total - len(attach)
         # Matched parked pages are about to leave the LRU; they cannot
         # also be counted as takeable.
-        parked = sum(1 for pid in matched if self._records[pid].ref_count == 0)
+        parked = sum(1 for pid in attach if self._records[pid].ref_count == 0)
         if need_fresh > self.free_pages - parked:
             return None
         # fetch() copies each page out under the pool lock; a miss (the
@@ -248,23 +286,42 @@ class KvPageManager:
                 restored.append((h, data[0], data[1]))
                 if self.host_pool is not None:
                     self.host_pool.store(h, data[0], data[1])
-        for pid in matched:
+        for pid in attach:
             self._ref_page(pid)
         fresh = [self._take_free() for _ in range(need_fresh)]
         uploads = [(fresh[j], h, k, v) for j, (h, k, v) in enumerate(restored)]
-        self.hits += len(matched) + len(restored)
+        if self.sharing:
+            # This sequence's own full prompt pages register now, as
+            # pending fills: a same-prefix admission next shares them.
+            # (Uploads register at admission, the partial tail never.)
+            for j in range(len(restored), need_fresh):
+                block_idx = len(matched) + j
+                if (block_idx + 1) * ps > n_tokens:
+                    break
+                h = hashes[block_idx]
+                if h in self._by_hash:
+                    continue  # racing duplicate content: stay private
+                rec = self._records[fresh[j]]
+                rec.filled, rec.filler = False, request_id
+                parent = hashes[block_idx - 1] if block_idx else None
+                block = list(tokens[block_idx * ps : (block_idx + 1) * ps])
+                self._index_page(fresh[j], h, parent, block)
+        self.hits += len(attach) + len(restored)
         self.misses += need_fresh - len(restored)
         if self.host_pool is not None:
             self.offload_hits += n_g2
             self.offload_misses += need_fresh - len(restored)
-        self.prefix_hits["shared"] += len(matched)
+        self.prefix_hits["shared"] += len(attach)
         self.prefix_hits["restore"] += n_g2
         self.prefix_hits["persist"] += len(restored) - n_g2
         self.prefix_hits["miss"] += need_fresh - len(restored)
         cached_pages = len(matched) + len(restored)
-        cached = min(cached_pages * ps, n_tokens - 1)
+        cached = cached_pages * ps + (shared_tail[1] if shared_tail else 0)
         return Allocation(
-            matched + fresh, cached, hashes, cached_pages=cached_pages, uploads=uploads
+            matched + fresh + ([shared_tail[0]] if shared_tail else []),
+            min(cached, n_tokens - 1), hashes, cached_pages=cached_pages, uploads=uploads,
+            wait_fill=[pid for pid in attach if not self._records[pid].filled],
+            shared_tail=shared_tail,
         )
 
     def allocate_page(self) -> int | None:
@@ -274,11 +331,13 @@ class KvPageManager:
         return self._take_free()
 
     # ------------------------------------------------------ tiering accessors
-    def match_resident_hashes(self, hashes: list[int]) -> list[int]:
+    def match_resident_hashes(self, hashes: list[int], require_filled: bool = False) -> list[int]:
         """Device-resident (G1) prefix of a block-hash chain, as page
         ids (no refs taken): the forecast's and the prefetch planner's
-        read-only match."""
-        return self._match_hashes(hashes)[0]
+        read-only match. ``require_filled`` stops at the first page whose
+        write is not dispatched yet (a pin counts only bytes that
+        exist)."""
+        return self._match_hashes(hashes, require_filled)[0]
 
     def page_ref(self, page_id: int) -> int:
         return self._records[page_id].ref_count
@@ -287,9 +346,12 @@ class KvPageManager:
         return self._records[page_id].seq_hash
 
     def resident_page(self, seq_hash: int) -> int | None:
-        """The device page holding this registered block, or None:
-        swap-in re-attaches through it when the bytes never left."""
-        return self._by_hash.get(seq_hash)
+        """The device page holding this registered, filled block, or
+        None: swap-in re-attaches through it when the bytes never left."""
+        pid = self._by_hash.get(seq_hash)
+        if pid is None or not self._records[pid].filled:
+            return None
+        return pid
 
     def attach_page(self, page_id: int) -> None:
         """Take one reference on a resident page (swap-in re-attach)."""
@@ -302,20 +364,31 @@ class KvPageManager:
         seq_hash: int,
         parent_hash: int | None = None,
         tokens: list[int] | None = None,
+        content_ready: bool = True,
     ) -> None:
-        """A page got its page_size-th token and its KV is written: make
-        it reusable and announce it. The first page to register a given
-        content stays authoritative."""
+        """A page got its page_size-th token and its KV is written (or,
+        with ``content_ready=False``, its write is still to come: a G2
+        upload before its inject): make it reusable and announce it.
+        Registering a page already registered under this content marks
+        it filled. The first page to register a given content stays
+        authoritative."""
         rec = self._records[page_id]
         if rec.seq_hash == seq_hash:
+            if content_ready:
+                rec.filled, rec.filler = True, ""
             return
         if rec.seq_hash is not None:
             self._unregister(page_id)
         if seq_hash in self._by_hash:
             return
-        rec.seq_hash = seq_hash
+        rec.filled = content_ready
+        self._index_page(page_id, seq_hash, parent_hash, tokens)
+
+    def _index_page(self, page_id: int, seq_hash: int, parent_hash: int | None,
+                    tokens: list[int] | None) -> None:
+        self._records[page_id].seq_hash = seq_hash
         self._by_hash[seq_hash] = page_id
-        self.index.insert(parent_hash, seq_hash)
+        self.index.insert(parent_hash, seq_hash, tokens)
         if self.event_cb:
             self.event_cb(
                 KvEvent(
@@ -326,9 +399,72 @@ class KvPageManager:
                 )
             )
 
+    # -------------------------------------------------------- fill lifecycle
+    def mark_filled(self, page_ids: Sequence[int]) -> None:
+        """The writes of these pages are dispatched: waiting sharers may
+        dispatch their reads (stream order protects them)."""
+        for pid in page_ids:
+            rec = self._records[pid]
+            rec.filled, rec.filler = True, ""
+
+    def begin_fill(self, page_id: int, request_id: str) -> None:
+        """Mark a registered page as pending content from ``request_id``
+        (a G2 upload awaiting its inject)."""
+        rec = self._records[page_id]
+        rec.filled, rec.filler = False, request_id
+
+    def fill_state(self, page_id: int) -> str:
+        """``"filled"``, ``"pending"`` (a live filler owes the write) or
+        ``"orphaned"`` (its filler went away first: a sharer must claim
+        the page and fill it)."""
+        rec = self._records[page_id]
+        if rec.filled:
+            return "filled"
+        return "pending" if rec.filler else "orphaned"
+
+    def claim_fill(self, page_id: int, request_id: str) -> None:
+        """A sharer adopts an orphaned page and prefills the block itself
+        (the same prompt tokens give the same content)."""
+        rec = self._records[page_id]
+        if not rec.filled:
+            rec.filler = request_id
+
+    def abort_fills(self, request_id: str, page_ids: Sequence[int]) -> None:
+        """The filler goes away (finish, cancel, preempt) with writes not
+        dispatched: orphan its pending pages for a sharer to claim. Call
+        before releasing the references."""
+        for pid in page_ids:
+            rec = self._records[pid]
+            if not rec.filled and rec.filler == request_id:
+                rec.filler = ""
+
+    def make_private(self, page_id: int) -> int | None:
+        """Copy-on-write: the caller is about to write a divergent value
+        into ``page_id``. Sole holder: the page leaves the index (a
+        filled page goes to the host tier first, still a valid block)
+        and is returned as it is. Shared: a fresh page is returned for
+        the caller to copy the content into, swap into its table and
+        release the old one from; None when the pool is dry (the caller
+        stalls and retries)."""
+        rec = self._records[page_id]
+        if rec.ref_count <= 1:
+            if rec.seq_hash is not None:
+                if self.on_evict is not None and rec.filled:
+                    self.on_evict(page_id, rec.seq_hash)
+                self._unregister(page_id)
+            rec.filled, rec.filler = True, ""
+            return page_id
+        new_pid = self.allocate_page()
+        if new_pid is None:
+            return None
+        self.cow_copies += 1
+        return new_pid
+
     def release_sequence(self, page_ids: Sequence[int]) -> None:
-        """Drop one reference per page. Registered pages park in the LRU
-        (still matchable); the rest return to the free list."""
+        """Drop one reference per page. Registered filled pages park in
+        the LRU (still matchable); a registered page whose fill never
+        happened unregisters (its bytes are garbage), and it and the
+        rest return to the free list."""
         for pid in page_ids:
             rec = self._records[pid]
             if rec.ref_count > 0:
@@ -339,10 +475,11 @@ class KvPageManager:
                 if rec.ref_count == 0:
                     self._held_pages -= 1
             if rec.ref_count == 0:
-                if rec.seq_hash is not None:
+                if rec.seq_hash is not None and rec.filled:
                     self._reclaimable[pid] = None
                     self._reclaimable.move_to_end(pid)
                 else:
+                    self._unregister(pid)
                     self._free.append(pid)
 
     def reset_prefix_cache(self) -> int:
@@ -513,7 +650,9 @@ class KvPageManager:
             # Evict the least-recently-used parked page.
             pid, _ = self._reclaimable.popitem(last=False)
             self._evict(pid)
-        self._records[pid].ref_count = 1
+        rec = self._records[pid]
+        rec.ref_count = 1
+        rec.filled, rec.filler = True, ""
         self._held_pages += 1
         self._ref_total += 1
         return pid
@@ -537,3 +676,4 @@ class KvPageManager:
         if self.event_cb:
             self.event_cb(KvEvent("removed", [rec.seq_hash]))
         rec.seq_hash = None
+        rec.filled, rec.filler = True, ""

@@ -115,6 +115,14 @@ class Sequence:
     # G2 -> G1 injections the engine runs right after admission:
     # (page_id, seq_hash, k_page, v_page) per page.
     pending_uploads: list = field(default_factory=list)
+    # Attached pages another sequence is still filling: the first
+    # prefill dispatch waits until their fills are dispatched.
+    wait_fill: list = field(default_factory=list)
+    # The partial tail attached read-shared (-1 = none): copied before
+    # this sequence's first write into it.
+    shared_tail_pid: int = -1
+    # Prompt pages whose fill this sequence has marked dispatched.
+    fill_marked: int = 0
     # Cached prompt block hashes for the footprint forecast and the
     # prefetch planner (cleared by preemption: the prompt changes).
     forecast_hashes: list[int] | None = None
@@ -289,16 +297,29 @@ class Scheduler:
                 seq.state = SeqState.FINISHED
                 seq.emit([], FinishReason.ERROR)
                 continue
-            alloc = self.kv.allocate_sequence(seq.prompt, self.cfg.max_pages_per_seq)
+            alloc = self.kv.allocate_sequence(
+                seq.prompt, self.cfg.max_pages_per_seq, seq.request_id
+            )
             if alloc is None:
                 return None  # pool exhausted; retry after decode frees pages
             self._remove_waiting(seq)
             seq.page_ids, seq.cached_len = alloc.page_ids, alloc.cached_len
             seq.pending_uploads = alloc.uploads
             seq.prompt_hashes = alloc.hashes
+            seq.wait_fill = list(alloc.wait_fill)
+            seq.shared_tail_pid = alloc.shared_tail[0] if alloc.shared_tail else -1
+            n, ps = len(seq.prompt), self.kv.page_size
+            if seq.shared_tail_pid < 0 and n and n % ps == 0 and alloc.cached_pages * ps == n:
+                # Page-aligned and fully covered: the prefill of the last
+                # prompt token rewrites the last slot of a matched page,
+                # so that page is treated as a shared tail too.
+                seq.shared_tail_pid = alloc.page_ids[alloc.cached_pages - 1]
             # Registered full pages the hash chain resumes after: G1
-            # matches and G2 uploads.
+            # matches and G2 uploads (never the partial tail: that page
+            # registers under this sequence's own chain once its copy
+            # is full).
             seq.hashed_pages = alloc.cached_pages
+            seq.fill_marked = alloc.cached_pages
             seq.parent_hash = (
                 alloc.hashes[seq.hashed_pages - 1] if seq.hashed_pages else None
             )
@@ -344,9 +365,10 @@ class Scheduler:
 
     def _register_uploads(self, seq: Sequence, hashes: list[int]) -> None:
         """Pages coming back from the host tier are device-resident
-        again: register them, so G1 matching and KV events see them. The
-        engine enqueues their inject right after this admission, ahead
-        of every forward that can read them."""
+        again: register them, so G1 matching and KV events see them, as
+        pending fills of this sequence until the engine's inject
+        (``_apply_uploads``, right after this admission) marks them
+        filled."""
         if not seq.pending_uploads:
             return
         ps = self.kv.page_size
@@ -355,9 +377,56 @@ class Scheduler:
         for j, (pid, seq_hash, _, _) in enumerate(seq.pending_uploads):
             i = first + j
             self.kv.register_full_page(
-                pid, seq_hash, parent_hash=parent, tokens=seq.prompt[i * ps : (i + 1) * ps]
+                pid, seq_hash, parent_hash=parent, tokens=seq.prompt[i * ps : (i + 1) * ps],
+                content_ready=False,
             )
+            self.kv.begin_fill(pid, seq.request_id)
             parent = seq_hash
+
+    # ----------------------------------------------------------- fill gating
+    def fill_ready(self, seq: Sequence) -> bool:
+        """True once every attached page this sequence reads has had its
+        fill dispatched. An orphan (its filler went away first) is
+        claimed here: a fully covered prompt block is filled by this
+        sequence itself; an orphaned partial tail is swapped for a
+        fresh private page instead (other holders may still need the
+        original)."""
+        if not seq.wait_fill:
+            return True
+        ps = self.kv.page_size
+        still: list[int] = []
+        for pid in seq.wait_fill:
+            state = self.kv.fill_state(pid)
+            if state == "filled":
+                continue
+            if state == "pending":
+                still.append(pid)
+                continue
+            idx = seq.page_ids.index(pid)
+            if (idx + 1) * ps <= len(seq.prompt) and pid != seq.shared_tail_pid:
+                self.kv.claim_fill(pid, seq.request_id)
+                seq.fill_marked = min(seq.fill_marked, idx)
+            else:
+                fresh = self.kv.allocate_page()
+                if fresh is None:
+                    still.append(pid)  # pool dry: retry next iteration
+                    continue
+                seq.page_ids[idx] = fresh
+                self.kv.release_sequence([pid])
+                seq.shared_tail_pid = -1
+            seq.prefill_sent = min(seq.prefill_sent, idx * ps)
+            seq.cached_len = min(seq.cached_len, idx * ps)
+        seq.wait_fill = still
+        return not still
+
+    def mark_prefill_filled(self, seq: Sequence) -> None:
+        """After a dispatch carrying ``seq``'s prefill chunk: the prompt
+        pages it completed are filled in dispatch order, so sharers
+        waiting on them may dispatch their reads from the next one on."""
+        n_full = min(seq.prefill_sent // self.kv.page_size, len(seq.page_ids))
+        if n_full > seq.fill_marked:
+            self.kv.mark_filled(seq.page_ids[seq.fill_marked : n_full])
+            seq.fill_marked = n_full
 
     def ensure_pages_until(self, seq: Sequence, position: int) -> bool:
         """Allocate every page a window writing up to ``position``
@@ -428,6 +497,9 @@ class Scheduler:
             self.slots[seq.slot] = None
             self.active_count -= 1
             seq.slot = -1
+        # Fills this sequence owed but never dispatched orphan first so
+        # that sharers can claim them; then the references drop.
+        self.kv.abort_fills(seq.request_id, seq.page_ids)
         self.kv.release_sequence(seq.page_ids)
         seq.emit([], reason)
 
@@ -472,6 +544,7 @@ class Scheduler:
             self.slots[seq.slot] = None
             self.active_count -= 1
             seq.slot = -1
+        self.kv.abort_fills(seq.request_id, seq.page_ids)
         self.kv.release_sequence(seq.page_ids)
         seq.page_ids = []
         stop = seq.stop.copy()
@@ -494,6 +567,9 @@ class Scheduler:
         seq.stalled_since = 0.0
         seq.pending_finish = None
         seq.pending_uploads = []
+        seq.wait_fill = []
+        seq.shared_tail_pid = -1
+        seq.fill_marked = 0
         seq.prompt_hashes = []
         seq.hashed_pages = 0
         seq.parent_hash = None

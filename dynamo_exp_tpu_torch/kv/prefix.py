@@ -1,8 +1,10 @@
 """Radix index over page-aligned token runs.
 
 A trimmed copy of ``dynamo_exp_tpu/kv/prefix.py`` (``PrefixIndex``):
-hashes only, without the token runs, payloads and partial-tail matching
-the port does not use. The engine's page manager and the KV router's
+hashes and each block's tokens, where known, for the partial-tail
+lookup (:meth:`PrefixIndex.partial_match`, the copy-on-write attach of
+a prompt ending inside a registered block), without the payloads the
+port does not use. The engine's page manager and the KV router's
 per-worker index (``kv_router/indexer.py``) share it. Each
 indexed *block* is one full KV page's worth of tokens, identified by its
 chained sequence hash (``tokens.py``): equal sequence hashes imply equal
@@ -20,12 +22,15 @@ from typing import Sequence
 
 class _Node:
     """One compressed edge: a run of consecutive blocks. ``hashes[i]``
-    is the chained sequence hash of the run's i-th block."""
+    is the chained sequence hash of the run's i-th block; ``tokens[i]``
+    its token block, or None when only the hash is known (a router's
+    index: KV events may carry no tokens)."""
 
-    __slots__ = ("hashes", "parent", "children", "orphan_key")
+    __slots__ = ("hashes", "tokens", "parent", "children", "orphan_key")
 
     def __init__(self, parent: "_Node | None" = None):
         self.hashes: list[int] = []
+        self.tokens: list[tuple[int, ...] | None] = []
         self.parent = parent
         # first-block-hash -> child node (divergence points only).
         self.children: dict[int, "_Node"] = {}
@@ -55,40 +60,52 @@ class PrefixIndex:
         return len(self._loc)
 
     # --------------------------------------------------------------- insert
-    def insert(self, parent_hash: int | None, seq_hash: int) -> bool:
-        """Index one block under its parent. Returns False when the block
-        is already present. A missing parent parks the block as an
-        orphan; it attaches the moment the parent is (re-)inserted."""
+    def insert(
+        self, parent_hash: int | None, seq_hash: int, tokens: Sequence[int] | None = None
+    ) -> bool:
+        """Index one block under its parent. Returns False (refreshing
+        its tokens) when the block is already present. A missing parent
+        parks the block as an orphan; it attaches the moment the parent
+        is (re-)inserted."""
+        tok = tuple(tokens) if tokens is not None else None
         if seq_hash in self._loc:
+            if tok is not None:
+                node, i = self._loc[seq_hash]
+                node.tokens[i] = tok
             return False
         if parent_hash is None:
-            self._attach_block(self._root, len(self._root.hashes), seq_hash)
+            self._attach_block(self._root, len(self._root.hashes), seq_hash, tok)
         elif parent_hash in self._loc:
             pnode, pidx = self._loc[parent_hash]
-            self._attach_block(pnode, pidx + 1, seq_hash)
+            self._attach_block(pnode, pidx + 1, seq_hash, tok)
         else:
             # Orphan: a one-block node parked until the parent shows up.
             node = _Node()
             node.hashes.append(seq_hash)
+            node.tokens.append(tok)
             node.orphan_key = parent_hash
             self._loc[seq_hash] = (node, 0)
             self._orphans.setdefault(parent_hash, []).append(node)
         self._reattach_orphans(seq_hash)
         return True
 
-    def _attach_block(self, node: _Node, at: int, seq_hash: int) -> None:
+    def _attach_block(
+        self, node: _Node, at: int, seq_hash: int, tok: tuple[int, ...] | None
+    ) -> None:
         """Place a new block as the successor of ``node.hashes[at-1]``
         (``at`` == run position the block would occupy)."""
         if at == len(node.hashes) and not node.children and node is not self._root:
             # Tail extension: the common case (a sequence registering
             # pages in order) stays one compressed run.
             node.hashes.append(seq_hash)
+            node.tokens.append(tok)
             self._loc[seq_hash] = (node, at)
             return
         if at < len(node.hashes):
             self._split(node, at)  # divergence mid-run
         child = _Node(parent=node)
         child.hashes.append(seq_hash)
+        child.tokens.append(tok)
         node.children[seq_hash] = child
         self._loc[seq_hash] = (child, 0)
 
@@ -97,10 +114,12 @@ class PrefixIndex:
         child, making position ``at`` a branch point."""
         tail = _Node(parent=node)
         tail.hashes = node.hashes[at:]
+        tail.tokens = node.tokens[at:]
         tail.children, node.children = node.children, {}
         for child in tail.children.values():
             child.parent = tail
         node.hashes = node.hashes[:at]
+        node.tokens = node.tokens[:at]
         node.children[tail.hashes[0]] = tail
         for i, h in enumerate(tail.hashes):
             self._loc[h] = (tail, i)
@@ -130,6 +149,7 @@ class PrefixIndex:
         orphan_children = list(node.children.values())
         node.children = {}
         node.hashes.pop()  # idx is now the last block
+        node.tokens.pop()
         if orphan_children:
             self._orphans.setdefault(seq_hash, []).extend(orphan_children)
             for child in orphan_children:
@@ -179,3 +199,31 @@ class PrefixIndex:
     def coverage_blocks(self, hashes: Sequence[int]) -> int:
         """Length of the longest root-anchored match of ``hashes``."""
         return len(self.match_hashes(hashes))
+
+    def partial_match(
+        self, parent_hash: int | None, tail: Sequence[int]
+    ) -> tuple[int, int] | None:
+        """A registered block extending ``tail``: given the last fully
+        matched block (``parent_hash``; None when the query is shorter
+        than one page), a successor block whose stored tokens start with
+        ``tail``. Returns (block seq_hash, covered tokens) or None.
+        Blocks indexed without tokens never partial-match."""
+        if not tail:
+            return None
+        if parent_hash is None:
+            node, idx = self._root, len(self._root.hashes) - 1
+        elif parent_hash in self._loc:
+            node, idx = self._loc[parent_hash]
+        else:
+            return None
+        tail = tuple(tail)
+        # Successor candidates: the next block of the same run, else the
+        # first block of each child (insertion order).
+        if idx + 1 < len(node.hashes):
+            candidates = [(node.hashes[idx + 1], node.tokens[idx + 1])]
+        else:
+            candidates = [(c.hashes[0], c.tokens[0]) for c in node.children.values()]
+        for h, tok in candidates:
+            if tok is not None and len(tok) >= len(tail) and tok[: len(tail)] == tail:
+                return h, len(tail)
+        return None

@@ -15,7 +15,9 @@ import torch
 from .config import ModelConfig
 from .llama import Llama, model_dtype
 
-# JAX layer key -> transpose? (matrices are [in, out] there)
+# JAX layer key -> transpose? (matrices are [in, out] there; a stacked
+# expert weight [E, in, out] swaps its last two dims the same way, and
+# the router [D, E] becomes [E, D])
 _LAYER_KEYS = {
     "attn_norm": False,
     "wq": True,
@@ -33,6 +35,11 @@ _LAYER_KEYS = {
     "k_norm": False,
     "post_attn_norm": False,
     "post_ffn_norm": False,
+    "router": True,
+    "shared_gate": True,
+    "shared_up": True,
+    "shared_down": True,
+    "shared_router": False,
 }
 
 

@@ -8,7 +8,10 @@ norms, embeddings scaled by ``sqrt(hidden)``), gemma2 (post-attention
 and post-FFN norms, attention and final-logit softcaps, a query scale
 of its own, a window on even layers) and gemma3 (q/k norms, a window
 on the layers ``layer_types`` names sliding, which rope at a local
-base). The model is an ``nn.Module`` whose linear weights are stored
+base), and the sparse-MoE families: mixtral, qwen3_moe and qwen2_moe
+(whose layers add an always-on shared expert blended by a learned
+sigmoid gate), their FFN in ``ops/moe.py``. The model is an
+``nn.Module`` whose linear weights are stored
 ``[out, in]`` (``F.linear``'s layout; ``models/convert.py`` transposes
 the JAX package's ``x @ W`` weights). Where JAX scans over stacked
 layers, this loops over ``model.layers`` in Python. The KV pools
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import paged_attention, write_kv_pages
+from ..ops.moe import moe_ffn
 from ..ops.ragged_attention import (
     ragged_decode_attention,
     ragged_paged_attention,
@@ -63,16 +67,6 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
         raise ValueError(f"unsupported model dtype: {cfg.dtype!r}") from None
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run instead of running it wrongly:
-    the sparse-MoE FFN (ROADMAP.md, Queue 1 of the port, item 7)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP: port Queue 1 item 7, "
-            "'tensor/sequence parallelism and MoE')"
-        )
-
-
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
@@ -90,9 +84,24 @@ class LlamaLayer(nn.Module):
         self.wv = _param((Hkv * hd, D), dtype, device)
         self.wo = _param((D, H * hd), dtype, device)
         self.mlp_norm = _param((D,), dtype, device)
-        self.w_gate = _param((I, D), dtype, device)
-        self.w_up = _param((I, D), dtype, device)
-        self.w_down = _param((D, I), dtype, device)
+        self.router = None
+        self.shared_gate = self.shared_up = self.shared_down = self.shared_router = None
+        if cfg.is_moe:  # stacked experts, each [out, in]
+            E, Ie = cfg.num_experts, cfg.expert_intermediate_size
+            self.router = _param((E, D), dtype, device)
+            self.w_gate = _param((E, Ie, D), dtype, device)
+            self.w_up = _param((E, Ie, D), dtype, device)
+            self.w_down = _param((E, D, Ie), dtype, device)
+            if cfg.shared_expert_intermediate_size:  # qwen2_moe
+                Is = cfg.shared_expert_intermediate_size
+                self.shared_gate = _param((Is, D), dtype, device)
+                self.shared_up = _param((Is, D), dtype, device)
+                self.shared_down = _param((D, Is), dtype, device)
+                self.shared_router = _param((D,), dtype, device)
+        else:
+            self.w_gate = _param((I, D), dtype, device)
+            self.w_up = _param((I, D), dtype, device)
+            self.w_down = _param((D, I), dtype, device)
         self.bq = self.bk = self.bv = None
         if cfg.attention_bias:  # qwen2: bias on q/k/v, none on o
             self.bq = _param((H * hd,), dtype, device)
@@ -116,7 +125,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        check_supported(cfg)
         dt = model_dtype(cfg)
         self.cfg = cfg
         self.embed = _param((cfg.vocab_size, cfg.hidden_size), dt, device)
@@ -140,21 +148,32 @@ def init_params(
     """Random weights on ``device`` from ``generator`` (which must live
     on that device): normal / sqrt(fan_in) for matrices and biases,
     ones for norms (zeros for the post norms of ``(1 + w)`` families) —
-    the JAX package's init scheme (not its bits)."""
+    the JAX package's init scheme (not its bits). A stacked expert
+    weight is filled one expert at a time, so the float32 temporary is
+    one expert's matrix."""
     model = Llama(cfg, device=device)
 
     def fill(p: nn.Parameter, fan_in: int) -> None:
+        if p.dim() == 3:
+            for e in range(p.shape[0]):
+                fill(p[e], fan_in)
+            return
         w = torch.randn(p.shape, generator=generator, device=p.device)
         p.copy_(w * fan_in**-0.5)
 
     hd, D = cfg.head_dim_, cfg.hidden_size
+    ffn = cfg.expert_intermediate_size if cfg.is_moe else cfg.intermediate_size
     fill(model.embed, D)
     for layer in model.layers:
         for name, fan_in in (
             ("wq", D), ("wk", D), ("wv", D), ("wo", cfg.num_heads * hd),
-            ("w_gate", D), ("w_up", D), ("w_down", cfg.intermediate_size),
+            ("w_gate", D), ("w_up", D), ("w_down", ffn), ("router", D),
+            ("shared_gate", D), ("shared_up", D),
+            ("shared_down", cfg.shared_expert_intermediate_size), ("shared_router", D),
         ):
-            fill(getattr(layer, name), fan_in)
+            p = getattr(layer, name)
+            if p is not None:
+                fill(p, fan_in)
         for name in ("bq", "bk", "bv"):
             b = getattr(layer, name)
             if b is not None:
@@ -234,12 +253,32 @@ def _attn_mlp_layer(x, layer: LlamaLayer, cfg, inv_freq, rope_pos, eps, attend):
         attn_out = rms_norm(attn_out, layer.post_attn_norm, eps, off)
     x = x + attn_out
     h = rms_norm(x, layer.mlp_norm, eps, off)
+    if layer.router is not None:
+        return x + _moe_mlp(h, layer, cfg)
     # The activation in float32, then back to the activation dtype.
     gate = _act(F.linear(h, layer.w_gate).to(torch.float32), cfg.hidden_act).to(x.dtype)
     ffn_out = F.linear(gate * F.linear(h, layer.w_up), layer.w_down)
     if layer.post_ffn_norm is not None:
         ffn_out = rms_norm(ffn_out, layer.post_ffn_norm, eps, off)
     return x + ffn_out
+
+
+def _moe_mlp(h, layer: LlamaLayer, cfg) -> torch.Tensor:
+    """The sparse-MoE FFN of h [B, T, D] (JAX ``models/llama.py:255-293``
+    on one device): the routed experts, plus qwen2_moe's shared expert
+    scaled by the sigmoid of its gate logit in float32, added before
+    the residual. No post-FFN norm, as in the JAX package."""
+    B, T = h.shape[:2]
+    y = moe_ffn(
+        h.reshape(B * T, -1), layer.router, layer.w_gate, layer.w_up, layer.w_down,
+        cfg.num_experts_per_tok, cfg.norm_topk_prob,
+    ).reshape(B, T, -1)
+    if layer.shared_gate is not None:
+        sg = _act(F.linear(h, layer.shared_gate).to(torch.float32), cfg.hidden_act).to(h.dtype)
+        s_out = F.linear(sg * F.linear(h, layer.shared_up), layer.shared_down)
+        blend = torch.sigmoid((h @ layer.shared_router).to(torch.float32))[..., None]
+        y = y + (blend * s_out.to(torch.float32)).to(h.dtype)
+    return y
 
 
 def _final_logits(model: Llama, cfg, x, eps) -> torch.Tensor:

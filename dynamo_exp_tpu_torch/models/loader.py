@@ -19,7 +19,15 @@ are the JAX loader's: gemma2 and gemma3 carry four norms a layer
 (``post_attention_layernorm`` norms the attention's output there, and
 ``pre_feedforward_layernorm`` is the FFN's input norm), gemma3 the q/k
 norms of qwen3, and phi3 packs q, k and v into ``qkv_proj`` and gate and
-up into ``gate_up_proj``, which are split by rows on the way in.
+up into ``gate_up_proj``, which are split by rows on the way in. The MoE
+families (JAX ``loader.py:85-160``): mixtral's router is
+``block_sparse_moe.gate`` and its experts
+``block_sparse_moe.experts.N.{w1,w3,w2}`` (gate, up, down); qwen2_moe's
+and qwen3_moe's are ``mlp.gate`` and ``mlp.experts.N.{gate,up,down}_proj``;
+qwen2_moe adds ``mlp.shared_expert.*`` and ``mlp.shared_expert_gate``
+(``[1, D]``, the model's ``[D]``). Each expert's tensor is copied into
+its slot of the layer's stacked ``[E, ...]`` device tensor, so no
+stacked host copy is made.
 """
 
 from __future__ import annotations
@@ -33,18 +41,11 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .llama import Llama, check_supported, model_dtype
+from .llama import Llama, model_dtype
 
-_ITEM = "ROADMAP Queue 1 item"
-# model_type -> why the port cannot serve it yet (the JAX package's
-# SUPPORTED_MODEL_TYPES beyond the dense families).
-UNSUPPORTED_MODEL_TYPES = {
-    "mixtral": f"{_ITEM} 7 (MoE)",
-    "qwen2_moe": f"{_ITEM} 7 (MoE)",
-    "qwen3_moe": f"{_ITEM} 7 (MoE)",
-}
 SUPPORTED_MODEL_TYPES = (
     "llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "gemma3_text", "phi3",
+    "mixtral", "qwen2_moe", "qwen3_moe",
 )
 
 # safetensors dtype -> (numpy type the bytes are read as, torch type).
@@ -137,24 +138,18 @@ def _open_safetensors(path: str) -> tuple[list[SafetensorsFile], dict[str, int]]
 
 
 def check_loadable(cfg: ModelConfig) -> None:
-    """Raise for a model type the port cannot serve, naming its ROADMAP
-    item."""
-    if cfg.model_type in UNSUPPORTED_MODEL_TYPES:
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not ported to dynamo_exp_tpu_torch yet; "
-            f"see {UNSUPPORTED_MODEL_TYPES[cfg.model_type]}"
-        )
+    """Raise for a model type the port cannot serve."""
     if cfg.model_type not in SUPPORTED_MODEL_TYPES:
         raise ValueError(
             f"unsupported model_type {cfg.model_type!r}; supported: {SUPPORTED_MODEL_TYPES}"
         )
-    check_supported(cfg)
 
 
 def hf_tensor_names(cfg: ModelConfig) -> dict[str, tuple[int | None, str | tuple[str, ...]]]:
     """HF tensor name -> (layer index or None, the port's attribute), or,
     for a packed tensor (phi3), the attributes it stacks by rows, in
-    order (:func:`model_tensor` gives the stacked tensor)."""
+    order (:func:`model_tensor` gives the stacked tensor). An expert's
+    tensor names its slot of the stacked weight as ``"w_gate.3"``."""
     out: dict[str, tuple[int | None, str | tuple[str, ...]]] = {
         "model.embed_tokens.weight": (None, "embed"),
         "model.norm.weight": (None, "final_norm"),
@@ -192,10 +187,39 @@ def hf_tensor_names(cfg: ModelConfig) -> dict[str, tuple[int | None, str | tuple
         })
     if cfg.qk_norm:  # qwen3, gemma3: per-head q/k RMSNorm
         per_layer.update({"self_attn.q_norm.weight": "q_norm", "self_attn.k_norm.weight": "k_norm"})
+    if cfg.is_moe:
+        for name in ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
+            del per_layer[f"{name}.weight"]
+        if cfg.model_type == "mixtral":
+            moe, names = "block_sparse_moe.", ("w1", "w3", "w2")
+        else:
+            moe, names = "mlp.", ("gate_proj", "up_proj", "down_proj")
+        per_layer[f"{moe}gate.weight"] = "router"
+        for e in range(cfg.num_experts):
+            for hf, attr in zip(names, ("w_gate", "w_up", "w_down")):
+                per_layer[f"{moe}experts.{e}.{hf}.weight"] = f"{attr}.{e}"
+        if cfg.shared_expert_intermediate_size:  # qwen2_moe
+            per_layer.update({
+                "mlp.shared_expert.gate_proj.weight": "shared_gate",
+                "mlp.shared_expert.up_proj.weight": "shared_up",
+                "mlp.shared_expert.down_proj.weight": "shared_down",
+                "mlp.shared_expert_gate.weight": "shared_router",
+            })
     for i in range(cfg.num_layers):
         for hf, attr in per_layer.items():
             out[f"model.layers.{i}.{hf}"] = (i, attr)
     return out
+
+
+def _target(owner, attr: str) -> torch.Tensor:
+    """The model's tensor (a view) for one attribute name: ``"w_gate.3"``
+    is expert 3's slot of the stacked weight; ``shared_router`` [D] is
+    viewed as the checkpoint's ``[1, D]``."""
+    name, _, expert = attr.partition(".")
+    t = getattr(owner, name)
+    if expert:
+        return t[int(expert)]
+    return t[None] if name == "shared_router" else t
 
 
 def model_tensor(model: Llama, li: int | None, attr: str | tuple[str, ...]) -> torch.Tensor:
@@ -203,7 +227,7 @@ def model_tensor(model: Llama, li: int | None, attr: str | tuple[str, ...]) -> t
     entry: the attribute, or the packed attributes stacked by rows."""
     owner = model if li is None else model.layers[li]
     if isinstance(attr, str):
-        return getattr(owner, attr)
+        return _target(owner, attr)
     return torch.cat([getattr(owner, a) for a in attr])
 
 
@@ -228,7 +252,7 @@ def load_params(
                 raise KeyError(f"{path}: checkpoint has no tensor {name!r}")
             src = files[index[name]].get(name)
             owner = model if li is None else model.layers[li]
-            dsts = [getattr(owner, a) for a in ((attr,) if isinstance(attr, str) else attr)]
+            dsts = [_target(owner, a) for a in ((attr,) if isinstance(attr, str) else attr)]
             want = [sum(d.shape[0] for d in dsts), *dsts[0].shape[1:]]
             if list(src.shape) != want:
                 raise ValueError(

@@ -33,7 +33,6 @@ and the plain version zeroes the same slots.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import json
@@ -45,6 +44,7 @@ import threading
 
 import torch
 
+from . import launches
 from .attention import paged_attention
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,67 +73,23 @@ DECODE_SPLIT = 64
 # for its full-attention layers).
 NO_WINDOW = 1 << 30
 
-# Launches: +1 where a wrapper launches its kernel, nowhere else (the
-# CPU path does not count). LAUNCHES counts calls of each entry point,
-# KERNEL_LAUNCHES which design served them. A wrapper called while a
-# CUDA graph is being captured launches nothing: its launch goes to the
-# capture's record (record_launches), and every replay of the graph
-# adds the record to the counters (add_launches).
-LAUNCHES = {"ragged_paged_attention": 0, "ragged_decode_attention": 0}
-KERNEL_LAUNCHES = {"mixed_tc_bf16": 0, "mixed_f32": 0, "decode_split": 0}
+# Launches (ops/launches.py): +1 where a wrapper launches its kernel,
+# nowhere else. LAUNCHES counts calls of each entry point,
+# KERNEL_LAUNCHES which design served them.
+LAUNCHES = launches.counter("attention_entries", ("ragged_paged_attention", "ragged_decode_attention"))
+KERNEL_LAUNCHES = launches.counter("attention_kernels", ("mixed_tc_bf16", "mixed_f32", "decode_split"))
 
 _lib = None
 _lib_path = None
 _lib_lock = threading.Lock()
 _build_log = ""
 _builds = 0
-_recording = threading.local()
-
-
-def reset_launches() -> None:
-    for counts in (LAUNCHES, KERNEL_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-
-
-@contextlib.contextmanager
-def record_launches():
-    """Within the block (on this thread), the wrappers' launches are
-    counted into the yielded record, ``{"entries": {...}, "designs":
-    {...}}``, and not into the counters: a CUDA graph capture records
-    the kernels its replays will launch."""
-    rec = {"entries": dict.fromkeys(LAUNCHES, 0), "designs": dict.fromkeys(KERNEL_LAUNCHES, 0)}
-    prev = getattr(_recording, "rec", None)
-    _recording.rec = rec
-    try:
-        yield rec
-    finally:
-        _recording.rec = prev
-
-
-def add_launches(rec: dict) -> None:
-    """Add a record's launches to the counters: one replay of the graph
-    it was recorded for."""
-    for name, n in rec["entries"].items():
-        LAUNCHES[name] += n
-    for name, n in rec["designs"].items():
-        KERNEL_LAUNCHES[name] += n
 
 
 def _count(entry: str, design: str) -> None:
-    """One launch of ``entry`` through ``design``: into the current
-    record, or the counters. A capture with no record would replay
-    launches nobody counts, so it raises."""
-    rec = getattr(_recording, "rec", None)
-    if rec is None:
-        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("a kernel was captured outside record_launches(): its "
-                               "replays would go uncounted")
-        LAUNCHES[entry] += 1
-        KERNEL_LAUNCHES[design] += 1
-    else:
-        rec["entries"][entry] += 1
-        rec["designs"][design] += 1
+    """One launch of ``entry`` through ``design``."""
+    launches.count("attention_entries", entry)
+    launches.count("attention_kernels", design)
 
 
 def _nvcc() -> str:

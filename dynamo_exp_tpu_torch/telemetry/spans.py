@@ -184,7 +184,13 @@ class Telemetry:
         self.kv_page_moves = Counter(
             "dynamo_kv_page_moves_total",
             "KV pages moved by batched gather/scatter, by operation",
-            ["op"], registry=r,  # inject | upload | prefetch | offload
+            ["op"], registry=r,  # inject | upload | prefetch | offload | cow | ...
+        )
+        self.kv_cow_copies = Counter(
+            "dynamo_kv_cow_copies_total",
+            "Shared KV pages duplicated copy-on-write before a "
+            "divergent write",
+            registry=r,
         )
         self.kv_shared_pages = Gauge(
             "dynamo_kv_shared_pages",

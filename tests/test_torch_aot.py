@@ -46,6 +46,7 @@ from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_exp_tpu_torch.engine.graphs import DispatchGraphs
 from dynamo_exp_tpu_torch.models import llama as tllama
 from dynamo_exp_tpu_torch.models import params_from_jax
+from dynamo_exp_tpu_torch.ops import launches as tlaunches
 from dynamo_exp_tpu_torch.ops import ragged_attention as tra
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -220,7 +221,7 @@ class _StubRunner:
         return fn
 
     def replay(self, fn):
-        with tra.record_launches():
+        with tlaunches.record():
             fn()
         self.replays[id(fn)] = self.replays.get(id(fn), 0) + 1
 
@@ -302,7 +303,7 @@ def test_graph_replays_count_the_eager_launches(np_params, counted_wrappers, cha
         if graphs:
             runner = _StubRunner()
             eng.graphs = DispatchGraphs(eng, runner=runner)
-        tra.reset_launches()
+        tlaunches.reset()
         try:
             out = _run(_burst(eng))
         finally:
@@ -323,7 +324,7 @@ def test_graph_replays_count_the_eager_launches(np_params, counted_wrappers, cha
     assert m["graphs"]["mixed"]["replays"] == disp["mixed"] > 0
     assert eager.metrics()["graphs"] == {} and eager.metrics()["graph_replays"] == 0
     replayed = {
-        name: sum(runner.replays.get(id(g.graph), 0) * g.launches["entries"][name]
+        name: sum(runner.replays.get(id(g.graph), 0) * g.launches["attention_entries"][name]
                   for g in eng.graphs.graphs.values())
         for name in tra.LAUNCHES
     }
@@ -334,10 +335,10 @@ def test_graph_replays_count_the_eager_launches(np_params, counted_wrappers, cha
         assert g.replays == runner.replays[id(g.graph)]
         layers = eng.cfg.model.num_layers
         if isinstance(key, lattice.MixedKey):
-            assert g.launches["entries"] == {"ragged_paged_attention": layers,
+            assert g.launches["attention_entries"] == {"ragged_paged_attention": layers,
                                              "ragged_decode_attention": 0}
         else:
-            assert g.launches["entries"] == {"ragged_paged_attention": 0,
+            assert g.launches["attention_entries"] == {"ragged_paged_attention": 0,
                                              "ragged_decode_attention":
                                              eng.cfg.decode_window * layers}
     assert eager.metrics()["dispatches"] == m["dispatches"]
@@ -375,7 +376,7 @@ def test_prewarmed_graphs_serve_traffic_without_capture(np_params, counted_wrapp
             get = eng.graphs.get
             eng.graphs.get = lambda key: gets.append(key) or get(key)
         report = prewarm_engine(eng)
-        tra.reset_launches()
+        tlaunches.reset()
         try:
             out = _run(_lp_burst(eng))
         finally:
@@ -400,21 +401,21 @@ def test_prewarmed_graphs_serve_traffic_without_capture(np_params, counted_wrapp
 
 
 def test_record_launches_keeps_launches_apart_until_added():
-    tra.reset_launches()
-    with tra.record_launches() as rec:
+    tlaunches.reset()
+    with tlaunches.record() as rec:
         tra._count("ragged_decode_attention", "decode_split")
-        with tra.record_launches() as inner:
+        with tlaunches.record() as inner:
             tra._count("ragged_paged_attention", "mixed_tc_bf16")
         tra._count("ragged_decode_attention", "decode_split")
     assert sum(tra.LAUNCHES.values()) == sum(tra.KERNEL_LAUNCHES.values()) == 0
-    assert rec["entries"] == {"ragged_paged_attention": 0, "ragged_decode_attention": 2}
-    assert inner["designs"]["mixed_tc_bf16"] == 1
+    assert rec["attention_entries"] == {"ragged_paged_attention": 0, "ragged_decode_attention": 2}
+    assert inner["attention_kernels"]["mixed_tc_bf16"] == 1
     for _ in range(3):  # three replays
-        tra.add_launches(rec)
+        tlaunches.add(rec)
     tra._count("ragged_paged_attention", "mixed_f32")
     assert tra.LAUNCHES == {"ragged_paged_attention": 1, "ragged_decode_attention": 6}
     assert tra.KERNEL_LAUNCHES == {"mixed_tc_bf16": 0, "mixed_f32": 1, "decode_split": 6}
-    tra.reset_launches()
+    tlaunches.reset()
 
 
 def test_cuda_graphs_true_on_the_cpu_raises(np_params):

@@ -31,6 +31,7 @@ import torch
 
 from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_exp_tpu_torch.models import TINY
+from dynamo_exp_tpu_torch.ops import launches as tlaunches
 from dynamo_exp_tpu_torch.ops import ragged_attention as tra
 
 pytestmark = pytest.mark.cuda
@@ -104,7 +105,7 @@ MIXED = {
 def test_mixed_shape_matches_plain(cuda, dtype, atol, H, Hkv, D, spans):
     rows, P, pmax = MIXED[spans]
     args = _flat_batch(0, rows, H, Hkv, D, P, 16, pmax, 8, dtype, cuda)
-    tra.reset_launches()
+    tlaunches.reset()
     got = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8)
     want = tra.ragged_paged_attention_ref(*args, num_kv_heads=Hkv)
     torch.cuda.synchronize()
@@ -141,7 +142,7 @@ def test_mixed_shape_on_a_bucket_padded_stream(cuda, dtype, atol, H, Hkv, D):
     rows, P, pmax = MIXED["long"]
     args = _flat_batch(0, rows, H, Hkv, D, P, 16, pmax, 8, dtype, cuda, pad_to=1024)
     assert args[0].shape[0] == 1024 and int((args[4] == len(rows)).sum()) == 1024 - 616
-    tra.reset_launches()
+    tlaunches.reset()
     got = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8)
     want = tra.ragged_paged_attention_ref(*args, num_kv_heads=Hkv)
     torch.cuda.synchronize()
@@ -162,7 +163,7 @@ def test_mixed_f32_rows_alone_equal_rows_in_the_batch(cuda, H, Hkv, D):
     batch = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8)
     for r in range(len(rows)):
         idx, alone = _row_alone(args, r, 8)
-        tra.reset_launches()
+        tlaunches.reset()
         got = tra.ragged_paged_attention(*alone, num_kv_heads=Hkv, q_tile=8)
         torch.cuda.synchronize()
         assert torch.equal(got, batch[idx]), f"row {rows[r]} alone differs from the batch"
@@ -175,7 +176,7 @@ def test_mixed_shape_rows_of_4096_tokens(cuda, dtype, atol):
     span at its end and a lone token at the last position."""
     rows = [(64, 4096), (1, 4096), (9, 2120)]
     args = _flat_batch(5, rows, 32, 8, 128, 2 * 256 + 136, 16, 256, 8, dtype, cuda)
-    tra.reset_launches()
+    tlaunches.reset()
     got = tra.ragged_paged_attention(*args, num_kv_heads=8, q_tile=8)
     want = tra.ragged_paged_attention_ref(*args, num_kv_heads=8)
     torch.cuda.synchronize()
@@ -232,7 +233,7 @@ def test_decode_shape_matches_plain_and_zeroes_inactive(
     q, k, v, table, _, _ = _flat_batch(1, spans, H, Hkv, D, P, 16, pmax, 1, dtype, cuda)
     table = table[: len(lengths)].contiguous()
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    tra.reset_launches()
+    tlaunches.reset()
     got = tra.ragged_decode_attention(
         q[: len(lengths)].contiguous(), k, v, table, lens, num_kv_heads=Hkv, split=split
     )
@@ -302,7 +303,7 @@ def test_mixed_shape_windows_and_softcaps_match_plain(cuda, dtype, atol, case):
     (H, Hkv, D), kw = _attn_kw(case)
     rows, P, pmax = WINDOW_SPANS
     args = _flat_batch(6, rows, H, Hkv, D, P, 16, pmax, 8, dtype, cuda)
-    tra.reset_launches()
+    tlaunches.reset()
     got = tra.ragged_paged_attention(*args, num_kv_heads=Hkv, q_tile=8, **kw)
     want = tra.ragged_paged_attention_ref(*args, num_kv_heads=Hkv, **kw)
     torch.cuda.synchronize()
@@ -347,7 +348,7 @@ def test_decode_shape_windows_and_softcaps_match_plain(cuda, dtype, atol, case, 
     q, table = q[: len(lengths)].contiguous(), table[: len(lengths)].contiguous()
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     rows = torch.arange(len(lengths), dtype=torch.int32, device=cuda)
-    tra.reset_launches()
+    tlaunches.reset()
     got = tra.ragged_decode_attention(q, k, v, table, lens, num_kv_heads=Hkv, split=split,
                                       **kw)
     want = tra.ragged_paged_attention_ref(q, k, v, table, rows, lens - 1, num_kv_heads=Hkv,
@@ -425,7 +426,7 @@ def test_engine_kernel_matches_reference_greedy(cuda):
         finally:
             eng.stop()
 
-    tra.reset_launches()
+    tlaunches.reset()
     got = run("kernel")
     assert min(tra.LAUNCHES.values()) > 0, tra.LAUNCHES
     assert tra.KERNEL_LAUNCHES["mixed_f32"] > 0 and tra.KERNEL_LAUNCHES["decode_split"] > 0
@@ -479,7 +480,7 @@ def test_engine_chaining_and_spec_on_the_card(cuda, kw):
             eng.stop()
 
     want, _ = run("reference", chained_decode=False)
-    tra.reset_launches()
+    tlaunches.reset()
     got, m = run("kernel", **kw)
     assert got == want and all(len(t) == 40 for t in got)
     if kw.get("spec_mode"):
@@ -514,7 +515,7 @@ def test_http_entry_point_serves_on_the_card(cuda, tmp_path):
         server = asyncio.ensure_future(run.main_async(opts, ready))
         served = await asyncio.wait_for(ready, 300)
         try:
-            tra.reset_launches()
+            tlaunches.reset()
             body = {"model": "m", "prompt": list(range(3, 103)), "max_tokens": 12,
                     "stream": True,
                     "stream_options": {"include_usage": True},
@@ -629,7 +630,7 @@ def test_graphed_windows_equal_eager_windows(cuda, dtype):
         if prewarm:
             prewarm_engine(eng)
         captured = eng.metrics()["graphs_captured"]
-        tra.reset_launches()
+        tlaunches.reset()
 
         async def go():
             streams = [eng.submit({"token_ids": p, "sampling_options": so,
@@ -768,13 +769,13 @@ def test_mixed_key_replay_equals_its_eager_dispatch(cuda, dtype):
     host["spec_pos"][2] = np.arange(40, 45)
     eng._counts[1:3, 7] = 2
     before = eng._counts.clone()
-    tra.reset_launches()
+    tlaunches.reset()
     eager = [t.clone() for t in eng._mixed_body(key, dict(zip(host, eng._upload(*host.values()))))]
     eager_launches, counts = dict(tra.KERNEL_LAUNCHES), eng._counts.clone()
     eng._counts.copy_(before)
     g = eng.graphs.get(key)
     eng._upload_into(g.in_buf, list(host.values()), g.offs)
-    tra.reset_launches()
+    tlaunches.reset()
     eng.graphs.replay(g)
     torch.cuda.synchronize()
     assert len(g.outputs) == len(eager) == 9
@@ -814,3 +815,54 @@ def test_loader_round_trip_on_the_card(cuda, tmp_path):
     mine = dict(got.named_parameters())
     for name, p in want.named_parameters():
         assert mine[name].device.type == "cuda" and torch.equal(mine[name], p), name
+
+
+@pytest.mark.parametrize("E,K,N", [(8, 2, 37), (16, 8, 5), (6, 3, 1)])
+def test_moe_ffn_grouped_products_match_the_plain_loop_without_a_sync(cuda, monkeypatch, E, K, N):
+    """The MoE FFN on the card (``torch._grouped_mm`` with the groups'
+    ends on the device) equals the per-expert loop (the same bf16
+    products; the replicas summed in float32 alike) within two bf16 ulps
+    of the output's scale, runs under sync debug "error" and counts
+    three grouped products."""
+    from dynamo_exp_tpu_torch.ops import moe as tmoe
+
+    D, I = 256, 512
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(E * 100 + K)
+
+    def w(*shape, fan):
+        return (torch.randn(shape, generator=gen, device=cuda) * fan**-0.5).to(torch.bfloat16)
+
+    x = w(N, D, fan=1)
+    args = (w(E, D, fan=D), w(E, I, D, fan=D), w(E, I, D, fan=D), w(E, D, I, fan=I), K)
+    tlaunches.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tmoe.moe_ffn(x, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tmoe.LAUNCHES["grouped_mm"] == 3
+    monkeypatch.setattr(tmoe, "grouped_linear",
+                        lambda xs, wt, counts, ends: tmoe.grouped_linear_ref(xs, wt, counts))
+    want = tmoe.moe_ffn(x, *args)
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2 * 2**-8 * scale
+
+
+def test_moe_ffn_refuses_float32_on_the_card(cuda):
+    """In float32 ``torch._grouped_mm`` copies the groups' ends to the
+    host (a sync a CUDA graph capture refuses), so the card's MoE FFN
+    raises, naming the reason, and launches nothing."""
+    from dynamo_exp_tpu_torch.ops import moe as tmoe
+
+    E, K, D, I = 8, 2, 64, 128
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(15)
+    x = torch.randn(5, D, generator=gen, device=cuda)
+    args = [torch.randn(s, generator=gen, device=cuda)
+            for s in ((E, D), (E, I, D), (E, I, D), (E, D, I))]
+    tlaunches.reset()
+    with pytest.raises(NotImplementedError, match="bf16 only"):
+        tmoe.moe_ffn(x, *args, K)
+    assert tmoe.LAUNCHES["grouped_mm"] == 0

@@ -77,7 +77,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "recorder", "telemetry.timeline", "telemetry.anatomy", "telemetry.fingerprint",
         "telemetry.bench_compare", "sim", "sim.workload", "runtime.profiler", "llmctl",
         "runtime.pool", "runtime.transports.chaos", "native", "kv", "kv.persistent",
-        "engine.config", "engine.kv_manager",
+        "engine.config", "engine.kv_manager", "ops.moe", "ops.launches",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

@@ -32,6 +32,7 @@ from dynamo_exp_tpu.kv import persistent as jpersist
 from dynamo_exp_tpu.runtime.transports import chaos as jchaos
 from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_exp_tpu_torch.kv import persistent as tpersist
+from dynamo_exp_tpu_torch.telemetry import unregister_dumper
 from dynamo_exp_tpu_torch.kv.persistent import _HEADER, PersistentKvStore
 from dynamo_exp_tpu_torch.models import TINY, params_from_jax
 from dynamo_exp_tpu_torch.protocols.common import BackendInput
@@ -376,6 +377,11 @@ def hard_kill(engine):
     if engine._watchdog is not None:
         engine._watchdog.stop()
         engine._watchdog = None
+    if engine._flight_handle is not None:
+        # The process's dump registry goes with it: a later dump_all in
+        # this process must not find the dead engine.
+        unregister_dumper(engine._flight_handle)
+        engine._flight_handle = None
     if engine._thread is not None:
         engine._thread.join(timeout=30)
         assert not engine._thread.is_alive()

@@ -11,9 +11,9 @@ qwen3 (q/k norms) and tied embeddings. For gemma, gemma2, gemma3 (four
 norms a layer, q/k norms) and phi3 (packed ``qkv_proj`` and
 ``gate_up_proj``) the port writes the checkpoint under the HF names with
 ``save_safetensors``, and its ``load_params`` gives the logits of the
-JAX loader's parameters carried over by ``convert``. Malformed files and
-model types the port cannot serve raise, naming what is wrong or its
-ROADMAP item.
+JAX loader's parameters carried over by ``convert``. Malformed files
+raise, naming what is wrong; the MoE types load (a missing expert
+tensor raises naming it).
 ``run.py --model-path <dir>`` without ``--random-weights`` serves the
 checkpoint: tokens equal ``TPUEngine``'s on the JAX loader's weights.
 """
@@ -303,15 +303,34 @@ def test_missing_or_misshapen_tensor_raises(tmp_path):
 
 @pytest.mark.parametrize("model_type,item", [("mixtral", "item 7"), ("qwen3_moe", "item 7")])
 def test_unsupported_model_types_raise_naming_their_roadmap_item(tmp_path, model_type, item):
+    """The MoE types the port once refused (ROADMAP Queue 1 ``item``)
+    load now: a checkpoint missing an expert's tensors raises naming
+    that tensor, not a ROADMAP item, and the whole checkpoint written
+    under the HF names (each expert's own tensors) comes back bit-equal."""
+    from dynamo_exp_tpu_torch.models import ModelConfig as TModelConfig
+
     conf = hf_config(CFGS["llama"])
     conf["model_type"] = model_type
-    if model_type in ("mixtral", "qwen3_moe"):
-        conf.update(num_local_experts=4, num_experts=4, num_experts_per_tok=2,
-                    moe_intermediate_size=64)
+    conf.update(num_local_experts=4, num_experts=4, num_experts_per_tok=2,
+                moe_intermediate_size=64)
     (tmp_path / "config.json").write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 {item}".replace("(", r"\(")
-                       .replace(")", r"\)")):
+    mcfg = TModelConfig.from_pretrained(str(tmp_path))
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    want = tllama.init_params(mcfg, gen, "cpu")
+    tensors = {n: tloader.model_tensor(want, li, a)
+               for n, (li, a) in tloader.hf_tensor_names(mcfg).items()}
+    shard = str(tmp_path / "model.safetensors")
+    tloader.save_safetensors(shard, {n: t for n, t in tensors.items() if ".experts.3." not in n})
+    with pytest.raises(KeyError, match=r"experts\.3\.") as err:
         tloader.load_params(str(tmp_path), device="cpu")
+    assert "ROADMAP" not in str(err.value) and item not in str(err.value)
+    tloader.save_safetensors(shard, tensors)
+    got, cfg = tloader.load_params(str(tmp_path), device="cpu")
+    assert cfg.model_type == model_type and cfg.is_moe
+    mine = dict(got.named_parameters())
+    for name, p in want.named_parameters():
+        assert torch.equal(mine[name], p), name
 
 
 @pytest.mark.parametrize("family", ["gemma", "gemma2", "gemma3_text", "phi3", "mistral"])

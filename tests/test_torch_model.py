@@ -184,5 +184,12 @@ def test_params_from_jax_transposes_to_out_in_layout():
 
 @pytest.mark.parametrize("name", ["tiny-moe", "mixtral-8x7b"])
 def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.Llama(T_PRESETS[name], device="meta")
+    """The MoE presets, once refused, build: stacked expert weights in
+    ``F.linear``'s layout and a router, no dense FFN."""
+    cfg = T_PRESETS[name]
+    model = tllama.Llama(cfg, device="meta")
+    E, I, D = cfg.num_experts, cfg.expert_intermediate_size, cfg.hidden_size
+    layer = model.layers[0]
+    assert layer.router.shape == (E, D)
+    assert layer.w_gate.shape == layer.w_up.shape == (E, I, D)
+    assert layer.w_down.shape == (E, D, I) and layer.shared_gate is None

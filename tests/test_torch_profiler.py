@@ -133,13 +133,14 @@ def test_cuda_profiling_without_a_card_raises(tmp_path):
 def test_card_trace_names_both_bf16_kernels(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the trace's kernels run only on the card")
+    from dynamo_exp_tpu_torch.ops import launches as tlaunches
     from dynamo_exp_tpu_torch.ops import ragged_attention as tra
 
     eng = _engine(device="cuda", dtype="bfloat16")
     try:
         _burst(eng)  # captures the burst's graph keys first
         captured = eng.metrics()["graphs_captured"]
-        tra.reset_launches()
+        tlaunches.reset()
         with profiler.trace_to(str(tmp_path / "g")) as cap:
             _burst(eng, first=4)
         launches = dict(tra.KERNEL_LAUNCHES)

@@ -54,7 +54,6 @@ from dynamo_exp_tpu_torch.telemetry.spans import Telemetry
 # JAX families the port does not register, each with what feeds it in
 # the JAX package (ROADMAP Queue 1).
 JAX_ONLY = {
-    "dynamo_kv_cow_copies": "copy-on-write (item 4(b))",
     "dynamo_config_swaps": "planner/ (item 8)",
 }
 
