@@ -393,6 +393,32 @@ Phases, each fatal on failure (nothing is caught):
    under sync debug "error"; tokens equal to a run without speculation
    printed, not asserted (bf16 ties).
 
+17. a self-contained GGUF. (a) Mistral-7B-Instruct-v0.2's published
+   width (hidden 4,096, 32/8 heads of 128, ffn 14,336, vocab 32,000,
+   rope base 1e6, no window) at 4 of its 32 layers, seeded weights
+   written here as one llama-architecture GGUF: the 2-D weights in Q8_0
+   (encoded here on the card: an f16 scale a block of 32 and int8
+   values; q and k in llama.cpp's rope order), the norms in F32,
+   ``token_embd`` in F16 and ``output`` in BF16, with an embedded
+   Unigram tokenizer of 32,000 pieces (``<unk>``, ``<s>``, ``</s>``,
+   the 256 ``<0xNN>`` byte pieces, README.md's characters and frequent
+   substrings scored by log frequency, seeded filler) and Mistral's
+   ``[INST]`` chat template; its config reads back equal to the preset
+   at 4 layers. Served by ``run.main_async(in=http out=cuda
+   --model-path x.gguf)`` (bf16): load seconds and GB/s (file bytes
+   over load seconds) printed; every weight on the card equals, bit for
+   bit, the bf16 of this script's own decoding of what it wrote; 8
+   streamed chats at once end [DONE], ``length``, with
+   ``usage.prompt_tokens`` the port's Unigram encoding of the rendered
+   template; a rerun after the prefix cache is dropped gives the same
+   text; the same prompt ids straight into the served engine give
+   tokens whose streamed text is the HTTP text; both bf16 kernels ran.
+   (b) The same model as a directory of config.json,
+   ``tokenizer.model`` (a SentencePiece protobuf of the same pieces),
+   ``tokenizer_config.json`` and bf16 safetensors of the same decoded
+   weights, served the same way: the same prompt ids and the same
+   tokens as (a) (bit-equal weights, so identity is asserted at bf16).
+
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
@@ -423,7 +449,9 @@ checks (``launches_window_logits``), and phase 15's G3 engines
 (``launches_g3``: (a) and (b)) and chaos-plane engines
 (``launches_chaos``: (d)), and phase 16's mixtral engine
 (``launches_moe``: (a)) and float32 sharing engines
-(``launches_sharing_f32``: (c)); both mixed entries also carry the
+(``launches_sharing_f32``: (c)), and phase 17's GGUF and directory
+servers (``launches_gguf``, ``launches_gguf_dir``: their HTTP chats);
+both mixed entries also carry the
 verify spans' timing (``verify_*``), and every entry phase 3's windowed
 cases in its own dtype (``gemma2_d256_softcap_window``,
 ``mistral_d128_window``; the decode design also ``*_f32``; a softcap
@@ -6815,6 +6843,401 @@ def phase16(torch, np, pkg, tra, smi: str, sh: Phase16 = Phase16(), mcfg=None,
                 wall_s=wall)
 
 
+
+# ------------------------------------------------------------ phase 17
+GGUF_LAYERS = 4  # (a): Mistral-7B-Instruct-v0.2's width at 4 of its 32 layers
+MISTRAL_CHAT_TEMPLATE = (
+    "{{ bos_token }}{% for message in messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate user/assistant/user/assistant/...') }}"
+    "{% endif %}{% if message['role'] == 'user' %}"
+    "{{ '[INST] ' + message['content'] + ' [/INST]' }}"
+    "{% elif message['role'] == 'assistant' %}{{ message['content'] + eos_token }}"
+    "{% else %}{{ raise_exception('Only user and assistant roles are supported!') }}"
+    "{% endif %}{% endfor %}"
+)
+
+
+@dataclass(frozen=True)
+class Phase17:
+    """Phase 17's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, a tiny llama config)."""
+
+    device: str = "cuda"
+    layers: int = GGUF_LAYERS
+    max_tokens: int = MAX_TOKENS
+    chat_chars: int = 3000  # the long chat's README text
+    seed: int = 17  # the vocabulary's filler pieces
+
+
+def mistral_v02(np, pkg, layers: int):
+    """Mistral-7B-Instruct-v0.2's published widths (hidden 4,096, 32/8
+    heads of 128, ffn 14,336, vocab 32,000, rope base 1e6, no sliding
+    window, context 32,768) at ``layers`` layers, as its llama-
+    architecture GGUF reads back (eps 1e-5 stored as float32)."""
+    from dataclasses import replace
+
+    return replace(pkg.models.MISTRAL_7B, num_layers=layers, head_dim=128, rope_theta=1e6,
+                   sliding_window=None, rms_norm_eps=float(np.float32(1e-5)),
+                   model_type="llama")
+
+
+def unigram_pieces(text: str, n: int, seed: int) -> list[tuple[str, float, int]]:
+    """A SentencePiece vocabulary of exactly ``n`` pieces: ``<unk>``,
+    ``<s>``, ``</s>`` (UNKNOWN, CONTROL, CONTROL), the 256 ``<0xNN>``
+    pieces (BYTE), the characters ``text`` uses at least 3 times, its
+    most frequent substrings of ``▁``-led words, each scored by its log
+    frequency rounded to halves (so paths tie), then pieces from a
+    seeded generator at lower scores. Rarer characters, CJK and emoji
+    fall back to bytes."""
+    import math
+    import random
+    from collections import Counter
+
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+    seen = {p for p, _, _ in pieces}
+
+    def add(p: str, score: float) -> None:
+        if p not in seen and len(pieces) < n:
+            seen.add(p)
+            pieces.append((p, score, 1))
+
+    chars = Counter(text.replace(" ", "▁"))
+    subs: Counter = Counter()
+    for w in text.split():
+        w = "▁" + w
+        for i in range(len(w)):
+            for j in range(i + 2, min(len(w), i + 10) + 1):
+                subs[w[i:j]] += 1
+    total = sum(subs.values()) + sum(chars.values())
+    for table in (chars, subs):
+        for p, k in sorted(table.items(), key=lambda kv: (-kv[1], kv[0])):
+            if k >= 3 and p != "\n":
+                add(p, round(2 * math.log(k / total)) / 2)
+    rng = random.Random(seed)
+    alphabet = sorted(c for c, k in chars.items() if k >= 3 and c != "\n")
+    while len(pieces) < n:
+        add(("▁" if rng.random() < 0.5 else "") +
+            "".join(rng.choice(alphabet) for _ in range(rng.randint(2, 6))),
+            -24.0 - rng.randint(0, 8) / 2)
+    return pieces
+
+
+def sp_model_bytes(pieces: list[tuple[str, float, int]]) -> bytes:
+    """``pieces`` as a SentencePiece ``tokenizer.model`` (a protobuf
+    ``ModelProto``; TrainerSpec unk 0, bos 1, eos 2, pad off)."""
+    import struct
+
+    def varint(v: int) -> bytes:
+        out = bytearray()
+        while True:
+            b, v = v & 0x7F, v >> 7
+            out.append(b | (0x80 if v else 0))
+            if not v:
+                return bytes(out)
+
+    def field(num: int, payload: bytes) -> bytes:
+        return varint(num << 3 | 2) + varint(len(payload)) + payload
+
+    out = bytearray()
+    for p, score, kind in pieces:
+        body = field(1, p.encode()) + varint(2 << 3 | 5) + struct.pack("<f", score)
+        out += field(1, body + varint(3 << 3) + varint(kind))
+    trainer = b"".join(varint(f << 3) + varint(v % (1 << 64))
+                       for f, v in ((40, 0), (41, 1), (42, 2), (43, -1)))
+    return bytes(out + field(2, trainer))
+
+
+def gguf_encode(torch, w, kind: str):
+    """``w`` as a GGUF tensor of ``kind`` (``models.gguf.Encoded``): F32,
+    F16, BF16, or Q8_0 (blocks of 32: an f16 scale of the block's
+    largest magnitude / 127 and the values / scale rounded to int8), and
+    the float32 the file decodes to, on ``w``'s device."""
+    from dynamo_exp_tpu_torch.models import gguf
+
+    shape, x = tuple(w.shape), w.contiguous().float()
+    if kind == "F32":
+        return gguf.Encoded(gguf.GGML_F32, shape, x.cpu().numpy()), x
+    if kind == "F16":
+        h = x.half()
+        return gguf.Encoded(gguf.GGML_F16, shape, h.cpu().numpy()), h.float()
+    if kind == "BF16":
+        b = x.bfloat16()
+        return gguf.Encoded(gguf.GGML_BF16, shape, b.view(torch.int16).cpu().numpy()), b.float()
+    blocks = x.reshape(-1, gguf.Q8_0_BLOCK)
+    d = blocks.abs().amax(1) / 127
+    scale = d.half()
+    inv = torch.where(d > 0, 1.0 / d, torch.zeros_like(d))
+    q = torch.round(blocks * inv[:, None]).clamp(-127, 127).to(torch.int8)
+    raw = torch.cat([scale.view(torch.uint8).reshape(-1, 2), q.view(torch.uint8)], 1)
+    return (gguf.Encoded(gguf.GGML_Q8_0, shape, raw.cpu().numpy()),
+            (q.float() * scale.float()[:, None]).reshape(shape))
+
+
+def write_mistral_gguf(torch, path: str, model, pieces) -> int:
+    """``model``'s weights as a llama-architecture GGUF with its
+    tokenizer embedded: the 2-D weights in Q8_0 (q and k in llama.cpp's
+    rope order), the norms in F32, ``token_embd`` in F16 and ``output``
+    in BF16. Each of ``model``'s weights becomes what the file decodes
+    to, so the model is the file's. Returns the file's bytes."""
+    from dynamo_exp_tpu_torch.models import gguf
+
+    cfg = model.cfg
+    heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads}
+    tensors = {}
+    with torch.no_grad():
+        for name, (li, attr) in gguf.gguf_tensor_names(cfg).items():
+            w = getattr(model if li is None else model.layers[li], attr)
+            src = w
+            if attr in heads:  # llama.cpp's permutation, which the loader inverts
+                out, inner = w.shape
+                hd = out // heads[attr]
+                src = w.reshape(heads[attr], 2, hd // 2, inner).transpose(1, 2).reshape(out, inner)
+            kind = ("F16" if attr == "embed" else "BF16" if attr == "lm_head"
+                    else "F32" if w.dim() == 1 else "Q8_0")
+            tensors[name], decoded = gguf_encode(torch, src, kind)
+            if attr in heads:
+                decoded = gguf._unpermute_rope(decoded, heads[attr])
+            w.copy_(decoded)
+    a = "llama"
+    md = {
+        "general.architecture": a, "general.name": "Mistral-7B-Instruct-v0.2 (random weights)",
+        "general.file_type": 7,  # llama.cpp's MOSTLY_Q8_0
+        f"{a}.context_length": cfg.max_position_embeddings,
+        f"{a}.embedding_length": cfg.hidden_size, f"{a}.block_count": cfg.num_layers,
+        f"{a}.feed_forward_length": cfg.intermediate_size,
+        f"{a}.rope.dimension_count": cfg.head_dim_, f"{a}.attention.head_count": cfg.num_heads,
+        f"{a}.attention.head_count_kv": cfg.num_kv_heads,
+        f"{a}.attention.layer_norm_rms_epsilon": float(cfg.rms_norm_eps),
+        f"{a}.rope.freq_base": float(cfg.rope_theta), f"{a}.vocab_size": cfg.vocab_size,
+        "tokenizer.ggml.model": "llama",
+        "tokenizer.ggml.tokens": [p for p, _, _ in pieces],
+        "tokenizer.ggml.scores": [float(s) for _, s, _ in pieces],
+        "tokenizer.ggml.token_type": [k for _, _, k in pieces],
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.ggml.unknown_token_id": 0, "tokenizer.ggml.add_bos_token": True,
+        "tokenizer.ggml.add_eos_token": False, "tokenizer.chat_template": MISTRAL_CHAT_TEMPLATE,
+    }
+    gguf.write_gguf(path, md, tensors)
+    return os.path.getsize(path)
+
+
+def write_sp_model_dir(path: str, model, pieces) -> int:
+    """The same model another way: config.json (read back equal to the
+    model's config), ``tokenizer.model`` of the same pieces,
+    ``tokenizer_config.json`` with the chat template, and the model's
+    weights as bf16 safetensors. Returns the weights' bytes."""
+    os.makedirs(path, exist_ok=True)
+    files = {
+        "config.json": dict(hf_config(model.cfg), bos_token_id=1, eos_token_id=2),
+        "tokenizer_config.json": {"add_bos_token": True, "add_eos_token": False,
+                                  "bos_token": "<s>", "eos_token": "</s>",
+                                  "unk_token": "<unk>", "chat_template": MISTRAL_CHAT_TEMPLATE},
+    }
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer.model"), "wb") as f:
+        f.write(sp_model_bytes(pieces))
+    return write_checkpoint(model, path)
+
+
+def p17_chats(text: str, sh: Phase17) -> list[list[dict]]:
+    """8 chats in Mistral's alternating roles: short turns (one with CJK
+    and emoji, which fall back to bytes), a follow-up after an answer,
+    README text, and doubled spaces."""
+    return [
+        [{"role": "user", "content": "What is paged attention?"}],
+        [{"role": "user", "content": "Ünïcödé, 日本語 and emoji ☃🎉 in one prompt."}],
+        [{"role": "user", "content": "What is a GGUF file?"},
+         {"role": "assistant", "content": "One file that holds the weights and a tokenizer."},
+         {"role": "user", "content": "And Q8_0?"}],
+        [{"role": "user", "content": "Summarise: " + text[: sh.chat_chars]}],
+        [{"role": "user", "content": "  Leading  and doubled  spaces.  "}],
+        [{"role": "user", "content": "Count to ten."}],
+        [{"role": "user", "content": text[1000:1600]}],
+        [{"role": "user", "content": "Write a haiku about GPUs."}],
+    ]
+
+
+def p17_prompt_ids(path: str, chats, name: str) -> tuple:
+    """The chats' prompt ids as the port's front end makes them from the
+    model at ``path`` (its card's template rendered, then its tokenizer's
+    encoding), and the tokenizer."""
+    from dynamo_exp_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_exp_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_exp_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_exp_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer.from_pretrained(path)
+    pre = OpenAIPreprocessor(ModelDeploymentCard.from_local_path(path, name), tok)
+    ids = [pre.preprocess_chat(ChatCompletionRequest.from_dict(
+        {"model": name, "messages": m})).token_ids for m in chats]
+    return ids, tok
+
+
+def p17_argv(sh: Phase17, path: str, name: str, chat_ids) -> list[str]:
+    lens = [len(i) for i in chat_ids]
+    return [
+        "in=http", "out=cuda", "--device", sh.device, "--model-path", path,
+        "--model-name", name, "--http-host", "127.0.0.1", "--http-port", "0",
+        "--max-decode-slots", "8", "--page-size", str(PS),
+        "--max-model-len", str(max(lens) + sh.max_tokens + PS),
+        "--num-pages", str(pages_needed(lens, sh.max_tokens) + 64),
+        "--kv-dtype", "bfloat16", "--max-tokens", str(sh.max_tokens),
+    ]
+
+
+async def _p17_serve(torch, pkg, tra, opts, tok, chats, chat_ids, model, sh: Phase17,
+                     rerun: bool) -> dict:
+    """Serve ``opts``: the served weights equal ``model``'s bit for bit;
+    the 8 chats streamed at once (and again with ``rerun``, after the
+    prefix cache is dropped: the same text); every stream ends [DONE],
+    'length' with ``max_tokens`` tokens, its ``usage.prompt_tokens`` the
+    length of its prompt ids; both bf16 kernels launched; then the same
+    prompt ids straight into the served engine: their tokens, streamed,
+    are the HTTP text."""
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch.http import client
+
+    ready = asyncio.get_running_loop().create_future()
+    server = asyncio.ensure_future(run.main_async(opts, ready))
+    await asyncio.wait({server, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if server.done():
+        server.result()  # startup failed: raise its error
+    served = ready.result()
+    eng = served.torch_engine
+    try:
+        mine, got = dict(model.named_parameters()), dict(eng.model.named_parameters())
+        assert got.keys() == mine.keys(), sorted(set(got) ^ set(mine))
+        differ = [n for n, p in mine.items() if not torch.equal(got[n], p)]
+        assert not differ, f"served weights differ from the written ones: {differ[:5]}"
+        url = f"http://127.0.0.1:{served.port}/v1/chat/completions"
+        bodies = [{"model": opts.model_name, "messages": m, "max_tokens": sh.max_tokens,
+                   "stream": True, "stream_options": {"include_usage": True},
+                   "nvext": {"ignore_eos": True}} for m in chats]
+        sync(torch, sh.device)
+        reset_launches()
+        runs = []
+        for i in range(2 if rerun else 1):
+            res, wall, _, _ = await burst(client, eng, url, bodies, reset_cache=i > 0)
+            for k, (r, ids) in enumerate(zip(res, chat_ids)):
+                assert r["done"] and r["finish"] == "length", (k, r["finish"])
+                assert r["usage"]["prompt_tokens"] == len(ids), (k, r["usage"], len(ids))
+                assert r["usage"]["completion_tokens"] == sh.max_tokens, (k, r["usage"])
+            runs.append((res, wall))
+        sync(torch, sh.device)
+        designs = dict(tra.KERNEL_LAUNCHES)
+        if sh.device == "cuda":
+            assert designs["mixed_tc_bf16"] > 0 and designs["decode_split"] > 0, designs
+            assert designs["mixed_f32"] == 0, designs
+        texts = [r["text"] for r in runs[0][0]]
+        assert all([r["text"] for r in res] == texts for res, _ in runs), "rerun text differs"
+        direct, *_ = await direct_burst(eng, [
+            {"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens,
+                                                   "ignore_eos": True}} for ids in chat_ids])
+        tokens = [r["tokens"] for r in direct]
+        assert [streamed_text(tok, t) for t in tokens] == texts, "HTTP text != direct tokens"
+    finally:
+        server.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await server
+    st = edge_stats(runs[0][0], runs[0][1], 0.0, 0.0)
+    return dict(st, texts=texts, tokens=tokens, designs=designs,
+                rerun_wall_s=runs[-1][1] if rerun else None)
+
+
+def phase17(torch, np, pkg, tra, smi: str, sh: Phase17 = Phase17(), mcfg=None) -> dict:
+    """Phase 17: a self-contained Q8_0 GGUF at Mistral-7B-Instruct-v0.2's
+    width. (a) One llama-architecture file of seeded weights (Q8_0 2-D
+    weights, F32 norms, F16 ``token_embd``, BF16 ``output``) with an
+    embedded Unigram tokenizer and Mistral's chat template, served by
+    ``run.main_async(--model-path x.gguf)``: load seconds and GB/s,
+    weights bit-equal to the file's decoding, 8 streamed chats and a
+    token-identical rerun through both bf16 kernels. (b) The same model
+    as ``config.json`` + ``tokenizer.model`` + bf16 safetensors: the
+    same prompt ids and the same tokens."""
+    import tempfile
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch.models import gguf
+
+    mcfg = mcfg or mistral_v02(np, pkg, sh.layers)
+    t0 = time.perf_counter()
+    free(torch, sh.device)
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    chats = p17_chats(text, sh)
+    pieces = unigram_pieces(text, mcfg.vocab_size, sh.seed)
+    model = seeded_model(torch, pkg, mcfg, sh.device)
+    timing: dict = {}
+    load = gguf.load_params_from_gguf
+
+    def timed_load(*a, **kw):
+        t = time.perf_counter()
+        out = load(*a, **kw)
+        sync(torch, sh.device)
+        timing["load_s"] = time.perf_counter() - t
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mistral-7b-instruct-v0.2.Q8_0.gguf")
+        tw = time.perf_counter()
+        nbytes = write_mistral_gguf(torch, path, model, pieces)
+        write_s = time.perf_counter() - tw
+        g = gguf.GGUFFile.parse(path)
+        assert gguf.config_from_gguf(g) == mcfg, gguf.config_from_gguf(g)
+        counts: dict = {}
+        for info in g.tensors.values():
+            kind = gguf._TYPE_NAMES[info.ggml_type]
+            counts[kind] = counts.get(kind, 0) + 1
+        del g
+        assert set(counts) == {"Q8_0", "F32", "F16", "BF16"}, counts
+        chat_ids, tok = p17_prompt_ids(path, chats, "mistral-gguf")
+        assert tok.vocab_size == mcfg.vocab_size and tok.eos_token_ids == [2]
+        assert all(ids[0] == 1 and ids.count(1) == 1 for ids in chat_ids)
+        gguf.load_params_from_gguf = timed_load
+        try:
+            a = asyncio.run(asyncio.wait_for(_p17_serve(
+                torch, pkg, tra, run.parse_args(p17_argv(sh, path, "mistral-gguf", chat_ids)),
+                tok, chats, chat_ids, model, sh, rerun=True), timeout=600))
+        finally:
+            gguf.load_params_from_gguf = load
+        log(f"[gguf] (a) {smi}: {mcfg.num_layers} layers of Mistral-7B-Instruct-v0.2's width "
+            f"as one GGUF of {nbytes / 1e9:.3f} GB (tensors by encoding {counts}, a Unigram "
+            f"tokenizer of {len(pieces)} pieces) written in {write_s:.2f} s; "
+            f"run.main_async(--model-path x.gguf) loaded it in {timing['load_s']:.3f} s "
+            f"({nbytes / timing['load_s'] / 1e9:.2f} GB/s, file bytes over load seconds), "
+            f"weights bit-equal to the file's decoding; 8 streamed chats (prompts "
+            f"{[len(i) for i in chat_ids]} tokens): wall {a['wall_s']:.3f} s (rerun "
+            f"{a['rerun_wall_s']:.3f} s, the same text), {a['tokens_per_s']:.2f} tokens/s, "
+            f"edge TTFT p50 {a['ttft_p50_s']:.3f} s max {a['ttft_max_s']:.3f} s; usage equal "
+            f"to the port's Unigram encoding of the template; launches by kernel {a['designs']}")
+        model_dir = os.path.join(tmp, "mistral-dir")
+        tw = time.perf_counter()
+        st_bytes = write_sp_model_dir(model_dir, model, pieces)
+        dir_write_s = time.perf_counter() - tw
+        assert pkg.models.ModelConfig.from_pretrained(model_dir) == mcfg
+        ids_b, tok_b = p17_prompt_ids(model_dir, chats, "mistral-dir")
+        assert ids_b == chat_ids, "tokenizer.model and the GGUF encode the chats differently"
+        b = asyncio.run(asyncio.wait_for(_p17_serve(
+            torch, pkg, tra, run.parse_args(p17_argv(sh, model_dir, "mistral-dir", ids_b)),
+            tok_b, chats, ids_b, model, sh, rerun=False), timeout=600))
+        assert b["tokens"] == a["tokens"], "the directory's tokens differ from the GGUF's"
+        assert b["texts"] == a["texts"]
+    del model
+    free(torch, sh.device)
+    wall = time.perf_counter() - t0
+    log(f"[gguf] (b) {smi}: config.json + tokenizer.model ({len(pieces)} pieces) + "
+        f"{st_bytes / 1e9:.3f} GB of bf16 safetensors written in {dir_write_s:.2f} s: the same "
+        f"prompt ids and the same {sum(len(t) for t in b['tokens'])} tokens as (a); launches "
+        f"by kernel {b['designs']}; phase 17 wall {wall:.1f} s")
+    return dict(a=a, b=b, bytes=nbytes, load_s=timing["load_s"],
+                load_gbps=nbytes / timing["load_s"] / 1e9, write_s=write_s,
+                designs=a["designs"], designs_dir=b["designs"], wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -6913,6 +7336,8 @@ def main() -> int:
     log(f"[phase15] in {p15['wall_s']:.1f} s")
     p16 = phase16(torch, np, pkg, tra, smi)
     log(f"[phase16] in {p16['wall_s']:.1f} s")
+    p17 = phase17(torch, np, pkg, tra, smi)
+    log(f"[phase17] in {p17['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -6958,6 +7383,8 @@ def main() -> int:
             "launches_chaos": p15["designs_chaos"][design],
             "launches_moe": p16["designs"][design],
             "launches_sharing_f32": p16["designs_f32"][design],
+            "launches_gguf": p17["designs"][design],
+            "launches_gguf_dir": p17["designs_dir"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

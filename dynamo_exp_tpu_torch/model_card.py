@@ -1,14 +1,14 @@
 """ModelDeploymentCard: everything a frontend needs to serve a model.
 
-Counterpart of ``dynamo_exp_tpu/model_card.py``, the HF-directory path
-(``from_local_path``): context length, KV block size, config.json, the
-chat template and special tokens from ``tokenizer_config.json``, and the
-EOS ids; the card's JSON (``to_json`` / ``from_json``) and its
+Counterpart of ``dynamo_exp_tpu/model_card.py``: from an HF directory
+(``from_local_path``) the context length, KV block size, config.json,
+the chat template and special tokens from ``tokenizer_config.json``, and
+the EOS ids; from a bare ``.gguf`` (``from_gguf``) the same out of its
+metadata; the card's JSON (``to_json`` / ``from_json``) and its
 publication heartbeat (``stamp``, ``is_expired``) as a worker publishes
 it (``local_model.py``) and an ingress reads it (``http/discovery.py``),
 in the JAX card's fields and order. The tokenizer travels as a path
-(``tokenizer_path``), not as bytes. GGUF cards are not ported (ROADMAP
-Queue 1 item 9(f)).
+(``tokenizer_path``), not as bytes.
 """
 
 from __future__ import annotations
@@ -81,14 +81,45 @@ class ModelDeploymentCard:
         return cls(**{k: v for k, v in d.items() if k in known})
 
     @classmethod
+    def from_gguf(
+        cls, path: str, display_name: str | None = None, gguf=None
+    ) -> "ModelDeploymentCard":
+        """Build a card from a bare ``.gguf``, which carries its own
+        tokenizer (``tokenizer.ggml.*``) and often a chat template
+        (``tokenizer.chat_template``). Pass an already parsed
+        ``GGUFFile`` as ``gguf`` to read the metadata once."""
+        if gguf is None:
+            from .models.gguf import GGUFFile
+
+            gguf = GGUFFile.parse(path)
+        md = gguf.metadata
+        name = display_name or md.get("general.name") or os.path.basename(path)
+        card = cls(display_name=name, model_path=path, tokenizer_path=path)
+        ctx = md.get(f"{md.get('general.architecture', 'llama')}.context_length")
+        if ctx:
+            card.context_length = int(ctx)
+        eos = md.get("tokenizer.ggml.eos_token_id")
+        if eos is not None:
+            card.eos_token_ids = [int(eos)]
+        tpl = md.get("tokenizer.chat_template")
+        if isinstance(tpl, str) and tpl:
+            card.chat_template = tpl
+        tokens = md.get("tokenizer.ggml.tokens")
+        bos = md.get("tokenizer.ggml.bos_token_id")
+        if tokens:
+            if bos is not None and bos < len(tokens):
+                card.bos_token = tokens[bos]
+            if eos is not None and eos < len(tokens):
+                card.eos_token = tokens[eos]
+        return card
+
+    @classmethod
     def from_local_path(
         cls, path: str, display_name: str | None = None
     ) -> "ModelDeploymentCard":
-        """Build a card from a HF-style model directory."""
+        """Build a card from a HF-style model directory (or a .gguf)."""
         if path.endswith(".gguf"):
-            raise NotImplementedError(
-                "GGUF model cards are not ported; see ROADMAP Queue 1 item 9(f)"
-            )
+            return cls.from_gguf(path, display_name)
         name = display_name or os.path.basename(os.path.normpath(path))
         card = cls(display_name=name, model_path=path, tokenizer_path=path)
         cfg_path = os.path.join(path, "config.json")

@@ -16,6 +16,8 @@ from .config import (
     ModelConfig,
 )
 from .convert import params_from_jax
+from .gguf import GGUFFile, config_from_gguf, load_params_from_gguf
+from .hub import resolve_model_path
 from .llama import Llama, forward, forward_ragged, init_kv_cache, init_params
 
 __all__ = [
@@ -40,4 +42,8 @@ __all__ = [
     "init_params",
     "init_kv_cache",
     "params_from_jax",
+    "GGUFFile",
+    "config_from_gguf",
+    "load_params_from_gguf",
+    "resolve_model_path",
 ]

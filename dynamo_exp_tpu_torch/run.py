@@ -35,8 +35,11 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
 - ``in=batch:<file>``: every JSONL line's ``text`` (or ``prompt``) as a
   concurrent streaming chat request; prints one JSON stats line.
 - ``--model-path <dir>`` serves the directory's safetensors weights
-  (``models/loader.py``); ``--random-weights`` serves seeded random
-  ones instead.
+  (``models/loader.py``), ``--model-path <file>.gguf`` a GGUF's
+  (``models/gguf.py``: F32, F16, BF16, Q8_0), with the tokenizer and
+  chat template embedded in it or, without them, token ids only;
+  ``--random-weights`` serves seeded random ones instead. A hub id
+  (``org/name``) is looked up in the local hub cache (``models/hub.py``).
 - ``--host-cache-pages N`` keeps a pinned G2 host KV tier of N pages;
   ``DYN_KV_STORE=<dir>`` (with a host tier) arms the G3 persistent tier
   under it (``kv/persistent.py``): demoted pages land in ``<dir>`` as
@@ -121,7 +124,8 @@ def parse_args(argv: list[str]):
             rest.append(a)
     p = argparse.ArgumentParser(prog="dynamo_exp_tpu_torch.run", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model-path", default="", help="HF-style model directory")
+    p.add_argument("--model-path", default="",
+                   help="HF-style model directory, a .gguf, or a hub id in the local cache")
     p.add_argument("--model-name", default="", help="served model name")
     p.add_argument("--preset", default="", help="built-in model preset (random weights)")
     p.add_argument("--random-weights", action="store_true",
@@ -210,28 +214,51 @@ def router_mode(opts):
 # ------------------------------------------------------------------- engines
 def build_cuda_engine(opts):
     """``TorchEngine`` and the card of ``--model-path`` (None with
-    ``--preset``): the directory's safetensors weights, or seeded random
-    weights with ``--random-weights`` or ``--preset``."""
+    ``--preset``, or for a GGUF without an embedded tokenizer): the
+    directory's safetensors weights or the GGUF's, or seeded random
+    weights with ``--random-weights`` or ``--preset``. A hub id resolves
+    to its snapshot in the local hub cache."""
     from .engine import EngineConfig, TorchEngine
     from .model_card import ModelDeploymentCard
     from .models import PRESETS, ModelConfig
 
     mdc = model = None
     if opts.model_path:
-        mcfg = ModelConfig.from_pretrained(opts.model_path)
-        mdc = ModelDeploymentCard.from_local_path(opts.model_path, opts.model_name or None)
-        has_weights = any(f.endswith(".safetensors") for f in os.listdir(opts.model_path))
-        if not opts.random_weights:
-            # Never serve random weights under a real model's name.
-            if not has_weights:
-                raise SystemExit(
-                    f"no .safetensors weights in {opts.model_path}; pass "
-                    "--random-weights to serve a random-initialized model"
-                )
-            from .models.loader import load_params
+        from .models.hub import resolve_model_path
 
-            t0 = time.monotonic()
-            model, mcfg = load_params(opts.model_path, mcfg, device=opts.device)
+        opts.model_path = resolve_model_path(opts.model_path)
+        t0 = time.monotonic()
+        if opts.model_path.endswith(".gguf"):
+            from .models.gguf import GGUFFile, config_from_gguf, load_params_from_gguf
+
+            gguf = GGUFFile.parse(opts.model_path)  # the metadata, read once
+            if opts.random_weights:
+                mcfg = config_from_gguf(gguf)
+            else:
+                model, mcfg = load_params_from_gguf(opts.model_path, gguf=gguf,
+                                                    device=opts.device)
+            # A self-contained GGUF carries its tokenizer and chat template;
+            # one without serves token ids only.
+            if "tokenizer.ggml.tokens" in gguf.metadata:
+                mdc = ModelDeploymentCard.from_gguf(opts.model_path, opts.model_name or None,
+                                                    gguf=gguf)
+            else:
+                logger.warning("GGUF has no embedded tokenizer; serving token-level only")
+        else:
+            mcfg = ModelConfig.from_pretrained(opts.model_path)
+            mdc = ModelDeploymentCard.from_local_path(opts.model_path, opts.model_name or None)
+            has_weights = any(f.endswith(".safetensors") for f in os.listdir(opts.model_path))
+            if not opts.random_weights:
+                # Never serve random weights under a real model's name.
+                if not has_weights:
+                    raise SystemExit(
+                        f"no .safetensors weights in {opts.model_path}; pass "
+                        "--random-weights to serve a random-initialized model"
+                    )
+                from .models.loader import load_params
+
+                model, mcfg = load_params(opts.model_path, mcfg, device=opts.device)
+        if model is not None:
             logger.info("loaded %s in %.2fs", opts.model_path, time.monotonic() - t0)
     elif opts.preset:
         mcfg = PRESETS[opts.preset]
@@ -324,11 +351,26 @@ async def remote_core(opts, drt, block_size: int):
 
 def require_mdc(opts):
     from .model_card import ModelDeploymentCard
+    from .models.hub import resolve_model_path
 
     if not opts.model_path:
         raise SystemExit(f"in={opts.input} with out={opts.output} needs --model-path "
                          "(tokenizer, template)")
-    mdc = ModelDeploymentCard.from_local_path(opts.model_path, opts.model_name or None)
+    opts.model_path = resolve_model_path(opts.model_path)
+    if opts.model_path.endswith(".gguf"):
+        from .models.gguf import GGUFFile
+
+        gguf = GGUFFile.parse(opts.model_path)
+        if "tokenizer.ggml.tokens" not in gguf.metadata:
+            raise SystemExit(
+                "this node shape needs a tokenizer and chat template, and this GGUF has no "
+                "embedded tokenizer (tokenizer.ggml.*): pass a model directory or a "
+                "self-contained GGUF"
+            )
+        mdc = ModelDeploymentCard.from_gguf(opts.model_path, opts.model_name or None,
+                                            gguf=gguf)
+    else:
+        mdc = ModelDeploymentCard.from_local_path(opts.model_path, opts.model_name or None)
     mdc.kv_cache_block_size = opts.page_size
     return mdc
 
@@ -416,22 +458,17 @@ async def run_http(opts, drt, core, full, mdc, torch_engine,
 
 
 def tokenizer_registrable(model_path: str) -> bool:
-    """Can an ingress build a preprocessor chain from this model dir?
-    A tokenizer-less dir registered with an ingress would strand it in
+    """Can an ingress build a preprocessor chain from this model: a
+    directory with a tokenizer the port loads (``tokenizer.json`` or
+    ``tokenizer.model``), or a GGUF with an embedded tokenizer? A
+    tokenizer-less model registered with an ingress would strand it in
     a rebuild loop."""
-    if any(os.path.exists(os.path.join(model_path, name))
-           for name in ("tokenizer.json", "tokenizer.model")):
-        return True
-    if all(os.path.exists(os.path.join(model_path, name))
-           for name in ("vocab.json", "merges.txt")):
-        return True
-    from .tokenizer import Tokenizer
+    if model_path.endswith(".gguf"):
+        from .models.gguf import GGUFFile
 
-    try:
-        Tokenizer.from_pretrained(model_path)
-        return True
-    except Exception:  # noqa: BLE001 - genuinely tokenizer-less
-        return False
+        return "tokenizer.ggml.tokens" in GGUFFile.parse(model_path).metadata
+    return any(os.path.isfile(os.path.join(model_path, name))
+               for name in ("tokenizer.json", "tokenizer.model"))
 
 
 async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future | None) -> None:

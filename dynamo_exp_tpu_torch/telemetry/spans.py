@@ -32,9 +32,12 @@ package's names, labels and buckets:
   the live workload's drift from a pinned reference
   (``dynamo_workload_drift_score``, ``telemetry/fingerprint.py``).
 
-Left out, with the modules that feed them (ROADMAP Queue 1): the G3
-store (its pages, quarantines and ``path="store"`` checksums), copy-on-
-write, the ledger auditor and config swaps.
+- the G3 store's pages, quarantines and ``path="store"`` checksums
+  (``kv/persistent.py``), copy-on-write copies and the ledger auditor's
+  violations.
+
+Left out, with the module that feeds it (``planner/``, ROADMAP Queue 1
+entry 8): config swaps.
 
 Gauge writes and span emission are thread-safe: the engine loop thread
 emits with the ``TraceContext`` captured at submission.

@@ -1,25 +1,32 @@
 """Tokenizer with incremental streaming detokenization, in pure Python.
 
 Counterpart of ``dynamo_exp_tpu/tokenizer.py``. Where the JAX package
-wraps HuggingFace ``tokenizers``, the port reads ``tokenizer.json`` and
-runs the BPE itself, so it needs no package beyond the standard library.
-It reads the two BPE layouts published checkpoints ship (:class:`BPE`):
+wraps HuggingFace ``tokenizers``, the port reads the tokenizer's files
+and runs the model itself, so it needs no package beyond the standard
+library. :meth:`Tokenizer.from_pretrained` loads, in this order, a
+``.gguf`` file's embedded tokenizer (``gguf_tokenizer.py``), a
+directory's ``tokenizer.json``, or its SentencePiece ``tokenizer.model``
+(``sp_model.py``). All three become one ``tokenizer.json``-shaped spec
+read by :class:`Backend`, in one of two layouts:
 
-- byte-level (GPT-2, Llama-3, Qwen2): ``pre_tokenizer``
-  ``ByteLevel(use_regex=True)`` (GPT-2's pattern) or
+- byte-level (GPT-2, Llama-3, Qwen2, a GGUF ``gpt2`` vocabulary):
+  ``pre_tokenizer`` ``ByteLevel(use_regex=True)`` (GPT-2's pattern) or
   ``Sequence[Split(Regex, Isolated), ByteLevel(use_regex=False)]``,
-  without ``add_prefix_space``; ``decoder`` ``ByteLevel`` (GPT-2's
+  either with ``add_prefix_space``; ``decoder`` ``ByteLevel`` (GPT-2's
   byte<->unicode table);
-- SentencePiece-style (Llama-2, Mistral, Gemma, Phi-3): a
-  ``Prepend("▁")`` / ``Replace(" ", "▁")`` normalizer and no
-  pre-tokenizer, or a ``Metaspace`` pre-tokenizer; ``model.byte_fallback``
-  (``<0xNN>`` tokens for characters outside the vocabulary) and
-  ``unk_token`` / ``fuse_unk``; a decoder of ``Replace``,
-  ``ByteFallback``, ``Fuse``, ``Strip`` and ``Metaspace`` steps.
+- SentencePiece-style (Llama-2, Mistral, Gemma, Phi-3, a GGUF ``llama``
+  vocabulary, a ``tokenizer.model``): a ``Prepend("▁")`` /
+  ``Replace(" ", "▁")`` normalizer and no pre-tokenizer, or a
+  ``Metaspace`` pre-tokenizer; ``model.byte_fallback`` (``<0xNN>``
+  tokens for characters outside the vocabulary) and the unknown token;
+  a decoder of ``Replace``, ``ByteFallback``, ``Fuse``, ``Strip`` and
+  ``Metaspace`` steps.
 
-Both: ``model`` BPE with ``vocab`` and ``merges`` (``"a b"`` strings or
-``[a, b]`` pairs) and ``ignore_merges``, no dropout, no subword
-prefix/suffix; ``added_tokens`` split out before pre-tokenization
+The model is :class:`BPE` (``vocab`` and ``merges``, ``"a b"`` strings
+or ``[a, b]`` pairs, ``ignore_merges``, ``unk_token`` / ``fuse_unk``; no
+dropout, no subword prefix/suffix) or :class:`Unigram` (``vocab`` of
+``[piece, score]``, ``unk_id``, ``byte_fallback``: HF's
+``models.Unigram``). Both: ``added_tokens`` split out before pre-tokenization
 (leftmost-longest, with ``lstrip``/``rstrip``; ``normalized`` ones
 matched by their normalized content in the normalized text), the
 ``special`` ones skipped by ``decode(skip_special_tokens=True)``;
@@ -32,8 +39,8 @@ U+001C..U+001F, so a pattern's ``\\p{L}``, ``\\p{N}``, ``\\s`` and
 ``\\S`` are rewritten once, at load, into explicit character classes
 built from ``unicodedata`` and Unicode's White_Space list. Any other
 layout raises ``NotImplementedError`` naming the ROADMAP item that
-brings it (a bare SentencePiece ``tokenizer.model``, GGUF, Unigram,
-WordPiece and the other normalizers: Queue 1 item 9(f)).
+brings it (WordPiece and the normalizers beyond NFC, ``Prepend`` and
+string ``Replace``: Queue 1 item 9(f)).
 """
 
 from __future__ import annotations
@@ -166,7 +173,7 @@ def translate_pattern(pattern: str) -> str:
 def _unsupported(what: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"tokenizer.json {what} {json.dumps(value)[:120]} is not supported by "
-        f"the port's BPE; see {LATER}"
+        f"the port's tokenizer; see {LATER}"
     )
 
 
@@ -202,29 +209,14 @@ def _byte_fallback(tokens: list[str]) -> list[str]:
 
 
 class BPE:
-    """The encode/decode backend read from one ``tokenizer.json``: a BPE
-    model in one of two layouts.
-
-    - Byte-level (GPT-2, Llama-3, Qwen2): the ``ByteLevel`` decoder; text
-      is split by the pre-tokenizer's pattern and each piece's UTF-8
-      bytes are mapped to GPT-2's printable characters before BPE.
-    - SentencePiece-style (Llama-2, Mistral, Gemma, Phi-3): spaces
-      become ``▁`` through a ``Replace`` / ``Prepend`` normalizer or a
-      ``Metaspace`` pre-tokenizer, BPE runs on the characters themselves,
-      and a character outside the vocabulary falls back to its UTF-8
-      bytes as ``<0xNN>`` tokens (``model.byte_fallback``) or to
-      ``unk_token``. The decoder is a ``Sequence`` of ``Replace``,
-      ``ByteFallback``, ``Fuse``, ``Strip`` and ``Metaspace`` steps.
+    """A BPE ``model`` of ``tokenizer.json``: one word's ids.
 
     Merges are applied as HF's ``Word::merge_all`` applies them: the
     lowest-ranked pair first, the leftmost among equals, one merge at a
     time, so even a merge list whose new pairs outrank older ones
     tokenizes as ``tokenizers`` does."""
 
-    def __init__(self, spec: dict):
-        model = spec.get("model") or {}
-        if model.get("type", "BPE") != "BPE":
-            raise _unsupported("model", model.get("type"))
+    def __init__(self, model: dict):
         for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if model.get(key):
                 raise _unsupported(f"model.{key}", model[key])
@@ -240,6 +232,175 @@ class BPE:
             if a in self.vocab and b in self.vocab and a + b in self.vocab:
                 self.merges.setdefault((self.vocab[a], self.vocab[b]), (rank, self.vocab[a + b]))
         self.id_to_token: dict[int, str] = {i: t for t, i in self.vocab.items()}
+
+    def _symbols(self, word: str) -> list[int]:
+        """A word's first symbols: one id a character; outside the
+        vocabulary, its UTF-8 bytes as ``<0xNN>`` tokens (byte fallback)
+        when they all exist, else ``unk_token`` (runs fused with
+        ``fuse_unk``), else nothing."""
+        ids: list[int] = []
+        unk = False
+        for c in word:
+            i = self.vocab.get(c)
+            if i is None and self.byte_fallback:
+                fb = [self.vocab.get(f"<0x{b:02X}>") for b in c.encode("utf-8")]
+                if None not in fb:
+                    ids.extend(fb)
+                    unk = False
+                    continue
+            if i is None:
+                if self.unk_id is not None and not (unk and self.fuse_unk):
+                    ids.append(self.unk_id)
+                unk = self.unk_id is not None
+                continue
+            ids.append(i)
+            unk = False
+        return ids
+
+    def _merge(self, ids: list[int]) -> list[int]:
+        """Apply the merges to a word's symbols (see the class docstring)."""
+        n = len(ids)
+        if n < 2:
+            return ids
+        nxt = list(range(1, n)) + [-1]
+        prv = list(range(-1, n - 1))
+        heap = []
+        for i in range(n - 1):
+            m = self.merges.get((ids[i], ids[i + 1]))
+            if m is not None:
+                heap.append((m[0], i, m[1]))
+        heapq.heapify(heap)
+        ids = list(ids)
+        while heap:
+            rank, i, new = heapq.heappop(heap)
+            j = nxt[i]
+            if ids[i] < 0 or j < 0 or self.merges.get((ids[i], ids[j]), (0, None))[1] != new:
+                continue  # a stale entry: a side of the pair was merged since
+            ids[i], ids[j] = new, -1
+            nxt[i] = nxt[j]
+            if nxt[j] >= 0:
+                prv[nxt[j]] = i
+            for a, b in ((prv[i], i), (i, nxt[i])):
+                if a >= 0 and b >= 0:
+                    m = self.merges.get((ids[a], ids[b]))
+                    if m is not None:
+                        heapq.heappush(heap, (m[0], a, m[1]))
+        return [i for i in ids if i >= 0]
+
+    def tokenize(self, word: str) -> list[int]:
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        return self._merge(self._symbols(word))
+
+
+class Unigram:
+    """A Unigram ``model`` of ``tokenizer.json`` (SentencePiece's model),
+    as HF's ``models.Unigram`` runs it: the Viterbi path of highest total
+    score over the pieces that match the word. A character no piece of
+    one character covers scores the lowest score less 10 as ``unk``;
+    consecutive ``unk`` characters fuse into one. Ties go to the path
+    found first: the one whose last piece starts earliest. A fused run
+    outside the vocabulary becomes its UTF-8 ``<0xNN>`` pieces with
+    ``byte_fallback`` when all of them exist, else ``unk``."""
+
+    UNK_PENALTY = 10.0
+
+    def __init__(self, model: dict):
+        pieces = [(str(p), float(s)) for p, s in model.get("vocab") or []]
+        self.scores = [s for _, s in pieces]
+        # piece -> id; a repeated piece keeps its last id, as HF's map does
+        self.vocab: dict[str, int] = {p: i for i, (p, _) in enumerate(pieces)}
+        self.id_to_token: dict[int, str] = {i: p for i, (p, _) in enumerate(pieces)}
+        self.unk_id = model.get("unk_id")
+        if self.unk_id is not None and not 0 <= self.unk_id < len(pieces):
+            raise ValueError(f"Unigram unk_id {self.unk_id} is outside the vocabulary "
+                             f"of {len(pieces)}")
+        self.byte_fallback = bool(model.get("byte_fallback", False))
+        self.unk_score = min(self.scores, default=float("inf")) - self.UNK_PENALTY
+        self.max_len = max((len(p) for p, _ in pieces), default=0)
+
+    def _unk(self) -> int:
+        if self.unk_id is None:
+            raise ValueError("Unigram model has no unk_id for a character outside it")
+        return self.unk_id
+
+    def _segment(self, word: str) -> list[str]:
+        """The best path's pieces, ``unk`` runs fused."""
+        n = len(word)
+        best: list[tuple | None] = [None] * (n + 1)  # (score, start, id) of a path to here
+        best[0] = (0.0, 0, -1)
+        for s in range(n):
+            base = best[s][0]
+            single = False
+            for e in range(s + 1, min(s + self.max_len, n) + 1):
+                i = self.vocab.get(word[s:e])
+                if i is None:
+                    continue
+                score = self.scores[i] + base
+                if best[e] is None or score > best[e][0]:
+                    best[e] = (score, s, i)
+                single = single or e == s + 1
+            if not single:
+                score = self.unk_score + base
+                if best[s + 1] is None or score > best[s + 1][0]:
+                    best[s + 1] = (score, s, self._unk())
+        out: list[str] = []
+        run: list[str] = []
+        e = n
+        while e > 0:
+            _, s, i = best[e]
+            if self.unk_id is not None and i == self.unk_id:
+                run.append(word[s:e])
+            else:
+                if run:
+                    out.append("".join(reversed(run)))
+                    run = []
+                out.append(word[s:e])
+            e = s
+        if run:
+            out.append("".join(reversed(run)))
+        return out[::-1]
+
+    def tokenize(self, word: str) -> list[int]:
+        ids: list[int] = []
+        for piece in self._segment(word):
+            i = self.vocab.get(piece)
+            if i is None and self.byte_fallback:
+                fb = [self.vocab.get(f"<0x{b:02X}>") for b in piece.encode("utf-8")]
+                if None not in fb:
+                    ids.extend(fb)
+                    continue
+            ids.append(self._unk() if i is None else i)
+        return ids
+
+
+MODELS = {"BPE": BPE, "Unigram": Unigram}
+
+
+class Backend:
+    """The encode/decode backend of one ``tokenizer.json``-shaped spec:
+    its model (:class:`BPE` or :class:`Unigram`) in one of two layouts.
+
+    - Byte-level (GPT-2, Llama-3, Qwen2): the ``ByteLevel`` decoder; text
+      is split by the pre-tokenizer's pattern and each piece's UTF-8
+      bytes are mapped to GPT-2's printable characters before the model.
+    - SentencePiece-style (Llama-2, Mistral, Gemma, Phi-3): spaces
+      become ``▁`` through a ``Replace`` / ``Prepend`` normalizer or a
+      ``Metaspace`` pre-tokenizer, the model runs on the characters
+      themselves, and a character outside the vocabulary falls back to
+      its UTF-8 bytes as ``<0xNN>`` tokens (``model.byte_fallback``) or
+      to the unknown token. The decoder is a ``Sequence`` of
+      ``Replace``, ``ByteFallback``, ``Fuse``, ``Strip`` and
+      ``Metaspace`` steps."""
+
+    def __init__(self, spec: dict):
+        model = spec.get("model") or {}
+        kind = model.get("type", "BPE")
+        if kind not in MODELS:
+            raise _unsupported("model", kind)
+        self.model = MODELS[kind](model)
+        self.vocab = self.model.vocab
+        self.id_to_token: dict[int, str] = dict(self.model.id_to_token)
         self.added: dict[str, dict] = {}
         self.special_ids: set[int] = set()
         for t in spec.get("added_tokens") or []:
@@ -263,9 +424,10 @@ class BPE:
             self._added_by[norm][key] = t
         self._added_re = {norm: self._alternation(list(by)) for norm, by in self._added_by.items()}
         if self.byte_level:
-            if self.byte_fallback:
+            if self.model.byte_fallback:
                 raise _unsupported("model.byte_fallback", True)
-            self._split_re = self._read_pre_tokenizer(spec.get("pre_tokenizer"))
+            self._split_re, self._prefix_space = self._read_pre_tokenizer(
+                spec.get("pre_tokenizer"))
         else:
             self._decoders = self._read_decoders(dec)
             self._metaspace = self._read_metaspace(spec.get("pre_tokenizer"))
@@ -306,12 +468,17 @@ class BPE:
         raise _unsupported("normalizer", norm)
 
     @staticmethod
-    def _read_pre_tokenizer(pre) -> re.Pattern:
-        """The byte-level layouts' pattern that splits text into pieces."""
-        if pre is None or pre.get("add_prefix_space"):
+    def _read_pre_tokenizer(pre) -> tuple[re.Pattern, str | None]:
+        """The byte-level layouts' pattern that splits text into pieces,
+        and where ``add_prefix_space`` puts a space in front of a text
+        that does not start with one: ``"part"`` (``ByteLevel`` alone:
+        each normalized part, before the split), ``"piece"`` (after a
+        ``Split``: each piece), or None."""
+        if pre is None:
             raise _unsupported("pre_tokenizer", pre)
         if pre.get("type") == "ByteLevel" and pre.get("use_regex", True):
-            return re.compile(translate_pattern(GPT2_PATTERN))
+            return (re.compile(translate_pattern(GPT2_PATTERN)),
+                    "part" if pre.get("add_prefix_space") else None)
         if pre.get("type") == "Sequence":
             seq = pre.get("pretokenizers") or []
             if (
@@ -322,9 +489,9 @@ class BPE:
                 and not seq[0].get("invert", False)
                 and seq[1].get("type") == "ByteLevel"
                 and not seq[1].get("use_regex", True)
-                and not seq[1].get("add_prefix_space")
             ):
-                return re.compile(translate_pattern(seq[0]["pattern"]["Regex"]))
+                return (re.compile(translate_pattern(seq[0]["pattern"]["Regex"])),
+                        "piece" if seq[1].get("add_prefix_space") else None)
         raise _unsupported("pre_tokenizer", pre)
 
     @staticmethod
@@ -414,6 +581,8 @@ class BPE:
         """The words of one normalized piece; ``first``: the piece starts
         the input (``Metaspace``'s ``first`` prepend scheme)."""
         if self.byte_level:
+            if self._prefix_space == "part" and not text.startswith(" "):
+                text = " " + text
             pieces, pos = [], 0
             for m in self._split_re.finditer(text):
                 s, e = m.span()
@@ -424,6 +593,8 @@ class BPE:
                 pos = e
             if pos < len(text):
                 pieces.append(text[pos:])
+            if self._prefix_space == "piece":
+                pieces = [w if w.startswith(" ") else " " + w for w in pieces]
             return ["".join(BYTE_ENCODER[b] for b in w.encode("utf-8")) for w in pieces]
         if self._metaspace is None:
             return [text]
@@ -436,68 +607,11 @@ class BPE:
         words = re.split(f"(?={re.escape(rep)})", text)  # each ▁ opens a word
         return [w for w in words if w]
 
-    def _symbols(self, word: str) -> list[int]:
-        """A word's first symbols: one id a character; outside the
-        vocabulary, its UTF-8 bytes as ``<0xNN>`` tokens (byte fallback)
-        when they all exist, else ``unk_token`` (runs fused with
-        ``fuse_unk``), else nothing."""
-        ids: list[int] = []
-        unk = False
-        for c in word:
-            i = self.vocab.get(c)
-            if i is None and self.byte_fallback:
-                fb = [self.vocab.get(f"<0x{b:02X}>") for b in c.encode("utf-8")]
-                if None not in fb:
-                    ids.extend(fb)
-                    unk = False
-                    continue
-            if i is None:
-                if self.unk_id is not None and not (unk and self.fuse_unk):
-                    ids.append(self.unk_id)
-                unk = self.unk_id is not None
-                continue
-            ids.append(i)
-            unk = False
-        return ids
-
-    def _merge(self, ids: list[int]) -> list[int]:
-        """Apply the merges to a word's symbols (see the class docstring)."""
-        n = len(ids)
-        if n < 2:
-            return ids
-        nxt = list(range(1, n)) + [-1]
-        prv = list(range(-1, n - 1))
-        heap = []
-        for i in range(n - 1):
-            m = self.merges.get((ids[i], ids[i + 1]))
-            if m is not None:
-                heap.append((m[0], i, m[1]))
-        heapq.heapify(heap)
-        ids = list(ids)
-        while heap:
-            rank, i, new = heapq.heappop(heap)
-            j = nxt[i]
-            if ids[i] < 0 or j < 0 or self.merges.get((ids[i], ids[j]), (0, None))[1] != new:
-                continue  # a stale entry: a side of the pair was merged since
-            ids[i], ids[j] = new, -1
-            nxt[i] = nxt[j]
-            if nxt[j] >= 0:
-                prv[nxt[j]] = i
-            for a, b in ((prv[i], i), (i, nxt[i])):
-                if a >= 0 and b >= 0:
-                    m = self.merges.get((ids[a], ids[b]))
-                    if m is not None:
-                        heapq.heappush(heap, (m[0], a, m[1]))
-        return [i for i in ids if i >= 0]
-
-    def _bpe(self, word: str) -> list[int]:
+    def _word(self, word: str) -> list[int]:
         hit = self._cache.get(word)
         if hit is not None:
             return hit
-        if self.ignore_merges and word in self.vocab:
-            ids = [self.vocab[word]]
-        else:
-            ids = self._merge(self._symbols(word))
+        ids = self.model.tokenize(word)
         if len(word) <= 256:  # one-word layouts pass whole texts
             if len(self._cache) >= 100_000:
                 self._cache.clear()
@@ -516,7 +630,7 @@ class BPE:
                     ids.append(part)
                 elif part:
                     for word in self._pre_tokenize(part, first):
-                        ids.extend(self._bpe(word))
+                        ids.extend(self._word(word))
                 first = False
         if add_special_tokens and self._template is not None:
             out: list[int] = []
@@ -579,26 +693,51 @@ def _strip(tok: str, ch: str, lead: int, trail: int) -> str:
 
 
 class Tokenizer:
-    """Encode/decode facade over :class:`BPE`."""
+    """Encode/decode facade over a :class:`Backend`."""
 
-    def __init__(self, backend: BPE, eos_token_ids: list[int] | None = None):
+    def __init__(self, backend: Backend, eos_token_ids: list[int] | None = None):
         self._t = backend
         self.eos_token_ids = eos_token_ids or []
 
     @classmethod
     def from_pretrained(cls, path: str) -> "Tokenizer":
-        """Load from a model directory holding ``tokenizer.json``, or
-        from the file itself."""
-        tok_json = os.path.join(path, "tokenizer.json") if os.path.isdir(path) else path
-        model_dir = os.path.dirname(tok_json)
-        if not (tok_json.endswith(".json") and os.path.isfile(tok_json)):
-            if os.path.exists(os.path.join(path, "tokenizer.model")) or path.endswith(".gguf"):
-                raise NotImplementedError(
-                    f"{path}: SentencePiece and GGUF tokenizers are not ported; see {LATER}"
-                )
-            raise FileNotFoundError(f"no tokenizer.json at {path}")
+        """Load from a ``.gguf`` file (its embedded tokenizer), from a
+        model directory holding ``tokenizer.json`` or, without one, a
+        SentencePiece ``tokenizer.model`` (BOS added unless
+        ``tokenizer_config.json`` sets ``add_bos_token`` false), or from
+        a ``tokenizer.json`` itself. Anything else raises
+        ``FileNotFoundError``: the port has no ``transformers`` to fall
+        back on."""
+        if path.endswith(".gguf") and os.path.isfile(path):
+            from .gguf_tokenizer import tokenizer_from_gguf
+
+            return tokenizer_from_gguf(path)
+        if os.path.isdir(path):
+            tok_json = os.path.join(path, "tokenizer.json")
+            if os.path.isfile(tok_json):
+                return cls._from_json(tok_json, path)
+            sp_path = os.path.join(path, "tokenizer.model")
+            if os.path.isfile(sp_path):
+                from .sp_model import tokenizer_backend_from_sp
+
+                add_bos = True
+                tcfg = os.path.join(path, "tokenizer_config.json")
+                if os.path.exists(tcfg):
+                    with open(tcfg, encoding="utf-8") as f:
+                        add_bos = bool(json.load(f).get("add_bos_token", True))
+                backend = tokenizer_backend_from_sp(sp_path, add_bos=add_bos)
+                return cls(backend, _eos_ids_from_config(path, backend))
+        elif path.endswith(".json") and os.path.isfile(path):
+            return cls._from_json(path, os.path.dirname(path))
+        raise FileNotFoundError(
+            f"no tokenizer at {path}: the port loads a .gguf, tokenizer.json or "
+            f"tokenizer.model (vocab.json + merges.txt: {LATER})"
+        )
+
+    @classmethod
+    def _from_json(cls, tok_json: str, model_dir: str) -> "Tokenizer":
         with open(tok_json, encoding="utf-8") as f:
-            backend = BPE(json.load(f))
+            backend = Backend(json.load(f))
         return cls(backend, _eos_ids_from_config(model_dir, backend))
 
     def encode(self, text: str, add_special_tokens: bool = True) -> Encoding:
@@ -649,7 +788,7 @@ class DecodeStream:
         return text
 
 
-def _eos_ids_from_config(model_dir: str, backend: BPE) -> list[int]:
+def _eos_ids_from_config(model_dir: str, backend: Backend) -> list[int]:
     """EOS token id(s) from generation_config.json / config.json, else
     the literal ``</s>``-style token of the vocabulary."""
     for fname in ("generation_config.json", "config.json"):

@@ -6,7 +6,8 @@ interpreter, which must then hold neither ``jax`` nor any
 ``dynamo_exp_tpu`` module in ``sys.modules``, nor any of the packages
 the JAX package's ingress rests on and the H100 machine does not have
 (``aiohttp``, ``pydantic``, ``tokenizers``, ``transformers``,
-``prometheus_client``, ``safetensors``). The parity tests are the only
+``prometheus_client``, ``safetensors``, ``sentencepiece``, ``gguf``,
+``huggingface_hub``). The parity tests are the only
 other place where the two packages meet.
 """
 
@@ -23,6 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = (
     "jax", "jaxlib", "dynamo_exp_tpu", "aiohttp", "pydantic", "pydantic_core",
     "tokenizers", "transformers", "prometheus_client", "safetensors",
+    "sentencepiece", "gguf", "huggingface_hub",
 )
 
 _PROBE = """

@@ -25,6 +25,7 @@ import json
 import threading
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -474,18 +475,51 @@ def test_graphed_and_eager_runs_record_the_same_telemetry(np_params, chained):
             == disp["chained"]) and (disp["chained"] > 0) == chained
 
 
-def test_watchdog_does_not_fire_across_slow_captures(np_params, tmp_path):
+class _StepClock:
+    """A monotonic clock that moves only when :meth:`step` moves it;
+    ``step`` returns once the clock has been read after it (the
+    watchdog reads it once a poll), or at once when nothing polls."""
+
+    def __init__(self):
+        self.now = 0.0
+        self.reads = 0
+        self._cv = threading.Condition()
+
+    def monotonic(self) -> float:
+        with self._cv:
+            self.reads += 1
+            self._cv.notify_all()
+            return self.now
+
+    def step(self, dt: float, polled: bool) -> None:
+        with self._cv:
+            self.now += dt
+            seen = self.reads
+            if polled:
+                assert self._cv.wait_for(lambda: self.reads > seen, 60), "the watchdog stopped"
+
+
+def test_watchdog_does_not_fire_across_slow_captures(np_params, tmp_path, monkeypatch):
     """Each capture counts as progress: a burst whose captures each take
-    a third of the stall limit, several in a row, dumps nothing."""
+    just over half the stall limit, several in a row, dumps nothing. The
+    watchdog's clock is the test's own: it moves only inside a capture,
+    and the capture waits until the watchdog has polled after that step,
+    so the wall clock (a loaded host's) never counts as a stall, while
+    two captures with no progress between them would fire it (as they
+    do when a capture is not counted as progress)."""
+    clock = _StepClock()
+    monkeypatch.setattr(tflight, "time", SimpleNamespace(time=time.time,
+                                                         monotonic=clock.monotonic))
+    stall_s, step_s = 0.3, 0.3 * 0.55
 
     class SlowRunner(StubRunner):
         def capture(self, fn):
-            time.sleep(0.1)
+            clock.step(step_s, polled=eng._watchdog is not None)
             return super().capture(fn)
 
     eng = TorchEngine(
-        EngineConfig(model=CFG, watchdog_stall_s=0.3, flight_dump_path=str(tmp_path / "f"),
-                     **ENGINE_KW),
+        EngineConfig(model=CFG, watchdog_stall_s=stall_s,
+                     flight_dump_path=str(tmp_path / "f"), **ENGINE_KW),
         model=params_from_jax(np_params, CFG, device="cpu"), device="cpu",
     )
     eng.graphs = DispatchGraphs(eng, runner=SlowRunner())
@@ -505,5 +539,7 @@ def test_watchdog_does_not_fire_across_slow_captures(np_params, tmp_path):
         assert eng._watchdog is not None and eng._watchdog.dumps == 0
     finally:
         eng.stop()
-    assert sum(g["captured"] for g in eng.metrics()["graphs"].values()) >= 4
+    captured = sum(g["captured"] for g in eng.metrics()["graphs"].values())
+    assert captured >= 4 and clock.now >= captured * step_s - 1e-9 >= 2 * stall_s
+    assert clock.reads > captured  # the watchdog polled the test's clock
     assert not (tmp_path / "f").exists()

@@ -141,11 +141,11 @@ def test_pattern_translation_reads_unicode_classes():
 @pytest.mark.parametrize(
     "edit,match",
     [
-        (lambda d: d["model"].update(type="Unigram"), "Unigram"),
+        (lambda d: d["model"].update(type="WordLevel"), "WordLevel"),
         (lambda d: d.update(pre_tokenizer={"type": "Metaspace", "replacement": "▁"}), "Metaspace"),
         (lambda d: d.update(normalizer={"type": "NFKC"}), "NFKC"),
         (lambda d: d.update(decoder={"type": "WordPiece"}), "WordPiece"),
-        (lambda d: d["pre_tokenizer"].update(add_prefix_space=True), "add_prefix_space"),
+        (lambda d: d.update(normalizer={"type": "Lowercase"}), "Lowercase"),
     ],
 )
 def test_unsupported_layouts_raise(tiny_model_dir, tmp_path, edit, match):
@@ -160,6 +160,8 @@ def test_unsupported_layouts_raise(tiny_model_dir, tmp_path, edit, match):
 
 
 def test_sentencepiece_directory_raises(tmp_path):
+    """A ``tokenizer.model`` that is not a SentencePiece model raises
+    (the port loads a valid one: ``test_torch_tokenizer_unigram.py``)."""
     (tmp_path / "tokenizer.model").write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="SentencePiece"):
+    with pytest.raises(ValueError, match="not a sentencepiece model"):
         Tokenizer.from_pretrained(str(tmp_path))
