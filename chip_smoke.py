@@ -121,7 +121,8 @@ Phases, each fatal on failure (nothing is caught):
    shape); printed: write and load seconds, GB/s read; the directory is
    deleted. (b) ``run.build_cuda_engine(--model-path <dir> --random-weights
    --prewarm --compile-cache-dir <tmp> --spec ngram)``, the directory's
-   config.json llama-8b's at 8 of its 32 layers:
+   config.json llama-8b's at 4 of its 32 layers (a cut that keeps the
+   smoke inside its time limit):
    every window and mixed variant (112 and 80 keys, verify spans too)
    captured as a CUDA graph before traffic (printed: variants, graphs and
    seconds of each kind, the graph pool's bytes, one kernel build into
@@ -419,6 +420,26 @@ Phases, each fatal on failure (nothing is caught):
    weights, served the same way: the same prompt ids and the same
    tokens as (a) (bit-equal weights, so identity is asserted at bf16).
 
+18. tensor parallelism through ``python -m dynamo_exp_tpu_torch.run
+   in=batch:<token_ids lines> --tp 2``, each rank a process of its own:
+   with one card both ranks share it over gloo, with two or more each
+   has a card, over NCCL (printed with ``torch.cuda.device_count()``
+   and each rank's device and peak memory); the three kernels run at
+   per-rank head counts. (a) The llama-8b preset at full width and
+   depth, bf16, random weights from seed 0: phase 5's 8 prompts (the
+   seeded one too), 32 tokens each, admitted together, then a rerun in
+   new processes: the same tokens, both ranks' output digests equal,
+   both bf16 kernels launched on each rank as often on both; printed:
+   wall, tokens/s, rank 0's collectives (count, seconds, share of the
+   wall). (b) llama-8b's width at 4 layers, float32: tp=2 against the
+   tp=1 engine in this process on the same seed-0 weights: the same
+   greedy tokens up to a float32 tie (``F32_TIE``) through the float32
+   mixed and split-KV kernels. (c) Qwen1.5-MoE-A2.7B's published width
+   at 4 layers, bf16 (16/16 heads of 128, 60 experts of 1,408, top-4, a
+   shared expert of 5,632): 8 prompts of 32 tokens and a rerun,
+   identical, with the grouped products and both bf16 kernels launched
+   on each rank.
+
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
@@ -450,7 +471,9 @@ checks (``launches_window_logits``), and phase 15's G3 engines
 (``launches_chaos``: (d)), and phase 16's mixtral engine
 (``launches_moe``: (a)) and float32 sharing engines
 (``launches_sharing_f32``: (c)), and phase 17's GGUF and directory
-servers (``launches_gguf``, ``launches_gguf_dir``: their HTTP chats);
+servers (``launches_gguf``, ``launches_gguf_dir``: their HTTP chats),
+and phase 18's rank 0 (``launches_tp2``: (a), ``launches_tp2_f32``: (b),
+``launches_tp2_moe``: (c); every rank's are equal);
 both mixed entries also carry the
 verify spans' timing (``verify_*``), and every entry phase 3's windowed
 cases in its own dtype (``gemma2_d256_softcap_window``,
@@ -2614,7 +2637,7 @@ class Phase9:
     chain_tokens: int = CHAIN_TOKENS  # (b)'s phase 8 (a) burst
     loader_layers: int = LOADER_LAYERS
     preset: str = "llama-8b"  # (b)'s warm boot: the preset's width ...
-    warm_layers: int = 8  # ... at this depth (a model directory of its config.json)
+    warm_layers: int = 4  # ... at this depth (a model directory of its config.json)
     repeat_block: int = 64  # (b)'s speculation burst: a block of random ids a row ...
     repeat_times: int = 4  # ... repeated
     second_preset: str = "llama-1b"  # (c)'s second boot, in a new process
@@ -7238,6 +7261,282 @@ def phase17(torch, np, pkg, tra, smi: str, sh: Phase17 = Phase17(), mcfg=None) -
                 designs=a["designs"], designs_dir=b["designs"], wall_s=wall)
 
 
+# --------------------------------------------------------------- phase 18
+TP_DEGREE = 2
+
+
+@dataclass
+class Phase18:
+    """Phase 18's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, tiny configs in place of the presets)."""
+
+    device: str = "cuda"
+    dense_preset: str = "llama-8b"  # (a): the preset at full width and depth, bf16
+    prompt_lens: tuple = PROMPT_LENS  # (a), (b): phase 5's prompts ...
+    max_tokens: int = MAX_TOKENS  # ... at 32 tokens
+    f32_layers: int = 4  # (b): llama-8b's width at 4 layers, float32
+    moe_layers: int = 4  # (c): Qwen1.5-MoE-A2.7B's width at 4 layers, bf16
+    moe_prompts: int = 8  # (c): 8 prompts ...
+    moe_prompt_len: int = 32  # ... of 32 tokens
+    timeout_s: float = 300.0  # each run.py process pair
+
+
+def p18_placement(torch, device: str) -> tuple[int, str]:
+    """(cards, backend) of the tp ranks: one card shared over gloo, or a
+    card each over NCCL; the CPU over gloo."""
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    return cards, "nccl" if cards >= TP_DEGREE else "gloo"
+
+
+def p18_batch(path: str, prompts, max_tokens: int, options=None, logprobs=None) -> str:
+    """``in=batch`` lines of token ids (each admitted with the others)."""
+    with open(path, "w", encoding="utf-8") as f:
+        for i, ids in enumerate(prompts):
+            line = {"token_ids": list(ids), "max_tokens": max_tokens, "ignore_eos": True,
+                    **((options or {}).get(i, {}))}
+            if logprobs is not None:
+                line["logprobs"] = logprobs
+            f.write(json.dumps(line) + "\n")
+    return path
+
+
+def p18_run(argv: list, sh: Phase18, tp: int = TP_DEGREE) -> dict:
+    """``python -m dynamo_exp_tpu_torch.run <argv> --tp <tp>`` from this
+    checkout, stopped at ``sh.timeout_s``: its outputs by index, the
+    stats line, the ``{"tp": ...}`` line and the process wall."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    cmd = [sys.executable, "-m", "dynamo_exp_tpu_torch.run", *argv, "--tp", str(tp)]
+    t_popen = time.time()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=sh.timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate(timeout=60)
+        raise AssertionError(f"run.py --tp {tp} passed {sh.timeout_s} s:\n{err[-4000:]}")
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, f"run.py --tp {tp} exited {proc.returncode}:\n{err[-6000:]}"
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    rows = sorted((x for x in lines if "index" in x), key=lambda x: x["index"])
+    (stats,) = [x for x in lines if "requests" in x]
+    tp_line = [x for x in lines if "ranks" in x]
+    if tp_line:
+        # Rank 0's interpreter and imports before main_async, from the
+        # spawn of the process.
+        tp_line[0]["timeline"]["main_s"] = round(tp_line[0]["started_at"] - t_popen, 3)
+    boots = [x.split("boot, seconds since spawn: ", 1)[1] for x in err.splitlines()
+             if "boot, seconds since spawn" in x]
+    return dict(rows=rows, stats=stats, tp=tp_line[0] if tp_line else None, wall_s=wall,
+                tokens=[r["token_ids"] for r in rows], follower_boot=boots)
+
+
+def p18_argv(sh: Phase18, batch: str, model: list, kv_dtype: str, lens, max_tokens: int,
+             backend: str) -> list:
+    return [f"in=batch:{batch}", "out=cuda", "--device", sh.device, *model,
+            "--random-weights", "--max-decode-slots", "8", "--page-size", str(PS),
+            "--max-model-len", str(max(lens) + max_tokens + PS),
+            "--num-pages", str(pages_needed(lens, max_tokens) + 64), "--kv-dtype", kv_dtype,
+            "--max-tokens", str(max_tokens), "--dist-backend", backend]
+
+
+def p18_ranks(r: dict, what: str, kernels, moe: bool = False) -> dict:
+    """Check the tp line of run ``r``: every rank's outputs' digest is
+    rank 0's, each rank launched ``kernels`` (and the grouped products
+    with ``moe``) on the card, the same number of times on every rank.
+    Returns rank 0's launches by kernel."""
+    tp = r["tp"]
+    assert tp is not None and len(tp["ranks"]) == TP_DEGREE, (what, tp)
+    ranks = tp["ranks"]
+    assert len({(x["digest"], x["dispatches"]) for x in ranks}) == 1, (what, ranks)
+    designs = [x["launches"]["attention_kernels"] for x in ranks]
+    grouped = [x["launches"]["moe"]["grouped_mm"] for x in ranks]
+    assert all(d == designs[0] for d in designs), f"{what}: launches differ by rank {designs}"
+    assert all(g == grouped[0] for g in grouped), f"{what}: grouped products differ {grouped}"
+    if ranks[0]["device"].startswith("cuda"):
+        for k in kernels:
+            assert designs[0][k] > 0, f"{what}: {k} never launched: {designs[0]}"
+        if moe:
+            assert grouped[0] > 0, f"{what}: no grouped product launched"
+    return dict(designs[0], grouped_mm=grouped[0])
+
+
+def p18_rank_line(r: dict) -> str:
+    """Each rank's device, peak memory, dispatches and collectives, and
+    where rank 0's process spent its wall (seconds into ``main_async``
+    when the group formed, the engine was built and it stopped)."""
+    t = r["tp"]["timeline"]
+    return f"process {r['wall_s']:.1f} s (main_async at {t['main_s']} s; group at " \
+        f"{t['joined_s']} s, engine at {t['built_s']} s, stopped at {t['stopped_s']} s, " \
+        f"other ranks joined at {t['closed_s']} s into main_async; rank 1's boot " \
+        f"{r['follower_boot']}); " + "; ".join(
+        f"rank {x['rank']} on {x['device']}: peak {x['peak_memory_bytes'] / 1e9:.2f} GB, "
+        f"{x['dispatches']} dispatches, collectives {x['comm']['calls']} in "
+        f"{ {k: round(v, 4) for k, v in x['comm']['seconds'].items()} } s"
+        for x in r["tp"]["ranks"])
+
+
+def p18_reference(torch, pkg, mcfg, sh: Phase18, prompts, max_tokens: int, logprobs: int):
+    """The tp=1 engine on the same seed-0 weights as ``--random-weights``
+    (eager, as the tp ranks run), the prompts admitted together: each
+    row's tokens, logprobs and top logprobs."""
+    from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
+
+    lens = [len(p) for p in prompts]
+    cfg = EngineConfig(model=mcfg, max_decode_slots=8, page_size=PS,
+                       num_pages=pages_needed(lens, max_tokens) + 64,
+                       max_model_len=max(lens) + max_tokens + PS, kv_dtype=mcfg.dtype,
+                       default_max_tokens=max_tokens, cuda_graphs=False)
+    eng = TorchEngine(cfg, model=seeded_model(torch, pkg, mcfg, sh.device), device=sh.device)
+
+    async def collect(stream):
+        r = dict(tokens=[], lps=[], tops=[])
+        async for item in stream:
+            r["tokens"] += item.get("token_ids") or []
+            r["lps"] += item.get("logprobs") or []
+            r["tops"] += item.get("top_logprobs") or []
+        return r
+
+    async def go():
+        streams = [eng.submit({"token_ids": p, "stop_conditions": {
+            "max_tokens": max_tokens, "ignore_eos": True},
+            "sampling_options": {"logprobs": logprobs}}) for p in prompts]
+        eng.start()
+        return await asyncio.wait_for(asyncio.gather(*map(collect, streams)), 600)
+
+    try:
+        out = asyncio.run(go())
+    finally:
+        eng.stop()
+    del eng
+    free(torch, sh.device)
+    return out
+
+
+def phase18(torch, np, pkg, tra, smi: str, sh: Phase18 = Phase18(), dense=None, f32=None,
+            moe=None) -> dict:
+    """Phase 18: tensor parallelism through the entry point a user calls,
+    ``python -m dynamo_exp_tpu_torch.run ... --tp 2`` in subprocesses,
+    each rank a process of its own (one card: both on it over gloo; two
+    or more: a card each over NCCL), the kernels at per-rank head
+    counts. (a) The llama-8b preset at full width and depth, bf16,
+    random weights from seed 0: phase 5's 8 prompts (one seeded), 32
+    tokens each, admitted together, then a rerun in a new pair of
+    processes: the same tokens; both ranks' outputs equal; both bf16
+    kernels launched on each rank, as often on both. (b) llama-8b's
+    width at 4 layers, float32: tp=2 against tp=1 (in this process, the
+    same weights): the same greedy tokens up to a float32 tie
+    (``F32_TIE``), through the float32 mixed and split-KV kernels. (c)
+    Qwen1.5-MoE-A2.7B's published width at 4 layers, bf16 (16/16 heads
+    of 128, 60 experts of 1,408, top-4, a shared expert of 5,632): 8
+    prompts of 32 tokens and a rerun, identical, the grouped products
+    and both bf16 kernels launched on each rank. ``dense`` / ``f32`` /
+    ``moe`` replace the three configs (the CPU rehearsal's)."""
+    import tempfile
+    from dataclasses import replace
+
+    t0 = time.perf_counter()
+    free(torch, sh.device)
+    cards, backend = p18_placement(torch, sh.device)
+    log(f"[tp] {smi}: tp={TP_DEGREE} over {cards} card(s) (torch.cuda.device_count()), "
+        f"backend {backend}")
+    dense = dense or pkg.models.PRESETS[sh.dense_preset]
+    f32 = f32 or replace(pkg.models.LLAMA_8B, num_layers=sh.f32_layers, dtype="float32")
+    moe = moe or pkg.models.ModelConfig.from_hf_config(
+        dict(QWEN15_MOE_A27B, num_hidden_layers=sh.moe_layers))
+    bf16_kernels = ("mixed_tc_bf16", "decode_split")
+    out: dict = {"backend": backend, "cards": cards}
+    with tempfile.TemporaryDirectory() as tmp:
+        def model_dir(name, mcfg):
+            path = os.path.join(tmp, name)
+            os.makedirs(path)
+            with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+                json.dump(hf_config(mcfg), f)
+            assert pkg.models.ModelConfig.from_pretrained(path) == mcfg
+            return ["--model-path", path]
+
+        # (a) the preset at full width and depth.
+        prompts = phase5_prompts(np, dense.vocab_size, sh.prompt_lens)
+        lens = [len(p) for p in prompts]
+        batch = p18_batch(os.path.join(tmp, "a.jsonl"), prompts, sh.max_tokens,
+                          {SEEDED: dict(SEEDED_OPTIONS)})
+        model = (["--preset", sh.dense_preset] if dense is pkg.models.PRESETS.get(sh.dense_preset)
+                 else model_dir("dense", dense))
+        argv = p18_argv(sh, batch, model, "bfloat16", lens, sh.max_tokens, backend)
+        runs = [p18_run(argv, sh) for _ in range(2)]
+        for r in runs:
+            assert [len(t) for t in r["tokens"]] == [sh.max_tokens] * len(prompts), r["tokens"]
+            assert all(x["finish_reason"] == "length" for x in r["rows"])
+        assert runs[1]["tokens"] == runs[0]["tokens"], "(a) the rerun's tokens differ"
+        a = [p18_ranks(r, "(a)", bf16_kernels) for r in runs]
+        ra, comm = runs[0], runs[0]["tp"]["ranks"][0]["comm"]
+        coll_s = comm["seconds"]["all_reduce"] + comm["seconds"]["all_gather"]
+        share = coll_s / ra["stats"]["wall_s"]
+        log(f"[tp] (a) {smi}: {dense.num_layers} layers at width {dense.hidden_size}, bf16, "
+            f"tp={TP_DEGREE} ({backend}): 8 prompts {lens} x {sh.max_tokens} tokens admitted "
+            f"together: wall {ra['stats']['wall_s']:.3f} s, {ra['stats']['output_tok_s']:.2f} "
+            f"tokens/s, TTFT p50 {ra['stats']['ttft_p50_ms']} ms (rerun wall "
+            f"{runs[1]['stats']['wall_s']:.3f} s, {runs[1]['stats']['output_tok_s']:.2f} "
+            f"tokens/s; processes {ra['wall_s']:.1f} / {runs[1]['wall_s']:.1f} s); rank 0's "
+            f"collectives {comm['calls']}, all_reduce + all_gather {coll_s:.3f} s = "
+            f"{share * 100:.1f} % of the wall; the rerun's tokens identical, both ranks' "
+            f"digests equal; launches by kernel on each rank {a[0]} (rerun {a[1]}); "
+            f"{p18_rank_line(ra)}")
+        out["a"] = dict(wall_s=ra["stats"]["wall_s"], tokens_per_s=ra["stats"]["output_tok_s"],
+                        rerun_wall_s=runs[1]["stats"]["wall_s"], designs=a[0], comm=comm,
+                        collective_share=share, ranks=ra["tp"]["ranks"],
+                        process_wall_s=[r["wall_s"] for r in runs])
+
+        # (b) float32 at 4 layers: tp=2 against tp=1 on the same weights.
+        prompts = phase5_prompts(np, f32.vocab_size, sh.prompt_lens)
+        batch = p18_batch(os.path.join(tmp, "b.jsonl"), prompts, sh.max_tokens, logprobs=2)
+        rb = p18_run(p18_argv(sh, batch, model_dir("f32", f32), "float32", lens,
+                              sh.max_tokens, backend), sh)
+        want = p18_reference(torch, pkg, f32, sh, prompts, sh.max_tokens, 2)
+        got = [dict(tokens=x["token_ids"], lps=x["logprobs"],
+                    tops=[{int(k): v for k, v in t.items()} for t in x["top_logprobs"]])
+               for x in rb["rows"]]
+        faults, ties = divergences(want, got, F32_TIE)
+        assert not faults, f"(b) tp=2 tokens differ from tp=1: {faults}"
+        lp_err = max((abs(x - y) for w, g in zip(want, got) if w["tokens"] == g["tokens"]
+                      for x, y in zip(w["lps"], g["lps"])), default=0.0)
+        b = p18_ranks(rb, "(b)", ("mixed_f32", "decode_split"))
+        log(f"[tp] (b) {smi}: width {f32.hidden_size}, {f32.num_layers} layers, float32: tp=2 "
+            f"({backend}) gives tp=1's greedy tokens (ties within {F32_TIE}: "
+            f"{'; '.join(ties) or 'none'}), logprobs of equal rows within {lp_err:.2e}; wall "
+            f"{rb['stats']['wall_s']:.3f} s; launches by kernel on each rank {b}; "
+            f"{p18_rank_line(rb)}")
+        out["b"] = dict(designs=b, ties=ties, lp_err=lp_err, wall_s=rb["stats"]["wall_s"])
+
+        # (c) Qwen1.5-MoE-A2.7B's width at 4 layers, bf16.
+        rs = np.random.RandomState(18)
+        prompts = [[int(t) for t in rs.randint(3, moe.vocab_size, size=sh.moe_prompt_len)]
+                   for _ in range(sh.moe_prompts)]
+        lens = [len(p) for p in prompts]
+        batch = p18_batch(os.path.join(tmp, "c.jsonl"), prompts, sh.max_tokens)
+        argv = p18_argv(sh, batch, model_dir("moe", moe), "bfloat16", lens, sh.max_tokens,
+                        backend)
+        runs = [p18_run(argv, sh) for _ in range(2)]
+        assert runs[1]["tokens"] == runs[0]["tokens"], "(c) the rerun's tokens differ"
+        assert [len(t) for t in runs[0]["tokens"]] == [sh.max_tokens] * len(prompts)
+        c = [p18_ranks(r, "(c)", bf16_kernels, moe=True) for r in runs]
+        rc = runs[0]
+        log(f"[tp] (c) {smi}: Qwen1.5-MoE-A2.7B's width ({moe.num_heads}/{moe.num_kv_heads} "
+            f"heads of {moe.head_dim_}, {moe.num_experts} experts of "
+            f"{moe.expert_intermediate_size}, top-{moe.num_experts_per_tok}, shared "
+            f"{moe.shared_expert_intermediate_size}) at {moe.num_layers} layers, bf16, tp=2 "
+            f"({backend}): {len(prompts)} prompts of {sh.moe_prompt_len} x {sh.max_tokens} "
+            f"tokens: wall {rc['stats']['wall_s']:.3f} s, {rc['stats']['output_tok_s']:.2f} "
+            f"tokens/s (rerun {runs[1]['stats']['wall_s']:.3f} s, identical tokens); "
+            f"launches on each rank {c[0]}; {p18_rank_line(rc)}")
+        out["c"] = dict(designs=c[0], wall_s=rc["stats"]["wall_s"])
+    wall = time.perf_counter() - t0
+    log(f"[tp] phase 18 wall {wall:.1f} s")
+    return dict(out, designs=out["a"]["designs"], designs_f32=out["b"]["designs"],
+                designs_moe=out["c"]["designs"], wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -7338,6 +7637,8 @@ def main() -> int:
     log(f"[phase16] in {p16['wall_s']:.1f} s")
     p17 = phase17(torch, np, pkg, tra, smi)
     log(f"[phase17] in {p17['wall_s']:.1f} s")
+    p18 = phase18(torch, np, pkg, tra, smi)
+    log(f"[phase18] in {p18['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -7385,6 +7686,10 @@ def main() -> int:
             "launches_sharing_f32": p16["designs_f32"][design],
             "launches_gguf": p17["designs"][design],
             "launches_gguf_dir": p17["designs_dir"][design],
+            # Phase 18: rank 0's launches (every rank's are equal).
+            "launches_tp2": p18["designs"][design],
+            "launches_tp2_f32": p18["designs_f32"][design],
+            "launches_tp2_moe": p18["designs_moe"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

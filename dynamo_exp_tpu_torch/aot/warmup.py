@@ -78,6 +78,10 @@ def prewarm_engine(engine, manifest: GraphManifest | None = None, cache_dir: str
     engine's loop starts."""
     if engine._running or engine._thread is not None:
         raise RuntimeError("prewarm runs before start(): the engine's loop is running")
+    if engine.cfg.tp > 1:
+        from ..engine.config import refuse_under_tp
+
+        raise refuse_under_tp("prewarm (the warm boot's graphs)", "graphs")
     t0 = time.perf_counter()
     manifest = manifest or manifest_for_engine(engine)
     report = PrewarmReport(manifest_hash=manifest.hash())

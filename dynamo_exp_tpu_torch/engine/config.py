@@ -15,8 +15,21 @@ from dataclasses import dataclass, field
 import torch
 
 from ..models.config import ModelConfig
+from ..models.llama import check_tp
 
 ATTENTION_IMPLS = ("auto", "kernel", "reference")
+
+# What tensor parallelism (tp > 1) does not serve yet, by the ROADMAP
+# item that brings it (Queue 1 item 7's follow-ups).
+TP_LATER = {
+    "tiers": "ROADMAP Queue 1 item 7(a)",  # G2/G3, disaggregation, leases, reclaim
+    "graphs": "ROADMAP Queue 1 item 7(b)",  # CUDA graphs, --prewarm
+    "sp": "ROADMAP Queue 1 item 7(c)",  # ring-attention prefill
+}
+
+
+def refuse_under_tp(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not served under tp > 1 yet; see {TP_LATER[item]}")
 
 _TRUTHY = frozenset({"1", "true", "on", "yes"})
 _FALSY = frozenset({"0", "false", "no", "off"})
@@ -69,6 +82,11 @@ class EngineConfig:
     page_size: int = 16  # tokens per KV page (also the reuse-hash block)
     num_pages: int = 512  # global page pool size
     max_model_len: int = 2048  # per-sequence token capacity
+    # Parallelism within this engine replica (the JAX defaults): ``tp``
+    # ranks, one process each, hold a megatron shard of the model and
+    # of the KV pools (``engine/tp.py``); ``sp`` is accepted at 1 only.
+    tp: int = 1
+    sp: int = 1
     # Up to ``prefill_batch`` prompts share one dispatch; each is fed
     # ``prefill_chunk`` tokens at a time so decode interleaves.
     prefill_batch: int = 8
@@ -132,6 +150,8 @@ class EngineConfig:
     # (engine/graphs.py). None is True on a CUDA device and False on the
     # CPU, which has no graphs; True on the CPU raises. False runs every
     # window eagerly (the same padding and kernels), for comparison.
+    # Under tp > 1, None is False (eager: gloo collectives cannot be
+    # captured) and True raises.
     cuda_graphs: bool | None = None
     # Speculative decoding: "off", or a drafter name from the spec/
     # registry ("ngram" = prompt lookup, no second model).
@@ -194,6 +214,18 @@ class EngineConfig:
     def __post_init__(self):
         if self.kv_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unsupported kv_dtype: {self.kv_dtype!r}")
+        check_tp(self.model, self.tp)
+        if self.sp != 1:
+            raise NotImplementedError(
+                f"sp={self.sp}: ring-attention prefill is not ported yet; see {TP_LATER['sp']}"
+            )
+        if self.tp > 1:
+            if self.host_cache_pages > 0:
+                raise refuse_under_tp("the G2 host tier (host_cache_pages > 0)", "tiers")
+            if self.kv_store_dir:
+                raise refuse_under_tp("the G3 store (kv_store_dir)", "tiers")
+            if self.cuda_graphs:
+                raise refuse_under_tp("cuda_graphs=True", "graphs")
         if self.kv_store_dir and self.kv_store_pages <= 0:
             raise ValueError(
                 f"kv_store_dir={self.kv_store_dir!r} needs "

@@ -128,6 +128,17 @@ the owner's page keeps the owner's bytes. For the same reason a
 page-aligned prompt matched in full, whose last token's prefill lands
 in the last matched page, copies that page first while another row
 holds it.
+
+Tensor parallelism (``cfg.tp > 1``, JAX ``engine.py:240``; ``engine/tp.py``):
+each rank is a process with its own engine over its shard of the model
+and of the pools, and a ``parallel.comm.Comm``. Rank 0's loop is the
+loop above; each dispatch's key and host arrays go to the other ranks
+just before it launches (``_launch_window``, ``_launch_mixed``), with
+the device steps taken since (``_apply_tp_op``: copy-on-write copies,
+penalty-count starts), and they run the same ``_window_body`` /
+``_mixed_body`` on their shards (:meth:`follow`). Dispatches run
+eagerly (no graphs), and what moves pages between tiers or processes
+(the G2/G3 tiers, disaggregation, leases, reclaim) is refused.
 """
 
 from __future__ import annotations
@@ -185,12 +196,13 @@ from ..telemetry.anatomy import COMPONENTS, AnatomyRing, anatomy_from_timing
 from ..telemetry.fingerprint import FingerprintBuilder, WorkloadDriftWatch, load_fingerprint
 from ..telemetry.flight import default_dump_path
 from ..tokens import compute_block_hashes_for_seq
-from .config import EngineConfig
+from .config import EngineConfig, refuse_under_tp
 from .graphs import DispatchGraphs, pack_layout, views
 from .kv_manager import KvEvent, KvPageManager
 from .offload import CopyStream, HostKvPool, pinned_empty
 from .scheduler import RemoteKv, Scheduler, Sequence, SeqState
 from .tiering import SwapRecord, plan_swap_entries
+from .tp import TpDriver, follow
 
 log = logging.getLogger(__name__)
 
@@ -274,7 +286,9 @@ class _PendingRagged:
 
 
 class TorchEngine(AsyncEngine):
-    """Continuous-batching paged-KV engine on one device."""
+    """Continuous-batching paged-KV engine on one device; with
+    ``cfg.tp > 1``, one rank of a tensor-parallel engine (``engine/tp.py``):
+    rank 0 serves and drives, every other rank runs :meth:`follow`."""
 
     def __init__(
         self,
@@ -283,24 +297,38 @@ class TorchEngine(AsyncEngine):
         device="cuda",
         kv_event_cb: Callable[[KvEvent], None] | None = None,
         seed: int = 0,
+        comm=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         mcfg = cfg.model
         self.attn_impl = resolve_attn_impl(cfg, self.device)
+        # Tensor parallelism: the ranks' collectives (None at tp=1, where
+        # no process group exists and no collective is issued).
+        if (cfg.tp > 1) != (comm is not None) or (comm is not None and comm.world != cfg.tp):
+            raise ValueError(f"tp={cfg.tp} needs a comm over its {cfg.tp} ranks (and tp=1 none)")
+        self.comm = comm
+        rank = comm.rank if comm is not None else 0
         if model is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            model = init_params(mcfg, gen, self.device)
+            model = init_params(mcfg, gen, self.device, rank=rank, tp=cfg.tp)
+        if (model.tp, model.rank) != (cfg.tp, rank):
+            raise ValueError(f"the model is rank {model.rank} of tp={model.tp}, the engine "
+                             f"rank {rank} of tp={cfg.tp}")
         self.model = model
-        # KV pools [L, P, ps, Hkv*D], written in place by every forward.
-        # One scratch page past the pool (never handed out, in no page
-        # table) takes the K/V writes of padding and parked rows, so a
-        # forward drops them without selecting rows on the host.
+        # KV pools [L, P, ps, Hkv*D] (a rank's Hkv/tp heads), written in
+        # place by every forward. One scratch page past the pool (never
+        # handed out, in no page table) takes the K/V writes of padding
+        # and parked rows, so a forward drops them without selecting rows
+        # on the host.
         self._drop_page = cfg.num_pages
         self.k_cache, self.v_cache = init_kv_cache(
-            mcfg, cfg.num_pages + 1, cfg.page_size, cfg.kv_torch_dtype, self.device
+            mcfg, cfg.num_pages + 1, cfg.page_size, cfg.kv_torch_dtype, self.device, cfg.tp
         )
+        # Rank 0 of tp > 1 drives the other ranks (None otherwise).
+        self._tp = TpDriver(comm) if comm is not None and rank == 0 else None
+        self.tp_reports: list[dict] | None = None  # every rank's, after stop()
         # G2 host tier: the pool lives here; the CopyStream (a thread and
         # two side streams) is made by start() and torn down by stop().
         self.host_pool: HostKvPool | None = None
@@ -427,6 +455,7 @@ class TorchEngine(AsyncEngine):
         self._wake = threading.Event()
         self._running = False
         self._held = False
+        self._crashed = False  # the loop died (tp: no collective is safe after)
         self._thread: threading.Thread | None = None
         # Speculation: the drafter and per-row controller (None = off).
         self._spec = SpecManager(cfg) if cfg.spec_mode != "off" else None
@@ -449,9 +478,10 @@ class TorchEngine(AsyncEngine):
         self.prefetched_pages = 0  # pages restored ahead of admission
         self.prefetch_hits = 0  # of those, pages an admission attached
         # CUDA graphs of the dispatches, one per window or mixed key
-        # (None: every dispatch runs eagerly). Set by default on a card.
+        # (None: every dispatch runs eagerly). Set by default on a card,
+        # except under tp > 1 (gloo collectives cannot be captured).
         use_graphs = cfg.cuda_graphs if cfg.cuda_graphs is not None else (
-            self.device.type == "cuda"
+            self.device.type == "cuda" and cfg.tp == 1
         )
         if use_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, not {self.device}")
@@ -470,6 +500,10 @@ class TorchEngine(AsyncEngine):
     def start(self) -> None:
         if self._running or self._held:
             return
+        if self.comm is not None and self._tp is None:
+            raise RuntimeError("a follower rank runs follow(), not the engine loop")
+        if self._tp is not None and self._tp.closed:
+            raise RuntimeError("this engine's tp ranks were stopped; make a new engine")
         if self.host_pool is not None and self.copy_stream is None:
             # The G3 store rides along: prefetch fetches fall through
             # G2 -> G3.
@@ -495,10 +529,14 @@ class TorchEngine(AsyncEngine):
         """Stop the loop and the copy stream, then run the final ledger
         check and, with a G3 store, demote the whole warm G2 set into it
         and seal its manifest (the next boot's cache is as warm as this
-        process was)."""
+        process was). Under tp > 1, rank 0 then stops the other ranks and
+        gathers their reports (``tp_reports``), raising if their outputs
+        differ from its own."""
         self._halt()
         if self._thread is not None:
             return  # a wedged loop: leave its state alone
+        if self._tp is not None and not self._tp.closed and not self._crashed:
+            self.tp_reports = self._tp.close(self)
         if self.cfg.kv_ledger_check:
             # Only violation kinds the in-loop check has not counted.
             seen = set(self._ledger_last)
@@ -665,6 +703,8 @@ class TorchEngine(AsyncEngine):
         :meth:`start` together, so the schedule (and every dispatch
         shape) of such a set does not depend on thread timing. Call
         from a running asyncio loop: the stream is fed through it."""
+        if remote_kv is not None and self.cfg.tp > 1:
+            raise refuse_under_tp("disaggregation (a remote prefill's KV)", "tiers")
         ctx = context or AsyncEngineContext()
         binput = (
             request.copy()
@@ -735,6 +775,8 @@ class TorchEngine(AsyncEngine):
         prefix) are neither gathered nor shipped; the whole prompt is
         still prefilled here. The shipped device pages stay pinned under
         the lease until :meth:`confirm_kv_lease` or the reaper."""
+        if self.cfg.tp > 1:
+            raise refuse_under_tp("disaggregation (prefill_extract)", "tiers")
         ctx = context or AsyncEngineContext()
         binput = (
             request.copy() if isinstance(request, BackendInput)
@@ -789,6 +831,8 @@ class TorchEngine(AsyncEngine):
         transfer's ``skip_blocks``; released at inject, the reaper the
         backstop). ``(0, None)`` when the loop is not running, sharing
         is off, or nothing is resident."""
+        if self.cfg.tp > 1:
+            raise refuse_under_tp("KV leases (pin_prefix)", "tiers")
         if not self._running or not self.kv.sharing:
             # A prefix_sharing=False engine never re-attaches at
             # admission, so a skip would discard the whole transfer.
@@ -804,10 +848,12 @@ class TorchEngine(AsyncEngine):
 
     def kv_page_nbytes(self) -> int:
         """Host bytes one KV page occupies on the wire (K and V, all
-        layers): the triage planner's cost unit."""
+        layers): the triage planner's cost unit. Under tp > 1, one
+        rank's share (its Hkv/tp heads)."""
         m = self.cfg.model
         itemsize = 2 if self.cfg.kv_dtype == "bfloat16" else 4
-        return 2 * m.num_layers * self.cfg.page_size * m.num_kv_heads * m.head_dim_ * itemsize
+        hkv = m.num_kv_heads // self.cfg.tp
+        return 2 * m.num_layers * self.cfg.page_size * hkv * m.head_dim_ * itemsize
 
     # --------------------------------------------------- spot-reclaim plane
     async def reclaim_inflight(self) -> list[dict]:
@@ -831,6 +877,8 @@ class TorchEngine(AsyncEngine):
         return await self._reclaim_call("seed", (hashes, pages), default=0)
 
     async def _reclaim_call(self, op: str, payload, default):
+        if self.cfg.tp > 1:
+            raise refuse_under_tp("spot reclaim's live migration", "tiers")
         if not self._running:
             return default
         loop = asyncio.get_running_loop()
@@ -901,6 +949,7 @@ class TorchEngine(AsyncEngine):
         if self.profiler is not None:
             m["dispatch"] = self.profiler.summary()
         m["decode_window"] = self.cfg.decode_window
+        m["tp"] = self.cfg.tp
         m["kv_prefix_hits"] = dict(self.kv.prefix_hits)
         for kind, n in self.kv.prefix_hits.items():
             m[f"kv_prefix_hits_{kind}"] = n
@@ -1081,6 +1130,8 @@ class TorchEngine(AsyncEngine):
                     if self.profiler is not None:
                         # Waiting for work is not host gap.
                         self.profiler.mark_idle()
+                    if self._tp is not None:
+                        self._tp.heartbeat()
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
@@ -1148,6 +1199,8 @@ class TorchEngine(AsyncEngine):
                     # progress: the state the watchdog must see frozen.
                     if self.profiler is not None:
                         self.profiler.mark_idle()
+                    if self._tp is not None:
+                        self._tp.heartbeat()
                     self._wake.wait(timeout=0.001)
                     self._wake.clear()
             if self._inflight is not None:
@@ -1158,6 +1211,7 @@ class TorchEngine(AsyncEngine):
         except Exception:  # engine death must not hang clients
             log.exception("engine loop crashed; failing in-flight requests")
             self._dump_flight("crash")
+            self._crashed = True
             self._running = False
             self._inflight = None
             self._drain_pin_q()
@@ -1743,8 +1797,7 @@ class TorchEngine(AsyncEngine):
             self._flush_offloads()
             prof = self.profiler
             t0 = prof.begin("kv_move") if prof is not None else 0.0
-            self.k_cache[:, new_pid].copy_(self.k_cache[:, pid])
-            self.v_cache[:, new_pid].copy_(self.v_cache[:, pid])
+            self._apply_tp_op(("copy_page", pid, new_pid))
             if prof is not None:
                 prof.end("kv_move", t0)
             seq.page_ids[seq.page_ids.index(pid)] = new_pid
@@ -2209,12 +2262,44 @@ class TorchEngine(AsyncEngine):
         ready.record()
         return hosts, ready
 
-    @staticmethod
-    def _host(pending: _PendingRagged) -> list[np.ndarray]:
-        """A dispatch's outputs on the host: its one sync."""
+    def _host(self, pending: _PendingRagged) -> list[np.ndarray]:
+        """A dispatch's outputs on the host: its one sync. Under tp > 1
+        they are folded into rank 0's digest (``engine/tp.py``)."""
         if pending.ready is not None:
             pending.ready.synchronize()
-        return [y.numpy() for y in pending.ys]
+        out = [y.numpy() for y in pending.ys]
+        if self._tp is not None:
+            self._tp.digest.fold(out)
+        return out
+
+    # ------------------------------------------------- tensor parallelism
+    def _apply_tp_op(self, op: tuple) -> None:
+        """One device step outside a dispatch body, on this rank's shard;
+        on rank 0 of tp > 1 also queued for the other ranks, which apply
+        it before their next dispatch (``engine/tp.py``)."""
+        kind = op[0]
+        if kind == "copy_page":  # copy-on-write of a shared page, K and V
+            _, src, dst = op
+            self.k_cache[:, dst].copy_(self.k_cache[:, src])
+            self.v_cache[:, dst].copy_(self.v_cache[:, src])
+        elif kind == "start_counts":  # a row's penalty counts: its first token (+ a tail)
+            _, slot, token, tail = op
+            self._counts[slot] = 0
+            self._counts[slot, token] += 1
+            if tail is not None:
+                (tail_d,) = self._upload(tail)
+                self._counts[slot] += tail_d
+        else:
+            raise ValueError(f"unknown tp op {kind!r}")
+        if self._tp is not None:
+            self._tp.ops.append(op)
+
+    def follow(self) -> list[dict]:
+        """A follower rank (tp > 1, rank > 0): run rank 0's dispatches on
+        this rank's shard until rank 0 stops; returns every rank's report."""
+        if self.comm is None or self.comm.rank == 0:
+            raise RuntimeError("follow() runs on a tp rank other than 0")
+        return follow(self)
 
     # ------------------------------------------------------------ speculation
     def _extract_spec_rows(self, part: list) -> tuple[list, list]:
@@ -2316,7 +2401,7 @@ class TorchEngine(AsyncEngine):
             logits, _, _ = forward(
                 self.model, mcfg, tok_d[:, None], pos_d[:, None], ins["table"],
                 self.k_cache, self.v_cache, attn_pages=key.pages,
-                attn_impl=self.attn_impl, drop_page=self._drop_page,
+                attn_impl=self.attn_impl, drop_page=self._drop_page, comm=self.comm,
             )
             logits = logits[:, 0]
             active = pos_d >= 0
@@ -2396,6 +2481,8 @@ class TorchEngine(AsyncEngine):
             self.graphs.replay(g)
             outs = g.outputs
         else:
+            if self._tp is not None:
+                self._tp.send("window", key, host, chained=carry is not None)
             ins = dict(zip(host, self._upload(*arrays)))
             if carry is not None:
                 ins["tokens"], ins["positions"] = carry
@@ -2634,6 +2721,7 @@ class TorchEngine(AsyncEngine):
             self.model, cfg.model, ins["tokens"], ins["positions"], ins["row_of"],
             ins["table"], self.k_cache, self.v_cache, ins["out_idx"], attn_pages=key.pages,
             attn_impl=self.attn_impl, q_tile=self._ragged_align(), drop_page=self._drop_page,
+            comm=self.comm,
         )
         logits0 = logits_all[:B1]
         if key.full_sampler:
@@ -2777,6 +2865,8 @@ class TorchEngine(AsyncEngine):
             self._upload_into(g.in_buf, list(host.values()), g.offs)
             self.graphs.replay(g)
             return g.outputs
+        if self._tp is not None:
+            self._tp.send("mixed", key, host)
         return self._mixed_body(key, dict(zip(host, self._upload(*host.values()))))
 
     def _consume_mixed(self, pending: _PendingRagged) -> None:
@@ -2910,8 +3000,7 @@ class TorchEngine(AsyncEngine):
         if self.flight is not None:
             self.flight.record("first_token", req=seq.request_id, slot=seq.slot)
         seq.state = SeqState.ACTIVE
-        self._counts[seq.slot] = 0
-        self._counts[seq.slot, token] += 1
+        tail = None
         resumed = seq.stop.resume_offset or 0
         if resumed and self._needs_sampler(seq):
             # A continuation with penalties: the re-prefilled tail of the
@@ -2921,8 +3010,8 @@ class TorchEngine(AsyncEngine):
             # from the raw distribution, the JAX engine's caveat.)
             V = self.cfg.model.vocab_size
             tail = np.clip(np.asarray(seq.prompt[-resumed:], np.int64), 0, V - 1)
-            (tail_d,) = self._upload(np.bincount(tail, minlength=V).astype(np.int32))
-            self._counts[seq.slot] += tail_d
+            tail = np.bincount(tail, minlength=V).astype(np.int32)
+        self._apply_tp_op(("start_counts", seq.slot, token, tail))
         seq.tokens.append(token)
         seq.generated = 1
         self.sched.register_full_pages(seq)

@@ -50,6 +50,7 @@ import torch
 from ..aot.lattice import MixedKey
 from ..ops import launches
 from ..ops import ragged_attention as tra
+from .config import refuse_under_tp
 
 log = logging.getLogger(__name__)
 
@@ -189,6 +190,10 @@ class DispatchGraphs:
     KINDS = ("window", "mixed")
 
     def __init__(self, engine, runner=None):
+        if engine.cfg.tp > 1:
+            # Gloo's host-staged collectives cannot be captured, and NCCL
+            # ones are not yet (ROADMAP Queue 1 item 7(b)).
+            raise refuse_under_tp("CUDA graph capture", "graphs")
         self.engine = engine
         self.runner = runner if runner is not None else CudaGraphRunner(engine.device)
         self.graphs: dict = {}

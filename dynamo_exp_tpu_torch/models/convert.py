@@ -3,8 +3,10 @@
 ``params_from_jax`` takes the JAX package's parameter pytree as numpy
 arrays — stacked ``[L, ...]`` layer weights in ``x @ W`` layout — and
 returns the port's :class:`~.llama.Llama` with ``[out, in]`` weights, so
-both packages compute the same logits from the same weights. It reads
-plain numpy only; the port never imports JAX.
+both packages compute the same logits from the same weights. With
+``tp > 1`` it returns rank ``rank``'s shard: the part of each weight
+the JAX package's ``param_shardings`` puts on that rank of a tp mesh.
+It reads plain numpy only; the port never imports JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .llama import Llama, model_dtype
+from .llama import Llama, model_dtype, tp_slice
 
 # JAX layer key -> transpose? (matrices are [in, out] there; a stacked
 # expert weight [E, in, out] swaps its last two dims the same way, and
@@ -43,23 +45,28 @@ _LAYER_KEYS = {
 }
 
 
-def _tensor(a, dtype: torch.dtype, device, transpose: bool) -> torch.Tensor:
+def _tensor(a, dtype: torch.dtype, device, transpose: bool, name: str = "",
+            rank: int = 0, tp: int = 1) -> torch.Tensor:
     # bfloat16 arrays (ml_dtypes) widen to float32 exactly on the way in.
     t = torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
     if transpose:
         t = t.transpose(-1, -2)
-    return t.to(device=device, dtype=dtype).contiguous()
+    return tp_slice(t, name, rank, tp).to(device=device, dtype=dtype).contiguous()
 
 
 @torch.no_grad()
-def params_from_jax(np_params: dict, cfg: ModelConfig, device="cuda") -> Llama:
-    """The port's model from the JAX package's parameters (numpy)."""
+def params_from_jax(
+    np_params: dict, cfg: ModelConfig, device="cuda", rank: int = 0, tp: int = 1
+) -> Llama:
+    """The port's model (rank ``rank``'s shard of it at ``tp > 1``) from
+    the JAX package's parameters (numpy)."""
     dt = model_dtype(cfg)
-    model = Llama(cfg, device=device)
-    model.embed.copy_(_tensor(np_params["embed"], dt, device, False))
+    model = Llama(cfg, device=device, tp=tp, rank=rank)
+    shard = {"rank": rank, "tp": tp}
+    model.embed.copy_(_tensor(np_params["embed"], dt, device, False, "embed", **shard))
     model.final_norm.copy_(_tensor(np_params["final_norm"], dt, device, False))
     if model.lm_head is not None:
-        model.lm_head.copy_(_tensor(np_params["lm_head"], dt, device, True))
+        model.lm_head.copy_(_tensor(np_params["lm_head"], dt, device, True, "lm_head", **shard))
     layers = np_params["layers"]
     unknown = set(layers) - set(_LAYER_KEYS)
     if unknown:
@@ -72,5 +79,5 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device="cuda") -> Llama:
             dst = getattr(layer, name)
             if dst is None:
                 raise ValueError(f"{name} given but {cfg.model_type} has no such weight")
-            dst.copy_(_tensor(stacked[li], dt, device, transpose))
+            dst.copy_(_tensor(stacked[li], dt, device, transpose, name, **shard))
     return model

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .llama import Llama, model_dtype
+from .llama import Llama, model_dtype, tp_full_shape, tp_slice
 from .loader import check_loadable
 
 MAGIC = b"GGUF"
@@ -251,11 +251,13 @@ def gguf_tensor_names(cfg: ModelConfig) -> dict[str, tuple[int | None, str]]:
 
 @torch.no_grad()
 def load_params_from_gguf(
-    path: str, cfg: ModelConfig | None = None, gguf: GGUFFile | None = None, device="cuda"
+    path: str, cfg: ModelConfig | None = None, gguf: GGUFFile | None = None, device="cuda",
+    rank: int = 0, tp: int = 1,
 ) -> tuple[Llama, ModelConfig]:
     """The model of a GGUF file on ``device`` in the config's dtype,
-    filled one decoded tensor at a time. Pass an already parsed
-    ``GGUFFile`` as ``gguf`` to read the metadata once."""
+    filled one decoded tensor at a time; with ``tp > 1``, rank
+    ``rank``'s shard, sliced from each decoded tensor. Pass an already
+    parsed ``GGUFFile`` as ``gguf`` to read the metadata once."""
     g = gguf if gguf is not None else GGUFFile.parse(path)
     if cfg is None:
         cfg = config_from_gguf(g)
@@ -265,7 +267,7 @@ def load_params_from_gguf(
     # under llama.
     permuted = g.metadata.get("general.architecture", "llama") == "llama"
     heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads}
-    model = Llama(cfg, device=device)
+    model = Llama(cfg, device=device, tp=tp, rank=rank)
     dt = model_dtype(cfg)
     for name, (li, attr) in gguf_tensor_names(cfg).items():
         if name not in g.tensors:
@@ -275,14 +277,15 @@ def load_params_from_gguf(
             # An F32 tensor is a read-only view of the mapping, only ever read.
             warnings.filterwarnings("ignore", message=".*not writable.*")
             src = torch.from_numpy(g.tensor(name))
-        if list(src.shape) != list(dst.shape):
+        full = tp_full_shape(dst.shape, attr, tp)
+        if list(src.shape) != full:
             raise ValueError(
                 f"{path}: tensor {name!r} has shape {list(src.shape)}, the model wants "
-                f"{list(dst.shape)}"
+                f"{full}"
             )
         if permuted and attr in heads:
             src = _unpermute_rope(src, heads[attr])
-        dst.copy_(src.to(dt))
+        dst.copy_(tp_slice(src, attr, rank, tp).to(dt))
     return model, cfg
 
 

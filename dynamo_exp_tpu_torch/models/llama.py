@@ -22,6 +22,21 @@ Attention goes through the ragged kernel wrappers
 the plain ``paged_attention`` / ``ragged_paged_attention_ref`` when
 ``attn_impl="reference"``. The default, ``"auto"``, is the kernel on
 CUDA tensors and the plain version on CPU tensors.
+
+Tensor parallelism (JAX ``param_shardings`` / ``kv_cache_shardings``,
+``models/llama.py:108-168``): a ``Llama`` built with ``tp > 1`` holds
+one rank's megatron shard (``TP_SPLIT_DIMS``): q/k/v (and their
+biases) split over heads, ``wo`` over its input, the FFN's gate/up
+over the ffn width and down over its input (each expert alike, and
+qwen2_moe's shared expert), ``embed`` and ``lm_head`` over the vocab;
+norms, the routers and rope are whole on every rank. Its KV pools hold
+its ``Hkv / tp`` heads. ``forward`` / ``forward_ragged`` then take the
+ranks' ``parallel.comm.Comm``: a sum over the ranks after ``wo`` and
+after ``w_down`` (one for the experts and the shared expert together),
+before gemma2's post-norms, as JAX's ``reduce``; a masked local
+embedding lookup summed over the ranks; the local logits gathered to
+the full vocab. The attention kernels run at the rank's head counts. At
+``tp=1`` there is no comm and no collective.
 """
 
 from __future__ import annotations
@@ -71,13 +86,65 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
-class LlamaLayer(nn.Module):
-    """One decoder layer's weights; linear weights are [out, in]."""
+# The megatron split of each weight over the tp ranks, by name: the dim
+# of this package's [out, in] layout that is split, counted from the end
+# so a stacked expert weight [E, out, in] splits as one expert's does.
+# Every weight not named here is whole on every rank.
+TP_SPLIT_DIMS = {
+    "embed": -2, "lm_head": -2,
+    "wq": -2, "wk": -2, "wv": -2, "bq": -1, "bk": -1, "bv": -1, "wo": -1,
+    "w_gate": -2, "w_up": -2, "w_down": -1,
+    "shared_gate": -2, "shared_up": -2, "shared_down": -1,
+}
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+
+def tp_slice(t: torch.Tensor, name: str, rank: int, tp: int) -> torch.Tensor:
+    """Rank ``rank``'s part (a view) of ``t``, the whole weight ``name``
+    (an expert's slot ``"w_gate.3"`` splits as ``w_gate``)."""
+    dim = TP_SPLIT_DIMS.get(name.partition(".")[0])
+    if tp == 1 or dim is None:
+        return t
+    n = t.shape[dim] // tp
+    return t.narrow(dim, rank * n, n)
+
+
+def tp_full_shape(shape, name: str, tp: int) -> list[int]:
+    """The whole weight's shape of a rank's part of shape ``shape``."""
+    full = list(shape)
+    dim = TP_SPLIT_DIMS.get(name.partition(".")[0])
+    if dim is not None:
+        full[dim] *= tp
+    return full
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise unless every split width divides by ``tp``: q heads, kv
+    heads, the vocab and the ffn width (each expert's, and the shared
+    expert's), as the JAX package's ``device_put`` of the shards
+    refuses an uneven split."""
+    if tp < 1:
+        raise ValueError(f"tp must be at least 1, got {tp}")
+    widths = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+              "vocab_size": cfg.vocab_size}
+    if cfg.is_moe:
+        widths["expert_intermediate_size"] = cfg.expert_intermediate_size
+        if cfg.shared_expert_intermediate_size:
+            widths["shared_expert_intermediate_size"] = cfg.shared_expert_intermediate_size
+    else:
+        widths["intermediate_size"] = cfg.intermediate_size
+    uneven = {k: v for k, v in widths.items() if v % tp}
+    if uneven:
+        raise ValueError(f"tp={tp} does not divide {uneven}")
+
+
+class LlamaLayer(nn.Module):
+    """One decoder layer's weights (one rank's shard of them at
+    ``tp > 1``); linear weights are [out, in]."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device, tp: int = 1):
         super().__init__()
         hd, D = cfg.head_dim_, cfg.hidden_size
-        H, Hkv, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+        H, Hkv, I = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.intermediate_size // tp
         self.attn_norm = _param((D,), dtype, device)
         self.wq = _param((H * hd, D), dtype, device)
         self.wk = _param((Hkv * hd, D), dtype, device)
@@ -87,13 +154,13 @@ class LlamaLayer(nn.Module):
         self.router = None
         self.shared_gate = self.shared_up = self.shared_down = self.shared_router = None
         if cfg.is_moe:  # stacked experts, each [out, in]
-            E, Ie = cfg.num_experts, cfg.expert_intermediate_size
+            E, Ie = cfg.num_experts, cfg.expert_intermediate_size // tp
             self.router = _param((E, D), dtype, device)
             self.w_gate = _param((E, Ie, D), dtype, device)
             self.w_up = _param((E, Ie, D), dtype, device)
             self.w_down = _param((E, D, Ie), dtype, device)
             if cfg.shared_expert_intermediate_size:  # qwen2_moe
-                Is = cfg.shared_expert_intermediate_size
+                Is = cfg.shared_expert_intermediate_size // tp
                 self.shared_gate = _param((Is, D), dtype, device)
                 self.shared_up = _param((Is, D), dtype, device)
                 self.shared_down = _param((D, Is), dtype, device)
@@ -118,23 +185,29 @@ class LlamaLayer(nn.Module):
 
 
 class Llama(nn.Module):
-    """The dense Llama-family model: embedding, layers, final norm and
-    (untied) vocab head. Construction allocates uninitialised weights
-    on ``device``; fill them with :func:`init_params` or
-    ``models.convert.params_from_jax``."""
+    """The Llama-family model: embedding, layers, final norm and
+    (untied) vocab head; with ``tp > 1``, rank ``rank``'s shard of it.
+    Construction allocates uninitialised weights on ``device``; fill
+    them with :func:`init_params` or ``models.convert.params_from_jax``."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", tp: int = 1, rank: int = 0):
         super().__init__()
+        check_tp(cfg, tp)
+        if not 0 <= rank < tp:
+            raise ValueError(f"rank {rank} is outside tp={tp}")
         dt = model_dtype(cfg)
-        self.cfg = cfg
-        self.embed = _param((cfg.vocab_size, cfg.hidden_size), dt, device)
+        self.cfg, self.tp, self.rank = cfg, tp, rank
+        # This rank's attention heads (the kernels' head counts).
+        self.num_heads, self.num_kv_heads = cfg.num_heads // tp, cfg.num_kv_heads // tp
+        V = cfg.vocab_size // tp
+        self.embed = _param((V, cfg.hidden_size), dt, device)
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, dt, device) for _ in range(cfg.num_layers)
+            LlamaLayer(cfg, dt, device, tp) for _ in range(cfg.num_layers)
         )
         self.final_norm = _param((cfg.hidden_size,), dt, device)
         self.lm_head = None
         if not cfg.tie_word_embeddings:
-            self.lm_head = _param((cfg.vocab_size, cfg.hidden_size), dt, device)
+            self.lm_head = _param((V, cfg.hidden_size), dt, device)
 
     @property
     def head(self) -> torch.Tensor:
@@ -143,27 +216,31 @@ class Llama(nn.Module):
 
 @torch.no_grad()
 def init_params(
-    cfg: ModelConfig, generator: torch.Generator, device="cuda"
+    cfg: ModelConfig, generator: torch.Generator, device="cuda", rank: int = 0, tp: int = 1
 ) -> Llama:
     """Random weights on ``device`` from ``generator`` (which must live
     on that device): normal / sqrt(fan_in) for matrices and biases,
     ones for norms (zeros for the post norms of ``(1 + w)`` families) —
     the JAX package's init scheme (not its bits). A stacked expert
     weight is filled one expert at a time, so the float32 temporary is
-    one expert's matrix."""
-    model = Llama(cfg, device=device)
+    one expert's matrix. With ``tp > 1`` every rank draws each whole
+    weight and keeps its part, so the ranks' shards of one seed are
+    the parts of the ``tp=1`` model of that seed, bit for bit."""
+    model = Llama(cfg, device=device, tp=tp, rank=rank)
 
-    def fill(p: nn.Parameter, fan_in: int) -> None:
+    def fill(name: str, p: nn.Parameter, fan_in: int | None) -> None:
         if p.dim() == 3:
             for e in range(p.shape[0]):
-                fill(p[e], fan_in)
+                fill(name, p[e], fan_in)
             return
-        w = torch.randn(p.shape, generator=generator, device=p.device)
-        p.copy_(w * fan_in**-0.5)
+        full = tp_full_shape(p.shape, name, tp)
+        w = torch.randn(full, generator=generator, device=p.device)
+        # A bias's fan-in is its whole length.
+        p.copy_(tp_slice(w, name, rank, tp) * (fan_in or full[0]) ** -0.5)
 
     hd, D = cfg.head_dim_, cfg.hidden_size
     ffn = cfg.expert_intermediate_size if cfg.is_moe else cfg.intermediate_size
-    fill(model.embed, D)
+    fill("embed", model.embed, D)
     for layer in model.layers:
         for name, fan_in in (
             ("wq", D), ("wk", D), ("wv", D), ("wo", cfg.num_heads * hd),
@@ -173,11 +250,11 @@ def init_params(
         ):
             p = getattr(layer, name)
             if p is not None:
-                fill(p, fan_in)
+                fill(name, p, fan_in)
         for name in ("bq", "bk", "bv"):
             b = getattr(layer, name)
             if b is not None:
-                fill(b, b.shape[0])
+                fill(name, b, None)
         for name in ("attn_norm", "mlp_norm", "q_norm", "k_norm"):
             w = getattr(layer, name)
             if w is not None:
@@ -188,7 +265,7 @@ def init_params(
                 w.fill_(0.0 if cfg.rms_norm_offset else 1.0)
     model.final_norm.fill_(1.0)
     if model.lm_head is not None:
-        fill(model.lm_head, D)
+        fill("lm_head", model.lm_head, D)
     return model
 
 
@@ -198,10 +275,12 @@ def init_kv_cache(
     page_size: int,
     dtype: torch.dtype | None = None,
     device="cuda",
+    tp: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The paged KV pools, each [L, num_pages, ps, Hkv*D], zeroed, with
-    (kv head, head_dim) fused into the last dim as in the JAX package."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads * cfg.head_dim_)
+    (kv head, head_dim) fused into the last dim as in the JAX package;
+    a tp rank's hold its ``Hkv / tp`` heads (the JAX pools' shard)."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads // tp * cfg.head_dim_)
     dt = dtype or model_dtype(cfg)
     return (
         torch.zeros(shape, dtype=dt, device=device),
@@ -233,9 +312,14 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     return F.silu(x)
 
 
-def _attn_mlp_layer(x, layer: LlamaLayer, cfg, inv_freq, rope_pos, eps, attend):
+def _attn_mlp_layer(x, layer: LlamaLayer, cfg, inv_freq, rope_pos, eps, attend, reduce=None):
     """One decoder layer over x [B, T, D]. ``attend(q, k, v)`` is the
-    only thing that differs between the forward shapes."""
+    only thing that differs between the forward shapes. Head counts
+    come from the weights' shapes, so a tp shard runs the same body;
+    ``reduce`` (the sum over the tp ranks) is applied to the two
+    row-sharded products' outputs, before gemma2's post-norms and the
+    residual adds. None: the weights are whole."""
+    red = reduce if reduce is not None else (lambda y: y)
     B, T = x.shape[:2]
     hd, off = cfg.head_dim_, cfg.rms_norm_offset
     h = rms_norm(x, layer.attn_norm, eps, off)
@@ -248,26 +332,29 @@ def _attn_mlp_layer(x, layer: LlamaLayer, cfg, inv_freq, rope_pos, eps, attend):
     q = apply_rope(q, rope_pos, inv_freq)
     k = apply_rope(k, rope_pos, inv_freq)
     attn = attend(q, k, v)
-    attn_out = F.linear(attn.reshape(B, T, -1), layer.wo)
+    attn_out = red(F.linear(attn.reshape(B, T, -1), layer.wo))
     if layer.post_attn_norm is not None:
         attn_out = rms_norm(attn_out, layer.post_attn_norm, eps, off)
     x = x + attn_out
     h = rms_norm(x, layer.mlp_norm, eps, off)
     if layer.router is not None:
-        return x + _moe_mlp(h, layer, cfg)
+        return x + red(_moe_mlp(h, layer, cfg))
     # The activation in float32, then back to the activation dtype.
     gate = _act(F.linear(h, layer.w_gate).to(torch.float32), cfg.hidden_act).to(x.dtype)
-    ffn_out = F.linear(gate * F.linear(h, layer.w_up), layer.w_down)
+    ffn_out = red(F.linear(gate * F.linear(h, layer.w_up), layer.w_down))
     if layer.post_ffn_norm is not None:
         ffn_out = rms_norm(ffn_out, layer.post_ffn_norm, eps, off)
     return x + ffn_out
 
 
 def _moe_mlp(h, layer: LlamaLayer, cfg) -> torch.Tensor:
-    """The sparse-MoE FFN of h [B, T, D] (JAX ``models/llama.py:255-293``
-    on one device): the routed experts, plus qwen2_moe's shared expert
-    scaled by the sigmoid of its gate logit in float32, added before
-    the residual. No post-FFN norm, as in the JAX package."""
+    """The sparse-MoE FFN of h [B, T, D] (JAX ``models/llama.py:255-293``):
+    the routed experts, plus qwen2_moe's shared expert scaled by the
+    sigmoid of its gate logit in float32, added before the residual. No
+    post-FFN norm, as in the JAX package. On a tp shard the routers are
+    whole (every rank routes alike) and each expert's ffn width is the
+    rank's part: the caller's one sum covers experts and shared expert
+    (the blend is the same on every rank, so it commutes with it)."""
     B, T = h.shape[:2]
     y = moe_ffn(
         h.reshape(B * T, -1), layer.router, layer.w_gate, layer.w_up, layer.w_down,
@@ -281,7 +368,9 @@ def _moe_mlp(h, layer: LlamaLayer, cfg) -> torch.Tensor:
     return y
 
 
-def _final_logits(model: Llama, cfg, x, eps) -> torch.Tensor:
+def _final_logits(model: Llama, cfg, x, eps, comm=None) -> torch.Tensor:
+    """The vocab head's float32 logits: on a tp shard the rank's part of
+    the vocab, pinned and capped, then gathered to the full vocab."""
     x = rms_norm(x, model.final_norm, eps, cfg.rms_norm_offset)
     head = model.head
     logits = F.linear(x, head).to(torch.float32)
@@ -293,14 +382,26 @@ def _final_logits(model: Llama, cfg, x, eps) -> torch.Tensor:
     if cfg.final_logit_softcap is not None:  # gemma2
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
+    if comm is not None:
+        logits = comm.all_gather(logits, dim=-1)
     return logits
 
 
-def _embed(model: Llama, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(model: Llama, cfg, tokens: torch.Tensor, comm=None) -> torch.Tensor:
     """Token embeddings; gemma scales them by sqrt(hidden) rounded to the
     parameter dtype first, and multiplies in that dtype, as the JAX
-    package does."""
-    x = model.embed[tokens.long()]
+    package does. On a tp shard each rank looks up the ids in its part
+    of the vocab, zeros the others, and the ranks' rows are summed
+    (exact: one rank holds each row)."""
+    ids = tokens.long()
+    if comm is not None:
+        V = model.embed.shape[0]
+        local = ids - model.rank * V
+        mine = (local >= 0) & (local < V)
+        x = model.embed[torch.where(mine, local, 0)] * mine[..., None].to(model.embed.dtype)
+        x = comm.all_reduce(x)
+    else:
+        x = model.embed[ids]
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
     return x
@@ -333,6 +434,16 @@ def _layer_attention(cfg: ModelConfig, device) -> list[tuple]:
     ]
 
 
+def _tp_comm(model: Llama, comm):
+    """The comm a forward of ``model`` reduces over: None for a whole
+    model, else ``comm``, which must span the model's ranks."""
+    if model.tp == 1:
+        return None
+    if comm is None or comm.world != model.tp or comm.rank != model.rank:
+        raise ValueError(f"a tp={model.tp} shard (rank {model.rank}) needs its ranks' comm")
+    return comm
+
+
 def _write_coords(positions, rows_of, page_table, ps, drop_page=None):
     """Page-write coordinates of a flat token list: (page ids, offsets,
     rows to write). Padding (-1) and positions past the table are
@@ -363,6 +474,7 @@ def forward(
     attn_pages: int | None = None,
     attn_impl: str = "auto",
     drop_page: int | None = None,
+    comm=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward step; returns (logits [B, T, V] float32, k, v).
 
@@ -372,7 +484,8 @@ def forward(
     ragged kernel, one query per row, reading each row's true length);
     a longer step raises: send it through :func:`forward_ragged`. The
     plain version is ``paged_attention`` over the first ``attn_pages``
-    table columns, at any T. ``drop_page``: see :func:`_write_coords`."""
+    table columns, at any T. ``drop_page``: see :func:`_write_coords`.
+    ``comm``: the tp ranks' collectives, for a model that is a shard."""
     B, T = tokens.shape
     use_kernel = resolve_attn(attn_impl, tokens.device) == "kernel"
     if use_kernel and T != 1:
@@ -386,14 +499,17 @@ def forward(
     page_ids, offsets, valid = _write_coords(
         positions.reshape(-1), rows_of, page_table, ps, drop_page
     )
-    x = _embed(model, cfg, tokens)
+    comm = _tp_comm(model, comm)
+    reduce = comm.all_reduce if comm is not None else None
+    x = _embed(model, cfg, tokens, comm)
     rope_pos = torch.clamp(positions, min=0)
     if use_kernel:
         lengths = torch.clamp(positions[:, 0] + 1, min=0).to(torch.int32)
         table = page_table.to(torch.int32).contiguous()
     else:
         attn_table = page_table if attn_pages is None else page_table[:, :attn_pages]
-    fused = cfg.num_kv_heads * hd
+    hkv = model.num_kv_heads
+    fused = hkv * hd
 
     for li, layer in enumerate(model.layers):
         kp, vp = k_cache[li], v_cache[li]
@@ -407,14 +523,14 @@ def forward(
             if use_kernel:
                 return ragged_decode_attention(
                     q[:, 0].contiguous(), kp, vp, table, lengths,
-                    num_kv_heads=cfg.num_kv_heads, sm_scale=scale, window=window,
+                    num_kv_heads=hkv, sm_scale=scale, window=window,
                     softcap=softcap,
                 )[:, None]
             return paged_attention(q, kp, vp, attn_table, positions, sm_scale=scale,
                                    window=window, softcap=softcap)
 
-        x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend)
-    return _final_logits(model, cfg, x, eps), k_cache, v_cache
+        x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend, reduce)
+    return _final_logits(model, cfg, x, eps, comm), k_cache, v_cache
 
 
 @torch.no_grad()
@@ -433,6 +549,7 @@ def forward_ragged(
     attn_impl: str = "auto",
     q_tile: int = 8,
     drop_page: int | None = None,
+    comm=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward over a flat mixed batch (prefill chunks and decode
     steps in one token stream); returns (logits [M, V] float32, k, v).
@@ -444,15 +561,17 @@ def forward_ragged(
     first ``attn_pages`` table columns. Only ``out_idx`` positions reach
     the vocab head (the engine's verify spans ride there beside each
     row's last position, one projection for all). ``drop_page``: see
-    :func:`_write_coords`."""
+    :func:`_write_coords`. ``comm``: as for :func:`forward`."""
     attn_impl = resolve_attn(attn_impl, tokens.device)
     N = tokens.shape[0]
     hd, ps, eps = cfg.head_dim_, k_cache.shape[2], cfg.rms_norm_eps
     per_layer = _layer_attention(cfg, tokens.device)
     page_ids, offsets, valid = _write_coords(positions, row_of, page_table, ps, drop_page)
-    x = _embed(model, cfg, tokens)[None]  # [1, N, D]
+    comm = _tp_comm(model, comm)
+    reduce = comm.all_reduce if comm is not None else None
+    x = _embed(model, cfg, tokens, comm)[None]  # [1, N, D]
     rope_pos = torch.clamp(positions, min=0)[None]
-    fused = cfg.num_kv_heads * hd
+    fused = model.num_kv_heads * hd
     if attn_impl == "kernel":
         table = page_table.to(torch.int32).contiguous()
         rows = row_of.to(torch.int32).contiguous()
@@ -469,7 +588,7 @@ def forward_ragged(
                 kp, vp, k.reshape(N, fused), v.reshape(N, fused),
                 page_ids, offsets, valid,
             )
-            attn = {"num_kv_heads": cfg.num_kv_heads, "sm_scale": scale, "window": window,
+            attn = {"num_kv_heads": model.num_kv_heads, "sm_scale": scale, "window": window,
                     "softcap": softcap}
             if attn_impl == "kernel":
                 return ragged_paged_attention(
@@ -479,5 +598,5 @@ def forward_ragged(
                 q[0], kp, vp, attn_table, row_of, positions, **attn
             )[None]
 
-        x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend)
-    return _final_logits(model, cfg, x[0][out_idx.long()], eps), k_cache, v_cache
+        x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend, reduce)
+    return _final_logits(model, cfg, x[0][out_idx.long()], eps, comm), k_cache, v_cache

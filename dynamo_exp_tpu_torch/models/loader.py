@@ -27,7 +27,10 @@ and qwen3_moe's are ``mlp.gate`` and ``mlp.experts.N.{gate,up,down}_proj``;
 qwen2_moe adds ``mlp.shared_expert.*`` and ``mlp.shared_expert_gate``
 (``[1, D]``, the model's ``[D]``). Each expert's tensor is copied into
 its slot of the layer's stacked ``[E, ...]`` device tensor, so no
-stacked host copy is made.
+stacked host copy is made. A tensor-parallel rank (``tp > 1``) copies
+only its part of each tensor (``models.llama.TP_SPLIT_DIMS``): a slice
+of the mapping, so the pages of the other ranks' parts are never
+touched by a row split and only strided through by a column split.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .llama import Llama, model_dtype
+from .llama import Llama, model_dtype, tp_full_shape, tp_slice
 
 SUPPORTED_MODEL_TYPES = (
     "llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "gemma3_text", "phi3",
@@ -233,37 +236,40 @@ def model_tensor(model: Llama, li: int | None, attr: str | tuple[str, ...]) -> t
 
 @torch.no_grad()
 def load_params(
-    path: str, cfg: ModelConfig | None = None, device="cuda"
+    path: str, cfg: ModelConfig | None = None, device="cuda", rank: int = 0, tp: int = 1
 ) -> tuple[Llama, ModelConfig]:
     """The model of an HF checkpoint directory (``config.json`` and
-    ``*.safetensors``) on ``device``, in the config's dtype. Every
-    tensor the model needs must be there with the model's shape;
-    tensors it does not need (``rotary_emb.inv_freq``, a tied
-    ``lm_head``) are skipped, as in the JAX loader."""
+    ``*.safetensors``) on ``device``, in the config's dtype; with
+    ``tp > 1``, rank ``rank``'s shard of it. Every tensor the model
+    needs must be there with the whole model's shape; tensors it does
+    not need (``rotary_emb.inv_freq``, a tied ``lm_head``) are skipped,
+    as in the JAX loader."""
     if cfg is None:
         cfg = ModelConfig.from_pretrained(path)
     check_loadable(cfg)
     files, index = _open_safetensors(path)
     try:
-        model = Llama(cfg, device=device)
+        model = Llama(cfg, device=device, tp=tp, rank=rank)
         dt = model_dtype(cfg)
         for name, (li, attr) in hf_tensor_names(cfg).items():
             if name not in index:
                 raise KeyError(f"{path}: checkpoint has no tensor {name!r}")
             src = files[index[name]].get(name)
             owner = model if li is None else model.layers[li]
-            dsts = [_target(owner, a) for a in ((attr,) if isinstance(attr, str) else attr)]
-            want = [sum(d.shape[0] for d in dsts), *dsts[0].shape[1:]]
+            attrs = (attr,) if isinstance(attr, str) else attr
+            dsts = [_target(owner, a) for a in attrs]
+            fulls = [tp_full_shape(d.shape, a, tp) for a, d in zip(attrs, dsts)]
+            want = [sum(f[0] for f in fulls), *fulls[0][1:]]
             if list(src.shape) != want:
                 raise ValueError(
                     f"{files[index[name]].path}: tensor {name!r} has shape "
                     f"{list(src.shape)}, the model wants {want}"
                 )
             row = 0
-            for dst in dsts:  # a packed tensor's parts, by rows
-                part = src[row : row + dst.shape[0]]
+            for a, dst, full in zip(attrs, dsts, fulls):  # a packed tensor's parts, by rows
+                part = tp_slice(src[row : row + full[0]], a, rank, tp)
                 dst.copy_(part if part.dtype == dt else part.to(dt))
-                row += dst.shape[0]
+                row += full[0]
     finally:
         for sf in files:
             sf.close()

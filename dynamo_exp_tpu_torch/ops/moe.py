@@ -3,7 +3,9 @@
 Counterpart of ``dynamo_exp_tpu/ops/moe.py``: :func:`moe_router` and
 :func:`moe_ffn` of its ``:32-90``, and :func:`moe_ffn_reference`, the
 dense oracle of its ``:150-166`` (tests only). ``moe_ffn_ep`` (experts
-sharded over a mesh axis) waits for tensor parallelism.
+sharded over a mesh axis) is ROADMAP Queue 1 item 7(d); under tensor
+parallelism each rank runs this FFN on its part of every expert's ffn
+width (``models/llama.py``).
 
 Expert weights are ``[E, out, in]``, each expert's matrix in
 ``F.linear``'s layout: ``w_gate`` / ``w_up`` ``[E, I, D]``, ``w_down``
@@ -35,7 +37,7 @@ in float32 ``_grouped_mm`` takes a fallback that copies the ends to the
 host (a sync, and an error inside a capture; the same probe,
 ``tools/torch_grouped_mm_probe.py``), so a float32 CUDA tensor raises
 until a hand-written float32 grouped product lands (ROADMAP Queue 1
-entry 6). On a CPU tensor it is the
+item 7(e)). On a CPU tensor it is the
 plain version, :func:`grouped_linear_ref`, a loop over the experts that
 reads the group sizes on the host. Bound by bytes at decode (each
 touched expert's weights are read once) and by operations at a long
@@ -82,7 +84,7 @@ def grouped_linear(
         raise NotImplementedError(
             f"the MoE FFN on a card runs in bf16 only, got {xs.dtype} x {w.dtype}: "
             "torch._grouped_mm's fallback for other dtypes copies the group ends to the "
-            "host, a sync that a CUDA graph capture refuses (ROADMAP Queue 1 entry 6)")
+            "host, a sync that a CUDA graph capture refuses (ROADMAP Queue 1 item 7(e))")
     if ends.dtype != torch.int32 or ends.shape != (w.shape[0],):
         raise ValueError(f"ends must be int32 [{w.shape[0]}], got {ends.dtype} {tuple(ends.shape)}")
     launches.count("moe", "grouped_mm")

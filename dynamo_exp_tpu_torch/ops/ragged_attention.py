@@ -34,6 +34,7 @@ and the plain version zeroes the same slots.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import json
 import os
@@ -147,16 +148,31 @@ def build_kernel(
     find ``csrc/`` headers wherever they lie. One ``nvcc`` per source,
     all started together, then one link. Builds into a temporary
     directory and renames the library, then its stamp, into place, so
-    concurrent builds never load a half-written one. Returns the
-    library path; raises on a compile error with nvcc's output."""
-    global _build_log, _builds
+    concurrent builds never load a half-written one, and under a file
+    lock in the library's directory, so that processes starting
+    together (tensor-parallel ranks) run one build and the others find
+    it done. Returns the library path; raises on a compile error with
+    nvcc's output."""
     sources = sources or KERNEL_SOURCES
     lib_path = lib_path or _LIB_PATH
     hashes = source_hashes(sources)
-    if not force and os.path.exists(lib_path) and _read_stamp(lib_path) == hashes:
+
+    def fresh() -> bool:
+        return not force and os.path.exists(lib_path) and _read_stamp(lib_path) == hashes
+
+    if fresh():
         return lib_path
     out_dir = os.path.dirname(lib_path)
     os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not fresh():
+            _compile(sources, lib_path, hashes, out_dir)
+    return lib_path
+
+
+def _compile(sources: tuple[str, ...], lib_path: str, hashes: dict, out_dir: str) -> None:
+    global _build_log, _builds
     nvcc = _nvcc()
     _builds += 1
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
@@ -189,7 +205,6 @@ def build_kernel(
         with open(stamp, "w", encoding="utf-8") as f:
             json.dump(hashes, f, sort_keys=True)
         os.replace(stamp, _stamp_path(lib_path))
-    return lib_path
 
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

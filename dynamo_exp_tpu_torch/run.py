@@ -33,7 +33,13 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
   ``DYN_COORDINATOR``. Workers and ingresses of this package and of the
   JAX package share the wire and serve each other.
 - ``in=batch:<file>``: every JSONL line's ``text`` (or ``prompt``) as a
-  concurrent streaming chat request; prints one JSON stats line.
+  concurrent streaming chat request; prints one JSON stats line. A line
+  with ``token_ids`` instead goes to the core engine as it stands (no
+  tokenizer, no template; its ``max_tokens``, ``ignore_eos``,
+  ``temperature``, ``seed`` and ``logprobs`` as the request's), all such
+  lines admitted together, and prints one JSON line of its output
+  (``index``, ``token_ids``, ``finish_reason``, ``logprobs``) before the
+  stats line.
 - ``--model-path <dir>`` serves the directory's safetensors weights
   (``models/loader.py``), ``--model-path <file>.gguf`` a GGUF's
   (``models/gguf.py``: F32, F16, BF16, Q8_0), with the tokenizer and
@@ -52,6 +58,25 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
 - ``--prewarm`` and ``--compile-cache-dir`` (``aot/``): warm boot, as in
   the JAX CLI (CUDA graphs of every decode-window and mixed variant,
   and the kernel library kept in the cache directory).
+- ``--tp N`` (``--tensor-parallel-size``): tensor parallelism, one
+  process per rank, the model and the KV pools megatron-sharded over
+  them (``engine/tp.py``). This process is rank 0: it spawns the other
+  N-1 ranks first (``spawn``, so their interpreters start while this
+  one does), builds the kernel library (one build, under a file lock),
+  and alone serves ``in=``. ``--dist-backend`` picks the collectives'
+  backend (``nccl`` by default on CUDA, ``gloo`` on the CPU or for
+  ranks that share one card; ``nccl`` there is refused). With
+  ``--num-nodes M`` every node runs this CLI with the same flags and its
+  own ``--node-rank``; each runs N/M ranks (global rank = node rank x
+  N/M + local rank) and only node 0 serves ``in=``. The ranks meet at
+  the leader's ``TCPStore``: ``--dist-leader host:port``, or node 0
+  publishes ``<its address>:--dist-port`` through ``--coordinator``
+  under ``--deployment``'s key and the others read it there
+  (``parallel/multihost.py``). Under ``--tp`` > 1 the G2/G3 tiers, the
+  warm boot and CUDA graphs are refused with their ROADMAP items; a
+  ``dyn://`` worker serves without live migration. At exit rank 0
+  prints one JSON line ``{"tp": ...}``: the backend, and each rank's
+  device, dispatches, launch counters, peak memory and collectives.
 - ``--max-inflight`` / ``--shed-watermark`` (admission control at the
   HTTP edge: 429 / 503 with ``Retry-After``), ``--slo-ttft-ms`` /
   ``--slo-itl-ms`` (SLO attribution on ``/metrics``) and
@@ -79,7 +104,7 @@ import os
 import signal
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 logger = logging.getLogger("dynamo_exp_tpu_torch.run")
 
@@ -93,13 +118,6 @@ NOT_PORTED_IO = {
     "tpu": "the port's device output is out=cuda",
 }
 NOT_PORTED_FLAGS = {
-    "--tensor-parallel-size": "ROADMAP Queue 1 item 7",
-    "--tp": "ROADMAP Queue 1 item 7",
-    "--num-nodes": "ROADMAP Queue 1 item 7",
-    "--node-rank": "ROADMAP Queue 1 item 7",
-    "--dist-leader": "ROADMAP Queue 1 item 7",
-    "--dist-port": "ROADMAP Queue 1 item 7",
-    "--deployment": "ROADMAP Queue 1 item 7",
     "--request-template": f"{_ITEM9}(c)",
     "--echo-token-delay-ms": f"{_ITEM9}(i)",
 }
@@ -186,13 +204,51 @@ def parse_args(argv: list[str]):
                    help="record request span telemetry to this JSONL file")
     p.add_argument("--device", default="cuda",
                    help="device of out=cuda's engine (cpu for CPU runs)")
+    # Tensor parallelism and the multi-node engine (the JAX CLI's flags):
+    # every node runs this CLI with the same flags and its own
+    # --node-rank; node 0 leads and serves in=.
+    p.add_argument("--tensor-parallel-size", "--tp", dest="tp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism (ring-attention prefill): 1 only")
+    p.add_argument("--num-nodes", type=int, default=1,
+                   help="nodes the engine's tp ranks are spread over")
+    p.add_argument("--node-rank", type=int, default=0, help="this node's rank (0 = leader)")
+    p.add_argument("--dist-leader", default="",
+                   help="the leader's host:port (its TCPStore); empty = the leader "
+                   "derives and publishes it via --coordinator")
+    p.add_argument("--dist-port", type=int, default=9911,
+                   help="port the leader's TCPStore binds")
+    p.add_argument("--deployment", default="default",
+                   help="namespaces the published leader address so two multi-node "
+                   "graphs on one coordinator don't read each other's")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="the ranks' collectives: nccl (default on CUDA; ranks on "
+                   "different cards) or gloo (the CPU, or ranks sharing one card)")
     opts = p.parse_args(rest)
-    from .engine.config import env_overrides
+    from .engine.config import TP_LATER, env_overrides
 
     try:
         opts.engine_env = env_overrides()
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    if opts.sp != 1:
+        raise SystemExit(f"--sp {opts.sp}: ring-attention prefill is not ported to "
+                         f"dynamo_exp_tpu_torch yet; see {TP_LATER['sp']}")
+    if opts.tp < 1 or opts.num_nodes < 1 or opts.tp % opts.num_nodes:
+        raise SystemExit(f"--tp {opts.tp} must be a positive multiple of --num-nodes "
+                         f"{opts.num_nodes}")
+    if not 0 <= opts.node_rank < opts.num_nodes:
+        raise SystemExit(f"--node-rank {opts.node_rank} is outside --num-nodes {opts.num_nodes}")
+    if opts.tp > 1:
+        for flag, on, item in (
+            ("--prewarm", opts.prewarm, "graphs"),
+            ("--compile-cache-dir", bool(opts.compile_cache_dir), "graphs"),
+            ("--host-cache-pages", opts.host_cache_pages > 0, "tiers"),
+            ("DYN_KV_STORE", bool(opts.engine_env.get("kv_store_dir")), "tiers"),
+        ):
+            if on:
+                raise SystemExit(f"{flag} is not served under --tp > 1 yet; see "
+                                 f"{TP_LATER[item]}")
     for key, value in io.items():
         for prefix, item in NOT_PORTED_IO.items():
             if value == prefix or (prefix.endswith("//") and value.startswith(prefix)):
@@ -202,6 +258,9 @@ def parse_args(argv: list[str]):
     if io["out"] not in OUTPUTS and not io["out"].startswith("dyn://"):
         raise SystemExit(f"unknown out={io['out']!r} ({' | '.join(OUTPUTS)} | dyn://ns.comp.ep)")
     opts.input, opts.output = io["in"], io["out"]
+    opts.argv = list(argv)  # what a spawned tp rank parses again
+    if opts.tp > 1 and opts.output != "cuda":
+        raise SystemExit(f"--tp {opts.tp} shards out=cuda's engine, not out={opts.output}")
     return opts
 
 
@@ -212,17 +271,20 @@ def router_mode(opts):
 
 
 # ------------------------------------------------------------------- engines
-def build_cuda_engine(opts):
+def build_cuda_engine(opts, comm=None):
     """``TorchEngine`` and the card of ``--model-path`` (None with
     ``--preset``, or for a GGUF without an embedded tokenizer): the
     directory's safetensors weights or the GGUF's, or seeded random
     weights with ``--random-weights`` or ``--preset``. A hub id resolves
-    to its snapshot in the local hub cache."""
+    to its snapshot in the local hub cache. With ``comm`` (``--tp`` > 1),
+    this rank's shard of it on the rank's device."""
     from .engine import EngineConfig, TorchEngine
     from .model_card import ModelDeploymentCard
     from .models import PRESETS, ModelConfig
 
     mdc = model = None
+    device = comm.device if comm is not None else opts.device
+    shard = {"rank": comm.rank, "tp": comm.world} if comm is not None else {}
     if opts.model_path:
         from .models.hub import resolve_model_path
 
@@ -236,7 +298,7 @@ def build_cuda_engine(opts):
                 mcfg = config_from_gguf(gguf)
             else:
                 model, mcfg = load_params_from_gguf(opts.model_path, gguf=gguf,
-                                                    device=opts.device)
+                                                    device=device, **shard)
             # A self-contained GGUF carries its tokenizer and chat template;
             # one without serves token ids only.
             if "tokenizer.ggml.tokens" in gguf.metadata:
@@ -257,7 +319,7 @@ def build_cuda_engine(opts):
                     )
                 from .models.loader import load_params
 
-                model, mcfg = load_params(opts.model_path, mcfg, device=opts.device)
+                model, mcfg = load_params(opts.model_path, mcfg, device=device, **shard)
         if model is not None:
             logger.info("loaded %s in %.2fs", opts.model_path, time.monotonic() - t0)
     elif opts.preset:
@@ -274,6 +336,8 @@ def build_cuda_engine(opts):
         page_size=opts.page_size,
         num_pages=num_pages,
         max_model_len=max_len,
+        tp=opts.tp,
+        sp=opts.sp,
         eos_token_ids=list(mdc.eos_token_ids) if mdc else [],
         kv_dtype=opts.kv_dtype,
         default_max_tokens=opts.max_tokens,
@@ -284,7 +348,7 @@ def build_cuda_engine(opts):
         spec_ngram=opts.spec_ngram,
         **opts.engine_env,
     )
-    engine = TorchEngine(ecfg, model=model, device=opts.device)
+    engine = TorchEngine(ecfg, model=model, device=device, comm=comm)
     if opts.prewarm:
         # Warm boot: every window and mixed variant runs (and, on the
         # card, is captured as a CUDA graph) now, not under first traffic.
@@ -322,9 +386,10 @@ class Served:
     migrate_sink: object | None = None  # runtime.reclaim.MigrationSink
 
 
-def build_output(opts):
+def build_output(opts, comm=None):
     """``out=…`` as (core_engine, full_engine, mdc, torch_engine);
-    ``out=dyn://…`` is resolved by the input (all None here)."""
+    ``out=dyn://…`` is resolved by the input (all None here). ``comm``:
+    this rank's, under ``--tp`` > 1."""
     from .engines.echo import EchoEngineCore, EchoEngineFull
 
     if opts.output == "echo_core":
@@ -333,7 +398,7 @@ def build_output(opts):
         return None, EchoEngineFull(), None, None
     if opts.output.startswith("dyn://"):
         return None, None, None, None
-    engine, mdc = build_cuda_engine(opts)
+    engine, mdc = build_cuda_engine(opts, comm)
     return engine, None, mdc, engine
 
 
@@ -504,7 +569,15 @@ async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future |
     topo = TopologyCoordinate.from_env()
     metadata: dict = {"instance": get_telemetry().instance, TOPOLOGY_KEY: topo.encode()}
     migrate_rx = migrate_sink = None
-    if torch_engine is not None and torch_engine.kv.sharing:
+    # Live migration moves a rank's pages; under --tp > 1 SIGTERM drains
+    # without it (ROADMAP Queue 1 item 7(a)).
+    reclaimable = torch_engine is not None and torch_engine.cfg.tp == 1
+    if torch_engine is not None and not reclaimable:
+        from .engine.config import TP_LATER
+
+        logger.warning("--tp %d: no live migration on SIGTERM, only the drain (%s)",
+                       torch_engine.cfg.tp, TP_LATER["tiers"])
+    if reclaimable and torch_engine.kv.sharing:
         from .disagg.transfer import KvPageReceiver
 
         migrate_rx = KvPageReceiver()
@@ -514,7 +587,7 @@ async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future |
     served = await ep.serve_endpoint(handler, stats_handler=metrics_pub.stats_handler,
                                      metadata=metadata)
     reclaim = None
-    if torch_engine is not None:
+    if reclaimable:
 
         async def survivors():
             infos = await drt.discovery.list_instances(ep.component.path)
@@ -597,24 +670,73 @@ async def _stream_chat(engine, payload):
     return n_tokens, first, time.monotonic() - t0
 
 
-async def run_batch(opts, engine, mdc, path: str) -> dict:
-    """JSONL prompts, concurrent, tok/s stats (the JAX CLI's line)."""
-    name = (mdc.display_name if mdc else "") or "default"
-    prompts = []
+def _token_request(d: dict, opts) -> dict:
+    """A batch line with ``token_ids``, as the core engine's request."""
+    so = {k: d[k] for k in ("temperature", "seed", "logprobs") if d.get(k) is not None}
+    return {"token_ids": [int(t) for t in d["token_ids"]],
+            "stop_conditions": {"max_tokens": int(d.get("max_tokens") or opts.max_tokens),
+                                "ignore_eos": bool(d.get("ignore_eos", False))},
+            "sampling_options": so}
+
+
+async def _stream_tokens(stream):
+    """(output, token count, seconds to the first, seconds in all) of a
+    token-level stream."""
+    out = {"token_ids": [], "finish_reason": None, "logprobs": [], "top_logprobs": []}
+    first = None
+    t0 = time.monotonic()
+    async for item in stream:
+        item = item if isinstance(item, dict) else item.to_dict()
+        if item.get("token_ids"):
+            first = first if first is not None else time.monotonic() - t0
+            out["token_ids"] += item["token_ids"]
+            out["logprobs"] += item.get("logprobs") or []
+            out["top_logprobs"] += item.get("top_logprobs") or []
+        if item.get("finish_reason"):
+            reason = item["finish_reason"]
+            out["finish_reason"] = str(getattr(reason, "value", reason))
+    return out, len(out["token_ids"]), first, time.monotonic() - t0
+
+
+async def run_batch(opts, openai, path: str, core=None) -> dict:
+    """JSONL prompts, concurrent, tok/s stats (the JAX CLI's line). Text
+    lines go to the OpenAI-level engine, which ``await openai()`` builds
+    as (engine, mdc) when there are any; lines with ``token_ids`` go to
+    ``core`` (the core engine), admitted together on a ``TorchEngine``,
+    and their outputs are printed first."""
+    prompts, token_lines = [], []
     with open(path) as f:
         for line in f:
             if line.strip():
                 d = json.loads(line)
-                prompts.append(d.get("text") or d.get("prompt") or "")
+                if "token_ids" in d:
+                    token_lines.append(d)
+                else:
+                    prompts.append(d.get("text") or d.get("prompt") or "")
+    engine, mdc = await openai() if prompts else (None, None)
+    name = (mdc.display_name if mdc else "") or "default"
+    if token_lines and core is None:
+        raise SystemExit("in=batch lines with token_ids need a local core engine "
+                         "(out=cuda|echo_core)")
     t0 = time.monotonic()
+    reqs = [_token_request(d, opts) for d in token_lines]
+    if reqs and hasattr(core, "hold_admission"):
+        with core.hold_admission():  # one admission for all of them
+            streams = [core.submit(r) for r in reqs]
+    else:
+        streams = [await core.generate(r) for r in reqs]
     results = await asyncio.gather(
-        *[_stream_chat(engine, _chat_payload(name, p, opts)) for p in prompts]
+        *[_stream_tokens(st) for st in streams],
+        *[_stream_chat(engine, _chat_payload(name, p, opts)) for p in prompts],
     )
     wall = time.monotonic() - t0
+    for i, (out, *_) in enumerate(results[: len(streams)]):
+        print(json.dumps({"index": i, **out}), flush=True)
+    results = [r[-3:] for r in results]
     total = sum(r[0] for r in results)
     ttfts = sorted(r[1] for r in results if r[1] is not None)
     stats = {
-        "requests": len(prompts),
+        "requests": len(results),
         "output_tokens": total,
         "wall_s": round(wall, 3),
         "output_tok_s": round(total / wall, 2) if wall else 0.0,
@@ -624,11 +746,206 @@ async def run_batch(opts, engine, mdc, path: str) -> dict:
     return stats
 
 
+# ------------------------------------------------------- tensor parallelism
+@dataclass
+class Ranks:
+    """This node's share of a ``--tp`` engine: the comm of this process's
+    rank, its layout, the processes of the node's other ranks, and the
+    seconds from ``main_async``'s start to each step of the boot and the
+    stop (``joined_s``, ``built_s``, ``stopped_s``, ``closed_s``: the
+    other ranks joined)."""
+
+    comm: object
+    layout: object
+    procs: list
+    timeline: dict = field(default_factory=dict)
+    started_at: float = 0.0  # main_async's start, epoch seconds
+
+    def close(self, timeout_s: float = 60.0) -> None:
+        """Leave the process group, then join the spawned ranks (killed
+        when they outlive ``timeout_s``)."""
+        self.comm.close()
+        for p in self.procs:
+            p.join(timeout=timeout_s)
+            if p.is_alive():
+                logger.error("tp rank process %s did not exit; killing it", p.name)
+                p.kill()
+                p.join(timeout=10)
+
+
+def _rank_placement(opts, rank: int):
+    """(layout, backend, device) of global rank ``rank``. Raises before
+    any process group exists on a backend the placement cannot take."""
+    import torch
+
+    from .parallel import rank_layout, resolve_backend
+
+    layout = rank_layout(tp=opts.tp, rank=rank, num_nodes=opts.num_nodes)
+    kind = "cpu" if opts.device == "cpu" else "cuda"
+    cards = torch.cuda.device_count() if kind == "cuda" else 0
+    backend = resolve_backend(opts.dist_backend, kind, layout.shares_card(kind, cards))
+    return layout, backend, layout.device(kind, cards)
+
+
+def _multinode(opts):
+    from .parallel import MultiNodeConfig
+
+    return MultiNodeConfig(num_nodes=opts.num_nodes, node_rank=opts.node_rank,
+                           leader_addr=opts.dist_leader or None, dist_port=opts.dist_port,
+                           deployment=opts.deployment)
+
+
+def _follower_main(argv: list, rank: int, leader_addr: str, spawned_at: float) -> None:
+    """A spawned rank: parse the CLI as rank 0 did, join the group,
+    build this rank's shard of the engine, follow rank 0 until it stops.
+    Ctrl-C reaches the whole process group; rank 0 alone decides when
+    the ranks stop. Logs its boot's steps in seconds since it was
+    spawned."""
+    up = time.time() - spawned_at
+    from .parallel import initialize_multihost
+    from .runtime.logging import configure_logging
+
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    configure_logging()
+    opts = parse_args(argv)
+    layout, backend, device = _rank_placement(opts, rank)
+    imported = time.time() - spawned_at
+    comm = initialize_multihost(_multinode(opts), leader_addr, layout=layout,
+                                backend=backend, device=device)
+    joined = time.time() - spawned_at
+    try:
+        engine, _ = build_cuda_engine(opts, comm)
+        logger.info("tp rank %d boot, seconds since spawn: interpreter up %.2f, torch "
+                    "imported %.2f, group joined %.2f, engine built %.2f", rank, up,
+                    imported, joined, time.time() - spawned_at)
+        engine.follow()
+    finally:
+        comm.close()
+
+
+def _placement(argv: list):
+    """The flags that place this node's ranks (``parse_args`` reads them
+    again, checked), read without importing torch."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--tensor-parallel-size", "--tp", dest="tp", type=int, default=1)
+    p.add_argument("--num-nodes", type=int, default=1)
+    p.add_argument("--node-rank", type=int, default=0)
+    p.add_argument("--dist-leader", default="")
+    return p.parse_known_args(argv)[0]
+
+
+def spawn_ranks(argv: list, addr: str) -> list:
+    """Spawn this node's other ranks (``spawn``: no CUDA state crosses),
+    each parsing ``argv`` and dialling the leader's ``TCPStore`` at
+    ``addr`` (a client retries until the store is up)."""
+    from multiprocessing import get_context
+
+    a = _placement(argv)
+    per_node = a.tp // a.num_nodes
+    first = a.node_rank * per_node
+    ctx = get_context("spawn")
+    procs = [ctx.Process(target=_follower_main, args=(argv, first + i, addr, time.time()),
+                         name=f"tp-rank-{first + i}", daemon=True)
+             for i in range(1, per_node)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def early_ranks(argv: list) -> tuple[str, list] | None:
+    """(leader address, spawned ranks) when ``argv`` asks for tp > 1 and
+    the address is known without the control plane (one node: a free
+    local port; several: ``--dist-leader``): spawned first thing, so that
+    their interpreters and ``torch`` imports run while this one's do
+    (seconds each). Else None: ``start_ranks`` spawns them after
+    discovery, and a bad combination is left to ``parse_args``."""
+    a = _placement(argv)
+    if a.tp <= 1 or a.num_nodes < 1 or a.tp % a.num_nodes or not 0 <= a.node_rank < a.num_nodes:
+        return None
+    if a.num_nodes == 1:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    elif a.dist_leader:
+        addr = a.dist_leader
+    else:
+        return None
+    return addr, spawn_ranks(argv, addr)
+
+
+async def start_ranks(opts, drt, early: tuple | None = None) -> Ranks:
+    """Bring up this node's ranks: the leader's address resolved and the
+    node's other ranks spawned, unless ``early`` (:func:`early_ranks`)
+    did both; node 0's ``TCPStore`` made; the kernel library built
+    (under ``build_kernel``'s file lock, so ranks never race in
+    ``_build/``); then this process's rank joins the group off the
+    event loop (a spawned rank that dies first ends the wait)."""
+    import threading
+
+    from .parallel.comm import DIST_TIMEOUT_S
+    from .parallel.multihost import initialize_multihost, leader_store, resolve_leader_addr
+
+    cfg = _multinode(opts)
+    layout, backend, device = _rank_placement(opts, cfg.node_rank * (opts.tp // opts.num_nodes))
+    if early is None:
+        addr = await resolve_leader_addr(cfg, drt.discovery if opts.coordinator else None)
+        procs = spawn_ranks(opts.argv, addr)
+    else:
+        addr, procs = early
+    store = leader_store(addr, layout.world_size, True, DIST_TIMEOUT_S) if layout.rank == 0 else None
+    logger.info("tp=%d over %d node(s): this node runs ranks %d-%d, backend %s, leader %s",
+                opts.tp, opts.num_nodes, layout.rank, layout.rank + layout.local_world - 1,
+                backend, addr)
+    if device.type == "cuda":
+        from .ops import ragged_attention as tra
+
+        tra.build_kernel()
+    loop = asyncio.get_running_loop()
+    joined: asyncio.Future = loop.create_future()
+
+    def join():
+        try:
+            comm = initialize_multihost(cfg, addr, layout=layout, backend=backend,
+                                        device=device, store=store)
+            loop.call_soon_threadsafe(lambda: joined.done() or joined.set_result(comm))
+        except BaseException as e:  # handed to the awaiting task
+            loop.call_soon_threadsafe(lambda: joined.done() or joined.set_exception(e))
+
+    # A daemon thread, not the default executor: a wait that a dead rank
+    # abandons must not hold the interpreter's exit.
+    threading.Thread(target=join, name="tp-join", daemon=True).start()
+    while not joined.done():
+        dead = [p for p in procs if p.exitcode not in (None, 0)]
+        if dead:
+            for p in procs:
+                p.kill()
+            raise SystemExit(f"tp rank process {dead[0].name} exited with {dead[0].exitcode} "
+                             "before the group formed")
+        await asyncio.wait([joined], timeout=0.25)
+    return Ranks(joined.result(), layout, procs)
+
+
+def tp_summary(ranks: Ranks, reports: list[dict]) -> dict:
+    """The ``{"tp": ...}`` line: the backend, the node's cards and each
+    rank's report (``engine/tp.py``)."""
+    import torch
+
+    cards = torch.cuda.device_count() if ranks.comm.device.type == "cuda" else 0
+    return {"tp": ranks.comm.world, "backend": ranks.comm.backend, "cards": cards,
+            "timeline": {k: round(v, 3) for k, v in ranks.timeline.items()},
+            "started_at": ranks.started_at,
+            "ranks": reports}
+
+
 # --------------------------------------------------------------------- main
-async def main_async(opts, ready: asyncio.Future | None = None) -> None:
+async def main_async(opts, ready: asyncio.Future | None = None,
+                     early: tuple[str, list] | None = None) -> None:
     """Build ``out=…``, serve ``in=…``; the engine is stopped and the
     runtime closed on the way out, cancellation included. ``ready``
-    (optional) receives a :class:`Served` once the input is up."""
+    (optional) receives a :class:`Served` once the input is up.
+    ``early``: the ``--tp`` ranks :func:`early_ranks` spawned."""
     from .runtime.component import DistributedRuntime
     from .runtime.config import RuntimeConfig
 
@@ -649,30 +966,64 @@ async def main_async(opts, ready: asyncio.Future | None = None) -> None:
     if opts.coordinator:
         cfg.coordinator_endpoint = opts.coordinator
     drt = DistributedRuntime(config=cfg)
-    core, full, mdc, torch_engine = build_output(opts)
+    ranks = torch_engine = None
+    t_main = time.monotonic()
     try:
+        if opts.tp > 1:
+            ranks = await start_ranks(opts, drt, early)
+            ranks.started_at = time.time() - (time.monotonic() - t_main)
+            ranks.timeline["joined_s"] = time.monotonic() - t_main
+        core, full, mdc, torch_engine = build_output(opts, ranks.comm if ranks else None)
+        if ranks is not None:
+            ranks.timeline["built_s"] = time.monotonic() - t_main
+        if ranks is not None and ranks.layout.rank != 0:
+            # Another node's first rank: follow node 0's rank 0 (only it
+            # serves in=).
+            await asyncio.get_running_loop().run_in_executor(None, torch_engine.follow)
+            return
+        if ranks is not None:
+            # The loop's idle heartbeats keep the other ranks' waits for
+            # the next dispatch inside the group's timeout from boot on.
+            torch_engine.start()
         if opts.input == "http":
             await run_http(opts, drt, core, full, mdc, torch_engine, ready)
         elif opts.input.startswith("dyn://"):
             await run_worker(opts, drt, core, torch_engine, mdc, ready)
         else:
-            engine, mdc, kv_router = await resolve_openai_engine(opts, drt, core, full, mdc)
+            routers = []
+
+            async def openai():
+                # Text lines only: the card's tokenizer and template (a
+                # --preset engine serves token_ids lines alone).
+                engine, card, kv_router = await resolve_openai_engine(opts, drt, core, full, mdc)
+                routers.append(kv_router)
+                return engine, card
+
             try:
                 if ready is not None:
-                    ready.set_result(Served(engine=engine, torch_engine=torch_engine, mdc=mdc))
-                await run_batch(opts, engine, mdc, opts.input[len("batch:"):])
+                    ready.set_result(Served(engine=None, torch_engine=torch_engine, mdc=mdc))
+                await run_batch(opts, openai, opts.input[len("batch:"):], core)
             finally:
-                if kv_router is not None:
-                    await kv_router.stop()
+                for kv_router in routers:
+                    if kv_router is not None:
+                        await kv_router.stop()
     finally:
         if opts.profiler_port:
             from .runtime.profiler import stop_profiler_server
 
             stop_profiler_server()
-        if torch_engine is not None:
-            t0 = time.monotonic()
-            torch_engine.stop()
-            logger.info("engine stopped in %.2fs", time.monotonic() - t0)
+        try:
+            if torch_engine is not None:
+                t0 = time.monotonic()
+                torch_engine.stop()
+                logger.info("engine stopped in %.2fs", time.monotonic() - t0)
+        finally:
+            if ranks is not None:
+                ranks.timeline["stopped_s"] = time.monotonic() - t_main
+                ranks.close()
+                ranks.timeline["closed_s"] = time.monotonic() - t_main
+        if torch_engine is not None and torch_engine.tp_reports is not None:
+            print(json.dumps(tp_summary(ranks, torch_engine.tp_reports)), flush=True)
         t0 = time.monotonic()
         try:
             await asyncio.wait_for(drt.close(), 15)
@@ -685,9 +1036,11 @@ def main(argv: list[str] | None = None) -> None:
     from .runtime.logging import configure_logging
 
     configure_logging()
-    opts = parse_args(argv if argv is not None else sys.argv[1:])
+    argv = argv if argv is not None else sys.argv[1:]
+    early = early_ranks(argv)  # before parse_args imports torch
+    opts = parse_args(argv)
     loop = asyncio.new_event_loop()
-    main_task = loop.create_task(main_async(opts))
+    main_task = loop.create_task(main_async(opts, early=early))
     # SIGINT/SIGTERM -> cancel the main task -> the engine stops.
     for sig in (signal.SIGINT, signal.SIGTERM):
         with contextlib.suppress(NotImplementedError, ValueError):

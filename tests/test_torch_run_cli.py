@@ -11,6 +11,10 @@ them, a ``dyn://`` endpoint without a coordinator is refused with the
 JAX CLI's message, and three processes (the port's coordinator CLI, an
 ``in=dyn:// out=echo_core`` worker, an ``in=http out=dyn://`` ingress)
 serve with model discovery and drop the model when the worker exits.
+``--tp`` and the multi-node flags parse as the JAX CLI parses them,
+what tp > 1 does not serve is refused with its ROADMAP item, and two
+CPU nodes at tp=2 serve a batch of ``token_ids`` lines with a tp=1
+run's tokens.
 """
 
 import asyncio
@@ -59,10 +63,7 @@ def test_parse_args_keeps_the_jax_cli_form():
     [
         (["in=text", "out=cuda"], "item 9(d)"),
         (["in=stdin"], "item 9(d)"),
-        (["--dist-leader=h:1"], "item 7"),
         (["--request-template", "t.json"], "item 9(c)"),
-        (["--num-nodes", "2"], "item 7"),
-        (["--tp", "2"], "item 7"),
         (["--echo-token-delay-ms", "20"], "item 9(i)"),
         (["out=tpu"], "out=cuda"),
     ],
@@ -71,6 +72,53 @@ def test_unported_inputs_outputs_and_flags_are_refused(argv, item):
     with pytest.raises(SystemExit, match="not ported") as err:
         run.parse_args(argv)
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["out=cuda", "--dist-leader=h:1", "--num-nodes", "2", "--tp", "2"],
+        ["out=cuda", "--num-nodes", "2", "--node-rank", "1", "--tp", "4", "--dist-port",
+         "7000", "--deployment", "blue"],
+        ["out=cuda", "--tensor-parallel-size", "2"],
+    ],
+    ids=["dist-leader", "num-nodes", "tp"],
+)
+def test_tp_and_multinode_flags_parse_as_the_jax_cli(argv):
+    """No longer refused: ``--tp`` / ``--tensor-parallel-size``,
+    ``--num-nodes``, ``--node-rank``, ``--dist-leader``, ``--dist-port``
+    and ``--deployment`` parse as the JAX CLI parses them (and
+    ``--dist-backend``, the port's own, defaults to nccl on a card)."""
+    opts, jopts = run.parse_args(argv), jrun.parse_args(argv)
+    for name in ("tp", "num_nodes", "node_rank", "dist_leader", "dist_port", "deployment"):
+        assert getattr(opts, name) == getattr(jopts, name), name
+    assert opts.dist_backend is None
+    assert run.parse_args(argv + ["--dist-backend", "gloo"]).dist_backend == "gloo"
+
+
+@pytest.mark.parametrize(
+    "argv,item",
+    [
+        (["--prewarm"], "item 7(b)"),
+        (["--compile-cache-dir", "/tmp/x"], "item 7(b)"),
+        (["--host-cache-pages", "64"], "item 7(a)"),
+        (["--sp", "2"], "item 7(c)"),
+    ],
+    ids=["prewarm", "compile-cache-dir", "host-cache-pages", "sp"],
+)
+def test_what_tp_does_not_serve_is_refused_with_its_item(argv, item):
+    with pytest.raises(SystemExit) as err:
+        run.parse_args(["out=cuda", "--tp", "2", *argv])
+    assert item in str(err.value)
+
+
+def test_tp_needs_out_cuda_and_a_whole_split():
+    with pytest.raises(SystemExit, match="out=echo_core"):
+        run.parse_args(["out=echo_core", "--tp", "2"])
+    with pytest.raises(SystemExit, match="multiple of --num-nodes"):
+        run.parse_args(["out=cuda", "--tp", "3", "--num-nodes", "2"])
+    with pytest.raises(SystemExit, match="--node-rank 2"):
+        run.parse_args(["out=cuda", "--tp", "2", "--num-nodes", "2", "--node-rank", "2"])
 
 
 @pytest.mark.parametrize(
@@ -364,3 +412,86 @@ async def test_three_process_serve_with_discovery(tiny_model_dir):
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 await asyncio.to_thread(proc.wait, 30)
+
+
+def _f32_model_dir(tiny_model_dir, path) -> str:
+    """The tiny model directory with float32 weights (tp=2 equals tp=1
+    token for token only in float32: bf16 partial sums round apart)."""
+    for name in os.listdir(tiny_model_dir):
+        if name != "config.json":
+            os.symlink(os.path.join(tiny_model_dir, name), path / name)
+    with open(os.path.join(tiny_model_dir, "config.json")) as f:
+        conf = json.load(f)
+    (path / "config.json").write_text(json.dumps(dict(conf, torch_dtype="float32")))
+    return str(path)
+
+
+def _token_batch(path, vocab: int) -> str:
+    import numpy as np
+
+    rs = np.random.RandomState(3)
+    lines = [{"token_ids": [int(t) for t in rs.randint(3, vocab, size=n)], "max_tokens": 8,
+              "ignore_eos": True} for n in (5, 17, 9, 30)]
+    lines[2].update(temperature=0.8, seed=21, logprobs=2)
+    path.write_text("".join(json.dumps(d) + "\n" for d in lines))
+    return str(path)
+
+
+def _outputs(stdout: str) -> list[dict]:
+    rows = [json.loads(line) for line in stdout.splitlines() if line.startswith('{"index"')]
+    return sorted(rows, key=lambda r: r["index"])
+
+
+def test_batch_token_lines_print_their_outputs(tiny_model_dir, tmp_path, capsys):
+    """``token_ids`` lines go to the core engine, admitted together, and
+    print one output line each before the stats line."""
+    d = _f32_model_dir(tiny_model_dir, tmp_path)
+    batch = _token_batch(tmp_path / "b.jsonl", 384)
+    opts = run.parse_args([f"in=batch:{batch}", "out=cuda", "--device", "cpu",
+                           "--model-path", d, "--random-weights", *SMALL])
+    asyncio.run(asyncio.wait_for(run.main_async(opts), timeout=300))
+    lines = capsys.readouterr().out.strip().splitlines()
+    rows, stats = _outputs("\n".join(lines)), json.loads(lines[-1])
+    assert [r["index"] for r in rows] == [0, 1, 2, 3]
+    assert all(len(r["token_ids"]) == 8 and r["finish_reason"] == "length" for r in rows)
+    assert len(rows[2]["logprobs"]) == 8 and len(rows[2]["top_logprobs"][0]) == 2
+    assert stats["requests"] == 4 and stats["output_tokens"] == 32
+
+
+def test_two_nodes_at_tp2_give_the_tokens_of_tp1(tiny_model_dir, tmp_path):
+    """Two ``run.py`` processes, ``--num-nodes 2 --node-rank 0/1
+    --dist-leader 127.0.0.1:<port> --tp 2 --dist-backend gloo``, on the
+    CPU: node 0 serves the batch with the tokens of a tp=1 run, node 1
+    follows and prints no output; node 0's ``{"tp": ...}`` line shows
+    both ranks' digests equal."""
+    d = _f32_model_dir(tiny_model_dir, tmp_path)
+    batch = _token_batch(tmp_path / "b.jsonl", 384)
+    base = [f"in=batch:{batch}", "out=cuda", "--device", "cpu", "--model-path", d,
+            "--random-weights", *SMALL]
+    one = _cli(*base, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    port = free_port()
+    nodes = [_cli(*base, "--tp", "2", "--num-nodes", "2", "--node-rank", str(r),
+                  "--dist-leader", f"127.0.0.1:{port}", "--dist-backend", "gloo",
+                  stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in (0, 1)]
+    outs = []
+    try:
+        for p in [one, *nodes]:
+            outs.append(p.communicate(timeout=240))
+    finally:
+        for p in [one, *nodes]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    for p, (_, err) in zip([one, *nodes], outs):
+        assert p.returncode == 0, err[-3000:]
+    want, got, follower = (_outputs(o) for o, _ in outs)
+    assert [r["token_ids"] for r in got] == [r["token_ids"] for r in want]
+    assert len(want) == 4 and not follower
+    import numpy as np
+
+    np.testing.assert_allclose(got[2]["logprobs"], want[2]["logprobs"], atol=1e-4)
+    (tp,) = [json.loads(line)["tp"] and json.loads(line) for line in outs[1][0].splitlines()
+             if line.startswith('{"tp"')]
+    assert tp["tp"] == 2 and tp["backend"] == "gloo"
+    assert [r["rank"] for r in tp["ranks"]] == [0, 1]
+    assert len({(r["digest"], r["dispatches"]) for r in tp["ranks"]}) == 1
