@@ -172,8 +172,10 @@ Phases, each fatal on failure (nothing is caught):
    coordinator (its CLI, a subprocess), two worker processes (spawned;
    each runs ``run.main_async(in=dyn://smoke.llm.generate out=cuda
    --random-weights --num-pages 2048 --max-decode-slots 8 --kv-dtype
-   bfloat16)``, llama-8b at full width and depth from seed 0, no
-   prewarm, and writes its launch counters, prefix hits and computed
+   bfloat16)``, llama-8b at full width and 8 of its 32 layers
+   (``Phase11.layers``; what is checked is counted in pages, tokens and
+   requests, or held against a direct engine of that depth) from seed 0,
+   no prewarm, and writes its launch counters, prefix hits and computed
    prefill tokens to a file every 0.25 s) and the ingress in this
    process (``run.main_async(in=http out=dyn://… --router-mode kv``,
    then ``round-robin``; no ``--model-path``: the model arrives through
@@ -188,8 +190,9 @@ Phases, each fatal on failure (nothing is caught):
    workers attached, kv computes fewer prefill tokens than
    round-robin, and each worker launched the tensor-core mixed and the
    split-KV decode kernels; (c) phase 6's lone greedy request, sent
-   twice under round-robin (each worker serves it once), gives phase
-   6's direct engine's tokens bit for bit; (d) 8 streams of 256 tokens
+   twice under round-robin (each worker serves it once), gives a direct
+   engine's tokens at the workers' depth bit for bit; (d) 8 streams of
+   256 tokens
    (logprobs 1) under round-robin, one worker SIGKILLed while they
    stream: every stream finishes at full length with ``seq_index``
    strictly rising to 256 = its logprob entries, the ingress's
@@ -203,8 +206,10 @@ Phases, each fatal on failure (nothing is caught):
    stopped.
 
 12. disaggregated prefill/decode and spot reclaim, llama-8b at full
-   width and depth (seed 0, 2048 pages of 16 in each worker, no
-   prewarm). A direct ``TorchEngine`` first serves (a)'s lone prompts
+   width, (a)-(c) at 8 of its 32 layers (``Phase12.disagg_layers``:
+   what they check is counted in pages, requests and tokens, or held
+   against a direct engine of the same depth), (d) at full depth (seed
+   0, 2048 pages of 16 in each worker, no prewarm). A direct ``TorchEngine`` first serves (a)'s lone prompts
    and (b)'s prompts, each alone (the reference), and is freed. Then the
    port's coordinator (its CLI), a prefill worker process
    (``TorchEngine`` + ``PrefillWorker`` on ``prefill_queue_name``,
@@ -260,7 +265,8 @@ Phases, each fatal on failure (nothing is caught):
    ``reclaiming`` before the SIGTERM.
 
 13. request anatomy, the workload fingerprint and drift, the profiler
-   and ``llmctl``, llama-8b at full width and depth over HTTP
+   and ``llmctl``, llama-8b at full width and 8 of its 32 layers
+   (``Phase13.layers``; no check depends on depth) over HTTP
    (``run.main_async``, bf16, seed 0) with ``--trace-file``,
    ``--profiler-port`` and ``DYN_WORKLOAD_REF`` pinned to a
    fingerprint built beforehand from the planned burst's lengths,
@@ -340,8 +346,8 @@ Phases, each fatal on failure (nothing is caught):
    every run's tokens equal the fault-free run's (float32 ties within
    ``F32_TIE``). (c) ``python -m dynamo_exp_tpu_torch.run in=http
    out=cuda --model-path <dir> --random-weights --host-cache-pages N``
-   with ``DYN_KV_STORE=<dir>`` (llama-8b, the model directory of phase
-   6's layout): chats 1, 2, 3 and chat 1 again (a G2 hit), then SIGTERM
+   with ``DYN_KV_STORE=<dir>`` (llama-8b's width at 8 layers,
+   ``Phase15.process_layers``, the model directory of phase 6's layout): chats 1, 2, 3 and chat 1 again (a G2 hit), then SIGTERM
    (drain and seal); a second process over the directory answers chat 1
    with the same text, ``dynamo_kv_prefix_hits_total{kind="persist"}``
    equal to the first process's G2 hits and ``dynamo_kv_store_pages`` >
@@ -425,10 +431,14 @@ Phases, each fatal on failure (nothing is caught):
    with one card both ranks share it over gloo, with two or more each
    has a card, over NCCL (printed with ``torch.cuda.device_count()``
    and each rank's device and peak memory); the three kernels run at
-   per-rank head counts. (a) The llama-8b preset at full width and
-   depth, bf16, random weights from seed 0: phase 5's 8 prompts (the
+   per-rank head counts. (a) llama-8b at full width and 8 of its 32
+   layers (a model directory of its config.json; the checks do not
+   depend on depth, and the cut keeps the smoke inside its time limit),
+   bf16, random weights from seed 0: phase 5's 8 prompts (the
    seeded one too), 32 tokens each, admitted together, then a rerun in
-   new processes: the same tokens, both ranks' output digests equal,
+   new processes (beside (b)'s; (c)'s two runs side by side too: only
+   their tokens are compared): the same tokens, both ranks' output
+   digests equal,
    both bf16 kernels launched on each rank as often on both; printed:
    wall, tokens/s, rank 0's collectives (count, seconds, share of the
    wall). (b) llama-8b's width at 4 layers, float32: tp=2 against the
@@ -439,6 +449,35 @@ Phases, each fatal on failure (nothing is caught):
    shared expert of 5,632): 8 prompts of 32 tokens and a rerun,
    identical, with the grouped products and both bf16 kernels launched
    on each rank.
+
+19. the serve graphs and the planner through the entry points a user
+   calls: ``python -m dynamo_exp_tpu_torch.sdk.serve <graph>:Frontend -f
+   <json> --start-coordinator`` (the supervisor and its coordinator,
+   spawning the Frontend, Processor and CudaWorker processes; worker
+   slots ``0,0``: two workers may share the card) and ``python -m
+   dynamo_exp_tpu_torch.planner.planner`` beside it. The graph module is
+   the port's, its CudaWorker instrumented by a module this script
+   writes (``P19_GRAPH``: launch counts to a state file, a held-burst
+   control endpoint). (a) The agg_router graph (KV routing) with llama-8b
+   at full width and depth, bf16, seed-0 random weights, 1,024 pages and
+   8 slots a worker: phase 5's lengths as 8 streamed chats (one seeded
+   at temperature 0.8), 32 tokens each, admitted together, twice:
+   [DONE] with usage, identical reruns (the seeded one too), the model
+   listed, both bf16 kernels launched in the worker. (b) The planner
+   (metric 0.5 s, adjustment 2 s, KV thresholds 0.7 / 0.3,
+   ``max_gpu_budget`` 2, ``min_endpoint`` 1) adds a second CudaWorker
+   under 16 chats of 1,500-2,000 tokens at 128 tokens; 16 more are
+   served by both workers (each worker's launches rise); once idle it
+   removes the newest, which drains on SIGTERM: exactly one add and one
+   remove, every stream whole, no restart; printed: load -> add, add ->
+   second instance visible, idle -> remove seconds, each wave's TTFT
+   p50 / max and tokens/s, each worker's launches. (c) The agg graph at
+   llama-8b's width, 4 layers, float32: 8 greedy completions of phase 5's
+   prompt ids (32 tokens, top-2 logprobs) give a ``TorchEngine`` in this
+   process on the same seed-0 weights its tokens (as the service shows
+   them: each decoded alone), up to a float32 tie (``F32_TIE``), through
+   the float32 mixed and split-KV kernels. A ``{"phase19": ...}`` line
+   holds the numbers.
 
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
@@ -473,7 +512,9 @@ checks (``launches_window_logits``), and phase 15's G3 engines
 (``launches_sharing_f32``: (c)), and phase 17's GGUF and directory
 servers (``launches_gguf``, ``launches_gguf_dir``: their HTTP chats),
 and phase 18's rank 0 (``launches_tp2``: (a), ``launches_tp2_f32``: (b),
-``launches_tp2_moe``: (c); every rank's are equal);
+``launches_tp2_moe``: (c); every rank's are equal), and phase 19's
+graph workers (``launches_graph``: (a) and (b), both workers summed;
+``launches_graph_f32``: (c));
 both mixed entries also carry the
 verify spans' timing (``verify_*``), and every entry phase 3's windowed
 cases in its own dtype (``gemma2_d256_softcap_window``,
@@ -1709,9 +1750,11 @@ async def _traffic(torch, np, pkg, tra, tok, client, base, eng, model_dir, phase
     c_choice = c.json()["choices"][0]
     c_text = c_choice["text"]
     assert c_choice["finish_reason"] in ("length", "stop") and c_text, c_choice
+    # Four characters from past its first third, else three, else two
+    # (random weights' text may split a character every few).
     stop = next(
-        (c_text[i : i + 4] for i in range(len(c_text) // 3, len(c_text) - 4)
-         if c_text[i : i + 4].strip() and "�" not in c_text[i : i + 4]),
+        (c_text[i : i + n] for n in (4, 3, 2) for i in range(len(c_text) // 3, len(c_text) - n)
+         if c_text[i : i + n].strip() and "�" not in c_text[i : i + n]),
         None)
     assert stop, f"no stop string in {c_text!r}"
     d = await sse_request(client, cmpl, {"model": "llama-8b", "prompt": UNARY_PROMPT,
@@ -3546,6 +3589,10 @@ class Phase11:
     it smaller (``device="cpu"``)."""
 
     device: str = "cuda"
+    # llama-8b at full width and 8 of its 32 layers: routing, failover and
+    # worker identity are counted in pages, tokens and requests, and (c)'s
+    # reference is a direct engine of the same depth.
+    layers: int = 8
     groups: int = 16  # (b): prefix groups per routing mode
     prefix_tokens: int = 1024
     suffix_tokens: tuple = (64, 256)  # each suffix's length, drawn in this range
@@ -3624,6 +3671,29 @@ def _p11_worker(argv: list, state_path: str, period_s: float, t_spawn: float) ->
         write({**state(True), "telemetry": get_telemetry().render().decode()})
 
     asyncio.run(serve())
+
+
+def _p11_lone(torch, pkg, mcfg, sh: Phase11, ids: list[int], max_tokens: int) -> list[int]:
+    """A greedy request's tokens from a direct ``TorchEngine`` (the
+    workers' engine shape) on the seed-0 weights of ``mcfg``."""
+    from dynamo_exp_tpu_torch.engine import EngineConfig, TorchEngine
+
+    eng = TorchEngine(EngineConfig(model=mcfg, max_decode_slots=sh.slots, page_size=PS,
+                                   num_pages=sh.num_pages, max_model_len=sh.max_model_len),
+                      model=seeded_model(torch, pkg, mcfg, sh.device), device=sh.device)
+
+    async def go():
+        stream = eng.submit({"token_ids": ids, "stop_conditions": {
+            "max_tokens": max_tokens, "ignore_eos": True}})
+        eng.start()
+        return [t async for item in stream for t in item.get("token_ids") or []]
+
+    try:
+        return asyncio.run(asyncio.wait_for(go(), 300))
+    finally:
+        eng.stop()
+        del eng
+        free(torch, sh.device)
 
 
 def _p11_read(path: str) -> dict | None:
@@ -3796,17 +3866,23 @@ def phase11(torch, np, pkg, tra, smi: str, lone: tuple, sh: Phase11 = Phase11(),
     """Phase 11: two worker processes behind the KV-aware router, the
     port's coordinator and the HTTP ingress in this process. ``lone``:
     (prompt ids, tokens) of a lone greedy request served by a direct
-    ``TorchEngine`` on the same seeded weights (phase 6's)."""
+    ``TorchEngine`` on the same seeded weights (phase 6's, at full
+    depth; without ``mcfg`` the workers run llama-8b at ``sh.layers``
+    layers, and the lone request's tokens are taken again from a direct
+    engine of that depth)."""
     import multiprocessing
     import socket
     import tempfile
+    from dataclasses import replace
 
     from dynamo_exp_tpu_torch import run
     from dynamo_exp_tpu_torch import tokenizer as tokmod
     from dynamo_exp_tpu_torch.http import client
 
-    mcfg = mcfg or pkg.models.LLAMA_8B
     t_phase = time.perf_counter()
+    if mcfg is None:
+        mcfg = replace(pkg.models.LLAMA_8B, num_layers=sh.layers)
+        lone = (lone[0], _p11_lone(torch, pkg, mcfg, sh, lone[0], len(lone[1])))
     free(torch, sh.device)
     if sh.device == "cuda":
         free_b, total_b = torch.cuda.mem_get_info()
@@ -4008,7 +4084,8 @@ async def _drive_cluster(np, pkg, run, client, smi, sh, mcfg, addr, procs, paths
         assert got[0] == got[1] == list(lone_tokens), (got, lone_tokens)
         log(f"[cluster] {smi}: (c) the lone {len(lone_ids)}-token greedy request, once on each "
             f"worker (prefill tokens by worker {served}): {len(lone_tokens)} tokens bit-equal "
-            f"across the workers and to phase 6's direct engine on the same weights")
+            f"across the workers and to a direct engine on the same weights ({mcfg.num_layers} "
+            f"layers)")
 
         # (d) Failover under round-robin.
         d = await _p11_failover(client, base, np, mcfg.vocab_size, sh, procs, paths, tel)
@@ -4041,6 +4118,11 @@ class Phase12:
     it smaller (``device="cpu"``)."""
 
     device: str = "cuda"
+    # (a)-(c): llama-8b at full width and 8 of its 32 layers (what they
+    # check is counted in pages, requests and tokens, and compared with
+    # a direct engine at the same depth); (d) at full depth, whose
+    # streams must outlast the reclaim's triage at full depth's pace.
+    disagg_layers: int = 8
     num_pages: int = 2048  # each worker's pool, as in phase 11
     slots: int = 8
     max_model_len: int = 2048 + MAX_TOKENS + PS  # a 2048-token prompt and its tokens
@@ -4283,18 +4365,22 @@ def _p12_pages(n_tokens: int) -> int:
 
 def phase12(torch, np, pkg, tra, smi: str, sh: Phase12 = Phase12(), mcfg=None) -> dict:
     """Phase 12: disaggregated prefill/decode (a prefill worker and a
-    decode worker process behind the HTTP ingress in this process),
-    suffix-only transfers, a handoff lease never confirmed, then spot
-    reclaim with live KV migration between two aggregated workers."""
+    decode worker process behind the HTTP ingress in this process, at
+    ``sh.disagg_layers`` layers), suffix-only transfers, a handoff lease
+    never confirmed, then spot reclaim with live KV migration between
+    two aggregated workers at full depth."""
     import multiprocessing
     import socket
     import tempfile
+
+    from dataclasses import replace
 
     from dynamo_exp_tpu_torch import run
     from dynamo_exp_tpu_torch import tokenizer as tokmod
     from dynamo_exp_tpu_torch.http import client
 
-    mcfg = mcfg or pkg.models.LLAMA_8B
+    full = mcfg or pkg.models.LLAMA_8B  # (d)'s
+    mcfg = mcfg or replace(full, num_layers=sh.disagg_layers)  # (a)-(c)'s
     t_phase = time.perf_counter()
     free(torch, sh.device)
     prompts = _p12_prompts(np, mcfg.vocab_size, sh)
@@ -4308,6 +4394,12 @@ def phase12(torch, np, pkg, tra, smi: str, sh: Phase12 = Phase12(), mcfg=None) -
     out: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = write_model_dir(os.path.join(tmp, "llama-8b"), tokmod, mcfg, text)
+        full_dir = model_dir
+        if full is not mcfg:
+            full_dir = os.path.join(tmp, "llama-8b-full")
+            shutil.copytree(model_dir, full_dir)
+            with open(os.path.join(full_dir, "config.json"), "w", encoding="utf-8") as f:
+                json.dump({**hf_config(full), "bos_token_id": full.vocab_size - N_SPECIAL}, f)
         with socket.socket() as probe:
             probe.bind(("127.0.0.1", 0))
             port = probe.getsockname()[1]
@@ -4320,11 +4412,15 @@ def phase12(torch, np, pkg, tra, smi: str, sh: Phase12 = Phase12(), mcfg=None) -
             line = coord.stdout.readline().strip()
             assert line == f"coordinator ready on 127.0.0.1:{port}", line
             addr = f"127.0.0.1:{port}"
-            common = ["out=cuda", "--device", sh.device, "--model-path", model_dir,
-                      "--model-name", "llama-8b", "--random-weights", "--coordinator", addr,
-                      "--num-pages", str(sh.num_pages), "--max-decode-slots", str(sh.slots),
-                      "--page-size", str(PS), "--max-model-len", str(sh.max_model_len),
-                      "--kv-dtype", "bfloat16"]
+
+            def worker_argv(path: str) -> list[str]:
+                return ["out=cuda", "--device", sh.device, "--model-path", path,
+                        "--model-name", "llama-8b", "--random-weights", "--coordinator", addr,
+                        "--num-pages", str(sh.num_pages), "--max-decode-slots", str(sh.slots),
+                        "--page-size", str(PS), "--max-model-len", str(sh.max_model_len),
+                        "--kv-dtype", "bfloat16"]
+
+            common = worker_argv(model_dir)
             knobs = dict(lease_ttl_s=sh.lease_ttl_s, max_local=sh.max_local,
                          max_queue=sh.max_queue)
             ctx = multiprocessing.get_context("spawn")
@@ -4384,7 +4480,7 @@ def phase12(torch, np, pkg, tra, smi: str, sh: Phase12 = Phase12(), mcfg=None) -
             # (d) Spot reclaim between two aggregated workers.
             agg_paths = [os.path.join(tmp, f"agg{i}.json") for i in range(2)]
             agg = []
-            argv = [f"in={P12_AGG}", *common]
+            argv = [f"in={P12_AGG}", *worker_argv(full_dir)]
             for i in range(2):
                 proc = ctx.Process(target=_p11_worker, name=f"agg{i}",
                                    args=(argv, agg_paths[i], sh.state_period_s, time.time()))
@@ -4392,7 +4488,7 @@ def phase12(torch, np, pkg, tra, smi: str, sh: Phase12 = Phase12(), mcfg=None) -
                 agg.append(proc)
             procs.extend(agg)
             out["d"] = asyncio.run(asyncio.wait_for(
-                _p12_drive_reclaim(np, run, client, smi, sh, mcfg, addr, agg, agg_paths,
+                _p12_drive_reclaim(np, run, client, smi, sh, full, addr, agg, agg_paths,
                                    prompts["reclaim"]), timeout=900))
             survivor = agg[1]
             survivor.terminate()
@@ -4773,6 +4869,10 @@ class Phase13:
     the CPU test rehearses it smaller (``device="cpu"``)."""
 
     device: str = "cuda"
+    # llama-8b at full width and 8 of its 32 layers: the anatomy, the
+    # fingerprint, the traces and llmctl do not depend on depth, and the
+    # pressure is counted in pages.
+    layers: int = 8
     prompt_lens: tuple = PROMPT_LENS
     max_tokens: int = PRESSURE_TOKENS
     num_pages: int = PRESSURE_PAGES
@@ -4915,17 +5015,19 @@ def _share_line(shares: dict) -> str:
 
 def phase13(torch, np, pkg, tra, smi: str, sh: Phase13 = Phase13(), mcfg=None) -> dict:
     """Phase 13: request anatomy, the workload fingerprint and drift,
-    the profiler and llmctl, on llama-8b served over HTTP under KV
-    pressure."""
+    the profiler and llmctl, on llama-8b (full width, ``sh.layers``
+    layers) served over HTTP under KV pressure."""
     import socket
     import tempfile
 
     from dynamo_exp_tpu_torch import run
     from dynamo_exp_tpu_torch import tokenizer as tokmod
     from dynamo_exp_tpu_torch.http import client
+    from dataclasses import replace
+
     from dynamo_exp_tpu_torch.telemetry import FingerprintBuilder, get_telemetry
 
-    mcfg = mcfg or pkg.models.LLAMA_8B
+    mcfg = mcfg or replace(pkg.models.LLAMA_8B, num_layers=sh.layers)
     t_phase = time.perf_counter()
     free(torch, sh.device)
     with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
@@ -5674,6 +5776,10 @@ class Phase15:
     f32_host_pages: int = 16
     flip_at: int = 5  # (b): the stored page whose read is flipped
     chat_chars: tuple = (1200, 6000)  # (c): README text of chat 1, and of chats 2 and 3
+    # (c): llama-8b at full width and 8 of its 32 layers in the server
+    # processes: the store's checks count pages and compare texts, none
+    # depends on depth.
+    process_layers: int = 8
     chat_tokens: int = 16
     chaos_tokens: int = MAX_TOKENS  # (d)
     cut_at: int = 16  # (d): the mid-stream crash
@@ -6070,7 +6176,8 @@ class _Server:
 
 def g3_processes(torch, np, pkg, smi: str, sh: Phase15, mcfg=None) -> dict:
     """Phase 15 (c): ``DYN_KV_STORE`` across processes. A server process
-    (``run in=http out=cuda``, llama-8b at full width and depth, random
+    (``run in=http out=cuda``, llama-8b at full width and
+    ``sh.process_layers`` layers, random
     weights from seed 0, a G1 that holds one chat) answers chats 1, 2
     and 3 (which push chat 1's pages into G2) and chat 1 again (a G2
     hit), and stops through its normal shutdown (drain and seal); a
@@ -6083,10 +6190,12 @@ def g3_processes(torch, np, pkg, smi: str, sh: Phase15, mcfg=None) -> dict:
     import shutil
     import tempfile
 
+    from dataclasses import replace
+
     from dynamo_exp_tpu_torch import tokenizer as tokmod
     from dynamo_exp_tpu_torch.http import client
 
-    mcfg = mcfg or pkg.models.LLAMA_8B
+    mcfg = mcfg or replace(pkg.models.LLAMA_8B, num_layers=sh.process_layers)
     with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
         text = f.read()
     tmp = tempfile.mkdtemp(prefix="p15c-")
@@ -7271,7 +7380,8 @@ class Phase18:
     it smaller (``device="cpu"``, tiny configs in place of the presets)."""
 
     device: str = "cuda"
-    dense_preset: str = "llama-8b"  # (a): the preset at full width and depth, bf16
+    dense_preset: str = "llama-8b"  # (a): the preset at full width ...
+    dense_layers: int = 8  # ... and 8 of its 32 layers, bf16
     prompt_lens: tuple = PROMPT_LENS  # (a), (b): phase 5's prompts ...
     max_tokens: int = MAX_TOKENS  # ... at 32 tokens
     f32_layers: int = 4  # (b): llama-8b's width at 4 layers, float32
@@ -7300,18 +7410,26 @@ def p18_batch(path: str, prompts, max_tokens: int, options=None, logprobs=None) 
     return path
 
 
-def p18_run(argv: list, sh: Phase18, tp: int = TP_DEGREE) -> dict:
-    """``python -m dynamo_exp_tpu_torch.run <argv> --tp <tp>`` from this
-    checkout, stopped at ``sh.timeout_s``: its outputs by index, the
-    stats line, the ``{"tp": ...}`` line and the process wall."""
+P18_PROCS: list = []  # every run.py this phase started (killed if left running)
+
+
+def p18_start(argv: list, tp: int = TP_DEGREE):
+    """Start ``python -m dynamo_exp_tpu_torch.run <argv> --tp <tp>`` from
+    this checkout; :func:`p18_result` waits for it."""
     env = dict(os.environ, PYTHONPATH=HERE)
     cmd = [sys.executable, "-m", "dynamo_exp_tpu_torch.run", *argv, "--tp", str(tp)]
-    t_popen = time.time()
-    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
+    P18_PROCS.append(proc)
+    return proc, tp, time.time(), time.perf_counter()
+
+
+def p18_result(started, sh: Phase18) -> dict:
+    """A started run, stopped at ``sh.timeout_s``: its outputs by index,
+    the stats line, the ``{"tp": ...}`` line and the process wall."""
+    proc, tp, t_popen, t0 = started
     try:
-        out, err = proc.communicate(timeout=sh.timeout_s)
+        out, err = proc.communicate(timeout=max(sh.timeout_s - (time.perf_counter() - t0), 1.0))
     except subprocess.TimeoutExpired:
         proc.kill()
         out, err = proc.communicate(timeout=60)
@@ -7330,6 +7448,11 @@ def p18_run(argv: list, sh: Phase18, tp: int = TP_DEGREE) -> dict:
              if "boot, seconds since spawn" in x]
     return dict(rows=rows, stats=stats, tp=tp_line[0] if tp_line else None, wall_s=wall,
                 tokens=[r["token_ids"] for r in rows], follower_boot=boots)
+
+
+def p18_run(argv: list, sh: Phase18, tp: int = TP_DEGREE) -> dict:
+    """``python -m dynamo_exp_tpu_torch.run <argv> --tp <tp>``, to its end."""
+    return p18_result(p18_start(argv, tp), sh)
 
 
 def p18_argv(sh: Phase18, batch: str, model: list, kv_dtype: str, lens, max_tokens: int,
@@ -7420,18 +7543,20 @@ def phase18(torch, np, pkg, tra, smi: str, sh: Phase18 = Phase18(), dense=None, 
     ``python -m dynamo_exp_tpu_torch.run ... --tp 2`` in subprocesses,
     each rank a process of its own (one card: both on it over gloo; two
     or more: a card each over NCCL), the kernels at per-rank head
-    counts. (a) The llama-8b preset at full width and depth, bf16,
-    random weights from seed 0: phase 5's 8 prompts (one seeded), 32
-    tokens each, admitted together, then a rerun in a new pair of
-    processes: the same tokens; both ranks' outputs equal; both bf16
+    counts. (a) llama-8b at full width and 8 of its 32 layers
+    (``Phase18.dense_layers``), bf16, random weights from seed 0: phase
+    5's 8 prompts (one seeded), 32 tokens each, admitted together, then
+    a rerun in a new pair of processes (beside (b)'s pair and tp=1
+    reference): the same tokens; both ranks' outputs equal; both bf16
     kernels launched on each rank, as often on both. (b) llama-8b's
     width at 4 layers, float32: tp=2 against tp=1 (in this process, the
     same weights): the same greedy tokens up to a float32 tie
     (``F32_TIE``), through the float32 mixed and split-KV kernels. (c)
     Qwen1.5-MoE-A2.7B's published width at 4 layers, bf16 (16/16 heads
     of 128, 60 experts of 1,408, top-4, a shared expert of 5,632): 8
-    prompts of 32 tokens and a rerun, identical, the grouped products
-    and both bf16 kernels launched on each rank. ``dense`` / ``f32`` /
+    prompts of 32 tokens and a rerun (the two pairs side by side),
+    identical, the grouped products and both bf16 kernels launched on
+    each rank. ``dense`` / ``f32`` /
     ``moe`` replace the three configs (the CPU rehearsal's)."""
     import tempfile
     from dataclasses import replace
@@ -7441,100 +7566,805 @@ def phase18(torch, np, pkg, tra, smi: str, sh: Phase18 = Phase18(), dense=None, 
     cards, backend = p18_placement(torch, sh.device)
     log(f"[tp] {smi}: tp={TP_DEGREE} over {cards} card(s) (torch.cuda.device_count()), "
         f"backend {backend}")
-    dense = dense or pkg.models.PRESETS[sh.dense_preset]
+    dense = dense or replace(pkg.models.PRESETS[sh.dense_preset], num_layers=sh.dense_layers)
     f32 = f32 or replace(pkg.models.LLAMA_8B, num_layers=sh.f32_layers, dtype="float32")
     moe = moe or pkg.models.ModelConfig.from_hf_config(
         dict(QWEN15_MOE_A27B, num_hidden_layers=sh.moe_layers))
     bf16_kernels = ("mixed_tc_bf16", "decode_split")
     out: dict = {"backend": backend, "cards": cards}
-    with tempfile.TemporaryDirectory() as tmp:
-        def model_dir(name, mcfg):
-            path = os.path.join(tmp, name)
-            os.makedirs(path)
-            with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
-                json.dump(hf_config(mcfg), f)
-            assert pkg.models.ModelConfig.from_pretrained(path) == mcfg
-            return ["--model-path", path]
-
-        # (a) the preset at full width and depth.
-        prompts = phase5_prompts(np, dense.vocab_size, sh.prompt_lens)
-        lens = [len(p) for p in prompts]
-        batch = p18_batch(os.path.join(tmp, "a.jsonl"), prompts, sh.max_tokens,
-                          {SEEDED: dict(SEEDED_OPTIONS)})
-        model = (["--preset", sh.dense_preset] if dense is pkg.models.PRESETS.get(sh.dense_preset)
-                 else model_dir("dense", dense))
-        argv = p18_argv(sh, batch, model, "bfloat16", lens, sh.max_tokens, backend)
-        runs = [p18_run(argv, sh) for _ in range(2)]
-        for r in runs:
-            assert [len(t) for t in r["tokens"]] == [sh.max_tokens] * len(prompts), r["tokens"]
-            assert all(x["finish_reason"] == "length" for x in r["rows"])
-        assert runs[1]["tokens"] == runs[0]["tokens"], "(a) the rerun's tokens differ"
-        a = [p18_ranks(r, "(a)", bf16_kernels) for r in runs]
-        ra, comm = runs[0], runs[0]["tp"]["ranks"][0]["comm"]
-        coll_s = comm["seconds"]["all_reduce"] + comm["seconds"]["all_gather"]
-        share = coll_s / ra["stats"]["wall_s"]
-        log(f"[tp] (a) {smi}: {dense.num_layers} layers at width {dense.hidden_size}, bf16, "
-            f"tp={TP_DEGREE} ({backend}): 8 prompts {lens} x {sh.max_tokens} tokens admitted "
-            f"together: wall {ra['stats']['wall_s']:.3f} s, {ra['stats']['output_tok_s']:.2f} "
-            f"tokens/s, TTFT p50 {ra['stats']['ttft_p50_ms']} ms (rerun wall "
-            f"{runs[1]['stats']['wall_s']:.3f} s, {runs[1]['stats']['output_tok_s']:.2f} "
-            f"tokens/s; processes {ra['wall_s']:.1f} / {runs[1]['wall_s']:.1f} s); rank 0's "
-            f"collectives {comm['calls']}, all_reduce + all_gather {coll_s:.3f} s = "
-            f"{share * 100:.1f} % of the wall; the rerun's tokens identical, both ranks' "
-            f"digests equal; launches by kernel on each rank {a[0]} (rerun {a[1]}); "
-            f"{p18_rank_line(ra)}")
-        out["a"] = dict(wall_s=ra["stats"]["wall_s"], tokens_per_s=ra["stats"]["output_tok_s"],
-                        rerun_wall_s=runs[1]["stats"]["wall_s"], designs=a[0], comm=comm,
-                        collective_share=share, ranks=ra["tp"]["ranks"],
-                        process_wall_s=[r["wall_s"] for r in runs])
-
-        # (b) float32 at 4 layers: tp=2 against tp=1 on the same weights.
-        prompts = phase5_prompts(np, f32.vocab_size, sh.prompt_lens)
-        batch = p18_batch(os.path.join(tmp, "b.jsonl"), prompts, sh.max_tokens, logprobs=2)
-        rb = p18_run(p18_argv(sh, batch, model_dir("f32", f32), "float32", lens,
-                              sh.max_tokens, backend), sh)
-        want = p18_reference(torch, pkg, f32, sh, prompts, sh.max_tokens, 2)
-        got = [dict(tokens=x["token_ids"], lps=x["logprobs"],
-                    tops=[{int(k): v for k, v in t.items()} for t in x["top_logprobs"]])
-               for x in rb["rows"]]
-        faults, ties = divergences(want, got, F32_TIE)
-        assert not faults, f"(b) tp=2 tokens differ from tp=1: {faults}"
-        lp_err = max((abs(x - y) for w, g in zip(want, got) if w["tokens"] == g["tokens"]
-                      for x, y in zip(w["lps"], g["lps"])), default=0.0)
-        b = p18_ranks(rb, "(b)", ("mixed_f32", "decode_split"))
-        log(f"[tp] (b) {smi}: width {f32.hidden_size}, {f32.num_layers} layers, float32: tp=2 "
-            f"({backend}) gives tp=1's greedy tokens (ties within {F32_TIE}: "
-            f"{'; '.join(ties) or 'none'}), logprobs of equal rows within {lp_err:.2e}; wall "
-            f"{rb['stats']['wall_s']:.3f} s; launches by kernel on each rank {b}; "
-            f"{p18_rank_line(rb)}")
-        out["b"] = dict(designs=b, ties=ties, lp_err=lp_err, wall_s=rb["stats"]["wall_s"])
-
-        # (c) Qwen1.5-MoE-A2.7B's width at 4 layers, bf16.
-        rs = np.random.RandomState(18)
-        prompts = [[int(t) for t in rs.randint(3, moe.vocab_size, size=sh.moe_prompt_len)]
-                   for _ in range(sh.moe_prompts)]
-        lens = [len(p) for p in prompts]
-        batch = p18_batch(os.path.join(tmp, "c.jsonl"), prompts, sh.max_tokens)
-        argv = p18_argv(sh, batch, model_dir("moe", moe), "bfloat16", lens, sh.max_tokens,
-                        backend)
-        runs = [p18_run(argv, sh) for _ in range(2)]
-        assert runs[1]["tokens"] == runs[0]["tokens"], "(c) the rerun's tokens differ"
-        assert [len(t) for t in runs[0]["tokens"]] == [sh.max_tokens] * len(prompts)
-        c = [p18_ranks(r, "(c)", bf16_kernels, moe=True) for r in runs]
-        rc = runs[0]
-        log(f"[tp] (c) {smi}: Qwen1.5-MoE-A2.7B's width ({moe.num_heads}/{moe.num_kv_heads} "
-            f"heads of {moe.head_dim_}, {moe.num_experts} experts of "
-            f"{moe.expert_intermediate_size}, top-{moe.num_experts_per_tok}, shared "
-            f"{moe.shared_expert_intermediate_size}) at {moe.num_layers} layers, bf16, tp=2 "
-            f"({backend}): {len(prompts)} prompts of {sh.moe_prompt_len} x {sh.max_tokens} "
-            f"tokens: wall {rc['stats']['wall_s']:.3f} s, {rc['stats']['output_tok_s']:.2f} "
-            f"tokens/s (rerun {runs[1]['stats']['wall_s']:.3f} s, identical tokens); "
-            f"launches on each rank {c[0]}; {p18_rank_line(rc)}")
-        out["c"] = dict(designs=c[0], wall_s=rc["stats"]["wall_s"])
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _phase18_runs(torch, np, pkg, smi, sh, dense, f32, moe, backend, bf16_kernels,
+                          tmp, out)
+    finally:
+        for proc in P18_PROCS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=60)
+        P18_PROCS.clear()
     wall = time.perf_counter() - t0
     log(f"[tp] phase 18 wall {wall:.1f} s")
     return dict(out, designs=out["a"]["designs"], designs_f32=out["b"]["designs"],
                 designs_moe=out["c"]["designs"], wall_s=wall)
+
+
+def _phase18_runs(torch, np, pkg, smi, sh, dense, f32, moe, backend, bf16_kernels, tmp,
+                  out) -> None:
+    """Phase 18's three runs into ``out`` (see :func:`phase18`)."""
+    def model_dir(name, mcfg):
+        path = os.path.join(tmp, name)
+        os.makedirs(path)
+        with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+            json.dump(hf_config(mcfg), f)
+        assert pkg.models.ModelConfig.from_pretrained(path) == mcfg
+        return ["--model-path", path]
+
+    # (a) llama-8b at full width, sh.dense_layers layers.
+    prompts = phase5_prompts(np, dense.vocab_size, sh.prompt_lens)
+    lens = [len(p) for p in prompts]
+    batch = p18_batch(os.path.join(tmp, "a.jsonl"), prompts, sh.max_tokens,
+                      {SEEDED: dict(SEEDED_OPTIONS)})
+    model = (["--preset", sh.dense_preset] if dense is pkg.models.PRESETS.get(sh.dense_preset)
+             else model_dir("dense", dense))
+    argv = p18_argv(sh, batch, model, "bfloat16", lens, sh.max_tokens, backend)
+    # The first run alone (its wall and collectives are printed); the
+    # rerun, whose tokens alone are checked, beside (b)'s run and
+    # reference below.
+    runs = [p18_run(argv, sh)]
+    rerun = p18_start(argv)
+    prompts_b = phase5_prompts(np, f32.vocab_size, sh.prompt_lens)
+    batch_b = p18_batch(os.path.join(tmp, "b.jsonl"), prompts_b, sh.max_tokens, logprobs=2)
+    started_b = p18_start(p18_argv(sh, batch_b, model_dir("f32", f32), "float32", lens,
+                                   sh.max_tokens, backend))
+    want = p18_reference(torch, pkg, f32, sh, prompts_b, sh.max_tokens, 2)
+    runs.append(p18_result(rerun, sh))
+    rb = p18_result(started_b, sh)
+    for r in runs:
+        assert [len(t) for t in r["tokens"]] == [sh.max_tokens] * len(prompts), r["tokens"]
+        assert all(x["finish_reason"] == "length" for x in r["rows"])
+    assert runs[1]["tokens"] == runs[0]["tokens"], "(a) the rerun's tokens differ"
+    a = [p18_ranks(r, "(a)", bf16_kernels) for r in runs]
+    ra, comm = runs[0], runs[0]["tp"]["ranks"][0]["comm"]
+    coll_s = comm["seconds"]["all_reduce"] + comm["seconds"]["all_gather"]
+    share = coll_s / ra["stats"]["wall_s"]
+    log(f"[tp] (a) {smi}: {dense.num_layers} layers at width {dense.hidden_size}, bf16, "
+        f"tp={TP_DEGREE} ({backend}): 8 prompts {lens} x {sh.max_tokens} tokens admitted "
+        f"together: wall {ra['stats']['wall_s']:.3f} s, {ra['stats']['output_tok_s']:.2f} "
+        f"tokens/s, TTFT p50 {ra['stats']['ttft_p50_ms']} ms (rerun wall "
+        f"{runs[1]['stats']['wall_s']:.3f} s, {runs[1]['stats']['output_tok_s']:.2f} "
+        f"tokens/s; processes {ra['wall_s']:.1f} / {runs[1]['wall_s']:.1f} s); rank 0's "
+        f"collectives {comm['calls']}, all_reduce + all_gather {coll_s:.3f} s = "
+        f"{share * 100:.1f} % of the wall; the rerun's tokens identical, both ranks' "
+        f"digests equal; launches by kernel on each rank {a[0]} (rerun {a[1]}); "
+        f"{p18_rank_line(ra)}")
+    out["a"] = dict(wall_s=ra["stats"]["wall_s"], tokens_per_s=ra["stats"]["output_tok_s"],
+                    rerun_wall_s=runs[1]["stats"]["wall_s"], designs=a[0], comm=comm,
+                    collective_share=share, ranks=ra["tp"]["ranks"],
+                    process_wall_s=[r["wall_s"] for r in runs])
+
+    # (b) float32 at 4 layers: tp=2 against tp=1 on the same weights
+    # (run above, beside (a)'s rerun).
+    got = [dict(tokens=x["token_ids"], lps=x["logprobs"],
+                tops=[{int(k): v for k, v in t.items()} for t in x["top_logprobs"]])
+           for x in rb["rows"]]
+    faults, ties = divergences(want, got, F32_TIE)
+    assert not faults, f"(b) tp=2 tokens differ from tp=1: {faults}"
+    lp_err = max((abs(x - y) for w, g in zip(want, got) if w["tokens"] == g["tokens"]
+                  for x, y in zip(w["lps"], g["lps"])), default=0.0)
+    b = p18_ranks(rb, "(b)", ("mixed_f32", "decode_split"))
+    log(f"[tp] (b) {smi}: width {f32.hidden_size}, {f32.num_layers} layers, float32: tp=2 "
+        f"({backend}) gives tp=1's greedy tokens (ties within {F32_TIE}: "
+        f"{'; '.join(ties) or 'none'}), logprobs of equal rows within {lp_err:.2e}; wall "
+        f"{rb['stats']['wall_s']:.3f} s; launches by kernel on each rank {b}; "
+        f"{p18_rank_line(rb)}")
+    out["b"] = dict(designs=b, ties=ties, lp_err=lp_err, wall_s=rb["stats"]["wall_s"])
+
+    # (c) Qwen1.5-MoE-A2.7B's width at 4 layers, bf16.
+    rs = np.random.RandomState(18)
+    prompts = [[int(t) for t in rs.randint(3, moe.vocab_size, size=sh.moe_prompt_len)]
+               for _ in range(sh.moe_prompts)]
+    lens = [len(p) for p in prompts]
+    batch = p18_batch(os.path.join(tmp, "c.jsonl"), prompts, sh.max_tokens)
+    argv = p18_argv(sh, batch, model_dir("moe", moe), "bfloat16", lens, sh.max_tokens,
+                    backend)
+    # The run and its rerun side by side (only their tokens are
+    # compared; the wall printed is the first's, under the other).
+    started = [p18_start(argv) for _ in range(2)]
+    runs = [p18_result(x, sh) for x in started]
+    assert runs[1]["tokens"] == runs[0]["tokens"], "(c) the rerun's tokens differ"
+    assert [len(t) for t in runs[0]["tokens"]] == [sh.max_tokens] * len(prompts)
+    c = [p18_ranks(r, "(c)", bf16_kernels, moe=True) for r in runs]
+    rc = runs[0]
+    log(f"[tp] (c) {smi}: Qwen1.5-MoE-A2.7B's width ({moe.num_heads}/{moe.num_kv_heads} "
+        f"heads of {moe.head_dim_}, {moe.num_experts} experts of "
+        f"{moe.expert_intermediate_size}, top-{moe.num_experts_per_tok}, shared "
+        f"{moe.shared_expert_intermediate_size}) at {moe.num_layers} layers, bf16, tp=2 "
+        f"({backend}): {len(prompts)} prompts of {sh.moe_prompt_len} x {sh.max_tokens} "
+        f"tokens: wall {rc['stats']['wall_s']:.3f} s, {rc['stats']['output_tok_s']:.2f} "
+        f"tokens/s (rerun {runs[1]['stats']['wall_s']:.3f} s, identical tokens); "
+        f"launches on each rank {c[0]}; {p18_rank_line(rc)}")
+    out["c"] = dict(designs=c[0], wall_s=rc["stats"]["wall_s"])
+
+
+# ------------------------------------------------------------ phase 19
+# The smoke's view of the LLM graphs: the port's graph modules, their
+# CudaWorker instrumented for phase 19 only. It is written beside the
+# phase's temporary files and put on the PYTHONPATH of the graph's
+# processes; the package gains no counter for it. Each worker process
+# writes its launch counters (ops/launches.py's kernel record) to
+# ``$DYN_P19_STATE_DIR/worker-<pid>.json`` every 0.25 s, and serves a
+# control endpoint of its own component (``smoke19.control.burst``, so
+# that the KV router and the planner, which list the CudaWorker
+# component, never see it): ``{"n": N}`` holds the engine's admission,
+# drops its prefix cache, answers, and admits the next N requests
+# together, as ``burst`` does in this process for phase 6: a burst's
+# schedule then does not depend on the requests' arrival times.
+# ``DYN_P19_WINDOW_DELAY_S`` slows every decode window (the CPU
+# rehearsal's tiny model would otherwise outrun the planner).
+P19_GRAPH = '''"""Phase 19's graphs: the port's agg_router and agg graphs, their
+CudaWorker instrumented for the smoke (launch counts to a state file, a
+held-burst control endpoint)."""
+
+import asyncio
+import json
+import os
+import time
+
+from dynamo_exp_tpu_torch.examples.llm.graphs import agg
+from dynamo_exp_tpu_torch.examples.llm.graphs.agg_router import CudaWorker, Frontend
+from dynamo_exp_tpu_torch.sdk import dynamo_context, get_spec
+
+AggFrontend = agg.Frontend
+__all__ = ["Frontend", "AggFrontend", "CudaWorker"]
+T_IMPORT = time.time()
+DELAY_S = float(os.environ.get("DYN_P19_WINDOW_DELAY_S", "0"))
+if DELAY_S > 0:
+    from dynamo_exp_tpu_torch.engine import TorchEngine
+
+    _consume = TorchEngine._consume_windowed
+
+    def _slow(self, pending):
+        time.sleep(DELAY_S)
+        return _consume(self, pending)
+
+    TorchEngine._consume_windowed = _slow
+
+
+async def _p19_start(self):
+    from dynamo_exp_tpu_torch.ops import ragged_attention as tra
+
+    drt = dynamo_context["runtime"]
+    path = os.path.join(os.environ["DYN_P19_STATE_DIR"], f"worker-{os.getpid()}.json")
+    eng = self.engine
+
+    async def burst(request, context=None):
+        with eng.hold_admission():
+            eng.reset_prefix_cache()
+            yield {"data": {"holding": True}}
+            deadline = time.monotonic() + 300
+            while eng.queued() < request["n"]:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{eng.queued()} of {request['n']} requests queued")
+                await asyncio.sleep(0.001)
+        yield {"data": {"admitted": request["n"]}}
+
+    ctl = await drt.namespace("smoke19").component("control").endpoint("burst").serve_endpoint(
+        burst)
+
+    def write():
+        m = eng.metrics()
+        state = dict(t=time.time(), pid=os.getpid(), t_import=T_IMPORT,
+                     generate=dynamo_context["instance_ids"].get("generate"),
+                     control=ctl.instance_id, designs=dict(tra.KERNEL_LAUNCHES),
+                     prefix_hits=m["kv_prefix_hits"], prefill=m["prefill_tokens_computed"],
+                     active=m["request_active_slots"])
+        with open(path + ".tmp", "w") as f:
+            json.dump(state, f)
+        os.replace(path + ".tmp", path)
+
+    async def pump():
+        while True:
+            write()
+            await asyncio.sleep(0.25)
+
+    self._p19_pump = asyncio.ensure_future(pump())
+
+
+CudaWorker._p19_start = _p19_start
+get_spec(CudaWorker).on_start.append("_p19_start")
+'''
+
+P19_NS = "dynamo"  # the graphs' namespace (the components' @service)
+
+
+@dataclass(frozen=True)
+class Phase19:
+    """Phase 19's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, a tiny config in place of llama-8b)."""
+
+    device: str = "cuda"
+    cuda_devices: str = "0,0"  # the worker slots: two workers on card 0
+    prompt_lens: tuple = PROMPT_LENS  # (a): phase 5's lengths ...
+    max_tokens: int = MAX_TOKENS  # ... at 32 tokens, twice
+    num_pages: int = 1024  # (a), (b): 2 GiB at llama-8b's 2 MiB a page ...
+    slots: int = 8  # ... and 8 slots a worker
+    max_model_len: int = 2048 + 128 + PS
+    wave: int = 16  # (b): requests a wave ...
+    wave_lens: tuple = (1500, 2000)  # ... of prompts of these lengths ...
+    wave_tokens: int = 128  # ... at 128 tokens
+    metric_s: float = 0.5  # the planner's metric pulling interval
+    adjust_s: float = 2.0  # and its adjustment interval
+    kv_up: float = 0.7
+    kv_down: float = 0.3
+    gpu_budget: int = 2
+    f32_layers: int = 4  # (c): llama-8b's width at 4 layers, float32
+    f32_tokens: int = MAX_TOKENS
+    window_delay_s: float = 0.0  # DYN_P19_WINDOW_DELAY_S (the CPU rehearsal's)
+    boot_s: float = 300.0  # a graph (or a spawned worker) serves within this
+    scale_s: float = 120.0  # the planner acts within this
+
+
+class _Proc:
+    """A child process; a thread reads its merged output, each line with
+    its arrival time (``time.perf_counter``)."""
+
+    def __init__(self, argv: list, env: dict, name: str):
+        import threading
+
+        self.name = name
+        self.proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines: list[tuple[float, str]] = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter(), line.rstrip()))
+
+    def find(self, needle: str, after: float = 0.0) -> list[tuple[float, str]]:
+        return [(t, x) for t, x in list(self.lines) if needle in x and t >= after]
+
+    def tail(self, n: int = 60) -> str:
+        return "\n".join(x for _, x in self.lines[-n:])
+
+    async def wait_line(self, needle: str, timeout_s: float, after: float = 0.0):
+        deadline = time.monotonic() + timeout_s
+        while True:
+            hits = self.find(needle, after)
+            if hits:
+                return hits[0]
+            assert self.proc.poll() is None, (
+                f"{self.name} exited {self.proc.returncode} waiting for {needle!r}:\n"
+                f"{self.tail()}")
+            assert time.monotonic() < deadline, (
+                f"{self.name}: no {needle!r} within {timeout_s} s:\n{self.tail()}")
+            await asyncio.sleep(0.02)
+
+    def stop(self, timeout_s: float = 60.0) -> int:
+        """SIGTERM, then SIGKILL past ``timeout_s``; returns the exit code."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout_s)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self._reader.join(10)
+        return self.proc.returncode
+
+
+def _p19_states(state_dir: str) -> dict[int, dict]:
+    """Every worker's last state, by pid."""
+    out = {}
+    for name in os.listdir(state_dir):
+        if name.startswith("worker-") and name.endswith(".json"):
+            st = _p11_read(os.path.join(state_dir, name))
+            if st is not None:
+                out[st["pid"]] = st
+    return out
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+async def _p19_fresh_states(state_dir: str, pids, after: float, timeout_s: float = 30.0):
+    """The workers ``pids``' states written after ``after`` (wall clock);
+    a worker that has exited gives its last one."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        states = _p19_states(state_dir)
+        if all(p in states and (states[p]["t"] > after or not _alive(p)) for p in pids):
+            return {p: states[p] for p in pids}
+        assert time.monotonic() < deadline, f"a worker stopped writing its state: {pids}"
+        await asyncio.sleep(0.05)
+
+
+async def _p19_first_worker(state_dir: str, sup: "_Proc", timeout_s: float) -> dict:
+    """The graph's one worker's state, once its generate endpoint serves."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        states = [st for st in _p19_states(state_dir).values() if st["generate"] is not None]
+        if states:
+            assert len(states) == 1, states
+            return states[0]
+        assert sup.proc.poll() is None, f"the graph exited {sup.proc.returncode}:\n{sup.tail()}"
+        assert time.monotonic() < deadline, f"no worker served:\n{sup.tail()}"
+        await asyncio.sleep(0.05)
+
+
+def _p19_delta(after: dict, before: dict) -> dict:
+    return {k: v - before["designs"][k] for k, v in after["designs"].items()}
+
+
+async def _p19_held(drt, control_iid: int, n: int, send):
+    """Hold the worker's admission (its prefix cache dropped), run
+    ``send()`` (which starts ``n`` requests and returns their gather),
+    release once the worker holds all ``n``; returns ``send``'s result."""
+    ep = drt.namespace("smoke19").component("control").endpoint("burst")
+    ctl = await ep.client()
+    await ctl.wait_for_instances(1, timeout=30)
+    while control_iid not in ctl.instance_ids():
+        await asyncio.sleep(0.05)
+    frames = (await ctl.generate_to(ctl.instance(control_iid), {"n": n})).__aiter__()
+    first = await frames.__anext__()
+    assert first.data == {"holding": True}, first.data
+    pending = send()
+    admitted = await frames.__anext__()
+    assert admitted.data == {"admitted": n}, admitted.data
+    ctl.close()
+    return await pending
+
+
+def _p19_chat(text: str, max_tokens: int, **extra) -> dict:
+    return {"model": "llama-8b", "messages": [{"role": "user", "content": text}],
+            "max_tokens": max_tokens, "stream": True, "nvext": {"ignore_eos": True},
+            "stream_options": {"include_usage": True}, **extra}
+
+
+def _p19_texts(ids: list[int], tok, lens, offset: int) -> list[str]:
+    """Texts of about ``lens`` tokens each: windows of ``ids`` (README's
+    tokens) from ``offset`` on, one after another (wrapping)."""
+    out, at = [], offset
+    for n in lens:
+        if at + n > len(ids):
+            at = 0
+        out.append(tok.decode(ids[at:at + n]))
+        at += n
+    return out
+
+
+def _p19_check(res: list[dict], max_tokens: int, what: str) -> None:
+    for i, r in enumerate(res):
+        assert r["done"], f"{what}: request {i} did not end with [DONE]"
+        assert r["finish"] == "length", f"{what}: request {i} finished {r['finish']!r}"
+        assert r["usage"] and r["usage"]["completion_tokens"] == max_tokens, (what, r["usage"])
+
+
+def _p19_wave_line(res: list[dict], wall: float) -> tuple[str, dict]:
+    ttft = sorted(r["frames"][0] - r["sent"] for r in res)
+    tokens = sum(r["usage"]["completion_tokens"] for r in res)
+    stats = dict(ttft_p50_s=_p11_pct(ttft, 0.5), ttft_max_s=ttft[-1], wall_s=wall,
+                 tokens_per_s=tokens / wall)
+    return (f"TTFT p50 {stats['ttft_p50_s']:.3f} s max {stats['ttft_max_s']:.3f} s, wall "
+            f"{wall:.3f} s, {stats['tokens_per_s']:.2f} tokens/s"), stats
+
+
+def _p19_actions(planner: "_Proc") -> list[tuple[float, dict]]:
+    """The planner's logged actions, with their arrival times."""
+    import ast
+
+    return [(t, ast.literal_eval(x.split("planner action: ", 1)[1]))
+            for t, x in planner.find("planner action: ")]
+
+
+def _p19_supervisor(graph: str, cfg: dict, tmp: str, state_dir: str, sh: Phase19,
+                    name: str) -> "_Proc":
+    """``python -m dynamo_exp_tpu_torch.sdk.serve _p19_graph:<graph> -f
+    <cfg> --start-coordinator`` with the worker slots ``sh.cuda_devices``."""
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, tmp]),
+               DYN_CUDA_DEVICES=sh.cuda_devices, DYN_P19_STATE_DIR=state_dir,
+               DYN_P19_WINDOW_DELAY_S=str(sh.window_delay_s))
+    env.pop("DYN_SERVICE_CONFIG", None)
+    return _Proc([sys.executable, "-m", "dynamo_exp_tpu_torch.sdk.serve", f"_p19_graph:{graph}",
+                  "-f", path, "--start-coordinator"], env, name)
+
+
+def _p19_graph_cfg(sh: Phase19, port: int, model_dir: str, router: str, kv_dtype: str,
+                   num_pages: int, max_model_len: int) -> dict:
+    return {
+        "Frontend": {"served_model_name": "llama-8b", "port": port, "host": "127.0.0.1"},
+        "Processor": {"model_path": model_dir, "served_model_name": "llama-8b",
+                      "router": router, "page_size": PS},
+        "CudaWorker": {"model_path": model_dir, "served_model_name": "llama-8b",
+                       "random_weights": True, "max_decode_slots": sh.slots,
+                       "num_pages": num_pages, "max_model_len": max_model_len,
+                       "page_size": PS, "kv_dtype": kv_dtype, "device": sh.device},
+    }
+
+
+async def _p19_wait_served(client, sup: "_Proc", base: str, timeout_s: float) -> list[str]:
+    deadline = time.monotonic() + timeout_s
+    while True:
+        assert sup.proc.poll() is None, f"the graph exited {sup.proc.returncode}:\n{sup.tail()}"
+        try:
+            r = await client.request(base + "/v1/models")
+            if r.status == 200 and r.json()["data"]:
+                return [m["id"] for m in r.json()["data"]]
+        except OSError:
+            pass
+        assert time.monotonic() < deadline, f"the graph never served:\n{sup.tail()}"
+        await asyncio.sleep(0.1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _p19_addr(sup: "_Proc") -> str:
+    deadline = time.monotonic() + 120
+    while True:
+        hits = sup.find("coordinator on ")
+        if hits:
+            return hits[0][1].split("coordinator on ", 1)[1].strip()
+        assert sup.proc.poll() is None and time.monotonic() < deadline, sup.tail()
+        time.sleep(0.02)
+
+
+async def _p19_ab(np, pkg, smi, sh: Phase19, tok, text_ids, sup, planner, addr, base,
+                  state_dir) -> dict:
+    """(a) and (b), against the agg_router graph ``sup`` with the
+    planner CLI ``planner`` beside it."""
+    from dynamo_exp_tpu_torch.http import client
+    from dynamo_exp_tpu_torch.runtime import DistributedRuntime
+    from dynamo_exp_tpu_torch.runtime.config import RuntimeConfig
+
+    t_boot = time.perf_counter()
+    models = await _p19_wait_served(client, sup, base, sh.boot_s)
+    assert models == ["llama-8b"], f"(a) /v1/models lists {models}"
+    drt = DistributedRuntime(config=RuntimeConfig(coordinator_endpoint=addr))
+    try:
+        workers = await drt.namespace(P19_NS).component("CudaWorker").endpoint(
+            "generate").client()
+        await workers.wait_for_instances(1, timeout=sh.boot_s)
+        w0 = await _p19_first_worker(state_dir, sup, sh.boot_s)
+        served_s = time.perf_counter() - t_boot
+        chat = base + "/v1/chat/completions"
+
+        # (a): phase 5's lengths as chats, one seeded, twice.
+        bodies = [_p19_chat(t, sh.max_tokens, **(SEEDED_OPTIONS if i == SEEDED else {}))
+                  for i, t in enumerate(_p19_texts(text_ids, tok, sh.prompt_lens, 0))]
+        runs = []
+        before = (await _p19_fresh_states(state_dir, [w0["pid"]], time.time()))[w0["pid"]]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = await _p19_held(drt, w0["control"], len(bodies), lambda: asyncio.gather(
+                *(sse_request(client, chat, b) for b in bodies)))
+            _p19_check(res, sh.max_tokens, "(a)")
+            runs.append((res, time.perf_counter() - t0))
+        after = (await _p19_fresh_states(state_dir, [w0["pid"]], time.time()))[w0["pid"]]
+        a_designs = _p19_delta(after, before)
+        (r1, wall1), (r2, wall2) = runs
+        assert [r["text"] for r in r2] == [r["text"] for r in r1], "(a) the rerun's text differs"
+        if sh.device == "cuda":
+            for k in ("mixed_tc_bf16", "decode_split"):
+                assert a_designs[k] > 0, f"(a) {k} never launched: {a_designs}"
+        line1, a1 = _p19_wave_line(r1, wall1)
+        line2, a2 = _p19_wave_line(r2, wall2)
+        prompt_tokens = [r["usage"]["prompt_tokens"] for r in r1]
+        log(f"[graph] (a) {smi}: agg_router graph served (model listed {models}) {served_s:.1f} s "
+            f"after the supervisor's start; 8 chats of {prompt_tokens} prompt tokens x "
+            f"{sh.max_tokens}, one seeded, admitted together: {line1}; rerun {line2}; every "
+            f"stream [DONE] with usage, the rerun's text identical (the seeded one too); "
+            f"launches by kernel {a_designs}")
+
+        # (b): the planner scales the CudaWorker fleet 1 -> 2 -> 1. The
+        # Processor's routing decisions (``kv-hit-rate`` events) are
+        # recorded with their arrival times.
+        from dynamo_exp_tpu_torch.kv_router import KV_HIT_RATE_SUBJECT
+
+        picks: list[tuple[float, int]] = []
+        hits_sub = await drt.event_plane.subscribe(KV_HIT_RATE_SUBJECT)
+
+        async def record_picks():
+            async for ev in hits_sub:
+                picks.append((time.perf_counter(), ev["worker_id"]))
+
+        picker = asyncio.ensure_future(record_picks())
+        rs = np.random.RandomState(19)
+        lens = [int(x) for x in rs.randint(sh.wave_lens[0], sh.wave_lens[1] + 1, size=2 * sh.wave)]
+        texts = _p19_texts(text_ids, tok, lens, sum(sh.prompt_lens))
+        wave1 = [_p19_chat(t, sh.wave_tokens) for t in texts[:sh.wave]]
+        wave2 = [_p19_chat(t, sh.wave_tokens) for t in texts[sh.wave:]]
+        t_load = time.perf_counter()
+        w1_task = asyncio.ensure_future(asyncio.gather(*(sse_request(client, chat, b)
+                                                         for b in wave1)))
+        done_at: list[float] = []
+        w1_task.add_done_callback(lambda _: done_at.append(time.perf_counter()))
+        t_add, add = await planner.wait_line("'op': 'add'", sh.scale_s, t_load)
+        # Wave 2 waits for both wave 1's end and the second worker (the
+        # second worker boots for longer than wave 1 lasts; while the
+        # fleet is one worker the planner removes none).
+        t_visible = None
+        while t_visible is None or not w1_task.done():
+            if t_visible is None and len(workers.instance_ids()) >= 2:
+                t_visible = time.perf_counter()
+            assert time.perf_counter() - t_add < sh.boot_s, f"no second worker:\n{sup.tail()}"
+            assert sup.proc.poll() is None, sup.tail()
+            await asyncio.sleep(0.02)
+        t_spawn = sup.find("started CudaWorker[1]")
+        w1, t_w1 = w1_task.result(), done_at[0]
+        _p19_check(w1, sh.wave_tokens, "(b) wave 1")
+        # Wave 2 as soon as the router's load view holds both workers idle
+        # (it scrapes every 0.1 s; 0.5 s covers a few): the planner
+        # averages its samples over a round, and a round of idle samples
+        # would read as a fleet to shrink. Its first half at once (the
+        # router breaks the tie at random), the second 0.3 s later (to
+        # the less loaded worker). The new worker has launched nothing
+        # yet, the first has been idle since wave 1.
+        await asyncio.sleep(max(0.0, max(t_visible, t_w1) + 0.5 - time.perf_counter()))
+        s_before = _p19_states(state_dir)
+        pids = sorted(s_before)
+        assert len(pids) == 2, pids
+        half = len(wave2) // 2
+
+        async def later(b):
+            await asyncio.sleep(0.3)
+            return await sse_request(client, chat, b)
+
+        t_w2 = time.perf_counter()
+        w2 = await asyncio.gather(*(sse_request(client, chat, b) for b in wave2[:half]),
+                                  *(later(b) for b in wave2[half:]))
+        t_idle = time.perf_counter()
+        _p19_check(w2, sh.wave_tokens, "(b) wave 2")
+        s_after = await _p19_fresh_states(state_dir, pids, time.time())
+        w2_designs = {p: _p19_delta(s_after[p], s_before[p]) for p in pids}
+        w2_prefill = {p: s_after[p]["prefill"] - s_before[p]["prefill"] for p in pids}
+        for p in pids:
+            assert w2_prefill[p] > 0, (
+                f"(b) worker {p} served none of wave 2: {w2_prefill}; routed (s after the "
+                f"load's start, instance) {[(round(t - t_load, 3), w) for t, w in picks]}; "
+                f"wave 1 ended {t_w1 - t_load:.3f} s, second instance visible "
+                f"{t_visible - t_load:.3f} s, wave 2 {t_w2 - t_load:.3f} to "
+                f"{t_idle - t_load:.3f} s; the planner:\n"
+                + "\n".join(f"{t - t_load:.3f} {x}" for t, x in planner.lines[-30:]))
+            if sh.device == "cuda":
+                assert sum(w2_designs[p].values()) > 0, (
+                    f"(b) worker {p} launched nothing in wave 2: {w2_designs}")
+        # The removal follows wave 2's end on the card; a short wave (the
+        # CPU rehearsal's) may still drain when it lands.
+        picker.cancel()
+        routed = {}
+        for t, w in picks:
+            if t >= t_w2:
+                routed[w] = routed.get(w, 0) + 1
+        t_remove, _ = await planner.wait_line("'op': 'remove'", sh.scale_s, t_w2)
+        while len(workers.instance_ids()) > 1:
+            assert time.perf_counter() - t_remove < 60, "the removed worker stayed listed"
+            await asyncio.sleep(0.02)
+        t_gone = time.perf_counter()
+        await asyncio.sleep(2 * sh.adjust_s)  # a round more: no other action follows
+        acts = [(a["op"], a["component"]) for _, a in _p19_actions(planner)]
+        assert acts == [("add", "CudaWorker"), ("remove", "CudaWorker")], (
+            f"{acts}; wave 1 {t_w1 - t_load:.3f} s, wave 2 from {t_w2 - t_load:.3f} to "
+            f"{t_idle - t_load:.3f} s after the load's start:\n"
+            + "\n".join(f"{t - t_load:.3f} {x}" for t, x in planner.lines[-40:]))
+        assert not sup.find("restarting"), f"a watcher restarted:\n{sup.tail()}"
+        removed = max(pids, key=lambda p: s_after[p]["t_import"])
+        last = _p19_states(state_dir)
+        # (b)'s own launches: the first worker's from the end of (a), the
+        # spawned worker's from 0.
+        b_designs = {p: _p19_delta(last[p], after if p == w0["pid"] else
+                                   {"designs": dict.fromkeys(last[p]["designs"], 0)})
+                     for p in pids}
+        l1, b1 = _p19_wave_line(w1, t_w1 - t_load)
+        l2, b2 = _p19_wave_line(w2, t_idle - t_w2)
+        b = dict(load_to_add_s=t_add - t_load, add_to_visible_s=t_visible - t_add,
+                 spawn_to_visible_s=(t_visible - t_spawn[0][0]) if t_spawn else None,
+                 idle_to_remove_s=t_remove - t_idle, remove_to_gone_s=t_gone - t_remove,
+                 wave1=b1, wave2=b2, designs=b_designs, wave2_designs=w2_designs,
+                 add_signal=add.split("'signal': ", 1)[1].rstrip("}"))
+        log(f"[graph] (b) {smi}: planner (metric {sh.metric_s} s, adjust {sh.adjust_s} s, KV "
+            f"{sh.kv_up} / {sh.kv_down}, max_gpu_budget {sh.gpu_budget}, min_endpoint 1): "
+            f"load start -> add {b['load_to_add_s']:.3f} s (signal {b['add_signal']}); add -> "
+            f"second instance visible {b['add_to_visible_s']:.3f} s (spawn -> visible "
+            f"{b['spawn_to_visible_s'] or 0:.3f} s: interpreter, imports, weights, pool, "
+            f"registration); idle -> remove {b['idle_to_remove_s']:.3f} s, remove -> the router's "
+            f"view back to 1 instance {b['remove_to_gone_s']:.3f} s; wave 1 ({sh.wave} chats of "
+            f"{sh.wave_lens} tokens x {sh.wave_tokens}): {l1}; wave 2 (both workers): {l2}; "
+            f"adjustments {acts}; no restarts; launches by worker (pid {w0['pid']} first, "
+            f"{removed} removed) {b_designs}; in wave 2 {w2_designs} (prefill tokens computed "
+            f"{w2_prefill}; routed by instance {routed})")
+        return dict(a=dict(runs=[a1, a2], designs=a_designs, served_s=served_s), b=b,
+                    designs={k: a_designs[k] + sum(d[k] for d in b_designs.values())
+                             for k in a_designs})
+    finally:
+        await drt.close()
+
+
+async def _p19_c(np, pkg, smi, sh: Phase19, sup, addr, base, state_dir, prompts, want,
+                 decode) -> dict:
+    """(c): the agg graph's greedy float32 tokens against ``want``."""
+    from dynamo_exp_tpu_torch.http import client
+    from dynamo_exp_tpu_torch.runtime import DistributedRuntime
+    from dynamo_exp_tpu_torch.runtime.config import RuntimeConfig
+
+    await _p19_wait_served(client, sup, base, sh.boot_s)
+    drt = DistributedRuntime(config=RuntimeConfig(coordinator_endpoint=addr))
+    try:
+        w = await _p19_first_worker(state_dir, sup, sh.boot_s)
+        url = base + "/v1/completions"
+
+        async def one(ids):
+            out = dict(tokens=[], lps=[], tops=[], done=False)
+            async for f in client.sse_frames(url, {
+                    "model": "llama-8b", "prompt": ids, "max_tokens": sh.f32_tokens,
+                    "temperature": 0, "logprobs": 2, "stream": True,
+                    "nvext": {"ignore_eos": True}}):
+                if f.data == "[DONE]":
+                    out["done"] = True
+                    break
+                for c in f.data["choices"]:
+                    lp = c.get("logprobs") or {}
+                    out["tokens"] += lp.get("tokens") or []
+                    out["lps"] += lp.get("token_logprobs") or []
+                    out["tops"] += lp.get("top_logprobs") or []
+            return out
+
+        t0 = time.perf_counter()
+        got = await _p19_held(drt, w["control"], len(prompts),
+                              lambda: asyncio.gather(*(one(p) for p in prompts)))
+        wall = time.perf_counter() - t0
+        last = (await _p19_fresh_states(state_dir, [w["pid"]], time.time()))[w["pid"]]
+    finally:
+        await drt.close()
+    for g in got:
+        assert g["done"] and len(g["tokens"]) == sh.f32_tokens == len(g["lps"]), g
+    # The engine's rows as the service shows them: each token decoded
+    # alone, the top candidates keyed by their decoded text (the best
+    # logprob of a text).
+    ref = []
+    for w_ in want:
+        tops = []
+        for t in w_["tops"]:
+            m: dict = {}
+            for tid, lp in t.items():
+                s = decode(tid)
+                m[s] = max(lp, m.get(s, float("-inf")))
+            tops.append(m)
+        ref.append(dict(tokens=[decode(t) for t in w_["tokens"]], lps=w_["lps"], tops=tops))
+    faults, ties = divergences(ref, got, F32_TIE)
+    assert not faults, f"(c) the graph's tokens differ from TorchEngine's: {faults}"
+    lp_err = max((abs(x - y) for r, g in zip(ref, got) if r["tokens"] == g["tokens"]
+                  for x, y in zip(r["lps"], g["lps"])), default=0.0)
+    assert lp_err <= 1e-3, f"(c) logprobs of equal rows differ by {lp_err}"
+    designs = last["designs"]
+    if sh.device == "cuda":
+        for k in ("mixed_f32", "decode_split"):
+            assert designs[k] > 0, f"(c) {k} never launched: {designs}"
+    return dict(ties=ties, lp_err=lp_err, wall_s=wall, designs=designs)
+
+
+def phase19(torch, np, pkg, tra, smi: str, sh: Phase19 = Phase19(), mcfg=None) -> dict:
+    """Phase 19: the serve graphs and the planner, through the entry
+    points a user calls: ``python -m dynamo_exp_tpu_torch.sdk.serve
+    <graph>:Frontend -f <json> --start-coordinator`` (the supervisor,
+    with its coordinator, spawning Frontend, Processor and CudaWorker
+    processes on worker slots ``0,0`` of one card) and ``python -m
+    dynamo_exp_tpu_torch.planner.planner`` beside it. (a) The agg_router
+    graph (KV routing) with llama-8b at full width and depth, bf16,
+    seed-0 random weights: phase 5's lengths as 8 streamed chats (one
+    seeded), 32 tokens each, admitted together, twice: [DONE], usage,
+    identical reruns, both bf16 kernels launched in the worker. (b) The
+    planner adds a second CudaWorker under a wave of 16 long chats,
+    both workers serve a second wave, and once idle it removes the
+    newest: exactly one add and one remove, every stream whole, no
+    restart. (c) The agg graph at llama-8b's width, 4 layers, float32:
+    8 greedy completions equal to a ``TorchEngine`` in this process on
+    the same weights and prompt ids, token for token (as the service
+    shows tokens: decoded one by one), up to a float32 tie."""
+    import tempfile
+    from dataclasses import replace
+
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+
+    t_phase = time.perf_counter()
+    free(torch, sh.device)
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    f32 = replace(mcfg, num_layers=sh.f32_layers, dtype="float32")
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "_p19_graph.py"), "w", encoding="utf-8") as f:
+            f.write(P19_GRAPH)
+        model_dir = write_model_dir(os.path.join(tmp, "model"), tokmod, mcfg, text)
+        f32_dir = os.path.join(tmp, "model-f32")
+        shutil.copytree(model_dir, f32_dir)
+        with open(os.path.join(f32_dir, "config.json"), "w", encoding="utf-8") as f:
+            json.dump({**hf_config(f32), "bos_token_id": mcfg.vocab_size - N_SPECIAL}, f)
+        assert pkg.models.ModelConfig.from_pretrained(f32_dir) == f32
+        tok = tokmod.Tokenizer.from_pretrained(model_dir)
+        text_ids = tok.encode(text).ids
+
+        # (a), (b): the agg_router graph and the planner beside it.
+        state_ab = os.path.join(tmp, "state-ab")
+        os.makedirs(state_ab)
+        port = _free_port()
+        sup = _p19_supervisor("Frontend", _p19_graph_cfg(
+            sh, port, model_dir, "kv", "bfloat16", sh.num_pages, sh.max_model_len),
+            tmp, state_ab, sh, "agg_router")
+        planner = None
+        try:
+            addr = _p19_addr(sup)
+            planner = _Proc([sys.executable, "-m", "dynamo_exp_tpu_torch.planner.planner",
+                             "--coordinator", addr, "--namespace", P19_NS,
+                             "--decode-component", "CudaWorker",
+                             "--metric-pulling-interval", str(sh.metric_s),
+                             "--adjustment-interval", str(sh.adjust_s),
+                             "--decode-kv-scale-up-threshold", str(sh.kv_up),
+                             "--decode-kv-scale-down-threshold", str(sh.kv_down),
+                             "--max-gpu-budget", str(sh.gpu_budget), "--min-endpoint", "1"],
+                            dict(os.environ, PYTHONPATH=HERE), "planner")
+            out.update(asyncio.run(asyncio.wait_for(_p19_ab(
+                np, pkg, smi, sh, tok, text_ids, sup, planner, addr,
+                f"http://127.0.0.1:{port}", state_ab), timeout=900)))
+        finally:
+            rc_planner = planner.stop() if planner is not None else None
+            rc_sup = sup.stop()
+        assert rc_sup == 0, f"the supervisor exited {rc_sup}:\n{sup.tail()}"
+        assert rc_planner == 0, f"the planner exited {rc_planner}:\n{planner.tail()}"
+        t_ab = time.perf_counter() - t_phase
+
+        # (c): the agg graph at float32; the reference computes while the
+        # graph boots.
+        t_c = time.perf_counter()
+        state_c = os.path.join(tmp, "state-c")
+        os.makedirs(state_c)
+        prompts = phase5_prompts(np, f32.vocab_size, sh.prompt_lens)
+        lens = [len(p) for p in prompts]
+        port = _free_port()
+        sup = _p19_supervisor("AggFrontend", _p19_graph_cfg(
+            sh, port, f32_dir, "round-robin", "float32",
+            pages_needed(lens, sh.f32_tokens) + 64, max(lens) + sh.f32_tokens + PS),
+            tmp, state_c, sh, "agg")
+        try:
+            addr = _p19_addr(sup)
+            want = p18_reference(torch, pkg, f32, Phase18(device=sh.device), prompts,
+                                 sh.f32_tokens, 2)
+            c = asyncio.run(asyncio.wait_for(_p19_c(
+                np, pkg, smi, sh, sup, addr, f"http://127.0.0.1:{port}", state_c, prompts,
+                want, lambda t: tok.decode([t])), timeout=600))
+        finally:
+            rc_sup = sup.stop()
+        assert rc_sup == 0, f"the supervisor exited {rc_sup}:\n{sup.tail()}"
+        log(f"[graph] (c) {smi}: agg graph, width {f32.hidden_size}, {f32.num_layers} layers, "
+            f"float32: 8 greedy completions of {lens} ids x {sh.f32_tokens}, admitted together, "
+            f"give TorchEngine's tokens (ties within {F32_TIE}: {'; '.join(c['ties']) or 'none'}), "
+            f"logprobs of equal rows within {c['lp_err']:.2e}; wall {c['wall_s']:.3f} s; "
+            f"launches by kernel {c['designs']}; (c) {time.perf_counter() - t_c:.1f} s")
+        out["c"] = c
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["designs_f32"] = c["designs"]
+    log(f"[graph] {smi}: phase 19 wall {out['wall_s']:.1f} s ((a) + (b) {t_ab:.1f} s); "
+        f"launches by kernel, (a) + (b) {out['designs']}, (c) {c['designs']}")
+    log(json.dumps({"phase19": {
+        "a": out["a"], "b": {k: v for k, v in out["b"].items() if k != "wave2_designs"},
+        "c": {k: c[k] for k in ("ties", "lp_err", "wall_s", "designs")},
+        "wall_s": out["wall_s"]}}))
+    return out
 
 
 def main() -> int:
@@ -7639,6 +8469,9 @@ def main() -> int:
     log(f"[phase17] in {p17['wall_s']:.1f} s")
     p18 = phase18(torch, np, pkg, tra, smi)
     log(f"[phase18] in {p18['wall_s']:.1f} s")
+    log(f"[smoke] {smi}: phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    p19 = phase19(torch, np, pkg, tra, smi)
+    log(f"[phase19] in {p19['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -7690,6 +8523,9 @@ def main() -> int:
             "launches_tp2": p18["designs"][design],
             "launches_tp2_f32": p18["designs_f32"][design],
             "launches_tp2_moe": p18["designs_moe"][design],
+            # Phase 19: the graph workers' ((a) + (b), both summed; (c)).
+            "launches_graph": p19["designs"][design],
+            "launches_graph_f32": p19["designs_f32"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

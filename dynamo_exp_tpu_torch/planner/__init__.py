@@ -1,7 +1,40 @@
-"""The planner (counterpart of ``dynamo_exp_tpu/planner/``), trimmed to
-the prefill queue's name. The rest waits for a later slice (ROADMAP
-Queue 1)."""
+"""Dynamic worker scaling: the planner.
 
-from .planner import prefill_queue_name
+Counterpart of ``dynamo_exp_tpu/planner/``: the pure policies
+(``policy.py``), the asyncio loop that feeds them metrics
+(``planner.py``) and the connector that applies their actions to the SDK
+supervisor (``connector.py``).
+"""
 
-__all__ = ["prefill_queue_name"]
+from .connector import LocalConnector, PlannerConnector
+from .planner import Planner, PlannerConfig, prefill_queue_name
+from .policy import (
+    CatalogEntry,
+    Decision,
+    PlannerObservation,
+    PlannerState,
+    ScaleAction,
+    SloTargets,
+    arm_decode_grace,
+    maybe_swap_config,
+    plan_step,
+    plan_step_slo,
+)
+
+__all__ = [
+    "Planner",
+    "PlannerConfig",
+    "PlannerConnector",
+    "LocalConnector",
+    "PlannerObservation",
+    "PlannerState",
+    "ScaleAction",
+    "CatalogEntry",
+    "Decision",
+    "SloTargets",
+    "arm_decode_grace",
+    "maybe_swap_config",
+    "plan_step",
+    "plan_step_slo",
+    "prefill_queue_name",
+]

@@ -9,8 +9,9 @@ them here (``dynamo_slo_violations_total{slo,priority}``,
 fast (last 64 requests) and a slow (last 1024) breach window, exported
 as ``dynamo_slo_burn_rate{slo,window}``. ``percentile`` is the
 nearest-rank percentile the dispatch profiler's summaries use too. The
-planner and simulator that read the same window in the JAX package are
-not ported (ROADMAP Queue 1 entry 8).
+planner (``planner/planner.py``, ``Planner(slo_source=...)``) reads the
+same window for its SLO policy; the JAX package's simulator, which does
+too, is not ported (ROADMAP Queue 1 entry 8).
 """
 
 

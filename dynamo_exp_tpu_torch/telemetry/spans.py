@@ -36,8 +36,8 @@ package's names, labels and buckets:
   (``kv/persistent.py``), copy-on-write copies and the ledger auditor's
   violations.
 
-Left out, with the module that feeds it (``planner/``, ROADMAP Queue 1
-entry 8): config swaps.
+- the planner's config-catalog swaps (``dynamo_config_swaps``, bumped by
+  ``planner/planner.py``'s ``Planner._apply_config_swap``).
 
 Gauge writes and span emission are thread-safe: the engine loop thread
 emits with the ``TraceContext`` captured at submission.
@@ -467,6 +467,13 @@ class Telemetry:
             "Normalized [0,1] distance between the live workload "
             "fingerprint and the pinned reference (DYN_WORKLOAD_REF); "
             "0 when no reference is pinned",
+            registry=r,
+        )
+        self.config_swaps = Counter(
+            "dynamo_config_swaps",
+            "Planner config-catalog swaps: drift past the alert "
+            "threshold moved the fleet onto a different pre-validated "
+            "tuned config (docs/tuning.md)",
             registry=r,
         )
         self.build_info = Gauge(

@@ -80,6 +80,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "telemetry.bench_compare", "sim", "sim.workload", "runtime.profiler", "llmctl",
         "runtime.pool", "runtime.transports.chaos", "native", "kv", "kv.persistent",
         "engine.config", "engine.kv_manager", "ops.moe", "ops.launches",
+        "sdk", "sdk.service", "sdk.config", "sdk.dependency", "sdk.allocator",
+        "sdk.serve_service", "sdk.serve", "planner", "planner.policy", "planner.connector",
+        "planner.planner", "examples.llm.components.worker",
+        "examples.llm.components.processor", "examples.llm.components.frontend",
+        "examples.llm.components.prefill_worker", "examples.llm.graphs.agg",
+        "examples.llm.graphs.agg_router", "examples.llm.graphs.disagg",
+        "examples.llm.graphs.disagg_router",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

@@ -10,9 +10,8 @@ carried to ``TorchEngine(device="cpu")`` by ``models/convert.py``).
   admit it gets what the JAX service answers (200, ``finish_reason``
   ``error``, no content; as an SSE stream, the same frames), and a
   request with a generous ``timeout_s`` the same answer as without one.
-- ``/metrics``: every family the port renders is a JAX family; the JAX
-  families it leaves out are those ``test_torch_telemetry.JAX_ONLY``
-  names with their ROADMAP items; over the same traffic the edge's
+- ``/metrics``: the port renders the JAX service's families, all of
+  them and no other; over the same traffic the edge's
   counters move alike (requests by status, sheds, deadlines, goodput,
   TTFT samples) and the admission gauge returns to 0.
 - The SLO clock: engine outputs of several tokens each count every
@@ -56,8 +55,6 @@ from dynamo_exp_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_exp_tpu_torch.models import ModelConfig, params_from_jax
 from dynamo_exp_tpu_torch.runtime.engine import AsyncEngineContext, ResponseStream
 from dynamo_exp_tpu_torch.telemetry import SloAttribution, SloConfig, get_telemetry
-
-from .test_torch_telemetry import JAX_ONLY
 
 ENGINE_KW = dict(max_decode_slots=2, page_size=8, num_pages=64, max_model_len=128,
                  prefill_chunk=16, decode_window=4, kv_dtype="float32")
@@ -239,8 +236,7 @@ def test_overload_deadlines_and_metrics_match_the_jax_service(engines):
     jfams = {f.name for f in text_string_to_metric_families(want["metrics"])}
     tfams = {f.name for f in text_string_to_metric_families(got["metrics"])}
     jfams = {f for f in jfams if not f.endswith("_created")}
-    assert tfams <= jfams
-    assert jfams - tfams == set(JAX_ONLY)
+    assert tfams == jfams
     jd, td = _scrape_delta(jbefore, want["metrics"]), _scrape_delta(tbefore, got["metrics"])
     assert td == jd
     assert td[("dynamo_requests_shed_total", (("code", "429"), ("priority", "low")))] == 1

@@ -48,6 +48,6 @@ def test_smoke_phase10_on_cpu(monkeypatch):
     out = cs.phase10(torch, np, pkg, tra, "cpu", sh=sh, mcfg=SMALL)
     assert [p[1] for p in out["probes"]] == [429, 429, "admitted", "admitted", 503, 503]
     assert out["goodput"] > 0 and out["violations"]["ttft"] > 0
-    assert out["scrape_bytes"] > 0 and out["families"] == 62  # 58 telemetry + 4 HTTP
+    assert out["scrape_bytes"] > 0 and out["families"] == 63  # 59 telemetry + 4 HTTP
     d = out["d"]
     assert d["events"] > 0 and d["guarded"] > 0

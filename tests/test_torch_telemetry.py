@@ -52,13 +52,6 @@ from dynamo_exp_tpu_torch.telemetry import get_telemetry, prom
 from dynamo_exp_tpu_torch.telemetry.slo import SloAttribution, SloConfig
 from dynamo_exp_tpu_torch.telemetry.spans import Telemetry
 
-# JAX families the port does not register, each with what feeds it in
-# the JAX package (ROADMAP Queue 1).
-JAX_ONLY = {
-    "dynamo_config_swaps": "planner/ (item 8)",
-}
-
-
 def samples(text: str) -> dict:
     """{(family, type): {(sample name, sorted labels): value}}, without
     the ``_created`` samples prometheus_client adds."""
@@ -121,13 +114,12 @@ def test_prom_text_parses_as_prometheus_clients(fams):
 
 
 def test_hub_families_are_the_jax_families():
-    """Same increments into every family both hubs have: equal samples;
-    each JAX family the port leaves out is listed in ``JAX_ONLY``."""
+    """Both hubs register the same families, and the same increments
+    into each give equal samples."""
     jtel, ttel = JTelemetry(), Telemetry()
     jfam = {f.name: f for f in jtel.registry.collect()}
     tfam = {f.name: f for f in ttel.registry.families()}
-    assert set(tfam) <= set(jfam)
-    assert set(jfam) - set(tfam) == set(JAX_ONLY)
+    assert set(tfam) == set(jfam)
     rs = np.random.RandomState(3)
     for attr, tm in vars(ttel).items():
         jm = getattr(jtel, attr, None)

@@ -7,8 +7,8 @@ Run from the root of the repository on a machine with a card and
 ``nvcc``. It builds the kernels as the smoke does, then runs
 ``chip_smoke.phase18``: ``python -m dynamo_exp_tpu_torch.run ... --tp
 2`` in subprocesses (one card: both ranks on it over gloo; two or more:
-a card each over NCCL): (a) the llama-8b preset at full width and
-depth, bf16, phase 5's prompts and a rerun; (b) llama-8b's width at 4
+a card each over NCCL): (a) llama-8b at full width and 8 of its 32
+layers, bf16, phase 5's prompts and a rerun; (b) llama-8b's width at 4
 layers, float32, against the tp=1 engine; (c) Qwen1.5-MoE-A2.7B's width
 at 4 layers, bf16, and a rerun. It prints the phase's lines, rank 0's
 launches by kernel and the wall.
