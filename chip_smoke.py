@@ -57,7 +57,9 @@ Phases, each fatal on failure (nothing is caught):
    admitted together, and again after the prefix cache is dropped;
    (b) 2 streaming chats; (c) a unary completion; (d) (c) again with a
    stop string cut from (c)'s text; and a lone greedy request, also
-   served straight by a ``TorchEngine`` on the same weights. Every
+   served straight by a ``TorchEngine`` on the same weights; (e) a chat
+   whose body names no model and no ``max_tokens`` gets the
+   ``--request-template``'s model and its ``max_completion_tokens``. Every
    stream ends with ``[DONE]``; finish reasons and usage are checked,
    the rerun's text is identical, (d)'s text is (c)'s up to the stop
    string, the lone request's HTTP text equals its direct tokens
@@ -125,8 +127,10 @@ Phases, each fatal on failure (nothing is caught):
    smoke inside its time limit):
    every window and mixed variant (112 and 80 keys, verify spans too)
    captured as a CUDA graph before traffic (printed: variants, graphs and
-   seconds of each kind, the graph pool's bytes, one kernel build into
-   the cache directory); then phase 8 (a)'s greedy burst and phase 5's
+   seconds of each kind, the graph pool's bytes; no kernel build: phase
+   2's library is copied into the cache directory with its stamp, and a
+   library whose stamp equals the sources' hashes is reused); then phase
+   8 (a)'s greedy burst and phase 5's
    burst (speculation set aside) and a speculation burst (8 rows, each
    a block of 64 random ids repeated 4 times, 128 tokens, the n-gram
    drafter) through it and through an eager engine on the same weights
@@ -353,7 +357,8 @@ Phases, each fatal on failure (nothing is caught):
    equal to the first process's G2 hits and ``dynamo_kv_store_pages`` >
    0 on ``/metrics``; ``DYN_KV_PACKNG=1`` exits non-zero naming the
    accepted spellings. (d) two ``TorchEngine``s sharing llama-8b's
-   weights (bf16, full depth) served as two instances on the in-process
+   weights (bf16, full width, 8 of its 32 layers: ``Phase15.chaos_layers``)
+   served as two instances on the in-process
    transport wrapped in ``ChaosRequestPlane`` and ``ChaosDiscovery``,
    behind ``PushRouter`` with the journal: a seeded script (a crash at
    stream start, a crash at token 16, a partition of one instance
@@ -479,6 +484,42 @@ Phases, each fatal on failure (nothing is caught):
    the float32 mixed and split-KV kernels. A ``{"phase19": ...}`` line
    holds the numbers.
 
+20. the deploy tier and the standalone components, through the entry
+   points a user calls. (a) ``python -m dynamo_exp_tpu_torch.deploy.cli
+   build`` packs the port's agg_router graph and a JSON config (llama-8b
+   at full width and depth, bf16, seed-0 random weights, 1,024 pages and
+   8 slots a worker, ``CudaWorker`` ``ServiceArgs.workers`` 2) into a
+   content-addressed artifact with the kernels' sources; ``render``,
+   ``push`` to a ``python -m dynamo_exp_tpu_torch.deploy.api_store``
+   process and ``deploy``; a ``DeploymentOperator`` on a
+   ``MemoryBackend`` applies exactly the rendered documents, and its
+   second pass nothing. This script then plays the kubelet: the artifact
+   unpacked into a fresh directory with phase 2's kernel library and its
+   stamp copied in (no second nvcc), the rendered coordinator started,
+   the ConfigMap's ``config.json`` written where its mount would be, and
+   each Deployment's container command run once a replica with the
+   rendered env and the unpacked tree alone on ``PYTHONPATH`` (a
+   Service name resolves to 127.0.0.1; the ``nvidia.com/gpu`` pod gets
+   card 0 and one slot of it a worker, so both CudaWorkers share it).
+   Phase 5's lengths as 8 streamed chats (one seeded) of 32 tokens
+   through the rendered HTTP Service's port: a burst, then twice one at
+   a time (an artifact's graph has no hook that holds a worker's
+   admission, and bf16 tokens are identical only at equal batch shapes
+   and cache states): [DONE] and usage on every stream, the two runs
+   identical and routed alike, both bf16 kernels launched in the
+   workers (their stats scrape's ``kernel_launches``). (b) Started with
+   the fleet: ``python -m dynamo_exp_tpu_torch.components.router
+   --workers CudaWorker --block-size 16`` names, for each of (a)'s
+   prompts, the worker the Processor routed it to, with
+   ``overlap_blocks`` its full 16-token pages, and 0 for a prompt never
+   served; ``python -m dynamo_exp_tpu_torch.components.metrics
+   --component dynamo.CudaWorker`` shows the 7 ``llm_kv_*`` gauges for
+   both workers (``llm_kv_kv_total_blocks`` 1,024 each), and a third
+   burst raises ``llm_kv_hit_events_total`` by its routing decisions.
+   Every process exits 0 on SIGTERM; with the record deleted the
+   operator's next pass collects every document. A ``{"phase20": ...}``
+   line holds the numbers.
+
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
@@ -514,7 +555,9 @@ servers (``launches_gguf``, ``launches_gguf_dir``: their HTTP chats),
 and phase 18's rank 0 (``launches_tp2``: (a), ``launches_tp2_f32``: (b),
 ``launches_tp2_moe``: (c); every rank's are equal), and phase 19's
 graph workers (``launches_graph``: (a) and (b), both workers summed;
-``launches_graph_f32``: (c));
+``launches_graph_f32``: (c)), and phase 20's rendered fleet
+(``launches_deploy``: (a); ``launches_components``: (b)'s third burst;
+both workers summed);
 both mixed entries also carry the
 verify spans' timing (``verify_*``), and every entry phase 3's windowed
 cases in its own dtype (``gemma2_d256_softcap_window``,
@@ -578,6 +621,9 @@ TOL = {"bfloat16": (2e-2, 2.0**-7), "float32": (1e-4, 0.0)}
 # Phase 7: phase 5's prompts at 128 tokens each need 466 pages of 16 at
 # the burst's end; the pool holds about 0.89 of that, the host tier 1024
 # pages (2 GiB pinned at llama-8b's 2 MiB a page).
+# Phase 6 (e): the request template's defaults, filled into a body
+# that names no model and no max_tokens.
+TEMPLATE = {"model": "llama-8b", "max_completion_tokens": 4}
 PRESSURE_TOKENS = 128
 PRESSURE_PAGES = 416
 HOST_PAGES = 1024
@@ -593,6 +639,22 @@ def reset_launches() -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def copy_kernel_build(dst_dir: str, prefix: str = "") -> list[str]:
+    """Copy phase 2's libraries (names starting with ``prefix``) with
+    their stamps from this checkout's ``_build/`` into ``dst_dir``: a
+    library whose stamp equals the sources' hashes is reused where it
+    lies (``ops/ragged_attention.build_kernel``), so nothing is built
+    again there. Returns the names copied (none on a host without a
+    build)."""
+    src = os.path.join(HERE, "dynamo_exp_tpu_torch", "_build")
+    names = sorted(n for n in os.listdir(src) if n.startswith(prefix)
+                   and n.endswith((".so", ".sources.json"))) if os.path.isdir(src) else []
+    os.makedirs(dst_dir, exist_ok=True)
+    for name in names:
+        shutil.copy2(os.path.join(src, name), os.path.join(dst_dir, name))
+    return names
 
 
 # ------------------------------------------------------------ phase 1
@@ -1649,7 +1711,10 @@ def http_path(torch, np, pkg, tra, phase5_tokens, *, device="cuda", mcfg=None,
             "--http-port", "0", "--max-decode-slots", "8", "--page-size", str(PS),
             "--max-model-len", str(max_len), "--num-pages", str(8 * -(-max_len // PS)),
             "--kv-dtype", "bfloat16", "--max-tokens", str(max_tokens),
+            "--request-template", os.path.join(tmp, "template.json"),
         ]
+        with open(argv[-1], "w", encoding="utf-8") as f:
+            json.dump(TEMPLATE, f)
         stats = asyncio.run(asyncio.wait_for(
             _drive_http(torch, np, pkg, tra, tok, run.parse_args(argv), client,
                         phase5_tokens, device, mcfg, prompt_lens, max_tokens, seeded),
@@ -1770,6 +1835,21 @@ async def _traffic(torch, np, pkg, tra, tok, client, base, eng, model_dir, phase
     lone = await sse_request(client, cmpl, {
         "model": "llama-8b", "prompt": lone_ids, "max_tokens": max_tokens, "stream": True,
         "nvext": {"ignore_eos": True}})
+    # (e) a body with no model and no max_tokens: the request template
+    # (--request-template) fills both.
+    e_models, e_usage, e_finish = set(), None, None
+    async for f in client.sse_frames(chat, {"messages": CHATS[0], "stream": True,
+                                            "stream_options": {"include_usage": True},
+                                            "nvext": {"ignore_eos": True}}):
+        if f.data == "[DONE]":
+            break
+        e_models.add(f.data["model"])
+        e_usage = f.data.get("usage") or e_usage
+        e_finish = next((c["finish_reason"] for c in f.data["choices"]
+                         if c.get("finish_reason")), e_finish)
+    assert e_models == {TEMPLATE["model"]}, e_models
+    assert e_finish == "length", e_finish
+    assert e_usage["completion_tokens"] == TEMPLATE["max_completion_tokens"], e_usage
     if device == "cuda":
         torch.cuda.synchronize()
     launches, designs = dict(tra.LAUNCHES), dict(tra.KERNEL_LAUNCHES)
@@ -1836,7 +1916,7 @@ async def _traffic(torch, np, pkg, tra, tok, client, base, eng, model_dir, phase
         encode_s=t_encode, encode_chars=sum(len(t) for t in texts),
         encode_tokens=sum(len(e) for e in encoded), lone_text=lone["text"],
         lone_ids=lone_ids, lone_tokens=direct,
-        stop=stop, b_finish=[r["finish"] for r in b_out],
+        stop=stop, b_finish=[r["finish"] for r in b_out], template=e_usage,
     )
 
 # ------------------------------------------------------------ phase 7
@@ -2937,7 +3017,7 @@ def warm_boot(torch, np, pkg, tra, smi: str, cache_dir: str, sh: Phase9 = Phase9
     assert any(k.with_spec for k in manifest.mixed)
     assert report["graphs"] == (report["variants"] if graphs_on else 0), report
     assert report["mixed_graphs"] == (report["mixed_variants"] if graphs_on else 0), report
-    assert report["builds"] == (1 if sh.device == "cuda" else 0), report
+    assert report["builds"] == 0, report  # the library copied in with its stamp
     assert warm.cfg.model == wcfg, warm.cfg.model
     log(f"[warm] (b) {smi}: {sh.preset} at {sh.warm_layers} layers booted with --spec ngram "
         f"--prewarm in {boot_s:.2f} s: "
@@ -3083,8 +3163,12 @@ def phase9(torch, np, pkg, tra, smi: str, sh: Phase9 = Phase9(), mcfg=None) -> d
     """Phase 9: real checkpoints and warm boot."""
     import tempfile
 
+    from dynamo_exp_tpu_torch.aot.compile import LIB_NAME
+
     a = loader_path(torch, np, pkg, tra, smi, sh, mcfg)
     with tempfile.TemporaryDirectory() as cache_dir:
+        # Phase 2's library and its stamp: (b) reuses it, no second nvcc.
+        copy_kernel_build(cache_dir, LIB_NAME)
         b = warm_boot(torch, np, pkg, tra, smi, cache_dir, sh)
         c = second_boot(cache_dir, smi, sh)
     return dict(a=a, b=b, c=c)
@@ -5781,7 +5865,10 @@ class Phase15:
     # depends on depth.
     process_layers: int = 8
     chat_tokens: int = 16
-    chaos_tokens: int = MAX_TOKENS  # (d)
+    # (d): llama-8b at full width and 8 of its 32 layers: its checks
+    # count faults, recoveries and tokens, none depends on depth.
+    chaos_layers: int = 8
+    chaos_tokens: int = MAX_TOKENS
     cut_at: int = 16  # (d): the mid-stream crash
     chaos_pages: int = 512
     process_timeout_s: float = 300.0
@@ -6384,7 +6471,7 @@ async def _p15_chaos(pkg, engines, prompts, sh: Phase15, seed: int, opts: list,
 
 def chaos_plane(torch, np, pkg, tra, smi: str, sh: Phase15, mcfg=None, f32_cfg=None) -> dict:
     """Phase 15 (d): two ``TorchEngine``s sharing llama-8b's weights
-    (bf16, full depth) behind the chaos planes and ``PushRouter`` with
+    (bf16, ``sh.chaos_layers`` layers) behind the chaos planes and ``PushRouter`` with
     the journal: a crash at stream start, a crash at token 16, a
     partition healed after one wave and a discovery watch flap, over 8
     greedy requests and a seeded one, twice with the same seed; then at
@@ -6394,7 +6481,7 @@ def chaos_plane(torch, np, pkg, tra, smi: str, sh: Phase15, mcfg=None, f32_cfg=N
 
     from dynamo_exp_tpu_torch.telemetry import get_telemetry
 
-    mcfg = mcfg or pkg.models.LLAMA_8B
+    mcfg = mcfg or replace(pkg.models.LLAMA_8B, num_layers=sh.chaos_layers)
     model = seeded_model(torch, pkg, mcfg, sh.device)
     prompts = phase5_prompts(np, mcfg.vocab_size, sh.prompt_lens)
     prompts = prompts + [prompts[min(SEEDED, len(prompts) - 1)]]
@@ -7808,13 +7895,14 @@ class _Proc:
     """A child process; a thread reads its merged output, each line with
     its arrival time (``time.perf_counter``)."""
 
-    def __init__(self, argv: list, env: dict, name: str):
+    def __init__(self, argv: list, env: dict, name: str, cwd: str = HERE):
         import threading
 
         self.name = name
-        self.proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+        self.proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
         self.lines: list[tuple[float, str]] = []
+        self._termed = False
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
 
@@ -7843,15 +7931,21 @@ class _Proc:
 
     def stop(self, timeout_s: float = 60.0) -> int:
         """SIGTERM, then SIGKILL past ``timeout_s``; returns the exit code."""
-        if self.proc.poll() is None:
-            self.proc.terminate()
-            try:
-                self.proc.wait(timeout_s)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait(30)
+        self.terminate()
+        try:
+            self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
         self._reader.join(10)
         return self.proc.returncode
+
+    def terminate(self) -> None:
+        """SIGTERM, once: a second one may land after the process's loop
+        closed, while it exits, and kill it (-15)."""
+        if self.proc.poll() is None and not self._termed:
+            self._termed = True
+            self.proc.terminate()
 
 
 def _p19_states(state_dir: str) -> dict[int, dict]:
@@ -8367,6 +8461,591 @@ def phase19(torch, np, pkg, tra, smi: str, sh: Phase19 = Phase19(), mcfg=None) -
     return out
 
 
+# ------------------------------------------------------------ phase 20
+P20_GRAPH = "dynamo_exp_tpu_torch.examples.llm.graphs.agg_router:Frontend"
+P20_NAME = "smoke20"  # the artifact's and the deployment's name
+P20_SCRAPE_S = 0.2  # the exporter's scrape interval
+
+
+@dataclass(frozen=True)
+class Phase20:
+    """Phase 20's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, a tiny config in place of llama-8b)."""
+
+    device: str = "cuda"
+    prompt_lens: tuple = PROMPT_LENS  # phase 5's lengths, as chats ...
+    max_tokens: int = MAX_TOKENS  # ... at 32 tokens
+    workers: int = 2  # CudaWorker's ServiceArgs.workers: two on card 0
+    num_pages: int = 1024  # a worker's pool ...
+    slots: int = 8  # ... and slots
+    max_model_len: int = 2048 + 128 + PS
+    boot_s: float = 300.0  # the rendered fleet serves within this
+
+
+def _p20_cli(*argv) -> str:
+    """``python -m dynamo_exp_tpu_torch.deploy.cli <argv>`` run in this
+    process (its ``main``): its standard output; a non-zero code raises."""
+    import io
+
+    from dynamo_exp_tpu_torch.deploy import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    assert rc == 0, f"deploy cli {argv[0]} exited {rc}: {out.getvalue()}"
+    return out.getvalue()
+
+
+def _p20_graph_cfg(sh: Phase20, model_dir: str, http_port: int) -> dict:
+    return {
+        "Frontend": {"served_model_name": "llama-8b", "port": http_port, "host": "127.0.0.1"},
+        "Processor": {"model_path": model_dir, "served_model_name": "llama-8b",
+                      "router": "kv", "page_size": PS},
+        "CudaWorker": {"model_path": model_dir, "served_model_name": "llama-8b",
+                       "random_weights": True, "max_decode_slots": sh.slots,
+                       "num_pages": sh.num_pages, "max_model_len": sh.max_model_len,
+                       "page_size": PS, "kv_dtype": "bfloat16", "device": sh.device,
+                       "ServiceArgs": {"workers": sh.workers}},
+    }
+
+
+class _Kubelet:
+    """Runs rendered documents on this host as a kubelet would: each
+    Deployment's container ``command`` once a replica, as a process of
+    its own, with the rendered ``env`` and nothing of this checkout: the
+    unpacked artifact alone on ``PYTHONPATH`` (and its working
+    directory). The pods share this host's network, so the kubelet
+    stands in for their namespaces: every port of a rendered Service
+    gets a free host port (bind(0)), the selected pod listens there (its
+    ``--port`` argument, or its service's ``port`` key in the mounted
+    config, rewritten; the documents stay as rendered), and cluster DNS
+    resolves ``<service>:<port>`` to 127.0.0.1 and that host port. A
+    ConfigMap volume: its files written into a directory that stands for
+    the mount path. The GPU device plugin: a container with an
+    ``nvidia.com/gpu`` limit gets the first card this process was given
+    (the first entry of its ``CUDA_VISIBLE_DEVICES``, card 0 when that is
+    unset), and its supervisor one card slot a worker of the service
+    (``DYN_CUDA_DEVICES``), so that the service's workers share the
+    card."""
+
+    def __init__(self, docs: list[dict], root: str, mounts: dict, config: dict):
+        from dynamo_exp_tpu_torch.sdk.allocator import inherited_cards
+
+        self.root = root
+        self.config = config  # the service config: a gpu pod's workers
+        # Empty leaves this process no card: only a CPU rehearsal gets
+        # that far, and its pods run on the CPU.
+        self.card = (inherited_cards() or ["0"])[0]
+        self.ports: dict = {}  # (Service name, port) -> host port
+        self.listen: dict = {}  # pod label -> {container port: host port}
+        for d in docs:
+            if d["kind"] == "Service":
+                pod = d["spec"]["selector"]["app.kubernetes.io/name"]
+                for p in d["spec"]["ports"]:
+                    host = self.ports[(d["metadata"]["name"], p["port"])] = _free_port()
+                    self.listen.setdefault(pod, {})[p.get("targetPort", p["port"])] = host
+        for d in docs:
+            if d["kind"] == "ConfigMap":
+                host = mounts[d["metadata"]["name"]]
+                os.makedirs(host, exist_ok=True)
+                for name, text in d["data"].items():
+                    if name.endswith(".json"):
+                        text = json.dumps(self._config_ports(json.loads(text), docs))
+                    with open(os.path.join(host, name), "w", encoding="utf-8") as f:
+                        f.write(text)
+        self.volumes = mounts  # ConfigMap name -> the directory standing for its mount
+
+    def _config_ports(self, cfg: dict, docs: list[dict]) -> dict:
+        """The service config with each pod's listening ``port`` key
+        moved to its host port."""
+        for d in docs:
+            if d["kind"] != "Deployment":
+                continue
+            listen = self.listen.get(d["spec"]["template"]["metadata"]["labels"][
+                "app.kubernetes.io/name"], {})
+            cmd = d["spec"]["template"]["spec"]["containers"][0]["command"]
+            svc = cfg.get(cmd[cmd.index("--service-name") + 1]) if "--service-name" in cmd \
+                else None
+            if svc is not None and svc.get("port") in listen:
+                svc["port"] = listen[svc["port"]]
+        return cfg
+
+    def resolve(self, value: str) -> str:
+        """Cluster DNS: ``<service>:<port>`` -> ``127.0.0.1:<host port>``;
+        any other value as it is."""
+        host, sep, port = value.rpartition(":")
+        if sep and port.isdigit() and (host, int(port)) in self.ports:
+            return f"127.0.0.1:{self.ports[(host, int(port))]}"
+        return value
+
+    def _path(self, arg: str, pod: dict, container: dict) -> str:
+        for vm in container.get("volumeMounts", []):
+            if arg.startswith(vm["mountPath"] + "/"):
+                vol = next(v for v in pod["volumes"] if v["name"] == vm["name"])
+                return self.volumes[vol["configMap"]["name"]] + arg[len(vm["mountPath"]):]
+        return arg
+
+    def spec(self, doc: dict) -> tuple[list[str], dict]:
+        """A Deployment's container as this host runs it: (argv, env)."""
+        pod = doc["spec"]["template"]["spec"]
+        listen = self.listen.get(doc["spec"]["template"]["metadata"]["labels"][
+            "app.kubernetes.io/name"], {})
+        (container,) = pod["containers"]
+        cmd = [sys.executable if a == "python" else self._path(a, pod, container)
+               for a in container["command"]]
+        for i in range(1, len(cmd)):
+            if cmd[i - 1] == "--port" and cmd[i].isdigit() and int(cmd[i]) in listen:
+                cmd[i] = str(listen[int(cmd[i])])
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("DYN_") and k not in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")}
+        env.update({e["name"]: self.resolve(e["value"]) for e in container.get("env", [])})
+        env["PYTHONPATH"] = self.root
+        limits = container.get("resources", {}).get("limits", {})
+        if "nvidia.com/gpu" in limits:
+            svc = cmd[cmd.index("--service-name") + 1]
+            workers = (self.config.get(svc, {}).get("ServiceArgs") or {}).get("workers", 1)
+            env["CUDA_VISIBLE_DEVICES"] = self.card
+            env["DYN_CUDA_DEVICES"] = ",".join(["0"] * int(workers))
+        return cmd, env
+
+    def run(self, doc: dict) -> list["_Proc"]:
+        cmd, env = self.spec(doc)
+        return [_Proc(cmd, env, f"{doc['metadata']['name']}-{r}", cwd=self.root)
+                for r in range(doc["spec"]["replicas"])]
+
+
+def _p20_scrape(text: str) -> dict:
+    """The exporter's ``llm_kv_*`` samples: {name: {worker_id or None: value}}."""
+    out: dict = {}
+    for (name, labels), value in _family_values(text).items():
+        if name.startswith("llm_kv_"):
+            out.setdefault(name, {})[dict(labels).get("worker_id")] = value
+    return out
+
+
+async def _p20_quiet(decisions: list, at_least: int, quiet_s: float = 0.5) -> None:
+    """Until ``decisions`` holds ``at_least`` entries and no more came for
+    ``quiet_s`` (30 s at most)."""
+    deadline = time.monotonic() + 30
+    while True:
+        n = len(decisions)
+        await asyncio.sleep(quiet_s or 0.01)
+        if len(decisions) >= at_least and (not quiet_s or len(decisions) == n):
+            return
+        assert time.monotonic() < deadline, f"{len(decisions)} routing decisions of {at_least}"
+
+
+async def _p20_launches(comp) -> dict:
+    """Every CudaWorker's kernel launches by design (its stats scrape)."""
+    stats = await comp.scrape_stats()
+    return {iid: dict(st["kernel_launches"]["attention_kernels"]) for iid, st in stats.items()}
+
+
+async def _p20_captures(comp) -> dict:
+    """Every CudaWorker's CUDA graphs captured and capture seconds so
+    far (its stats scrape)."""
+    stats = await comp.scrape_stats()
+    return {iid: (st["graphs_captured"], st["graph_capture_seconds"])
+            for iid, st in stats.items()}
+
+
+def _p20_new(after: dict, before: dict) -> str:
+    """Graphs captured and their seconds between two scrapes, by worker."""
+    return ", ".join(f"{iid}: {n - before.get(iid, (0, 0.0))[0]} in "
+                     f"{s - before.get(iid, (0, 0.0))[1]:.1f} s"
+                     for iid, (n, s) in sorted(after.items()))
+
+
+def _p20_sum(after: dict, before: dict) -> dict:
+    out: dict = {}
+    for iid, counts in after.items():
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v - before.get(iid, {}).get(k, 0)
+    return out
+
+
+async def _p20_drive(np, smi, sh: Phase20, tok, text_ids, model_dir, addr, base,
+                     procs) -> dict:
+    """(a)'s traffic and (b)'s components, against the rendered fleet."""
+    from dynamo_exp_tpu_torch.http import client
+    from dynamo_exp_tpu_torch.kv_router import KV_HIT_RATE_SUBJECT
+    from dynamo_exp_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_exp_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_exp_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_exp_tpu_torch.runtime import DistributedRuntime
+    from dynamo_exp_tpu_torch.runtime.config import RuntimeConfig
+
+    t0 = time.perf_counter()
+    drt = DistributedRuntime(config=RuntimeConfig(coordinator_endpoint=addr))
+    decisions: list[tuple[float, dict]] = []
+    picker = None
+    try:
+        sub = await drt.event_plane.subscribe(KV_HIT_RATE_SUBJECT)
+
+        async def record():
+            async for ev in sub:
+                decisions.append((time.perf_counter(), ev))
+
+        picker = asyncio.ensure_future(record())
+        comp = drt.namespace(P19_NS).component("CudaWorker")
+        router, exporter = procs[-2], procs[-1]
+        await router.wait_line("kv router instance", sh.boot_s)
+        _, line = await exporter.wait_line("metrics on http://", sh.boot_s)
+        metrics_url = "http://127.0.0.1:" + line.rsplit(":", 1)[1]
+        # Every worker answers the stats scrape (so the Processor's router,
+        # scraping every 0.1 s, sees both) and the Frontend lists the model.
+        before, models = {}, []
+        while len(before) < sh.workers or models != ["llama-8b"]:
+            for p in procs:
+                assert p.proc.poll() is None, f"{p.name} exited {p.proc.returncode}:\n{p.tail()}"
+            assert time.perf_counter() - t0 < sh.boot_s, "the rendered fleet never served"
+            await asyncio.sleep(0.1)
+            before = await _p20_launches(comp)
+            with contextlib.suppress(OSError):
+                r = await client.request(base + "/v1/models")
+                models = [m["id"] for m in r.json()["data"]] if r.status == 200 else []
+        await asyncio.sleep(0.3)  # a few of the Processor's load scrapes
+        ids = sorted(before)
+        caps = [await _p20_captures(comp)]
+        boot_s = time.perf_counter() - t0
+        chat = base + "/v1/chat/completions"
+
+        # (a) phase 5's lengths as chats (one seeded): a burst, then two
+        # runs in which each worker serves its prompts one at a time
+        # (both workers at once), which must be identical.
+        texts = _p19_texts(text_ids, tok, sh.prompt_lens, 0)
+        bodies = [_p19_chat(t, sh.max_tokens, **(SEEDED_OPTIONS if i == SEEDED else {}))
+                  for i, t in enumerate(texts)]
+        pre = OpenAIPreprocessor(ModelDeploymentCard.from_local_path(model_dir, "llama-8b"),
+                                 tok)
+        prompt_ids = [pre.preprocess_chat(ChatCompletionRequest.from_dict(b)).token_ids
+                      for b in bodies]
+        # A routing decision names its prompt by its input blocks.
+        isl = [len(p) // PS for p in prompt_ids]
+        assert len(set(isl)) == len(isl), f"(a) prompts of equal blocks: {isl}"
+
+        async def routed(send) -> tuple:
+            """``send()``'s result and each prompt's routing decision in it."""
+            n = len(decisions)
+            res = await send()
+            await _p20_quiet(decisions, n + len(bodies), quiet_s=0.0)
+            picks = {ev["isl_blocks"]: ev for _, ev in decisions[n:]}
+            assert len(decisions) - n == len(bodies) and sorted(picks) == sorted(isl), (
+                f"(a) one routing decision a request: {decisions[n:]}")
+            return res, [picks[b] for b in isl]
+
+        t_burst = time.perf_counter()
+        burst_res, by = await routed(lambda: asyncio.gather(
+            *(sse_request(client, chat, b) for b in bodies)))
+        burst_wall = time.perf_counter() - t_burst
+        caps.append(await _p20_captures(comp))
+        _p19_check(burst_res, sh.max_tokens, "(a) burst")
+        for r, p in zip(burst_res, prompt_ids):
+            assert r["usage"]["prompt_tokens"] == len(p), (r["usage"], len(p))
+        holder = [ev["worker_id"] for ev in by]
+
+        async def one_at_a_time(wid: int) -> dict:
+            return {i: await sse_request(client, chat, bodies[i])
+                    for i in range(len(bodies)) if holder[i] == wid}
+
+        async def run_once() -> list:
+            parts = await asyncio.gather(*(one_at_a_time(w) for w in set(holder)))
+            return [next(p[i] for p in parts if i in p) for i in range(len(bodies))]
+
+        runs, one_s = [], []
+        for _ in range(2):
+            t_run = time.perf_counter()
+            res, by = await routed(run_once)
+            one_s.append(time.perf_counter() - t_run)
+            caps.append(await _p20_captures(comp))
+            _p19_check(res, sh.max_tokens, "(a)")
+            assert [ev["worker_id"] for ev in by] == holder, (
+                f"(a) a prompt left the worker that holds it: {by}, {holder}")
+            assert [ev["overlap_blocks"] for ev in by] == isl, by
+            runs.append(res)
+        assert [r["text"] for r in runs[1]] == [r["text"] for r in runs[0]], (
+            "(a) the rerun's text differs")
+        after_a = await _p20_launches(comp)
+        a_designs = _p20_sum(after_a, before)
+        if sh.device == "cuda":
+            for k in ("mixed_tc_bf16", "decode_split"):
+                assert a_designs[k] > 0, f"(a) {k} never launched: {after_a}"
+        a_line, a_stats = _p19_wave_line(burst_res, burst_wall)
+        log(f"[deploy] (a) {smi}: the rendered fleet served (2 CudaWorkers, instances "
+            f"{ids}) {boot_s:.1f} s after the kubelet's start; 8 chats of "
+            f"{[len(p) for p in prompt_ids]} prompt tokens x {sh.max_tokens} (one seeded) "
+            f"through the HTTP Service: a burst ({a_line}; its holders {holder}), then "
+            f"twice one at a time on each worker ({one_s[0]:.3f} s and {one_s[1]:.3f} s "
+            f"for the 8, TTFT p50 "
+            f"{_p11_pct(sorted(r['frames'][0] - r['sent'] for r in runs[1]), 0.5):.3f} s): "
+            f"identical text, each prompt routed to its holder with its full pages; launches "
+            f"by kernel {a_designs}, by worker "
+            f"{ {i: _p20_sum({i: after_a[i]}, before) for i in ids} }; graphs captured by "
+            f"worker: the burst {_p20_new(caps[1], caps[0])}, run 1 {_p20_new(caps[2], caps[1])}, "
+            f"run 2 {_p20_new(caps[3], caps[2])}")
+
+        # (b) the router service names the worker of each prompt, with
+        # the prompt's full pages as its overlap.
+        ep = drt.namespace(P19_NS).component("kv_aware_router").endpoint("generate")
+        rcl = await ep.client()
+        await rcl.wait_for_instances(1, timeout=60)
+
+        async def ask(token_ids):
+            stream = await rcl.generate_to(rcl.instances[0], {"token_ids": token_ids})
+            return [a.data async for a in stream if a.data is not None][0]
+
+        answers = [await ask(p) for p in prompt_ids]
+        fresh = [int(t) for t in np.random.RandomState(20).randint(3, 1000, size=300)]
+        never = await ask(fresh)
+        rcl.close()
+        for i, (ans, wid, p) in enumerate(zip(answers, holder, prompt_ids)):
+            assert ans == {"worker_id": wid, "overlap_blocks": len(p) // PS}, (
+                f"(b) prompt {i} ({len(p)} tokens): the router service says {ans}, the "
+                f"Processor routed it to {wid}")
+        assert never["overlap_blocks"] == 0 and never["worker_id"] in ids, never
+
+        # The exporter: every llm_kv_* gauge for both workers, the pool's
+        # blocks each; then a third burst's decisions, counted.
+        stats = await comp.scrape_stats()
+        deadline = time.monotonic() + 30
+        while True:
+            scrape = _p20_scrape((await client.request(metrics_url)).body.decode())
+            gauges = {k: v for k, v in scrape.items() if not k.startswith("llm_kv_hit_")}
+            if all(set(v) == {str(i) for i in ids} for v in gauges.values()) and gauges:
+                break
+            assert time.monotonic() < deadline, f"(b) the exporter shows {scrape}"
+            await asyncio.sleep(0.1)
+        assert len(gauges) == 7, sorted(gauges)
+        for i in ids:
+            assert gauges["llm_kv_kv_total_blocks"][str(i)] == stats[i]["kv_total_blocks"] \
+                == sh.num_pages, (gauges["llm_kv_kv_total_blocks"], sh.num_pages)
+            assert gauges["llm_kv_request_total_slots"][str(i)] == sh.slots
+        await _p20_quiet(decisions, len(decisions))  # the router service's answers too
+        scrape = _p20_scrape((await client.request(metrics_url)).body.decode())
+        hits0 = scrape["llm_kv_hit_events_total"][None]
+        n = len(decisions)
+        t_third = time.perf_counter()
+        third = await asyncio.gather(*(sse_request(client, chat, b) for b in bodies))
+        third_wall = time.perf_counter() - t_third
+        caps.append(await _p20_captures(comp))
+        _p19_check(third, sh.max_tokens, "(b) third burst")
+        await _p20_quiet(decisions, n + len(bodies))
+        made = len(decisions) - n
+        assert made == len(bodies), f"(b) {made} routing decisions for {len(bodies)} chats"
+        deadline = time.monotonic() + 10
+        while True:
+            scrape = _p20_scrape((await client.request(metrics_url)).body.decode())
+            hits = scrape["llm_kv_hit_events_total"][None]
+            if hits - hits0 >= made:
+                break
+            assert time.monotonic() < deadline, f"(b) the exporter counted {hits - hits0}"
+            await asyncio.sleep(0.05)
+        assert hits - hits0 == made, (hits, hits0, made)
+        after_b = await _p20_launches(comp)
+        b_designs = _p20_sum(after_b, after_a)
+        b_line, b_stats = _p19_wave_line(third, third_wall)
+        log(f"[deploy] (b) {smi}: the router service (python -m "
+            f"dynamo_exp_tpu_torch.components.router) named the worker the Processor "
+            f"routed each of (a)'s 8 prompts to, with overlap_blocks = its full pages "
+            f"{[a['overlap_blocks'] for a in answers]}, and 0 for a prompt never served; the "
+            f"exporter (components.metrics) showed the 7 llm_kv_* gauges for both workers, "
+            f"llm_kv_kv_total_blocks {sh.num_pages} each; a third burst ({b_line}) made "
+            f"{made} routing decisions and llm_kv_hit_events_total rose by "
+            f"{hits - hits0:.0f}; launches by kernel {b_designs}; graphs captured by worker "
+            f"{_p20_new(caps[4], caps[3])}")
+        return dict(boot_s=boot_s, a=a_stats, one_at_a_time_s=one_s, b=b_stats,
+                    designs_a=a_designs,
+                    designs_b=b_designs, overlaps=[a["overlap_blocks"] for a in answers])
+    finally:
+        if picker is not None:
+            picker.cancel()
+        await drt.close()
+
+
+def phase20(torch, np, pkg, tra, smi: str, sh: Phase20 = Phase20(), mcfg=None) -> dict:
+    """Phase 20: the deploy tier and the standalone components, through
+    the entry points a user calls. (a) ``python -m
+    dynamo_exp_tpu_torch.deploy.cli build`` packs the port's agg_router
+    graph with a JSON config (llama-8b at full width and depth, bf16,
+    seed-0 random weights, 1,024 pages and 8 slots a worker,
+    ``CudaWorker.ServiceArgs.workers`` 2); ``render``, ``push`` to a
+    ``python -m dynamo_exp_tpu_torch.deploy.api_store`` process and
+    ``deploy``; a ``DeploymentOperator`` on a ``MemoryBackend`` applies
+    exactly the rendered documents, then nothing. This script then runs
+    them as a kubelet would (``_Kubelet``): the artifact unpacked into a
+    fresh directory with phase 2's kernel library (and its stamp) copied
+    in, the coordinator, then each Deployment's command once a replica
+    with only the unpacked tree on ``PYTHONPATH``. Phase 5's lengths as
+    8 streamed chats (one seeded) of 32 tokens through the rendered
+    HTTP Service: a burst, then twice one at a time: [DONE], usage,
+    identical runs routed alike, both bf16 kernels launched in the
+    workers. (b) Beside the fleet, ``python -m
+    dynamo_exp_tpu_torch.components.router --workers CudaWorker
+    --block-size 16`` names, for each of (a)'s prompts, the worker that
+    served it with ``overlap_blocks`` its full pages (0 for a prompt
+    never served), and ``python -m dynamo_exp_tpu_torch.components.metrics
+    --component dynamo.CudaWorker`` shows every ``llm_kv_*`` gauge for
+    both workers (``llm_kv_kv_total_blocks`` each worker's pool) and
+    counts a third burst's routing decisions in
+    ``llm_kv_hit_events_total``. Every process exits 0 on SIGTERM, and
+    with the record deleted the operator's next pass collects every
+    document. Both components start with the fleet, so that the router
+    service sees (a)'s KV events."""
+    import tarfile
+    import tempfile
+
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+    from dynamo_exp_tpu_torch.deploy import from_yaml, read_manifest, render_graph_manifests
+    from dynamo_exp_tpu_torch.deploy.k8s import DEFAULT_IMAGE
+    from dynamo_exp_tpu_torch.deploy.operator import DeploymentOperator, MemoryBackend
+    from dynamo_exp_tpu_torch.http import client
+
+    t_phase = time.perf_counter()
+    free(torch, sh.device)
+    mcfg = mcfg or pkg.models.LLAMA_8B
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = os.path.join(tmp, "model")
+        # 8080: the Frontend's port inside its pod, the rendered HTTP
+        # Service's targetPort; the kubelet maps it to a free host port.
+        cfg = _p20_graph_cfg(sh, model_dir, 8080)
+        cfg_path = os.path.join(tmp, "agg_router.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+        art = os.path.join(tmp, f"{P20_NAME}.tar.gz")
+        store_dir = os.path.join(tmp, "store")
+        env = dict(os.environ, PYTHONPATH=HERE)
+        procs: list[_Proc] = []
+        rcs: dict = {}
+        builder = None
+        try:
+            # The build and the store start while the model directory is
+            # written (the config names it; the build reads only the config).
+            t0 = time.perf_counter()
+            builder = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_exp_tpu_torch.deploy.cli", "build", P20_GRAPH,
+                 "-o", art, "-f", cfg_path, "--name", P20_NAME, "--src-root", HERE],
+                cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            store = _Proc([sys.executable, "-m", "dynamo_exp_tpu_torch.deploy.api_store",
+                           "--store-dir", store_dir, "--host", "127.0.0.1", "--port", "0"],
+                          env, "api_store")
+            procs.append(store)
+            write_model_dir(model_dir, tokmod, mcfg, text)
+            tok = tokmod.Tokenizer.from_pretrained(model_dir)
+            text_ids = tok.encode(text).ids
+            out_b, err_b = builder.communicate(timeout=300)
+            assert builder.returncode == 0, err_b[-4000:]
+            build = json.loads(out_b.strip().splitlines()[-1])
+            t_build = time.perf_counter() - t0
+            manifest = read_manifest(art)
+            assert build["version"] == manifest.version
+            assert [s.name for s in manifest.services] == ["CudaWorker", "Processor",
+                                                           "Frontend"]
+            yaml_text = _p20_cli("render", art, "--deployment", P20_NAME)
+            docs = from_yaml(yaml_text)
+            assert docs == render_graph_manifests(manifest, image=DEFAULT_IMAGE,
+                                                  deployment=P20_NAME)
+            _, line = asyncio.run(store.wait_line("api-store on ", 120))
+            at_store = time.perf_counter() - t_phase
+            store_url = line.split("api-store on ", 1)[1].strip()
+            assert json.loads(_p20_cli("push", art, "--store", store_url)) == {
+                "name": P20_NAME, "version": manifest.version}
+            _p20_cli("deploy", P20_NAME, manifest.version, "--store", store_url,
+                     "--deployment", P20_NAME)
+            rec = asyncio.run(client.request(
+                f"{store_url}/api/v1/deployments/{P20_NAME}")).json()
+            assert rec["manifests_yaml"] == yaml_text, "the store rendered other documents"
+            backend = MemoryBackend()
+            op = DeploymentOperator(store_dir, backend)
+            first = asyncio.run(op.reconcile_all())[P20_NAME]
+            second = asyncio.run(op.reconcile_all())[P20_NAME]
+            assert first.phase == "Ready" and first.applied == len(docs), first
+            assert list(backend.applied[P20_NAME].values()) == docs
+            assert (second.applied, second.deleted) == (0, 0), second
+            at_op = time.perf_counter() - t_phase
+            log(f"[deploy] (a) {smi}: artifact {P20_NAME} version {manifest.version} "
+                f"({os.path.getsize(art)} bytes, {len(tarfile.open(art).getnames())} files, "
+                f"built in {t_build:.1f} s) rendered to {len(docs)} documents "
+                f"({', '.join(d['kind'] + ' ' + d['metadata']['name'] for d in docs)}); pushed, "
+                f"deployed; the operator's first pass applied {first.applied} ({first.phase}), "
+                f"its second {second.applied}; the store up at {at_store:.1f} s, the operator's "
+                f"passes done at {at_op:.1f} s of the phase")
+
+            # The kubelet: the artifact alone, phase 2's build beside it.
+            root = os.path.join(tmp, "pod-root")
+            with tarfile.open(art) as tar:
+                tar.extractall(root, filter="data")
+            copied = copy_kernel_build(os.path.join(root, "dynamo_exp_tpu_torch", "_build"))
+            http = next(d for d in docs if d["metadata"]["name"] == f"{P20_NAME}-http")
+            assert http["spec"]["ports"][0]["targetPort"] == cfg["Frontend"]["port"]
+            kube = _Kubelet(docs, root, {f"{P20_NAME}-config": os.path.join(tmp, "etc-dynamo")},
+                            cfg)
+            t_kube = time.perf_counter()
+            deployments = [d for d in docs if d["kind"] == "Deployment"]
+            (coord,) = kube.run(deployments[0])
+            procs.append(coord)
+            asyncio.run(coord.wait_line("coordinator ready on", 120))
+            coord_s = time.perf_counter() - t_kube
+            for d in deployments[1:]:
+                procs += kube.run(d)
+            addr = kube.resolve(next(e["value"] for e in deployments[1]["spec"]["template"][
+                "spec"]["containers"][0]["env"] if e["name"] == "DYN_COORDINATOR"))
+            procs.append(_Proc([sys.executable, "-m", "dynamo_exp_tpu_torch.components.router",
+                                "--coordinator", addr, "--workers", "CudaWorker",
+                                "--block-size", str(PS)], env, "router"))
+            procs.append(_Proc([sys.executable, "-m", "dynamo_exp_tpu_torch.components.metrics",
+                                "--coordinator", addr, "--component", f"{P19_NS}.CudaWorker",
+                                "--host", "127.0.0.1", "--port", "0", "--scrape-interval",
+                                str(P20_SCRAPE_S)], env, "metrics"))
+            out = asyncio.run(asyncio.wait_for(_p20_drive(
+                np, smi, sh, tok, text_ids, model_dir, addr,
+                "http://" + kube.resolve(f"{P20_NAME}-http:{http['spec']['ports'][0]['port']}"),
+                procs), timeout=900))
+            out["kubelet_s"] = time.perf_counter() - t_kube
+            out["pre_kubelet_s"] = t_kube - t_phase
+            out["coordinator_s"] = coord_s
+            out["copied"] = copied
+
+            # Teardown: the record goes, then every process; the
+            # operator's next pass collects every document.
+            r = asyncio.run(client.request(f"{store_url}/api/v1/deployments/{P20_NAME}",
+                                           "DELETE"))
+            assert r.status == 200, r.body
+        finally:
+            # The components and the pods together, then the coordinator,
+            # then the store.
+            if builder is not None and builder.poll() is None:
+                builder.kill()
+                builder.wait()
+            t_stop = time.perf_counter()
+            for group in (procs[2:], procs[1:2], procs[:1]):
+                for p in group:
+                    p.terminate()
+                for p in group:
+                    rcs[p.name] = p.stop()
+            stop_s = time.perf_counter() - t_stop
+        bad = {n: rc for n, rc in rcs.items() if rc != 0}
+        assert not bad, "processes exited non-zero: " + "; ".join(
+            f"{n} {rc}:\n{next(p for p in procs if p.name == n).tail(40)}"
+            for n, rc in bad.items())
+        gone = asyncio.run(op.reconcile_all())
+        assert P20_NAME not in gone and backend.applied.get(P20_NAME, {}) == {}, backend.applied
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["designs"] = {k: out["designs_a"][k] + out["designs_b"][k] for k in out["designs_a"]}
+    log(f"[deploy] {smi}: {len(rcs)} processes stopped by SIGTERM in {stop_s:.1f} s, every "
+        f"one exit 0 ({', '.join(sorted(rcs))}); the record deleted, the operator's next "
+        f"pass collected all {len(docs)} documents; phase 20 wall {out['wall_s']:.1f} s "
+        f"(to the kubelet's start {out['pre_kubelet_s']:.1f} s, the coordinator up "
+        f"{out['coordinator_s']:.1f} s later, kubelet to the end {out['kubelet_s']:.1f} s; "
+        f"{len(copied)} built libraries copied "
+        f"into the unpacked tree: {copied})")
+    log(json.dumps({"phase20": {k: out[k] for k in (
+        "boot_s", "a", "one_at_a_time_s", "b", "designs_a", "designs_b", "overlaps",
+        "pre_kubelet_s", "coordinator_s", "kubelet_s", "wall_s")}}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8431,7 +9110,10 @@ def main() -> int:
         f"{MAX_TOKENS} tokens and exact usage, a rerun gave identical text, and "
         f"{sum(h['same_as_phase5'])}/8 texts equal phase 5's tokens decoded; (b) chat "
         f"finishes {h['b_finish']}; (d) stopped at {h['stop']!r} with (c)'s text before it; "
-        f"the lone greedy request's HTTP text equals its direct-engine tokens decoded")
+        f"the lone greedy request's HTTP text equals its direct-engine tokens decoded; (e) "
+        f"a body with no model and no max_tokens got the request template's model and "
+        f"{h['template']['completion_tokens']} tokens (max_completion_tokens "
+        f"{TEMPLATE['max_completion_tokens']})")
     log(f"[http] launches of the HTTP requests alone {h['launches']}, by kernel "
         f"{h['designs']}: {h['per_burst']} in each (a) burst, {h['rest']} in (b), (c), "
         f"(d) and the lone request")
@@ -8472,6 +9154,8 @@ def main() -> int:
     log(f"[smoke] {smi}: phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     p19 = phase19(torch, np, pkg, tra, smi)
     log(f"[phase19] in {p19['wall_s']:.1f} s")
+    p20 = phase20(torch, np, pkg, tra, smi)
+    log(f"[phase20] in {p20['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -8526,6 +9210,10 @@ def main() -> int:
             # Phase 19: the graph workers' ((a) + (b), both summed; (c)).
             "launches_graph": p19["designs"][design],
             "launches_graph_f32": p19["designs_f32"][design],
+            # Phase 20: the rendered fleet's two workers, summed ((a); the
+            # third burst of (b)).
+            "launches_deploy": p20["designs_a"][design],
+            "launches_components": p20["designs_b"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

@@ -170,6 +170,7 @@ from ..models.llama import (
     init_params,
     resolve_attn,
 )
+from ..ops import launches
 from ..ops.ragged_attention import ragged_supported
 from ..ops.sampling import (
     TOP_LOGPROBS,
@@ -950,6 +951,9 @@ class TorchEngine(AsyncEngine):
             m["dispatch"] = self.profiler.summary()
         m["decode_window"] = self.cfg.decode_window
         m["tp"] = self.cfg.tp
+        # This process's device-kernel launches by group and kernel
+        # (ops/launches.py): a worker's stats show what it ran.
+        m["kernel_launches"] = {g: dict(c) for g, c in launches.COUNTERS.items()}
         m["kv_prefix_hits"] = dict(self.kv.prefix_hits)
         for kind, n in self.kv.prefix_hits.items():
             m[f"kv_prefix_hits_{kind}"] = n

@@ -39,11 +39,14 @@ class HttpResponse:
 async def _open(url: str, method: str, payload: Any | None, headers: dict | None = None):
     parts = urlsplit(url)
     reader, writer = await asyncio.open_connection(parts.hostname, parts.port or 80)
-    body = b"" if payload is None else json.dumps(payload).encode()
+    # Bytes go as they are (an artifact upload); anything else as JSON.
+    raw = isinstance(payload, bytes)
+    body = payload if raw else b"" if payload is None else json.dumps(payload).encode()
+    ctype = "application/octet-stream" if raw else "application/json"
     extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     head = (
         f"{method} {parts.path or '/'} HTTP/1.1\r\nHost: {parts.netloc}\r\n"
-        f"Content-Type: application/json\r\nContent-Length: {len(body)}\r\n"
+        f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n"
         f"{extra}Connection: close\r\n\r\n"
     )
     writer.write(head.encode("latin-1") + body)

@@ -41,9 +41,12 @@ completed one is attributed against the SLO targets
 (``telemetry/slo.py``): TTFT from arrival to the first content chunk,
 ITL the mean gap after it. The ModelManager gains and loses models as
 the ingress's ``ModelWatcher`` (``http/discovery.py``) sees workers come
-and go.
+and go. A ``request_template`` (``protocols/request_template.py``) fills
+the fields a body leaves unset before it is parsed.
 
-Left out (ROADMAP Queue 1): request templates (item 9(c)).
+The HTTP/1.1 reader and writer are ``http/wire.py``'s, which the
+port's small JSON and text services (the api-store, the metrics
+exporter) share through its :class:`~.wire.PlainServer`.
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ import contextlib
 import json
 import logging
 import time
-from dataclasses import dataclass, field
 from typing import Any
 
 from ..preprocessor.preprocessor import InvalidRequestError, PromptTooLongError
@@ -74,17 +76,10 @@ from ..runtime.push_router import NoInstancesError, RecoveryExhaustedError
 from ..telemetry import get_telemetry, span
 from .admission import AdmissionController, RequestShedError
 from .metrics import CONTENT_TYPE_LATEST, ServiceMetrics
+from .wire import _BadRequest, _Connection, _json_response, _Request, _Response
 
 logger = logging.getLogger(__name__)
 
-MAX_HEAD_BYTES = 64 << 10
-MAX_BODY_BYTES = 32 << 20
-_REASONS = {
-    100: "Continue", 200: "OK", 400: "Bad Request", 404: "Not Found",
-    405: "Method Not Allowed", 413: "Payload Too Large", 429: "Too Many Requests",
-    500: "Internal Server Error", 501: "Not Implemented", 502: "Bad Gateway",
-    503: "Service Unavailable", 504: "Gateway Timeout",
-}
 # Clients hint how soon to retry a 503 (no instances / breaker open):
 # instance churn resolves within a lease TTL or breaker cooldown.
 RETRY_AFTER_S = "1"
@@ -119,43 +114,9 @@ class ModelManager:
         return sorted(set(self._chat) | set(self._completion))
 
 
-class _BadRequest(Exception):
-    def __init__(self, status: int, message: str):
-        super().__init__(message)
-        self.status = status
-
-
-@dataclass
-class _Request:
-    method: str
-    path: str
-    version: str
-    headers: dict[str, str] = field(default_factory=dict)
-    body: bytes = b""
-
-    @property
-    def keep_alive(self) -> bool:
-        conn = self.headers.get("connection", "").lower()
-        if self.version == "HTTP/1.0":
-            return conn == "keep-alive"
-        return conn != "close"
-
-
-@dataclass
-class _Response:
-    status: int
-    body: bytes = b""
-    content_type: str = "application/json; charset=utf-8"
-    headers: dict[str, str] = field(default_factory=dict)
-
-
 def _unavailable(e: Exception) -> _Response:
     return _error_response(503, str(e) or "no instances available", "service_unavailable",
                            headers={"Retry-After": RETRY_AFTER_S})
-
-
-def _json_response(obj: Any, status: int = 200, headers: dict[str, str] | None = None) -> _Response:
-    return _Response(status, json.dumps(obj).encode(), headers=headers or {})
 
 
 def _error_response(
@@ -167,100 +128,6 @@ def _error_response(
     )
 
 
-class _Connection:
-    """One client connection: request reading with a push-back buffer
-    (the disconnect watch may read ahead of the next request)."""
-
-    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
-        self.reader = reader
-        self.writer = writer
-        self.buf = bytearray()
-
-    async def _fill(self) -> bool:
-        data = await self.reader.read(65536)
-        self.buf += data
-        return bool(data)
-
-    async def read_head(self) -> bytes | None:
-        while b"\r\n\r\n" not in self.buf:
-            if len(self.buf) > MAX_HEAD_BYTES:
-                raise _BadRequest(400, "request head too large")
-            if not await self._fill():
-                if self.buf.strip():
-                    raise _BadRequest(400, "connection closed inside a request head")
-                return None
-        head, _, rest = bytes(self.buf).partition(b"\r\n\r\n")
-        self.buf = bytearray(rest)
-        return head
-
-    async def read_body(self, n: int) -> bytes:
-        while len(self.buf) < n:
-            if not await self._fill():
-                raise ConnectionResetError("connection closed inside a request body")
-        body, self.buf = bytes(self.buf[:n]), self.buf[n:]
-        return body
-
-    async def read_request(self) -> _Request | None:
-        head = await self.read_head()
-        if head is None:
-            return None
-        try:
-            lines = head.decode("latin-1").split("\r\n")
-            method, target, version = lines[0].split(" ")
-        except ValueError:
-            raise _BadRequest(400, "malformed request line") from None
-        if not version.startswith("HTTP/1."):
-            raise _BadRequest(400, f"unsupported protocol {version!r}")
-        headers: dict[str, str] = {}
-        for line in lines[1:]:
-            name, sep, value = line.partition(":")
-            if not sep:
-                raise _BadRequest(400, "malformed header line")
-            headers[name.strip().lower()] = value.strip()
-        req = _Request(method, target.split("?", 1)[0], version, headers)
-        if "transfer-encoding" in headers:
-            raise _BadRequest(501, "request bodies must carry Content-Length")
-        try:
-            length = int(headers.get("content-length", "0"))
-        except ValueError:
-            raise _BadRequest(400, "bad Content-Length") from None
-        if length < 0 or length > MAX_BODY_BYTES:
-            raise _BadRequest(413, f"body of {length} bytes")
-        if length and headers.get("expect", "").lower() == "100-continue":
-            self.writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
-            await self.writer.drain()
-        req.body = await self.read_body(length)
-        return req
-
-    async def watch_disconnect(self) -> None:
-        """Return when the client closes its end (reads ahead into
-        ``buf`` if it sends another request meanwhile)."""
-        while await self._fill():
-            pass
-
-    def write_head(self, status: int, headers: dict[str, str]) -> None:
-        lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}"]
-        lines += [f"{k}: {v}" for k, v in headers.items()]
-        self.writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
-
-    async def send(self, resp: _Response, keep_alive: bool) -> None:
-        self.write_head(
-            resp.status,
-            {
-                "Content-Type": resp.content_type,
-                "Content-Length": str(len(resp.body)),
-                "Connection": "keep-alive" if keep_alive else "close",
-                **resp.headers,
-            },
-        )
-        self.writer.write(resp.body)
-        await self.writer.drain()
-
-    async def send_chunk(self, data: bytes) -> None:
-        self.writer.write(b"%x\r\n%s\r\n" % (len(data), data))
-        await self.writer.drain()
-
-
 class HttpService:
     def __init__(
         self,
@@ -270,6 +137,7 @@ class HttpService:
         port: int = 8080,
         admission: AdmissionController | None = None,
         slo=None,
+        request_template=None,
     ):
         self.manager = manager or ModelManager()
         self.metrics = metrics or ServiceMetrics()
@@ -281,6 +149,8 @@ class HttpService:
         # A telemetry.SloAttribution fed each completed request's TTFT
         # and ITL at this edge; None measures nothing.
         self.slo = slo
+        # Server-side defaults for the OpenAI routes (request_template.py).
+        self.request_template = request_template
         self._server: asyncio.Server | None = None
         self._conns: set[asyncio.Task] = set()
         self._routes = {
@@ -386,6 +256,8 @@ class HttpService:
     ) -> bool:
         try:
             payload = json.loads(req.body)
+            if self.request_template is not None and isinstance(payload, dict):
+                payload = self.request_template.apply(payload)
             # Popped before parsing, as the JAX service does.
             timeout_s = _request_timeout_s(payload, req.headers)
             oreq = parse(payload)

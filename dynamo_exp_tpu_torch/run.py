@@ -4,7 +4,7 @@ Counterpart of ``dynamo_exp_tpu/run.py``:
 
     python -m dynamo_exp_tpu_torch.run in=<INPUT> out=<OUTPUT> [flags]
 
-INPUT:  http | batch:<prompts.jsonl> | dyn://ns.comp.ep
+INPUT:  http | text | stdin | batch:<prompts.jsonl> | dyn://ns.comp.ep
 OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
 
 - ``in=http out=cuda``: an OpenAI server (``http/service.py``) in front
@@ -32,6 +32,14 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
   runs the coordinator; ``--coordinator`` defaults to
   ``DYN_COORDINATOR``. Workers and ingresses of this package and of the
   JAX package share the wire and serve each other.
+- ``in=text``: an interactive chat, one streamed reply a line typed
+  after ``> `` (stdin read on a daemon thread); ``in=stdin``: one
+  streamed chat a stdin line, each reply on a line of its own. Both
+  take every output, as the JAX CLI's do.
+- ``--request-template <file>`` (``in=http``): a JSON file of defaults
+  (``model``, ``temperature``, ``max_completion_tokens``) filled into
+  every request that leaves them unset (``protocols/request_template.py``).
+  ``--echo-token-delay-ms`` spaces the echo engines' frames.
 - ``in=batch:<file>``: every JSONL line's ``text`` (or ``prompt``) as a
   concurrent streaming chat request; prints one JSON stats line. A line
   with ``token_ids`` instead goes to the core engine as it stands (no
@@ -89,15 +97,14 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
   follows ``DYN_LOG`` / ``DYN_LOGGING_JSONL``; SIGUSR1 dumps every
   engine's flight recorder (``telemetry/flight.py``).
 
-The JAX CLI's other inputs, outputs and flags are refused with the
-ROADMAP item that brings them, never silently ignored.
+``out=tpu`` is refused, naming ``out=cuda``; every other input, output
+and flag of the JAX CLI is served.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
-import contextlib
 import json
 import logging
 import os
@@ -108,19 +115,11 @@ from dataclasses import dataclass, field
 
 logger = logging.getLogger("dynamo_exp_tpu_torch.run")
 
+INPUTS = ("http", "text", "stdin")
 OUTPUTS = ("cuda", "echo_core", "echo_full")
 ROUTER_MODES = {"random": "RANDOM", "round-robin": "ROUND_ROBIN", "kv": "KV"}
-_ITEM9 = "ROADMAP Queue 1 item 9"
-# Inputs/outputs and flags of the JAX CLI the port does not serve yet.
-NOT_PORTED_IO = {
-    "text": f"{_ITEM9}(d)",
-    "stdin": f"{_ITEM9}(d)",
-    "tpu": "the port's device output is out=cuda",
-}
-NOT_PORTED_FLAGS = {
-    "--request-template": f"{_ITEM9}(c)",
-    "--echo-token-delay-ms": f"{_ITEM9}(i)",
-}
+# Inputs/outputs of the JAX CLI the port does not serve.
+NOT_PORTED_IO = {"tpu": "the port's device output is out=cuda"}
 
 
 # ----------------------------------------------------------------- arguments
@@ -136,9 +135,6 @@ def parse_args(argv: list[str]):
             k, _, v = a.partition("=")
             io[k] = v
         else:
-            flag = a.split("=", 1)[0]
-            if flag in NOT_PORTED_FLAGS:
-                raise _refuse(flag, NOT_PORTED_FLAGS[flag])
             rest.append(a)
     p = argparse.ArgumentParser(prog="dynamo_exp_tpu_torch.run", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -173,6 +169,11 @@ def parse_args(argv: list[str]):
                    help="upper bound the adaptive controller may grow a draft to")
     p.add_argument("--spec-ngram", type=int, default=3,
                    help="widest trailing n-gram the prompt-lookup drafter matches")
+    p.add_argument("--echo-token-delay-ms", type=float, default=0.0,
+                   help="out=echo_core|echo_full: sleep this long before each frame")
+    p.add_argument("--request-template", default="",
+                   help="JSON file of request defaults (model / temperature / "
+                   "max_completion_tokens) for in=http; explicit client values win")
     p.add_argument("--max-tokens", type=int, default=256,
                    help="completion cap of in=batch requests that set none (an HTTP "
                    "request without max_tokens gets the rest of the context, as in "
@@ -250,11 +251,11 @@ def parse_args(argv: list[str]):
                 raise SystemExit(f"{flag} is not served under --tp > 1 yet; see "
                                  f"{TP_LATER[item]}")
     for key, value in io.items():
-        for prefix, item in NOT_PORTED_IO.items():
-            if value == prefix or (prefix.endswith("//") and value.startswith(prefix)):
-                raise _refuse(f"{key}={value}", item)
-    if io["in"] != "http" and not io["in"].startswith(("batch:", "dyn://")):
-        raise SystemExit(f"unknown in={io['in']!r} (http | batch:<file> | dyn://ns.comp.ep)")
+        if value in NOT_PORTED_IO:
+            raise _refuse(f"{key}={value}", NOT_PORTED_IO[value])
+    if io["in"] not in INPUTS and not io["in"].startswith(("batch:", "dyn://")):
+        raise SystemExit(f"unknown in={io['in']!r} (http | text | stdin | batch:<file> | "
+                         "dyn://ns.comp.ep)")
     if io["out"] not in OUTPUTS and not io["out"].startswith("dyn://"):
         raise SystemExit(f"unknown out={io['out']!r} ({' | '.join(OUTPUTS)} | dyn://ns.comp.ep)")
     opts.input, opts.output = io["in"], io["out"]
@@ -393,9 +394,9 @@ def build_output(opts, comm=None):
     from .engines.echo import EchoEngineCore, EchoEngineFull
 
     if opts.output == "echo_core":
-        return EchoEngineCore(), None, None, None
+        return EchoEngineCore(opts.echo_token_delay_ms), None, None, None
     if opts.output == "echo_full":
-        return None, EchoEngineFull(), None, None
+        return None, EchoEngineFull(opts.echo_token_delay_ms), None, None
     if opts.output.startswith("dyn://"):
         return None, None, None, None
     engine, mdc = build_cuda_engine(opts, comm)
@@ -495,8 +496,14 @@ async def run_http(opts, drt, core, full, mdc, torch_engine,
     from .http import HttpService
     from .http.discovery import ModelWatcher
 
+    template = None
+    if opts.request_template:
+        from .protocols.request_template import RequestTemplate
+
+        template = RequestTemplate.load(opts.request_template)
     svc = HttpService(host=opts.http_host, port=opts.http_port,
-                      admission=build_admission(opts), slo=build_slo(opts))
+                      admission=build_admission(opts), slo=build_slo(opts),
+                      request_template=template)
     watcher = kv_router = engine = None
     if opts.output.startswith("dyn://") and not opts.model_path:
         watcher = ModelWatcher(drt, svc.manager, router_mode(opts))
@@ -652,8 +659,9 @@ def _chat_payload(model: str, prompt: str, opts) -> dict:
     }
 
 
-async def _stream_chat(engine, payload):
-    """(content chunks, seconds to the first, seconds in all)."""
+async def _stream_chat(engine, payload, out=None):
+    """(content chunks, seconds to the first, seconds in all); each
+    chunk's text is written to ``out`` as it arrives, when given."""
     from .runtime.engine import AsyncEngineContext
 
     n_tokens = 0
@@ -663,11 +671,54 @@ async def _stream_chat(engine, payload):
     async for item in stream:
         chunk = item if isinstance(item, dict) else item.to_dict()
         for choice in chunk.get("choices", []):
-            if (choice.get("delta") or {}).get("content"):
+            text = (choice.get("delta") or {}).get("content")
+            if text:
                 if first is None:
                     first = time.monotonic() - t0
                 n_tokens += 1
+                if out is not None:
+                    out.write(text)
+                    out.flush()
     return n_tokens, first, time.monotonic() - t0
+
+
+async def run_text(opts, engine, mdc) -> None:
+    """Interactive chat: each line read after a ``> `` prompt is one
+    streamed chat, its reply written to stdout; Ctrl-D ends. stdin is
+    read on a daemon thread: a thread of the default executor is joined
+    at the interpreter's exit, and one blocked in ``input()`` would keep
+    the process alive after Ctrl-C."""
+    import threading
+
+    name = (mdc.display_name if mdc else "") or "default"
+    loop = asyncio.get_running_loop()
+    lines: asyncio.Queue = asyncio.Queue()
+
+    def reader():
+        while True:
+            try:
+                line = input("> ")
+            except EOFError:
+                loop.call_soon_threadsafe(lines.put_nowait, None)
+                return
+            loop.call_soon_threadsafe(lines.put_nowait, line)
+
+    threading.Thread(target=reader, name="stdin-reader", daemon=True).start()
+    print("Ctrl-D to exit.", flush=True)
+    while (prompt := await lines.get()) is not None:
+        await _stream_chat(engine, _chat_payload(name, prompt, opts), sys.stdout)
+        print(flush=True)
+
+
+async def run_stdin(opts, engine, mdc) -> None:
+    """One streamed chat a non-empty stdin line, each reply written to
+    stdout on a line of its own."""
+    name = (mdc.display_name if mdc else "") or "default"
+    for line in sys.stdin:
+        prompt = line.rstrip("\n")
+        if prompt:
+            await _stream_chat(engine, _chat_payload(name, prompt, opts), sys.stdout)
+            print(flush=True)
 
 
 def _token_request(d: dict, opts) -> dict:
@@ -989,6 +1040,15 @@ async def main_async(opts, ready: asyncio.Future | None = None,
             await run_http(opts, drt, core, full, mdc, torch_engine, ready)
         elif opts.input.startswith("dyn://"):
             await run_worker(opts, drt, core, torch_engine, mdc, ready)
+        elif opts.input in ("text", "stdin"):
+            engine, mdc, kv_router = await resolve_openai_engine(opts, drt, core, full, mdc)
+            try:
+                if ready is not None:
+                    ready.set_result(Served(engine=engine, torch_engine=torch_engine, mdc=mdc))
+                await (run_text if opts.input == "text" else run_stdin)(opts, engine, mdc)
+            finally:
+                if kv_router is not None:
+                    await kv_router.stop()
         else:
             routers = []
 
@@ -1039,22 +1099,13 @@ def main(argv: list[str] | None = None) -> None:
     argv = argv if argv is not None else sys.argv[1:]
     early = early_ranks(argv)  # before parse_args imports torch
     opts = parse_args(argv)
-    loop = asyncio.new_event_loop()
-    main_task = loop.create_task(main_async(opts, early=early))
-    # SIGINT/SIGTERM -> cancel the main task -> the engine stops.
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        with contextlib.suppress(NotImplementedError, ValueError):
-            loop.add_signal_handler(sig, main_task.cancel)
     # SIGUSR1 -> every live engine's flight recorder ring is dumped.
+    from .runtime.runtime import run_until_signalled
     from .telemetry import install_sigusr1
 
     install_sigusr1()
-    try:
-        loop.run_until_complete(main_task)
-    except asyncio.CancelledError:
-        pass
-    finally:
-        loop.close()
+    # SIGINT/SIGTERM -> cancel the main task -> the engine stops.
+    run_until_signalled(main_async(opts, early=early))
 
 
 if __name__ == "__main__":

@@ -112,3 +112,21 @@ class Worker:
                 await self.runtime.close()
 
         return asyncio.run(_run())
+
+
+def run_until_signalled(coro) -> None:
+    """Run ``coro`` as the main task of a new event loop; SIGINT and
+    SIGTERM cancel it, and a cancelled run returns normally, so that a
+    service CLI stopped by its supervisor exits 0 after its ``finally``
+    blocks ran."""
+    loop = asyncio.new_event_loop()
+    task = loop.create_task(coro)
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        with contextlib.suppress(NotImplementedError, ValueError):
+            loop.add_signal_handler(sig, task.cancel)
+    try:
+        loop.run_until_complete(task)
+    except asyncio.CancelledError:
+        pass
+    finally:
+        loop.close()

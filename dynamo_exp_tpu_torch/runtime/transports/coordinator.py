@@ -175,11 +175,6 @@ class CoordinatorServer:
                     w.close()
             await self._server.wait_closed()
 
-    async def serve_forever(self) -> None:
-        assert self._server is not None
-        async with self._server:
-            await self._server.serve_forever()
-
     # ------------------------------------------------------------ lease sweep
     async def _sweep_leases(self) -> None:
         while True:
@@ -815,13 +810,19 @@ def main() -> None:
     parser.add_argument("--port", type=int, default=6510)
     args = parser.parse_args()
 
+    from ..runtime import run_until_signalled
+
     async def _run() -> None:
         server = CoordinatorServer(args.host, args.port)
         await server.start()
         print(f"coordinator ready on {server.address}", flush=True)
-        await server.serve_forever()
+        try:
+            await asyncio.Event().wait()  # serving since start()
+        finally:
+            await server.close()
 
-    asyncio.run(_run())
+    # SIGTERM (a pod's stop) closes every connection and exits 0.
+    run_until_signalled(_run())
 
 
 if __name__ == "__main__":

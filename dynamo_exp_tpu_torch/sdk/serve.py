@@ -23,7 +23,6 @@ import asyncio
 import contextlib
 import logging
 import os
-import signal
 import sys
 import time
 
@@ -302,18 +301,9 @@ def main(argv: list[str] | None = None) -> None:
 
     configure_logging()
     args = build_parser().parse_args(argv if argv is not None else sys.argv[1:])
+    from ..runtime.runtime import run_until_signalled
 
-    loop = asyncio.new_event_loop()
-    task = loop.create_task(serve_graph(args))
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        with contextlib.suppress(NotImplementedError, ValueError):
-            loop.add_signal_handler(sig, task.cancel)
-    try:
-        loop.run_until_complete(task)
-    except asyncio.CancelledError:
-        pass
-    finally:
-        loop.close()
+    run_until_signalled(serve_graph(args))
 
 
 if __name__ == "__main__":

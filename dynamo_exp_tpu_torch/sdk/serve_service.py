@@ -23,7 +23,6 @@ import asyncio
 import contextlib
 import importlib
 import logging
-import signal
 import sys
 
 logger = logging.getLogger("dynamo_exp_tpu_torch.sdk.serve_service")
@@ -170,18 +169,9 @@ def main(argv: list[str] | None = None) -> None:
             deployment=args.deployment,
         )
 
-    loop = asyncio.new_event_loop()
-    task = loop.create_task(run_service(args.target, args.service_name, args.config,
-                                        multihost))
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        with contextlib.suppress(NotImplementedError, ValueError):
-            loop.add_signal_handler(sig, task.cancel)
-    try:
-        loop.run_until_complete(task)
-    except asyncio.CancelledError:
-        pass
-    finally:
-        loop.close()
+    from ..runtime.runtime import run_until_signalled
+
+    run_until_signalled(run_service(args.target, args.service_name, args.config, multihost))
 
 
 if __name__ == "__main__":

@@ -116,6 +116,11 @@ class _Family:
                 child = self._children[key] = self._new_child()
             return child
 
+    def remove(self, *values) -> None:
+        """Drop the child of these label values (absent: nothing)."""
+        with self._lock:
+            self._children.pop(tuple(str(v) for v in values), None)
+
     def clear(self) -> None:
         """Drop every labelled child."""
         with self._lock:

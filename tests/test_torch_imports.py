@@ -7,7 +7,7 @@ interpreter, which must then hold neither ``jax`` nor any
 the JAX package's ingress rests on and the H100 machine does not have
 (``aiohttp``, ``pydantic``, ``tokenizers``, ``transformers``,
 ``prometheus_client``, ``safetensors``, ``sentencepiece``, ``gguf``,
-``huggingface_hub``). The parity tests are the only
+``huggingface_hub``, PyYAML's ``yaml``). The parity tests are the only
 other place where the two packages meet.
 """
 
@@ -24,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = (
     "jax", "jaxlib", "dynamo_exp_tpu", "aiohttp", "pydantic", "pydantic_core",
     "tokenizers", "transformers", "prometheus_client", "safetensors",
-    "sentencepiece", "gguf", "huggingface_hub",
+    "sentencepiece", "gguf", "huggingface_hub", "yaml",
 )
 
 _PROBE = """
@@ -68,7 +68,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "aot", "aot.lattice", "aot.warmup", "aot.compile",
         "telemetry", "telemetry.context", "telemetry.prom", "telemetry.spans",
         "telemetry.slo", "telemetry.flight", "telemetry.dispatch", "http.metrics",
-        "http.admission", "runtime.logging",
+        "http.admission", "http.wire", "runtime.logging",
         "runtime.transports", "runtime.transports.base", "runtime.transports.codec",
         "runtime.transports.inproc", "runtime.transports.coordinator",
         "runtime.transports.tcp", "runtime.config", "runtime.runtime", "runtime.health",
@@ -86,7 +86,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "examples.llm.components.processor", "examples.llm.components.frontend",
         "examples.llm.components.prefill_worker", "examples.llm.graphs.agg",
         "examples.llm.graphs.agg_router", "examples.llm.graphs.disagg",
-        "examples.llm.graphs.disagg_router",
+        "examples.llm.graphs.disagg_router", "protocols.request_template",
+        "components", "components.mock_worker", "components.router", "components.metrics",
+        "deploy", "deploy.artifact", "deploy.k8s", "deploy.api_store", "deploy.operator",
+        "deploy.cli",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

@@ -14,7 +14,9 @@ serve with model discovery and drop the model when the worker exits.
 ``--tp`` and the multi-node flags parse as the JAX CLI parses them,
 what tp > 1 does not serve is refused with its ROADMAP item, and two
 CPU nodes at tp=2 serve a batch of ``token_ids`` lines with a tp=1
-run's tokens.
+run's tokens. ``in=text`` and ``in=stdin`` give the JAX CLI's replies
+on ``out=echo_full`` and serve ``out=cuda --device cpu``;
+``--echo-token-delay-ms`` spaces the echo engines' frames.
 """
 
 import asyncio
@@ -58,20 +60,102 @@ def test_parse_args_keeps_the_jax_cli_form():
     assert opts.device == "cpu" and run.parse_args(["out=cuda"]).device == "cuda"
 
 
-@pytest.mark.parametrize(
-    "argv,item",
-    [
-        (["in=text", "out=cuda"], "item 9(d)"),
-        (["in=stdin"], "item 9(d)"),
-        (["--request-template", "t.json"], "item 9(c)"),
-        (["--echo-token-delay-ms", "20"], "item 9(i)"),
-        (["out=tpu"], "out=cuda"),
-    ],
-)
+@pytest.mark.parametrize("argv,item", [(["out=tpu"], "out=cuda")])
 def test_unported_inputs_outputs_and_flags_are_refused(argv, item):
     with pytest.raises(SystemExit, match="not ported") as err:
         run.parse_args(argv)
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["in=text", "out=cuda"], ["in=stdin"], ["in=http", "--request-template", "t.json"],
+     ["in=http", "--echo-token-delay-ms", "20"]],
+    ids=["text", "stdin", "request-template", "echo-token-delay-ms"],
+)
+def test_text_stdin_template_and_echo_delay_parse_as_the_jax_cli(argv):
+    """No longer refused: ``in=text``, ``in=stdin``, ``--request-template``
+    and ``--echo-token-delay-ms`` parse as the JAX CLI parses them."""
+    opts, jopts = run.parse_args(argv), jrun.parse_args(argv)
+    for name in ("input", "output", "request_template", "echo_token_delay_ms"):
+        assert getattr(opts, name) == getattr(jopts, name), name
+
+
+STDIN = "hello world\n\nthe quick brown fox\n"
+
+
+def _drive_stdin(mod, argv, monkeypatch, capsys) -> list[str]:
+    """``mod``'s CLI (``run.main_async``) on ``STDIN``: the replies, one a
+    line (the ``> `` prompts of ``in=text``, which its reader thread
+    prints as it pleases, taken out)."""
+    import io
+
+    monkeypatch.setattr(sys, "stdin", io.StringIO(STDIN))
+    if mod is jrun:  # its replies' stream is bound at import: capsys's here
+        monkeypatch.setattr(jrun._stream_chat, "__defaults__", (sys.stdout,))
+    asyncio.run(asyncio.wait_for(mod.main_async(mod.parse_args(argv)), timeout=120))
+    out = capsys.readouterr().out.replace("> ", "").splitlines()
+    return [x for x in out if x != "Ctrl-D to exit." and "runtime closed" not in x]
+
+
+@pytest.mark.parametrize("source", ["text", "stdin"])
+def test_text_and_stdin_on_echo_equal_the_jax_cli(source, monkeypatch, capsys):
+    argv = [f"in={source}", "out=echo_full"]
+    want = _drive_stdin(jrun, argv, monkeypatch, capsys)
+    got = _drive_stdin(run, argv, monkeypatch, capsys)
+    # in=text echoes the empty line too; in=stdin skips it.
+    assert got == want == ["hello world", *([""] if source == "text" else []),
+                           "the quick brown fox"]
+
+
+@pytest.mark.parametrize("source", ["text", "stdin"])
+def test_text_and_stdin_on_out_cuda_device_cpu(source, tiny_model_dir, monkeypatch, capsys):
+    """One streamed chat a line (in=text: the empty one too) through
+    ``TorchEngine`` on the CPU, each reply written."""
+    engines = []
+    build = run.build_cuda_engine
+
+    def spy(opts, comm=None):
+        engines.append(build(opts, comm))
+        return engines[-1]
+
+    monkeypatch.setattr(run, "build_cuda_engine", spy)
+    got = _drive_stdin(run, [f"in={source}", "out=cuda", "--device", "cpu", "--model-path",
+                             tiny_model_dir, "--random-weights", *SMALL],
+                       monkeypatch, capsys)
+    chats = 3 if source == "text" else 2
+    assert engines[0][0].metrics()["workload_requests"] == chats
+    assert len(got) >= chats  # a random model's reply may hold newlines
+
+
+@pytest.mark.parametrize("output", ["echo_full", "echo_core"])
+async def test_echo_token_delay_spaces_the_frames(output, tiny_model_dir):
+    """``--echo-token-delay-ms 40``: content frames 40 ms apart or more,
+    as the JAX echo engines sleep before each frame."""
+    import time
+
+    gaps = {}
+    for delay in ("0", "40"):
+        opts = run.parse_args(["in=http", f"out={output}", "--http-host", "127.0.0.1",
+                               "--http-port", "0", "--model-path", tiny_model_dir,
+                               "--model-name", "tiny", "--echo-token-delay-ms", delay])
+        ready = asyncio.get_running_loop().create_future()
+        task = asyncio.ensure_future(run.main_async(opts, ready))
+        served = await asyncio.wait_for(ready, 60)
+        times = []
+        async for f in client.sse_frames(
+                f"http://127.0.0.1:{served.port}/v1/chat/completions",
+                {"model": "tiny", "stream": True, "max_tokens": 6,
+                 "messages": [{"role": "user", "content": "one two three four five six"}]}):
+            if f.data != "[DONE]" and any((c.get("delta") or {}).get("content")
+                                          for c in f.data["choices"]):
+                times.append(time.monotonic())
+        task.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await task
+        assert len(times) >= 3
+        gaps[delay] = min(b - a for a, b in zip(times, times[1:]))
+    assert gaps["40"] >= 0.035 and gaps["0"] < gaps["40"]
 
 
 @pytest.mark.parametrize(
