@@ -25,7 +25,10 @@ Phases, each fatal on failure (nothing is caught):
    the mixed shape also on a stream padded to its token bucket as the
    engine pads it (a run of 50 tiles of the scratch row at position
    -1), on both dtypes: equal to the plain version, exact zeros at every
-   padding token; time both mixed kernels and the bf16 decode kernel, the plain
+   padding token; the mixed kernels also at the tuning grid's other q
+   tiles, 1, 4 and 16 (``check_q_tiles``: llama-8b's heads and gemma2's
+   D=256 with softcap and window, both pool dtypes; q_tile 16 timed at
+   llama-8b's); time both mixed kernels and the bf16 decode kernel, the plain
    version and, as a yardstick only, one ``scaled_dot_product_attention``
    call over the gathered pages; then (``check_windowed``) all three
    designs at gemma2-9b's sliding layers (H=16, Hkv=8, D=256, window
@@ -436,7 +439,7 @@ Phases, each fatal on failure (nothing is caught):
    with one card both ranks share it over gloo, with two or more each
    has a card, over NCCL (printed with ``torch.cuda.device_count()``
    and each rank's device and peak memory); the three kernels run at
-   per-rank head counts. (a) llama-8b at full width and 8 of its 32
+   per-rank head counts. (a) llama-8b at full width and 4 of its 32
    layers (a model directory of its config.json; the checks do not
    depend on depth, and the cut keeps the smoke inside its time limit),
    bf16, random weights from seed 0: phase 5's 8 prompts (the
@@ -487,7 +490,9 @@ Phases, each fatal on failure (nothing is caught):
 20. the deploy tier and the standalone components, through the entry
    points a user calls. (a) ``python -m dynamo_exp_tpu_torch.deploy.cli
    build`` packs the port's agg_router graph and a JSON config (llama-8b
-   at full width and depth, bf16, seed-0 random weights, 1,024 pages and
+   at full width and 8 of its 32 layers (``Phase20.layers``: the
+   identity, overlap, counter and exit checks do not depend on depth),
+   bf16, seed-0 random weights, 1,024 pages and
    8 slots a worker, ``CudaWorker`` ``ServiceArgs.workers`` 2) into a
    content-addressed artifact with the kernels' sources; ``render``,
    ``push`` to a ``python -m dynamo_exp_tpu_torch.deploy.api_store``
@@ -519,6 +524,42 @@ Phases, each fatal on failure (nothing is caught):
    Every process exits 0 on SIGTERM; with the record deleted the
    operator's next pass collects every document. A ``{"phase20": ...}``
    line holds the numbers.
+21. the cluster simulator and the autotuner against the card. (a)
+   llama-8b at full width and depth, bf16, seed-0 random weights: the
+   simulator's calibration bridge (the JAX package's pressure harness:
+   4 slots, 8 pages of 8 tokens, a 0.05 s stall grace, eager dispatches,
+   the real ``AdmissionController`` at 6 in flight with the watermark at
+   3): ``overload_burst`` seeds 0-2 (8 requests of 6-12 tokens) through
+   the engine and through ``ClusterSim`` with the same config, completed
+   and shed counts equal, preemptions within 2, no errors; then phase
+   5's prompts at 32 tokens through a graphed engine (a capturing
+   burst, then the burst again traced to a span file) and ``llmctl sim
+   --trace-in <the burst> --fit-spans <the spans>``: the fitted prefill
+   seconds per token and ITL, the sim's TTFT and ITL p50 beside the
+   live burst's (printed, not gated). (b) ``llmctl tune --workload burst
+   --seed 0 --requests 32 --budget 32 --eval-seeds 1 --top-k 3
+   --validate-passes 3 --preset llama-8b --kv-dtype bfloat16
+   --max-model-len 2096 --check --json`` in a subprocess (the search's
+   three best differ in decode slots and admission, which the card
+   shows; at the default 64 requests they differ by two admitted
+   requests, which it does not, so the live ranking is noise): rc 0,
+   one journal line a trial, each of the three
+   candidates served live on a 32-layer llama-8b ``TorchEngine``
+   through both bf16 kernels, the artifact loads; Kendall tau, top-1 and
+   each candidate's live goodput printed; then, in this process, the
+   contrasting pair ``[{}, {"max_inflight": 1}]`` at 4 layers ranks the
+   default first in the sim and on the card (tau 1.0). (c) a boot from
+   (b)'s artifact (``engine_config_from_artifact``, llama-8b at 4
+   layers; its knobs hash to the artifact's ``config_hash``):
+   ``prewarm_engine`` with the artifact's graph manifest against a cache
+   directory holding phase 2's build builds nothing; phase 5's prompts at
+   32 tokens, twice: no capture under traffic (no new
+   ``dynamo_compile_seconds`` sample), the same tokens; ``llmctl aot
+   list --preset llama-8b`` exits 0 with the lattice's hash; the engine
+   at 4 layers boots at each ``ragged_q_tile`` of the tuning grid (1, 4,
+   8, 16) and serves phase 5's prompts greedily at 8 tokens through the
+   bf16 mixed kernel at that q tile. A ``{"phase21": ...}`` line holds
+   the numbers.
 
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
@@ -557,7 +598,11 @@ and phase 18's rank 0 (``launches_tp2``: (a), ``launches_tp2_f32``: (b),
 graph workers (``launches_graph``: (a) and (b), both workers summed;
 ``launches_graph_f32``: (c)), and phase 20's rendered fleet
 (``launches_deploy``: (a); ``launches_components``: (b)'s third burst;
-both workers summed);
+both workers summed), and phase 21's engines (``launches_sim_calibration``:
+(a); ``launches_tune_validation``: (b)'s three validation engines in the
+tune process and the contrasting pair; ``launches_artifact_boot``: (c));
+both mixed entries also carry phase 3's other q tiles
+(``q_tile{1,4,16}_*_max_abs_err`` and ``q_tile16``'s timing);
 both mixed entries also carry the
 verify spans' timing (``verify_*``), and every entry phase 3's windowed
 cases in its own dtype (``gemma2_d256_softcap_window``,
@@ -697,6 +742,9 @@ def build(tra) -> float:
 
 
 # ------------------------------------------------------------ phase 3
+_POOLS: dict = {}  # flat_batch's last pools
+
+
 def flat_batch(torch, np, seed, spans, q_tile, dtype, device, pad_to=0, shape=(H, HKV, D)):
     """A q_tile-aligned flat stream over a scrambled page pool, one
     empty tile at the end, owned by the scratch row ``len(spans)``, then,
@@ -707,9 +755,19 @@ def flat_batch(torch, np, seed, spans, q_tile, dtype, device, pad_to=0, shape=(H
     rs = np.random.RandomState(seed)
     pmax = max(-(-max(kv, 1) // PS) for _, kv in spans)
     pages = sum(-(-max(kv, 1) // PS) for _, kv in spans) + 8
-    k = torch.from_numpy(rs.standard_normal((pages, PS, n_kv * hd)).astype(np.float32))
-    v = torch.from_numpy(rs.standard_normal((pages, PS, n_kv * hd)).astype(np.float32))
-    perm = rs.permutation(pages)
+    # The pools and the page order do not depend on q_tile: the last
+    # ones drawn are kept, with the generator's state after them, so a
+    # case at another q tile draws the same q without drawing them again.
+    key = (seed, tuple(spans), tuple(shape))
+    if key in _POOLS:
+        k, v, perm, state = _POOLS[key]
+        rs.set_state(state)
+    else:
+        k = torch.from_numpy(rs.standard_normal((pages, PS, n_kv * hd)).astype(np.float32))
+        v = torch.from_numpy(rs.standard_normal((pages, PS, n_kv * hd)).astype(np.float32))
+        perm = rs.permutation(pages)
+        _POOLS.clear()
+        _POOLS[key] = (k, v, perm, rs.get_state())
     table = np.zeros((len(spans) + 1, pmax), np.int32)
     used, row_of, positions = 0, [], []
     for r, (q_len, kv_len) in enumerate(spans):
@@ -877,19 +935,20 @@ def check_case(torch, call, plain, q, k, v, zeros, what) -> tuple:
 
 
 def mixed_case(torch, np, tra, dt, spans=MIXED_SPANS, what="mixed", pad_to=0,
-               shape=(H, HKV, D), attn=None) -> tuple:
-    """The mixed shape, q_tile = 8, one empty tile at the end (and
-    scratch-row tiles up to ``pad_to``), against the plain version with
-    ``dt`` pools, at attention shape ``shape`` with ``attn`` (window,
-    softcap, sm_scale) passed to both. Returns (max abs err, the float32
-    reading, the inputs, the call, the plain call, the (row_of,
-    positions) the plain call reads)."""
+               shape=(H, HKV, D), attn=None, q_tile=8) -> tuple:
+    """The mixed shape at ``q_tile`` (the main path's 8 unless asked),
+    one empty tile at the end (and scratch-row tiles up to ``pad_to``),
+    against the plain version with ``dt`` pools, at attention shape
+    ``shape`` with ``attn`` (window, softcap, sm_scale) passed to both.
+    Returns (max abs err, the float32 reading, the inputs, the call, the
+    plain call, the (row_of, positions) the plain call reads)."""
     dev = torch.device("cuda", 0)
-    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, spans, 8, dt, dev, pad_to, shape)
+    q, k, v, table, row_of, pos = flat_batch(torch, np, 0, spans, q_tile, dt, dev, pad_to,
+                                             shape)
     kw = dict(attn or {}, num_kv_heads=shape[1])
 
     def call():
-        return tra.ragged_paged_attention(q, k, v, table, row_of, pos, q_tile=8, **kw)
+        return tra.ragged_paged_attention(q, k, v, table, row_of, pos, q_tile=q_tile, **kw)
 
     def plain(q=q, k=k, v=v):
         return tra.ragged_paged_attention_ref(q, k, v, table, row_of, pos, **kw)
@@ -1040,6 +1099,59 @@ def check_kernels(torch, np, tra, flush) -> dict:
             + "; every padding token exact zeros")
         results[f"padded_{str(dt).removeprefix('torch.')}"] = err
     return results
+
+
+# Phase 3's other q tiles: the tuning grid's ragged_q_tile values beside
+# the main path's 8 (tune/space.py), each through both mixed designs.
+Q_TILES = (1, 4, 16)
+
+
+def check_q_tiles(torch, np, tra, flush) -> dict:
+    """The mixed kernels at every other q tile of the tuning grid (1, 4,
+    16), with float32 and bf16 pools: at llama-8b's heads on
+    ``MIXED_SPANS`` (q_tile 16: 64 query rows a tile, a block's run of
+    two tiles) and at gemma2-9b's D=256 sliding layers with their
+    softcap and window on ``WINDOW_MIXED_SPANS``, held to the plain
+    version as ``check_kernels`` holds them (float32 at atol 1e-4; bf16
+    at atol 2e-2 + rtol 2^-7 and within bf16 rounding of float32
+    copies), empty and padding tiles exact zeros. q_tile 16 at llama-8b's
+    heads is also timed (CUDA events after an L2 flush) beside the plain
+    version, its bound and one SDPA call. Returns {case: numbers}."""
+    F = torch.nn.functional
+    gemma = "gemma2_d256_softcap_window"
+    cases = {"llama8b": ((H, HKV, D), {}, MIXED_SPANS),
+             gemma: (WINDOW_CASES[gemma][0], WINDOW_CASES[gemma][1], WINDOW_MIXED_SPANS)}
+    out = {}
+    for case, (shape, attn, spans) in cases.items():
+        for qt in Q_TILES:
+            for dt in (torch.float32, torch.bfloat16):
+                dname = str(dt).removeprefix("torch.")
+                err, tight, inputs, call, plain, (rows, pos) = mixed_case(
+                    torch, np, tra, dt, spans, f"{case} q_tile={qt}", shape=shape,
+                    attn=attn, q_tile=qt)
+                res = out[f"q_tile{qt}_{case}_{dname}"] = dict(max_abs_err=err)
+                line = (f"[kernel] q_tile={qt} {case} {dname} H/Hkv/D {shape} {attn}: "
+                        f"N={inputs[0].shape[0]}, max abs err {err:.3e}"
+                        + (f" (against float32 plain {tight[0]:.3e}, {tight[1]:.3f} of its "
+                           f"limit)" if tight else ""))
+                if qt == 16 and case == "llama8b":
+                    q, k, v, table = inputs
+                    peak = BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_3XTF32_FLOP_PER_S
+                    qd, kd, vd, mask = sdpa_inputs(torch, q, k, v, table, rows, pos)
+                    res.update(
+                        ms=timed(torch, call, 20, flush), plain_ms=timed(torch, plain, 3, flush),
+                        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+                            qd, kd, vd, attn_mask=mask, enable_gqa=True), 20, flush))
+                    res["bound_ms"], res["bound_by"] = bound(torch, q, k, table, rows, pos,
+                                                             peak)[:2]
+                    del qd, kd, vd, mask
+                    line += (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+                             f"sdpa {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+                             f"by {res['bound_by']}")
+                log(line)
+                del inputs, call, plain
+        torch.cuda.empty_cache()
+    return out
 
 
 # Phase 3's windowed and softcapped cases: (attention shape (H, Hkv, D),
@@ -7468,7 +7580,7 @@ class Phase18:
 
     device: str = "cuda"
     dense_preset: str = "llama-8b"  # (a): the preset at full width ...
-    dense_layers: int = 8  # ... and 8 of its 32 layers, bf16
+    dense_layers: int = 4  # ... and 4 of its 32 layers, bf16
     prompt_lens: tuple = PROMPT_LENS  # (a), (b): phase 5's prompts ...
     max_tokens: int = MAX_TOKENS  # ... at 32 tokens
     f32_layers: int = 4  # (b): llama-8b's width at 4 layers, float32
@@ -7630,7 +7742,7 @@ def phase18(torch, np, pkg, tra, smi: str, sh: Phase18 = Phase18(), dense=None, 
     ``python -m dynamo_exp_tpu_torch.run ... --tp 2`` in subprocesses,
     each rank a process of its own (one card: both on it over gloo; two
     or more: a card each over NCCL), the kernels at per-rank head
-    counts. (a) llama-8b at full width and 8 of its 32 layers
+    counts. (a) llama-8b at full width and 4 of its 32 layers
     (``Phase18.dense_layers``), bf16, random weights from seed 0: phase
     5's 8 prompts (one seeded), 32 tokens each, admitted together, then
     a rerun in a new pair of processes (beside (b)'s pair and tp=1
@@ -8480,6 +8592,7 @@ class Phase20:
     slots: int = 8  # ... and slots
     max_model_len: int = 2048 + 128 + PS
     boot_s: float = 300.0  # the rendered fleet serves within this
+    layers: int = 8  # llama-8b's width at 8 of its 32 layers
 
 
 def _p20_cli(*argv) -> str:
@@ -8866,7 +8979,8 @@ def phase20(torch, np, pkg, tra, smi: str, sh: Phase20 = Phase20(), mcfg=None) -
     """Phase 20: the deploy tier and the standalone components, through
     the entry points a user calls. (a) ``python -m
     dynamo_exp_tpu_torch.deploy.cli build`` packs the port's agg_router
-    graph with a JSON config (llama-8b at full width and depth, bf16,
+    graph with a JSON config (llama-8b at full width and
+    ``Phase20.layers`` of its 32 layers, bf16,
     seed-0 random weights, 1,024 pages and 8 slots a worker,
     ``CudaWorker.ServiceArgs.workers`` 2); ``render``, ``push`` to a
     ``python -m dynamo_exp_tpu_torch.deploy.api_store`` process and
@@ -8893,6 +9007,7 @@ def phase20(torch, np, pkg, tra, smi: str, sh: Phase20 = Phase20(), mcfg=None) -
     service sees (a)'s KV events."""
     import tarfile
     import tempfile
+    from dataclasses import replace
 
     from dynamo_exp_tpu_torch import tokenizer as tokmod
     from dynamo_exp_tpu_torch.deploy import from_yaml, read_manifest, render_graph_manifests
@@ -8902,7 +9017,7 @@ def phase20(torch, np, pkg, tra, smi: str, sh: Phase20 = Phase20(), mcfg=None) -
 
     t_phase = time.perf_counter()
     free(torch, sh.device)
-    mcfg = mcfg or pkg.models.LLAMA_8B
+    mcfg = mcfg or replace(pkg.models.LLAMA_8B, num_layers=sh.layers)
     with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
         text = f.read()
     with tempfile.TemporaryDirectory() as tmp:
@@ -9046,6 +9161,481 @@ def phase20(torch, np, pkg, tra, smi: str, sh: Phase20 = Phase20(), mcfg=None) -
     return out
 
 
+# ------------------------------------------------------------ phase 21
+# (a): the simulator's pressure harness (the JAX package's
+# tests/test_sim.py PRESSURE_CFG): 4 slots over 8 pages of 8 tokens, a
+# 0.05 s stall grace, fronted by a 6-in-flight admission controller
+# with the shed watermark at 3.
+P21_PRESSURE = dict(slots_per_instance=4, pages_per_instance=8, page_size=8,
+                    preempt_stall_grace_s=0.05, max_inflight=6, shed_watermark=3,
+                    initial_instances=1)
+# (b): the contrasting pair's long-prompt target (the JAX package's
+# tests/test_tune.py): every request in the 64-128 ISL and OSL buckets.
+P21_PAIR_FP = dict(n=48, isl_hist=(0, 0, 0, 48, 0, 0, 0, 0, 0, 0, 0),
+                   osl_hist=(0, 0, 0, 48, 0, 0, 0, 0, 0, 0, 0),
+                   priority_mix=(0.0, 1.0, 0.0), arrival_rate_rps=8.0)
+
+
+@dataclass(frozen=True)
+class Phase21:
+    """Phase 21's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, the tiny preset in place of llama-8b)."""
+
+    device: str = "cuda"
+    preset: str = "llama-8b"  # (a), (b): the preset at full width and depth
+    kv_dtype: str = "bfloat16"
+    small_layers: int = 4  # (b)'s contrasting pair and (c): 4 of its layers
+    seeds: tuple = (0, 1, 2)  # (a): overload_burst seeds ...
+    burst_n: int = 8  # ... of 8 requests ...
+    osl_range: tuple = (6, 12)  # ... of 6-12 tokens, ...
+    grace_s: float = 0.05  # ... the stall grace of both the sim and the engine
+    prompt_lens: tuple = PROMPT_LENS  # (a)'s fit burst and (c): phase 5's prompts ...
+    max_tokens: int = MAX_TOKENS  # ... at 32 tokens
+    tune_requests: int = 32  # (b): the burst target's requests ...
+    tune_budget: int = 32  # ... sim evaluations of the search ...
+    top_k: int = 3  # ... candidates validated live ...
+    validate_passes: int = 3  # ... each scored over this many measured passes
+    tune_max_model_len: int = 2048 + MAX_TOKENS + PS  # (b)'s artifact holds (c)'s prompts
+    timeout_s: float = 600.0  # (b)'s llmctl tune process
+    # (c): mixed keys past this many tokens are left out of the prewarm
+    # (0: none is; the CPU rehearsal's burst never reaches them).
+    prewarm_max_tokens: int = 0
+
+
+def _p21_llmctl(*argv) -> tuple[int, str, str]:
+    """``llmctl`` in this process: (rc, stdout, stderr)."""
+    import io
+
+    from dynamo_exp_tpu_torch import llmctl as ctl
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = ctl.main(list(argv))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _p21_designs() -> dict:
+    from dynamo_exp_tpu_torch.ops import ragged_attention as tra
+
+    return dict(tra.KERNEL_LAUNCHES)
+
+
+def _p21_add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def p21_calibration(torch, pkg, sh: Phase21, mcfg, model) -> dict:
+    """(a) The calibration bridge: each seed's ``overload_burst`` through
+    the live engine behind the real ``AdmissionController`` and through
+    ``ClusterSim`` with the same config: completed and shed counts equal,
+    preemptions within 2, no errors. The engine runs its dispatches
+    eagerly (``cuda_graphs=False``): a first-use capture stalls the loop
+    past the 0.05 s grace, which the sim does not model."""
+    from dynamo_exp_tpu_torch.http.admission import AdmissionController, RequestShedError
+    from dynamo_exp_tpu_torch.protocols.common import parse_priority
+    from dynamo_exp_tpu_torch.runtime.transports.chaos import overload_burst
+    from dynamo_exp_tpu_torch.sim import ClusterSim, SimConfig, burst_workload
+
+    p = dict(P21_PRESSURE, preempt_stall_grace_s=sh.grace_s)
+    ecfg = pkg.engine.EngineConfig(
+        model=mcfg, max_decode_slots=p["slots_per_instance"], page_size=p["page_size"],
+        num_pages=p["pages_per_instance"], max_model_len=128, eos_token_ids=[],
+        kv_dtype=sh.kv_dtype, preempt_stall_grace_s=p["preempt_stall_grace_s"],
+        cuda_graphs=False,
+    )
+    eng = pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+    eng.start()
+    rows = []
+    try:
+        for seed in sh.seeds:
+            burst = overload_burst(seed, n=sh.burst_n, osl_range=sh.osl_range)
+            adm = AdmissionController(max_inflight=p["max_inflight"],
+                                      shed_watermark=p["shed_watermark"])
+
+            async def submit(b, adm=adm):
+                try:
+                    adm.acquire(parse_priority(b.priority))
+                except RequestShedError as e:
+                    return ("shed", e.status)
+                try:
+                    req = {"token_ids": list(b.prompt), "priority": parse_priority(b.priority),
+                           "stop_conditions": {"max_tokens": b.max_tokens, "ignore_eos": True},
+                           "sampling_options": {"temperature": 0.9, "seed": b.seed}}
+                    final = None
+                    async for item in await eng.generate(req):
+                        final = item.get("finish_reason") or final
+                    return ("done", final)
+                finally:
+                    adm.release()
+
+            async def run_burst(burst=burst, submit=submit):
+                return await asyncio.wait_for(asyncio.gather(*[submit(b) for b in burst]),
+                                              timeout=300)
+
+            before = eng.preempted
+            t0 = time.perf_counter()
+            results = asyncio.run(run_burst())
+            wall = time.perf_counter() - t0
+            live = dict(completed=sum(1 for r in results if r == ("done", "length")),
+                        shed=sum(1 for r in results if r[0] == "shed"),
+                        preemptions=eng.preempted - before, wall_s=wall)
+            assert live["completed"] + live["shed"] == len(burst), (seed, results)
+            rep = ClusterSim(SimConfig(seed=seed, **p),
+                             burst_workload(seed, n=sh.burst_n, osl_range=sh.osl_range)).run()
+            sim = dict(completed=rep.completed, shed=rep.shed, preemptions=rep.preemptions,
+                       errors=rep.errors)
+            log(f"[sim] (a) seed {seed}: live completed {live['completed']} shed "
+                f"{live['shed']} preemptions {live['preemptions']} in {wall:.3f} s; sim "
+                f"completed {sim['completed']} shed {sim['shed']} preemptions "
+                f"{sim['preemptions']} errors {sim['errors']}")
+            assert sim["completed"] == live["completed"] and sim["shed"] == live["shed"], (
+                seed, live, sim)
+            assert sim["errors"] == 0, (seed, sim)
+            assert abs(sim["preemptions"] - live["preemptions"]) <= 2, (seed, live, sim)
+            rows.append(dict(seed=seed, live=live, sim=sim))
+        audit = eng.kv_audit()
+    finally:
+        eng.stop()
+    assert audit["ok"], audit["violations"][:5]
+    return dict(seeds=rows)
+
+
+def p21_fit(torch, np, pkg, sh: Phase21, mcfg, model, tmp: str) -> dict:
+    """(a) The service-time fit from spans the engine recorded: phase 5's
+    prompts at 32 tokens through a graphed engine (a first burst
+    captures, then the burst again with every request traced to a span
+    file), then ``llmctl sim --trace-in <the burst as a trace>
+    --fit-spans <spans>`` with phase 5's engine shape. Findings, not
+    gates: the fitted prefill seconds per token and ITL, the sim's TTFT
+    and ITL p50 beside the live burst's."""
+    from dynamo_exp_tpu_torch import telemetry as T
+    from dynamo_exp_tpu_torch.sim import ServiceTimeModel, SimRequest, save_trace
+
+    requests = [
+        {"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens, "ignore_eos": True},
+         "sampling_options": SEEDED_OPTIONS if i == SEEDED else {}}
+        for i, ids in enumerate(phase5_prompts(np, mcfg.vocab_size, sh.prompt_lens))
+    ]
+    max_len = max(sh.prompt_lens) + sh.max_tokens + PS
+    pages = 8 * (-(-max_len // PS))
+    ecfg = pkg.engine.EngineConfig(model=mcfg, max_decode_slots=8, page_size=PS,
+                                   max_model_len=max_len, num_pages=pages, eos_token_ids=[],
+                                   kv_dtype=sh.kv_dtype)
+    eng = pkg.engine.TorchEngine(ecfg, model=model, device=sh.device)
+    spans_path = os.path.join(tmp, "p21_spans.jsonl")
+
+    async def burst(traced: bool):
+        async def collect(stream, sent):
+            frames, n = [], 0
+            async for item in stream:
+                if item.get("token_ids"):
+                    n += len(item["token_ids"])
+                    frames.append(time.perf_counter())
+            return dict(ttft=frames[0] - sent,
+                        itl=(frames[-1] - frames[0]) / max(n - 1, 1), tokens=n)
+
+        with eng.hold_admission():
+            eng.reset_prefix_cache()
+            sent = time.perf_counter()
+            streams = []
+            for r in requests:
+                with T.span("http_request") if traced else contextlib.nullcontext():
+                    streams.append(eng.submit(r))
+        return await asyncio.gather(*(collect(s, sent) for s in streams))
+
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        asyncio.run(burst(False))
+        cold = time.perf_counter() - t0
+        T.get_telemetry().configure(spans_path)
+        try:
+            live = asyncio.run(burst(True))
+        finally:
+            T.get_telemetry().configure(None)
+    finally:
+        eng.stop()
+    del eng
+    assert all(r["tokens"] == sh.max_tokens for r in live), live
+    trace_path = os.path.join(tmp, "p21_trace.jsonl")
+    save_trace(trace_path, [SimRequest(index=i, arrival_s=0.0, prompt_len=len(r["token_ids"]),
+                                       max_tokens=sh.max_tokens)
+                            for i, r in enumerate(requests)])
+    model_fit = ServiceTimeModel.from_spans([spans_path])
+    rc, out, err = _p21_llmctl(
+        "sim", "burst", "--trace-in", trace_path, "--fit-spans", spans_path,
+        "--slots", "8", "--pages", str(pages), "--page-size", str(PS), "--max-inflight", "64")
+    assert rc == 0, err
+    rep = json.loads(out)
+    assert rep["completed"] == len(requests) and rep["errors"] == 0, rep
+    ttfts = sorted(r["ttft"] for r in live)
+    itls = sorted(r["itl"] for r in live)
+    res = dict(
+        prefill_token_s=model_fit.prefill_token_s.median_s,
+        prefill_sigma=model_fit.prefill_token_s.sigma,
+        itl_s=model_fit.itl_s.median_s, itl_sigma=model_fit.itl_s.sigma,
+        live_ttft_p50_s=ttfts[len(ttfts) // 2], live_itl_p50_s=itls[len(itls) // 2],
+        sim_ttft_p50_s=rep["ttft_p50_s"], sim_itl_p50_s=rep["itl_p50_s"], cold_s=cold,
+    )
+    res["ttft_ratio"] = res["sim_ttft_p50_s"] / res["live_ttft_p50_s"]
+    res["itl_ratio"] = res["sim_itl_p50_s"] / res["live_itl_p50_s"]
+    log(f"[sim] (a) fit from {spans_path}'s spans (phase 5's prompts x {sh.max_tokens}, a "
+        f"graphed burst after a capturing one of {cold:.1f} s): prefill "
+        f"{res['prefill_token_s'] * 1e6:.3f} us/token (sigma {res['prefill_sigma']:.3f}), "
+        f"ITL {res['itl_s'] * 1e3:.3f} ms (sigma {res['itl_sigma']:.3f}); llmctl sim "
+        f"--trace-in --fit-spans: TTFT p50 {res['sim_ttft_p50_s']:.4f} s against live "
+        f"{res['live_ttft_p50_s']:.4f} s (ratio {res['ttft_ratio']:.3f}), ITL p50 "
+        f"{res['sim_itl_p50_s'] * 1e3:.3f} ms against live {res['live_itl_p50_s'] * 1e3:.3f} "
+        f"ms (ratio {res['itl_ratio']:.3f})")
+    return res
+
+
+def p21_tune(torch, pkg, sh: Phase21, mcfg, small, small_model, tmp: str) -> dict:
+    """(b) ``llmctl tune --top-k 3`` in a subprocess on ``sh.preset`` at
+    full depth: rc 0, one journal line a trial, each of the three
+    candidates served live on that preset's ``TorchEngine`` through the
+    kernels (launches counted in the child), the artifact loads (the CPU
+    rehearsal validates one candidate: on the CPU a step's time grows
+    with its rows, which the sim's congestion model does not know). Then,
+    in this process, the contrasting pair ``[{}, {"max_inflight": 1}]``
+    at 4 layers: the sim and the engine both rank the default first,
+    tau 1.0."""
+    from dynamo_exp_tpu_torch.telemetry.fingerprint import WorkloadFingerprint
+    from dynamo_exp_tpu_torch.tune import load_artifact, target_from_fingerprint
+    from dynamo_exp_tpu_torch.tune.validate import validate_candidates
+
+    journal, art_path = os.path.join(tmp, "p21_journal.jsonl"), os.path.join(tmp, "p21_art.json")
+    argv = [sys.executable, "-m", "dynamo_exp_tpu_torch.llmctl", "tune", "--workload", "burst",
+            "--seed", "0", "--requests", str(sh.tune_requests), "--budget",
+            str(sh.tune_budget), "--eval-seeds", "1", "--top-k",
+            str(sh.top_k), "--validate-passes", str(sh.validate_passes),
+            "--preset", sh.preset, "--kv-dtype", sh.kv_dtype, "--max-model-len",
+            str(sh.tune_max_model_len), "--journal", journal, "--out", art_path, "--check",
+            "--json", "--device", sh.device]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=sh.timeout_s)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, (f"llmctl tune rc {proc.returncode}:\n{proc.stdout[-6000:]}\n"
+                                  f"{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stdout)
+    with open(journal, encoding="utf-8") as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    trials = [ln for ln in lines if ln.get("kind") == "trial"]
+    assert len(trials) == summary["trials"], (len(trials), summary["trials"])
+    v = summary["validation"]
+    cands = v["candidates"]
+    assert len(cands) == sh.top_k, cands
+    designs = {}
+    for c in cands:
+        live = c["live"]
+        assert live["layers"] == mcfg.num_layers and live["device"] == sh.device, live
+        if sh.device == "cuda":
+            assert live["kernel_launches"]["mixed_tc_bf16"] > 0, live
+            assert live["kernel_launches"]["decode_split"] > 0, live
+        designs = _p21_add(designs, live["kernel_launches"])
+    art = load_artifact(art_path)
+    assert art["config_hash"] == summary["config_hash"] and art["manifest"], art.keys()
+    log(f"[tune] (b) llmctl tune --workload burst --seed 0 --requests {sh.tune_requests} "
+        f"--budget {sh.tune_budget} "
+        f"--eval-seeds 1 --top-k {sh.top_k} --preset {sh.preset} --kv-dtype {sh.kv_dtype}: "
+        f"rc 0 in "
+        f"{wall:.1f} s, {summary['trials']} trials (one journal line each), best "
+        f"{summary['best_overrides']} score {summary['best_score']} against the default's "
+        f"{summary['default_score']}; validation on {mcfg.num_layers}-layer "
+        f"{sh.preset} engines: Kendall tau {v['kendall_tau']}, top-1 "
+        f"{'agrees' if v['top1_agreement'] else 'DISAGREES'}; live goodput "
+        + ", ".join(f"{c['overrides']} {c['live']['goodput_per_chip_s']} tok/s "
+                    f"(completed {c['live']['completed']}, shed {c['live']['shed']}, "
+                    f"{c['live']['chip_seconds']} s a pass, passes "
+                    f"{c['live']['pass_goodput']} in {c['live']['measured_attempts']} "
+                    f"attempts, captures in the scored ones {c['live']['captures_measured']})"
+                    for c in cands)
+        + f"; sim scores {v['sim_scores']}; launches by kernel {designs}")
+    fp = WorkloadFingerprint(**P21_PAIR_FP)
+    reset_launches()
+    t1 = time.perf_counter()
+    pair = asyncio.run(validate_candidates(
+        [{}, {"max_inflight": 1}], target_from_fingerprint(fp), seed=5, n=8,
+        slo_ttft_s=1e9, slo_itl_s=1e9, device=sh.device, model=small, kv_dtype=sh.kv_dtype,
+        llama=small_model))
+    pair_designs = _p21_designs()
+    log(f"[tune] (b) contrasting pair [{{}}, {{max_inflight: 1}}] at {small.num_layers} "
+        f"layers: sim scores {pair['sim_scores']}, live {pair['live_scores']}, tau "
+        f"{pair['kendall_tau']}, top-1 {pair['top1_agreement']} in "
+        f"{time.perf_counter() - t1:.1f} s; launches by kernel {pair_designs}")
+    assert pair["kendall_tau"] == 1.0 and pair["top1_agreement"], pair["candidates"]
+    assert pair["sim_scores"][0] > pair["sim_scores"][1], pair["sim_scores"]
+    assert pair["live_scores"][0] > pair["live_scores"][1], pair["live_scores"]
+    return dict(art_path=art_path, summary=summary, wall_s=wall, tau=v["kendall_tau"],
+                top1=v["top1_agreement"], designs=_p21_add(designs, pair_designs),
+                pair_tau=pair["kendall_tau"],
+                goodput=[c["live"]["goodput_per_chip_s"] for c in cands])
+
+
+def p21_artifact_boot(torch, np, pkg, sh: Phase21, small, small_model, art_path: str,
+                      tmp: str) -> dict:
+    """(c) A warm boot from (b)'s artifact at 4 layers: the resolved
+    knobs hash to its ``config_hash``; ``prewarm_engine`` with its graph
+    manifest against a cache directory holding phase 2's build builds
+    nothing; phase 5's prompts at 32 tokens, then again: no capture
+    under traffic (``dynamo_compile_seconds`` gains no sample), the same
+    tokens."""
+    from dynamo_exp_tpu_torch.aot import prewarm_engine
+    from dynamo_exp_tpu_torch.telemetry import get_telemetry
+    from dynamo_exp_tpu_torch.tune import (
+        engine_config_from_artifact,
+        load_artifact,
+        manifest_from_artifact,
+    )
+    from dynamo_exp_tpu_torch.tune.space import config_hash, resolved_engine_knobs
+
+    art = load_artifact(art_path)
+    ecfg = engine_config_from_artifact(art, model=small)
+    assert config_hash(resolved_engine_knobs(ecfg)) == art["config_hash"], art["engine"]
+    cache_dir = os.path.join(tmp, "p21_cache")
+    copied = copy_kernel_build(cache_dir) if sh.device == "cuda" else []
+    eng = pkg.engine.TorchEngine(ecfg, model=small_model, device=sh.device)
+    manifest = manifest_from_artifact(art)
+    if sh.prewarm_max_tokens:
+        manifest.mixed = [k for k in manifest.mixed if k.tokens <= sh.prewarm_max_tokens]
+    report = prewarm_engine(eng, manifest, cache_dir=cache_dir)
+    requests = [
+        {"token_ids": ids, "stop_conditions": {"max_tokens": sh.max_tokens, "ignore_eos": True},
+         "sampling_options": SEEDED_OPTIONS if i == SEEDED else {}}
+        for i, ids in enumerate(phase5_prompts(np, small.vocab_size, sh.prompt_lens))
+    ]
+
+    def compile_samples() -> float:
+        vals = _family_values(get_telemetry().render().decode())
+        return sum(v for (name, _), v in vals.items() if name == "dynamo_compile_seconds_count")
+
+    c0 = compile_samples()
+    reset_launches()
+    eng.start()
+    try:
+        runs = []
+        for _ in range(2):
+            out, wall, _, _ = asyncio.run(direct_burst(eng, requests))
+            runs.append(([r["tokens"] for r in out], wall))
+        m = eng.metrics()
+    finally:
+        eng.stop()
+    designs = _p21_designs()
+    captures = {k: m["dispatch"][k]["compile_misses"] for k in ("window", "mixed")}
+    c1 = compile_samples()
+    assert report.builds == 0, report
+    assert c1 == c0 and not any(captures.values()), (c1 - c0, captures)
+    assert runs[0][0] == runs[1][0], "the rerun gave other tokens"
+    assert all(len(t) == sh.max_tokens for t in runs[0][0])
+    log(f"[aot] (c) boot from the artifact ({art['overrides']}, config_hash "
+        f"{art['config_hash']}; {small.num_layers} layers): prewarm {report.variants} window "
+        f"+ {report.mixed_variants} mixed variants ({report.graphs} + {report.mixed_graphs} "
+        f"graphs) in {report.seconds:.1f} s, builds {report.builds} against a cache dir "
+        f"holding phase 2's build ({copied}); phase 5's prompts x {sh.max_tokens}: "
+        f"{runs[0][1]:.3f} s, rerun {runs[1][1]:.3f} s, identical tokens; captures under "
+        f"traffic {captures}, dynamo_compile_seconds samples +{c1 - c0:.0f}; launches by "
+        f"kernel {designs}")
+    rc, out, err = _p21_llmctl("aot", "list", "--preset", sh.preset, "--device", sh.device)
+    assert rc == 0, err
+    found = re.search(r"hash ([0-9a-f]{64})", err)
+    assert found and json.loads(out)["engine"], err
+    log(f"[aot] (c) llmctl aot list --preset {sh.preset}: rc 0, {err.strip()}")
+    return dict(builds=report.builds, prewarm_s=report.seconds,
+                graphs=report.graphs + report.mixed_graphs, captures=captures,
+                walls=[w for _, w in runs], designs=designs, list_hash=found.group(1))
+
+
+def p21_q_tile_engines(torch, np, pkg, sh: Phase21, small, small_model) -> dict:
+    """(c) The engine at every ``ragged_q_tile`` of the tuning grid (a
+    live knob of the artifact): llama-8b at 4 layers boots at q_tile 1,
+    4, 8 and 16 and serves phase 5's prompts greedily at 8 tokens (eager
+    dispatches), every row ``length``, its mixed dispatches through the
+    bf16 mixed kernel at that q tile. Tokens against q_tile 8's are
+    counted, not asserted: the q tile moves a row's queries between
+    blocks, and bf16 ties may part."""
+    requests = [
+        {"token_ids": ids, "stop_conditions": {"max_tokens": 8, "ignore_eos": True}}
+        for ids in phase5_prompts(np, small.vocab_size, sh.prompt_lens)
+    ]
+    max_len = max(sh.prompt_lens) + 8 + PS
+    out, designs = {}, {}
+    for qt in (1, 4, 8, 16):
+        ecfg = pkg.engine.EngineConfig(
+            model=small, max_decode_slots=8, page_size=PS, max_model_len=max_len,
+            num_pages=8 * (-(-max_len // PS)), eos_token_ids=[], kv_dtype=sh.kv_dtype,
+            ragged_q_tile=qt, cuda_graphs=False)
+        eng = pkg.engine.TorchEngine(ecfg, model=small_model, device=sh.device)
+        reset_launches()
+        res, wall = run_engine(eng, requests)
+        d = _p21_designs()
+        assert all(f == "length" and len(t) == 8 for t, f, _ in res), (qt, res)
+        if sh.device == "cuda":
+            mixed = "mixed_tc_bf16" if sh.kv_dtype == "bfloat16" else "mixed_f32"
+            assert d[mixed] > 0 and d["decode_split"] > 0, (qt, d)
+        out[qt] = dict(tokens=[t for t, _, _ in res], wall_s=wall, designs=d)
+        designs = _p21_add(designs, d)
+        del eng
+    same = {qt: sum(a == b for a, b in zip(r["tokens"], out[8]["tokens"]))
+            for qt, r in out.items()}
+    log(f"[q_tile] (c) llama-8b at {small.num_layers} layers, ragged_q_tile 1 / 4 / 8 / 16: "
+        + ", ".join(f"q_tile {qt} {r['wall_s']:.3f} s, launches {r['designs']}, rows equal to "
+                    f"q_tile 8's {same[qt]}/{len(requests)}" for qt, r in out.items()))
+    return dict(same=same, walls={qt: r["wall_s"] for qt, r in out.items()}, designs=designs)
+
+
+def phase21(torch, np, pkg, tra, smi: str, sh: Phase21 = Phase21(), mcfg=None,
+            small=None) -> dict:
+    """Phase 21: the cluster simulator and the autotuner against the
+    card. (a) ``p21_calibration`` and ``p21_fit`` on ``sh.preset`` at
+    full depth (``mcfg``), one set of seed-0 weights; (b) ``p21_tune``;
+    (c) ``p21_artifact_boot``, (b)'s contrasting pair and (c) at
+    ``small`` (the preset at ``sh.small_layers`` layers). Launches by
+    kernel design: (a) in this process, (b) the tune process's
+    validation engines plus the pair's, (c) the artifact boot."""
+    import tempfile
+    from dataclasses import replace
+
+    t_phase = time.perf_counter()
+    free(torch, sh.device)
+    mcfg = mcfg or pkg.models.PRESETS[sh.preset]
+    small = small or replace(mcfg, num_layers=sh.small_layers)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="smoke21_") as tmp:
+        model = seeded_model(torch, pkg, mcfg, sh.device)
+        reset_launches()
+        t0 = time.perf_counter()
+        out["calibration"] = p21_calibration(torch, pkg, sh, mcfg, model)
+        out["fit"] = p21_fit(torch, np, pkg, sh, mcfg, model, tmp)
+        out["designs_a"] = _p21_designs()
+        out["a_s"] = time.perf_counter() - t0
+        del model
+        free(torch, sh.device)
+        small_model = seeded_model(torch, pkg, small, sh.device)
+        t0 = time.perf_counter()
+        b = p21_tune(torch, pkg, sh, mcfg, small, small_model, tmp)
+        out["designs_b"], out["b_s"] = b.pop("designs"), time.perf_counter() - t0
+        out["tune"] = {k: v for k, v in b.items() if k != "summary"}
+        t0 = time.perf_counter()
+        c = p21_artifact_boot(torch, np, pkg, sh, small, small_model, b["art_path"], tmp)
+        qts = p21_q_tile_engines(torch, np, pkg, sh, small, small_model)
+        out["designs_c"] = _p21_add(c.pop("designs"), qts.pop("designs"))
+        out["c_s"] = time.perf_counter() - t0
+        out["boot"], out["q_tiles"] = c, qts
+        del small_model
+        free(torch, sh.device)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase21] {smi}: (a) {out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
+        f"{out['c_s']:.1f} s; launches by kernel (a) {out['designs_a']}, (b) "
+        f"{out['designs_b']}, (c) {out['designs_c']}")
+    log(json.dumps({"phase21": {k: out[k] for k in (
+        "calibration", "fit", "tune", "boot", "q_tiles", "designs_a", "designs_b", "designs_c",
+        "a_s",
+        "b_s", "c_s", "wall_s")}}, default=str))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9077,6 +9667,7 @@ def main() -> int:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     kern = check_kernels(torch, np, tra, flush)
     windowed = check_windowed(torch, np, tra, flush)
+    q_tiles = check_q_tiles(torch, np, tra, flush)
     del flush
     stats = main_path(torch, np, pkg, tra)
     log(f"[engine] {name} ({smi}): wall {stats['wall_s']:.3f} s (rerun "
@@ -9156,6 +9747,8 @@ def main() -> int:
     log(f"[phase19] in {p19['wall_s']:.1f} s")
     p20 = phase20(torch, np, pkg, tra, smi)
     log(f"[phase20] in {p20['wall_s']:.1f} s")
+    p21 = phase21(torch, np, pkg, tra, smi)
+    log(f"[phase21] in {p21['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -9214,6 +9807,12 @@ def main() -> int:
             # third burst of (b)).
             "launches_deploy": p20["designs_a"][design],
             "launches_components": p20["designs_b"][design],
+            # Phase 21: (a) calibration and the fit burst; (b) the tune
+            # process's three validation engines and the contrasting
+            # pair; (c) the boot from the tuned artifact.
+            "launches_sim_calibration": p21["designs_a"][design],
+            "launches_tune_validation": p21["designs_b"][design],
+            "launches_artifact_boot": p21["designs_c"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
@@ -9226,6 +9825,16 @@ def main() -> int:
             if "bound_ms_ffma" in k:  # float32: the bound outside the tensor cores
                 kernels[-1].update(bound_ms_ffma=k["bound_ms_ffma"],
                                    verify_bound_ms_ffma=v["bound_ms_ffma"])
+        # Phase 3's other q tiles (1, 4, 16) through the mixed designs:
+        # the error at each case, and q_tile 16's timing at llama-8b's.
+        if entry == "ragged_paged_attention":
+            dname = "float32" if name.endswith("_f32") else "bfloat16"
+            for qt in Q_TILES:
+                for case in ("llama8b", "gemma2_d256_softcap_window"):
+                    kernels[-1][f"q_tile{qt}_{case}_max_abs_err"] = (
+                        q_tiles[f"q_tile{qt}_{case}_{dname}"]["max_abs_err"])
+            kernels[-1]["q_tile16"] = {
+                k: v for k, v in q_tiles[f"q_tile16_llama8b_{dname}"].items()}
         # Phase 3's windowed and softcapped cases (gemma2 at D = 256,
         # mistral's window at D = 128): this design's own shape and dtype;
         # the decode design also at float32 pools.

@@ -3,7 +3,12 @@ the lattice of decode-window and mixed keys (``lattice.py``), its
 prewarm with CUDA graph capture (``warmup.py``) and the kernel-library
 cache (``compile.py``)."""
 
-from .compile import ensure_kernel_library, manifest_for_engine, read_manifest
+from .compile import (
+    build_kernel_library,
+    ensure_kernel_library,
+    manifest_for_engine,
+    read_manifest,
+)
 from .lattice import (
     GraphManifest,
     MixedKey,
@@ -16,6 +21,7 @@ from .warmup import PrewarmReport, prewarm_engine
 
 __all__ = [
     "GraphManifest",
+    "build_kernel_library",
     "MixedKey",
     "PrewarmReport",
     "WindowKey",

@@ -55,6 +55,25 @@ def write_manifest(cache_dir: str, manifest: GraphManifest) -> str:
     return path
 
 
+def build_kernel_library(cache_dir: str = "", manifest: GraphManifest | None = None,
+                         kernel: bool = True) -> int:
+    """Build or load the kernel library into and from ``cache_dir``
+    (else ``_build/``) when ``kernel`` (an engine on a card that runs
+    the kernels), and write ``manifest.json`` there when both a
+    directory and a manifest are given. Returns the nvcc builds this
+    ran (0 or 1). Needs no engine: ``llmctl aot compile`` calls it."""
+    if cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+    builds = 0
+    if kernel:
+        before = tra.build_count()
+        tra.load_kernel(os.path.join(cache_dir, LIB_NAME) if cache_dir else None)
+        builds = tra.build_count() - before
+    if cache_dir and manifest is not None:
+        write_manifest(cache_dir, manifest)
+    return builds
+
+
 def ensure_kernel_library(engine, cache_dir: str = "", manifest: GraphManifest | None = None) -> int:
     """Build or load the kernel library before anything is captured
     (nvcc cannot run inside a capture): into and from ``cache_dir``
@@ -62,13 +81,8 @@ def ensure_kernel_library(engine, cache_dir: str = "", manifest: GraphManifest |
     is rewritten. Returns the nvcc builds this ran (0 or 1). An engine
     that runs no kernel (the plain version on the CPU) needs no
     library."""
-    if cache_dir:
-        os.makedirs(cache_dir, exist_ok=True)
-    builds = 0
-    if engine.attn_impl == "kernel" and engine.device.type == "cuda":
-        before = tra.build_count()
-        tra.load_kernel(os.path.join(cache_dir, LIB_NAME) if cache_dir else None)
-        builds = tra.build_count() - before
-    if cache_dir:
-        write_manifest(cache_dir, manifest or manifest_for_engine(engine))
-    return builds
+    return build_kernel_library(
+        cache_dir,
+        (manifest or manifest_for_engine(engine)) if cache_dir else None,
+        kernel=engine.attn_impl == "kernel" and engine.device.type == "cuda",
+    )

@@ -203,6 +203,17 @@ class GraphManifest:
             "mixed": [asdict(k) for k in self.mixed],
         }
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "GraphManifest":
+        """The manifest :meth:`to_dict` wrote (a tuned artifact embeds
+        one); the hash survives the round trip."""
+        return cls(
+            model=dict(d["model"]), engine=dict(d["engine"]),
+            windows=[WindowKey(**k) for k in d.get("windows", [])],
+            mixed=[MixedKey(**k) for k in d.get("mixed", [])],
+            schema=int(d.get("schema", _SCHEMA)),
+        )
+
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), sort_keys=True)
 

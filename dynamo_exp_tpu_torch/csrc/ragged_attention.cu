@@ -98,7 +98,9 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMTiles = kWarps / kSplit;  // 16-row m-tiles of a block
 constexpr int kMaxRows = 16 * kMTiles;    // query rows a block takes at most
 constexpr int kMaxRun = 8;  // q tiles per block at most
-constexpr int kMaxQTile = 8;
+// The largest q_tile (the tuning grid's 16); a block's rows stay within
+// kMaxRows, so a run of 16-token tiles is shorter, never wider.
+constexpr int kMaxQTile = 16;
 constexpr int kMaxRunQ = kMaxRun * kMaxQTile;
 
 // Per head dim: kv tokens per staged chunk and per softmax step, the

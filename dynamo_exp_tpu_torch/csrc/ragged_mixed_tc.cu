@@ -86,7 +86,9 @@ constexpr int kMaxRows = 128;  // query rows a block takes at most
 constexpr int kWarps = kMaxRows / (16 * kMT);
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxRun = 8;       // q tiles per block at most
-constexpr int kMaxQTile = 8;
+// The largest q_tile (the tuning grid's 16); a block's rows stay within
+// kMaxRows, so a run of 16-token tiles is shorter, never wider.
+constexpr int kMaxQTile = 16;
 constexpr int kMaxRunQ = kMaxRun * kMaxQTile;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {

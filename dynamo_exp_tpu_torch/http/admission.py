@@ -48,7 +48,8 @@ class ServiceOverloadedError(RequestShedError):
 
 def _resolve_watermark(max_inflight: int, shed_watermark: int | None) -> int:
     """Default high watermark: 3/4 of the cap (at least 1 so the
-    graduated band exists); an explicit value is clamped to the cap."""
+    graduated band exists); an explicit value is clamped to the cap.
+    Shared by the constructor and :meth:`AdmissionController.resize`."""
     if shed_watermark is not None:
         return min(shed_watermark, max_inflight)
     return max((max_inflight * 3) // 4, 1)
@@ -78,6 +79,17 @@ class AdmissionController:
     @property
     def inflight(self) -> int:
         return self._inflight
+
+    def resize(self, max_inflight: int, shed_watermark: int | None = None) -> None:
+        """Move the bounds on a live controller (the cluster simulator
+        scales the admission budget with the fleet). In-flight work above
+        a shrunk cap is never shed: the new bounds apply to later
+        acquires only."""
+        if max_inflight < 1:
+            raise ValueError("max_inflight must be >= 1")
+        with self._lock:
+            self.max_inflight = max_inflight
+            self.shed_watermark = _resolve_watermark(max_inflight, shed_watermark)
 
     def threshold(self, priority: int) -> int:
         """The in-flight level at which ``priority`` stops being

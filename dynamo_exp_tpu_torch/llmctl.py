@@ -11,15 +11,19 @@ output, over the port's planes:
   requests (``slow --trace-file``), a workload fingerprint (``fingerprint``,
   ``--json``, ``--ref``, ``--replay-out``), a flight dump (``flight
   [--why]``) and its KV audit (``audit``), and two bench captures
-  (``bench compare``).
+  (``bench compare``);
+- offline planes: the cluster simulator (``sim``), the autotuner
+  (``tune``, with ``--top-k`` live validation on the card) and the warm
+  boot (``aot compile|list|warm|smoke``: the graph lattice and the
+  kernel library).
 
     python -m dynamo_exp_tpu_torch.llmctl --coordinator HOST:PORT http list
     python -m dynamo_exp_tpu_torch.llmctl trace <id> --trace-file spans.jsonl --why
 
-``lint``, ``sim``, ``aot`` and ``tune`` exit non-zero naming the ROADMAP
-item that ports them, as ``run.py`` refuses what it lacks. Entries
-added by ``http add`` are not lease-scoped: they stand for the
-operator's intent and stay until removed.
+``lint`` exits non-zero naming the ROADMAP item that ports it, as
+``run.py`` refuses what it lacks. Entries added by ``http add`` are not
+lease-scoped: they stand for the operator's intent and stay until
+removed.
 """
 
 from __future__ import annotations
@@ -37,9 +41,6 @@ _TYPES = {"chat-model": "chat", "completion-model": "completion", "model": "both
 # item that brings them.
 NOT_PORTED = {
     "lint": "ROADMAP Queue 1 entry 8 (analysis/, dynlint)",
-    "sim": "ROADMAP Queue 1 entry 8 (sim/, the cluster simulator)",
-    "aot": "ROADMAP Queue 1 entry 8 (the rest of llmctl: aot compile|list|warm|smoke)",
-    "tune": "ROADMAP Queue 1 entry 8 (tune/, the autotuner)",
 }
 
 
@@ -375,6 +376,225 @@ def build_parser() -> argparse.ArgumentParser:
         help="regression threshold as a fraction (default 0.10 = 10%%)",
     )
 
+    # Offline cluster simulation (sim/): replay a seeded workload
+    # through the port's admission/routing/preemption/planner policy code
+    # against modeled instances and print the SimReport.
+    sim = sub.add_parser(
+        "sim", help="discrete-event cluster simulation (offline, seeded)"
+    )
+    sim.add_argument(
+        "workload",
+        choices=("burst", "ramp", "users", "diurnal"),
+        help="burst: the overload_burst chaos scenario; ramp: linear "
+        "arrival-rate ramp; users: open-loop synthetic user stream; "
+        "diurnal: periodic burst swinging between --rps-start and "
+        "--rps-end (the coldstart/provisioning study)",
+    )
+    sim.add_argument("--seed", type=int, default=0)
+    sim.add_argument("--requests", type=int, default=None,
+                     help="request count (burst n / users cap)")
+    sim.add_argument("--duration-s", type=float, default=300.0)
+    sim.add_argument("--rps-start", type=float, default=1.0)
+    sim.add_argument("--rps-end", type=float, default=12.0)
+    sim.add_argument("--trace-out", default="",
+                     help="also save the workload as a JSONL trace file")
+    sim.add_argument("--trace-in", default="",
+                     help="replay a JSONL trace file instead of generating "
+                     "(overrides the workload kind)")
+    sim.add_argument("--instances", type=int, default=1)
+    sim.add_argument("--slots", type=int, default=8)
+    sim.add_argument("--pages", type=int, default=256)
+    sim.add_argument("--page-size", type=int, default=16)
+    sim.add_argument("--max-inflight", type=int, default=64)
+    sim.add_argument("--shed-watermark", type=int, default=None)
+    sim.add_argument(
+        "--planner", choices=("none", "reactive", "slo"), default="none"
+    )
+    sim.add_argument("--max-gpu-budget", type=int, default=8,
+                     help="the planner's card budget (the JAX CLI's "
+                     "--max-tpu-budget)")
+    sim.add_argument("--ttft-slo-s", type=float, default=2.0)
+    sim.add_argument("--itl-slo-s", type=float, default=0.2)
+    sim.add_argument(
+        "--fit-spans", action="append", default=[],
+        help="telemetry recorder JSONL to fit service times from",
+    )
+    sim.add_argument(
+        "--fit-bench", action="append", default=[],
+        help="bench.py JSON (or BENCH_r*.json wrapper) to fit from",
+    )
+    sim.add_argument("--events", action="store_true",
+                     help="print the event log instead of the report")
+    sim.add_argument(
+        "--prefix-groups", type=int, default=0,
+        help="assign arrivals to this many shared-prefix groups "
+        "(0 = no shared prefixes)",
+    )
+    sim.add_argument(
+        "--prefix-len", type=int, default=0,
+        help="shared prefix length in tokens (default: half the "
+        "prompt, capped at the prompt)",
+    )
+    sim.add_argument(
+        "--no-prefix-sharing", action="store_true",
+        help="private-copy baseline: prefix groups route by overlap "
+        "but every request pays full pages",
+    )
+    sim.add_argument(
+        "--host-pages", type=int, default=0,
+        help="modeled G2 host-tier pages per instance (enables proactive "
+        "offload under KV pressure; 0 = reactive baseline)",
+    )
+    sim.add_argument(
+        "--g3-pages", type=int, default=0,
+        help="modeled durable G3 store pages per instance ("
+        "evicted cold blocks demote there and survive --restart-at-s; "
+        "0 = G2-only baseline)",
+    )
+    sim.add_argument(
+        "--restart-at-s", type=float, default=None,
+        help="restart drill: hard-restart the busiest instance at this "
+        "sim time (journal failover for in-flight work; respawns on "
+        "the same modeled G3 disk after the provision delay)",
+    )
+    sim.add_argument(
+        "--no-kv-packing", action="store_true",
+        help="first-fit admission baseline (disable footprint-packed "
+        "admission)",
+    )
+    sim.add_argument(
+        "--period-s", type=float, default=300.0,
+        help="diurnal workload: burst period in seconds (rate swings "
+        "between --rps-start and --rps-end each period)",
+    )
+    sim.add_argument(
+        "--provision-s", type=float, default=None,
+        help="override the worker add -> serving delay (both the "
+        "modeled spawn time and the SLO planner's provision_s hint) — "
+        "the coldstart-study knob",
+    )
+
+    # Warm boot (aot/): list the graph lattice, build the kernel
+    # library into a cache directory, and warm-boot engines from it.
+    # What the port keeps across processes is the kernel library, not
+    # compiled graphs (a CUDA graph belongs to its process).
+    aot = sub.add_parser(
+        "aot", help="warm boot: graph lattice, kernel library, prewarm"
+    )
+    aot.add_argument(
+        "command", choices=("compile", "list", "warm", "smoke"),
+        help="compile: build the kernel library into the cache dir and "
+        "write manifest.json; list: print the graph manifest (no "
+        "weights, no card); warm: boot an engine via prewarm and report; "
+        "smoke: boot twice against a fresh tmp cache dir and fail unless "
+        "the second boot builds nothing and nothing is captured under "
+        "traffic",
+    )
+    aot.add_argument("--preset", default="tiny",
+                     help="built-in model preset (random weights)")
+    aot.add_argument("--compile-cache-dir", default="",
+                     help="kernel-library cache directory (default: the "
+                     "package's _build/; smoke uses a tmp dir)")
+    aot.add_argument("--device", default="cuda",
+                     help="cuda (default; no card: exit 2) or cpu, which "
+                     "runs the plain version and builds no kernel")
+    aot.add_argument("--tp", type=int, default=1)
+    aot.add_argument("--max-decode-slots", type=int, default=4)
+    aot.add_argument("--page-size", type=int, default=16)
+    aot.add_argument("--num-pages", type=int, default=0, help="0 = auto")
+    aot.add_argument("--max-model-len", type=int, default=512)
+    aot.add_argument("--decode-window", type=int, default=8)
+    aot.add_argument("--prefill-chunk", type=int, default=128)
+    aot.add_argument("--kv-dtype", default="bfloat16",
+                     choices=["bfloat16", "float32"])
+    aot.add_argument("--spec", default="off",
+                     help="speculative drafter (adds the verify-span "
+                     "variants to the lattice)")
+    aot.add_argument("--no-lp", action="store_true",
+                     help="drop the logprob variants (halves the lattice "
+                     "for deployments that never serve logprobs)")
+
+    # Sim-in-the-loop autotuner (tune/): seeded coordinate descent over
+    # the declarative knob space, scored in the cluster simulator
+    # against a workload target, optionally live-validated on an engine
+    # of --preset and --kv-dtype, emitted as a bootable config artifact.
+    tune = sub.add_parser(
+        "tune", help="autotune engine/planner knobs against a workload "
+                     "target (offline, seeded)"
+    )
+    tgt = tune.add_mutually_exclusive_group(required=True)
+    tgt.add_argument(
+        "--fingerprint", default="",
+        help="target workload fingerprint JSON "
+             "(`llmctl fingerprint --out`)",
+    )
+    tgt.add_argument(
+        "--trace", default="",
+        help="target a sim workload trace JSONL (tuned via its "
+             "fingerprint)",
+    )
+    tgt.add_argument(
+        "--workload", default="",
+        choices=("burst", "ramp", "diurnal", "users"),
+        help="target a named synthetic workload",
+    )
+    tune.add_argument("--seed", type=int, default=0)
+    tune.add_argument("--budget", type=int, default=64,
+                      help="max sim evaluations (rung-0 + rung-1)")
+    tune.add_argument("--eval-seeds", type=int, default=2,
+                      help="seeds per full evaluation")
+    tune.add_argument("--requests", type=int, default=None,
+                      help="requests per evaluation (default: the "
+                           "fingerprint's own n)")
+    tune.add_argument("--rate-rps", type=float, default=None,
+                      help="override the target's arrival rate")
+    tune.add_argument("--instances", type=int, default=1,
+                      help="modeled fleet size the knobs are tuned for")
+    tune.add_argument(
+        "--planner", action="store_true",
+        help="run the SLO planner in every evaluation and include the "
+             "planner/SLO knobs in the search space",
+    )
+    tune.add_argument("--journal", default="",
+                      help="JSONL trial journal path (audit + resume)")
+    tune.add_argument(
+        "--resume", action="store_true",
+        help="replay an existing --journal as an evaluation cache "
+             "(byte-identical continuation of an interrupted run)",
+    )
+    tune.add_argument(
+        "--top-k", type=int, default=0,
+        help="validate this many top candidates on a live engine of "
+             "--preset and --kv-dtype (sim-vs-live rank agreement) "
+             "before recommending (0 = skip; boots real engines, on "
+             "--device)",
+    )
+    tune.add_argument("--device", default="cuda",
+                      help="the validation engines' device: cuda "
+                           "(default; no card: exit 2) or cpu")
+    tune.add_argument("--validate-passes", type=int, default=1,
+                      help="measured passes a candidate's live score "
+                           "sums (default 1, the JAX harness's)")
+    tune.add_argument("--out", default="",
+                      help="write the tuned-config artifact JSON here")
+    tune.add_argument("--preset", default="tiny",
+                      help="model preset the artifact's engine block, "
+                           "graph manifest and live validation use")
+    tune.add_argument("--max-model-len", type=int, default=512)
+    tune.add_argument("--kv-dtype", default="bfloat16",
+                      choices=["bfloat16", "float32"])
+    tune.add_argument("--tp", type=int, default=1)
+    tune.add_argument(
+        "--no-manifest", action="store_true",
+        help="skip embedding the graph manifest in the artifact",
+    )
+    tune.add_argument(
+        "--check", action="store_true",
+        help="exit nonzero unless the recommendation beats the default "
+             "config in-sim",
+    )
+    tune.add_argument("--json", action="store_true",
+                      help="print the result summary as JSON")
     # Planes whose modules the port lacks: the subcommand parses
     # anything and run() refuses it, naming the item that ports it.
     for name, item in NOT_PORTED.items():
@@ -815,6 +1035,451 @@ async def run_top(drt, args) -> int:
         await asyncio.sleep(max(args.interval, 0.2))
 
 
+def run_sim(args) -> int:
+    from .planner.planner import PlannerConfig
+    from .planner.policy import SloTargets
+    from .sim import (
+        ClusterSim,
+        ServiceTimeModel,
+        SimConfig,
+        burst_workload,
+        diurnal_workload,
+        load_trace,
+        ramp_workload,
+        save_trace,
+        synthetic_users,
+    )
+
+    if args.trace_in:
+        workload = load_trace(args.trace_in)
+    elif args.workload == "burst":
+        workload = burst_workload(args.seed, n=args.requests or 8)
+    elif args.workload == "ramp":
+        workload = ramp_workload(
+            args.seed,
+            duration_s=args.duration_s,
+            rps_start=args.rps_start,
+            rps_end=args.rps_end,
+        )
+    elif args.workload == "diurnal":
+        workload = diurnal_workload(
+            args.seed,
+            duration_s=args.duration_s,
+            rps_base=args.rps_start,
+            rps_peak=args.rps_end,
+            period_s=args.period_s,
+        )
+    else:
+        workload = synthetic_users(
+            args.seed,
+            users=args.requests or 100_000,
+            duration_s=args.duration_s,
+        )
+    if args.prefix_groups > 0:
+        # Shared-prefix fleet mix: arrivals draw a group seeded
+        # independently of the arrival process, so adding groups never
+        # perturbs arrival times.
+        import random as _random
+        from dataclasses import replace as _replace
+
+        grng = _random.Random(args.seed ^ 0x9EF1)
+        workload = [
+            _replace(
+                r,
+                prefix_group=grng.randrange(args.prefix_groups),
+                prefix_len=min(
+                    args.prefix_len or max(r.prompt_len // 2, 1),
+                    r.prompt_len,
+                ),
+            )
+            for r in workload
+        ]
+    if args.trace_out:
+        workload = list(workload)
+        n = save_trace(args.trace_out, workload)
+        print(f"# {n} requests -> {args.trace_out}", file=sys.stderr)
+    service = (
+        ServiceTimeModel.from_telemetry(
+            span_paths=args.fit_spans, bench_paths=args.fit_bench
+        )
+        if (args.fit_spans or args.fit_bench)
+        else ServiceTimeModel.default()
+    )
+    cfg = SimConfig(
+        seed=args.seed,
+        slots_per_instance=args.slots,
+        pages_per_instance=args.pages,
+        page_size=args.page_size,
+        max_inflight=args.max_inflight,
+        shed_watermark=args.shed_watermark,
+        admission_per_instance=args.planner != "none",
+        initial_instances=args.instances,
+        provision_s=args.provision_s,
+        planner=None if args.planner == "none" else args.planner,
+        planner_cfg=PlannerConfig(
+            max_gpu_budget=args.max_gpu_budget, min_endpoint=1
+        ),
+        slo=SloTargets(
+            ttft_p99_slo_s=args.ttft_slo_s,
+            itl_p99_slo_s=args.itl_slo_s,
+            # Fitted-service hint: scale for where the trend will be
+            # when a new worker actually lands (the --provision-s study
+            # knob, else the fitted one).
+            provision_s=(
+                args.provision_s
+                if args.provision_s is not None
+                else service.planner_hints()["provision_s"]
+            ),
+        ),
+        service=service,
+        record_events=args.events,
+        prefix_sharing=not args.no_prefix_sharing,
+        host_pages_per_instance=args.host_pages,
+        kv_packing=not args.no_kv_packing,
+        g3_pages_per_instance=args.g3_pages,
+        restart_at_s=args.restart_at_s,
+    )
+    sim = ClusterSim(cfg, workload)
+    report = sim.run()
+    if args.events:
+        # Event lines own stdout (a grep/diff-able stream); the report
+        # rides stderr so it's still visible without corrupting either.
+        for line in sim.event_log:
+            print(line)
+        print(report.to_json(indent=2), file=sys.stderr)
+    else:
+        print(report.to_json(indent=2))
+    return 0
+
+
+def _card_or_refuse(device: str, what: str):
+    """The device a card-bound command runs on, or None (with the reason
+    on stderr) where a card was asked for and there is none: it never
+    carries on on the CPU unless ``--device cpu`` asked for it."""
+    from .device import resolve_device
+
+    try:
+        return resolve_device(device)
+    except RuntimeError as e:
+        print(f"llmctl {what}: {e}", file=sys.stderr)
+        return None
+
+
+def _aot_config(args):
+    from .engine import EngineConfig
+    from .models import PRESETS
+
+    mcfg = PRESETS[args.preset]
+    max_len = min(args.max_model_len, mcfg.max_position_embeddings)
+    return EngineConfig(
+        model=mcfg,
+        max_decode_slots=args.max_decode_slots,
+        page_size=args.page_size,
+        num_pages=args.num_pages
+        or (args.max_decode_slots * (max_len // args.page_size + 1) + 64),
+        max_model_len=max_len,
+        tp=args.tp,
+        eos_token_ids=[],
+        kv_dtype=args.kv_dtype,
+        decode_window=args.decode_window,
+        prefill_chunk=args.prefill_chunk,
+        spec_mode=args.spec,
+    )
+
+
+def _aot_manifest(cfg, attn_impl: str, include_lp: bool):
+    """The config's graph lattice; without ``include_lp`` the logprob
+    variants are dropped (a request asking for logprobs then captures
+    its key at first use)."""
+    from .aot import build_manifest
+
+    manifest = build_manifest(cfg, attn_impl)
+    if not include_lp:
+        manifest.windows = [k for k in manifest.windows if not k.want_lp]
+        manifest.mixed = [k for k in manifest.mixed if not k.want_lp]
+    return manifest
+
+
+async def run_aot(args) -> int:
+    """The warm-boot plane: list the graph lattice, build the kernel
+    library into a cache directory, warm-boot engines from it. ``list``
+    needs no weights and no card; the other commands run on
+    ``--device`` (a card unless ``--device cpu``) with random weights."""
+    import tempfile
+    import time
+
+    import torch
+
+    from .aot import build_kernel_library, prewarm_engine
+    from .engine import TorchEngine, resolve_attn_impl
+
+    cfg = _aot_config(args)
+    include_lp = not args.no_lp
+
+    if args.command == "list":
+        impl = resolve_attn_impl(cfg, torch.device(args.device))
+        manifest = _aot_manifest(cfg, impl, include_lp)
+        print(json.dumps(manifest.to_dict(), indent=2, sort_keys=True))
+        print(
+            f"# {len(manifest.windows)} window keys, {len(manifest.mixed)} "
+            f"mixed keys, hash {manifest.hash()}",
+            file=sys.stderr,
+        )
+        return 0
+
+    device = _card_or_refuse(args.device, f"aot {args.command}")
+    if device is None:
+        return 2
+    impl = resolve_attn_impl(cfg, device)
+    manifest = _aot_manifest(cfg, impl, include_lp)
+    kernel = impl == "kernel" and device.type == "cuda"
+
+    if args.command == "compile":
+        t0 = time.perf_counter()
+        cache_dir = args.compile_cache_dir
+        builds = build_kernel_library(cache_dir, manifest if cache_dir else None, kernel)
+        print(json.dumps({
+            "cache_dir": cache_dir or None,
+            "manifest_hash": manifest.hash(),
+            "window_keys": len(manifest.windows),
+            "mixed_keys": len(manifest.mixed),
+            "kernel_library": kernel,
+            "builds": builds,
+            "seconds": round(time.perf_counter() - t0, 3),
+        }, indent=2))
+        return 0
+
+    async def traffic(engine, n: int = 2, prompt_len: int = 24) -> None:
+        """A small mixed probe burst (greedy + seeded rows)."""
+
+        async def one(i: int):
+            req = {
+                "token_ids": list(range(3 + i, 3 + i + prompt_len)),
+                "stop_conditions": {"max_tokens": 8, "ignore_eos": True},
+            }
+            if i % 2:
+                req["sampling_options"] = {"seed": i, "temperature": 0.8}
+            stream = await engine.generate(req)
+            async for _ in stream:
+                pass
+
+        await asyncio.gather(*[one(i) for i in range(n)])
+
+    async def boot(cache_dir: str) -> dict:
+        engine = TorchEngine(cfg, device=device, seed=0)
+        report = prewarm_engine(engine, manifest, cache_dir=cache_dir)
+        engine.start()
+        try:
+            await traffic(engine)
+            m = engine.metrics()
+        finally:
+            engine.stop()
+        return {
+            "manifest_hash": report.manifest_hash,
+            "prewarmed_variants": report.variants,
+            "prewarmed_mixed_variants": report.mixed_variants,
+            "graphs": report.graphs + report.mixed_graphs,
+            "builds": report.builds,
+            "prewarm_seconds": round(report.seconds, 3),
+            # First-use captures under traffic, by kind (0 when warm).
+            "captures_after_prewarm": {
+                kind: m["dispatch"][kind]["compile_misses"]
+                for kind in ("window", "mixed")
+            },
+        }
+
+    if args.command == "warm":
+        print(json.dumps(await boot(args.compile_cache_dir), indent=2))
+        return 0
+
+    # smoke: two warm boots against one FRESH tmp dir (never a shared
+    # cache: the first boot must populate it); the second must build
+    # nothing and neither may capture under traffic.
+    cache_dir = tempfile.mkdtemp(prefix="dynamo_aot_smoke_")
+    b1 = await boot(cache_dir)
+    b2 = await boot(cache_dir)
+    verdict = {
+        "cache_dir": cache_dir,
+        "kernel_library": kernel,
+        "boot1": b1,
+        "boot2": b2,
+        "ok": b2["builds"] == 0
+        and not any(b1["captures_after_prewarm"].values())
+        and not any(b2["captures_after_prewarm"].values()),
+    }
+    print(json.dumps(verdict, indent=2))
+    if not verdict["ok"]:
+        print("aot smoke FAILED: the second boot built, or traffic captured",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+async def run_tune(args) -> int:
+    """The autotuner plane: search in the simulator, optionally validate
+    the top K on live engines of ``--preset`` and ``--kv-dtype`` (one set
+    of random weights for every candidate), emit the bootable config
+    artifact."""
+    from .tune import artifact as tune_artifact
+    from .tune import search as tune_search
+    from .tune import validate as tune_validate
+
+    device = None
+    if args.top_k > 0:
+        device = _card_or_refuse(args.device, "tune --top-k")
+        if device is None:
+            return 2
+
+    fp = None
+    if args.fingerprint:
+        from .telemetry.fingerprint import load_fingerprint
+
+        fp = load_fingerprint(args.fingerprint)
+        target = tune_search.target_from_fingerprint(
+            fp, requests=args.requests, rate_rps=args.rate_rps
+        )
+    elif args.trace:
+        target = tune_search.target_from_trace(
+            args.trace, requests=args.requests, rate_rps=args.rate_rps
+        )
+        fp = target.fingerprint
+    else:
+        target = tune_search.TuneTarget(
+            kind="synthetic",
+            name=args.workload,
+            requests=args.requests or 64,
+            rate_rps=args.rate_rps,
+        )
+
+    settings = tune_search.SearchSettings(
+        seed=args.seed,
+        budget=args.budget,
+        eval_seeds=args.eval_seeds,
+        planner=args.planner,
+        base_sim={"initial_instances": args.instances},
+    )
+    result = tune_search.run_search(
+        target,
+        settings,
+        journal_path=args.journal or None,
+        resume=args.resume,
+    )
+    summary = {
+        "target": result.target_digest,
+        "seed": result.seed,
+        "trials": result.trials,
+        "best_overrides": result.best_overrides,
+        "best_score": result.best_score,
+        "default_score": result.default_score,
+        "improvement": result.improvement,
+    }
+
+    from .models import PRESETS
+
+    mcfg = PRESETS[args.preset]
+    validation = None
+    if args.top_k > 0:
+        import torch
+
+        from .models import init_params
+
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        llama = init_params(mcfg, gen, device)
+        candidates = tune_search.top_candidates(result, args.top_k)
+        report = await tune_validate.validate_candidates(
+            candidates, target, seed=args.seed, device=device, model=mcfg,
+            kv_dtype=args.kv_dtype, llama=llama, passes=args.validate_passes,
+        )
+        del llama
+        validation = {
+            "kendall_tau": report["kendall_tau"],
+            "top1_agreement": report["top1_agreement"],
+            "agreed": report["agreed"],
+            "sim_scores": report["sim_scores"],
+            "live_scores": report["live_scores"],
+            # What ran live, candidate by candidate (port only).
+            "candidates": [
+                {"overrides": row["overrides"], "live": row["live"]}
+                for row in report["candidates"]
+            ],
+        }
+        summary["validation"] = validation
+
+    if args.out:
+        max_len = min(args.max_model_len, mcfg.max_position_embeddings)
+        shape = {
+            "max_model_len": max_len,
+            "kv_dtype": args.kv_dtype,
+            "tp": args.tp,
+        }
+        manifest = None
+        if not args.no_manifest:
+            import torch
+
+            from .aot import build_manifest
+            from .engine import EngineConfig, resolve_attn_impl
+
+            cfg = EngineConfig(
+                model=mcfg,
+                eos_token_ids=[],
+                **shape,
+                **tune_artifact.resolved_live_knobs(result.best_overrides),
+            )
+            # The lattice of the device the artifact boots on (no card
+            # is touched: the kernel's layout check is arithmetic).
+            manifest = build_manifest(
+                cfg, resolve_attn_impl(cfg, torch.device(args.device))
+            )
+        art = tune_artifact.build_artifact(
+            result,
+            preset=args.preset,
+            shape=shape,
+            manifest=manifest,
+            fingerprint=fp,
+            validation=validation,
+        )
+        tune_artifact.write_artifact(art, args.out)
+        summary["artifact"] = args.out
+        summary["config_hash"] = art["config_hash"]
+
+    if args.json:
+        print(json.dumps(summary, indent=2, sort_keys=True))
+    else:
+        print(
+            f"target {summary['target']}  trials {summary['trials']}  "
+            f"score {summary['best_score']} vs default "
+            f"{summary['default_score']} "
+            f"({summary['improvement']:+.1%})"
+        )
+        for k, v in sorted(result.best_overrides.items()):
+            print(f"  {k} = {v}")
+        if validation is not None:
+            print(
+                f"validation: kendall_tau {validation['kendall_tau']}, "
+                f"top-1 {'agrees' if validation['top1_agreement'] else 'DISAGREES'}"
+            )
+        if args.out:
+            print(f"artifact -> {args.out}")
+
+    if validation is not None and not validation["agreed"]:
+        print(
+            "tune: sim-vs-live validation DISAGREES; recommendation "
+            f"not trustworthy (sim scores {validation['sim_scores']}, live "
+            f"{validation['live_scores']})",
+            file=sys.stderr,
+        )
+        return 1
+    if args.check and result.best_score <= result.default_score:
+        print(
+            "tune --check: recommendation does not beat the default "
+            "config in-sim",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
 async def drain_instance(drt, args) -> int:
     from .runtime.component import DRAIN_PREFIX
 
@@ -894,6 +1559,12 @@ async def run(args) -> int:
         return run_bench_compare(args)
     if args.plane == "fingerprint":  # offline: reads recorded files
         return run_fingerprint(args)
+    if args.plane == "sim":  # offline: modeled fleet, no cluster
+        return run_sim(args)
+    if args.plane == "aot":  # offline: graph lattice and kernel library
+        return await run_aot(args)
+    if args.plane == "tune":  # offline: sim search (+ live validation)
+        return await run_tune(args)
     if args.plane == "slow" and not args.coordinator:
         # Offline over a span file; with --coordinator it scrapes the
         # fleet's exemplar rings below instead.

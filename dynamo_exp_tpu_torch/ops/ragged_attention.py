@@ -64,7 +64,8 @@ NVCC_FLAGS = [
 
 # The kernels' instantiations (csrc/).
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-SUPPORTED_Q_TILES = (1, 8)
+# Every q_tile of the tuning registry's ragged_q_tile grid (tune/space.py).
+SUPPORTED_Q_TILES = (1, 4, 8, 16)
 MAX_ROWS_PER_BLOCK = 64  # qpk * q_tile of one tile
 # kv tokens per block of the split-KV decode kernel: on an H100 64 ran
 # faster than 128 and 256 in each of five interleaved rounds of
@@ -254,7 +255,7 @@ def ragged_supported(
     q_tile: int = 8,
 ) -> bool:
     """Whether the Hopper kernel takes this KV layout: head dim 64,
-    128 or 256, a bf16 or float32 pool, q_tile 1 or 8, and at most
+    128 or 256, a bf16 or float32 pool, q_tile 1, 4, 8 or 16, and at most
     ``MAX_ROWS_PER_BLOCK`` query rows (q heads per kv head x q_tile) in
     one block. Any page size works (pages are read token by token)."""
     qpk = (num_heads // num_kv_heads) if num_heads else 1

@@ -1,8 +1,41 @@
-"""Workload traces (counterpart of ``dynamo_exp_tpu/sim/``, trimmed to
-``workload.py``'s request record and its JSONL trace files, which the
-workload fingerprint reads and writes). The cluster simulator, its
-generators and the fitter wait for ROADMAP Queue 1 entry 8."""
+"""Discrete-event cluster simulator (counterpart of ``dynamo_exp_tpu/sim/``).
 
-from .workload import SimRequest, load_trace, save_trace
+Replays seeded workloads (the chaos harness's ``overload_burst``
+scenarios, recorded trace files, or synthetic million-user arrival
+processes) through the port's own policy code (edge admission
+watermarks, KV-router selector scoring, KV-pressure victim selection,
+planner decision steps) against modeled instances whose service times
+are fitted from real telemetry (span JSONL, bench JSON). Deterministic
+per seed: the same (seed, workload, config) triple produces a
+bit-identical event log, the JAX package's.
+"""
 
-__all__ = ["SimRequest", "load_trace", "save_trace"]
+from .cluster import ClusterSim, SimConfig
+from .core import EventLoop
+from .fit import LatencyDist, ServiceTimeModel
+from .report import SimReport
+from .workload import (
+    SimRequest,
+    burst_workload,
+    diurnal_workload,
+    load_trace,
+    ramp_workload,
+    save_trace,
+    synthetic_users,
+)
+
+__all__ = [
+    "ClusterSim",
+    "SimConfig",
+    "SimReport",
+    "EventLoop",
+    "ServiceTimeModel",
+    "LatencyDist",
+    "SimRequest",
+    "burst_workload",
+    "diurnal_workload",
+    "ramp_workload",
+    "synthetic_users",
+    "load_trace",
+    "save_trace",
+]

@@ -366,7 +366,7 @@ def test_decode_shape_windows_and_softcaps_match_plain(cuda, dtype, atol, case, 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     args = _flat_batch(2, [(3, 9)], 8, 4, 64, 8, 16, 4, 8, torch.float32, cuda)
     with pytest.raises(ValueError, match="q_tile"):
-        tra.ragged_paged_attention(*args, num_kv_heads=4, q_tile=4)
+        tra.ragged_paged_attention(*args, num_kv_heads=4, q_tile=2)
     q, k, v, table, row_of, pos = args
     with pytest.raises(ValueError, match="contiguous"):
         tra.ragged_paged_attention(

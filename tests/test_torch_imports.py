@@ -90,6 +90,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "components", "components.mock_worker", "components.router", "components.metrics",
         "deploy", "deploy.artifact", "deploy.k8s", "deploy.api_store", "deploy.operator",
         "deploy.cli",
+        "sim.core", "sim.report", "sim.fit", "sim.cluster",
+        "tune", "tune.space", "tune.search", "tune.validate", "tune.artifact",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
 

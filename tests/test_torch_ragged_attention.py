@@ -84,9 +84,12 @@ def test_plain_version_matches_jax_reference(spans):
     np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live], **F32)
 
 
+@pytest.mark.parametrize("qt", tra.SUPPORTED_Q_TILES)
 @pytest.mark.parametrize("spans", SPANS)
-def test_wrapper_matches_pallas_kernel_interpret(spans):
-    H, Hkv, D, ps, pmax, qt = 8, 4, 64, 16, 8, 8
+def test_wrapper_matches_pallas_kernel_interpret(spans, qt):
+    """Every q_tile of the tuning grid (1, 4, 8, 16), as the TPU kernel
+    takes it, with one all-padding tile."""
+    H, Hkv, D, ps, pmax = 8, 4, 64, 16, 8
     arrs = _flat_batch(1, spans, H, Hkv, D, 64, ps, pmax, q_tile=qt, empty_tiles=1)
     want = np.asarray(
         jra.ragged_paged_attention(
@@ -157,7 +160,13 @@ def test_ragged_supported_gate():
     assert not tra.ragged_supported(16, 8, 96, torch.bfloat16, 32, 8)  # D
     assert not tra.ragged_supported(16, 8, 512, torch.bfloat16, 32, 8)  # D
     assert not tra.ragged_supported(16, 8, 128, torch.float16, 32, 8)  # dtype
-    assert not tra.ragged_supported(16, 8, 128, torch.bfloat16, 32, 4)  # q_tile
+    # The tuning grid's q tiles (1, 4, 8, 16); llama-8b at 16 fills 64 rows.
+    for qt in (1, 4, 8, 16):
+        assert tra.ragged_supported(16, 8, 128, torch.bfloat16, 32, qt)
+        assert tra.ragged_supported(16, 8, 256, torch.float32, 16, qt)  # gemma2-9b
+    assert not tra.ragged_supported(16, 8, 128, torch.bfloat16, 32, 2)  # q_tile
+    assert not tra.ragged_supported(16, 8, 128, torch.bfloat16, 32, 32)  # q_tile
+    assert not tra.ragged_supported(16, 4, 128, torch.bfloat16, 32, 16)  # 128 rows
     assert not tra.ragged_supported(16, 1, 128, torch.bfloat16, 16, 8)  # 128 rows
 
 
