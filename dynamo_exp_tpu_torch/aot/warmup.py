@@ -82,22 +82,22 @@ def prewarm_engine(engine, manifest: GraphManifest | None = None, cache_dir: str
         from ..engine.config import refuse_under_tp
 
         raise refuse_under_tp("prewarm (the warm boot's graphs)", "graphs")
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # dynlint: determinism(prewarm wall-clock metric)
     manifest = manifest or manifest_for_engine(engine)
     report = PrewarmReport(manifest_hash=manifest.hash())
     report.builds = ensure_kernel_library(engine, cache_dir, manifest)
     graphs = engine.graphs
     captured = dict(graphs.captured) if graphs is not None else {}
-    t = time.perf_counter()
+    t = time.perf_counter()  # dynlint: determinism(prewarm wall-clock metric)
     for key in manifest.mixed:
         _run_padding(engine, key, engine._mixed_host(key), engine._mixed_body)
         report.mixed_variants += 1
-    report.mixed_seconds = time.perf_counter() - t
-    t = time.perf_counter()
+    report.mixed_seconds = time.perf_counter() - t  # dynlint: determinism(prewarm wall-clock metric)
+    t = time.perf_counter()  # dynlint: determinism(prewarm wall-clock metric)
     for key in manifest.windows:
         _run_padding(engine, key, engine._window_host(key), engine._window_body)
         report.variants += 1
-    report.window_seconds = time.perf_counter() - t
+    report.window_seconds = time.perf_counter() - t  # dynlint: determinism(prewarm wall-clock metric)
     engine.k_cache[:, engine._drop_page].zero_()
     engine.v_cache[:, engine._drop_page].zero_()
     if engine.device.type == "cuda":
@@ -107,7 +107,7 @@ def prewarm_engine(engine, manifest: GraphManifest | None = None, cache_dir: str
         report.graphs = graphs.captured["window"] - captured["window"]
         report.mixed_graphs = graphs.captured["mixed"] - captured["mixed"]
         report.pool_bytes = graphs.pool_bytes()
-    report.seconds = time.perf_counter() - t0
+    report.seconds = time.perf_counter() - t0  # dynlint: determinism(prewarm wall-clock metric)
     engine.record_prewarm(report, manifest)
     log.info(
         "prewarm: %d window variants (%d graphs, %.2fs), %d mixed variants (%d graphs, "

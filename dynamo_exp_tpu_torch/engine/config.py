@@ -24,8 +24,12 @@ ATTENTION_IMPLS = ("auto", "kernel", "reference")
 TP_LATER = {
     "tiers": "ROADMAP Queue 1 item 7(a)",  # G2/G3, disaggregation, leases, reclaim
     "graphs": "ROADMAP Queue 1 item 7(b)",  # CUDA graphs, --prewarm
-    "sp": "ROADMAP Queue 1 item 7(c)",  # ring-attention prefill
 }
+# The engine's sequence-parallel degree stays 1: the JAX engine lays its
+# mesh with ``sp`` but none of its dispatches uses that axis. Ring
+# prefill over sp ranks is a model-level function of the port.
+SP_ONLY_ONE = ("the engine serves sp=1 only; ring-attention prefill over sp ranks is "
+               "models.llama.forward_ring_prefill on parallel.rank_layout(sp=...) ranks")
 
 
 def refuse_under_tp(what: str, item: str) -> NotImplementedError:
@@ -216,9 +220,7 @@ class EngineConfig:
             raise ValueError(f"unsupported kv_dtype: {self.kv_dtype!r}")
         check_tp(self.model, self.tp)
         if self.sp != 1:
-            raise NotImplementedError(
-                f"sp={self.sp}: ring-attention prefill is not ported yet; see {TP_LATER['sp']}"
-            )
+            raise NotImplementedError(f"sp={self.sp}: {SP_ONLY_ONE}")
         if self.tp > 1:
             if self.host_cache_pages > 0:
                 raise refuse_under_tp("the G2 host tier (host_cache_pages > 0)", "tiers")

@@ -544,7 +544,7 @@ class TorchEngine(AsyncEngine):
             final = [v for v in self._ledger_violations()
                      if v.split(":", 1)[0] not in seen]
             if final:
-                self.kv_ledger_violations += len(final)
+                self.kv_ledger_violations += len(final)  # dynlint: thread-ownership(loop thread joined before teardown flush)
                 LEDGER_VIOLATIONS.extend(final)
                 get_telemetry().kv_ledger_violations.inc(len(final))
                 for v in final:
@@ -1676,7 +1676,7 @@ class TorchEngine(AsyncEngine):
             self._prefetch_done_q.get_nowait()
         for job in self._prefetch_inflight.values():
             self.kv.release_sequence(job["pids"])
-        self._prefetch_inflight.clear()
+        self._prefetch_inflight.clear()  # dynlint: thread-ownership(loop thread joined before teardown flush)
 
     # ---------------------------------------------------- batched page moves
     def _staging(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1748,7 +1748,7 @@ class TorchEngine(AsyncEngine):
         the idle path: the gather then reads the old content."""
         if not self._pending_offloads:
             return
-        moved, self._pending_offloads = self._pending_offloads, []
+        moved, self._pending_offloads = self._pending_offloads, []  # dynlint: thread-ownership(loop thread joined before teardown flush)
         if self.copy_stream is None:
             return
         k_b, v_b, ready, t_disp = self._gather_page_batch([pid for pid, _ in moved])
@@ -2244,7 +2244,7 @@ class TorchEngine(AsyncEngine):
         dev.copy_(host, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        self._staged.append((done, host))
+        self._staged.append((done, host))  # dynlint: thread-ownership(loop thread joined before teardown flush)
 
     def _poll_staged(self) -> None:
         """Drop the staging buffers whose uploads have completed."""
@@ -2270,7 +2270,7 @@ class TorchEngine(AsyncEngine):
         """A dispatch's outputs on the host: its one sync. Under tp > 1
         they are folded into rank 0's digest (``engine/tp.py``)."""
         if pending.ready is not None:
-            pending.ready.synchronize()
+            pending.ready.synchronize()  # dynlint: sync-point(ragged consume)
         out = [y.numpy() for y in pending.ys]
         if self._tp is not None:
             self._tp.digest.fold(out)

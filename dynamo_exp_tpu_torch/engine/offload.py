@@ -291,7 +291,7 @@ class CopyStream:
         for up in self._uploads:
             start, end = up[0], up[1]
             if wait:
-                end.synchronize()
+                end.synchronize()  # dynlint: sync-point(upload events read for the copy totals)
             if end.query():
                 self.h2d_s += start.elapsed_time(end) / 1e3
             else:
@@ -330,16 +330,23 @@ class CopyStream:
         disaggregation extract and the reclaim extract, page-major
         batches ``[n, L, ps, Hkv*D]``): the batch's pinned host copy once
         it has landed, counted as d2h."""
-        k_h, v_h = self._to_host(k_dev, v_dev, ready)
+        k_h, v_h, copy = self._to_host(k_dev, v_dev, ready)
+        if copy is not None:
+            start, end = copy
+            end.synchronize()  # dynlint: sync-point(extract gather consume)
+            self.d2h_s += start.elapsed_time(end) / 1e3
         self.d2h_pages += k_dev.shape[0]  # page-major: [n, L, ps, Hkv*D]
         self.d2h_bytes += 2 * k_dev.numel() * k_dev.element_size()
         return k_h, v_h
 
     def _to_host(self, k_dev, v_dev, ready):
-        """The device -> host leg of one offload (see the module
-        docstring); returns host tensors."""
+        """Queue the device -> host leg of one offload (see the module
+        docstring): pinned host tensors and the copy's (start, end)
+        events, or on the CPU the tensors themselves and None. The
+        caller waits on ``end`` before it reads the host tensors, and
+        keeps the device batch referenced until then."""
         if self.d2h is None:
-            return k_dev, v_dev
+            return k_dev, v_dev, None
         k_h = pinned_empty(k_dev.shape, k_dev.dtype, self.device)
         v_h = pinned_empty(v_dev.shape, v_dev.dtype, self.device)
         start = torch.cuda.Event(enable_timing=True)
@@ -351,11 +358,7 @@ class CopyStream:
             k_h.copy_(k_dev, non_blocking=True)
             v_h.copy_(v_dev, non_blocking=True)
             end.record()
-        # The device batch stays referenced (by the caller's item) until
-        # this returns, i.e. until the copy has completed.
-        end.synchronize()
-        self.d2h_s += start.elapsed_time(end) / 1e3
-        return k_h, v_h
+        return k_h, v_h, (start, end)
 
     def _run(self) -> None:
         try:
@@ -388,7 +391,11 @@ class CopyStream:
                     on_fetched(ctx, fetched)
                     continue
                 _, seq_hashes, k_dev, v_dev, ready, on_stored = item
-                k_h, v_h = self._to_host(k_dev, v_dev, ready)
+                k_h, v_h, copy = self._to_host(k_dev, v_dev, ready)
+                if copy is not None:
+                    start, end = copy
+                    end.synchronize()  # dynlint: sync-point(offload copy-thread transfer)
+                    self.d2h_s += start.elapsed_time(end) / 1e3
                 self.d2h_pages += len(seq_hashes)
                 self.d2h_bytes += 2 * k_dev.numel() * k_dev.element_size()
                 for j, h in enumerate(seq_hashes):

@@ -97,7 +97,7 @@ def _torch_dtype(dtype) -> torch.dtype:
 def _page_bytes(page) -> bytes:
     """A page's raw bytes (a CPU torch tensor or a numpy array)."""
     if isinstance(page, torch.Tensor):
-        t = page.detach().contiguous().cpu()
+        t = page.detach().contiguous().cpu()  # dynlint: sync-point(host-resident G2 page, no device handle)
         return t.view(torch.uint8).numpy().tobytes()
     return np.ascontiguousarray(page).tobytes()
 

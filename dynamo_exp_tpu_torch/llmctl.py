@@ -13,17 +13,16 @@ output, over the port's planes:
   [--why]``) and its KV audit (``audit``), and two bench captures
   (``bench compare``);
 - offline planes: the cluster simulator (``sim``), the autotuner
-  (``tune``, with ``--top-k`` live validation on the card) and the warm
+  (``tune``, with ``--top-k`` live validation on the card), the warm
   boot (``aot compile|list|warm|smoke``: the graph lattice and the
-  kernel library).
+  kernel library) and dynlint over the port's tree (``lint``,
+  ``analysis/``).
 
     python -m dynamo_exp_tpu_torch.llmctl --coordinator HOST:PORT http list
     python -m dynamo_exp_tpu_torch.llmctl trace <id> --trace-file spans.jsonl --why
 
-``lint`` exits non-zero naming the ROADMAP item that ports it, as
-``run.py`` refuses what it lacks. Entries added by ``http add`` are not
-lease-scoped: they stand for the operator's intent and stay until
-removed.
+Entries added by ``http add`` are not lease-scoped: they stand for the
+operator's intent and stay until removed.
 """
 
 from __future__ import annotations
@@ -37,11 +36,6 @@ import sys
 from .local_model import MDC_BUCKET, MODELS_PREFIX, ModelEntry
 
 _TYPES = {"chat-model": "chat", "completion-model": "completion", "model": "both"}
-# Subcommands of the JAX CLI whose modules the port lacks, by the ROADMAP
-# item that brings them.
-NOT_PORTED = {
-    "lint": "ROADMAP Queue 1 entry 8 (analysis/, dynlint)",
-}
 
 
 def _slug(name: str) -> str:
@@ -376,6 +370,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="regression threshold as a fraction (default 0.10 = 10%%)",
     )
 
+    # Offline static analysis: the dynlint AST checkers (host-sync /
+    # determinism / thread-ownership / recompile-hazard) over the port's
+    # tree; the flags of ``python -m dynamo_exp_tpu_torch.analysis``.
+    lint = sub.add_parser(
+        "lint", help="dynlint: AST invariant checks (offline)"
+    )
+    from .analysis.runner import add_lint_args
+
+    add_lint_args(lint)
+
     # Offline cluster simulation (sim/): replay a seeded workload
     # through the port's admission/routing/preemption/planner policy code
     # against modeled instances and print the SimReport.
@@ -595,11 +599,6 @@ def build_parser() -> argparse.ArgumentParser:
     )
     tune.add_argument("--json", action="store_true",
                       help="print the result summary as JSON")
-    # Planes whose modules the port lacks: the subcommand parses
-    # anything and run() refuses it, naming the item that ports it.
-    for name, item in NOT_PORTED.items():
-        refused = sub.add_parser(name, help=f"not ported yet ({item})")
-        refused.add_argument("args", nargs=argparse.REMAINDER)
     return p
 
 
@@ -1545,10 +1544,10 @@ async def run(args) -> int:
     from .runtime.component import DistributedRuntime
     from .runtime.config import RuntimeConfig
 
-    if args.plane in NOT_PORTED:
-        print(f"llmctl {args.plane} is not ported to dynamo_exp_tpu_torch yet; "
-              f"see {NOT_PORTED[args.plane]}", file=sys.stderr)
-        return 2
+    if args.plane == "lint":  # offline: AST checks, no cluster
+        from .analysis.runner import run_cli
+
+        return run_cli(args)
     if args.plane == "trace":  # offline: reads recorder files, no cluster
         return run_trace(args)
     if args.plane == "flight":  # offline: reads flight dumps, no cluster

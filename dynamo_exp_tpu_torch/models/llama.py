@@ -47,6 +47,7 @@ from torch import nn
 
 from ..ops.attention import paged_attention, write_kv_pages
 from ..ops.moe import moe_ffn
+from ..ops.ring_attention import ring_attention
 from ..ops.ragged_attention import (
     ragged_decode_attention,
     ragged_paged_attention,
@@ -387,14 +388,19 @@ def _final_logits(model: Llama, cfg, x, eps, comm=None) -> torch.Tensor:
     return logits
 
 
-def _embed(model: Llama, cfg, tokens: torch.Tensor, comm=None) -> torch.Tensor:
+def _embed(model: Llama, cfg, tokens: torch.Tensor, comm=None,
+           token_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings; gemma scales them by sqrt(hidden) rounded to the
     parameter dtype first, and multiplies in that dtype, as the JAX
     package does. On a tp shard each rank looks up the ids in its part
     of the vocab, zeros the others, and the ranks' rows are summed
-    (exact: one rank holds each row)."""
+    (exact: one rank holds each row). ``token_embeds`` (same leading
+    shape as ``tokens``, hidden last) replaces the lookup, cast to the
+    embedding's dtype, whole on every rank."""
     ids = tokens.long()
-    if comm is not None:
+    if token_embeds is not None:
+        x = token_embeds.to(model.embed.dtype)
+    elif comm is not None:
         V = model.embed.shape[0]
         local = ids - model.rank * V
         mine = (local >= 0) & (local < V)
@@ -475,6 +481,7 @@ def forward(
     attn_impl: str = "auto",
     drop_page: int | None = None,
     comm=None,
+    token_embeds: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward step; returns (logits [B, T, V] float32, k, v).
 
@@ -485,7 +492,8 @@ def forward(
     a longer step raises: send it through :func:`forward_ragged`. The
     plain version is ``paged_attention`` over the first ``attn_pages``
     table columns, at any T. ``drop_page``: see :func:`_write_coords`.
-    ``comm``: the tp ranks' collectives, for a model that is a shard."""
+    ``comm``: the tp ranks' collectives, for a model that is a shard.
+    ``token_embeds`` [B, T, D]: soft tokens in place of the id lookup."""
     B, T = tokens.shape
     use_kernel = resolve_attn(attn_impl, tokens.device) == "kernel"
     if use_kernel and T != 1:
@@ -501,7 +509,7 @@ def forward(
     )
     comm = _tp_comm(model, comm)
     reduce = comm.all_reduce if comm is not None else None
-    x = _embed(model, cfg, tokens, comm)
+    x = _embed(model, cfg, tokens, comm, token_embeds)
     rope_pos = torch.clamp(positions, min=0)
     if use_kernel:
         lengths = torch.clamp(positions[:, 0] + 1, min=0).to(torch.int32)
@@ -550,6 +558,7 @@ def forward_ragged(
     q_tile: int = 8,
     drop_page: int | None = None,
     comm=None,
+    token_embeds: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward over a flat mixed batch (prefill chunks and decode
     steps in one token stream); returns (logits [M, V] float32, k, v).
@@ -561,7 +570,10 @@ def forward_ragged(
     first ``attn_pages`` table columns. Only ``out_idx`` positions reach
     the vocab head (the engine's verify spans ride there beside each
     row's last position, one projection for all). ``drop_page``: see
-    :func:`_write_coords`. ``comm``: as for :func:`forward`."""
+    :func:`_write_coords`. ``comm``: as for :func:`forward`.
+    ``token_embeds`` [N, D]: soft tokens in place of the id lookup (the
+    kernel takes a soft-token prompt of any length, where
+    :func:`forward` with the kernel takes T=1 only)."""
     attn_impl = resolve_attn(attn_impl, tokens.device)
     N = tokens.shape[0]
     hd, ps, eps = cfg.head_dim_, k_cache.shape[2], cfg.rms_norm_eps
@@ -569,7 +581,7 @@ def forward_ragged(
     page_ids, offsets, valid = _write_coords(positions, row_of, page_table, ps, drop_page)
     comm = _tp_comm(model, comm)
     reduce = comm.all_reduce if comm is not None else None
-    x = _embed(model, cfg, tokens, comm)[None]  # [1, N, D]
+    x = _embed(model, cfg, tokens, comm, token_embeds)[None]  # [1, N, D]
     rope_pos = torch.clamp(positions, min=0)[None]
     fused = model.num_kv_heads * hd
     if attn_impl == "kernel":
@@ -600,3 +612,64 @@ def forward_ragged(
 
         x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend, reduce)
     return _final_logits(model, cfg, x[0][out_idx.long()], eps, comm), k_cache, v_cache
+
+
+@torch.no_grad()
+def forward_ring_prefill(
+    model: Llama,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int, the whole prompt; T must divide by sp
+    positions: torch.Tensor,  # [B, T] int, -1 for padding
+    *,
+    ring=None,
+    comm=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sequence-parallel prefill by ring attention, composable with
+    tensor parallelism (JAX ``models/llama.py:722``).
+
+    Every rank is given the whole prompt and computes its sequence
+    shard: sp rank ``s`` of ``ring`` (a ``parallel.comm.Ring``; None =
+    sp 1) holds positions ``[s*T/sp, (s+1)*T/sp)``. Every
+    non-attention op is local; attention rotates K/V blocks around the
+    ring (``ops/ring_attention.py``), so peak activation memory scales
+    1/sp. With a model that is a tp shard, ``comm`` is its tp ranks'
+    collectives (``parallel.comm.sp_tp_comms``): projections are
+    megatron-sharded, row-sharded products are summed over tp, and the
+    embedding is vocab-sharded with a masked lookup and a sum.
+
+    Returns this rank's shard: (logits [B, T/sp, V] float32, full vocab
+    on every tp rank; k, v [L, B, T/sp, Hkv/tp, D], roped), for the
+    caller to scatter into its page pool or hand to a transfer.
+    """
+    sp = ring.size if ring is not None else 1
+    tp = comm.world if comm is not None else 1
+    B, T = tokens.shape
+    if cfg.sliding_window is not None:
+        raise ValueError(
+            "ring prefill does not implement sliding-window attention; "
+            "use the paged prefill path for mistral-family models"
+        )
+    if T % sp:
+        raise ValueError(f"seq len {T} not divisible by sp={sp}")
+    if cfg.num_kv_heads % tp:
+        raise ValueError(f"kv heads {cfg.num_kv_heads} not divisible by tp={tp}")
+    comm = _tp_comm(model, comm)
+    n = T // sp
+    lo = (ring.rank if ring is not None else 0) * n
+    tok, pos = tokens[:, lo : lo + n], positions[:, lo : lo + n]
+    eps = cfg.rms_norm_eps
+    per_layer = _layer_attention(cfg, tokens.device)
+    reduce = comm.all_reduce if comm is not None else None
+    x = _embed(model, cfg, tok, comm)
+    rope_pos = torch.clamp(pos, min=0)
+    ks, vs = [], []
+    for li, layer in enumerate(model.layers):
+        inv_freq, _, _, scale = per_layer[li]
+
+        def attend(q, k, v, scale=scale):
+            ks.append(k)
+            vs.append(v)
+            return ring_attention(q, k, v, pos, pos, ring, sm_scale=scale)
+
+        x = _attn_mlp_layer(x, layer, cfg, inv_freq, rope_pos, eps, attend, reduce)
+    return _final_logits(model, cfg, x, eps, comm), torch.stack(ks), torch.stack(vs)

@@ -1,9 +1,9 @@
 """Multi-device placement (counterpart of ``dynamo_exp_tpu/parallel/``):
-the tensor-parallel rank layout (``mesh.py``), the ranks' collectives
-(``comm.py``), multi-node bring-up and the fleet topology coordinate
-(``multihost.py``)."""
+the (sp, tp) rank layout (``mesh.py``), the ranks' collectives and the
+sp ring (``comm.py``), multi-node bring-up and the fleet topology
+coordinate (``multihost.py``)."""
 
-from .comm import Comm, resolve_backend
+from .comm import Comm, Ring, resolve_backend, sp_tp_comms
 from .mesh import RankLayout, largest_tp, rank_layout
 from .multihost import (
     TOPOLOGY_KEY,
@@ -17,6 +17,8 @@ from .multihost import (
 
 __all__ = [
     "Comm",
+    "Ring",
+    "sp_tp_comms",
     "RankLayout",
     "largest_tp",
     "rank_layout",

@@ -12,7 +12,13 @@ itself, through one :class:`Comm` per process:
   holds the full logits and samples the same tokens;
 - :meth:`Comm.broadcast` of rank 0's dispatch commands to the other
   ranks (``engine/tp.py``) and :meth:`Comm.all_gather_object` of their
-  reports.
+  reports;
+- :meth:`Ring.rotate`, the point-to-point step of ring attention
+  (``ops/ring_attention.py``, where JAX's ``ppermute`` passes K/V
+  blocks around the ``sp`` axis): each sp rank sends to the next and
+  receives from the previous. :func:`sp_tp_comms` splits one process
+  group of sp x tp ranks into this rank's tp collectives (a
+  subgroup) and its sp ring.
 
 The backend is an explicit choice, never switched behind the caller's
 back (:func:`resolve_backend`): ``nccl`` when the ranks sit on
@@ -73,10 +79,11 @@ class Comm:
     ``parallel.multihost.initialize_multihost``) on every rank."""
 
     def __init__(self, rank: int, world: int, backend: str, device: torch.device,
-                 ctrl_group=None):
+                 ctrl_group=None, group=None):
         self.rank, self.world, self.backend = rank, world, backend
         self.device = torch.device(device)
         self.ctrl_group = ctrl_group  # None: the default group (gloo)
+        self.group = group  # the tensors' group; None: the default group
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self.calls: dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
         self.seconds: dict[str, float] = dict.fromkeys(self.calls, 0.0)
@@ -153,10 +160,10 @@ class Comm:
         if self.staged:
             h = self._host(x)
             h.copy_(x)
-            dist.all_reduce(h)
+            dist.all_reduce(h, group=self.group)
             x.copy_(h, non_blocking=True)
         else:
-            dist.all_reduce(x)
+            dist.all_reduce(x, group=self.group)
         self._end("all_reduce", t0)
         return x
 
@@ -168,11 +175,11 @@ class Comm:
             h = self._host(src)
             h.copy_(src)
             parts = [torch.empty_like(h) for _ in range(self.world)]
-            dist.all_gather(parts, h)
+            dist.all_gather(parts, h, group=self.group)
             out = torch.cat(parts, dim).to(self.device, non_blocking=False)
         else:
             parts = [torch.empty_like(src) for _ in range(self.world)]
-            dist.all_gather(parts, src)
+            dist.all_gather(parts, src, group=self.group)
             out = torch.cat(parts, dim)
         self._end("all_gather", t0)
         return out
@@ -198,3 +205,66 @@ class Comm:
         return {"backend": self.backend, "rank": self.rank, "world": self.world,
                 "device": str(self.device), "calls": dict(self.calls),
                 "seconds": dict(self.seconds)}
+
+
+class Ring:
+    """The sp ranks of one tp rank, in ring order: :meth:`rotate` sends
+    tensors to the next rank and receives the previous rank's, one step
+    of JAX's ``ppermute`` with ``perm = [(j, (j + 1) % sp)]``. ``peers``
+    are the ring's global ranks. Gloo moves host tensors only, so on a
+    card each tensor is staged through host memory (the stream is
+    synchronised first); NCCL sends device memory. Calls and host
+    seconds of the rotations are counted (``calls``, ``seconds``)."""
+
+    def __init__(self, rank: int, peers: list[int], device, staged: bool):
+        self.rank, self.size, self.peers = rank, len(peers), list(peers)
+        self.device = torch.device(device)
+        self.staged = staged
+        self.calls, self.seconds = 0, 0.0
+
+    def rotate(self, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Every tensor sent to the next rank; the previous rank's, of
+        the same shapes and dtypes, returned in their place."""
+        t0 = time.perf_counter()
+        nxt = self.peers[(self.rank + 1) % self.size]
+        prv = self.peers[(self.rank - 1) % self.size]
+        if self.staged:
+            torch.cuda.current_stream(self.device).synchronize()
+            sends = [t.to("cpu") for t in tensors]
+        else:
+            sends = [t.contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        # Receives posted first, then sends: every rank does both, so no
+        # rank waits on a send that no one has posted a receive for.
+        reqs = [dist.irecv(r, src=prv, tag=i) for i, r in enumerate(recvs)]
+        reqs += [dist.isend(t, dst=nxt, tag=i) for i, t in enumerate(sends)]
+        for req in reqs:
+            req.wait()
+        if self.staged:
+            recvs = [r.to(self.device) for r in recvs]
+        self.calls += 1
+        self.seconds += time.perf_counter() - t0
+        return tuple(recvs)
+
+
+def sp_tp_comms(comm: Comm, sp: int, tp: int) -> tuple[Comm | None, Ring | None]:
+    """Split ``comm`` (``sp * tp`` ranks laid out as (sp, tp): rank =
+    sp rank x tp + tp rank, ``parallel.mesh.RankLayout``) into this
+    rank's tp collectives (None at tp = 1) and its sp ring (None at
+    sp = 1). Every rank of ``comm`` must call this together: the tp
+    subgroups are made on all ranks in one order."""
+    if comm.world != sp * tp:
+        raise ValueError(f"a comm of {comm.world} ranks is not sp={sp} x tp={tp}")
+    sp_rank, tp_rank = divmod(comm.rank, tp)
+    tp_comm = None
+    if tp > 1 and sp == 1:
+        tp_comm = comm
+    elif tp > 1:
+        groups = [dist.new_group([s * tp + t for t in range(tp)]) for s in range(sp)]
+        tp_comm = Comm(tp_rank, tp, comm.backend, comm.device, comm.ctrl_group,
+                       group=groups[sp_rank])
+    ring = None
+    if sp > 1:
+        ring = Ring(sp_rank, [s * tp + tp_rank for s in range(sp)], comm.device,
+                    staged=comm.staged)
+    return tp_comm, ring

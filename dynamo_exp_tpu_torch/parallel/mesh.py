@@ -1,15 +1,18 @@
-"""Where each tensor-parallel rank runs.
+"""Where each rank runs.
 
 Counterpart of ``dynamo_exp_tpu/parallel/mesh.py``. The JAX package
 lays one ``Mesh`` with axes (dp, sp, ep, tp) over every device and lets
 XLA place the shards; here every rank is a process of its own that
 holds one shard, so the mesh becomes a rank layout: the world size,
-the tp degree, this process's rank and its device. Only the tp axis is
-wider than 1 (the JAX engine's serving mesh has ``tp`` and ``sp`` only,
-and ``sp`` there only replicates); ``dp``, ``sp`` and ``ep`` are
+the sp and tp degrees, this process's rank and its device. The sp and
+tp axes may be wider than 1: ranks are laid out as (sp, tp), global
+rank = sp rank x tp + tp rank, so the tp ranks of one sequence shard
+are neighbours (``forward_ring_prefill`` rotates K/V over the sp ranks
+of one tp rank). The engine serves sp = 1 (the JAX engine's serving
+mesh has an ``sp`` axis that no dispatch uses); ``dp`` and ``ep`` are
 accepted at 1.
 
-Ranks are numbered node by node: a node runs ``tp / num_nodes`` of
+Ranks are numbered node by node: a node runs ``world / num_nodes`` of
 them, and global rank = node rank x that + local rank. All ranks of a
 node share ``cuda:0`` when the node has one card, and rank ``i`` uses
 ``cuda:i`` otherwise.
@@ -34,28 +37,40 @@ def largest_tp(n_devices: int, num_kv_heads: int) -> int:
 
 @dataclass(frozen=True)
 class RankLayout:
-    """One rank of a ``tp``-way group spread over ``num_nodes`` nodes."""
+    """One rank of ``sp`` x ``tp`` ranks spread over ``num_nodes`` nodes."""
 
     tp: int = 1
     rank: int = 0
     num_nodes: int = 1
+    sp: int = 1
 
     def __post_init__(self):
-        if self.tp < 1 or self.num_nodes < 1 or self.tp % self.num_nodes:
+        if self.sp < 1:
+            raise ValueError(f"sp={self.sp} must be positive")
+        if self.tp < 1 or self.num_nodes < 1 or self.world_size % self.num_nodes:
             raise ValueError(
-                f"tp={self.tp} must be a positive multiple of num_nodes={self.num_nodes}"
+                f"tp={self.tp} x sp={self.sp} must be a positive multiple of "
+                f"num_nodes={self.num_nodes}"
             )
-        if not 0 <= self.rank < self.tp:
-            raise ValueError(f"rank {self.rank} is outside tp={self.tp}")
+        if not 0 <= self.rank < self.world_size:
+            raise ValueError(f"rank {self.rank} is outside tp={self.tp} x sp={self.sp}")
 
     @property
     def world_size(self) -> int:
-        return self.tp
+        return self.sp * self.tp
+
+    @property
+    def sp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
 
     @property
     def local_world(self) -> int:
         """Ranks on each node."""
-        return self.tp // self.num_nodes
+        return self.world_size // self.num_nodes
 
     @property
     def node_rank(self) -> int:
@@ -91,15 +106,15 @@ class RankLayout:
 def rank_layout(
     tp: int = 1, rank: int = 0, num_nodes: int = 1, dp: int = 1, sp: int = 1, ep: int = 1
 ) -> RankLayout:
-    """The layout that stands where ``build_mesh`` does: tp ranks,
-    numbered node by node. ``dp``, ``sp`` and ``ep`` above 1 raise:
-    data-parallel replicas run as separate engines behind the router,
-    and ring-attention prefill (``sp``) and expert parallelism (``ep``)
-    are ROADMAP Queue 1 items 7(c) and 7(d)."""
-    for name, n in (("dp", dp), ("sp", sp), ("ep", ep)):
+    """The layout that stands where ``build_mesh`` does: sp x tp ranks,
+    laid out as (sp, tp) and numbered node by node. ``dp`` and ``ep``
+    above 1 raise: data-parallel replicas run as separate engines behind
+    the router, and expert parallelism (``ep``) is ROADMAP Queue 1 item
+    7(d)."""
+    for name, n in (("dp", dp), ("ep", ep)):
         if n != 1:
             raise ValueError(
-                f"{name}={n}: the port's ranks split the tp axis only (ROADMAP Queue 1 "
-                "items 7(c) and 7(d) bring sp and ep; dp replicas are separate engines)"
+                f"{name}={n}: the port's ranks split the sp and tp axes only (ROADMAP "
+                "Queue 1 item 7(d) brings ep; dp replicas are separate engines)"
             )
-    return RankLayout(tp=tp, rank=rank, num_nodes=num_nodes)
+    return RankLayout(tp=tp, rank=rank, num_nodes=num_nodes, sp=sp)

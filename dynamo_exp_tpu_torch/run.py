@@ -118,15 +118,12 @@ logger = logging.getLogger("dynamo_exp_tpu_torch.run")
 INPUTS = ("http", "text", "stdin")
 OUTPUTS = ("cuda", "echo_core", "echo_full")
 ROUTER_MODES = {"random": "RANDOM", "round-robin": "ROUND_ROBIN", "kv": "KV"}
-# Inputs/outputs of the JAX CLI the port does not serve.
-NOT_PORTED_IO = {"tpu": "the port's device output is out=cuda"}
+# Outputs of the JAX CLI the port answers with its own: out=tpu is
+# out=cuda here.
+REPLACED_IO = {"tpu": "cuda"}
 
 
 # ----------------------------------------------------------------- arguments
-def _refuse(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to dynamo_exp_tpu_torch yet; see {item}")
-
-
 def parse_args(argv: list[str]):
     io = {"in": "http", "out": "echo_full"}
     rest = []
@@ -210,7 +207,8 @@ def parse_args(argv: list[str]):
     # --node-rank; node 0 leads and serves in=.
     p.add_argument("--tensor-parallel-size", "--tp", dest="tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence parallelism (ring-attention prefill): 1 only")
+                   help="sequence parallelism: the engine serves 1 only (ring "
+                   "prefill is models.llama.forward_ring_prefill)")
     p.add_argument("--num-nodes", type=int, default=1,
                    help="nodes the engine's tp ranks are spread over")
     p.add_argument("--node-rank", type=int, default=0, help="this node's rank (0 = leader)")
@@ -226,15 +224,14 @@ def parse_args(argv: list[str]):
                    help="the ranks' collectives: nccl (default on CUDA; ranks on "
                    "different cards) or gloo (the CPU, or ranks sharing one card)")
     opts = p.parse_args(rest)
-    from .engine.config import TP_LATER, env_overrides
+    from .engine.config import SP_ONLY_ONE, TP_LATER, env_overrides
 
     try:
         opts.engine_env = env_overrides()
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if opts.sp != 1:
-        raise SystemExit(f"--sp {opts.sp}: ring-attention prefill is not ported to "
-                         f"dynamo_exp_tpu_torch yet; see {TP_LATER['sp']}")
+        raise SystemExit(f"--sp {opts.sp}: {SP_ONLY_ONE}")
     if opts.tp < 1 or opts.num_nodes < 1 or opts.tp % opts.num_nodes:
         raise SystemExit(f"--tp {opts.tp} must be a positive multiple of --num-nodes "
                          f"{opts.num_nodes}")
@@ -251,8 +248,9 @@ def parse_args(argv: list[str]):
                 raise SystemExit(f"{flag} is not served under --tp > 1 yet; see "
                                  f"{TP_LATER[item]}")
     for key, value in io.items():
-        if value in NOT_PORTED_IO:
-            raise _refuse(f"{key}={value}", NOT_PORTED_IO[value])
+        if value in REPLACED_IO:
+            raise SystemExit(f"{key}={value} is the JAX package's device output; the port "
+                             f"serves the card with {key}={REPLACED_IO[value]}: use that")
     if io["in"] not in INPUTS and not io["in"].startswith(("batch:", "dyn://")):
         raise SystemExit(f"unknown in={io['in']!r} (http | text | stdin | batch:<file> | "
                          "dyn://ns.comp.ep)")

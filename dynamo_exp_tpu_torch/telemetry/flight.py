@@ -64,7 +64,7 @@ class FlightRecorder:
         self.seq = 0  # total events ever recorded (watchdog progress)
 
     def record(self, kind: str, **data) -> None:
-        ev = {"seq": 0, "t": time.time(), "kind": kind, **data}
+        ev = {"seq": 0, "t": time.time(), "kind": kind, **data}  # dynlint: determinism(recorder-owned wall stamp)
         with self._lock:
             ev["seq"] = self.seq
             self.seq += 1
@@ -105,7 +105,7 @@ class FlightRecorder:
                         {
                             "type": "flight_header",
                             "reason": reason,
-                            "t": time.time(),
+                            "t": time.time(),  # dynlint: determinism(recorder-owned wall stamp)
                             "pid": os.getpid(),
                             "events": len(events),
                         }
@@ -121,7 +121,7 @@ class FlightRecorder:
                         json.dumps(
                             {
                                 "type": "flight_snapshot",
-                                "t": time.time(),
+                                "t": time.time(),  # dynlint: determinism(recorder-owned wall stamp)
                                 **snapshot,
                             }
                         )

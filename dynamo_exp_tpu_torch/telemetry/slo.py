@@ -10,8 +10,9 @@ fast (last 64 requests) and a slow (last 1024) breach window, exported
 as ``dynamo_slo_burn_rate{slo,window}``. ``percentile`` is the
 nearest-rank percentile the dispatch profiler's summaries use too. The
 planner (``planner/planner.py``, ``Planner(slo_source=...)``) reads the
-same window for its SLO policy; the JAX package's simulator, which does
-too, is not ported (ROADMAP Queue 1 entry 8).
+same window for its SLO policy, and the cluster simulator
+(``sim/cluster.py``) builds the same :class:`SloAttribution` for each
+simulated run.
 """
 
 

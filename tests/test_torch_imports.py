@@ -92,8 +92,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "deploy.cli",
         "sim.core", "sim.report", "sim.fit", "sim.cluster",
         "tune", "tune.space", "tune.search", "tune.validate", "tune.artifact",
+        "analysis", "analysis.core", "analysis.host_sync", "analysis.determinism",
+        "analysis.ownership", "analysis.recompile", "analysis.zones", "analysis.runner",
+        "analysis.__main__", "models.vision", "ops.ring_attention", "examples.multimodal",
+        "examples.multimodal.multimodal_demo", "examples.multimodal.components.encode_worker",
     ):
         assert f"dynamo_exp_tpu_torch.{name}" in expected
+
+
+def test_every_jax_module_has_a_counterpart_at_the_mirrored_path():
+    """No ``.py`` file of ``dynamo_exp_tpu/`` lacks its counterpart in
+    ``dynamo_exp_tpu_torch/``, and the root multimodal graph has its own
+    under the port's ``examples/``."""
+    missing = []
+    for base, sub in (("dynamo_exp_tpu", ""), ("examples/multimodal", "examples/multimodal")):
+        top = os.path.join(ROOT, base)
+        for dirpath, _, files in os.walk(top):
+            for f in files:
+                if f.endswith(".py"):
+                    rel = os.path.relpath(os.path.join(dirpath, f), top)
+                    if not os.path.exists(os.path.join(ROOT, "dynamo_exp_tpu_torch", sub, rel)):
+                        missing.append(os.path.join(base, rel))
+    assert missing == []
 
 
 def test_port_sources_name_no_jax_module():

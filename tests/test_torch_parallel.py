@@ -59,7 +59,13 @@ def test_rank_layout_numbers_node_by_node_and_places_ranks():
 
 @pytest.mark.parametrize("axis", ["dp", "sp", "ep"])
 def test_only_the_tp_axis_is_wider_than_one(axis):
-    with pytest.raises(ValueError, match=r"items 7\(c\) and 7\(d\)"):
+    """Only tp and, since ring prefill, sp are wider than one: sp lays
+    its ranks out as (sp, tp); dp and ep still raise."""
+    if axis == "sp":
+        lay = rank_layout(tp=2, rank=3, sp=2)
+        assert (lay.world_size, lay.sp_rank, lay.tp_rank) == (4, 1, 1)
+        return
+    with pytest.raises(ValueError, match=r"item 7\(d\)"):
         rank_layout(tp=2, **{axis: 2})
 
 

@@ -289,8 +289,10 @@ def test_random_shards_are_the_parts_of_the_tp1_model():
     ({"host_cache_pages": 8}, "item 7(a)"),
     ({"kv_store_dir": "/nonexistent"}, "item 7(a)"),
     ({"cuda_graphs": True}, "item 7(b)"),
-    ({"sp": 2}, "item 7(c)"),
-])
+    # Item 7(c), the ring prefill, is served by forward_ring_prefill,
+    # which the engine's refusal of sp > 1 names.
+    ({"sp": 2}, "forward_ring_prefill"),
+], ids=["kw0-item 7(a)", "kw1-item 7(a)", "kw2-item 7(b)", "kw3-item 7(c)"])
 def test_engine_config_refuses_what_tp_does_not_serve(kw, item):
     _, tcfg = _cfgs("llama")
     tp = 1 if "sp" in kw else 2

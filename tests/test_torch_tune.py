@@ -343,4 +343,4 @@ def test_card_commands_refuse_to_carry_on_without_a_card(argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, _, err = _llmctl(*argv)
     assert rc == 2 and "CUDA" in err
-    assert "lint" in llmctl.NOT_PORTED and set(llmctl.NOT_PORTED) == {"lint"}
+    assert not hasattr(llmctl, "NOT_PORTED")  # lint, the last refused plane, runs

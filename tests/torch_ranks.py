@@ -1,7 +1,8 @@
 """Run a function on every rank of a CPU process group, for the port's
-tensor-parallel tests.
+tensor- and sequence-parallel tests.
 
-:func:`run_ranks` spawns one process per rank (``spawn`` start method),
+:func:`run_ranks` spawns one process per rank (``spawn`` start method;
+``sp`` x ``tp`` ranks laid out as (sp, tp), ``parallel.rank_layout``),
 joins them into a gloo process group over a ``TCPStore`` on a free
 local port, calls ``fn(comm, *args)`` on each and returns the results
 in rank order. Every wait has a deadline: on expiry (or a rank's
@@ -13,10 +14,12 @@ import multiprocessing as mp
 import queue
 import traceback
 
+import numpy as np
+
 from .fixtures import free_port
 
 
-def _rank_main(fn, rank: int, tp: int, port: int, out, args) -> None:
+def _rank_main(fn, rank: int, tp: int, sp: int, port: int, out, args) -> None:
     try:
         import torch
 
@@ -25,7 +28,8 @@ def _rank_main(fn, rank: int, tp: int, port: int, out, args) -> None:
 
         torch.set_num_threads(2)
         comm = initialize_multihost(
-            MultiNodeConfig(), f"127.0.0.1:{port}", layout=rank_layout(tp=tp, rank=rank),
+            MultiNodeConfig(), f"127.0.0.1:{port}",
+            layout=rank_layout(tp=tp, rank=rank, sp=sp),
             backend="gloo", device="cpu",
         )
         try:
@@ -37,14 +41,16 @@ def _rank_main(fn, rank: int, tp: int, port: int, out, args) -> None:
         raise
 
 
-def run_ranks(fn, tp: int, *args, timeout: float = 180.0) -> list:
-    """``fn(comm, *args)`` on each of ``tp`` gloo ranks; their results in
-    rank order. ``fn`` must be importable (a module-level function)."""
+def run_ranks(fn, tp: int, *args, sp: int = 1, timeout: float = 180.0) -> list:
+    """``fn(comm, *args)`` on each of ``sp * tp`` gloo ranks; their
+    results in rank order. ``fn`` must be importable (a module-level
+    function)."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, tp, port, out, args), daemon=True)
-             for r in range(tp)]
+    world = sp * tp
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, tp, sp, port, out, args), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     results: dict[int, object] = {}
@@ -52,10 +58,10 @@ def run_ranks(fn, tp: int, *args, timeout: float = 180.0) -> list:
         import time
 
         deadline = time.monotonic() + timeout
-        while len(results) < tp:
+        while len(results) < world:
             left = deadline - time.monotonic()
             if left <= 0:
-                raise TimeoutError(f"ranks {sorted(set(range(tp)) - set(results))} did not "
+                raise TimeoutError(f"ranks {sorted(set(range(world)) - set(results))} did not "
                                    f"finish within {timeout}s")
             try:
                 rank, ok, value = out.get(timeout=min(left, 1.0))
@@ -78,7 +84,7 @@ def run_ranks(fn, tp: int, *args, timeout: float = 180.0) -> list:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
-    return [results[r] for r in range(tp)]
+    return [results[r] for r in range(world)]
 
 
 # ------------------------------------------------------------ rank functions
@@ -149,3 +155,45 @@ def all_reduce_once(comm, value: float):
     x = torch.tensor([value + comm.rank], dtype=torch.float32)
     comm.all_reduce(x)
     return float(x[0]), comm.stats()["calls"]
+
+
+def ring_cases(comm, sp: int, cases):
+    """This sp rank's ``ring_attention`` output on its sequence shard of
+    each case ``(q, k, v, pos)`` (whole numpy arrays, T on axis 1), the
+    K/V blocks rotating over gloo; the shards, numpy, in case order."""
+    import torch
+
+    from dynamo_exp_tpu_torch.ops.ring_attention import ring_attention
+    from dynamo_exp_tpu_torch.parallel.comm import sp_tp_comms
+
+    _, ring = sp_tp_comms(comm, sp, 1)
+    outs = []
+    for q, k, v, pos in cases:
+        n = q.shape[1] // sp
+        part = slice(ring.rank * n, (ring.rank + 1) * n)
+        t = [torch.from_numpy(np.ascontiguousarray(a[:, part])) for a in (q, k, v, pos)]
+        outs.append(ring_attention(t[0], t[1], t[2], t[3], t[3], ring).numpy())
+    return outs, ring.calls
+
+
+def ring_prefill(comm, np_params, cfg, tokens, sp: int, tp: int):
+    """``forward_ring_prefill`` on this rank of an (sp, tp) layout, the
+    model this rank's tp shard of ``np_params``: (logits, k, v) of its
+    sequence shard (and its kv heads), numpy."""
+    import torch
+
+    from dynamo_exp_tpu_torch.models import convert, llama
+    from dynamo_exp_tpu_torch.parallel.comm import sp_tp_comms
+
+    tp_comm, ring = sp_tp_comms(comm, sp, tp)
+    tp_rank = comm.rank % tp
+    model = convert.params_from_jax(np_params, cfg, device="cpu", rank=tp_rank, tp=tp)
+    toks = torch.tensor(tokens, dtype=torch.int64)
+    pos = torch.arange(toks.shape[1], dtype=torch.int64)[None].expand_as(toks)
+    logits, k, v = llama.forward_ring_prefill(model, cfg, toks, pos, ring=ring, comm=tp_comm)
+    return logits.numpy(), k.numpy(), v.numpy()
+
+
+def ring_cases_and_prefill(comm, cases, np_params, cfg, tokens):
+    """:func:`ring_cases` then :func:`ring_prefill` on one sp=2 group."""
+    return ring_cases(comm, 2, cases), ring_prefill(comm, np_params, cfg, tokens, 2, 1)
