@@ -443,10 +443,10 @@ Phases, each fatal on failure (nothing is caught):
    layers (a model directory of its config.json; the checks do not
    depend on depth, and the cut keeps the smoke inside its time limit),
    bf16, random weights from seed 0: phase 5's 8 prompts (the
-   seeded one too), 32 tokens each, admitted together, then a rerun in
-   new processes (beside (b)'s; (c)'s two runs side by side too: only
-   their tokens are compared): the same tokens, both ranks' output
-   digests equal,
+   seeded one too), 32 tokens each, admitted together, and a rerun in
+   other processes (since PR 22 every run of (a), (b) and (c) starts
+   side by side; only tokens are compared between runs): the same
+   tokens, both ranks' output digests equal,
    both bf16 kernels launched on each rank as often on both; printed:
    wall, tokens/s, rank 0's collectives (count, seconds, share of the
    wall). (b) llama-8b's width at 4 layers, float32: tp=2 against the
@@ -592,6 +592,41 @@ Phases, each fatal on failure (nothing is caught):
    ring's wall and its rotation's share. A ``{"phase22": ...}`` line
    holds the numbers.
 
+23. the KV tiers under tensor parallelism: tp=2 ranks placed as phase
+   18 places them (both on the one card over gloo; a card each over
+   NCCL), llama-8b's width at 4 of its 32 layers, random weights from
+   seed 0. (a) ``run.py --tp 2 --host-cache-pages 1024`` in bf16, phase
+   5's prompts at 32 tokens on a pool that admits them together and
+   holds a quarter of their decode growth: every stream completes, rows
+   swapped out and back in, page gathers and scatters moved pages, both
+   ranks' page moves and digests equal, a rerun beside it gives the
+   same tokens; float32 tp=2 with the tier and ``DYN_KV_STORE`` gives the
+   greedy tokens of the tp=1 engine with the tier and a store in this
+   process, up to ``F32_TIE``. (b) each of (a)'s float32 stores read by
+   a restarted engine of the other degree (tp=1 here, ``run.py --tp 2``
+   beside it): persist prefix hits above 0 and the writer's tokens up
+   to ``F32_TIE``. (c) a tp=1 prefill worker (``PrefillWorker`` in this
+   process) ships 3 prompts' KV over the TCP plane to a tp=2 decode
+   worker (``DisaggDecodeEngine`` around rank 0 in this process, rank 1
+   spawned as ``run.py`` spawns it), float32: the tokens of the decode
+   worker's own local prefill up to ``F32_TIE``, every prefill remote,
+   no fallback, no checksum failure, every lease released; then a
+   suffix-only transfer skips the pinned 512-token prefix's blocks.
+   (d) 8 streams round-robin over a ``run.py --tp 2`` ``dyn://`` worker
+   and a tp=1 survivor (``run.main_async`` in this process), behind the
+   ingress: SIGTERM to the tp=2 worker mid-stream migrates its streams'
+   KV (pages above 0, all seeded by the survivor); once its triage has
+   reported, the worker and its other rank are SIGKILLed (the grace
+   window ends), the streams it still served continue on the survivor
+   from their journals (recoveries equal to them, prefix hits at least
+   the migrated pages) and every stream finishes at full length. Its
+   launches are rank 0's (a killed rank sends no report). Printed: the
+   page gather's
+   and scatter's GB/s over gloo, swap seconds at tp=2 and tp=1, the
+   wire's GB/s into the tp=2 worker and the migration's triage seconds,
+   each run's launches on each rank. A ``{"phase23": ...}`` line holds
+   the numbers.
+
 Phases 5-10 run with CUDA graphs of every dispatch (the engine's default
 on a card): each window and mixed key is captured at its first dispatch
 (or by phase 9's prewarm) and replayed after; the launch counters add a
@@ -634,7 +669,12 @@ both workers summed), and phase 21's engines (``launches_sim_calibration``:
 tune process and the contrasting pair; ``launches_artifact_boot``: (c)),
 and phase 22's (``launches_sync_warn``: (a); ``launches_multimodal``: (b),
 the soft-token prefills and decode steps; ``launches_ring_reference``:
-(c), both ranks' single-rank float32 dispatches);
+(c), both ranks' single-rank float32 dispatches), and phase 23's
+rank 0 of each tp=2 run (every rank's equal: ``launches_tp2_g2``: (a),
+``launches_tp2_g3``: (b)'s tp=2 reader, ``launches_tp2_disagg_decode``:
+each of (c)'s decode ranks over the disaggregated pass alone, rank 1's
+reports before and after it, ``launches_tp2_reclaim``: (d)'s tp=2 worker's
+rank 0, killed before it could report its other rank's);
 both mixed entries also carry phase 3's other q tiles
 (``q_tile{1,4,16}_*_max_abs_err`` and ``q_tile16``'s timing);
 both mixed entries also carry the
@@ -660,9 +700,11 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
+from collections.abc import Callable
 from dataclasses import dataclass
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1797,7 +1839,10 @@ async def direct_burst(eng, requests: list[dict]) -> tuple:
 
 
 def edge_stats(results: list[dict], wall: float, edge_cpu: float, loop_cpu: float) -> dict:
-    ttft = sorted(r["frames"][0] - r["sent"] for r in results)
+    """TTFT over the streams that carried text (a stream whose tokens
+    decode to special tokens alone sends no content frame), the gap
+    between content frames, tokens/s."""
+    ttft = sorted(r["frames"][0] - r["sent"] for r in results if r["frames"])
     gaps = [b - a for r in results for a, b in zip(r["frames"], r["frames"][1:])]
     tokens = sum(r["usage"]["completion_tokens"] for r in results)
     return dict(ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
@@ -3886,6 +3931,7 @@ def _p11_worker(argv: list, state_path: str, period_s: float, t_spawn: float) ->
                         # seeded from migrations it received.
                         reclaim=served.reclaim.last_summary if served.reclaim else {},
                         seeded=served.migrate_sink.seeded_blocks if served.migrate_sink else 0,
+                        tp_page_moves=m.get("tp_page_moves"),
                         peak_gib=(torch.cuda.max_memory_reserved() / 2**30
                                   if torch.cuda.is_available() else 0.0))
 
@@ -3898,7 +3944,8 @@ def _p11_worker(argv: list, state_path: str, period_s: float, t_spawn: float) ->
         with contextlib.suppress(asyncio.CancelledError):
             await task
         pumping.cancel()
-        write({**state(True), "telemetry": get_telemetry().render().decode()})
+        write({**state(True), "telemetry": get_telemetry().render().decode(),
+               "tp_reports": eng.tp_reports})
 
     asyncio.run(serve())
 
@@ -7649,10 +7696,11 @@ def p18_batch(path: str, prompts, max_tokens: int, options=None, logprobs=None) 
 P18_PROCS: list = []  # every run.py this phase started (killed if left running)
 
 
-def p18_start(argv: list, tp: int = TP_DEGREE):
+def p18_start(argv: list, tp: int = TP_DEGREE, env: dict | None = None):
     """Start ``python -m dynamo_exp_tpu_torch.run <argv> --tp <tp>`` from
-    this checkout; :func:`p18_result` waits for it."""
-    env = dict(os.environ, PYTHONPATH=HERE)
+    this checkout (``env``: variables added to this process's);
+    :func:`p18_result` waits for it."""
+    env = dict(os.environ, PYTHONPATH=HERE, **(env or {}))
     cmd = [sys.executable, "-m", "dynamo_exp_tpu_torch.run", *argv, "--tp", str(tp)]
     proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -7684,11 +7732,6 @@ def p18_result(started, sh: Phase18) -> dict:
              if "boot, seconds since spawn" in x]
     return dict(rows=rows, stats=stats, tp=tp_line[0] if tp_line else None, wall_s=wall,
                 tokens=[r["token_ids"] for r in rows], follower_boot=boots)
-
-
-def p18_run(argv: list, sh: Phase18, tp: int = TP_DEGREE) -> dict:
-    """``python -m dynamo_exp_tpu_torch.run <argv> --tp <tp>``, to its end."""
-    return p18_result(p18_start(argv, tp), sh)
 
 
 def p18_argv(sh: Phase18, batch: str, model: list, kv_dtype: str, lens, max_tokens: int,
@@ -7843,17 +7886,25 @@ def _phase18_runs(torch, np, pkg, smi, sh, dense, f32, moe, backend, bf16_kernel
     model = (["--preset", sh.dense_preset] if dense is pkg.models.PRESETS.get(sh.dense_preset)
              else model_dir("dense", dense))
     argv = p18_argv(sh, batch, model, "bfloat16", lens, sh.max_tokens, backend)
-    # The first run alone (its wall and collectives are printed); the
-    # rerun, whose tokens alone are checked, beside (b)'s run and
-    # reference below.
-    runs = [p18_run(argv, sh)]
+    # (a)'s run alone on the card: its wall, tokens/s and collectives'
+    # share are the figures read across runs. Then side by side: its
+    # rerun, (b)'s run and tp=1 reference, (c)'s run and rerun (their
+    # walls are measured so).
+    first = p18_result(p18_start(argv), sh)
     rerun = p18_start(argv)
     prompts_b = phase5_prompts(np, f32.vocab_size, sh.prompt_lens)
     batch_b = p18_batch(os.path.join(tmp, "b.jsonl"), prompts_b, sh.max_tokens, logprobs=2)
     started_b = p18_start(p18_argv(sh, batch_b, model_dir("f32", f32), "float32", lens,
                                    sh.max_tokens, backend))
+    rs = np.random.RandomState(18)
+    prompts_c = [[int(t) for t in rs.randint(3, moe.vocab_size, size=sh.moe_prompt_len)]
+                 for _ in range(sh.moe_prompts)]
+    batch_c = p18_batch(os.path.join(tmp, "c.jsonl"), prompts_c, sh.max_tokens)
+    argv_c = p18_argv(sh, batch_c, model_dir("moe", moe), "bfloat16",
+                      [len(p) for p in prompts_c], sh.max_tokens, backend)
+    started_c = [p18_start(argv_c) for _ in range(2)]
     want = p18_reference(torch, pkg, f32, sh, prompts_b, sh.max_tokens, 2)
-    runs.append(p18_result(rerun, sh))
+    runs = [first, p18_result(rerun, sh)]
     rb = p18_result(started_b, sh)
     for r in runs:
         assert [len(t) for t in r["tokens"]] == [sh.max_tokens] * len(prompts), r["tokens"]
@@ -7865,8 +7916,9 @@ def _phase18_runs(torch, np, pkg, smi, sh, dense, f32, moe, backend, bf16_kernel
     share = coll_s / ra["stats"]["wall_s"]
     log(f"[tp] (a) {smi}: {dense.num_layers} layers at width {dense.hidden_size}, bf16, "
         f"tp={TP_DEGREE} ({backend}): 8 prompts {lens} x {sh.max_tokens} tokens admitted "
-        f"together: wall {ra['stats']['wall_s']:.3f} s, {ra['stats']['output_tok_s']:.2f} "
-        f"tokens/s, TTFT p50 {ra['stats']['ttft_p50_ms']} ms (rerun wall "
+        f"together, alone on the card: wall {ra['stats']['wall_s']:.3f} s, "
+        f"{ra['stats']['output_tok_s']:.2f} tokens/s, TTFT p50 {ra['stats']['ttft_p50_ms']} "
+        f"ms (rerun beside (b) and (c): wall "
         f"{runs[1]['stats']['wall_s']:.3f} s, {runs[1]['stats']['output_tok_s']:.2f} "
         f"tokens/s; processes {ra['wall_s']:.1f} / {runs[1]['wall_s']:.1f} s); rank 0's "
         f"collectives {comm['calls']}, all_reduce + all_gather {coll_s:.3f} s = "
@@ -7895,18 +7947,10 @@ def _phase18_runs(torch, np, pkg, smi, sh, dense, f32, moe, backend, bf16_kernel
         f"{p18_rank_line(rb)}")
     out["b"] = dict(designs=b, ties=ties, lp_err=lp_err, wall_s=rb["stats"]["wall_s"])
 
-    # (c) Qwen1.5-MoE-A2.7B's width at 4 layers, bf16.
-    rs = np.random.RandomState(18)
-    prompts = [[int(t) for t in rs.randint(3, moe.vocab_size, size=sh.moe_prompt_len)]
-               for _ in range(sh.moe_prompts)]
-    lens = [len(p) for p in prompts]
-    batch = p18_batch(os.path.join(tmp, "c.jsonl"), prompts, sh.max_tokens)
-    argv = p18_argv(sh, batch, model_dir("moe", moe), "bfloat16", lens, sh.max_tokens,
-                    backend)
-    # The run and its rerun side by side (only their tokens are
-    # compared; the wall printed is the first's, under the other).
-    started = [p18_start(argv) for _ in range(2)]
-    runs = [p18_result(x, sh) for x in started]
+    # (c) Qwen1.5-MoE-A2.7B's width at 4 layers, bf16 (started above;
+    # only the two runs' tokens are compared).
+    prompts = prompts_c
+    runs = [p18_result(x, sh) for x in started_c]
     assert runs[1]["tokens"] == runs[0]["tokens"], "(c) the rerun's tokens differ"
     assert [len(t) for t in runs[0]["tokens"]] == [sh.max_tokens] * len(prompts)
     c = [p18_ranks(r, "(c)", bf16_kernels, moe=True) for r in runs]
@@ -9241,6 +9285,10 @@ class Phase21:
     # (c): mixed keys past this many tokens are left out of the prewarm
     # (0: none is; the CPU rehearsal's burst never reaches them).
     prewarm_max_tokens: int = 0
+    # (b)'s contrasting pair runs inside this context (the card's: none;
+    # the CPU rehearsal gives each dispatch a fixed time, as the card's
+    # barely grows with its rows: ``tests/torch_timing.py``).
+    pair_context: Callable = contextlib.nullcontext
 
 
 def _p21_llmctl(*argv) -> tuple[int, str, str]:
@@ -9497,10 +9545,11 @@ def p21_tune(torch, pkg, sh: Phase21, mcfg, small, small_model, tmp: str) -> dic
     fp = WorkloadFingerprint(**P21_PAIR_FP)
     reset_launches()
     t1 = time.perf_counter()
-    pair = asyncio.run(validate_candidates(
-        [{}, {"max_inflight": 1}], target_from_fingerprint(fp), seed=5, n=8,
-        slo_ttft_s=1e9, slo_itl_s=1e9, device=sh.device, model=small, kv_dtype=sh.kv_dtype,
-        llama=small_model))
+    with sh.pair_context():
+        pair = asyncio.run(validate_candidates(
+            [{}, {"max_inflight": 1}], target_from_fingerprint(fp), seed=5, n=8,
+            slo_ttft_s=1e9, slo_itl_s=1e9, device=sh.device, model=small,
+            kv_dtype=sh.kv_dtype, llama=small_model))
     pair_designs = _p21_designs()
     log(f"[tune] (b) contrasting pair [{{}}, {{max_inflight: 1}}] at {small.num_layers} "
         f"layers: sim scores {pair['sim_scores']}, live {pair['live_scores']}, tau "
@@ -10156,6 +10205,714 @@ def phase22(torch, np, pkg, tra, smi: str, sh: Phase22 = Phase22(), mcfg=None) -
     return out
 
 
+# ------------------------------------------------------------ phase 23
+P23_NS = "smoke23"
+P23_AGG = f"dyn://{P23_NS}.agg.generate"
+
+
+@dataclass(frozen=True)
+class Phase23:
+    """Phase 23's sizes: the card's by default; the CPU test rehearses
+    it smaller (``device="cpu"``, a small config in place of llama-8b's
+    width)."""
+
+    device: str = "cuda"
+    layers: int = 4  # llama-8b's width at 4 of its 32 layers throughout
+    prompt_lens: tuple = PROMPT_LENS  # (a), (b): phase 5's prompts ...
+    max_tokens: int = MAX_TOKENS  # ... at 32 tokens, on a pool that swaps
+    host_pages: int = HOST_PAGES  # (a), (b): the G2 tier
+    disagg_lens: tuple = (256, 640, 1024)  # (c): prompts prefilled by the tp=1 worker
+    disagg_tokens: int = 16
+    prefix_tokens: int = 512  # (c): the suffix-only transfer's resident prefix ...
+    suffix_tokens: int = 256  # ... and its suffix
+    num_pages: int = 1024  # (c), (d): each engine's pool
+    slots: int = 8
+    reclaim_streams: int = 8  # (d): streams over the tp=2 victim and the tp=1 survivor ...
+    reclaim_prompt: int = 512  # ... of this many prompt tokens ...
+    reclaim_tokens: int = 128  # ... and this many tokens each
+    reclaim_after_tokens: int = 16  # (d): SIGTERM once every stream has this many
+    timeout_s: float = 300.0  # each run.py process pair, and (d)
+    state_period_s: float = 0.25
+
+
+def p23_pressure_pages(lens, max_tokens: int) -> int:
+    """A pool that admits every prompt of the burst together and holds a
+    quarter of their decode growth: the rows stall from their first
+    pages of decode on, rows swap to the host tier, and the pages they
+    park are taken by the others, so their restores come back from it
+    (phase 7's pressure at this burst's size)."""
+    prompt = sum(-(-n // PS) for n in lens)
+    return prompt + (pages_needed(lens, max_tokens) - prompt) // 4
+
+
+def p23_argv(sh: Phase23, batch: str, model: list, kv_dtype: str, lens, pages: int,
+             backend: str) -> list:
+    return [f"in=batch:{batch}", "out=cuda", "--device", sh.device, *model, "--random-weights",
+            "--max-decode-slots", str(sh.slots), "--page-size", str(PS), "--max-model-len",
+            str(max(lens) + sh.max_tokens + PS), "--num-pages", str(pages), "--kv-dtype",
+            kv_dtype, "--max-tokens", str(sh.max_tokens), "--host-cache-pages",
+            str(sh.host_pages), "--dist-backend", backend]
+
+
+def p23_tier_engine(torch, pkg, mcfg, sh: Phase23, pages: int, store: str, model):
+    """The tp=1 engine with the host tier and the G3 store ``store`` on
+    the runs' seed-0 weights (eager, as the tp ranks run)."""
+    cfg = pkg.engine.EngineConfig(
+        model=mcfg, max_decode_slots=sh.slots, page_size=PS, num_pages=pages,
+        max_model_len=max(sh.prompt_lens) + sh.max_tokens + PS, kv_dtype=mcfg.dtype,
+        default_max_tokens=sh.max_tokens, cuda_graphs=False, host_cache_pages=sh.host_pages,
+        kv_store_dir=store)
+    return pkg.engine.TorchEngine(cfg, model=model, device=sh.device)
+
+
+async def p23_collect(stream) -> dict:
+    r = dict(tokens=[], lps=[], tops=[], finish=None)
+    async for item in stream:
+        r["tokens"] += item.get("token_ids") or []
+        r["lps"] += item.get("logprobs") or []
+        r["tops"] += [{int(k): v for k, v in t.items()} for t in item.get("top_logprobs") or []]
+        r["finish"] = item.get("finish_reason") or r["finish"]
+    return r
+
+
+def p23_tier_run(torch, pkg, mcfg, sh: Phase23, pages: int, store: str, model, prompts):
+    """``prompts`` admitted together on :func:`p23_tier_engine` (greedy,
+    2 logprobs), then the engine stopped (its host tier drained into
+    ``store`` and sealed): the rows, the tier counters, the copy
+    streams' totals and the wall."""
+    eng = p23_tier_engine(torch, pkg, mcfg, sh, pages, store, model)
+
+    async def go():
+        with eng.hold_admission():
+            streams = [eng.submit({"token_ids": p, "stop_conditions": {
+                "max_tokens": sh.max_tokens, "ignore_eos": True},
+                "sampling_options": {"logprobs": 2}}) for p in prompts]
+        return await asyncio.wait_for(asyncio.gather(*map(p23_collect, streams)), 600)
+
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        rows = asyncio.run(go())
+    finally:
+        eng.stop()
+    wall = time.perf_counter() - t0
+    m = eng.metrics()
+    out = dict(rows=rows, wall_s=wall, copy=eng.copy_stats(),
+               tiers={k: m.get(k) for k in ("swapped_out", "swapped_in", "preempted",
+                                            "kv_prefix_hits", "kv_store_adopted",
+                                            "kv_store_demotes")})
+    del eng
+    free(torch, sh.device)
+    return out
+
+
+def p23_rows(r: dict) -> list[dict]:
+    return [dict(tokens=x["token_ids"], lps=x["logprobs"],
+                 tops=[{int(k): v for k, v in t.items()} for t in x["top_logprobs"]])
+            for x in r["rows"]]
+
+
+def p23_moves(r: dict, what: str) -> dict:
+    """The tp run ``r``'s page moves, equal on every rank (rank 0 refused
+    the stop otherwise: checked again here), and rank 0's page
+    collectives: calls, bytes and host seconds by direction."""
+    ranks = r["tp"]["ranks"]
+    moves = ranks[0]["page_moves"]
+    assert all(x["page_moves"] == moves for x in ranks), (what, [x["page_moves"] for x in ranks])
+    comm = ranks[0]["comm"]
+    return dict(moves, **{k: dict(calls=comm["calls"][k], bytes=comm["bytes"][k],
+                                  seconds=comm["seconds"][k])
+                          for k in ("page_gather", "page_scatter")})
+
+
+def p23_gbps(c: dict) -> float:
+    return c["bytes"] / c["seconds"] / 1e9 if c["seconds"] else 0.0
+
+
+def p23_pressure(torch, np, pkg, smi, sh: Phase23, dense, f32, backend, tmp, dirs, stores,
+                 then=None):
+    """(a) G2 under pressure through ``run.py --tp 2 --host-cache-pages``,
+    and the float32 runs whose stores (b) reads; ``then()`` runs once
+    the tp=1 engine's store is sealed, while the tp=2 runs go on."""
+    lens = list(sh.prompt_lens)
+    pages = p23_pressure_pages(lens, sh.max_tokens)
+    prompts = phase5_prompts(np, dense.vocab_size, lens)
+    batch = p18_batch(os.path.join(tmp, "a.jsonl"), prompts, sh.max_tokens,
+                      {min(SEEDED, len(lens) - 1): dict(SEEDED_OPTIONS)})
+    argv = p23_argv(sh, batch, dirs["dense"], "bfloat16", lens, pages, backend)
+    started = [p18_start(argv) for _ in range(2)]
+    prompts_f = phase5_prompts(np, f32.vocab_size, lens)
+    batch_f = p18_batch(os.path.join(tmp, "af.jsonl"), prompts_f, sh.max_tokens, logprobs=2)
+    argv_f = p23_argv(sh, batch_f, dirs["f32"], "float32", lens, pages, backend)
+    started_f = p18_start(argv_f, env={"DYN_KV_STORE": stores["tp2"]})
+    model_f = seeded_model(torch, pkg, f32, sh.device)
+    reset_launches()
+    ref = p23_tier_run(torch, pkg, f32, sh, pages, stores["tp1"], model_f, prompts_f)
+    ref_designs = _p21_designs()
+    if then is not None:
+        then()
+    runs = [p18_result(x, sh) for x in started]
+    rf = p18_result(started_f, sh)
+    for r in runs + [rf]:
+        assert [len(t) for t in r["tokens"]] == [sh.max_tokens] * len(lens), r["tokens"]
+        assert all(x["finish_reason"] == "length" for x in r["rows"])
+    assert runs[1]["tokens"] == runs[0]["tokens"], "(a) the rerun's tokens differ"
+    designs = [p18_ranks(r, "(a)", ("mixed_tc_bf16", "decode_split")) for r in runs]
+    designs_f = p18_ranks(rf, "(a) float32", ("mixed_f32", "decode_split"))
+    moves = [p23_moves(r, "(a)") for r in runs + [rf]]
+    tiers = [r["tp"]["tiers"] for r in runs + [rf]]
+    for t, what in zip(tiers[:2], ("run", "rerun")):
+        assert t["swapped_out"] > 0 and t["swapped_in"] > 0, (what, t)
+    for m in moves[:2]:
+        assert m["gather"]["pages"] > 0 and m["scatter"]["pages"] > 0, m
+    faults, ties = divergences(ref["rows"], p23_rows(rf), F32_TIE)
+    assert not faults, f"(a) float32 tp=2 with the tier differs from tp=1: {faults}"
+    ra = runs[0]
+    log(f"[tiers] (a) {smi}: llama-8b's width at {dense.num_layers} layers, bf16, tp=2 "
+        f"({backend}), run.py --host-cache-pages {sh.host_pages} on a {pages}-page pool (the "
+        f"burst ends at {pages_needed(lens, sh.max_tokens)}): phase 5's 8 prompts x "
+        f"{sh.max_tokens} tokens all 'length'; wall {ra['stats']['wall_s']:.3f} s (rerun "
+        f"{runs[1]['stats']['wall_s']:.3f} s; processes {ra['wall_s']:.1f} / "
+        f"{runs[1]['wall_s']:.1f} s); tiers {tiers[0]} (rerun {tiers[1]}); the rerun's "
+        f"tokens identical, both ranks' digests and page moves equal; page moves {moves[0]} "
+        f"(rerun {moves[1]}); launches on each rank {designs[0]} (rerun {designs[1]})")
+    # Swap seconds, float32 at both degrees (the same pages and bytes
+    # moved): tp=2's page collectives (rank 0's host seconds) against
+    # tp=1's copy legs (CUDA events).
+    swap_s = [moves[2]["page_gather"]["seconds"] + moves[2]["page_scatter"]["seconds"],
+              ref["copy"]["d2h_s"] + ref["copy"]["h2d_s"]]
+    log(f"[tiers] (a) {smi}: page gather {p23_gbps(moves[0]['page_gather']):.3f} GB/s, scatter "
+        f"{p23_gbps(moves[0]['page_scatter']):.3f} GB/s over {backend} on one card (bf16; rank "
+        f"0's host seconds, whole pages; float32: {p23_gbps(moves[2]['page_gather']):.3f} / "
+        f"{p23_gbps(moves[2]['page_scatter']):.3f} GB/s); swap seconds, float32, tp=2 (page "
+        f"collectives) {swap_s[0]:.4f} against tp=1 (copy legs) {swap_s[1]:.4f}")
+    log(f"[tiers] (a) {smi}: float32, tp=2 with the tier and DYN_KV_STORE: wall "
+        f"{rf['stats']['wall_s']:.3f} s, tiers {tiers[2]}, page moves {moves[2]}; tp=1 with "
+        f"the tier in this process: wall {ref['wall_s']:.3f} s, tiers {ref['tiers']}, copy "
+        f"streams {ref['copy']}; the same greedy tokens (ties "
+        f"within {F32_TIE}: {'; '.join(ties) or 'none'}); launches on each rank {designs_f}, "
+        f"tp=1 {ref_designs}")
+    return dict(pages=pages, tiers=tiers, moves=moves, ties=ties, designs=designs[0],
+                designs_rerun=designs[1], designs_f32=designs_f, designs_ref=ref_designs,
+                wall_s=ra["stats"]["wall_s"], ref=ref, rf=rf, prompts_f=prompts_f,
+                model_f=model_f, swap_s_tp2=swap_s[0], swap_s_tp1=swap_s[1],
+                gather_gbps=p23_gbps(moves[0]["page_gather"]),
+                scatter_gbps=p23_gbps(moves[0]["page_scatter"]))
+
+
+def p23_reader_start(np, sh: Phase23, f32, backend, tmp, dirs, stores):
+    """(b)'s ``run.py --tp 2`` over the store the tp=1 engine wrote (it
+    is sealed: started as soon as it is, beside (a)'s runs)."""
+    lens = list(sh.prompt_lens)
+    batch_f = p18_batch(os.path.join(tmp, "bf.jsonl"),
+                        phase5_prompts(np, f32.vocab_size, lens), sh.max_tokens, logprobs=2)
+    return p18_start(p23_argv(sh, batch_f, dirs["f32"], "float32", lens,
+                              p23_pressure_pages(lens, sh.max_tokens), backend),
+                     env={"DYN_KV_STORE": stores["tp1"]})
+
+
+def p23_stores(torch, pkg, smi, sh: Phase23, f32, stores, a, started) -> dict:
+    """(b) G3 across degrees: a restarted tp=1 engine over the store the
+    tp=2 run wrote, and ``run.py --tp 2`` over the one the tp=1 engine
+    wrote (``started``, :func:`p23_reader_start`): persist prefix hits on
+    both, the writer's tokens (float32, up to ``F32_TIE``)."""
+    reset_launches()
+    one = p23_tier_run(torch, pkg, f32, sh, a["pages"], stores["tp2"], a["model_f"],
+                       a["prompts_f"])
+    one_designs = _p21_designs()
+    two = p18_result(started, sh)
+    hits = [one["tiers"]["kv_prefix_hits"]["persist"],
+            two["tp"]["tiers"]["kv_prefix_hits"]["persist"]]
+    assert hits[0] > 0 and hits[1] > 0, hits
+    f1, t1 = divergences(p23_rows(a["rf"]), one["rows"], F32_TIE)
+    f2, t2 = divergences(a["ref"]["rows"], p23_rows(two), F32_TIE)
+    assert not f1 and not f2, f"(b) tokens after a restart differ from the writer's: {f1 + f2}"
+    designs = p18_ranks(two, "(b)", ("mixed_f32", "decode_split"))
+    moves = p23_moves(two, "(b)")
+    log(f"[tiers] (b) {smi}: the tp=2 run's G3 store read by a restarted tp=1 engine: adopted "
+        f"{one['tiers']['kv_store_adopted']} pages, persist prefix hits {hits[0]}, the "
+        f"writer's tokens (ties: {'; '.join(t1) or 'none'}), wall {one['wall_s']:.3f} s, "
+        f"launches {one_designs}; the tp=1 engine's store read by run.py --tp 2: persist hits "
+        f"{hits[1]}, tiers {two['tp']['tiers']}, the writer's tokens (ties: "
+        f"{'; '.join(t2) or 'none'}), wall {two['stats']['wall_s']:.3f} s, page moves "
+        f"{moves}, launches on each rank {designs}")
+    return dict(hits=hits, designs=designs, designs_tp1=one_designs, moves=moves)
+
+
+def p23_disagg_inputs(np, sh: Phase23, vocab: int) -> tuple:
+    """(c)'s prompts, the suffix-only transfer's prefix and prompt, and
+    the decode worker's ``--max-model-len``."""
+    rs = np.random.RandomState(23)
+
+    def ids(n):
+        return [int(t) for t in rs.randint(3, vocab, size=n)]
+
+    prompts = [ids(n) for n in sh.disagg_lens]
+    prefix = ids(sh.prefix_tokens)
+    suffixed = prefix + ids(sh.suffix_tokens)
+    return prompts, prefix, suffixed, max(max(sh.disagg_lens), len(suffixed)) + (
+        sh.disagg_tokens + PS)
+
+
+def p23_disagg_spawn(np, run, sh: Phase23, f32, backend, tmp, dirs) -> dict:
+    """(c)'s tp=2 decode worker's argv and its other rank, spawned now
+    (``run.early_ranks``, as ``run.py`` spawns it), so that the rank's
+    start runs beside (b)."""
+    max_len = p23_disagg_inputs(np, sh, f32.vocab_size)[-1]
+    empty = os.path.join(tmp, "empty.jsonl")
+    open(empty, "w").close()
+    argv = [f"in=batch:{empty}", "out=cuda", "--device", sh.device, *dirs["f32"],
+            "--random-weights", "--max-decode-slots", str(sh.slots), "--page-size", str(PS),
+            "--max-model-len", str(max_len), "--num-pages", str(sh.num_pages), "--kv-dtype",
+            "float32", "--tp", str(TP_DEGREE), "--dist-backend", backend]
+    return dict(argv=argv, early=run.early_ranks(argv), t0=time.perf_counter())
+
+
+def p23_disagg(torch, np, pkg, run, smi, sh: Phase23, f32, spawned: dict) -> dict:
+    """(c) A tp=1 prefill worker (this process) ships prompts' KV over the
+    TCP plane to a tp=2 decode worker (rank 0 in this process, rank 1
+    spawned by :func:`p23_disagg_spawn`), float32: the tokens of the
+    decode worker's own local prefill up to ``F32_TIE``, no fallback, no
+    checksum failure; then a suffix-only transfer skips the pinned
+    resident prefix. The decode ranks' launches are those of the
+    disaggregated pass: rank 1's reports (``rank_reports``) before and
+    after it, the loop paused for each."""
+    from dynamo_exp_tpu_torch import disagg
+    from dynamo_exp_tpu_torch.disagg.transfer import wire_checksum_failures
+    from dynamo_exp_tpu_torch.runtime.runtime import CancellationToken
+    from dynamo_exp_tpu_torch.runtime.transports.inproc import (
+        InProcDiscovery,
+        InProcWorkQueue,
+    )
+    from dynamo_exp_tpu_torch.telemetry import get_telemetry
+
+    prompts, prefix, suffixed, max_len = p23_disagg_inputs(np, sh, f32.vocab_size)
+    backend = spawned["argv"][-1]
+    opts = run.parse_args(spawned["argv"])
+    t0 = spawned["t0"]
+    ranks = asyncio.run(run.start_ranks(opts, None, spawned["early"]))
+    dec = None
+    try:
+        dec, _ = run.build_cuda_engine(opts, ranks.comm)
+        boot_s = time.perf_counter() - t0
+        pre = pkg.engine.TorchEngine(pkg.engine.EngineConfig(
+            model=f32, max_decode_slots=sh.slots, page_size=PS, num_pages=sh.num_pages,
+            max_model_len=max_len, kv_dtype="float32", cuda_graphs=False),
+            model=seeded_model(torch, pkg, f32, sh.device), device=sh.device)
+
+        def body(p):
+            return {"token_ids": p, "stop_conditions": {"max_tokens": sh.disagg_tokens,
+                                                        "ignore_eos": True},
+                    "sampling_options": {"logprobs": 2}}
+
+        def recv_totals():
+            v = _family_values(get_telemetry().render().decode())
+
+            def total(name):
+                return sum(x for (n, lab), x in v.items()
+                           if n == name and ("direction", "recv") in lab)
+
+            return (total("dynamo_kv_transfer_bytes_sum"),
+                    total("dynamo_kv_transfer_duration_seconds_sum"))
+
+        def rank1_designs():
+            return dec.rank_reports()[1]["launches"]["attention_kernels"]
+
+        async def scenario():
+            local = await asyncio.gather(*[p23_collect(await dec.generate(body(p)))
+                                           for p in prompts])
+            with dec.hold_admission():
+                dec.reset_prefix_cache()
+                # The counts of the disaggregated pass alone: rank 1's from
+                # its reports before and after, this process's from 0.
+                before = rank1_designs()
+                reset_launches()
+            queue, cancel = InProcWorkQueue(), CancellationToken()
+            recv = disagg.KvPageReceiver()
+            await recv.start()
+            worker = disagg.PrefillWorker(pre, queue, cancel)
+            watcher = disagg.DisaggConfigWatcher(InProcDiscovery(), "llama-8b", default=(
+                disagg.DisaggConfig(max_local_prefill_length=0)))
+            dis = disagg.DisaggDecodeEngine(dec, queue, recv, watcher)
+            task = asyncio.ensure_future(worker.run())
+            try:
+                b0, s0 = recv_totals()
+                t1 = time.perf_counter()
+                remote = await asyncio.gather(*[p23_collect(await dis.generate(body(p)))
+                                                for p in prompts])
+                wall = time.perf_counter() - t1
+                b1, s1 = recv_totals()
+                with dec.hold_admission():
+                    after, here = rank1_designs(), _p21_designs()
+                await p23_collect(await dec.generate(dict(body(prefix + [5]), stop_conditions={
+                    "max_tokens": 1, "ignore_eos": True})))
+                skipped0 = dis.blocks_skipped
+                tail = await p23_collect(await dis.generate(body(suffixed)))
+                for _ in range(500):  # the confirms are queued for the loops
+                    if pre.kv.active_leases == 0 and dec.kv.active_leases == 0:
+                        break
+                    await asyncio.sleep(0.01)
+            finally:
+                cancel.cancel()
+                await asyncio.wait_for(task, 30)
+                await recv.close()
+            return dict(local=local, remote=remote, tail=tail, wall_s=wall,
+                        recv_bytes=b1 - b0, recv_s=s1 - s0, here=here,
+                        rank1={k: n - before.get(k, 0) for k, n in after.items()},
+                        skipped=dis.blocks_skipped - skipped0, remote_n=dis.remote_prefills,
+                        fallbacks=dis.local_fallbacks, served=worker.served,
+                        leases=(pre.kv.active_leases, dec.kv.active_leases),
+                        extracted=pre.metrics()["kv_extract_pages"],
+                        injected=dec.metrics()["kv_inject_pages"])
+
+        failures0 = wire_checksum_failures()
+        out = asyncio.run(asyncio.wait_for(scenario(), sh.timeout_s))
+        pre.stop()
+        dec.stop()
+        reports = dec.tp_reports
+    finally:
+        if dec is not None and dec.tp_reports is None:
+            with contextlib.suppress(Exception):
+                dec.stop()
+        ranks.close()
+    failures = wire_checksum_failures() - failures0
+    faults, ties = divergences(out["local"], out["remote"], F32_TIE)
+    assert not faults, f"(c) remote prefill tokens differ from the local prefill's: {faults}"
+    assert all(len(r["tokens"]) == sh.disagg_tokens for r in out["remote"] + [out["tail"]])
+    assert out["remote_n"] == len(prompts) + 1 and out["fallbacks"] == 0, out
+    assert failures == 0 and out["leases"] == (0, 0), (failures, out["leases"])
+    assert out["skipped"] == sh.prefix_tokens // PS, out["skipped"]
+    moves = reports[0]["page_moves"]
+    assert all(r["page_moves"] == moves for r in reports), reports
+    assert moves["scatter"]["pages"] == out["injected"] > 0, (moves, out["injected"])
+    rank1, here = out["rank1"], out["here"]  # the disaggregated pass's
+    designs = {k: here[k] - rank1.get(k, 0) for k in here}  # the prefill engine's
+    if sh.device == "cuda":
+        # The decode ranks decode what the prefill worker prefilled.
+        assert rank1["decode_split"] > 0, rank1
+        assert designs["mixed_f32"] > 0, designs
+    gbps = out["recv_bytes"] / out["recv_s"] / 1e9 if out["recv_s"] else 0.0
+    log(f"[tiers] (c) {smi}: a tp=1 prefill worker to a tp=2 decode worker ({backend}; "
+        f"decode ranks up {boot_s:.1f} s after the spawn), float32, {len(prompts)} prompts "
+        f"{list(sh.disagg_lens)} x {sh.disagg_tokens}: remote prefills {out['remote_n']}, "
+        f"local fallbacks {out['fallbacks']}, checksum failures {failures}, the decode "
+        f"worker's local tokens (ties: {'; '.join(ties) or 'none'}); pages extracted "
+        f"{out['extracted']}, injected {out['injected']}; the wire into the tp=2 worker "
+        f"{out['recv_bytes'] / 1e6:.1f} MB in {out['recv_s']:.4f} s = {gbps:.3f} GB/s (wall "
+        f"{out['wall_s']:.3f} s); suffix-only transfer skipped {out['skipped']} blocks of "
+        f"the pinned {sh.prefix_tokens}-token prefix; decode ranks' page moves {moves}; "
+        f"launches: each decode rank {rank1}, the prefill engine {designs}")
+    return dict(ties=ties, wire_gbps=gbps, skipped=out["skipped"], remote=out["remote_n"],
+                designs=rank1, designs_prefill=designs, moves=moves,
+                recv_bytes=out["recv_bytes"], recv_s=out["recv_s"])
+
+
+def kill_tree(proc) -> None:
+    """SIGKILL a worker process and the processes it started (its other
+    tp ranks: Linux ``/proc`` lists them), then reap it."""
+    kids = []
+    with contextlib.suppress(OSError):
+        for tid in os.listdir(f"/proc/{proc.pid}/task"):
+            with contextlib.suppress(OSError), open(f"/proc/{proc.pid}/task/{tid}/children") as f:
+                kids += [int(x) for x in f.read().split()]
+    proc.kill()
+    for pid in kids:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    proc.join(30)
+
+
+def p23_reclaim_start(sh: Phase23, dense, backend, tmp, started: dict) -> None:
+    """(d)'s coordinator and its tp=2 ``dyn://`` worker (``run.py --tp 2``
+    in a process of its own, which spawns its other rank), started now
+    so that their start runs beside (b) and (c); into ``started``."""
+    import multiprocessing
+    import socket
+
+    from dynamo_exp_tpu_torch import tokenizer as tokmod
+
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    model_dir = write_model_dir(os.path.join(tmp, "llama-8b"), tokmod, dense, text)
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    addr = f"127.0.0.1:{port}"
+    coord = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_exp_tpu_torch.runtime.transports.coordinator",
+         "--host", "127.0.0.1", "--port", str(port)], cwd=HERE, stdout=subprocess.PIPE,
+        text=True)
+    max_len = sh.reclaim_prompt + sh.reclaim_tokens + PS
+    common = ["out=cuda", "--device", sh.device, "--model-path", model_dir, "--model-name",
+              "llama-8b", "--random-weights", "--coordinator", addr, "--num-pages",
+              str(sh.num_pages), "--max-decode-slots", str(sh.slots), "--page-size", str(PS),
+              "--max-model-len", str(max_len), "--kv-dtype", "bfloat16"]
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        leader = f"127.0.0.1:{probe.getsockname()[1]}"
+    victim_argv = [f"in={P23_AGG}", *common, "--tp", str(TP_DEGREE), "--dist-backend", backend,
+                   "--dist-leader", leader]
+    started.update(coord=coord, addr=addr, path=os.path.join(tmp, "victim.json"),
+                   survivor_argv=[f"in={P23_AGG}", *common])
+    line = coord.stdout.readline().strip()
+    assert line == f"coordinator ready on {addr}", line
+    victim = multiprocessing.get_context("spawn").Process(
+        target=_p11_worker, name="victim",
+        args=(victim_argv, started["path"], sh.state_period_s, time.time()))
+    victim.start()
+    started["victim"] = victim
+
+
+def p23_stop_started(started: dict) -> None:
+    """Stop (d)'s worker (and its other rank) and coordinator, if left."""
+    victim, coord = started.pop("victim", None), started.pop("coord", None)
+    if victim is not None and victim.is_alive():
+        kill_tree(victim)
+    if coord is not None:
+        coord.kill()
+        coord.wait(30)
+
+
+def p23_reclaim(np, pkg, run, client, smi, sh: Phase23, dense, backend, started) -> dict:
+    """(d) SIGTERM to the tp=2 ``dyn://`` worker :func:`p23_reclaim_start`
+    started, in mid-stream: its reclaim triage migrates the streams' KV
+    to the tp=1 survivor (``run.main_async`` in this process); then the
+    worker and its other rank are SIGKILLed, and the ingress (also here)
+    finishes the streams it served on the survivor from their journals,
+    over the migrated prefixes."""
+    victim = started["victim"]
+    try:
+        out = asyncio.run(asyncio.wait_for(
+            _p23_drive_reclaim(np, pkg, run, client, smi, sh, dense, started["addr"], victim,
+                               started["path"], started["survivor_argv"]),
+            timeout=sh.timeout_s))
+        victim.join(60)
+    finally:
+        p23_stop_started(started)
+    last = out["victim_last"]
+    summary = last["reclaim"]
+    assert summary.get("migrated", 0) > 0 and summary["migrated_pages"] > 0, summary
+    assert out["seeded"] == summary["migrated_pages"], (out["seeded"], summary)
+    assert out["recoveries"] == out["still"] > 0, (out["recoveries"], out["still"])
+    assert out["hits"] >= summary["migrated_pages"], (out["hits"], summary)
+    moves = last["tp_page_moves"]
+    assert moves["gather"]["pages"] >= summary["migrated_pages"], moves
+    designs = last["designs"]
+    if sh.device == "cuda":
+        assert designs["decode_split"] > 0 and out["designs"]["decode_split"] > 0, (
+            designs, out["designs"])
+    log(f"[tiers] (d) {smi}: {sh.reclaim_streams} streams of {sh.reclaim_tokens} tokens "
+        f"({sh.reclaim_prompt}-token prompts) round-robin over a tp=2 worker ({backend}) and "
+        f"a tp=1 survivor; SIGTERM to the tp=2 worker once each had "
+        f"{sh.reclaim_after_tokens} ({out['on_victim']} on it): triage "
+        f"{summary['triage_s']:.3f} s ({out['triage_wall_s']:.2f} s from the signal to its "
+        f"report), {summary['migrated']} migrated, {summary['migrated_pages']} pages (the "
+        f"survivor seeded {out['seeded']}), {summary.get('failover', 0)} journal failovers; "
+        f"the worker and its other rank SIGKILLed then with {out['still']} in flight; every "
+        f"stream finished 'length' at {sh.reclaim_tokens} tokens, recoveries "
+        f"{out['recoveries']}, the survivor's prefix hits on the continuations {out['hits']} "
+        f">= {summary['migrated_pages']}; wall {out['wall_s']:.2f} s; the tp=2 worker's rank 0 "
+        f"page moves {moves}; launches: the tp=2 worker's rank 0 {designs}, the survivor "
+        f"{out['designs']}")
+    return dict(summary=summary, seeded=out["seeded"], moves=moves, designs=designs,
+                designs_survivor=out["designs"], migration_s=summary["triage_s"],
+                recoveries=out["recoveries"], still=out["still"])
+
+
+async def _p23_drive_reclaim(np, pkg, run, client, smi, sh, mcfg, addr, victim, path,
+                             survivor_argv) -> dict:
+    from dynamo_exp_tpu_torch.runtime import DistributedRuntime
+    from dynamo_exp_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_exp_tpu_torch.telemetry import get_telemetry
+
+    tel = get_telemetry()
+    loop = asyncio.get_running_loop()
+    ready = loop.create_future()
+    survivor = asyncio.ensure_future(run.main_async(run.parse_args(survivor_argv), ready))
+    await asyncio.wait({survivor, ready}, return_when=asyncio.FIRST_COMPLETED)
+    if survivor.done():
+        survivor.result()
+    served = ready.result()
+    drt = DistributedRuntime(config=RuntimeConfig(coordinator_endpoint=addr))
+    ingress, base = await _p11_ingress(run, addr, "round-robin", P23_AGG)
+    try:
+        comp = drt.namespace(P23_NS).component("agg")
+        while ("llama-8b" not in await _p11_models(client, base)
+               or len(await drt.discovery.list_instances(comp.path)) < 2):
+            assert victim.is_alive(), f"the tp=2 worker exited with {victim.exitcode}"
+            await asyncio.sleep(0.1)
+        rs = np.random.RandomState(2323)
+        prompts = [[int(t) for t in rs.randint(3, mcfg.vocab_size - 300, size=sh.reclaim_prompt)]
+                   for _ in range(sh.reclaim_streams)]
+        url = base + "/v1/completions"
+        counts = [0] * len(prompts)
+
+        async def one(i, ids):
+            idx, finish, usage, done = [], None, None, False
+            async for f in client.sse_frames(url, _p11_body(ids, sh.reclaim_tokens, logprobs=1)):
+                assert f.event != "error", f"stream error: {f.comment}"
+                if f.data == "[DONE]":
+                    done = True
+                    break
+                usage = f.data.get("usage") or usage
+                for c in f.data["choices"]:
+                    finish = c.get("finish_reason") or finish
+                if f.data.get("seq_index") is not None:
+                    idx.append(f.data["seq_index"])
+                    counts[i] = idx[-1]
+            return dict(idx=idx, finish=finish, usage=usage, done=done)
+
+        def recoveries() -> float:
+            v = _family_values(tel.render().decode())
+            return sum(val for (n, _), val in v.items() if n == "dynamo_request_recoveries_total")
+
+        rec0 = recoveries()
+        eng = served.torch_engine
+        hits0 = eng.kv.prefix_hits["shared"]
+        reset_launches()
+        t0 = time.perf_counter()
+        tasks = [asyncio.ensure_future(one(i, p)) for i, p in enumerate(prompts)]
+        # The survivor's streams may end first (tp=1 decodes faster than
+        # tp=2 over gloo); the victim's must still run at the notice.
+        while min(counts) < sh.reclaim_after_tokens:
+            assert not all(t.done() for t in tasks), "every stream ended before the reclaim"
+            await asyncio.sleep(0.005)
+        (st,) = await _p11_states([path], [victim], time.time())
+        on_victim = st["active"]
+        assert on_victim > 0, "no stream ran on the tp=2 worker at the notice"
+        victim.terminate()  # the spot platform's reclaim notice
+        t_term = time.perf_counter()
+        while not st["reclaim"]:  # the worker's state file, written every state period
+            assert time.perf_counter() - t_term < 120, "the reclaim triage never finished"
+            await asyncio.sleep(0.02)
+            st = _p11_read(path) or st
+        triage_wall = time.perf_counter() - t_term
+        still = st["active"]
+        # The grace window ends: the worker and its other rank are killed;
+        # the streams it still served continue on the survivor from their
+        # journals, over the prefixes the triage migrated.
+        kill_tree(victim)
+        res = await asyncio.gather(*tasks)
+        wall = time.perf_counter() - t0
+        for r in res:
+            assert r["done"] and r["finish"] == "length", r
+            assert r["usage"]["completion_tokens"] == sh.reclaim_tokens, r["usage"]
+            assert all(a < b for a, b in zip(r["idx"], r["idx"][1:])), r["idx"]
+            assert r["idx"][-1] == sh.reclaim_tokens
+        designs = _p21_designs()
+        return dict(on_victim=on_victim, still=still, recoveries=int(recoveries() - rec0),
+                    seeded=served.migrate_sink.seeded_blocks, victim_last=st,
+                    hits=eng.kv.prefix_hits["shared"] - hits0, wall_s=wall,
+                    triage_wall_s=triage_wall, designs=designs)
+    finally:
+        await _p11_stop(ingress)
+        await _p11_stop(survivor)
+        await drt.close()
+
+
+def phase23(torch, np, pkg, tra, smi: str, sh: Phase23 = Phase23(), mcfg=None) -> dict:
+    """Phase 23: the KV tiers under tensor parallelism, tp=2 ranks over
+    gloo on the one card (NCCL with a card each), as phase 18 places
+    them; llama-8b's width at ``sh.layers`` of its 32 layers, random
+    weights from seed 0 (``mcfg``: the CPU rehearsal's config). (a) the
+    G2 host tier under pressure through ``run.py --tp 2
+    --host-cache-pages``: every stream completes, swaps out and in, page
+    moves equal on both ranks, a rerun's tokens and both ranks' digests
+    equal; float32 tp=2 with the tier gives tp=1's greedy tokens (up to
+    ``F32_TIE``). (b) G3 across degrees: each degree's store read by a
+    restarted engine of the other gives persist prefix hits and the
+    writer's tokens. (c) disaggregation from a tp=1 prefill worker into
+    a tp=2 decode worker over the real wire, and a suffix-only transfer
+    through ``pin_prefix``. (d) SIGTERM to a tp=2 worker migrates its
+    streams to a tp=1 survivor. No fallback: a page move that fails or a
+    rank that dies fails the phase."""
+    import tempfile
+    from dataclasses import replace
+
+    from dynamo_exp_tpu_torch import run
+    from dynamo_exp_tpu_torch.http import client
+
+    t_phase = time.perf_counter()
+    free(torch, sh.device)
+    cards, backend = p18_placement(torch, sh.device)
+    dense = mcfg or replace(pkg.models.LLAMA_8B, num_layers=sh.layers)
+    f32 = replace(dense, dtype="float32")
+    log(f"[tiers] {smi}: tp={TP_DEGREE} over {cards} card(s), backend {backend}; "
+        f"{dense.num_layers} layers at width {dense.hidden_size}")
+    out: dict = {"backend": backend}
+    started: dict = {}  # (c)'s and (d)'s processes, started early
+    try:
+        with tempfile.TemporaryDirectory(prefix="smoke23_") as tmp:
+            dirs = {}
+            for name, cfg in (("dense", dense), ("f32", f32)):
+                path = os.path.join(tmp, name)
+                os.makedirs(path)
+                with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+                    json.dump(hf_config(cfg), f)
+                assert pkg.models.ModelConfig.from_pretrained(path) == cfg
+                dirs[name] = ["--model-path", path]
+            stores = {k: os.path.join(tmp, f"g3_{k}") for k in ("tp1", "tp2")}
+
+            def early():
+                # As soon as the tp=1 store is sealed: (b)'s tp=2 reader,
+                # (c)'s other decode rank and (d)'s worker start beside
+                # (a)'s runs (each process takes seconds to start).
+                started["reader"] = p23_reader_start(np, sh, f32, backend, tmp, dirs, stores)
+                p23_reclaim_start(sh, dense, backend, tmp, started)
+                started["spawned"] = p23_disagg_spawn(np, run, sh, f32, backend, tmp, dirs)
+                started["ranks"] = started["spawned"]["early"][1]
+
+            t0 = time.perf_counter()
+            out["a"] = p23_pressure(torch, np, pkg, smi, sh, dense, f32, backend, tmp, dirs,
+                                    stores, then=early)
+            out["a_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["b"] = p23_stores(torch, pkg, smi, sh, f32, stores, out["a"],
+                                  started.pop("reader"))
+            for k in ("ref", "rf", "prompts_f", "model_f"):
+                out["a"].pop(k)
+            free(torch, sh.device)
+            out["b_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["c"] = p23_disagg(torch, np, pkg, run, smi, sh, f32, started.pop("spawned"))
+            free(torch, sh.device)
+            out["c_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["d"] = p23_reclaim(np, pkg, run, client, smi, sh, dense, backend, started)
+            free(torch, sh.device)
+            out["d_s"] = time.perf_counter() - t0
+    finally:
+        for proc in started.pop("ranks", []):
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+        p23_stop_started(started)
+        for proc in P18_PROCS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=60)
+        P18_PROCS.clear()
+    out["wall_s"] = time.perf_counter() - t_phase
+    # Launches by kernel: rank 0 of each tp=2 run (every rank's equal);
+    # (a) the bf16 run, (b) the tp=2 reader, (c) each tp=2 decode rank,
+    # (d) the tp=2 worker's rank 0.
+    out["designs_a"], out["designs_b"] = out["a"]["designs"], out["b"]["designs"]
+    out["designs_c"], out["designs_d"] = out["c"]["designs"], out["d"]["designs"]
+    log(f"[phase23] {smi}: (a) {out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) "
+        f"{out['c_s']:.1f} s, (d) {out['d_s']:.1f} s; launches by kernel (a) "
+        f"{out['designs_a']}, (b) {out['designs_b']}, (c) {out['designs_c']}, (d) "
+        f"{out['designs_d']}")
+    log(json.dumps({"phase23": {
+        "gather_gbps": out["a"]["gather_gbps"], "scatter_gbps": out["a"]["scatter_gbps"],
+        "swap_s_tp2": out["a"]["swap_s_tp2"], "swap_s_tp1": out["a"]["swap_s_tp1"],
+        "wire_gbps": out["c"]["wire_gbps"], "migration_s": out["d"]["migration_s"],
+        "tiers": out["a"]["tiers"], "persist_hits": out["b"]["hits"],
+        "skipped": out["c"]["skipped"], "migrated_pages": out["d"]["summary"]["migrated_pages"],
+        "a_s": out["a_s"], "b_s": out["b_s"], "c_s": out["c_s"], "d_s": out["d_s"],
+        "wall_s": out["wall_s"]}}, default=str))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -10271,6 +11028,8 @@ def main() -> int:
     log(f"[phase21] in {p21['wall_s']:.1f} s")
     p22 = phase22(torch, np, pkg, tra, smi)
     log(f"[phase22] in {p22['wall_s']:.1f} s")
+    p23 = phase23(torch, np, pkg, tra, smi)
+    log(f"[phase23] in {p23['wall_s']:.1f} s")
     log(f"[smoke] {smi}: total {time.perf_counter() - t_start:.1f} s")
 
     replaces = "dynamo_exp_tpu/ops/ragged_attention.py:123"
@@ -10341,6 +11100,14 @@ def main() -> int:
             "launches_sync_warn": p22["designs_a"][design],
             "launches_multimodal": p22["designs_b"][design],
             "launches_ring_reference": p22["designs_c"][design],
+            # Phase 23, the KV tiers at tp=2 (rank 0's; every rank's are
+            # equal): (a) G2 under pressure, (b) the tp=2 reader of a
+            # tp=1 G3 store, (c) each decode rank fed by a tp=1 prefill
+            # worker, (d) each rank of the SIGTERMed tp=2 worker.
+            "launches_tp2_g2": p23["designs_a"][design],
+            "launches_tp2_g3": p23["designs_b"][design],
+            "launches_tp2_disagg_decode": p23["designs_c"][design],
+            "launches_tp2_reclaim": p23["designs_d"][design],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

@@ -7,7 +7,8 @@ prefill queue's depth and the live :class:`DisaggConfig`; on remote it
 pins the resident prefix (the suffix-only transfer's ``skip_blocks``),
 queues a :class:`RemotePrefillRequest` and hands the engine the pages
 that arrive (``generate(..., remote_kv=)``), after checking their count
-and shape. Any transfer problem falls back to local prefill, and a
+and shape (the whole page: every kv head, at any tp degree of either
+side). Any transfer problem falls back to local prefill, and a
 circuit breaker sends every request local while the prefill fleet is
 down: disaggregation is an optimisation, never a correctness
 dependency.

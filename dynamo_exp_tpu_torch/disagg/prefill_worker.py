@@ -5,7 +5,8 @@ Counterpart of ``dynamo_exp_tpu/disagg/prefill_worker.py`` around a
 whose deadline passed at pull (``prefill_queue`` stage), refuses a page
 size or KV layout that differs from its engine's with a failure notice
 on the wire, runs ``prefill_extract`` (the prompt's pages pinned under a
-handoff lease) and ships them with ``send_kv_pages``; the transfer's
+handoff lease; whole pages at any tp degree, rank 0 gathering the
+ranks' heads) and ships them with ``send_kv_pages``; the transfer's
 final ack confirms the lease. A delivery that fails leaves the lease to
 the engine's reaper. On cancellation the worker finishes the request it
 already pulled, then stops pulling.

@@ -15,7 +15,11 @@ the dtype name: float32 as its words, bfloat16 (which numpy has no type
 for) as its raw 16-bit words under the name ``"bfloat16"``, decoded back
 with ``torch.frombuffer`` as bfloat16. A frame is byte-equal to the JAX
 plane's in both directions, and each page carries a CRC32 over its K
-then V bytes (``sums``), verified on receipt.
+then V bytes (``sums``), verified on receipt. A page is the whole page
+at any tensor-parallel degree (every rank's heads, in rank order: the
+engine gathers them to rank 0 before a send and scatters them after a
+receive), so a prefill worker of one degree serves a decode worker of
+another and the frames never carry the degree.
 """
 
 from __future__ import annotations

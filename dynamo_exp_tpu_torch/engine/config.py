@@ -20,9 +20,10 @@ from ..models.llama import check_tp
 ATTENTION_IMPLS = ("auto", "kernel", "reference")
 
 # What tensor parallelism (tp > 1) does not serve yet, by the ROADMAP
-# item that brings it (Queue 1 item 7's follow-ups).
+# item that brings it (Queue 1 item 7's follow-ups). The KV tiers,
+# disaggregation, leases and reclaim are served at any tp: a page off
+# the card is the whole page (``engine/tp.py``'s page moves).
 TP_LATER = {
-    "tiers": "ROADMAP Queue 1 item 7(a)",  # G2/G3, disaggregation, leases, reclaim
     "graphs": "ROADMAP Queue 1 item 7(b)",  # CUDA graphs, --prewarm
 }
 # The engine's sequence-parallel degree stays 1: the JAX engine lays its
@@ -221,13 +222,8 @@ class EngineConfig:
         check_tp(self.model, self.tp)
         if self.sp != 1:
             raise NotImplementedError(f"sp={self.sp}: {SP_ONLY_ONE}")
-        if self.tp > 1:
-            if self.host_cache_pages > 0:
-                raise refuse_under_tp("the G2 host tier (host_cache_pages > 0)", "tiers")
-            if self.kv_store_dir:
-                raise refuse_under_tp("the G3 store (kv_store_dir)", "tiers")
-            if self.cuda_graphs:
-                raise refuse_under_tp("cuda_graphs=True", "graphs")
+        if self.tp > 1 and self.cuda_graphs:
+            raise refuse_under_tp("cuda_graphs=True", "graphs")
         if self.kv_store_dir and self.kv_store_pages <= 0:
             raise ValueError(
                 f"kv_store_dir={self.kv_store_dir!r} needs "

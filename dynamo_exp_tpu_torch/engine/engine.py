@@ -197,7 +197,7 @@ from ..telemetry.anatomy import COMPONENTS, AnatomyRing, anatomy_from_timing
 from ..telemetry.fingerprint import FingerprintBuilder, WorkloadDriftWatch, load_fingerprint
 from ..telemetry.flight import default_dump_path
 from ..tokens import compute_block_hashes_for_seq
-from .config import EngineConfig, refuse_under_tp
+from .config import EngineConfig
 from .graphs import DispatchGraphs, pack_layout, views
 from .kv_manager import KvEvent, KvPageManager
 from .offload import CopyStream, HostKvPool, pinned_empty
@@ -330,15 +330,21 @@ class TorchEngine(AsyncEngine):
         # Rank 0 of tp > 1 drives the other ranks (None otherwise).
         self._tp = TpDriver(comm) if comm is not None and rank == 0 else None
         self.tp_reports: list[dict] | None = None  # every rank's, after stop()
+        # KV page moves between the ranks' shards and whole pages (tp > 1,
+        # every rank): calls and pages by direction, held equal at stop.
+        self.page_moves = {d: {"calls": 0, "pages": 0} for d in ("gather", "scatter")}
         # G2 host tier: the pool lives here; the CopyStream (a thread and
         # two side streams) is made by start() and torn down by stop().
+        # Under tp > 1 rank 0 alone holds the tiers, in whole pages (every
+        # rank's heads): the other ranks own no page, they move their
+        # head slices when rank 0 moves a page (``_gather_page_batch``).
         self.host_pool: HostKvPool | None = None
         self.copy_stream: CopyStream | None = None
         # Evictions buffered until the next compute dispatch, then
         # gathered as one batch: (page_id, seq_hash).
         self._pending_offloads: list[tuple[int, int]] = []
         on_evict = None
-        if cfg.host_cache_pages > 0:
+        if cfg.host_cache_pages > 0 and rank == 0:
             self.host_pool = HostKvPool(
                 cfg.host_cache_pages,
                 (mcfg.num_layers, cfg.page_size, mcfg.num_kv_heads * mcfg.head_dim_),
@@ -354,7 +360,7 @@ class TorchEngine(AsyncEngine):
         # restarted process re-attaches the prefixes that survived.
         self.g3_store: PersistentKvStore | None = None
         self.g3_boot_seconds = 0.0
-        if cfg.kv_store_dir:
+        if cfg.kv_store_dir and rank == 0:
             if self.host_pool is None:
                 log.warning("kv_store_dir=%r ignored: the G3 tier rides the G2 host pool's "
                             "eviction path (set host_cache_pages > 0)", cfg.kv_store_dir)
@@ -554,6 +560,18 @@ class TorchEngine(AsyncEngine):
                 self.g3_store.store(h, k_page, v_page)
             self.g3_store.seal()
 
+    def rank_reports(self) -> list[dict]:
+        """Every tp rank's report so far, in rank order (``engine/tp.py``:
+        its outputs' digest, kernel launches, page moves, collectives);
+        the ranks go on. Rank 0 of tp > 1 only, with the loop paused
+        (:meth:`hold_admission`): a command is sent from one thread at a
+        time."""
+        if self._tp is None:
+            raise RuntimeError("rank_reports() is rank 0's of an engine at tp > 1")
+        if self._thread is not None:
+            raise RuntimeError("rank_reports() needs the loop paused (hold_admission)")
+        return self._tp.reports(self)
+
     def _halt(self) -> None:
         """Stop the loop thread and the copy stream (``hold_admission``
         pauses through this, without the G3 drain)."""
@@ -704,8 +722,6 @@ class TorchEngine(AsyncEngine):
         :meth:`start` together, so the schedule (and every dispatch
         shape) of such a set does not depend on thread timing. Call
         from a running asyncio loop: the stream is fed through it."""
-        if remote_kv is not None and self.cfg.tp > 1:
-            raise refuse_under_tp("disaggregation (a remote prefill's KV)", "tiers")
         ctx = context or AsyncEngineContext()
         binput = (
             request.copy()
@@ -776,8 +792,6 @@ class TorchEngine(AsyncEngine):
         prefix) are neither gathered nor shipped; the whole prompt is
         still prefilled here. The shipped device pages stay pinned under
         the lease until :meth:`confirm_kv_lease` or the reaper."""
-        if self.cfg.tp > 1:
-            raise refuse_under_tp("disaggregation (prefill_extract)", "tiers")
         ctx = context or AsyncEngineContext()
         binput = (
             request.copy() if isinstance(request, BackendInput)
@@ -831,9 +845,10 @@ class TorchEngine(AsyncEngine):
         lease until admission re-references them (the suffix-only
         transfer's ``skip_blocks``; released at inject, the reaper the
         backstop). ``(0, None)`` when the loop is not running, sharing
-        is off, or nothing is resident."""
-        if self.cfg.tp > 1:
-            raise refuse_under_tp("KV leases (pin_prefix)", "tiers")
+        is off, or nothing is resident. Under tp > 1 a pin is rank 0's
+        alone: only its page manager holds references, and its
+        dispatches carry the page tables the other ranks attend
+        through, so no rank takes a device step for it."""
         if not self._running or not self.kv.sharing:
             # A prefix_sharing=False engine never re-attaches at
             # admission, so a skip would discard the whole transfer.
@@ -849,12 +864,12 @@ class TorchEngine(AsyncEngine):
 
     def kv_page_nbytes(self) -> int:
         """Host bytes one KV page occupies on the wire (K and V, all
-        layers): the triage planner's cost unit. Under tp > 1, one
-        rank's share (its Hkv/tp heads)."""
+        layers): the triage planner's cost unit. The whole page, every
+        rank's heads, at any tp: the host tier, the G3 store and the
+        wire hold whole pages (a rank's pools hold its Hkv/tp heads)."""
         m = self.cfg.model
         itemsize = 2 if self.cfg.kv_dtype == "bfloat16" else 4
-        hkv = m.num_kv_heads // self.cfg.tp
-        return 2 * m.num_layers * self.cfg.page_size * hkv * m.head_dim_ * itemsize
+        return 2 * m.num_layers * self.cfg.page_size * m.num_kv_heads * m.head_dim_ * itemsize
 
     # --------------------------------------------------- spot-reclaim plane
     async def reclaim_inflight(self) -> list[dict]:
@@ -878,8 +893,6 @@ class TorchEngine(AsyncEngine):
         return await self._reclaim_call("seed", (hashes, pages), default=0)
 
     async def _reclaim_call(self, op: str, payload, default):
-        if self.cfg.tp > 1:
-            raise refuse_under_tp("spot reclaim's live migration", "tiers")
         if not self._running:
             return default
         loop = asyncio.get_running_loop()
@@ -951,6 +964,8 @@ class TorchEngine(AsyncEngine):
             m["dispatch"] = self.profiler.summary()
         m["decode_window"] = self.cfg.decode_window
         m["tp"] = self.cfg.tp
+        if self.comm is not None:  # this rank's page moves (tp > 1)
+            m["tp_page_moves"] = {k: dict(v) for k, v in self.page_moves.items()}
         # This process's device-kernel launches by group and kernel
         # (ops/launches.py): a worker's stats show what it ran.
         m["kernel_launches"] = {g: dict(c) for g, c in launches.COUNTERS.items()}
@@ -1701,16 +1716,17 @@ class TorchEngine(AsyncEngine):
         on the compute stream, the event recorded after it (CUDA), which
         the copy stream waits on, and the profiler's dispatch stamp
         (consumed once the batch is on the host). ``kind``: ``offload``
-        (host tier) or ``kv_move`` (an extract for the wire)."""
+        (host tier) or ``kv_move`` (an extract for the wire). Under
+        tp > 1 the batches hold whole pages, every rank's heads in rank
+        order (``pages_out``, ``engine/tp.py``), on the host (no event:
+        already landed)."""
         prof = self.profiler
         t0 = prof.begin(kind) if prof is not None else 0.0
-        (idx,) = self._upload(np.asarray(pids, np.int64))
-        k_b = self.k_cache.index_select(1, idx)
-        v_b = self.v_cache.index_select(1, idx)
-        if page_major:
-            k_b, v_b = k_b.transpose(0, 1).contiguous(), v_b.transpose(0, 1).contiguous()
+        if self._tp is not None:
+            self._tp.send("pages_out", page_major, {"pids": np.asarray(pids, np.int64)})
+        k_b, v_b = self._gather_pages(pids, page_major)
         ready = None
-        if self.device.type == "cuda":
+        if k_b.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record()
         t_disp = prof.end(kind, t0) if prof is not None else 0.0
@@ -1720,36 +1736,84 @@ class TorchEngine(AsyncEngine):
 
     def _inject_page_batch(self, pids: list[int], k_host: torch.Tensor, v_host: torch.Tensor,
                            op: str):
-        """Inject host batches ``[L, n, ps, Hkv*D]`` into device pages
-        ``pids``: host -> device on the copy stream's side stream, then a
-        scatter on the compute stream after it, ahead of every later
-        forward. Buffered evictions are gathered first, so a page being
-        overwritten reached the host tier's gather before this lands.
-        No sync follows a scatter, so the profiler sees its dispatch
-        only. ``op`` labels the page-move counter (upload, prefetch,
-        swap_in)."""
+        """Inject host batches ``[L, n, ps, Hkv*D]`` (whole pages) into
+        device pages ``pids``: host -> device on the copy stream's side
+        stream, then a scatter on the compute stream after it, ahead of
+        every later forward; under tp > 1 each rank's head slice to that
+        rank (``pages_in``, ``engine/tp.py``). Buffered evictions are
+        gathered first, so a page being overwritten reached the host
+        tier's gather before this lands. No sync follows a scatter, so
+        the profiler sees its dispatch only. ``op`` labels the page-move
+        counter (upload, prefetch, swap_in)."""
         self._flush_offloads()
         prof = self.profiler
         t0 = prof.begin("kv_move") if prof is not None else 0.0
-        k_dev, v_dev = self._moves().upload(k_host, v_host)
-        (idx,) = self._upload(np.asarray(pids, np.int64))
-        self.k_cache.index_copy_(1, idx, k_dev)
-        self.v_cache.index_copy_(1, idx, v_dev)
+        if self._tp is not None:
+            self._tp.send("pages_in", None, {"pids": np.asarray(pids, np.int64)})
+        self._scatter_pages(pids, k_host, v_host)
         if prof is not None:
             prof.end("kv_move", t0)
         if self.flight is not None:
             self.flight.record("dispatch", dispatch="kv_move", op=op, pages=len(pids))
         get_telemetry().kv_page_moves.labels(op).inc(len(pids))
 
+    def _gather_pages(self, pids, page_major: bool = False) -> tuple:
+        """``pids``' K and V on this rank's card, one contiguous batch
+        each; under tp > 1 (every rank, rank 0 driving) every rank's
+        head slice gathered to rank 0 as whole host pages (the heads'
+        axis is the last, in rank order), None on the others."""
+        (idx,) = self._upload(np.asarray(pids, np.int64))
+        k_b = self.k_cache.index_select(1, idx)
+        v_b = self.v_cache.index_select(1, idx)
+        if page_major:
+            k_b, v_b = k_b.transpose(0, 1).contiguous(), v_b.transpose(0, 1).contiguous()
+        if self.comm is None:
+            return k_b, v_b
+        self._count_move("gather", len(pids))
+        kv = self.comm.gather(torch.stack([k_b, v_b]), dim=-1)
+        return (None, None) if kv is None else (kv[0], kv[1])
+
+    def _scatter_pages(self, pids, k_host=None, v_host=None) -> None:
+        """Write whole host pages ``[L, n, ps, Hkv*D]`` into ``pids``;
+        under tp > 1 (every rank, rank 0 driving) rank 0's pages are
+        scattered by head slice on the host and each rank uploads and
+        writes its own (the others pass no pages)."""
+        comm = self.comm
+        if comm is None:
+            k_dev, v_dev = self._moves().upload(k_host, v_host)
+        else:
+            self._count_move("scatter", len(pids))
+            m = self.cfg.model
+            shape = (2, m.num_layers, len(pids), self.cfg.page_size,
+                     m.num_kv_heads // comm.world * m.head_dim_)
+            parts = None
+            if comm.rank == 0:
+                parts = list(torch.stack([k_host, v_host]).chunk(comm.world, dim=-1))
+            mine = comm.scatter(parts, shape, self.cfg.kv_torch_dtype)
+            if comm.rank == 0:
+                k_dev, v_dev = self._moves().upload(mine[0], mine[1])
+            else:
+                k_dev, v_dev = mine.to(self.device)
+        (idx,) = self._upload(np.asarray(pids, np.int64))
+        self.k_cache.index_copy_(1, idx, k_dev)
+        self.v_cache.index_copy_(1, idx, v_dev)
+
+    def _count_move(self, direction: str, pages: int) -> None:
+        moves = self.page_moves[direction]
+        moves["calls"] += 1
+        moves["pages"] += pages
+
     def _flush_offloads(self) -> None:
         """Gather every eviction buffered since the last dispatch and
         hand the batch to the copy stream. Runs right before anything
         that could overwrite the evicted pages (forwards, injects) and on
-        the idle path: the gather then reads the old content."""
+        the idle path: the gather then reads the old content. After a
+        crash under tp > 1 the batch is dropped: no collective is safe
+        then."""
         if not self._pending_offloads:
             return
         moved, self._pending_offloads = self._pending_offloads, []  # dynlint: thread-ownership(loop thread joined before teardown flush)
-        if self.copy_stream is None:
+        if self.copy_stream is None or (self._tp is not None and self._crashed):
             return
         k_b, v_b, ready, t_disp = self._gather_page_batch([pid for pid, _ in moved])
         on_stored = None
@@ -2043,7 +2107,7 @@ class TorchEngine(AsyncEngine):
         return min(max(0, (seq.pos - 1) // self.cfg.page_size), len(seq.page_ids))
 
     def _reclaim_snapshot(self) -> list[dict]:
-        nb = self.kv_page_nbytes()
+        nb = self.kv_page_nbytes()  # the whole page: what a migration ships
         out = []
         for seq in self.sched.slots:
             if not self._migratable(seq):

@@ -34,6 +34,14 @@ device:
 - The G2 -> G3 write-through: :attr:`HostKvPool.on_demote` receives a
   copy of each LRU-evicted page before its slot is overwritten.
 
+Under tensor parallelism (``tp > 1``) the pool and the stream live on
+rank 0 alone and hold whole pages, every rank's heads in rank order,
+as the JAX engine's host tier holds its sharded pool's pages: the same
+bytes as at tp = 1. The engine gathers the ranks' head slices into
+whole pages before an offload and scatters them at an inject
+(``engine/engine.py``); over gloo the gathered batch is already on the
+host, and the offload's device -> host leg is then no copy at all.
+
 On the CPU the same calls run without streams or events.
 """
 
@@ -344,8 +352,9 @@ class CopyStream:
         docstring): pinned host tensors and the copy's (start, end)
         events, or on the CPU the tensors themselves and None. The
         caller waits on ``end`` before it reads the host tensors, and
-        keeps the device batch referenced until then."""
-        if self.d2h is None:
+        keeps the device batch referenced until then. A batch that is
+        already on the host (tp > 1 over gloo) is returned as it is."""
+        if self.d2h is None or k_dev.device.type == "cpu":
             return k_dev, v_dev, None
         k_h = pinned_empty(k_dev.shape, k_dev.dtype, self.device)
         v_h = pinned_empty(v_dev.shape, v_dev.dtype, self.device)

@@ -14,7 +14,9 @@ holds them to the JAX ones), without the G3 persistent tier:
   of preempting it; :func:`plan_swap_entries` classifies the pages and
   :class:`SwapRecord` is the row's page-table ledger until swap-in.
 
-Pure host bookkeeping, owned by the engine loop thread.
+Pure host bookkeeping, owned by the engine loop thread (rank 0's under
+tensor parallelism: the other ranks move their head slices of the pages
+it plans, ``engine/tp.py``).
 """
 
 from __future__ import annotations

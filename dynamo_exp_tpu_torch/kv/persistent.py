@@ -39,7 +39,10 @@ On-disk format: byte for byte the JAX store's (header, meta JSON with
 the dtype's numpy name -- ``bfloat16`` for bf16 -- and the page shape,
 raw K then V bytes, the same manifest lines), so either package adopts
 the other's directory. Pages come in and go out as CPU torch tensors
-(the G2 host pool's); numpy arrays are accepted too.
+(the G2 host pool's); numpy arrays are accepted too. A page is the
+whole page at any tensor-parallel degree (the host pool is rank 0's and
+holds every rank's heads), so a store written at one degree is adopted
+at another.
 
 Thread-safety mirrors :class:`~dynamo_exp_tpu_torch.engine.offload.HostKvPool`:
 written by the copy thread (demotions) and the engine loop (admission

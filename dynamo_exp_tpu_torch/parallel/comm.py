@@ -13,6 +13,14 @@ itself, through one :class:`Comm` per process:
 - :meth:`Comm.broadcast` of rank 0's dispatch commands to the other
   ranks (``engine/tp.py``) and :meth:`Comm.all_gather_object` of their
   reports;
+- :meth:`Comm.gather` and :meth:`Comm.scatter` to and from rank 0: the
+  KV page moves of the tiers (``engine/engine.py``). Rank 0 assembles
+  whole pages out of every rank's head slice, and hands each rank its
+  slice of a whole page, so a page off the card (host tier, G3 file,
+  wire) is the tp=1 page. Every such page starts or ends on the host,
+  so they move host tensors over the commands' gloo group on every
+  backend. An ``all_gather`` would land every page on every rank,
+  ``tp`` times the bytes;
 - :meth:`Ring.rotate`, the point-to-point step of ring attention
   (``ops/ring_attention.py``, where JAX's ``ppermute`` passes K/V
   blocks around the ``sp`` axis): each sp rank sends to the next and
@@ -27,13 +35,15 @@ ranks on one device) or run on the CPU. ``nccl`` with two ranks on one
 card raises before any process group is made. Gloo with CUDA tensors
 stages through pinned host buffers: each collective synchronises the
 stream, copies the tensor into a pinned buffer, runs the gloo
-collective on the host and copies the result back. Commands always
-travel over a gloo group (NCCL moves device memory only).
+collective on the host and copies the result back. Commands and page
+moves always travel over a gloo group (NCCL moves device memory only).
 
 Every collective is counted by name in ``calls`` and timed in
-``seconds``: on gloo, host time from the synchronise to the result
+``seconds`` (the page moves also in ``bytes``: the whole batch each
+call moves): on gloo, host time from the synchronise to the result
 queued back on the stream; on NCCL, device time between CUDA events
 recorded around the call (read when :meth:`Comm.stats` is called).
+The page moves and the commands take host time on every backend.
 Every wait has the group's timeout (``DIST_TIMEOUT_S``): a rank that
 died ends its peers' collectives with an error, not a hang.
 """
@@ -85,8 +95,10 @@ class Comm:
         self.ctrl_group = ctrl_group  # None: the default group (gloo)
         self.group = group  # the tensors' group; None: the default group
         self.staged = backend == "gloo" and self.device.type == "cuda"
-        self.calls: dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+        self.calls: dict[str, int] = dict.fromkeys(
+            ("all_reduce", "all_gather", "broadcast", "page_gather", "page_scatter"), 0)
         self.seconds: dict[str, float] = dict.fromkeys(self.calls, 0.0)
+        self.bytes: dict[str, int] = {"page_gather": 0, "page_scatter": 0}
         self._pinned: dict[torch.dtype, torch.Tensor] = {}
         self._events: deque = deque()  # NCCL: (name, start, end) not yet folded
 
@@ -184,6 +196,40 @@ class Comm:
         self._end("all_gather", t0)
         return out
 
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor | None:
+        """Every rank's ``x`` (one shape on every rank) concatenated
+        along ``dim`` in rank order, a host tensor on rank 0; None on the
+        others. A CUDA ``x`` is copied to the host first (the stream
+        synchronised); the parts move over the commands' gloo group."""
+        t0 = self._host_begin(x.device)
+        src = x.contiguous().cpu()
+        parts = [torch.empty_like(src) for _ in range(self.world)] if self.rank == 0 else None
+        dist.gather(src, gather_list=parts, dst=0, group=self.ctrl_group)
+        out = torch.cat(parts, dim) if parts is not None else None
+        self._host_end("page_gather", t0, src.numel() * src.element_size() * self.world)
+        return out
+
+    def scatter(self, parts: list | None, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """Rank 0's host tensor ``parts[r]`` on rank r, on the host (the
+        others pass None); every part has ``shape`` and ``dtype``. The
+        parts move over the commands' gloo group."""
+        t0 = self._host_begin(None)
+        out = torch.empty(shape, dtype=dtype)
+        send = [p.contiguous() for p in parts] if self.rank == 0 else None
+        dist.scatter(out, scatter_list=send, src=0, group=self.ctrl_group)
+        self._host_end("page_scatter", t0, out.numel() * out.element_size() * self.world)
+        return out
+
+    def _host_begin(self, device) -> float:
+        if device is not None and device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        return time.perf_counter()
+
+    def _host_end(self, name: str, t0: float, nbytes: int) -> None:
+        self.calls[name] += 1
+        self.seconds[name] += time.perf_counter() - t0
+        self.bytes[name] += nbytes
+
     # ------------------------------------------------------------- objects
     def broadcast(self, obj=None):
         """Rank 0's ``obj`` on every rank (the others pass None)."""
@@ -200,11 +246,12 @@ class Comm:
         return out
 
     def stats(self) -> dict:
-        """Calls and seconds by collective, with the backend and device."""
+        """Calls and seconds by collective (bytes of the page moves),
+        with the backend and device."""
         self._fold()
         return {"backend": self.backend, "rank": self.rank, "world": self.world,
                 "device": str(self.device), "calls": dict(self.calls),
-                "seconds": dict(self.seconds)}
+                "seconds": dict(self.seconds), "bytes": dict(self.bytes)}
 
 
 class Ring:

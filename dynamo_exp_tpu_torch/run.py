@@ -80,11 +80,15 @@ OUTPUT: cuda | echo_core | echo_full | dyn://ns.comp.ep
   the leader's ``TCPStore``: ``--dist-leader host:port``, or node 0
   publishes ``<its address>:--dist-port`` through ``--coordinator``
   under ``--deployment``'s key and the others read it there
-  (``parallel/multihost.py``). Under ``--tp`` > 1 the G2/G3 tiers, the
-  warm boot and CUDA graphs are refused with their ROADMAP items; a
-  ``dyn://`` worker serves without live migration. At exit rank 0
-  prints one JSON line ``{"tp": ...}``: the backend, and each rank's
-  device, dispatches, launch counters, peak memory and collectives.
+  (``parallel/multihost.py``). Under ``--tp`` > 1 ``--host-cache-pages``,
+  ``DYN_KV_STORE`` and a ``dyn://`` worker's live migration on SIGTERM
+  are served as at tp = 1 (rank 0 holds the tiers in whole pages; the
+  ranks move their head slices with it); the warm boot and CUDA graphs
+  are refused with their ROADMAP item. At exit rank 0 prints one JSON
+  line ``{"tp": ...}``: the backend, rank 0's tier counters (swaps,
+  preemptions, prefix hits by tier), and each rank's device,
+  dispatches, page moves, launch counters, peak memory and
+  collectives.
 - ``--max-inflight`` / ``--shed-watermark`` (admission control at the
   HTTP edge: 429 / 503 with ``Retry-After``), ``--slo-ttft-ms`` /
   ``--slo-itl-ms`` (SLO attribution on ``/metrics``) and
@@ -241,8 +245,6 @@ def parse_args(argv: list[str]):
         for flag, on, item in (
             ("--prewarm", opts.prewarm, "graphs"),
             ("--compile-cache-dir", bool(opts.compile_cache_dir), "graphs"),
-            ("--host-cache-pages", opts.host_cache_pages > 0, "tiers"),
-            ("DYN_KV_STORE", bool(opts.engine_env.get("kv_store_dir")), "tiers"),
         ):
             if on:
                 raise SystemExit(f"{flag} is not served under --tp > 1 yet; see "
@@ -574,14 +576,10 @@ async def run_worker(opts, drt, core, torch_engine, mdc, ready: asyncio.Future |
     topo = TopologyCoordinate.from_env()
     metadata: dict = {"instance": get_telemetry().instance, TOPOLOGY_KEY: topo.encode()}
     migrate_rx = migrate_sink = None
-    # Live migration moves a rank's pages; under --tp > 1 SIGTERM drains
-    # without it (ROADMAP Queue 1 item 7(a)).
-    reclaimable = torch_engine is not None and torch_engine.cfg.tp == 1
-    if torch_engine is not None and not reclaimable:
-        from .engine.config import TP_LATER
-
-        logger.warning("--tp %d: no live migration on SIGTERM, only the drain (%s)",
-                       torch_engine.cfg.tp, TP_LATER["tiers"])
+    # Live migration ships whole pages at any --tp: rank 0 gathers the
+    # ranks' head slices of a migrating stream's pages, and seeds a
+    # migration it receives by scattering them (engine/tp.py).
+    reclaimable = torch_engine is not None
     if reclaimable and torch_engine.kv.sharing:
         from .disagg.transfer import KvPageReceiver
 
@@ -976,15 +974,21 @@ async def start_ranks(opts, drt, early: tuple | None = None) -> Ranks:
     return Ranks(joined.result(), layout, procs)
 
 
-def tp_summary(ranks: Ranks, reports: list[dict]) -> dict:
-    """The ``{"tp": ...}`` line: the backend, the node's cards and each
+TIER_METRICS = ("swapped_out", "swapped_in", "preempted", "prefetched_pages",
+                "kv_prefix_hits", "kv_extract_pages", "kv_inject_pages", "host_cache_stores",
+                "kv_store_demotes", "kv_store_adopted")
+
+
+def tp_summary(ranks: Ranks, reports: list[dict], tiers: dict | None = None) -> dict:
+    """The ``{"tp": ...}`` line: the backend, the node's cards, rank 0's
+    tier counters (``tiers``: the engine's ``TIER_METRICS``) and each
     rank's report (``engine/tp.py``)."""
     import torch
 
     cards = torch.cuda.device_count() if ranks.comm.device.type == "cuda" else 0
     return {"tp": ranks.comm.world, "backend": ranks.comm.backend, "cards": cards,
             "timeline": {k: round(v, 3) for k, v in ranks.timeline.items()},
-            "started_at": ranks.started_at,
+            "started_at": ranks.started_at, "tiers": tiers or {},
             "ranks": reports}
 
 
@@ -1081,7 +1085,9 @@ async def main_async(opts, ready: asyncio.Future | None = None,
                 ranks.close()
                 ranks.timeline["closed_s"] = time.monotonic() - t_main
         if torch_engine is not None and torch_engine.tp_reports is not None:
-            print(json.dumps(tp_summary(ranks, torch_engine.tp_reports)), flush=True)
+            m = torch_engine.metrics()
+            tiers = {k: m[k] for k in TIER_METRICS if k in m}
+            print(json.dumps(tp_summary(ranks, torch_engine.tp_reports, tiers)), flush=True)
         t0 = time.monotonic()
         try:
             await asyncio.wait_for(drt.close(), 15)

@@ -27,6 +27,11 @@ triage over in-flight sequences:
 
 A missed deadline degrades to journal failover: never a hang, never a
 lost or duplicated token.
+
+A tensor-parallel engine migrates as a tp=1 engine does: the pages it
+ships and seeds are whole (rank 0 gathers and scatters the ranks' head
+slices), and ``kv_page_nbytes()``, the triage's cost of a page, is the
+whole page's bytes, which is what crosses the wire.
 """
 
 from __future__ import annotations

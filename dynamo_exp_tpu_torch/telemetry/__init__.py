@@ -9,6 +9,13 @@ flight dump, or the engine's own stamps); ``fingerprint.py`` summarizes
 a workload into a digest and scores its drift; ``timeline.py`` reads
 span files back into traces; ``bench_compare.py`` compares two bench
 captures.
+
+Under tensor parallelism the families (the JAX package's) are rank 0's,
+which serves: its KV transfers, page moves by op and tier hits. Each
+rank counts its own page moves (``TorchEngine.metrics()["tp_page_moves"]``)
+and its page collectives' calls, bytes and seconds (``Comm.stats()``);
+rank 0 gathers them by rank at stop (``engine/tp.py``'s reports, the
+``{"tp": ...}`` line of ``run.py``).
 """
 
 from .anatomy import (

@@ -187,15 +187,31 @@ def test_tp_and_multinode_flags_parse_as_the_jax_cli(argv):
     [
         (["--prewarm"], "item 7(b)"),
         (["--compile-cache-dir", "/tmp/x"], "item 7(b)"),
-        (["--host-cache-pages", "64"], "item 7(a)"),
         (["--sp", "2"], "forward_ring_prefill"),
     ],
-    ids=["prewarm", "compile-cache-dir", "host-cache-pages", "sp"],
+    ids=["prewarm", "compile-cache-dir", "sp"],
 )
 def test_what_tp_does_not_serve_is_refused_with_its_item(argv, item):
     with pytest.raises(SystemExit) as err:
         run.parse_args(["out=cuda", "--tp", "2", *argv])
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize("tier", ["host-cache-pages", "DYN_KV_STORE"])
+def test_tp_serves_the_host_tier_and_the_store(tmp_path, monkeypatch, tier):
+    """``--tp 2`` takes ``--host-cache-pages`` and ``DYN_KV_STORE``, as
+    tp = 1 does: the engine config carries them to every rank (rank 0
+    alone builds the tiers)."""
+    argv = ["out=cuda", "--tp", "2"]
+    if tier == "DYN_KV_STORE":
+        monkeypatch.setenv("DYN_KV_STORE", str(tmp_path))
+        argv += ["--host-cache-pages", "16"]
+    else:
+        argv += ["--host-cache-pages", "64"]
+    opts = run.parse_args(argv)
+    assert opts.tp == 2 and opts.host_cache_pages > 0
+    assert opts.engine_env.get("kv_store_dir", "") == (
+        str(tmp_path) if tier == "DYN_KV_STORE" else "")
 
 
 def test_tp_needs_out_cuda_and_a_whole_split():

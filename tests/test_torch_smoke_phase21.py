@@ -9,7 +9,11 @@ preset, ``--device cpu``; one candidate, since on the CPU a step's time
 grows with its rows and the ranking of the card's three is not the
 CPU's): rc 0, one journal line a trial, the candidate served live, the
 artifact loads; the contrasting pair ranks
-the same in the sim and on the engine (tau 1.0); (c) a boot from the
+the same in the sim and on the engine (tau 1.0), each of the pair's
+dispatches given a fixed 0.5 s (``pair_context``,
+``tests/torch_timing.py``) so that a dispatch's time, as on the card,
+barely grows with its rows or with the host's load: the live side then
+ranks the pair by the dispatches each needs; (c) a boot from the
 tuned artifact with ``prewarm_engine``: no build, no capture under
 traffic, a rerun's tokens equal (the rehearsal's prewarm leaves out the
 mixed keys past 1,024 tokens, which its burst never reaches). On the CPU
@@ -27,9 +31,12 @@ import dynamo_exp_tpu_torch.engine  # noqa: F401
 from dynamo_exp_tpu_torch.models import TINY
 from dynamo_exp_tpu_torch.ops import ragged_attention as tra
 
+from .torch_timing import timed_dispatches
+
 SH = cs.Phase21(device="cpu", preset="tiny", kv_dtype="float32",
                 prompt_lens=(5, 20, 40, 33, 12, 7, 60, 90), max_tokens=6,
-                tune_max_model_len=128, timeout_s=300.0, prewarm_max_tokens=1024, top_k=1)
+                tune_max_model_len=128, timeout_s=300.0, prewarm_max_tokens=1024, top_k=1,
+                pair_context=lambda: timed_dispatches(0.5))
 
 
 def test_smoke_phase21_on_cpu():

@@ -17,8 +17,9 @@
 - Weights: each rank's slice loaded from a safetensors checkpoint
   (phi3's packed tensors, qwen2_moe's experts) and from a Q8_0 GGUF
   equals the same slice of the tp=1 load.
-- Refusals: what tp > 1 does not serve yet raises with its ROADMAP item;
-  an uneven split raises as the JAX ``device_put`` refuses one.
+- Refusals: what tp > 1 does not serve yet (CUDA graphs) raises with its
+  ROADMAP item; an uneven split raises as the JAX ``device_put`` refuses
+  one. The KV tiers under tp are ``tests/test_torch_tp_tiers.py``'s.
 """
 
 import asyncio
@@ -286,13 +287,11 @@ def test_random_shards_are_the_parts_of_the_tp1_model():
 
 # ----------------------------------------------------------------- refusals
 @pytest.mark.parametrize("kw,item", [
-    ({"host_cache_pages": 8}, "item 7(a)"),
-    ({"kv_store_dir": "/nonexistent"}, "item 7(a)"),
     ({"cuda_graphs": True}, "item 7(b)"),
     # Item 7(c), the ring prefill, is served by forward_ring_prefill,
     # which the engine's refusal of sp > 1 names.
     ({"sp": 2}, "forward_ring_prefill"),
-], ids=["kw0-item 7(a)", "kw1-item 7(a)", "kw2-item 7(b)", "kw3-item 7(c)"])
+], ids=["kw2-item 7(b)", "kw3-item 7(c)"])
 def test_engine_config_refuses_what_tp_does_not_serve(kw, item):
     _, tcfg = _cfgs("llama")
     tp = 1 if "sp" in kw else 2
@@ -320,35 +319,22 @@ def test_an_uneven_expert_split_is_refused():
 
 
 def _rank0_engine():
-    """A tp=2 rank-0 engine over a stand-in comm (no process group: the
-    refusals below raise before any collective)."""
+    """A tp=2 rank-0 engine over a stand-in comm (no process group: what
+    the tests below do issues no collective)."""
     _, tcfg = _cfgs("llama")
     comm = types.SimpleNamespace(rank=0, world=2, device=torch.device("cpu"))
     return TorchEngine(EngineConfig(model=tcfg, tp=2, **ENGINE_KW), device="cpu", comm=comm)
 
 
-@pytest.mark.parametrize("call", ["prefill_extract", "pin_prefix", "reclaim_inflight",
-                                  "reclaim_extract", "seed_prefix", "remote_kv"])
-def test_engine_refuses_disaggregation_leases_and_reclaim(call):
-    eng = _rank0_engine()
-    args = {"prefill_extract": ({"token_ids": [1, 2]},), "pin_prefix": ([1, 2],),
-            "reclaim_inflight": (), "reclaim_extract": ("r", 1.0), "seed_prefix": ([], [])}
-
-    async def go():
-        if call == "remote_kv":
-            return eng.submit({"token_ids": [1, 2]}, remote_kv=object())
-        return await getattr(eng, call)(*args[call])
-
-    with pytest.raises(NotImplementedError, match=r"item 7\(a\)"):
-        asyncio.run(go())
-
-
 def test_a_ranks_pools_and_page_bytes_hold_its_kv_heads():
+    """A rank's pools hold its Hkv/tp heads; a page off the card is the
+    whole page at any tp (``kv_page_nbytes``: the host tier's, the
+    store's and the wire's)."""
     eng = _rank0_engine()
     m = eng.cfg.model
     assert eng.k_cache.shape[-1] == m.num_kv_heads // 2 * m.head_dim_
     assert eng.kv_page_nbytes() == 2 * m.num_layers * eng.cfg.page_size * (
-        m.num_kv_heads // 2) * m.head_dim_ * 4
+        m.num_kv_heads) * m.head_dim_ * 4
     assert eng.metrics()["tp"] == 2
 
 

@@ -14,7 +14,13 @@ JAX package's (``dynamo_exp_tpu/tune/``), and ``llmctl sim|tune|aot``.
   resumes byte-identical; a foreign one is refused.
 - **Validation**: the contrasting pair ``[{}, {"max_inflight": 1}]``
   ranks the default first in the sim and on a CPU ``TorchEngine``: tau
-  1.0.
+  1.0. Each live dispatch is given a fixed 0.5 s
+  (``tests/torch_timing.py``): on the card a dispatch's time barely
+  grows with its rows, on a CPU shared with other work it grows with
+  them and with the load, and the live ranking would follow the host's
+  speed. So the live side ranks the pair by the dispatches each needs
+  for its tokens (goodput is tokens over a wall of about 0.5 s a
+  dispatch), not by the CPU's compute.
 - **Artifact**: a boot from it hashes to its ``config_hash``, builds
   nothing, captures nothing under traffic after ``prewarm_engine`` with
   its manifest, and a second boot's tokens equal the first's.
@@ -57,6 +63,8 @@ from dynamo_exp_tpu_torch.tune import (
 )
 from dynamo_exp_tpu_torch.tune import search as TS
 from dynamo_exp_tpu_torch.tune import space
+
+from .torch_timing import timed_dispatches
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "tune_fingerprint.json")
@@ -192,12 +200,16 @@ def test_evaluate_and_top_candidates_as_jax():
 
 # ----------------------------------------------------------- validation
 def test_sim_and_live_rank_agree_on_contrasting_candidates():
+    """The live side runs each dispatch at a fixed 0.5 s, so it ranks
+    the pair by dispatch count: batching (``{}``) needs fewer dispatches
+    for the same tokens than ``max_inflight: 1``."""
     fp = WorkloadFingerprint(n=48, isl_hist=(0, 0, 0, 48, 0, 0, 0, 0, 0, 0, 0),
                              osl_hist=(0, 0, 0, 48, 0, 0, 0, 0, 0, 0, 0),
                              priority_mix=(0.0, 1.0, 0.0), arrival_rate_rps=8.0)
-    verdict = asyncio.run(validate_candidates(
-        [{}, {"max_inflight": 1}], target_from_fingerprint(fp), seed=5, n=8,
-        slo_ttft_s=1e9, slo_itl_s=1e9, device="cpu"))
+    with timed_dispatches(0.5):
+        verdict = asyncio.run(validate_candidates(
+            [{}, {"max_inflight": 1}], target_from_fingerprint(fp), seed=5, n=8,
+            slo_ttft_s=1e9, slo_itl_s=1e9, device="cpu"))
     assert verdict["kendall_tau"] == 1.0 and verdict["top1_agreement"] and verdict["agreed"]
     assert verdict["sim_scores"][0] > verdict["sim_scores"][1]
     assert verdict["live_scores"][0] > verdict["live_scores"][1]

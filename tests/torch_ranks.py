@@ -197,3 +197,303 @@ def ring_prefill(comm, np_params, cfg, tokens, sp: int, tp: int):
 def ring_cases_and_prefill(comm, cases, np_params, cfg, tokens):
     """:func:`ring_cases` then :func:`ring_prefill` on one sp=2 group."""
     return ring_cases(comm, 2, cases), ring_prefill(comm, np_params, cfg, tokens, 2, 1)
+
+
+# -------------------------------------------- the KV tiers under tensor parallelism
+def engine_scenario(comm, np_params, engine_cfg, scenario: str, args=(), read_pids=(),
+                    perturb: bool = False):
+    """A ``TorchEngine`` over this rank's shard of ``np_params``: rank 0
+    runs the async ``scenario`` (a function of this module, named) as
+    ``scenario(engine, np_params, *args)`` and stops the engine; the
+    others follow. Every rank returns (the scenario's result on rank 0,
+    else None; every rank's report; rank 0's metrics, else None; this
+    rank's K and V of ``read_pids``, numpy). ``perturb``: a follower
+    counts one page gather it never made (the stop must then raise)."""
+    import asyncio
+
+    from dynamo_exp_tpu_torch.engine import TorchEngine
+    from dynamo_exp_tpu_torch.models import convert
+
+    model = convert.params_from_jax(np_params, engine_cfg.model, device="cpu",
+                                    rank=comm.rank, tp=comm.world)
+    engine = TorchEngine(engine_cfg, model=model, device="cpu", comm=comm)
+    result = metrics = None
+    if comm.rank != 0:
+        if perturb:
+            engine.page_moves["gather"]["calls"] += 1
+        reports = engine.follow()
+    else:
+        try:
+            result = asyncio.run(asyncio.wait_for(
+                globals()[scenario](engine, np_params, *args), 150))
+        finally:
+            try:
+                engine.stop()
+            except RuntimeError as e:
+                result = ("stop raised", str(e))
+        reports, metrics = engine.tp_reports, engine.metrics()
+    pids = list(read_pids)
+    kv = (engine.k_cache[:, pids].numpy(), engine.v_cache[:, pids].numpy())
+    return result, reports, metrics, kv
+
+
+def local_engine(np_params, engine_cfg):
+    """A tp=1 ``TorchEngine`` on the CPU over the whole ``np_params``."""
+    from dataclasses import replace
+
+    from dynamo_exp_tpu_torch.engine import TorchEngine
+    from dynamo_exp_tpu_torch.models import convert
+
+    cfg = replace(engine_cfg, tp=1)
+    return TorchEngine(cfg, model=convert.params_from_jax(np_params, cfg.model, device="cpu"),
+                       device="cpu")
+
+
+def _body(prompt, n, **so) -> dict:
+    return {"token_ids": list(prompt), "stop_conditions": {"max_tokens": n, "ignore_eos": True},
+            "sampling_options": so}
+
+
+async def _tokens(engine, prompt, n, ctx=None) -> list[int]:
+    stream = await engine.generate(_body(prompt, n), ctx)
+    return [t async for item in stream for t in (item.get("token_ids") or [])]
+
+
+def resident_pids(engine, prompt) -> list[int]:
+    """The device pages of ``prompt``'s full blocks resident in the
+    engine's prefix cache (call with the loop paused)."""
+    from dynamo_exp_tpu_torch.tokens import compute_block_hashes_for_seq
+
+    hashes = compute_block_hashes_for_seq(list(prompt), engine.cfg.page_size)
+    return engine.kv.match_resident_hashes(hashes)
+
+
+async def serve(engine, _np_params, requests):
+    """``requests`` admitted together; their tokens."""
+    return await _collect_all(engine, requests)
+
+
+async def serve_then_gather(engine, _np_params, prompt):
+    """``prompt`` served (one token), then its resident full pages on
+    the host through the engine's page gather (the wire's extract):
+    (pids, K pages, V pages), numpy, page-major."""
+    await _tokens(engine, prompt, 1)
+    with engine.hold_admission():
+        pids = resident_pids(engine, prompt)
+        pages = engine._pages_to_host(pids)
+    return pids, [k.numpy() for k, _ in pages], [v.numpy() for _, v in pages]
+
+
+async def inject_pages(engine, _np_params, pids, k_pages, v_pages):
+    """Whole host pages (numpy, ``[L, ps, Hkv*D]`` each) injected into
+    device pages ``pids`` through the engine's page scatter."""
+    import torch
+
+    with engine.hold_admission():
+        engine._inject_page_batch(
+            list(pids), torch.from_numpy(np.stack(k_pages, 1)),
+            torch.from_numpy(np.stack(v_pages, 1)), op="inject")
+    return list(pids)
+
+
+async def gather_then_inject(engine, np_params, prompt, pids, k_pages, v_pages):
+    """:func:`serve_then_gather` of ``prompt``, then :func:`inject_pages`
+    into ``pids`` (pages the prompt does not hold): the gather's result
+    and each rank's moves after the gather."""
+    gathered = await serve_then_gather(engine, np_params, prompt)
+    moves = {k: dict(v) for k, v in engine.page_moves.items()}
+    await inject_pages(engine, np_params, pids, k_pages, v_pages)
+    return gathered, moves
+
+
+async def serve_and_count(engine, _np_params, requests):
+    """``requests`` admitted together under KV pressure: (tokens, the
+    engine's swaps out and in, preemptions, rank 0's page moves)."""
+    tokens = await _collect_all(engine, requests)
+    return (tokens, engine.swapped_out, engine.swapped_in, engine.preempted,
+            {k: dict(v) for k, v in engine.page_moves.items()})
+
+
+async def serve_twice(engine, _np_params, requests):
+    """``requests`` together, then again after the G1 prefix cache is
+    dropped (the second pass restores from the tiers): both passes'
+    tokens and the prefix hits by tier after each."""
+    first = await _collect_all(engine, requests)
+    hits = dict(engine.kv.prefix_hits)
+    with engine.hold_admission():
+        engine.reset_prefix_cache()
+    second = await _collect_all(engine, requests)
+    return first, second, hits, dict(engine.kv.prefix_hits)
+
+
+async def pin_and_read(engine, _np_params, prefix, prompt):
+    """``prefix`` served, then ``pin_prefix(prompt)``: (pages pinned,
+    lease granted, the leases active), the lease then confirmed."""
+    import asyncio
+
+    await _tokens(engine, prefix, 1)
+    n, lease = await engine.pin_prefix(prompt)
+    active = engine.kv.active_leases
+    if lease is not None:
+        engine.confirm_kv_lease(lease)
+    for _ in range(200):
+        if engine.kv.active_leases == 0:
+            break
+        await asyncio.sleep(0.01)
+    return n, lease is not None, active, engine.kv.active_leases
+
+
+async def thread_of_page_moves(engine, _np_params, prompt, n):
+    """``prompt`` streamed while ``reclaim_extract`` is called from this
+    (the asyncio) thread mid-stream: the threads every page collective
+    ran on, and the extract's result."""
+    import threading
+
+    comm = engine.comm
+    threads = []
+    gather = comm.gather
+
+    def spy(*a, **k):
+        threads.append(threading.current_thread().name)
+        return gather(*a, **k)
+
+    comm.gather = spy
+    _slow_consume(engine)
+    from dynamo_exp_tpu_torch.runtime.engine import AsyncEngineContext
+
+    ctx = AsyncEngineContext("mover")
+    import asyncio
+
+    task = asyncio.ensure_future(_tokens(engine, prompt, n, ctx))
+    await _wait_inflight(engine, "mover", 1)
+    res = await engine.reclaim_extract("mover", 5.0)
+    await task
+    if res is not None:
+        engine.confirm_kv_lease(res[2])
+    return threads, threading.current_thread().name, res is not None and len(res[1])
+
+
+def _slow_consume(engine, s: float = 0.02) -> None:
+    """Slow each consumed window, so a stream stays in flight."""
+    import time
+
+    consume = engine._consume_windowed
+
+    def slow(pending):
+        time.sleep(s)
+        return consume(pending)
+
+    engine._consume_windowed = slow
+
+
+async def _wait_inflight(engine, request_id, min_pages):
+    import asyncio
+
+    while True:
+        for snap in await engine.reclaim_inflight():
+            if snap["request_id"] == request_id and snap["full_pages"] >= min_pages:
+                return snap
+        await asyncio.sleep(0.002)
+
+
+async def serve_in_turn(engine, _np_params, prompts, n):
+    """Each prompt served alone, in order: their tokens and the engine's
+    prefix hits by tier after the last."""
+    out = [await _tokens(engine, p, n) for p in prompts]
+    return out, dict(engine.kv.prefix_hits)
+
+
+async def disagg_across(engine, np_params, direction: str, prompt, n, prefix_pages: int):
+    """A disaggregated pair across tp degrees: ``direction``
+    ``"tp2_prefill"`` puts this tp=2 engine on the prefill side and a
+    tp=1 engine of this process on the decode side, ``"tp2_decode"`` the
+    reverse; an in-process work queue, the real TCP KV plane. The decode
+    side's local tokens for ``prompt`` first; then, each after both
+    prefix caches are dropped, a whole transfer and a suffix-only one
+    (the decode side first holds the prompt's first ``prefix_pages``
+    pages, a shorter prompt served, so ``pin_prefix`` gives
+    ``skip_blocks``). Returns, by case (``whole``, ``suffix_only``):
+    (remote tokens, local tokens, the pair's counters in that case)."""
+    import asyncio
+
+    from dynamo_exp_tpu_torch import disagg
+    from dynamo_exp_tpu_torch.disagg.transfer import wire_checksum_failures
+    from dynamo_exp_tpu_torch.runtime.runtime import CancellationToken
+    from dynamo_exp_tpu_torch.runtime.transports.inproc import InProcDiscovery, InProcWorkQueue
+
+    other = local_engine(np_params, engine.cfg)
+    pre, dec = (engine, other) if direction == "tp2_prefill" else (other, engine)
+
+    def totals(dis, worker) -> dict:
+        return dict(remote=dis.remote_prefills, fallbacks=dis.local_fallbacks,
+                    skipped=dis.blocks_skipped, served=worker.served,
+                    extracted=pre.metrics()["kv_extract_pages"],
+                    injected=dec.metrics()["kv_inject_pages"],
+                    checksum_failures=wire_checksum_failures())
+
+    try:
+        want = await _tokens(dec, prompt, n)
+        queue, cancel = InProcWorkQueue(), CancellationToken()
+        recv = disagg.KvPageReceiver()
+        await recv.start()
+        worker = disagg.PrefillWorker(pre, queue, cancel)
+        watcher = disagg.DisaggConfigWatcher(
+            InProcDiscovery(), "m", default=disagg.DisaggConfig(max_local_prefill_length=0))
+        dis = disagg.DisaggDecodeEngine(dec, queue, recv, watcher)
+        task = asyncio.ensure_future(worker.run())
+        out = {}
+        try:
+            for case, skip in (("whole", 0), ("suffix_only", prefix_pages)):
+                for eng in (pre, dec):
+                    with eng.hold_admission():
+                        eng.reset_prefix_cache()
+                if skip:
+                    ps = dec.cfg.page_size
+                    await _tokens(dec, list(prompt[: skip * ps]) + [5], 1)
+                before = totals(dis, worker)
+                got = await _tokens(dis, prompt, n)
+                for _ in range(300):  # the confirms are queued for the loops
+                    if pre.kv.active_leases == 0 and dec.kv.active_leases == 0:
+                        break
+                    await asyncio.sleep(0.01)
+                after = totals(dis, worker)
+                counts = {k: after[k] - before[k] for k in after}
+                counts["leases"] = (pre.kv.active_leases, dec.kv.active_leases)
+                out[case] = (got, want, counts)
+        finally:
+            cancel.cancel()
+            await asyncio.wait_for(task, 10)
+            await recv.close()
+        return out
+    finally:
+        other.stop()
+
+
+async def reclaim_across(engine, np_params, prompt, n):
+    """A stream on this tp=2 engine, live-migrated mid-flight to a tp=1
+    engine of this process: ``reclaim_extract`` here, ``seed_prefix``
+    there. Then the stream's journal continuation (the prompt and the
+    tokens its seeded blocks cover) on the tp=1 engine. Returns (the
+    tp=2 stream's tokens, the continuation's start and tokens, blocks
+    shipped, blocks seeded, the tp=1 engine's shared prefix hits)."""
+    import asyncio
+
+    from dynamo_exp_tpu_torch.runtime.engine import AsyncEngineContext
+
+    survivor = local_engine(np_params, engine.cfg)
+    survivor.start()  # seed_prefix is served by a running loop
+    try:
+        _slow_consume(engine)
+        task = asyncio.ensure_future(_tokens(engine, prompt, n, AsyncEngineContext("victim")))
+        # Past the prompt: the shipped blocks hold generated tokens too.
+        await _wait_inflight(engine, "victim", -(-len(prompt) // engine.cfg.page_size) + 1)
+        hashes, pages, lease = await engine.reclaim_extract("victim", 5.0)
+        seeded = await survivor.seed_prefix(hashes, pages)
+        engine.confirm_kv_lease(lease)
+        tokens = await task
+        ps = engine.cfg.page_size
+        start = len(hashes) * ps - len(prompt) + 1  # one token past the shipped blocks
+        cont = await _tokens(survivor, list(prompt) + tokens[:start], n - start)
+        return tokens, start, cont, len(hashes), seeded, survivor.kv.prefix_hits["shared"]
+    finally:
+        survivor.stop()
